@@ -1,0 +1,20 @@
+from fmda_tpu_torch.serve.backtest import (
+    BacktestResult,
+    LabelStats,
+    backtest,
+    backtest_from_checkpoint,
+    trading_summary,
+)
+from fmda_tpu_torch.serve.predictor import (
+    Prediction,
+    Predictor,
+    labels_over_threshold,
+    make_batched_forward,
+    prediction_message,
+)
+
+__all__ = [
+    "BacktestResult", "LabelStats", "Prediction", "Predictor", "backtest",
+    "backtest_from_checkpoint", "labels_over_threshold",
+    "make_batched_forward", "prediction_message", "trading_summary",
+]

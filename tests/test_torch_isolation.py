@@ -1,0 +1,112 @@
+"""fmda_tpu_torch stands alone: no JAX, and nothing of fmda_tpu.
+
+A clean interpreter imports every module of the port and must find no
+``jax``, ``flax``, ``orbax`` or ``fmda_tpu`` module loaded; an AST scan
+holds ``chip_smoke.py`` (which runs where JAX is not installed) to the
+same.  And the port's entry points never fall back to the CPU unasked.
+"""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import fmda_tpu_torch
+from fmda_tpu_torch.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fmda_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(fmda_tpu_torch.__path__,
+                                              "fmda_tpu_torch."))
+
+
+def test_every_port_module_imports_without_jax_or_fmda_tpu():
+    modules = _port_modules()
+    assert "fmda_tpu_torch.ops.gru_kernel" in modules
+    assert "fmda_tpu_torch.serve.predictor" in modules
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = [name for name in json.loads(proc.stdout)
+              if _forbidden(name)]
+    assert loaded == []
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "fmda_tpu_torch"])
+def test_sources_import_nothing_of_jax_or_fmda_tpu(path):
+    root = os.path.join(REPO, path)
+    files = [root] if root.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(root)
+        for f in fs if f.endswith(".py")]
+    assert files
+    for file in files:
+        with open(file) as fh:
+            tree = ast.parse(fh.read(), file)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, f"{file}:{node.lineno} imports {bad}"
+
+
+def test_resolve_device_defaults_to_the_card_and_never_falls_back(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from fmda_tpu_torch.config import DEFAULT_TOPICS, ModelConfig
+    from fmda_tpu_torch.data.normalize import NormParams
+    from fmda_tpu_torch.serve import Predictor, backtest
+    from fmda_tpu_torch.stream import InProcessBus
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(hidden_size=4, n_features=3)
+    norm = NormParams(np.zeros(3, np.float32), np.ones(3, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(InProcessBus(DEFAULT_TOPICS), None, cfg, {}, norm,
+                  window=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        backtest(None, cfg, {}, norm, window=2)
+
+
+def test_kernel_is_not_built_at_import():
+    code = (
+        "import fmda_tpu_torch.ops.gru_kernel as k, fmda_tpu_torch.serve\n"
+        "assert k._lib is None and k.build_info == {}, k.build_info\n"
+        "assert 'triton' not in __import__('sys').modules\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
