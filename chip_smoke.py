@@ -1,28 +1,35 @@
 #!/usr/bin/env python3
 """Chip smoke for fmda_tpu_torch: the quickest proof that the port starts,
-builds its kernels and serves correctly on a CUDA card (an H100).
+builds its kernels, serves and trains correctly on a CUDA card (an H100).
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases, each printed as one JSON line, each fatal on failure:
 
 1. ``device``: the card, its power limit, the torch/CUDA versions.
-2. ``build``: nvcc builds every kernel of the serving path from
-   ``fmda_tpu_torch/csrc`` for sm_90a.
+2. ``build``: nvcc builds the one library that holds every kernel
+   (the GRU forward and backward scans) from ``fmda_tpu_torch/csrc`` for
+   sm_90a.
 3. ``kernel``: each kernel against its plain PyTorch version on the card,
-   at the serving shapes, with times, the roofline bound and the library
-   yardstick beside it.
+   at the shapes its paths use, with times, the roofline bound and the
+   library yardstick beside it.
 4. ``path``: the window-re-scan serving path at full width
    (``FrameworkConfig()``: BiGRU H=32, F=108, window 30, float32) over a
    20,000-row warehouse: ``backtest`` at batch 256, then 64 signals through
    ``Predictor.from_checkpoint(...).poll()``, both recomputed on the CPU
-   and compared.  Launch counts are reset just before the path and read
-   just after it.
+   and compared.
+5. ``train``: the training path at full width on the same warehouse:
+   ``Trainer.fit`` for one epoch at batch 256 (dropout 0.5, spatial), a
+   step breakdown, the device's busy share, then the trained checkpoint
+   saved and backtested on the card.
+6. ``train vs cpu``: the first 16 steps at dropout 0 on the card and on
+   the CPU, per-step losses and final params compared.
 
-Then the ``{"kernels": [...]}`` summary, the card line, and as the last
-line ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN,
-so float32 means float32 everywhere.  Exits non-zero, and prints no result,
-without a card or outside the repository.
+Launch counts are reset just before each path (serving, training) and
+read just after it.  Then the ``{"kernels": [...]}`` summary, the card
+line, and as the last line ``{"ok": true, "device": {...}}``.  TF32 is
+off for matmuls and cuDNN, so float32 means float32 everywhere.  Exits
+non-zero, and prints no result, without a card or outside the repository.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -45,11 +53,22 @@ BATCH = 256
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
 PATH_TOL = 1e-5
+#: the card against the CPU over 16 training steps at dropout 0: float32
+#: sums in other orders, compounded by the steps (the target)
+TRAIN_TOL = 1e-4
+TRAIN_CHUNK = 2048
+TRAIN_VS_CPU_STEPS = 16
+#: the train breakdown's pieces, each ended by its own synchronize, against
+#: the whole step (one synchronize): host times, which spread by ~15 %
+BREAKDOWN_TOL = 0.25
+#: scale of the backward phase's random cotangents (dh_last, dhs)
+COT_SCALE = 0.1
 REPS = 60
-# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and float32
-# outside the tensor cores (the scan kernel's arithmetic is f32 FMAs)
+# published H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth,
+# float32 outside the tensor cores, and bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_TC_FLOP_PER_S = 989e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -92,6 +111,22 @@ def time_ms(fn, *, prime: bool) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def roofline_ms(bytes_moved, product_flops, elementwise_flops, itemsize):
+    """(bound_ms, bound_by): the larger of the bytes' time at the card's
+    memory rate and the operations' time.  The products' operands are in
+    the I/O dtype: float32 products run at the float32 rate beside the
+    element-wise algebra; bf16 products (f32 accumulation) at the tensor
+    cores' rate, alongside the element-wise algebra at the float32 rate."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_elem = elementwise_flops / PEAK_F32_FLOP_PER_S * 1e3
+    if itemsize == 2:
+        t_ops = max(product_flops / PEAK_BF16_TC_FLOP_PER_S * 1e3, t_elem)
+    else:
+        t_ops = product_flops / PEAK_F32_FLOP_PER_S * 1e3 + t_elem
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
 def scan_bound(batch, steps, hidden, itemsize, masked):
     """Least time for the scan on this card: each input read once, each
     output written once, against the hidden product's and gates' FLOPs."""
@@ -103,11 +138,8 @@ def scan_bound(batch, steps, hidden, itemsize, masked):
     bytes_moved += batch * steps if masked else 0
     # 2*3H*H per (row, step) for h . W_hh^T, ~10 per (row, step, unit) for
     # the gate algebra (a transcendental counted as one)
-    flops = 2 * batch * steps * 3 * hidden * hidden + 10 * batch * steps * hidden
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else
-                                   "operations")
+    return roofline_ms(bytes_moved, 2 * batch * steps * 3 * hidden * hidden,
+                       10 * batch * steps * hidden, itemsize)
 
 
 def phase_kernel(gru_kernel, n_features: int):
@@ -184,6 +216,112 @@ def phase_kernel(gru_kernel, n_features: int):
     return results
 
 
+def scan_bwd_bound(batch, steps, hidden, itemsize, masked):
+    """Least time for the backward scan: xp, hs, dhs, h0, W_hh, b_hh (I/O
+    dtype), dh_last and the mask read once; dxp (I/O dtype), dh0, dW_hh
+    and db_hh (float32) written once; against its FLOPs (the gate
+    recompute's, the dh chain's and the dW_hh products, 6·B·T·3H·H in
+    all, and ~30 per (row, step, unit) of gate and cotangent algebra)."""
+    bt = batch * steps
+    bytes_moved = itemsize * (bt * (3 * hidden + hidden + hidden + 3 * hidden)
+                              + batch * hidden + 3 * hidden * hidden
+                              + 3 * hidden)
+    bytes_moved += 4 * (2 * batch * hidden + 3 * hidden * hidden + 3 * hidden)
+    bytes_moved += bt if masked else 0
+    return roofline_ms(bytes_moved, 18 * hidden * hidden * bt,
+                       30 * bt * hidden, itemsize)
+
+
+def phase_kernel_bwd(gru_kernel, n_features: int):
+    """gru_scan_bwd against gru_scan_bwd_reference on the card, on the
+    same inputs (hs from the forward kernel).  Cotangents are uniform in
+    +-COT_SCALE, the order of a training loss's gradient; errors are
+    reported absolute and relative to each output's largest entry."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    base = dict(batch=BATCH, steps=30, hidden=32, dtype=torch.float32,
+                reverse=False, masked=False, h0=False)
+    cases = [dict(base), dict(base, reverse=True),
+             dict(base, masked=True, h0=True),
+             dict(base, masked=True, h0=True, reverse=True),
+             dict(base, dtype=torch.bfloat16),
+             dict(base, dtype=torch.bfloat16, reverse=True),
+             dict(base, batch=1), dict(base, hidden=128)]
+    results = []
+    for c in cases:
+        b, t, h, dtype = c["batch"], c["steps"], c["hidden"], c["dtype"]
+        scale = 1.0 / math.sqrt(h)
+
+        def rand(*shape, s=1.0, dt=dtype):
+            return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                    * s).to(dt)
+
+        xp = rand(b, t, 3 * h, s=2.0)
+        h0 = rand(b, h, s=0.5) if c["h0"] else torch.zeros(
+            b, h, dtype=dtype, device=dev)
+        w, bias = rand(3 * h, h, s=scale), rand(3 * h, s=scale)
+        mask = None
+        if c["masked"]:
+            lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+            mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+        dh_last = rand(b, h, s=COT_SCALE)
+        dhs = rand(b, t, h, s=COT_SCALE)
+        with torch.inference_mode():
+            _, hs = gru_kernel.gru_scan_fwd(xp, h0, w, bias,
+                                            reverse=c["reverse"], mask=mask)
+            args = (xp, h0, w, bias, hs, dh_last, dhs)
+            kw = dict(reverse=c["reverse"], mask=mask)
+            got = gru_kernel.gru_scan_bwd(*args, **kw)
+            want = gru_kernel.gru_scan_bwd_reference(*args, **kw)
+            torch.cuda.synchronize()
+            errs, rel = {}, {}
+            for name, g, r in zip(("dxp", "dh0", "dw_hh", "db_hh"), got,
+                                  want):
+                check(g.shape == r.shape and g.dtype == r.dtype,
+                      f"{name}: {g.shape} {g.dtype} against {r.shape} "
+                      f"{r.dtype}")
+                diff = (g.float() - r.float()).abs().max().item()
+                errs[name] = diff
+                rel[name] = diff / max(r.float().abs().max().item(), 1e-30)
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            err = max(errs.values())
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            ms = time_ms(lambda: gru_kernel.gru_scan_bwd(*args, **kw),
+                         prime=True)
+            call_ms = time_ms(lambda: gru_kernel.gru_scan_bwd(*args, **kw),
+                              prime=False)
+            plain_ms = time_ms(
+                lambda: gru_kernel.gru_scan_bwd_reference(*args, **kw),
+                prime=True)
+        library_ms = None
+        if not (c["reverse"] or c["masked"] or c["h0"]):
+            # yardstick only, never called by the port: the backward of
+            # cuDNN's GRU on the same layer (input projection included)
+            lib = torch.nn.GRU(n_features, h, batch_first=True).to(dev, dtype)
+            x = torch.rand((b, t, n_features), generator=gen,
+                           device=dev).to(dtype).requires_grad_()
+            out, h_n = lib(x)
+            cot = (torch.rand_like(out), torch.rand_like(h_n))
+            wrt = [x, *lib.parameters()]
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                (out, h_n), wrt, cot, retain_graph=True), prime=True)
+        bound_ms, bound_by = scan_bwd_bound(b, t, h, xp.element_size(),
+                                            c["masked"])
+        row = dict(batch=b, steps=t, hidden=h,
+                   dtype=str(dtype).replace("torch.", ""),
+                   reverse=c["reverse"], masked=c["masked"],
+                   nonzero_h0=c["h0"], max_abs_err=err, errs=errs,
+                   rel_errs=rel, tol=tol, ms=ms, call_ms=call_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        emit("kernel gru_scan_bwd", **row)
+        check(finite, f"non-finite backward kernel output in {row}")
+        check(err <= tol,
+              f"backward kernel disagrees with its plain version: {row}")
+        results.append(row)
+    return results
+
+
 def breakdown(wh, ckpt, model_cfg, window, norm, stamps, device):
     """Where a signal's and a backtest batch's time goes: the warehouse on
     the host against the forward on the card (host clock, each forward
@@ -240,8 +378,9 @@ def breakdown(wh, ckpt, model_cfg, window, norm, stamps, device):
 def device_share(fn) -> dict:
     """Kernel time on the card while ``fn`` runs, from torch.profiler's
     CUDA activity, against the wall time (profiler on, so the wall time
-    is inflated and the share a lower bound).  ``busy_share`` is None when
-    the profiler saw no device activity."""
+    is inflated and the share a lower bound), and ``device_ops``, the
+    kernels and copies the card ran.  ``busy_share`` is None when the
+    profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -252,139 +391,406 @@ def device_share(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    per_kernel = {}
+    per_kernel, device_ops = {}, 0
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
+        # a user annotation (Adam's step, say) also shows on the device's
+        # timeline as a span around its kernels: not kernel time
+        if (evt.device_type == DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             per_kernel[evt.key] = evt.self_device_time_total / 1e3
+            device_ops += evt.count
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms if device_ms else None,
+                device_ops=device_ops,
                 top_kernels_ms={k[:60]: v for k, v in top})
 
 
-def phase_path(gru_kernel, device: str = "cuda"):
-    """The serving slice at full width, on the card and again on the CPU."""
+def make_warehouse(directory: str):
+    """The 20,000-row random-walk warehouse both paths read, in
+    ``directory``; the default schema (108 features)."""
+    from fmda_tpu_torch.config import FrameworkConfig
+    from fmda_tpu_torch.data.synthetic import random_walk_rows
+    from fmda_tpu_torch.stream import Warehouse
+
+    cfg = FrameworkConfig()
+    t0 = time.perf_counter()
+    wh = Warehouse(cfg.features, dataclasses.replace(
+        cfg.warehouse, path=f"{directory}/wh.sqlite"))
+    wh.insert_rows(random_walk_rows(cfg.features.table_columns(),
+                                    WAREHOUSE_ROWS, seed=SEED))
+    check(len(wh.x_fields) == cfg.model.n_features,
+          f"warehouse serves {len(wh.x_fields)} features, model takes "
+          f"{cfg.model.n_features}")
+    emit("warehouse", rows=len(wh), features=len(wh.x_fields),
+         seconds=time.perf_counter() - t0)
+    return wh
+
+
+def phase_path(gru_kernel, wh, directory: str, device: str = "cuda"):
+    """The serving slice at full width, on the card and again on the CPU.
+    Returns the forward launches of the path."""
     from fmda_tpu_torch.config import (
         DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP,
         TOPIC_PREDICTION)
     from fmda_tpu_torch.data.normalize import chunk_norm_params
-    from fmda_tpu_torch.data.synthetic import random_walk_rows
     from fmda_tpu_torch.models import build_model
     from fmda_tpu_torch.serve import Predictor, backtest_from_checkpoint
     from fmda_tpu_torch.serve.backtest import trading_summary
-    from fmda_tpu_torch.stream import InProcessBus, Warehouse
+    from fmda_tpu_torch.stream import InProcessBus
     from fmda_tpu_torch.train.checkpoint import save_checkpoint
 
     cfg = FrameworkConfig()
     fc, model_cfg, window = cfg.features, cfg.model, cfg.train.window
     threshold = cfg.train.prob_threshold
-    gru_kernel.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=gru_kernel.BUILD_ROOT) as tmp:
-        t0 = time.perf_counter()
-        wh = Warehouse(fc, dataclasses.replace(cfg.warehouse,
-                                               path=f"{tmp}/wh.sqlite"))
-        wh.insert_rows(random_walk_rows(fc.table_columns(), WAREHOUSE_ROWS,
-                                        seed=SEED))
-        n = len(wh)
-        x_all = wh.fetch(range(1, n + 1))
-        norm = chunk_norm_params(x_all, wh.x_fields, bid_levels=fc.bid_levels,
-                                 ask_levels=fc.ask_levels)
-        model = build_model(
-            model_cfg, generator=torch.Generator().manual_seed(SEED))
-        ckpt = save_checkpoint(f"{tmp}/ckpt", model.state_dict(), norm)
-        setup_s = time.perf_counter() - t0
-        check(len(wh.x_fields) == model_cfg.n_features,
-              f"warehouse serves {len(wh.x_fields)} features, model takes "
-              f"{model_cfg.n_features}")
-        emit("path setup", rows=n, features=len(wh.x_fields),
-             model=str(model_cfg), window=window, seconds=setup_s)
+    t0 = time.perf_counter()
+    n = len(wh)
+    x_all = wh.fetch(range(1, n + 1))
+    norm = chunk_norm_params(x_all, wh.x_fields, bid_levels=fc.bid_levels,
+                             ask_levels=fc.ask_levels)
+    model = build_model(
+        model_cfg, generator=torch.Generator().manual_seed(SEED))
+    ckpt = save_checkpoint(f"{directory}/ckpt", model.state_dict(), norm)
+    setup_s = time.perf_counter() - t0
+    emit("path setup", rows=n, features=len(wh.x_fields),
+         model=str(model_cfg), window=window, seconds=setup_s)
 
-        def run_backtest(device, **kw):
-            return backtest_from_checkpoint(
-                wh, ckpt, model_cfg, window=window, threshold=threshold,
-                batch_size=BATCH, device=device, **kw)
+    def run_backtest(device, **kw):
+        return backtest_from_checkpoint(
+            wh, ckpt, model_cfg, window=window, threshold=threshold,
+            batch_size=BATCH, device=device, **kw)
 
-        stamps = [ts for _, ts in wh.timestamps_after(n - SIGNALS)]
+    stamps = [ts for _, ts in wh.timestamps_after(n - SIGNALS)]
 
-        def serve(device):
-            bus = InProcessBus(DEFAULT_TOPICS)
-            predictor = Predictor.from_checkpoint(
-                ckpt, bus, wh, model_cfg, window=window, threshold=threshold,
-                from_end=False, max_staleness_s=None, device=device)
-            preds, lat_ms = [], []
-            for ts in stamps:
-                bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": ts})
-                t = time.perf_counter()
-                preds += predictor.poll()
-                lat_ms.append((time.perf_counter() - t) * 1e3)
-            published = len(bus.consumer(TOPIC_PREDICTION).poll())
-            return preds, lat_ms, published, predictor.serve_errors
+    def serve(device):
+        bus = InProcessBus(DEFAULT_TOPICS)
+        predictor = Predictor.from_checkpoint(
+            ckpt, bus, wh, model_cfg, window=window, threshold=threshold,
+            from_end=False, max_staleness_s=None, device=device)
+        preds, lat_ms = [], []
+        for ts in stamps:
+            bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": ts})
+            t = time.perf_counter()
+            preds += predictor.poll()
+            lat_ms.append((time.perf_counter() - t) * 1e3)
+        published = len(bus.consumer(TOPIC_PREDICTION).poll())
+        return preds, lat_ms, published, predictor.serve_errors
 
-        # warm-up: cuBLAS handles and module loads, before the counted run
-        run_backtest(device, ids=(window, window + BATCH))
-        torch.cuda.synchronize()
+    # warm-up: cuBLAS handles and module loads, before the counted run
+    run_backtest(device, ids=(window, window + BATCH))
+    torch.cuda.synchronize()
 
-        gru_kernel.launches = 0  # the main path starts here
-        t0 = time.perf_counter()
-        gpu_bt = run_backtest(device)
-        torch.cuda.synchronize()
-        bt_s = time.perf_counter() - t0
-        bt_launches = gru_kernel.launches
-        gpu_preds, lat_ms, published, errors = serve(device)
-        path_launches = gru_kernel.launches
-        pred_launches = path_launches - bt_launches  # the main path ends here
+    gru_kernel.launches = gru_kernel.bwd_launches = 0  # the path starts
+    t0 = time.perf_counter()
+    gpu_bt = run_backtest(device)
+    torch.cuda.synchronize()
+    bt_s = time.perf_counter() - t0
+    bt_launches = gru_kernel.launches
+    gpu_preds, lat_ms, published, errors = serve(device)
+    path_launches = gru_kernel.launches
+    serve_bwd_launches = gru_kernel.bwd_launches  # the path ends here
+    pred_launches = path_launches - bt_launches
+    check(serve_bwd_launches == 0,
+          f"serving launched the backward kernel {serve_bwd_launches} times")
 
-        served = len(gpu_bt.probabilities)
-        m = gpu_bt.metrics
-        emit("path backtest", rows=served, batch=BATCH,
-             batches=math.ceil(served / BATCH), seconds=bt_s,
-             rows_per_s=served / bt_s, launches=bt_launches,
-             accuracy=float(m.accuracy), hamming=float(m.hamming),
-             fbeta=[float(v) for v in m.fbeta],
-             overall_edge=trading_summary(gpu_bt)["overall"].edge)
-        check(served == n - window + 1, f"backtest served {served} rows")
-        check(bt_launches == 2 * math.ceil(served / BATCH),
-              f"backtest launched the scan kernel {bt_launches} times, "
-              f"expected {2 * math.ceil(served / BATCH)}")
-        check(bool(torch.isfinite(torch.from_numpy(gpu_bt.probabilities))
-                   .all()), "non-finite backtest probabilities")
-        emit("path predictor", signals=SIGNALS, served=len(gpu_preds),
-             published=published, serve_errors=errors,
-             launches=pred_launches, p50_ms=statistics.median(lat_ms),
-             p99_ms=sorted(lat_ms)[math.ceil(0.99 * len(lat_ms)) - 1],
-             mean_ms=statistics.fmean(lat_ms))
-        check(len(gpu_preds) == SIGNALS and published == SIGNALS,
-              f"{len(gpu_preds)} predictions served, {published} published, "
-              f"of {SIGNALS} signals")
-        check(pred_launches == 2 * SIGNALS,
-              f"predictor launched the scan kernel {pred_launches} times, "
-              f"expected {2 * SIGNALS}")
-        emit("path breakdown", **breakdown(wh, ckpt, model_cfg, window,
-                                           norm, stamps, device))
-        if torch.device(device).type == "cuda":
-            emit("path device share", backtest=device_share(
-                lambda: run_backtest(device)), predictor=device_share(
-                lambda: serve(device)))
+    served = len(gpu_bt.probabilities)
+    m = gpu_bt.metrics
+    emit("path backtest", rows=served, batch=BATCH,
+         batches=math.ceil(served / BATCH), seconds=bt_s,
+         rows_per_s=served / bt_s, launches=bt_launches,
+         accuracy=float(m.accuracy), hamming=float(m.hamming),
+         fbeta=[float(v) for v in m.fbeta],
+         overall_edge=trading_summary(gpu_bt)["overall"].edge)
+    check(served == n - window + 1, f"backtest served {served} rows")
+    check(bt_launches == 2 * math.ceil(served / BATCH),
+          f"backtest launched the scan kernel {bt_launches} times, "
+          f"expected {2 * math.ceil(served / BATCH)}")
+    check(bool(torch.isfinite(torch.from_numpy(gpu_bt.probabilities))
+               .all()), "non-finite backtest probabilities")
+    emit("path predictor", signals=SIGNALS, served=len(gpu_preds),
+         published=published, serve_errors=errors,
+         launches=pred_launches, p50_ms=statistics.median(lat_ms),
+         p99_ms=sorted(lat_ms)[math.ceil(0.99 * len(lat_ms)) - 1],
+         mean_ms=statistics.fmean(lat_ms))
+    check(len(gpu_preds) == SIGNALS and published == SIGNALS,
+          f"{len(gpu_preds)} predictions served, {published} published, "
+          f"of {SIGNALS} signals")
+    check(pred_launches == 2 * SIGNALS,
+          f"predictor launched the scan kernel {pred_launches} times, "
+          f"expected {2 * SIGNALS}")
+    emit("path breakdown", **breakdown(wh, ckpt, model_cfg, window,
+                                       norm, stamps, device))
+    if torch.device(device).type == "cuda":
+        emit("path device share", backtest=device_share(
+            lambda: run_backtest(device)), predictor=device_share(
+            lambda: serve(device)))
 
-        # the same port on the CPU: plain versions, no kernel
-        cpu_bt = run_backtest("cpu")
-        cpu_preds, _, _, _ = serve("cpu")
-        bt_err = float(abs(gpu_bt.probabilities - cpu_bt.probabilities).max())
-        pr_err = max(abs(a - b) for g, c in zip(gpu_preds, cpu_preds)
-                     for a, b in zip(g.probabilities, c.probabilities))
-        same_labels = ([p.labels for p in gpu_preds]
-                       == [p.labels for p in cpu_preds])
-        same_metrics = all(
-            (a == b).all() for a, b in zip(gpu_bt.metrics, cpu_bt.metrics))
-        emit("path vs cpu", backtest_max_abs_err=bt_err,
-             predictor_max_abs_err=pr_err, labels_equal=same_labels,
-             backtest_metrics_equal=bool(same_metrics), tol=PATH_TOL)
-        check(bt_err <= PATH_TOL and pr_err <= PATH_TOL,
-              "GPU and CPU probabilities disagree")
-        check(same_labels, "GPU and CPU predicted labels differ")
-        wh.close()
+    # the same port on the CPU: plain versions, no kernel
+    cpu_bt = run_backtest("cpu")
+    cpu_preds, _, _, _ = serve("cpu")
+    bt_err = float(abs(gpu_bt.probabilities - cpu_bt.probabilities).max())
+    pr_err = max(abs(a - b) for g, c in zip(gpu_preds, cpu_preds)
+                 for a, b in zip(g.probabilities, c.probabilities))
+    same_labels = ([p.labels for p in gpu_preds]
+                   == [p.labels for p in cpu_preds])
+    same_metrics = all(
+        (a == b).all() for a, b in zip(gpu_bt.metrics, cpu_bt.metrics))
+    emit("path vs cpu", backtest_max_abs_err=bt_err,
+         predictor_max_abs_err=pr_err, labels_equal=same_labels,
+         backtest_metrics_equal=bool(same_metrics), tol=PATH_TOL)
+    check(bt_err <= PATH_TOL and pr_err <= PATH_TOL,
+          "GPU and CPU probabilities disagree")
+    check(same_labels, "GPU and CPU predicted labels differ")
     return path_launches
+
+
+def train_breakdown(trainer, state, dataset, train_chunks, device):
+    """Where a train step's time goes, piece by piece, each piece ended by
+    a synchronize (host clock; medians over the first 16 batches): host
+    compose (a chunk's window gather, per batch, and the batch slice), the
+    copy to the card, forward + loss, backward, clip + Adam, metrics, and
+    a whole step.  The step's own pieces (forward to metrics) must add up
+    to the whole step within BREAKDOWN_TOL, so the split cannot drift from
+    what ``Trainer.train_step`` does."""
+    from fmda_tpu_torch.data.pipeline import WindowBatches
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    gathers = []
+    for idx in train_chunks[:3]:  # the gather behind every pass's chunks
+        t = time.perf_counter()
+        x_windows, _ = dataset.windows(idx, dataset.norm_params[idx])
+        gathers.append((time.perf_counter() - t) * 1e3 / math.ceil(
+            len(x_windows) / BATCH))
+    host = [b for idx in train_chunks[:2]
+            for b in WindowBatches(dataset, idx, BATCH)][:16]
+    in_step = ("forward", "backward", "optimizer", "metrics")
+    pieces = {k: [] for k in ("slice", "h2d", *in_step, "step")}
+
+    def forward(placed):
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = state.model(placed.x, generator=state.generator)
+        return logits, trainer.batch_loss(logits, placed)
+
+    for b in host:
+        t = time.perf_counter()
+        next(iter(WindowBatches(dataset, train_chunks[0], BATCH)))
+        pieces["slice"].append((time.perf_counter() - t) * 1e3)
+        placed, ms = timed(lambda: trainer.place(b))
+        pieces["h2d"].append(ms)
+        state.model.train()
+        (logits, loss), ms = timed(lambda: forward(placed))
+        pieces["forward"].append(ms)
+        _, ms = timed(loss.backward)
+        pieces["backward"].append(ms)
+        _, ms = timed(lambda: trainer.apply_gradients(state))
+        pieces["optimizer"].append(ms)
+        _, ms = timed(lambda: trainer.batch_metrics(logits.detach(), placed))
+        pieces["metrics"].append(ms)
+        _, ms = timed(lambda: trainer.train_step(state, placed))
+        pieces["step"].append(ms)
+    # steps back to back on placed batches, one synchronize at the end:
+    # the mean step time when the host runs ahead of the card
+    placed = [trainer.place(b) for b in host]
+    sync()
+    t = time.perf_counter()
+    for b in placed:
+        trainer.train_step(state, b)
+    sync()
+    out = {"compose_gather_ms_per_batch": statistics.median(gathers)}
+    out.update({f"{k}_ms": statistics.median(v) for k, v in pieces.items()})
+    out["mean_step_ms"] = (time.perf_counter() - t) * 1e3 / len(placed)
+    out["pieces_sum_ms"] = sum(out[f"{k}_ms"] for k in in_step)
+    out["pieces_over_step"] = out["pieces_sum_ms"] / out["step_ms"]
+    check(abs(out["pieces_over_step"] - 1) <= BREAKDOWN_TOL,
+          f"the step's pieces add up to {out['pieces_sum_ms']:.3f} ms, the "
+          f"whole step takes {out['step_ms']:.3f} ms: the breakdown no "
+          "longer splits Trainer.train_step")
+    return out
+
+
+def phase_train(gru_kernel, wh, directory: str, device: str = "cuda"):
+    """The training path at full width: Trainer.fit for one epoch, then
+    the trained checkpoint backtested on the card.  Returns (forward
+    launches, backward launches, train steps, dataset, weights)."""
+    from fmda_tpu_torch.config import FrameworkConfig, TrainConfig
+    from fmda_tpu_torch.data.pipeline import ChunkDataset, WindowBatches
+    from fmda_tpu_torch.serve import backtest_from_checkpoint
+    from fmda_tpu_torch.train import (
+        Trainer, imbalance_weights_from_source, save_checkpoint)
+
+    cfg = FrameworkConfig()
+    fc, model_cfg, window = cfg.features, cfg.model, cfg.train.window
+    train_cfg = TrainConfig(batch_size=BATCH, chunk_size=TRAIN_CHUNK,
+                            epochs=1)
+    t0 = time.perf_counter()
+    weights = imbalance_weights_from_source(wh)
+    trainer = Trainer(model_cfg, train_cfg, weight=weights[0],
+                      pos_weight=weights[1], device=device)
+    dataset = ChunkDataset(wh, train_cfg.chunk_size, train_cfg.window,
+                           bid_levels=fc.bid_levels, ask_levels=fc.ask_levels,
+                           cache_chunks=train_cfg.cache_chunks)
+    train_chunks, val_chunks, _ = dataset.split(train_cfg.val_size,
+                                                train_cfg.test_size)
+    n_train = sum(len(WindowBatches(dataset, i, BATCH)) for i in train_chunks)
+    n_val = sum(len(WindowBatches(dataset, i, BATCH)) for i in val_chunks)
+    n_windows = sum(len(dataset.windows(i)[0]) for i in train_chunks)
+    setup_s = time.perf_counter() - t0
+    emit("train setup", model=str(model_cfg), train=str(train_cfg),
+         chunks=len(dataset), train_chunks=len(train_chunks),
+         val_chunks=len(val_chunks), train_steps=n_train,
+         val_batches=n_val, train_windows=n_windows, seconds=setup_s)
+
+    # warm-up: cuBLAS handles, Adam's and the loss's kernels, on a
+    # throwaway state, before the counted run
+    warm = trainer.init_state()
+    for b in list(WindowBatches(dataset, train_chunks[0], BATCH))[:2]:
+        trainer.train_step(warm, trainer.place(b))
+    torch.cuda.synchronize()
+
+    gru_kernel.launches = gru_kernel.bwd_launches = 0  # the path starts
+    t0 = time.perf_counter()
+    state, history, _ = trainer.fit(wh, dataset=dataset)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd, bwd = gru_kernel.launches, gru_kernel.bwd_launches  # path ends
+    tr, va = history["train"][-1], history["val"][-1]
+    emit("train fit", epochs=len(history["train"]), steps=state.step,
+         seconds=fit_s, samples_per_s=n_windows / fit_s,
+         launches=fwd, bwd_launches=bwd,
+         train_loss=tr.loss, train_accuracy=tr.accuracy,
+         val_loss=va.loss, val_accuracy=va.accuracy,
+         val_hamming=va.hamming)
+    check(state.step == n_train, f"{state.step} steps, expected {n_train}")
+    check(bwd == 2 * n_train,
+          f"training launched the backward kernel {bwd} times, expected "
+          f"{2 * n_train}")
+    check(fwd == 2 * (n_train + n_val),
+          f"training launched the forward kernel {fwd} times, expected "
+          f"{2 * (n_train + n_val)}")
+    check(all(math.isfinite(m.loss) for m in (tr, va)),
+          f"non-finite losses {tr.loss}, {va.loss}")
+
+    # a second epoch replays the placed batches: its steps, timed whole
+    # and under the profiler
+    t0 = time.perf_counter()
+    state, _, _ = trainer.fit(wh, dataset=dataset, initial_state=state)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    emit("train replay epoch", seconds=replay_s,
+         ms_per_batch=replay_s * 1e3 / (n_train + n_val),
+         samples_per_s=n_windows / replay_s)
+    if torch.device(device).type == "cuda":
+        emit("train device share", batches=n_train + n_val,
+             epoch=device_share(lambda: trainer.fit(
+                 wh, dataset=dataset, initial_state=state)))
+    emit("train breakdown", **train_breakdown(trainer, state, dataset,
+                                              train_chunks, device))
+
+    # train, then serve: the checkpoint backtested on the card, and a
+    # slice of it on the CPU
+    ckpt = save_checkpoint(f"{directory}/trained", state,
+                           dataset.final_norm_params)
+    t0 = time.perf_counter()
+    bt = backtest_from_checkpoint(wh, ckpt, model_cfg, window=window,
+                                  batch_size=BATCH, device=device)
+    torch.cuda.synchronize()
+    bt_s = time.perf_counter() - t0
+    ids = (window, window + 4 * BATCH - 1)
+    on_card = backtest_from_checkpoint(wh, ckpt, model_cfg, window=window,
+                                       batch_size=BATCH, ids=ids,
+                                       device=device)
+    on_cpu = backtest_from_checkpoint(wh, ckpt, model_cfg, window=window,
+                                      batch_size=BATCH, ids=ids,
+                                      device="cpu")
+    err = float(abs(on_card.probabilities - on_cpu.probabilities).max())
+    emit("train backtest", checkpoint=os.path.basename(ckpt),
+         rows=len(bt.probabilities), seconds=bt_s,
+         accuracy=float(bt.metrics.accuracy),
+         hamming=float(bt.metrics.hamming), cpu_rows=len(on_cpu.probabilities),
+         cpu_max_abs_err=err, tol=PATH_TOL)
+    check(len(bt.probabilities) == len(wh) - window + 1,
+          f"backtest of the trained checkpoint served "
+          f"{len(bt.probabilities)} rows")
+    check(bool(torch.isfinite(torch.from_numpy(bt.probabilities)).all()),
+          "non-finite probabilities from the trained checkpoint")
+    check(err <= PATH_TOL, "trained checkpoint: card and CPU disagree")
+    return fwd, bwd, n_train, dataset, weights
+
+
+def phase_train_vs_cpu(dataset, weights, device: str = "cuda"):
+    """The first TRAIN_VS_CPU_STEPS steps at dropout 0 from the same
+    initial weights, on the card and on the CPU: per-step losses and the
+    final params compared."""
+    from fmda_tpu_torch.config import FrameworkConfig, TrainConfig
+    from fmda_tpu_torch.data.pipeline import WindowBatches
+    from fmda_tpu_torch.train import Trainer
+
+    model_cfg = dataclasses.replace(FrameworkConfig().model, dropout=0.0)
+    train_cfg = TrainConfig(batch_size=BATCH, chunk_size=TRAIN_CHUNK)
+    train_chunks, _, _ = dataset.split(train_cfg.val_size,
+                                       train_cfg.test_size)
+    host = [b for idx in train_chunks[:3]
+            for b in WindowBatches(dataset, idx, BATCH)]
+    host = host[:TRAIN_VS_CPU_STEPS]
+    runs = {}
+    for dev in (device, "cpu"):
+        trainer = Trainer(model_cfg, train_cfg, weight=weights[0],
+                          pos_weight=weights[1], device=dev)
+        state = trainer.init_state()  # the same weights on both devices
+        t0 = time.perf_counter()
+        losses = [float(trainer.train_step(state, trainer.place(b))[0])
+                  for b in host]
+        runs[dev] = (losses, {k: v.detach().cpu() for k, v in
+                              state.model.state_dict().items()},
+                     time.perf_counter() - t0)
+    (g_loss, g_par, g_s), (c_loss, c_par, c_s) = runs[device], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(g_loss, c_loss))
+    param_err = max(float((g_par[k] - c_par[k]).abs().max()) for k in g_par)
+    moved = max(float((g_par[k] - v).abs().max()) for k, v in
+                Trainer(model_cfg, train_cfg, device="cpu").init_state()
+                .model.state_dict().items())
+    emit("train vs cpu", steps=len(host), loss_max_abs_err=loss_err,
+         param_max_abs_err=param_err, params_moved=moved,
+         first_loss=g_loss[0], last_loss=g_loss[-1], card_seconds=g_s,
+         cpu_seconds=c_s, tol=TRAIN_TOL)
+    check(len(host) == TRAIN_VS_CPU_STEPS, f"only {len(host)} batches")
+    check(loss_err <= TRAIN_TOL and param_err <= TRAIN_TOL,
+          "training on the card and on the CPU disagree")
+
+
+def kernel_entry(name, replaces, rows, launches, by_path):
+    """One kernel's entry of the summary line, at the main shape
+    (256, 30, 32) float32, forward direction."""
+    main_shape = next(r for r in rows if r["batch"] == BATCH
+                      and r["hidden"] == 32 and r["dtype"] == "float32"
+                      and not (r["reverse"] or r["masked"]
+                               or r["nonzero_h0"]))
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "fmda_tpu_torch/csrc/gru_scan.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["dtype"] == "float32"),
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "shape": [BATCH, 30, 32],
+    }
 
 
 def main() -> int:
@@ -406,32 +812,29 @@ def main() -> int:
     lib = gru_kernel.build()
     ptxas = [ln.strip() for ln in str(gru_kernel.build_info.get("log", ""))
              .splitlines() if "registers" in ln or "spill" in ln]
-    emit("build", kernel="gru_scan_fwd", library=str(lib),
+    emit("build", kernels=["gru_scan_fwd", "gru_scan_bwd"], library=str(lib),
          nvcc_seconds=gru_kernel.build_info.get("seconds"),
          seconds=time.perf_counter() - t0, target="sm_90a", ptxas=ptxas)
 
     n_features = FrameworkConfig().model.n_features
-    rows = phase_kernel(gru_kernel, n_features)
-    launches = phase_path(gru_kernel)
+    fwd_rows = phase_kernel(gru_kernel, n_features)
+    bwd_rows = phase_kernel_bwd(gru_kernel, n_features)
+    gru_kernel.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=gru_kernel.BUILD_ROOT) as tmp:
+        wh = make_warehouse(tmp)
+        serve_fwd = phase_path(gru_kernel, wh, tmp)
+        train_fwd, train_bwd, _, dataset, weights = phase_train(
+            gru_kernel, wh, tmp)
+        phase_train_vs_cpu(dataset, weights)
+        wh.close()
 
-    main_shape = next(r for r in rows if r["batch"] == BATCH
-                      and r["hidden"] == 32 and r["dtype"] == "float32"
-                      and not (r["reverse"] or r["masked"] or r["nonzero_h0"]))
-    print(json.dumps({"kernels": [{
-        "name": "gru_scan_fwd",
-        "route": "cuda",
-        "source": "fmda_tpu_torch/csrc/gru_scan.cu",
-        "replaces": "fmda_tpu/ops/pallas_gru.py:147",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "float32"),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "shape": [BATCH, 30, 32],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        kernel_entry("gru_scan_fwd", "fmda_tpu/ops/pallas_gru.py:147",
+                     fwd_rows, serve_fwd + train_fwd,
+                     {"serve": serve_fwd, "train": train_fwd}),
+        kernel_entry("gru_scan_bwd", "fmda_tpu/ops/pallas_gru.py:252",
+                     bwd_rows, train_bwd, {"serve": 0, "train": train_bwd}),
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
-"""fmda_tpu_torch command line: the serving slice of ``python -m fmda_tpu``.
+"""fmda_tpu_torch command line: the ported slices of ``python -m fmda_tpu``.
 
+    python -m fmda_tpu_torch train    --warehouse W [--epochs N] [--batch-size B]
+                                      [--seed S] [--checkpoint-dir D] [--device cpu]
     python -m fmda_tpu_torch backtest --warehouse W --checkpoint C [--device cpu]
     python -m fmda_tpu_torch serve    --warehouse W --checkpoint C [--device cpu]
 
-Both read a warehouse file ``fmda_tpu`` (or this package) wrote and a port
-checkpoint (:mod:`fmda_tpu_torch.train.checkpoint`), and run on the CUDA
-card unless ``--device cpu`` is given.
+All read a warehouse file ``fmda_tpu`` (or this package) wrote; ``train``
+writes a port checkpoint (:mod:`fmda_tpu_torch.train.checkpoint`) that the
+other two read.  They run on the CUDA card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -42,6 +45,45 @@ def _window_threshold(args, cfg):
     threshold = (args.threshold if args.threshold is not None
                  else cfg.train.prob_threshold)
     return window, threshold
+
+
+def cmd_train(args) -> int:
+    """Train over a warehouse file and write a checkpoint: imbalance
+    weights from the whole target table, then ``Trainer.fit``."""
+    from fmda_tpu_torch.device import resolve_device
+    from fmda_tpu_torch.train import (
+        Trainer, imbalance_weights_from_source, save_checkpoint)
+
+    device = resolve_device(args.device)  # before any data is read
+    cfg = _config(args)
+    # flags given override the config file; absent flags (None) leave it
+    overrides = {k: v for k, v in dict(
+        batch_size=args.batch_size, epochs=args.epochs,
+        seed=args.seed).items() if v is not None}
+    train_cfg = dataclasses.replace(cfg.train, **overrides)
+    wh = _warehouse(args.warehouse, cfg)
+    try:
+        if len(wh) == 0:
+            print("warehouse is empty: ingest rows first", file=sys.stderr)
+            return 2
+        fc = cfg.features
+        model_cfg = dataclasses.replace(cfg.model,
+                                        n_features=len(wh.x_fields))
+        weight, pos_weight = imbalance_weights_from_source(wh)
+        trainer = Trainer(model_cfg, train_cfg, weight=weight,
+                          pos_weight=pos_weight, device=device)
+        state, history, dataset = trainer.fit(
+            wh, bid_levels=fc.bid_levels, ask_levels=fc.ask_levels)
+    finally:
+        wh.close()
+    ckpt_dir = (args.checkpoint_dir if args.checkpoint_dir is not None
+                else train_cfg.checkpoint_dir)
+    ckpt = save_checkpoint(ckpt_dir, state, dataset.final_norm_params)
+    last = history["train"][-1]
+    print(f"trained {len(history['train'])} epochs: loss={last.loss:.4f} "
+          f"acc={last.accuracy:.4f} (device={trainer.device})")
+    print(f"checkpoint: {ckpt}")
+    return 0
 
 
 def cmd_backtest(args) -> int:
@@ -130,6 +172,19 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device (default: cuda; pass 'cpu' to run the plain "
              "PyTorch path without a card)")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", parents=[common],
+                       help="train over a warehouse file")
+    p.add_argument("--warehouse", required=True, help="sqlite file path")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="override config train.checkpoint_dir")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="override config train.epochs (default 25)")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="override config train.batch_size (default 2)")
+    p.add_argument("--seed", type=int, default=None,
+                   help="override config train.seed (default 0)")
+    p.set_defaults(fn=cmd_train)
 
     for name, fn, text in (
         ("backtest", cmd_backtest, "score a checkpoint over history"),

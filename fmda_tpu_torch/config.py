@@ -1,12 +1,13 @@
-"""Configuration the serving slice reads, kept as its own copy.
+"""Configuration the ported slices read, kept as their own copy.
 
 The same frozen dataclasses as ``fmda_tpu.config`` (field names, defaults
 and the config -> schema codegen of :class:`FeatureConfig`), cut to what
-the window-re-scan serving path reads: the feature schema, the warehouse,
-the model and the serving knobs of the training config.  A JSON file that
-``fmda_tpu.config.save_config`` wrote loads here too: the sections and
-keys this package does not model (the runtime, fleet, mesh, ...) belong
-to paths that are not ported yet and are skipped.
+the window-re-scan serving path and the trainer read: the feature schema,
+the warehouse, the model and the training config (without its continuous
+fine-tuning fields).  A JSON file that ``fmda_tpu.config.save_config``
+wrote loads here too: the sections and keys this package does not model
+(the runtime, fleet, mesh, ...) belong to paths that are not ported yet
+and are skipped.
 """
 
 from __future__ import annotations
@@ -243,12 +244,44 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The training-config fields the serving path reads."""
+    """Training-harness hyperparameters, with ``fmda_tpu``'s defaults."""
 
     batch_size: int = 2
     window: int = 30
+    chunk_size: int = 100
+    learning_rate: float = 1e-3
+    epochs: int = 25
+    clip: float = 50.0
+    val_size: float = 0.1
+    test_size: float = 0.1
+    fbeta_beta: float = 0.5
     prob_threshold: float = 0.5
+    seed: int = 0
     checkpoint_dir: str = "checkpoints"
+    #: Microbatch gradient-accumulation factor K: the batch is split into
+    #: K equal microbatches whose gradients sum to the full batch's.
+    #: Must divide ``batch_size``.
+    accum_steps: int = 1
+    #: Composed and placed batches in flight ahead of the step; 0 is the
+    #: synchronous loop with no background thread.
+    prefetch_depth: int = 2
+    #: Chunks whose normalized windows (and placed batches) are kept for
+    #: later epochs; 0 disables the caches.
+    cache_chunks: int = 64
+
+    def __post_init__(self) -> None:
+        if self.accum_steps < 1:
+            raise ValueError(
+                f"train.accum_steps must be >= 1, got {self.accum_steps}")
+        if self.batch_size % self.accum_steps != 0:
+            raise ValueError(
+                f"train.accum_steps ({self.accum_steps}) must divide "
+                f"train.batch_size ({self.batch_size}): microbatches are "
+                f"equal fixed-shape slices")
+        if self.prefetch_depth < 0 or self.cache_chunks < 0:
+            raise ValueError(
+                f"train.prefetch_depth/cache_chunks must be >= 0, got "
+                f"{self.prefetch_depth}/{self.cache_chunks}")
 
 
 @dataclass(frozen=True)

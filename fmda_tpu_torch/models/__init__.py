@@ -6,8 +6,9 @@ from fmda_tpu_torch.models.bigru import BiGRU
 
 
 def build_model(cfg, *, generator: Optional[torch.Generator] = None):
-    """The ``ModelConfig.cell`` -> module factory of the serving path.
-    Only ``"gru"`` is ported; ``ModelConfig`` refuses the other cells."""
+    """The ``ModelConfig.cell`` -> module factory of the Trainer, the
+    Predictor and the backtester.  Only ``"gru"`` is ported;
+    ``ModelConfig`` refuses the other cells."""
     if cfg.cell != "gru":
         raise NotImplementedError(
             f"cell={cfg.cell!r} is not ported yet; see ROADMAP.md, queue 1")

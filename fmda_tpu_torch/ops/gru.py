@@ -5,8 +5,9 @@ The recurrence is split as in ``fmda_tpu.ops.gru``:
 1. the input projection ``x @ W_ih^T + b_ih`` for every timestep at once,
    one large ``(B*T, F) x (F, 3H)`` product left to cuBLAS;
 2. the recurrent scan, which carries only the small ``h @ W_hh^T``
-   product and the gate algebra, in the CUDA kernel of
-   :mod:`fmda_tpu_torch.ops.gru_kernel`.
+   product and the gate algebra, in the CUDA kernels of
+   :mod:`fmda_tpu_torch.ops.gru_kernel` (forward, and backward when
+   autograd records).
 
 Gates follow the torch ``nn.GRU`` convention, packed ``[r, z, n]``:
 
@@ -25,12 +26,17 @@ import torch.nn.functional as F
 
 from fmda_tpu_torch.ops.gru_kernel import (
     gru_gates,
+    gru_scan,
+    gru_scan_bwd,
+    gru_scan_bwd_reference,
     gru_scan_fwd,
-    gru_scan_reference as gru_scan,
+    gru_scan_reference,
 )
 
 __all__ = [
-    "GRUWeights", "gru_gates", "gru_layer", "gru_scan", "input_projection",
+    "GRUWeights", "gru_gates", "gru_layer", "gru_scan", "gru_scan_bwd",
+    "gru_scan_bwd_reference", "gru_scan_fwd", "gru_scan_reference",
+    "input_projection",
 ]
 
 
@@ -56,11 +62,12 @@ def gru_layer(
     reverse: bool = False,
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One direction of a GRU layer: projection, then the scan kernel
-    (its plain version for CPU tensors).  Returns (h_last, hs)."""
+    """One direction of a GRU layer: projection, then the differentiable
+    scan (its kernels, or their plain versions for CPU tensors).  Returns
+    (h_last, hs)."""
     hidden = weights.w_hh.shape[-1]
     if h0 is None:
         h0 = x.new_zeros((x.shape[0], hidden))
     xp = input_projection(x, weights)
-    return gru_scan_fwd(xp, h0, weights.w_hh, weights.b_hh,
-                        reverse=reverse, mask=mask)
+    return gru_scan(xp, h0, weights.w_hh, weights.b_hh, reverse=reverse,
+                    mask=mask)

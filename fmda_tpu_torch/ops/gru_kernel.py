@@ -1,13 +1,22 @@
-"""The GRU forward scan as a hand-written CUDA kernel, and its plain version.
+"""The GRU scan as hand-written CUDA kernels, forward and backward, with
+their plain versions and the differentiable op that joins them.
 
-:func:`gru_scan_fwd` is the port of ``fmda_tpu/ops/pallas_gru.py``'s
-``_gru_step_kernel``.  On CUDA tensors it launches ``csrc/gru_scan.cu`` or
-raises; on CPU tensors it runs :func:`gru_scan_reference`, the plain
-PyTorch time loop that computes the same function with the same rounding
-(gate algebra in float32, the carry rounded to the I/O dtype each step).
+- :func:`gru_scan_fwd` is the port of ``fmda_tpu/ops/pallas_gru.py``'s
+  ``_gru_step_kernel``; its plain version :func:`gru_scan_reference` is
+  the PyTorch time loop with the same rounding (gate algebra in float32,
+  the carry rounded to the I/O dtype each step).
+- :func:`gru_scan_bwd` is the port of ``_gru_bwd_kernel``; its plain
+  version :func:`gru_scan_bwd_reference` is the reverse time loop with
+  the same algebra and the same rounding of ``dg_h``.
+- :func:`gru_scan` is the differentiable scan: a
+  :class:`torch.autograd.Function` whose forward is :func:`gru_scan_fwd`
+  and whose backward is :func:`gru_scan_bwd`, as ``custom_vjp`` joins the
+  Pallas pair.
 
-The kernel is compiled with ``nvcc`` at first use into a shared library
-with a plain C interface, loaded with :mod:`ctypes`, under
+On CUDA tensors each wrapper launches its kernel (from
+``csrc/gru_scan.cu``) or raises; on CPU tensors it runs its plain version.
+The kernels are compiled with ``nvcc`` at first use into one shared
+library with a plain C interface, loaded with :mod:`ctypes`, under
 ``build/fmda_tpu_torch/<hash of sources and flags>/`` at the repository
 root.  Nothing is built or loaded at import.
 """
@@ -35,6 +44,8 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 #: Kernel launches made by :func:`gru_scan_fwd` (CPU calls do not count).
 launches = 0
+#: Kernel launches made by :func:`gru_scan_bwd` (CPU calls do not count).
+bwd_launches = 0
 #: What the last build in this process did: ``path``, ``seconds`` (None
 #: when the library was already built), ``log`` (nvcc/ptxas output).
 build_info: Dict[str, object] = {}
@@ -100,6 +111,11 @@ def _load() -> ctypes.CDLL:
             fn = getattr(lib, f"fmda_gru_scan_fwd_{tag}")
             fn.argtypes = [p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, p]
             fn.restype = i
+            fn = getattr(lib, f"fmda_gru_scan_bwd_{tag}")
+            fn.argtypes = [p, ll, ll, *[p] * 11, i, i, i, i, i, p]
+            fn.restype = i
+        lib.fmda_gru_scan_bwd_blocks.argtypes = [i, i, i]
+        lib.fmda_gru_scan_bwd_blocks.restype = i
         lib.fmda_cuda_error_string.argtypes = [i]
         lib.fmda_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -168,6 +184,77 @@ def gru_scan_reference(
     return h, torch.stack(outs, dim=1)
 
 
+def gru_scan_bwd_reference(
+    xp: torch.Tensor,
+    h0: torch.Tensor,
+    w_hh: torch.Tensor,
+    b_hh: torch.Tensor,
+    hs: torch.Tensor,
+    dh_last: torch.Tensor,
+    dhs: torch.Tensor,
+    *,
+    reverse: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`gru_scan_reference`: the plain version of
+    the backward kernel, an explicit reverse time loop.
+
+    Args:
+      xp, h0, w_hh, b_hh, reverse, mask: the forward's inputs.
+      hs: (B, T, H) the forward's per-step hiddens.
+      dh_last, dhs: cotangents of h_last (B, H) and hs (B, T, H).
+
+    Gates are recomputed from ``hs`` and all gate and cotangent algebra
+    runs in float32; ``dg_h`` is rounded once to the I/O dtype and that
+    one rounded value feeds the dh chain, dW_hh and db_hh, as in the
+    Pallas kernel (so this is not autograd through the forward, which
+    would not round it).  A masked step passes dh through and adds
+    nothing.  Returns (dxp, dh0, dw_hh, db_hh): dxp in xp's dtype, the
+    others summed in float32 and cast to their inputs' dtypes.
+    """
+    dtype, f32 = xp.dtype, torch.float32
+    hidden = h0.shape[-1]
+    w = w_hh.to(dtype).to(f32)
+    b = b_hh.to(dtype).to(f32)
+    n_steps = xp.shape[1]
+    dh = dh_last.to(f32)
+    dxp = torch.zeros(xp.shape, dtype=dtype, device=xp.device)
+    dw = torch.zeros(w.shape, dtype=f32, device=xp.device)
+    db = torch.zeros(b.shape, dtype=f32, device=xp.device)
+    order = range(n_steps) if reverse else range(n_steps - 1, -1, -1)
+    for s, t in enumerate(order):
+        # the hidden entering step t: h0 at the first processed step
+        if s == n_steps - 1:
+            h_prev = h0.to(dtype).to(f32)
+        else:
+            h_prev = hs[:, t + 1 if reverse else t - 1].to(f32)
+        hp = torch.matmul(h_prev, w.t()) + b
+        x = xp[:, t].to(f32)
+        r = torch.sigmoid(x[:, :hidden] + hp[:, :hidden])
+        z = torch.sigmoid(x[:, hidden:2 * hidden] + hp[:, hidden:2 * hidden])
+        n = torch.tanh(x[:, 2 * hidden:] + r * hp[:, 2 * hidden:])
+        dh = dh + dhs[:, t].to(f32)
+        dn = dh * (1.0 - z)
+        dz = dh * (h_prev - n)
+        dn_pre = dn * (1.0 - n * n)
+        dr_pre = dn_pre * hp[:, 2 * hidden:] * r * (1.0 - r)
+        dz_pre = dz * z * (1.0 - z)
+        dg_x = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
+        dg_h = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1).to(dtype).to(f32)
+        chained = dh * z + torch.matmul(dg_h, w)
+        if mask is None:
+            dh = chained
+        else:
+            keep = mask[:, t, None].bool()
+            dg_x = torch.where(keep, dg_x, 0.0)
+            dg_h = torch.where(keep, dg_h, 0.0)
+            dh = torch.where(keep, chained, dh)
+        dxp[:, t] = dg_x.to(dtype)
+        dw += torch.matmul(dg_h.t(), h_prev)
+        db += dg_h.sum(dim=0)
+    return dxp, dh.to(h0.dtype), dw.to(w_hh.dtype), db.to(b_hh.dtype)
+
+
 # -- the wrapper ---------------------------------------------------------------
 
 
@@ -184,58 +271,90 @@ def gru_scan_fwd(
     :func:`gru_scan_reference`.
 
     CUDA tensors launch the kernel (one launch, counted in
-    :data:`launches`) or raise; CPU tensors run the plain version.  The
-    backward kernel is not ported yet, so inputs that would record a
-    gradient raise rather than return a wrong one: call under
-    ``torch.inference_mode()`` or ``torch.no_grad()``."""
+    :data:`launches`) or raise; CPU tensors run the plain version.  This
+    is the raw forward launch and records no backward, so inputs that
+    would record a gradient raise rather than get none: train through
+    :func:`gru_scan`, or call this under ``torch.inference_mode()``."""
     tensors = [xp, h0, w_hh, b_hh] + ([mask] if mask is not None else [])
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "gru_scan_fwd has no backward yet (the port of "
-            "pallas_gru.py::_gru_bwd_kernel is the next slice); call it "
-            "under torch.inference_mode()")
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
+            "gru_scan_fwd is the raw forward launch and records no "
+            "backward; use gru_scan (differentiable) or call it under "
+            "torch.inference_mode()")
+    if _on_cpu("gru_scan_fwd", tensors):
         return gru_scan_reference(xp, h0, w_hh, b_hh, reverse=reverse,
                                   mask=mask)
-    if len(devices) != 1 or xp.device.type != "cuda":
-        raise ValueError(
-            f"gru_scan_fwd needs all inputs on one CUDA device or all on "
-            f"the CPU, got {sorted(map(str, devices))}")
     return _launch(xp, h0, w_hh, b_hh, reverse=reverse, mask=mask)
 
 
-def _launch(xp, h0, w_hh, b_hh, *, reverse, mask):
-    global launches
+def _on_cpu(name: str, tensors) -> bool:
+    """True when every tensor is on the CPU, False when all are on one CUDA
+    device; raises on anything else."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"{name} needs all inputs on one CUDA device or all on the CPU, "
+            f"got {sorted(map(str, devices))}")
+    return False
+
+
+def _check_dtype_and_shapes(name, xp, h0, w_hh, b_hh):
+    """The checks both kernels make: dtype, (B, T, 3H) shapes, layout.
+    Returns (batch, n_steps, hidden, h0, w_hh, b_hh), the last three cast
+    to xp's dtype."""
     if xp.dtype not in _SUPPORTED:
         raise TypeError(
-            f"gru_scan_fwd kernel takes float32 or bfloat16, got {xp.dtype}")
+            f"{name} kernel takes float32 or bfloat16, got {xp.dtype}")
     if xp.dim() != 3 or xp.shape[-1] % 3:
         raise ValueError(f"xp must be (B, T, 3H), got {tuple(xp.shape)}")
     batch, n_steps, h3 = xp.shape
     hidden = h3 // 3
     if not 0 < hidden <= _MAX_HIDDEN or batch == 0:
         raise ValueError(
-            f"gru_scan_fwd kernel takes B >= 1 and 1 <= H <= {_MAX_HIDDEN}, "
+            f"{name} kernel takes B >= 1 and 1 <= H <= {_MAX_HIDDEN}, "
             f"got B={batch}, H={hidden}")
     expect = {"h0": (batch, hidden), "w_hh": (h3, hidden), "b_hh": (h3,)}
     h0, w_hh, b_hh = (t.to(xp.dtype) for t in (h0, w_hh, b_hh))
-    for name, t in (("h0", h0), ("w_hh", w_hh), ("b_hh", b_hh)):
-        if tuple(t.shape) != expect[name]:
+    for label, t in (("h0", h0), ("w_hh", w_hh), ("b_hh", b_hh)):
+        if tuple(t.shape) != expect[label]:
             raise ValueError(
-                f"{name} must be {expect[name]}, got {tuple(t.shape)}")
+                f"{label} must be {expect[label]}, got {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{label} must be contiguous")
     if xp.stride(-1) != 1:
         raise ValueError("xp's last dimension must be contiguous")
-    mask_ptr = None
-    if mask is not None:
-        if tuple(mask.shape) != (batch, n_steps):
-            raise ValueError(
-                f"mask must be (B, T) = {(batch, n_steps)}, got "
-                f"{tuple(mask.shape)}")
-        mask = (mask != 0).to(torch.uint8).contiguous()
-        mask_ptr = mask.data_ptr()
+    return batch, n_steps, hidden, h0, w_hh, b_hh
+
+
+def _mask_u8(mask, batch, n_steps):
+    if mask is None:
+        return None
+    if tuple(mask.shape) != (batch, n_steps):
+        raise ValueError(
+            f"mask must be (B, T) = {(batch, n_steps)}, got "
+            f"{tuple(mask.shape)}")
+    return (mask != 0).to(torch.uint8).contiguous()
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{lib.fmda_cuda_error_string(err).decode()} ({err})")
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return (t.device.index if t.device.index is not None
+            else torch.cuda.current_device())
+
+
+def _launch(xp, h0, w_hh, b_hh, *, reverse, mask):
+    global launches
+    batch, n_steps, hidden, h0, w_hh, b_hh = _check_dtype_and_shapes(
+        "gru_scan_fwd", xp, h0, w_hh, b_hh)
+    mask = _mask_u8(mask, batch, n_steps)
     hs = torch.empty((batch, n_steps, hidden), dtype=xp.dtype,
                      device=xp.device)
     h_last = torch.empty((batch, hidden), dtype=xp.dtype, device=xp.device)
@@ -243,13 +362,125 @@ def _launch(xp, h0, w_hh, b_hh, *, reverse, mask):
     fn = getattr(lib, f"fmda_gru_scan_fwd_{_SUPPORTED[xp.dtype]}")
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
-             w_hh.data_ptr(), b_hh.data_ptr(), mask_ptr, hs.data_ptr(),
+             w_hh.data_ptr(), b_hh.data_ptr(),
+             None if mask is None else mask.data_ptr(), hs.data_ptr(),
              h_last.data_ptr(), batch, n_steps, hidden, int(bool(reverse)),
-             xp.device.index if xp.device.index is not None
-             else torch.cuda.current_device(), stream)
-    if err != 0:
-        raise RuntimeError(
-            "gru_scan_fwd kernel launch failed: "
-            f"{lib.fmda_cuda_error_string(err).decode()} ({err})")
+             _device_index(xp), stream)
+    _raise_on(lib, err, "gru_scan_fwd")
     launches += 1
     return h_last, hs
+
+
+def gru_scan_bwd(
+    xp: torch.Tensor,
+    h0: torch.Tensor,
+    w_hh: torch.Tensor,
+    b_hh: torch.Tensor,
+    hs: torch.Tensor,
+    dh_last: torch.Tensor,
+    dhs: torch.Tensor,
+    *,
+    reverse: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GRU backward scan: (dxp, dh0, dw_hh, db_hh), the signature of
+    :func:`gru_scan_bwd_reference`.
+
+    CUDA tensors launch the kernel (one call, counted in
+    :data:`bwd_launches`: the scan and the reduction of its per-block
+    weight-gradient partials) or raise; CPU tensors run the plain
+    version."""
+    tensors = [xp, h0, w_hh, b_hh, hs, dh_last, dhs] + (
+        [mask] if mask is not None else [])
+    if _on_cpu("gru_scan_bwd", tensors):
+        return gru_scan_bwd_reference(xp, h0, w_hh, b_hh, hs, dh_last, dhs,
+                                      reverse=reverse, mask=mask)
+    return _launch_bwd(xp, h0, w_hh, b_hh, hs, dh_last, dhs,
+                       reverse=reverse, mask=mask)
+
+
+def _launch_bwd(xp, h0, w_hh, b_hh, hs, dh_last, dhs, *, reverse, mask):
+    global bwd_launches
+    out_dtypes = (h0.dtype, w_hh.dtype, b_hh.dtype)
+    batch, n_steps, hidden, h0, w_hh, b_hh = _check_dtype_and_shapes(
+        "gru_scan_bwd", xp, h0, w_hh, b_hh)
+    for label, t, shape in (("hs", hs, (batch, n_steps, hidden)),
+                            ("dhs", dhs, (batch, n_steps, hidden)),
+                            ("dh_last", dh_last, (batch, hidden))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{label} must be {shape}, got {tuple(t.shape)}")
+    hs = hs.to(xp.dtype).contiguous()
+    dhs = dhs.to(xp.dtype).contiguous()
+    dh_last = dh_last.to(torch.float32).contiguous()
+    mask = _mask_u8(mask, batch, n_steps)
+    lib = _load()
+    device = _device_index(xp)
+    n_blocks = lib.fmda_gru_scan_bwd_blocks(batch, hidden, device)
+    n_acc = 3 * hidden * hidden + 3 * hidden
+    f32 = dict(dtype=torch.float32, device=xp.device)
+    dxp = torch.empty((batch, n_steps, 3 * hidden), dtype=xp.dtype,
+                      device=xp.device)
+    dh0 = torch.empty((batch, hidden), **f32)
+    partials = torch.empty((n_blocks, n_acc), **f32)
+    dw_db = torch.empty((n_acc,), **f32)
+    fn = getattr(lib, f"fmda_gru_scan_bwd_{_SUPPORTED[xp.dtype]}")
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
+             w_hh.data_ptr(), b_hh.data_ptr(), hs.data_ptr(),
+             dh_last.data_ptr(), dhs.data_ptr(),
+             None if mask is None else mask.data_ptr(), dxp.data_ptr(),
+             dh0.data_ptr(), partials.data_ptr(), dw_db.data_ptr(), batch,
+             n_steps, hidden, int(bool(reverse)), device, stream)
+    _raise_on(lib, err, "gru_scan_bwd")
+    bwd_launches += 1
+    h3h = 3 * hidden * hidden
+    dw = dw_db[:h3h].view(3 * hidden, hidden)
+    return (dxp, dh0.to(out_dtypes[0]), dw.to(out_dtypes[1]),
+            dw_db[h3h:].to(out_dtypes[2]))
+
+
+# -- the differentiable scan ---------------------------------------------------
+
+
+class _GRUScan(torch.autograd.Function):
+    """Forward :func:`gru_scan_fwd`, backward :func:`gru_scan_bwd`: the
+    residuals are the inputs and ``hs`` (the backward recomputes the
+    gates), as ``pallas_gru._vjp_fwd`` saves them.  An output whose
+    cotangent autograd leaves undefined gets zeros (autograd's
+    ``materialize_grads`` default)."""
+
+    @staticmethod
+    def forward(ctx, xp, h0, w_hh, b_hh, mask, reverse):
+        h_last, hs = gru_scan_fwd(xp, h0, w_hh, b_hh, reverse=reverse,
+                                  mask=mask)
+        ctx.save_for_backward(xp, h0, w_hh, b_hh, hs, mask)
+        ctx.reverse = reverse
+        return h_last, hs
+
+    @staticmethod
+    def backward(ctx, dh_last, dhs):
+        xp, h0, w_hh, b_hh, hs, mask = ctx.saved_tensors
+        dxp, dh0, dw_hh, db_hh = gru_scan_bwd(
+            xp, h0, w_hh, b_hh, hs, dh_last, dhs, reverse=ctx.reverse,
+            mask=mask)
+        return dxp, dh0, dw_hh, db_hh, None, None
+
+
+def gru_scan(
+    xp: torch.Tensor,
+    h0: torch.Tensor,
+    w_hh: torch.Tensor,
+    b_hh: torch.Tensor,
+    *,
+    reverse: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable GRU scan: (h_last, hs), the signature of
+    :func:`gru_scan_reference`.  Where autograd records, the forward and
+    backward kernels run as one :class:`torch.autograd.Function` (their
+    plain versions on CPU tensors); elsewhere this is
+    :func:`gru_scan_fwd`."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xp, h0, w_hh, b_hh)):
+        return _GRUScan.apply(xp, h0, w_hh, b_hh, mask, reverse)
+    return gru_scan_fwd(xp, h0, w_hh, b_hh, reverse=reverse, mask=mask)

@@ -36,8 +36,10 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax_or_fmda_tpu():
     modules = _port_modules()
-    assert "fmda_tpu_torch.ops.gru_kernel" in modules
-    assert "fmda_tpu_torch.serve.predictor" in modules
+    for name in ("ops.gru_kernel", "serve.predictor", "train.trainer",
+                 "train.losses", "train.checkpoint", "data.pipeline",
+                 "__main__"):
+        assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -100,10 +102,28 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         backtest(None, cfg, {}, norm, window=2)
 
 
+def test_trainer_and_train_command_raise_without_a_card(monkeypatch,
+                                                       tmp_path):
+    from fmda_tpu_torch.__main__ import main as port_main
+    from fmda_tpu_torch.config import ModelConfig, TrainConfig
+    from fmda_tpu_torch.train import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(hidden_size=4, n_features=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_main(["train", "--warehouse", str(tmp_path / "wh.sqlite")])
+    assert not (tmp_path / "wh.sqlite").exists()  # refused before any I/O
+    Trainer(cfg, TrainConfig(), device="cpu")
+
+
 def test_kernel_is_not_built_at_import():
     code = (
         "import fmda_tpu_torch.ops.gru_kernel as k, fmda_tpu_torch.serve\n"
+        "import fmda_tpu_torch.train, fmda_tpu_torch.__main__\n"
         "assert k._lib is None and k.build_info == {}, k.build_info\n"
+        "assert k.launches == k.bwd_launches == 0\n"
         "assert 'triton' not in __import__('sys').modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

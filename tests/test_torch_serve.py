@@ -214,7 +214,7 @@ def _cli_fixture(tmp_path, served):
     cfg.write_text(json.dumps({
         "features": FEATURES,
         "model": {"hidden_size": HIDDEN, "dropout": 0.0},
-        "train": {"window": WINDOW, "epochs": 3},  # epochs: not ported
+        "train": {"window": WINDOW, "epochs": 3},  # epochs: train only
         "runtime": {"window": 30},  # a section this package skips
     }))
     return port_wh.config.path, ckpt, str(cfg), len(port_wh)
