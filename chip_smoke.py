@@ -7,14 +7,15 @@ builds its kernels, serves and trains correctly on a CUDA card (an H100).
 Phases, each printed as one JSON line, each fatal on failure:
 
 1. ``device``: the card, its power limit, the torch/CUDA versions.
-2. ``build``: nvcc builds the one library that holds every kernel
-   (the GRU forward and backward scans) from ``fmda_tpu_torch/csrc`` for
-   sm_90a.
+2. ``build``: nvcc builds the one library that holds every kernel (the
+   GRU and LSTM forward and backward scans) from ``fmda_tpu_torch/csrc``
+   for sm_90a, one nvcc per source, all started together.
 3. ``kernel``: each kernel against its plain PyTorch version on the card,
-   at the shapes its paths use, with times, the roofline bound and the
-   library yardstick beside it.
+   at the shapes its paths use (and the wider H=128, which takes the
+   kernels' device-memory branches where shared memory runs out), with
+   times, the roofline bound and the library (cuDNN) yardstick beside it.
 4. ``path``: the window-re-scan serving path at full width
-   (``FrameworkConfig()``: BiGRU H=32, F=108, window 30, float32) over a
+   (``FrameworkConfig()``: H=32, F=108, window 30, float32) over a
    20,000-row warehouse: ``backtest`` at batch 256, then 64 signals through
    ``Predictor.from_checkpoint(...).poll()``, both recomputed on the CPU
    and compared.
@@ -25,10 +26,13 @@ Phases, each printed as one JSON line, each fatal on failure:
 6. ``train vs cpu``: the first 16 steps at dropout 0 on the card and on
    the CPU, per-step losses and final params compared.
 
-Launch counts are reset just before each path (serving, training) and
-read just after it.  Then the ``{"kernels": [...]}`` summary, the card
-line, and as the last line ``{"ok": true, "device": {...}}``.  TF32 is
-off for matmuls and cuDNN, so float32 means float32 everywhere.  Exits
+Phases 4-6 run for each ported cell family, the BiGRU (``cell="gru"``,
+the default) and then the BiLSTM (``cell="lstm"``); their lines carry
+``cell``.  Every kernel's launch count is reset just before each path
+(serving, training) and read just after it; a path that launched another
+family's kernel fails.  Then the ``{"kernels": [...]}`` summary, the card
+line, and as the last line ``{"ok": true, "device": {...}}``.  TF32 is off
+for matmuls and cuDNN, so float32 means float32 everywhere.  Exits
 non-zero, and prints no result, without a card or outside the repository.
 """
 
@@ -38,6 +42,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +69,11 @@ BREAKDOWN_TOL = 0.25
 #: scale of the backward phase's random cotangents (dh_last, dhs)
 COT_SCALE = 0.1
 REPS = 60
+#: the device sleep before a primed call: ~1 ms, longer than a kernel
+#: wrapper's host time; a cuDNN call through autograd can take longer than
+#: that to enqueue on a busy host, so the library yardstick gets ~10 ms
+PRIME_CYCLES = 2_000_000
+LIBRARY_PRIME_CYCLES = 20_000_000
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth,
 # float32 outside the tensor cores, and bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -89,13 +99,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, *, prime: bool) -> float:
+def time_ms(fn, *, prime: bool, prime_cycles: int = PRIME_CYCLES) -> float:
     """Median of REPS CUDA-event times of one call, after warm-up.
 
-    ``prime`` queues a ~1 ms device sleep before each call, so the host's
-    launch overhead hides behind it whenever it is shorter: the result is
-    then the device time of the call.  Unprimed, it is the time the caller
-    waits for the call on an idle card."""
+    ``prime`` queues a device sleep of ``prime_cycles`` before each call,
+    so the host's launch overhead hides behind it whenever it is shorter:
+    the result is then the device time of the call.  Unprimed, it is the
+    time the caller waits for the call on an idle card."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -103,7 +113,7 @@ def time_ms(fn, *, prime: bool) -> float:
               torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
     for start, end in pairs:
         if prime:
-            torch.cuda._sleep(2_000_000)
+            torch.cuda._sleep(prime_cycles)
         start.record()
         fn()
         end.record()
@@ -127,81 +137,173 @@ def roofline_ms(bytes_moved, product_flops, elementwise_flops, itemsize):
                                  "operations")
 
 
-def scan_bound(batch, steps, hidden, itemsize, masked):
-    """Least time for the scan on this card: each input read once, each
-    output written once, against the hidden product's and gates' FLOPs."""
+@dataclasses.dataclass(frozen=True)
+class Scan:
+    """One recurrence's kernel pair, as the kernel phases drive it: the
+    module with ``<name>_scan_fwd``/``_bwd`` and their ``_reference``s, the
+    gate blocks and carried states (h; or h and c), the element-wise
+    operations per (row, step, unit) of each direction, the cuDNN module
+    of the same layer (a yardstick never called by the port), and where
+    the kernels live and what they replace."""
+
+    name: str
+    module: object
+    gates: int
+    states: int
+    fwd_ops: int
+    bwd_ops: int
+    library: type
+    source: str
+    replaces: tuple
+
+    def fn(self, kind: str):
+        return getattr(self.module, f"{self.name}_scan_{kind}")
+
+
+def scan_specs():
+    from fmda_tpu_torch.ops import gru_kernel, lstm_kernel
+
+    return (
+        Scan("gru", gru_kernel, 3, 1, 10, 30, torch.nn.GRU,
+             "fmda_tpu_torch/csrc/gru_scan.cu",
+             ("fmda_tpu/ops/pallas_gru.py:147",
+              "fmda_tpu/ops/pallas_gru.py:252")),
+        # LSTM: 4 gate adds, 4 nonlinearities, c' = f c + i g, tanh(c'),
+        # o tanh(c'); the backward's recompute and cotangent algebra
+        Scan("lstm", lstm_kernel, 4, 2, 14, 40, torch.nn.LSTM,
+             "fmda_tpu_torch/csrc/lstm_scan.cu",
+             ("fmda_tpu/ops/pallas_lstm.py:80",
+              "fmda_tpu/ops/pallas_lstm.py:195")),
+    )
+
+
+def scan_bound(batch, steps, hidden, itemsize, masked, *, gates=3,
+               states=1, elementwise=10):
+    """Least time for the forward scan on this card: each input read
+    once, each output written once (xp, the initial states and the
+    weights in; the per-step hiddens, and cell states for the LSTM, and
+    the final states out), against the hidden product's and gates'
+    FLOPs."""
     bytes_moved = itemsize * (
-        batch * steps * 3 * hidden      # xp in
-        + batch * steps * hidden        # hs out
-        + 2 * batch * hidden            # h0 in, h_last out
-        + 3 * hidden * hidden + 3 * hidden)  # W_hh, b_hh in
+        batch * steps * gates * hidden          # xp in
+        + states * batch * steps * hidden       # hs (and cs) out
+        + 2 * states * batch * hidden           # initial in, final out
+        + gates * hidden * hidden + gates * hidden)  # W_hh, b_hh in
     bytes_moved += batch * steps if masked else 0
-    # 2*3H*H per (row, step) for h . W_hh^T, ~10 per (row, step, unit) for
-    # the gate algebra (a transcendental counted as one)
-    return roofline_ms(bytes_moved, 2 * batch * steps * 3 * hidden * hidden,
-                       10 * batch * steps * hidden, itemsize)
+    # 2*gH*H per (row, step) for h . W_hh^T, `elementwise` per (row, step,
+    # unit) for the gate algebra (a transcendental counted as one)
+    return roofline_ms(bytes_moved,
+                       2 * batch * steps * gates * hidden * hidden,
+                       elementwise * batch * steps * hidden, itemsize)
 
 
-def phase_kernel(gru_kernel, n_features: int):
-    """gru_scan_fwd against gru_scan_reference on the card."""
-    dev = torch.device("cuda")
+def scan_bwd_bound(batch, steps, hidden, itemsize, masked, *, gates=3,
+                   states=1, elementwise=30):
+    """Least time for the backward scan: xp, hs (and cs), dhs, the initial
+    states, W_hh, b_hh (I/O dtype), the final states' cotangents and the
+    mask read once; dxp (I/O dtype), the initial states' gradients, dW_hh
+    and db_hh (float32) written once; against its FLOPs (the gate
+    recompute's, the dh chain's and the dW_hh products, 6·B·T·gH·H in
+    all, and `elementwise` per (row, step, unit) of gate and cotangent
+    algebra)."""
+    bt = batch * steps
+    bytes_moved = itemsize * (
+        bt * (gates * hidden + states * hidden + hidden + gates * hidden)
+        + states * batch * hidden + gates * hidden * hidden + gates * hidden)
+    bytes_moved += 4 * (2 * states * batch * hidden + gates * hidden * hidden
+                        + gates * hidden)
+    bytes_moved += bt if masked else 0
+    return roofline_ms(bytes_moved, 6 * gates * hidden * hidden * bt,
+                       elementwise * bt * hidden, itemsize)
+
+
+def scan_case_inputs(scan: Scan, c, gen, dev):
+    """The forward's inputs of one case: (xp, *initial states, W_hh, b_hh)
+    and the mask, uniform from ``gen``."""
+    b, t, h, dtype = c["batch"], c["steps"], c["hidden"], c["dtype"]
+    scale = 1.0 / math.sqrt(h)
+
+    def rand(*shape, s=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * s).to(dtype)
+
+    gh = scan.gates * h
+    xp = rand(b, t, gh, s=2.0)
+    states = [rand(b, h, s=0.5) if c["h0"] else
+              torch.zeros(b, h, dtype=dtype, device=dev)
+              for _ in range(scan.states)]
+    w, bias = rand(gh, h, s=scale), rand(gh, s=scale)
+    mask = None
+    if c["masked"]:  # ragged valid lengths 1..T
+        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+        mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    return (xp, *states, w, bias), mask, rand
+
+
+def library_layer(scan: Scan, c, n_features, gen, dev, *, grad=False):
+    """cuDNN's layer of the same family and width, and a (B, T, F) input:
+    the yardstick, input projection included."""
+    lib = scan.library(n_features, c["hidden"], batch_first=True).to(
+        dev, c["dtype"])
+    # one contiguous weight buffer, as cuDNN wants: without it every call
+    # first compacts the weights (`to` does not flatten them)
+    lib.flatten_parameters()
+    x = torch.rand((c["batch"], c["steps"], n_features), generator=gen,
+                   device=dev).to(c["dtype"])
+    return lib, x.requires_grad_(grad)
+
+
+def fwd_cases(scan: Scan):
+    cases = [dict(batch=b, steps=t, hidden=h, dtype=dtype, reverse=reverse,
+                  masked=False, h0=False)
+             for b, t, h in ((1, 30, 32), (BATCH, 30, 32), (BATCH, 30, 128))
+             for dtype in (torch.float32, torch.bfloat16)
+             for reverse in (False, True)]
+    base = dict(batch=BATCH, steps=30, hidden=32, dtype=torch.float32)
+    if scan.name == "gru":
+        return cases + [dict(base, reverse=True, masked=True, h0=False),
+                        dict(base, reverse=False, masked=False, h0=True)]
+    # the LSTM's masked rows with nonzero h0 and c0, in both of its
+    # shared-memory branches (H = 32 f32, 128 bf16) and its device-memory
+    # one (H = 128 f32)
+    return cases + [dict(base, reverse=False, masked=True, h0=True),
+                    dict(base, reverse=True, masked=True, h0=True),
+                    dict(base, hidden=128, reverse=True, masked=True,
+                         h0=True),
+                    dict(base, hidden=128, dtype=torch.bfloat16,
+                         reverse=False, masked=True, h0=True)]
+
+
+def phase_kernel(scan: Scan, n_features: int, device: str = "cuda"):
+    """<name>_scan_fwd against <name>_scan_reference on the card, every
+    output compared."""
+    dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    cases = []
-    for batch, steps, hidden in ((1, 30, 32), (256, 30, 32), (256, 30, 128)):
-        for dtype in (torch.float32, torch.bfloat16):
-            for reverse in (False, True):
-                cases.append(dict(batch=batch, steps=steps, hidden=hidden,
-                                  dtype=dtype, reverse=reverse,
-                                  masked=False, h0=False))
-    cases.append(dict(batch=256, steps=30, hidden=32, dtype=torch.float32,
-                      reverse=True, masked=True, h0=False))
-    cases.append(dict(batch=256, steps=30, hidden=32, dtype=torch.float32,
-                      reverse=False, masked=False, h0=True))
+    fwd, ref = scan.fn("fwd"), getattr(scan.module,
+                                       f"{scan.name}_scan_reference")
     results = []
-    for c in cases:
+    for c in fwd_cases(scan):
         b, t, h, dtype = c["batch"], c["steps"], c["hidden"], c["dtype"]
-        scale = 1.0 / math.sqrt(h)
-
-        def rand(*shape, s=1.0):
-            return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
-                    * s).to(dtype)
-
-        xp = rand(b, t, 3 * h, s=2.0)
-        h0 = rand(b, h, s=0.5) if c["h0"] else torch.zeros(b, h, dtype=dtype,
-                                                           device=dev)
-        w, bias = rand(3 * h, h, s=scale), rand(3 * h, s=scale)
-        mask = None
-        if c["masked"]:  # ragged valid lengths 1..T
-            lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
-            mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
-        args = (xp, h0, w, bias)
+        args, mask, _ = scan_case_inputs(scan, c, gen, dev)
         kw = dict(reverse=c["reverse"], mask=mask)
         with torch.inference_mode():
-            k_last, k_hs = gru_kernel.gru_scan_fwd(*args, **kw)
-            r_last, r_hs = gru_kernel.gru_scan_reference(*args, **kw)
+            got, want = fwd(*args, **kw), ref(*args, **kw)
             torch.cuda.synchronize()
-            err = max((k_hs.float() - r_hs.float()).abs().max().item(),
-                      (k_last.float() - r_last.float()).abs().max().item())
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
             tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-            finite = bool(torch.isfinite(k_hs.float()).all())
-            ms = time_ms(lambda: gru_kernel.gru_scan_fwd(*args, **kw),
-                         prime=True)
-            call_ms = time_ms(lambda: gru_kernel.gru_scan_fwd(*args, **kw),
-                              prime=False)
-            plain_ms = time_ms(
-                lambda: gru_kernel.gru_scan_reference(*args, **kw),
-                prime=True)
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            ms = time_ms(lambda: fwd(*args, **kw), prime=True)
+            call_ms = time_ms(lambda: fwd(*args, **kw), prime=False)
+            plain_ms = time_ms(lambda: ref(*args, **kw), prime=True)
             library_ms = None
             if not (c["reverse"] or c["masked"] or c["h0"]):
-                # yardstick only, never called by the port: cuDNN's GRU on
-                # the same layer, input projection included
-                lib = torch.nn.GRU(n_features, h, batch_first=True).to(
-                    dev, dtype)
-                x = torch.rand((b, t, n_features), generator=gen,
-                               device=dev).to(dtype)
-                library_ms = time_ms(lambda: lib(x), prime=True)
-        bound_ms, bound_by = scan_bound(b, t, h, xp.element_size(),
-                                        c["masked"])
+                lib, x = library_layer(scan, c, n_features, gen, dev)
+                library_ms = time_ms(lambda: lib(x), prime=True,
+                                     prime_cycles=LIBRARY_PRIME_CYCLES)
+        bound_ms, bound_by = scan_bound(
+            b, t, h, args[0].element_size(), c["masked"], gates=scan.gates,
+            states=scan.states, elementwise=scan.fwd_ops)
         row = dict(batch=b, steps=t, hidden=h,
                    dtype=str(dtype).replace("torch.", ""),
                    reverse=c["reverse"], masked=c["masked"],
@@ -209,36 +311,25 @@ def phase_kernel(gru_kernel, n_features: int):
                    ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
-        emit("kernel gru_scan_fwd", **row)
+        emit(f"kernel {scan.name}_scan_fwd", **row)
         check(finite, f"non-finite kernel output in {row}")
         check(err <= tol, f"kernel disagrees with its plain version: {row}")
         results.append(row)
     return results
 
 
-def scan_bwd_bound(batch, steps, hidden, itemsize, masked):
-    """Least time for the backward scan: xp, hs, dhs, h0, W_hh, b_hh (I/O
-    dtype), dh_last and the mask read once; dxp (I/O dtype), dh0, dW_hh
-    and db_hh (float32) written once; against its FLOPs (the gate
-    recompute's, the dh chain's and the dW_hh products, 6·B·T·3H·H in
-    all, and ~30 per (row, step, unit) of gate and cotangent algebra)."""
-    bt = batch * steps
-    bytes_moved = itemsize * (bt * (3 * hidden + hidden + hidden + 3 * hidden)
-                              + batch * hidden + 3 * hidden * hidden
-                              + 3 * hidden)
-    bytes_moved += 4 * (2 * batch * hidden + 3 * hidden * hidden + 3 * hidden)
-    bytes_moved += bt if masked else 0
-    return roofline_ms(bytes_moved, 18 * hidden * hidden * bt,
-                       30 * bt * hidden, itemsize)
-
-
-def phase_kernel_bwd(gru_kernel, n_features: int):
-    """gru_scan_bwd against gru_scan_bwd_reference on the card, on the
-    same inputs (hs from the forward kernel).  Cotangents are uniform in
-    +-COT_SCALE, the order of a training loss's gradient; errors are
-    reported absolute and relative to each output's largest entry."""
-    dev = torch.device("cuda")
+def phase_kernel_bwd(scan: Scan, n_features: int, device: str = "cuda"):
+    """<name>_scan_bwd against <name>_scan_bwd_reference on the card, on
+    the same inputs (hs, and cs for the LSTM, from the forward kernel).
+    Cotangents of every output (h_last, c_last for the LSTM, hs) are
+    uniform in +-COT_SCALE, the order of a training loss's gradient;
+    errors are reported absolute and relative to each output's largest
+    entry."""
+    dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    fwd, bwd = scan.fn("fwd"), scan.fn("bwd")
+    ref = getattr(scan.module, f"{scan.name}_scan_bwd_reference")
+    names = ("dxp", "dh0", "dc0")[:1 + scan.states] + ("dw_hh", "db_hh")
     base = dict(batch=BATCH, steps=30, hidden=32, dtype=torch.float32,
                 reverse=False, masked=False, h0=False)
     cases = [dict(base), dict(base, reverse=True),
@@ -247,36 +338,23 @@ def phase_kernel_bwd(gru_kernel, n_features: int):
              dict(base, dtype=torch.bfloat16),
              dict(base, dtype=torch.bfloat16, reverse=True),
              dict(base, batch=1), dict(base, hidden=128)]
+    if scan.name == "lstm":  # W_hh in shared memory at H = 128 in bf16 only
+        cases += [dict(base, hidden=128, dtype=torch.bfloat16),
+                  dict(base, hidden=128, masked=True, h0=True)]
     results = []
     for c in cases:
         b, t, h, dtype = c["batch"], c["steps"], c["hidden"], c["dtype"]
-        scale = 1.0 / math.sqrt(h)
-
-        def rand(*shape, s=1.0, dt=dtype):
-            return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
-                    * s).to(dt)
-
-        xp = rand(b, t, 3 * h, s=2.0)
-        h0 = rand(b, h, s=0.5) if c["h0"] else torch.zeros(
-            b, h, dtype=dtype, device=dev)
-        w, bias = rand(3 * h, h, s=scale), rand(3 * h, s=scale)
-        mask = None
-        if c["masked"]:
-            lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
-            mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
-        dh_last = rand(b, h, s=COT_SCALE)
+        args, mask, rand = scan_case_inputs(scan, c, gen, dev)
+        d_lasts = [rand(b, h, s=COT_SCALE) for _ in range(scan.states)]
         dhs = rand(b, t, h, s=COT_SCALE)
+        kw = dict(reverse=c["reverse"], mask=mask)
         with torch.inference_mode():
-            _, hs = gru_kernel.gru_scan_fwd(xp, h0, w, bias,
-                                            reverse=c["reverse"], mask=mask)
-            args = (xp, h0, w, bias, hs, dh_last, dhs)
-            kw = dict(reverse=c["reverse"], mask=mask)
-            got = gru_kernel.gru_scan_bwd(*args, **kw)
-            want = gru_kernel.gru_scan_bwd_reference(*args, **kw)
+            seqs = fwd(*args, **kw)[scan.states:]  # hs (, cs)
+            bargs = (*args, *seqs, *d_lasts, dhs)
+            got, want = bwd(*bargs, **kw), ref(*bargs, **kw)
             torch.cuda.synchronize()
             errs, rel = {}, {}
-            for name, g, r in zip(("dxp", "dh0", "dw_hh", "db_hh"), got,
-                                  want):
+            for name, g, r in zip(names, got, want):
                 check(g.shape == r.shape and g.dtype == r.dtype,
                       f"{name}: {g.shape} {g.dtype} against {r.shape} "
                       f"{r.dtype}")
@@ -286,35 +364,41 @@ def phase_kernel_bwd(gru_kernel, n_features: int):
             finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
             err = max(errs.values())
             tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-            ms = time_ms(lambda: gru_kernel.gru_scan_bwd(*args, **kw),
-                         prime=True)
-            call_ms = time_ms(lambda: gru_kernel.gru_scan_bwd(*args, **kw),
-                              prime=False)
-            plain_ms = time_ms(
-                lambda: gru_kernel.gru_scan_bwd_reference(*args, **kw),
-                prime=True)
-        library_ms = None
+            ms = time_ms(lambda: bwd(*bargs, **kw), prime=True)
+            call_ms = time_ms(lambda: bwd(*bargs, **kw), prime=False)
+            plain_ms = time_ms(lambda: ref(*bargs, **kw), prime=True)
+        library_ms = library_fwd_bwd_ms = None
         if not (c["reverse"] or c["masked"] or c["h0"]):
-            # yardstick only, never called by the port: the backward of
-            # cuDNN's GRU on the same layer (input projection included)
-            lib = torch.nn.GRU(n_features, h, batch_first=True).to(dev, dtype)
-            x = torch.rand((b, t, n_features), generator=gen,
-                           device=dev).to(dtype).requires_grad_()
-            out, h_n = lib(x)
-            cot = (torch.rand_like(out), torch.rand_like(h_n))
+            # cuDNN's backward of the same layer (input projection
+            # included), alone and with its forward
+            lib, x = library_layer(scan, c, n_features, gen, dev, grad=True)
             wrt = [x, *lib.parameters()]
+
+            def outputs():
+                out, state = lib(x)
+                return (out, *(state if isinstance(state, tuple)
+                               else (state,)))
+
+            outs = outputs()
+            cot = [torch.rand_like(o) for o in outs]
             library_ms = time_ms(lambda: torch.autograd.grad(
-                (out, h_n), wrt, cot, retain_graph=True), prime=True)
-        bound_ms, bound_by = scan_bwd_bound(b, t, h, xp.element_size(),
-                                            c["masked"])
+                outs, wrt, cot, retain_graph=True), prime=True,
+                prime_cycles=LIBRARY_PRIME_CYCLES)
+            library_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                outputs(), wrt, cot), prime=True,
+                prime_cycles=LIBRARY_PRIME_CYCLES)
+        bound_ms, bound_by = scan_bwd_bound(
+            b, t, h, args[0].element_size(), c["masked"], gates=scan.gates,
+            states=scan.states, elementwise=scan.bwd_ops)
         row = dict(batch=b, steps=t, hidden=h,
                    dtype=str(dtype).replace("torch.", ""),
                    reverse=c["reverse"], masked=c["masked"],
                    nonzero_h0=c["h0"], max_abs_err=err, errs=errs,
                    rel_errs=rel, tol=tol, ms=ms, call_ms=call_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
+                   library_fwd_bwd_ms=library_fwd_bwd_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
-        emit("kernel gru_scan_bwd", **row)
+        emit(f"kernel {scan.name}_scan_bwd", **row)
         check(finite, f"non-finite backward kernel output in {row}")
         check(err <= tol,
               f"backward kernel disagrees with its plain version: {row}")
@@ -428,9 +512,38 @@ def make_warehouse(directory: str):
     return wh
 
 
-def phase_path(gru_kernel, wh, directory: str, device: str = "cuda"):
-    """The serving slice at full width, on the card and again on the CPU.
-    Returns the forward launches of the path."""
+def kernel_modules():
+    from fmda_tpu_torch.ops import gru_kernel, lstm_kernel
+
+    return (gru_kernel, lstm_kernel)
+
+
+def start_path() -> None:
+    """A path starts: every kernel's launch count to 0."""
+    for m in kernel_modules():
+        m.launches = m.bwd_launches = 0
+
+
+def check_other_families_idle(kernels, what: str) -> None:
+    others = {m.__name__: (m.launches, m.bwd_launches)
+              for m in kernel_modules() if m is not kernels}
+    check(all(n == (0, 0) for n in others.values()),
+          f"{what} launched another family's kernels: {others}")
+
+
+def model_config(cell: str, **fields):
+    """``FrameworkConfig().model`` (full width) with ``cell`` and
+    ``fields``."""
+    from fmda_tpu_torch.config import FrameworkConfig
+
+    return dataclasses.replace(FrameworkConfig().model, cell=cell, **fields)
+
+
+def phase_path(kernels, wh, directory: str, device: str = "cuda",
+               cell: str = "gru"):
+    """The serving slice at full width, on the card and again on the CPU,
+    for one cell family, whose kernel module is ``kernels``.  Returns the
+    forward launches of the path."""
     from fmda_tpu_torch.config import (
         DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP,
         TOPIC_PREDICTION)
@@ -442,7 +555,8 @@ def phase_path(gru_kernel, wh, directory: str, device: str = "cuda"):
     from fmda_tpu_torch.train.checkpoint import save_checkpoint
 
     cfg = FrameworkConfig()
-    fc, model_cfg, window = cfg.features, cfg.model, cfg.train.window
+    fc, window = cfg.features, cfg.train.window
+    model_cfg = model_config(cell)
     threshold = cfg.train.prob_threshold
     t0 = time.perf_counter()
     n = len(wh)
@@ -453,7 +567,7 @@ def phase_path(gru_kernel, wh, directory: str, device: str = "cuda"):
         model_cfg, generator=torch.Generator().manual_seed(SEED))
     ckpt = save_checkpoint(f"{directory}/ckpt", model.state_dict(), norm)
     setup_s = time.perf_counter() - t0
-    emit("path setup", rows=n, features=len(wh.x_fields),
+    emit("path setup", cell=cell, rows=n, features=len(wh.x_fields),
          model=str(model_cfg), window=window, seconds=setup_s)
 
     def run_backtest(device, **kw):
@@ -481,22 +595,23 @@ def phase_path(gru_kernel, wh, directory: str, device: str = "cuda"):
     run_backtest(device, ids=(window, window + BATCH))
     torch.cuda.synchronize()
 
-    gru_kernel.launches = gru_kernel.bwd_launches = 0  # the path starts
+    start_path()
     t0 = time.perf_counter()
     gpu_bt = run_backtest(device)
     torch.cuda.synchronize()
     bt_s = time.perf_counter() - t0
-    bt_launches = gru_kernel.launches
+    bt_launches = kernels.launches
     gpu_preds, lat_ms, published, errors = serve(device)
-    path_launches = gru_kernel.launches
-    serve_bwd_launches = gru_kernel.bwd_launches  # the path ends here
+    path_launches = kernels.launches
+    serve_bwd_launches = kernels.bwd_launches  # the path ends here
     pred_launches = path_launches - bt_launches
     check(serve_bwd_launches == 0,
           f"serving launched the backward kernel {serve_bwd_launches} times")
+    check_other_families_idle(kernels, f"{cell} serving")
 
     served = len(gpu_bt.probabilities)
     m = gpu_bt.metrics
-    emit("path backtest", rows=served, batch=BATCH,
+    emit("path backtest", cell=cell, rows=served, batch=BATCH,
          batches=math.ceil(served / BATCH), seconds=bt_s,
          rows_per_s=served / bt_s, launches=bt_launches,
          accuracy=float(m.accuracy), hamming=float(m.hamming),
@@ -508,7 +623,7 @@ def phase_path(gru_kernel, wh, directory: str, device: str = "cuda"):
           f"expected {2 * math.ceil(served / BATCH)}")
     check(bool(torch.isfinite(torch.from_numpy(gpu_bt.probabilities))
                .all()), "non-finite backtest probabilities")
-    emit("path predictor", signals=SIGNALS, served=len(gpu_preds),
+    emit("path predictor", cell=cell, signals=SIGNALS, served=len(gpu_preds),
          published=published, serve_errors=errors,
          launches=pred_launches, p50_ms=statistics.median(lat_ms),
          p99_ms=sorted(lat_ms)[math.ceil(0.99 * len(lat_ms)) - 1],
@@ -519,10 +634,10 @@ def phase_path(gru_kernel, wh, directory: str, device: str = "cuda"):
     check(pred_launches == 2 * SIGNALS,
           f"predictor launched the scan kernel {pred_launches} times, "
           f"expected {2 * SIGNALS}")
-    emit("path breakdown", **breakdown(wh, ckpt, model_cfg, window,
+    emit("path breakdown", cell=cell, **breakdown(wh, ckpt, model_cfg, window,
                                        norm, stamps, device))
     if torch.device(device).type == "cuda":
-        emit("path device share", backtest=device_share(
+        emit("path device share", cell=cell, backtest=device_share(
             lambda: run_backtest(device)), predictor=device_share(
             lambda: serve(device)))
 
@@ -536,7 +651,7 @@ def phase_path(gru_kernel, wh, directory: str, device: str = "cuda"):
                    == [p.labels for p in cpu_preds])
     same_metrics = all(
         (a == b).all() for a, b in zip(gpu_bt.metrics, cpu_bt.metrics))
-    emit("path vs cpu", backtest_max_abs_err=bt_err,
+    emit("path vs cpu", cell=cell, backtest_max_abs_err=bt_err,
          predictor_max_abs_err=pr_err, labels_equal=same_labels,
          backtest_metrics_equal=bool(same_metrics), tol=PATH_TOL)
     check(bt_err <= PATH_TOL and pr_err <= PATH_TOL,
@@ -618,10 +733,12 @@ def train_breakdown(trainer, state, dataset, train_chunks, device):
     return out
 
 
-def phase_train(gru_kernel, wh, directory: str, device: str = "cuda"):
-    """The training path at full width: Trainer.fit for one epoch, then
-    the trained checkpoint backtested on the card.  Returns (forward
-    launches, backward launches, train steps, dataset, weights)."""
+def phase_train(kernels, wh, directory: str, device: str = "cuda",
+                cell: str = "gru"):
+    """The training path at full width for one cell family, whose kernel
+    module is ``kernels``: Trainer.fit for one epoch, then the trained
+    checkpoint backtested on the card.  Returns (forward launches,
+    backward launches, train steps, dataset, weights)."""
     from fmda_tpu_torch.config import FrameworkConfig, TrainConfig
     from fmda_tpu_torch.data.pipeline import ChunkDataset, WindowBatches
     from fmda_tpu_torch.serve import backtest_from_checkpoint
@@ -629,7 +746,8 @@ def phase_train(gru_kernel, wh, directory: str, device: str = "cuda"):
         Trainer, imbalance_weights_from_source, save_checkpoint)
 
     cfg = FrameworkConfig()
-    fc, model_cfg, window = cfg.features, cfg.model, cfg.train.window
+    fc, window = cfg.features, cfg.train.window
+    model_cfg = model_config(cell)
     train_cfg = TrainConfig(batch_size=BATCH, chunk_size=TRAIN_CHUNK,
                             epochs=1)
     t0 = time.perf_counter()
@@ -645,7 +763,7 @@ def phase_train(gru_kernel, wh, directory: str, device: str = "cuda"):
     n_val = sum(len(WindowBatches(dataset, i, BATCH)) for i in val_chunks)
     n_windows = sum(len(dataset.windows(i)[0]) for i in train_chunks)
     setup_s = time.perf_counter() - t0
-    emit("train setup", model=str(model_cfg), train=str(train_cfg),
+    emit("train setup", cell=cell, model=str(model_cfg), train=str(train_cfg),
          chunks=len(dataset), train_chunks=len(train_chunks),
          val_chunks=len(val_chunks), train_steps=n_train,
          val_batches=n_val, train_windows=n_windows, seconds=setup_s)
@@ -657,14 +775,15 @@ def phase_train(gru_kernel, wh, directory: str, device: str = "cuda"):
         trainer.train_step(warm, trainer.place(b))
     torch.cuda.synchronize()
 
-    gru_kernel.launches = gru_kernel.bwd_launches = 0  # the path starts
+    start_path()
     t0 = time.perf_counter()
     state, history, _ = trainer.fit(wh, dataset=dataset)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    fwd, bwd = gru_kernel.launches, gru_kernel.bwd_launches  # path ends
+    fwd, bwd = kernels.launches, kernels.bwd_launches  # the path ends here
+    check_other_families_idle(kernels, f"{cell} training")
     tr, va = history["train"][-1], history["val"][-1]
-    emit("train fit", epochs=len(history["train"]), steps=state.step,
+    emit("train fit", cell=cell, epochs=len(history["train"]), steps=state.step,
          seconds=fit_s, samples_per_s=n_windows / fit_s,
          launches=fwd, bwd_launches=bwd,
          train_loss=tr.loss, train_accuracy=tr.accuracy,
@@ -686,14 +805,14 @@ def phase_train(gru_kernel, wh, directory: str, device: str = "cuda"):
     state, _, _ = trainer.fit(wh, dataset=dataset, initial_state=state)
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t0
-    emit("train replay epoch", seconds=replay_s,
+    emit("train replay epoch", cell=cell, seconds=replay_s,
          ms_per_batch=replay_s * 1e3 / (n_train + n_val),
          samples_per_s=n_windows / replay_s)
     if torch.device(device).type == "cuda":
-        emit("train device share", batches=n_train + n_val,
+        emit("train device share", cell=cell, batches=n_train + n_val,
              epoch=device_share(lambda: trainer.fit(
                  wh, dataset=dataset, initial_state=state)))
-    emit("train breakdown", **train_breakdown(trainer, state, dataset,
+    emit("train breakdown", cell=cell, **train_breakdown(trainer, state, dataset,
                                               train_chunks, device))
 
     # train, then serve: the checkpoint backtested on the card, and a
@@ -713,7 +832,7 @@ def phase_train(gru_kernel, wh, directory: str, device: str = "cuda"):
                                       batch_size=BATCH, ids=ids,
                                       device="cpu")
     err = float(abs(on_card.probabilities - on_cpu.probabilities).max())
-    emit("train backtest", checkpoint=os.path.basename(ckpt),
+    emit("train backtest", cell=cell, checkpoint=os.path.basename(ckpt),
          rows=len(bt.probabilities), seconds=bt_s,
          accuracy=float(bt.metrics.accuracy),
          hamming=float(bt.metrics.hamming), cpu_rows=len(on_cpu.probabilities),
@@ -727,15 +846,16 @@ def phase_train(gru_kernel, wh, directory: str, device: str = "cuda"):
     return fwd, bwd, n_train, dataset, weights
 
 
-def phase_train_vs_cpu(dataset, weights, device: str = "cuda"):
+def phase_train_vs_cpu(dataset, weights, device: str = "cuda",
+                       cell: str = "gru"):
     """The first TRAIN_VS_CPU_STEPS steps at dropout 0 from the same
     initial weights, on the card and on the CPU: per-step losses and the
     final params compared."""
-    from fmda_tpu_torch.config import FrameworkConfig, TrainConfig
+    from fmda_tpu_torch.config import TrainConfig
     from fmda_tpu_torch.data.pipeline import WindowBatches
     from fmda_tpu_torch.train import Trainer
 
-    model_cfg = dataclasses.replace(FrameworkConfig().model, dropout=0.0)
+    model_cfg = model_config(cell, dropout=0.0)
     train_cfg = TrainConfig(batch_size=BATCH, chunk_size=TRAIN_CHUNK)
     train_chunks, _, _ = dataset.split(train_cfg.val_size,
                                        train_cfg.test_size)
@@ -759,7 +879,7 @@ def phase_train_vs_cpu(dataset, weights, device: str = "cuda"):
     moved = max(float((g_par[k] - v).abs().max()) for k, v in
                 Trainer(model_cfg, train_cfg, device="cpu").init_state()
                 .model.state_dict().items())
-    emit("train vs cpu", steps=len(host), loss_max_abs_err=loss_err,
+    emit("train vs cpu", cell=cell, steps=len(host), loss_max_abs_err=loss_err,
          param_max_abs_err=param_err, params_moved=moved,
          first_loss=g_loss[0], last_loss=g_loss[-1], card_seconds=g_s,
          cpu_seconds=c_s, tol=TRAIN_TOL)
@@ -768,7 +888,7 @@ def phase_train_vs_cpu(dataset, weights, device: str = "cuda"):
           "training on the card and on the CPU disagree")
 
 
-def kernel_entry(name, replaces, rows, launches, by_path):
+def kernel_entry(name, replaces, source, rows, launches, by_path):
     """One kernel's entry of the summary line, at the main shape
     (256, 30, 32) float32, forward direction."""
     main_shape = next(r for r in rows if r["batch"] == BATCH
@@ -778,7 +898,7 @@ def kernel_entry(name, replaces, rows, launches, by_path):
     return {
         "name": name,
         "route": "cuda",
-        "source": "fmda_tpu_torch/csrc/gru_scan.cu",
+        "source": source,
         "replaces": replaces,
         "launches": launches,
         "launches_by_path": by_path,
@@ -793,13 +913,49 @@ def kernel_entry(name, replaces, rows, launches, by_path):
     }
 
 
+def ptxas_summary(log: str) -> dict:
+    """ptxas's report per kernel instance, as ``{"<source>:<kernel><dtype,
+    flags>": "<registers> regs, <bytes> B spilled"}``, and the largest
+    spill in bytes."""
+    kernels, name = {}, None
+    for ln in log.splitlines():
+        entry = re.search(r"entry function '([^']+)'", ln)
+        if entry:
+            mangled = entry.group(1)
+            src = re.search(r"_\d+_(\w+?)_cu_", mangled)
+            # the name follows its length; template arguments follow "I"
+            kern = re.search(r"(?<=\d)((?:[a-z]+_)+kernel)(?:I(f|13__nv_"
+                             r"bfloat16)((?:Lb[01]E)*))?", mangled)
+            name = mangled[:60]
+            if src and kern:
+                args = "bf16" if kern.group(2) == "13__nv_bfloat16" else (
+                    "f32" if kern.group(2) else "")
+                flags = "".join(re.findall(r"Lb([01])E", kern.group(3) or ""))
+                name = (f"{src.group(1)}:{kern.group(1)}"
+                        + (f"<{args},{flags}>" if args else ""))
+            kernels[name] = {}
+        elif name is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", ln)
+            regs = re.search(r"Used (\d+) registers", ln)
+            if spill:
+                kernels[name]["spill"] = int(spill.group(1)) + int(
+                    spill.group(2))
+            if regs:
+                kernels[name]["regs"] = int(regs.group(1))
+    summary = {k: f"{v.get('regs')} regs, {v.get('spill', 0)} B spilled"
+               for k, v in kernels.items()}
+    return dict(ptxas=summary, max_spill_bytes=max(
+        (v.get("spill", 0) for v in kernels.values()), default=0))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script measures the "
               "card and has nothing to do without one", file=sys.stderr)
         return 2
     from fmda_tpu_torch.config import FrameworkConfig
-    from fmda_tpu_torch.ops import gru_kernel
+    from fmda_tpu_torch.ops import _cuda_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -808,33 +964,44 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, tf32="off (matmul and cudnn)")
 
+    scans = scan_specs()
     t0 = time.perf_counter()
-    lib = gru_kernel.build()
-    ptxas = [ln.strip() for ln in str(gru_kernel.build_info.get("log", ""))
-             .splitlines() if "registers" in ln or "spill" in ln]
-    emit("build", kernels=["gru_scan_fwd", "gru_scan_bwd"], library=str(lib),
-         nvcc_seconds=gru_kernel.build_info.get("seconds"),
-         seconds=time.perf_counter() - t0, target="sm_90a", ptxas=ptxas)
+    lib = _cuda_lib.build()
+    emit("build", kernels=[f"{s.name}_scan_{k}" for s in scans
+                           for k in ("fwd", "bwd")],
+         sources=[str(p.name) for p in _cuda_lib.SOURCES], library=str(lib),
+         nvcc_seconds=_cuda_lib.build_info.get("seconds"),
+         seconds=time.perf_counter() - t0, target="sm_90a",
+         **ptxas_summary(str(_cuda_lib.build_info.get("log", ""))))
 
     n_features = FrameworkConfig().model.n_features
-    fwd_rows = phase_kernel(gru_kernel, n_features)
-    bwd_rows = phase_kernel_bwd(gru_kernel, n_features)
-    gru_kernel.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=gru_kernel.BUILD_ROOT) as tmp:
+    rows = {s.name: (phase_kernel(s, n_features),
+                     phase_kernel_bwd(s, n_features)) for s in scans}
+    launches = {}
+    _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
         wh = make_warehouse(tmp)
-        serve_fwd = phase_path(gru_kernel, wh, tmp)
-        train_fwd, train_bwd, _, dataset, weights = phase_train(
-            gru_kernel, wh, tmp)
-        phase_train_vs_cpu(dataset, weights)
+        for s in scans:
+            serve_fwd = phase_path(s.module, wh, tmp, cell=s.name)
+            train_fwd, train_bwd, _, dataset, weights = phase_train(
+                s.module, wh, tmp, cell=s.name)
+            phase_train_vs_cpu(dataset, weights, cell=s.name)
+            launches[s.name] = (serve_fwd, train_fwd, train_bwd)
         wh.close()
 
-    print(json.dumps({"kernels": [
-        kernel_entry("gru_scan_fwd", "fmda_tpu/ops/pallas_gru.py:147",
-                     fwd_rows, serve_fwd + train_fwd,
-                     {"serve": serve_fwd, "train": train_fwd}),
-        kernel_entry("gru_scan_bwd", "fmda_tpu/ops/pallas_gru.py:252",
-                     bwd_rows, train_bwd, {"serve": 0, "train": train_bwd}),
-    ]}), flush=True)
+    entries = []
+    for s in scans:
+        serve_fwd, train_fwd, train_bwd = launches[s.name]
+        fwd_rows, bwd_rows = rows[s.name]
+        entries += [
+            kernel_entry(f"{s.name}_scan_fwd", s.replaces[0], s.source,
+                         fwd_rows, serve_fwd + train_fwd,
+                         {"serve": serve_fwd, "train": train_fwd}),
+            kernel_entry(f"{s.name}_scan_bwd", s.replaces[1], s.source,
+                         bwd_rows, train_bwd,
+                         {"serve": 0, "train": train_bwd}),
+        ]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

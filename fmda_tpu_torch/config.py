@@ -218,10 +218,15 @@ class FeatureConfig:
         return len(self.x_fields())
 
 
+#: The ``ModelConfig.cell`` values the port runs.
+PORTED_CELLS = ("gru", "lstm")
+
+
 @dataclass(frozen=True)
 class ModelConfig:
-    """BiGRU hyperparameters.  ``n_features=None`` means "derive from the
-    feature schema" (resolved by :class:`FrameworkConfig`)."""
+    """Recurrent classifier hyperparameters.  ``n_features=None`` means
+    "derive from the feature schema" (resolved by
+    :class:`FrameworkConfig`)."""
 
     hidden_size: int = 32
     n_features: Optional[int] = None
@@ -230,16 +235,18 @@ class ModelConfig:
     dropout: float = 0.5
     spatial_dropout: bool = True
     bidirectional: bool = True
-    #: Only "gru" is ported; the other families are queued in ROADMAP.md.
+    #: Sequence-core family: "gru" (the reference's model) or "lstm" (the
+    #: same head over an LSTM core).  "ssm" and "attn" are not ported yet;
+    #: they are queued in ROADMAP.md.
     cell: str = "gru"
-    #: Compute dtype for the GRU and head; params stay float32.
+    #: Compute dtype for the recurrent core and head; params stay float32.
     dtype: str = "float32"
 
     def __post_init__(self) -> None:
-        if self.cell != "gru":
+        if self.cell not in PORTED_CELLS:
             raise NotImplementedError(
                 f"cell={self.cell!r} is not ported to fmda_tpu_torch yet "
-                "(only 'gru'); see ROADMAP.md, queue 1")
+                f"(only {', '.join(PORTED_CELLS)}); see ROADMAP.md, queue 1")
 
 
 @dataclass(frozen=True)

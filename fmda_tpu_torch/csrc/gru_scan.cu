@@ -1,5 +1,6 @@
 // GRU forward and backward scans for NVIDIA Hopper (sm_90a), bound to
-// PyTorch via ctypes by fmda_tpu_torch/ops/gru_kernel.py.
+// PyTorch via ctypes by fmda_tpu_torch/ops/gru_kernel.py (the library is
+// built by fmda_tpu_torch/ops/_cuda_lib.py).
 //
 // ---- forward ----------------------------------------------------------------
 // Replaces: fmda_tpu/ops/pallas_gru.py::_gru_step_kernel, the Pallas TPU
@@ -78,40 +79,15 @@
 //     step costs two barriers, and the next step's xp, dhs and h_prev are
 //     loaded before the current step's products.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_common.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kTileThreads = 256;
 // W_hh^T stays in shared memory while it and the carry fit under this.
 constexpr size_t kMaxSmemBytes = 200 * 1024;
 // The backward's shared-memory budget: under the 227 KB a block may use.
 constexpr size_t kMaxBwdSmemBytes = 225 * 1024;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // blockDim.x == rows * H: thread (r, j) owns hidden unit j of batch row
 // blockIdx.x * rows + r.  Shared memory: the carry [2][rows][H] in f32
@@ -215,27 +191,6 @@ __global__ void __launch_bounds__(kMaxThreads) gru_scan_fwd_kernel(
   if (live) h_last[(long long)b * H + j] = from_f32<T>(h);
 }
 
-int sm_count(int device) {
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess ||
-      n <= 0)
-    n = 132;
-  return n;
-}
-
-// Batch rows per block, shared by both scans: at most kTileThreads / H, and
-// few enough that the grid covers the SMs before a block takes more than one
-// row.
-int tile_rows(int B, int H, int device) {
-  const int max_rows = H >= kTileThreads ? 1 : kTileThreads / H;
-  const int sms = sm_count(device);
-  int rows = (B + sms - 1) / sms;
-  if (rows > max_rows) rows = max_rows;
-  if (rows < 1) rows = 1;
-  return rows;
-}
-
 template <typename T>
 int launch(const void* xp, long long sxb, long long sxt, const void* h0,
            const void* w_hh, const void* b_hh, const void* mask, void* hs,
@@ -261,12 +216,8 @@ int launch(const void* xp, long long sxb, long long sxt, const void* h0,
   T* out = static_cast<T*>(hs);
   T* last = static_cast<T*>(h_last);
   if (w_smem) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(gru_scan_fwd_kernel<T, true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
+    err = allow_smem(gru_scan_fwd_kernel<T, true>, smem);
+    if (err != cudaSuccess) return (int)err;
     gru_scan_fwd_kernel<T, true><<<grid, block, smem, s>>>(
         x, sxb, sxt, h, w, bb, m, out, last, B, n_steps, H, rows, reverse);
   } else {
@@ -437,17 +388,6 @@ __global__ void __launch_bounds__(kMaxThreads) gru_scan_bwd_kernel(
   }
 }
 
-// out[e] = sum over blocks of partials[block][e], in block order.
-__global__ void gru_bwd_reduce_kernel(const float* __restrict__ partials,
-                                      int n_blocks, int n,
-                                      float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float sum = 0.0f;
-  for (int i = 0; i < n_blocks; ++i) sum += partials[(long long)i * n + e];
-  out[e] = sum;
-}
-
 template <typename T, bool W_SMEM, bool ACC_SMEM>
 cudaError_t launch_bwd_tile(dim3 grid, dim3 block, size_t smem,
                             cudaStream_t s, const T* x, long long sxb,
@@ -457,11 +397,8 @@ cudaError_t launch_bwd_tile(dim3 grid, dim3 block, size_t smem,
                             float* dh0, float* partials, int B, int n_steps,
                             int H, int rows, int reverse) {
   auto kernel = gru_scan_bwd_kernel<T, W_SMEM, ACC_SMEM>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, block, smem, s>>>(x, sxb, sxt, h, w, bb, hs, dhl, dhs, m,
                                    dxp, dh0, partials, B, n_steps, H, rows,
                                    reverse);
@@ -518,10 +455,8 @@ int launch_bwd(const void* xp, long long sxb, long long sxt, const void* h0,
                                            d0, part, B, n_steps, H, rows,
                                            reverse);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  gru_bwd_reduce_kernel<<<(n_acc + threads - 1) / threads, threads, 0, s>>>(
-      part, n_blocks, n_acc, static_cast<float*>(dw_db));
-  return (int)cudaGetLastError();
+  return (int)reduce_partials(part, n_blocks, n_acc,
+                              static_cast<float*>(dw_db), s);
 }
 
 }  // namespace
@@ -582,6 +517,7 @@ extern "C" int fmda_gru_scan_bwd_blocks(int B, int H, int device) {
   return (B + rows - 1) / rows;
 }
 
+// The message of a code any kernel of the library returns.
 extern "C" const char* fmda_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

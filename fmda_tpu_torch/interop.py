@@ -1,8 +1,8 @@
 """Carry weights across from the JAX package, without JAX.
 
-``fmda_tpu``'s BiGRU params are a flax tree whose GRU leaves already use
-``nn.GRU``'s names and layouts (``weight_ih_l0`` is (3H, F), and so on);
-only the head differs: flax's ``Dense`` keeps its kernel as (in, out),
+``fmda_tpu``'s BiGRU and BiLSTM params are flax trees whose recurrent
+leaves already use ``nn.GRU``'s and ``nn.LSTM``'s names and layouts
+(``weight_ih_l0`` is (3H, F) or (4H, F), and so on); only the head differs: flax's ``Dense`` keeps its kernel as (in, out),
 ``nn.Linear`` its weight as (out, in).  The tree arrives as nested dicts
 of numpy arrays (``jax.device_get(params)``), or flattened into an
 ``.npz`` whose keys join the tree's path with ``/``.
@@ -21,8 +21,8 @@ def _params_subtree(tree: Mapping) -> Mapping:
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """A flax BiGRU ``params`` tree (or ``{"params": ...}``) -> the
-    port's ``state_dict``."""
+    """A flax BiGRU or BiLSTM ``params`` tree (or ``{"params": ...}``) ->
+    the port's ``state_dict``, which loads with ``strict=True``."""
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in _params_subtree(tree).items():
         if name == "linear":

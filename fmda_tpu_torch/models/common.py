@@ -1,9 +1,14 @@
-"""Shared pieces of the recurrent model families: input dropout and the
-pool-concat head, as ``fmda_tpu.models.common`` defines them."""
+"""Shared pieces of the recurrent model families: input dropout, the
+pool-concat head (as ``fmda_tpu.models.common`` defines them), and
+:class:`RecurrentClassifier`, the module both families are: the
+parameters under ``nn.GRU``/``nn.LSTM``'s names, their init, the stacked
+optionally-bidirectional layers and the head, with the cell's layer op
+left to the family."""
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -65,3 +70,115 @@ def pool_concat_logits(
     logits = nn.functional.linear(
         concat.to(dtype), head.weight.to(dtype), head.bias.to(dtype))
     return logits.to(torch.float32)
+
+
+def _suffix(layer: int, reverse: bool) -> str:
+    return f"l{layer}" + ("_reverse" if reverse else "")
+
+
+class RecurrentClassifier(nn.Module):
+    """The price-movement classifier around a recurrent cell, weight for
+    weight with ``fmda_tpu``'s ``BiGRU``/``BiLSTM``:
+
+    - optional spatial (feature-channel) input dropout;
+    - stacked, optionally bidirectional layers of the cell, with dropout
+      between layers as ``nn.GRU``/``nn.LSTM`` apply it;
+    - the pool-concat head: the sum of the last layer's final forward and
+      backward hiddens, and max- and mean-pools of the direction-summed
+      outputs, into ``Linear(3H -> n_classes)``.
+
+    A family sets :attr:`n_gates` and :attr:`weights_type` and implements
+    :meth:`layer`.  Parameters are named as torch's recurrent modules name
+    them (``weight_ih_l0``, ``bias_hh_l0_reverse``, ...), with the head
+    under ``linear``.  ``cfg.n_features`` must be resolved."""
+
+    #: Gate blocks stacked in the recurrent weights (3 GRU, 4 LSTM).
+    n_gates: int
+    #: The NamedTuple ``(w_ih, w_hh, b_ih, b_hh)`` the layer op takes.
+    weights_type: type
+
+    def __init__(self, cfg, *,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        if cfg.n_features is None:
+            raise ValueError("ModelConfig.n_features unresolved")
+        self.cfg = cfg
+        self.n_dirs = 2 if cfg.bidirectional else 1
+        h, gh = cfg.hidden_size, self.n_gates * cfg.hidden_size
+        for layer in range(cfg.n_layers):
+            in_dim = cfg.n_features if layer == 0 else h * self.n_dirs
+            for d in range(self.n_dirs):
+                s = _suffix(layer, d == 1)
+                for name, shape in ((f"weight_ih_{s}", (gh, in_dim)),
+                                    (f"weight_hh_{s}", (gh, h)),
+                                    (f"bias_ih_{s}", (gh,)),
+                                    (f"bias_hh_{s}", (gh,))):
+                    self.register_parameter(
+                        name, nn.Parameter(torch.empty(shape)))
+        self.linear = nn.Linear(3 * h, cfg.output_size)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(
+        self, generator: Optional[torch.Generator] = None
+    ) -> None:
+        """torch's default U(-1/sqrt(fan), 1/sqrt(fan)): fan = H for the
+        cell, 3H for the head."""
+        h = self.cfg.hidden_size
+        for name, p in self.named_parameters():
+            scale = 1.0 / math.sqrt(3 * h if name.startswith("linear.") else h)
+            p.uniform_(-scale, scale, generator=generator)
+
+    def direction_weights(self, layer: int, reverse: bool,
+                          dtype: torch.dtype):
+        """One direction's params, cast to the compute dtype."""
+        s = _suffix(layer, reverse)
+        return self.weights_type(*(
+            getattr(self, f"{kind}_{s}").to(dtype)
+            for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
+
+    def layer(self, x: torch.Tensor, weights, *, reverse: bool,
+              mask: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One direction of one layer from zero state: (h_last, hs)."""
+        raise NotImplementedError
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """(B, T, F) windows -> (B, n_classes) float32 logits.
+
+        ``mask`` is an optional (B, T) validity mask for padded windows;
+        ``generator`` feeds the dropout masks in training mode."""
+        cfg = self.cfg
+        seq_len = x.shape[1]
+        compute_dtype = getattr(torch, cfg.dtype)
+        x = dropout(x.to(compute_dtype), cfg.dropout, training=self.training,
+                    generator=generator, spatial=cfg.spatial_dropout)
+
+        layer_input = x
+        for layer in range(cfg.n_layers):
+            outs, finals = [], []
+            for d in range(self.n_dirs):
+                h_last, hs = self.layer(
+                    layer_input,
+                    self.direction_weights(layer, d == 1, compute_dtype),
+                    reverse=d == 1, mask=mask)
+                outs.append(hs)
+                finals.append(h_last)
+            layer_input = torch.cat(outs, dim=-1) if self.n_dirs == 2 else outs[0]
+            # inter-layer dropout (all but the last layer)
+            if layer < cfg.n_layers - 1:
+                layer_input = dropout(layer_input, cfg.dropout,
+                                      training=self.training,
+                                      generator=generator)
+
+        last_hidden = torch.stack(finals).sum(dim=0)  # sum directions (B, H)
+        out_sum = outs[0] + outs[1] if self.n_dirs == 2 else outs[0]
+        return pool_concat_logits(
+            self.linear, last_hidden, out_sum,
+            mask=mask, seq_len=seq_len, compute_dtype=compute_dtype)

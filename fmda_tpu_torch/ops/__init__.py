@@ -1,2 +1,3 @@
-"""Tensor ops of the port: GRU projection and scan (with its CUDA kernels),
-the technical indicators (numpy) and the multi-label metrics."""
+"""Tensor ops of the port: the GRU and LSTM projections and scans (with
+their CUDA kernels), the technical indicators (numpy) and the multi-label
+metrics."""

@@ -14,112 +14,26 @@ their plain versions and the differentiable op that joins them.
   Pallas pair.
 
 On CUDA tensors each wrapper launches its kernel (from
-``csrc/gru_scan.cu``) or raises; on CPU tensors it runs its plain version.
-The kernels are compiled with ``nvcc`` at first use into one shared
-library with a plain C interface, loaded with :mod:`ctypes`, under
-``build/fmda_tpu_torch/<hash of sources and flags>/`` at the repository
-root.  Nothing is built or loaded at import.
+``csrc/gru_scan.cu``, in the library :mod:`fmda_tpu_torch.ops._cuda_lib`
+builds at first use) or raises; on CPU tensors it runs its plain version.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCES: Tuple[Path, ...] = (_PKG_DIR / "csrc" / "gru_scan.cu",)
-BUILD_ROOT = _PKG_DIR.parent / "build" / "fmda_tpu_torch"
-NVCC_FLAGS: Tuple[str, ...] = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from fmda_tpu_torch.ops import _cuda_lib
+# the wrappers' device test, a module global so a rehearsal can stub it
+_on_cpu = _cuda_lib.on_cpu
 
 #: Kernel launches made by :func:`gru_scan_fwd` (CPU calls do not count).
 launches = 0
 #: Kernel launches made by :func:`gru_scan_bwd` (CPU calls do not count).
 bwd_launches = 0
-#: What the last build in this process did: ``path``, ``seconds`` (None
-#: when the library was already built), ``log`` (nvcc/ptxas output).
-build_info: Dict[str, object] = {}
 
-_lib: Optional[ctypes.CDLL] = None
-_SUPPORTED = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAX_HIDDEN = 1024
-
-
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if os.path.exists("/usr/local/cuda/bin/nvcc"):
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the GRU scan kernel is built from "
-        "fmda_tpu_torch/csrc at first use")
-
-
-def library_path(sources: Sequence[Path] = SOURCES) -> Path:
-    """Where the library of ``sources`` lives: keyed by their content and
-    the compiler flags, so an edited source never loads a stale build."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.read_bytes())
-    return BUILD_ROOT / digest.hexdigest()[:16] / "libgru_scan.so"
-
-
-def build() -> Path:
-    """Compile :data:`SOURCES` for sm_90a unless already built; raises on
-    a missing ``nvcc`` or a failed build."""
-    lib = library_path()
-    if lib.exists():
-        build_info.update(path=str(lib), seconds=None, log="")
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {lib.name}:\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
-    build_info.update(path=str(lib), seconds=seconds, log=log)
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for tag in _SUPPORTED.values():
-            fn = getattr(lib, f"fmda_gru_scan_fwd_{tag}")
-            fn.argtypes = [p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, p]
-            fn.restype = i
-            fn = getattr(lib, f"fmda_gru_scan_bwd_{tag}")
-            fn.argtypes = [p, ll, ll, *[p] * 11, i, i, i, i, i, p]
-            fn.restype = i
-        lib.fmda_gru_scan_bwd_blocks.argtypes = [i, i, i]
-        lib.fmda_gru_scan_bwd_blocks.restype = i
-        lib.fmda_cuda_error_string.argtypes = [i]
-        lib.fmda_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 # -- the plain version ---------------------------------------------------------
@@ -276,97 +190,38 @@ def gru_scan_fwd(
     would record a gradient raise rather than get none: train through
     :func:`gru_scan`, or call this under ``torch.inference_mode()``."""
     tensors = [xp, h0, w_hh, b_hh] + ([mask] if mask is not None else [])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "gru_scan_fwd is the raw forward launch and records no "
-            "backward; use gru_scan (differentiable) or call it under "
-            "torch.inference_mode()")
+    _cuda_lib.refuse_recording("gru_scan_fwd", "gru_scan", tensors)
     if _on_cpu("gru_scan_fwd", tensors):
         return gru_scan_reference(xp, h0, w_hh, b_hh, reverse=reverse,
                                   mask=mask)
     return _launch(xp, h0, w_hh, b_hh, reverse=reverse, mask=mask)
 
 
-def _on_cpu(name: str, tensors) -> bool:
-    """True when every tensor is on the CPU, False when all are on one CUDA
-    device; raises on anything else."""
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(
-            f"{name} needs all inputs on one CUDA device or all on the CPU, "
-            f"got {sorted(map(str, devices))}")
-    return False
-
-
 def _check_dtype_and_shapes(name, xp, h0, w_hh, b_hh):
-    """The checks both kernels make: dtype, (B, T, 3H) shapes, layout.
-    Returns (batch, n_steps, hidden, h0, w_hh, b_hh), the last three cast
-    to xp's dtype."""
-    if xp.dtype not in _SUPPORTED:
-        raise TypeError(
-            f"{name} kernel takes float32 or bfloat16, got {xp.dtype}")
-    if xp.dim() != 3 or xp.shape[-1] % 3:
-        raise ValueError(f"xp must be (B, T, 3H), got {tuple(xp.shape)}")
-    batch, n_steps, h3 = xp.shape
-    hidden = h3 // 3
-    if not 0 < hidden <= _MAX_HIDDEN or batch == 0:
-        raise ValueError(
-            f"{name} kernel takes B >= 1 and 1 <= H <= {_MAX_HIDDEN}, "
-            f"got B={batch}, H={hidden}")
-    expect = {"h0": (batch, hidden), "w_hh": (h3, hidden), "b_hh": (h3,)}
-    h0, w_hh, b_hh = (t.to(xp.dtype) for t in (h0, w_hh, b_hh))
-    for label, t in (("h0", h0), ("w_hh", w_hh), ("b_hh", b_hh)):
-        if tuple(t.shape) != expect[label]:
-            raise ValueError(
-                f"{label} must be {expect[label]}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{label} must be contiguous")
-    if xp.stride(-1) != 1:
-        raise ValueError("xp's last dimension must be contiguous")
-    return batch, n_steps, hidden, h0, w_hh, b_hh
-
-
-def _mask_u8(mask, batch, n_steps):
-    if mask is None:
-        return None
-    if tuple(mask.shape) != (batch, n_steps):
-        raise ValueError(
-            f"mask must be (B, T) = {(batch, n_steps)}, got "
-            f"{tuple(mask.shape)}")
-    return (mask != 0).to(torch.uint8).contiguous()
-
-
-def _raise_on(lib, err, name):
-    if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: "
-            f"{lib.fmda_cuda_error_string(err).decode()} ({err})")
-
-
-def _device_index(t: torch.Tensor) -> int:
-    return (t.device.index if t.device.index is not None
-            else torch.cuda.current_device())
+    """The checks both kernels make.  Returns (batch, n_steps, hidden, h0,
+    w_hh, b_hh), the last three cast to xp's dtype."""
+    batch, n_steps, hidden, cast = _cuda_lib.check_scan_inputs(
+        name, xp, 3, _MAX_HIDDEN, h0=h0, w_hh=w_hh, b_hh=b_hh)
+    return batch, n_steps, hidden, cast["h0"], cast["w_hh"], cast["b_hh"]
 
 
 def _launch(xp, h0, w_hh, b_hh, *, reverse, mask):
     global launches
     batch, n_steps, hidden, h0, w_hh, b_hh = _check_dtype_and_shapes(
         "gru_scan_fwd", xp, h0, w_hh, b_hh)
-    mask = _mask_u8(mask, batch, n_steps)
+    mask = _cuda_lib.mask_u8(mask, batch, n_steps)
     hs = torch.empty((batch, n_steps, hidden), dtype=xp.dtype,
                      device=xp.device)
     h_last = torch.empty((batch, hidden), dtype=xp.dtype, device=xp.device)
-    lib = _load()
-    fn = getattr(lib, f"fmda_gru_scan_fwd_{_SUPPORTED[xp.dtype]}")
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    lib = _cuda_lib.load()
+    fn = getattr(lib, f"fmda_gru_scan_fwd_{_cuda_lib.SUPPORTED[xp.dtype]}")
+    stream = _cuda_lib.stream_of(xp)
     err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
              w_hh.data_ptr(), b_hh.data_ptr(),
              None if mask is None else mask.data_ptr(), hs.data_ptr(),
              h_last.data_ptr(), batch, n_steps, hidden, int(bool(reverse)),
-             _device_index(xp), stream)
-    _raise_on(lib, err, "gru_scan_fwd")
+             _cuda_lib.device_index(xp), stream)
+    _cuda_lib.raise_on(lib, err, "gru_scan_fwd")
     launches += 1
     return h_last, hs
 
@@ -404,17 +259,16 @@ def _launch_bwd(xp, h0, w_hh, b_hh, hs, dh_last, dhs, *, reverse, mask):
     out_dtypes = (h0.dtype, w_hh.dtype, b_hh.dtype)
     batch, n_steps, hidden, h0, w_hh, b_hh = _check_dtype_and_shapes(
         "gru_scan_bwd", xp, h0, w_hh, b_hh)
-    for label, t, shape in (("hs", hs, (batch, n_steps, hidden)),
-                            ("dhs", dhs, (batch, n_steps, hidden)),
-                            ("dh_last", dh_last, (batch, hidden))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{label} must be {shape}, got {tuple(t.shape)}")
+    _cuda_lib.check_shapes(
+        {"hs": (batch, n_steps, hidden), "dhs": (batch, n_steps, hidden),
+         "dh_last": (batch, hidden)},
+        {"hs": hs, "dhs": dhs, "dh_last": dh_last})
     hs = hs.to(xp.dtype).contiguous()
     dhs = dhs.to(xp.dtype).contiguous()
     dh_last = dh_last.to(torch.float32).contiguous()
-    mask = _mask_u8(mask, batch, n_steps)
-    lib = _load()
-    device = _device_index(xp)
+    mask = _cuda_lib.mask_u8(mask, batch, n_steps)
+    lib = _cuda_lib.load()
+    device = _cuda_lib.device_index(xp)
     n_blocks = lib.fmda_gru_scan_bwd_blocks(batch, hidden, device)
     n_acc = 3 * hidden * hidden + 3 * hidden
     f32 = dict(dtype=torch.float32, device=xp.device)
@@ -423,15 +277,15 @@ def _launch_bwd(xp, h0, w_hh, b_hh, hs, dh_last, dhs, *, reverse, mask):
     dh0 = torch.empty((batch, hidden), **f32)
     partials = torch.empty((n_blocks, n_acc), **f32)
     dw_db = torch.empty((n_acc,), **f32)
-    fn = getattr(lib, f"fmda_gru_scan_bwd_{_SUPPORTED[xp.dtype]}")
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    fn = getattr(lib, f"fmda_gru_scan_bwd_{_cuda_lib.SUPPORTED[xp.dtype]}")
+    stream = _cuda_lib.stream_of(xp)
     err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
              w_hh.data_ptr(), b_hh.data_ptr(), hs.data_ptr(),
              dh_last.data_ptr(), dhs.data_ptr(),
              None if mask is None else mask.data_ptr(), dxp.data_ptr(),
              dh0.data_ptr(), partials.data_ptr(), dw_db.data_ptr(), batch,
              n_steps, hidden, int(bool(reverse)), device, stream)
-    _raise_on(lib, err, "gru_scan_bwd")
+    _cuda_lib.raise_on(lib, err, "gru_scan_bwd")
     bwd_launches += 1
     h3h = 3 * hidden * hidden
     dw = dw_db[:h3h].view(3 * hidden, hidden)

@@ -2,8 +2,8 @@
 
 Each ``predict_timestamp`` signal names a landed warehouse row; the
 predictor fetches the trailing window, normalizes it on the device with
-the checkpoint's stats, runs the BiGRU (two scan-kernel launches for the
-one-layer bidirectional model) and publishes the label probabilities to
+the checkpoint's stats, runs the model (two scan-kernel launches for a
+one-layer bidirectional BiGRU or BiLSTM) and publishes the label probabilities to
 the ``prediction`` topic with the reference's payload fields.
 Stale-signal filtering is injectable through ``now_fn``.
 """

@@ -1,13 +1,16 @@
 """Training harness: chunked epochs over a feature source, on the card.
 
-The counterpart of ``fmda_tpu.train.trainer.Trainer`` for the BiGRU, with
-the same semantics: chunk-level contiguous split, per-chunk min-max
+The counterpart of ``fmda_tpu.train.trainer.Trainer`` for the BiGRU and
+the BiLSTM (whichever ``ModelConfig.cell`` names), with the same
+semantics: chunk-level contiguous split, per-chunk min-max
 normalization, weighted BCE over padded and masked fixed-shape batches,
 Adam behind a global-norm clip of ``train.clip``, and per-batch metrics
 averaged per epoch.
 
-- The GRU's forward and backward scans run the CUDA kernels of
-  :mod:`fmda_tpu_torch.ops.gru_kernel` (their plain versions on the CPU).
+- The recurrence's forward and backward scans run the CUDA kernels of
+  :mod:`fmda_tpu_torch.ops.gru_kernel` or
+  :mod:`fmda_tpu_torch.ops.lstm_kernel` (their plain versions on the
+  CPU).
 - The optimizer is ``torch.optim.Adam`` with optax's defaults behind
   :func:`clip_by_global_norm`, a copy of ``optax.clip_by_global_norm``.
 - Metrics are summed on the device and read once per pass.

@@ -20,7 +20,7 @@ from fmda_tpu.ops.gru import gru_layer as jax_gru_layer
 from fmda_tpu.ops.gru import gru_scan as jax_gru_scan
 from fmda_tpu.ops.pallas_gru import gru_scan_pallas
 
-from fmda_tpu_torch.ops import gru_kernel
+from fmda_tpu_torch.ops import _cuda_lib, gru_kernel
 from fmda_tpu_torch.ops.gru import GRUWeights, gru_layer, gru_scan
 
 F32_TOL = 1e-5
@@ -136,9 +136,15 @@ def test_wrapper_refuses_mixed_devices():
 
 
 def test_kernel_build_is_keyed_by_source_content(tmp_path):
-    src = tmp_path / "a.cu"
+    src, header = tmp_path / "a.cu", tmp_path / "a.cuh"
     src.write_text("// one\n")
-    first = gru_kernel.library_path((src,))
+    header.write_text("// one\n")
+    first = _cuda_lib.library_path((src, header))
     src.write_text("// two\n")
-    assert gru_kernel.library_path((src,)) != first
-    assert first.parent.parent == gru_kernel.BUILD_ROOT
+    second = _cuda_lib.library_path((src, header))
+    header.write_text("// two\n")
+    assert len({first, second, _cuda_lib.library_path((src, header))}) == 3
+    assert first.parent.parent == _cuda_lib.BUILD_ROOT
+    # every kernel source and the header they share key the one library
+    assert {p.name for p in _cuda_lib.SOURCES + _cuda_lib.HEADERS} == {
+        "gru_scan.cu", "lstm_scan.cu", "scan_common.cuh"}

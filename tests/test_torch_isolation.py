@@ -36,9 +36,10 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax_or_fmda_tpu():
     modules = _port_modules()
-    for name in ("ops.gru_kernel", "serve.predictor", "train.trainer",
-                 "train.losses", "train.checkpoint", "data.pipeline",
-                 "__main__"):
+    for name in ("ops._cuda_lib", "ops.gru_kernel", "ops.lstm_kernel",
+                 "ops.lstm", "models.bilstm", "serve.predictor",
+                 "train.trainer", "train.losses", "train.checkpoint",
+                 "data.pipeline", "__main__"):
         assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -120,10 +121,13 @@ def test_trainer_and_train_command_raise_without_a_card(monkeypatch,
 
 def test_kernel_is_not_built_at_import():
     code = (
-        "import fmda_tpu_torch.ops.gru_kernel as k, fmda_tpu_torch.serve\n"
+        "import fmda_tpu_torch.ops._cuda_lib as lib, fmda_tpu_torch.serve\n"
+        "import fmda_tpu_torch.ops.gru_kernel as g\n"
+        "import fmda_tpu_torch.ops.lstm_kernel as l\n"
         "import fmda_tpu_torch.train, fmda_tpu_torch.__main__\n"
-        "assert k._lib is None and k.build_info == {}, k.build_info\n"
-        "assert k.launches == k.bwd_launches == 0\n"
+        "assert lib._lib is None and lib.build_info == {}, lib.build_info\n"
+        "assert g.launches == g.bwd_launches == 0\n"
+        "assert l.launches == l.bwd_launches == 0\n"
         "assert 'triton' not in __import__('sys').modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,11 +1,12 @@
-"""fmda_tpu_torch's BiGRU against the JAX package's, on the CPU.
+"""fmda_tpu_torch's BiGRU and BiLSTM against the JAX package's, on the CPU.
 
-The JAX model is initialised from a seed, its flax params cross-load
-through ``params_from_flax``, and numpy-seeded windows go through both in
-eval mode (dropout off: the two frameworks' random bits cannot match).
-Tolerance 1e-5 on float32 logits.
+The JAX model (``cell="gru"`` or ``"lstm"``) is initialised from a seed,
+its flax params cross-load through ``params_from_flax``, and numpy-seeded
+windows go through both in eval mode (dropout off: the two frameworks'
+random bits cannot match).  Tolerance 1e-5 on float32 logits.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -17,25 +18,27 @@ import jax.numpy as jnp
 
 from fmda_tpu.config import FrameworkConfig as JaxFrameworkConfig
 from fmda_tpu.config import ModelConfig as JaxModelConfig
-from fmda_tpu.models.bigru import BiGRU as JaxBiGRU
+from fmda_tpu.models import build_model as jax_build_model
 
 from fmda_tpu_torch.config import FrameworkConfig, ModelConfig
 from fmda_tpu_torch.interop import load_flax_npz, params_from_flax, save_flax_npz
-from fmda_tpu_torch.models import BiGRU, build_model
+from fmda_tpu_torch.models import BiGRU, BiLSTM, build_model
 
 TOL = 1e-5
+CELLS = ["gru", "lstm"]
 
 
 def _jax_params(cfg, seed=0, steps=7):
-    model = JaxBiGRU(cfg)
+    model = jax_build_model(cfg)
     params = model.init({"params": jax.random.PRNGKey(seed)},
                         jnp.zeros((1, steps, cfg.n_features)))["params"]
     return model, jax.device_get(params)
 
 
-def _port_model(cfg: ModelConfig, flax_params) -> BiGRU:
+def _port_model(cfg: ModelConfig, flax_params):
     model = build_model(cfg)
-    model.load_state_dict(params_from_flax(flax_params))
+    assert type(model) is {"gru": BiGRU, "lstm": BiLSTM}[cfg.cell]
+    model.load_state_dict(params_from_flax(flax_params), strict=True)
     return model.eval()
 
 
@@ -44,12 +47,13 @@ def _ragged_mask(batch, steps, seed=5):
     return np.arange(steps)[None, :] < lengths[:, None]
 
 
+@pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("bidirectional", [True, False])
 @pytest.mark.parametrize("n_layers", [1, 2])
-def test_bigru_logits_match_jax(n_layers, bidirectional, masked):
+def test_bigru_logits_match_jax(n_layers, bidirectional, masked, cell):
     fields = dict(hidden_size=5, n_features=6, output_size=4,
-                  n_layers=n_layers, bidirectional=bidirectional)
+                  n_layers=n_layers, bidirectional=bidirectional, cell=cell)
     jax_model, params = _jax_params(JaxModelConfig(**fields))
     port = _port_model(ModelConfig(**fields), params)
     r = np.random.default_rng(n_layers * 10 + bidirectional)
@@ -64,9 +68,10 @@ def test_bigru_logits_match_jax(n_layers, bidirectional, masked):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
 
 
-def test_full_width_default_config_matches_jax():
-    jax_cfg = JaxFrameworkConfig().model
-    cfg = FrameworkConfig().model
+@pytest.mark.parametrize("cell", CELLS)
+def test_full_width_default_config_matches_jax(cell):
+    jax_cfg = dataclasses.replace(JaxFrameworkConfig().model, cell=cell)
+    cfg = dataclasses.replace(FrameworkConfig().model, cell=cell)
     assert (cfg.hidden_size, cfg.n_features, cfg.n_layers,
             cfg.bidirectional) == (32, 108, 1, True)
     assert cfg.hidden_size == jax_cfg.hidden_size
@@ -80,8 +85,9 @@ def test_full_width_default_config_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
 
 
-def test_load_flax_npz_round_trip(tmp_path):
-    cfg = JaxModelConfig(hidden_size=4, n_features=3, n_layers=2)
+@pytest.mark.parametrize("cell", CELLS)
+def test_load_flax_npz_round_trip(tmp_path, cell):
+    cfg = JaxModelConfig(hidden_size=4, n_features=3, n_layers=2, cell=cell)
     _, params = _jax_params(cfg)
     path = str(tmp_path / "params.npz")
     save_flax_npz({"params": params}, path)
@@ -92,19 +98,26 @@ def test_load_flax_npz_round_trip(tmp_path):
         assert torch.equal(loaded[k], direct[k])
     # the head's (in, out) flax kernel arrives as nn.Linear's (out, in)
     assert loaded["linear.weight"].shape == (cfg.output_size, 3 * 4)
-    port = build_model(ModelConfig(hidden_size=4, n_features=3, n_layers=2))
-    port.load_state_dict(loaded)
+    port = build_model(ModelConfig(hidden_size=4, n_features=3, n_layers=2,
+                                   cell=cell))
+    port.load_state_dict(loaded, strict=True)
 
 
-def test_parameter_names_follow_nn_gru():
-    port = build_model(ModelConfig(hidden_size=4, n_features=3, n_layers=2))
-    reference = torch.nn.GRU(3, 4, num_layers=2, bidirectional=True)
-    gru_names = {k for k in port.state_dict() if not k.startswith("linear.")}
-    assert gru_names == set(reference.state_dict())
+@pytest.mark.parametrize("cell", CELLS)
+def test_parameter_names_follow_nn_gru(cell):
+    port = build_model(ModelConfig(hidden_size=4, n_features=3, n_layers=2,
+                                   cell=cell))
+    module = {"gru": torch.nn.GRU, "lstm": torch.nn.LSTM}[cell]
+    reference = module(3, 4, num_layers=2, bidirectional=True)
+    names = {k for k in port.state_dict() if not k.startswith("linear.")}
+    assert names == set(reference.state_dict())
+    for k, v in reference.state_dict().items():  # gate rows stacked alike
+        assert port.state_dict()[k].shape == v.shape, k
 
 
-def test_init_is_seeded_and_uniform_in_fan():
-    cfg = ModelConfig(hidden_size=16, n_features=3)
+@pytest.mark.parametrize("cell", CELLS)
+def test_init_is_seeded_and_uniform_in_fan(cell):
+    cfg = ModelConfig(hidden_size=16, n_features=3, cell=cell)
     a = build_model(cfg, generator=torch.Generator().manual_seed(7))
     b = build_model(cfg, generator=torch.Generator().manual_seed(7))
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
@@ -131,9 +144,10 @@ def test_spatial_dropout_drops_whole_channels_from_the_generator():
         assert torch.equal(model(x), model(x))
 
 
-def test_other_cells_are_not_ported():
+@pytest.mark.parametrize("cell", ["ssm", "attn"])
+def test_other_cells_are_not_ported(cell):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelConfig(cell="lstm")
+        ModelConfig(cell=cell)
     # a config object that did not come through ModelConfig's own check
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(types.SimpleNamespace(cell="lstm"))
+        build_model(types.SimpleNamespace(cell=cell))

@@ -1,4 +1,5 @@
-"""fmda_tpu_torch's serving path against the JAX package's, on the CPU.
+"""fmda_tpu_torch's serving path against the JAX package's, on the CPU,
+for each ported cell family (``cell="gru"`` and ``"lstm"``).
 
 The JAX package's ``Warehouse`` writes a SQLite file and the port reads
 the same file; the JAX ``Predictor`` and ``backtest`` and the port's run on
@@ -23,7 +24,7 @@ from fmda_tpu.config import FeatureConfig as JaxFeatureConfig
 from fmda_tpu.config import ModelConfig as JaxModelConfig
 from fmda_tpu.config import WarehouseConfig as JaxWarehouseConfig
 from fmda_tpu.data.normalize import chunk_norm_params as jax_chunk_norm_params
-from fmda_tpu.models.bigru import BiGRU as JaxBiGRU
+from fmda_tpu.models import build_model as jax_build_model
 from fmda_tpu.serve import Predictor as JaxPredictor
 from fmda_tpu.serve import backtest as jax_backtest
 from fmda_tpu.stream import InProcessBus as JaxBus
@@ -75,21 +76,21 @@ def _port_warehouse(path):
                      WarehouseConfig(path=str(path)))
 
 
-def _models(n_features, seed=0):
-    jax_cfg = JaxModelConfig(hidden_size=HIDDEN, n_features=n_features,
-                             dropout=0.0)
-    params = jax.device_get(JaxBiGRU(jax_cfg).init(
+def _models(n_features, cell="gru", seed=0):
+    fields = dict(hidden_size=HIDDEN, n_features=n_features, dropout=0.0,
+                  cell=cell)
+    jax_cfg = JaxModelConfig(**fields)
+    params = jax.device_get(jax_build_model(jax_cfg).init(
         {"params": jax.random.PRNGKey(seed)},
         jnp.zeros((1, WINDOW, n_features)))["params"])
-    port_cfg = ModelConfig(hidden_size=HIDDEN, n_features=n_features,
-                           dropout=0.0)
+    port_cfg = ModelConfig(**fields)
     return jax_cfg, params, port_cfg, params_from_flax(params)
 
 
-@pytest.fixture
-def served(tmp_path):
+@pytest.fixture(params=["gru", "lstm"])
+def served(tmp_path, request):
     """A JAX-written warehouse file, opened by both packages, with norm
-    stats and cross-loaded weights."""
+    stats and cross-loaded weights of each ported cell family."""
     path = tmp_path / "wh.sqlite"
     jax_wh = _jax_warehouse(path, _rows())
     port_wh = _port_warehouse(path)
@@ -100,7 +101,7 @@ def served(tmp_path):
                                      ask_levels=2)
     np.testing.assert_array_equal(norm.x_min, jax_norm.x_min)
     np.testing.assert_array_equal(norm.x_max, jax_norm.x_max)
-    models = _models(len(port_wh.x_fields))
+    models = _models(len(port_wh.x_fields), request.param)
     yield jax_wh, port_wh, norm, models
     jax_wh.close()
     port_wh.close()
@@ -208,12 +209,13 @@ def test_checkpoint_round_trip(tmp_path, served):
 
 
 def _cli_fixture(tmp_path, served):
-    _, port_wh, norm, (_, _, _, state) = served
+    _, port_wh, norm, (_, _, port_cfg, state) = served
     ckpt = save_checkpoint(str(tmp_path / "ckpt"), state, norm)
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({
         "features": FEATURES,
-        "model": {"hidden_size": HIDDEN, "dropout": 0.0},
+        "model": {"hidden_size": HIDDEN, "dropout": 0.0,
+                  "cell": port_cfg.cell},
         "train": {"window": WINDOW, "epochs": 3},  # epochs: train only
         "runtime": {"window": 30},  # a section this package skips
     }))

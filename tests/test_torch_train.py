@@ -177,11 +177,13 @@ def _configs(**train):
     return model, tc
 
 
-def test_trainer_tracks_the_jax_trainer():
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_trainer_tracks_the_jax_trainer(cell):
     """Two epochs (16 steps) from the same initial params at dropout 0:
     per-epoch train and val metrics and the final params agree."""
     x, y, fields = _data()
     model, tc = _configs()
+    model["cell"] = cell
     weight, pos_weight = imbalance_weights_from_source(
         ArraySource(x, y, fields))
     jax_trainer = JaxTrainer(JaxModelConfig(**model, use_pallas=False),
@@ -313,7 +315,8 @@ FEATURES = dict(get_cot=False, bid_levels=2, ask_levels=2,
                 event_list=("Core CPI",))
 
 
-def test_cli_train_then_backtest_its_checkpoint(tmp_path, capsys):
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_cli_train_then_backtest_its_checkpoint(tmp_path, capsys, cell):
     wh_path = str(tmp_path / "wh.sqlite")
     wh = Warehouse(FeatureConfig(**FEATURES), WarehouseConfig(path=wh_path))
     wh.insert_rows(random_walk_rows(FeatureConfig(**FEATURES).table_columns(),
@@ -323,7 +326,7 @@ def test_cli_train_then_backtest_its_checkpoint(tmp_path, capsys):
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({
         "features": FEATURES,
-        "model": {"hidden_size": HIDDEN},
+        "model": {"hidden_size": HIDDEN, "cell": cell},
         "train": {"window": WINDOW, "chunk_size": CHUNK},
     }))
     ckpt_dir = str(tmp_path / "ckpt")
@@ -341,6 +344,9 @@ def test_cli_train_then_backtest_its_checkpoint(tmp_path, capsys):
     assert os.path.dirname(ckpt) == ckpt_dir and os.path.exists(ckpt)
     tree, norm = restore_checkpoint(ckpt)
     assert tree["step"] > 0 and "opt_state" in tree and norm is not None
+    # the checkpoint holds the configured family's weights (4H gate rows)
+    gates = {"gru": 3, "lstm": 4}[cell]
+    assert tree["params"]["weight_hh_l0"].shape == (gates * HIDDEN, HIDDEN)
 
     rc = port_main(["backtest", "--device", "cpu", "--config", str(cfg),
                     "--warehouse", wh_path, "--checkpoint", ckpt])
