@@ -8,12 +8,15 @@ Phases, each printed as one JSON line, each fatal on failure:
 
 1. ``device``: the card, its power limit, the torch/CUDA versions.
 2. ``build``: nvcc builds the one library that holds every kernel (the
-   GRU and LSTM forward and backward scans) from ``fmda_tpu_torch/csrc``
-   for sm_90a, one nvcc per source, all started together.
+   GRU and LSTM forward and backward scans, the SSM serve tick) from
+   ``fmda_tpu_torch/csrc`` for sm_90a, one nvcc per source, all started
+   together.
 3. ``kernel``: each kernel against its plain PyTorch version on the card,
-   at the shapes its paths use (and the wider H=128, which takes the
-   kernels' device-memory branches where shared memory runs out), with
-   times, the roofline bound and the library (cuDNN) yardstick beside it.
+   at the shapes its paths use (and the wider H=128, which takes the scan
+   kernels' device-memory branches where shared memory runs out; the SSM
+   tick at every pool bucket, in bf16, from a strided projection and at
+   (256, 512)), with times, the roofline bound and the library (cuDNN)
+   yardstick beside it where one exists.
 4. ``path``: the window-re-scan serving path at full width
    (``FrameworkConfig()``: H=32, F=108, window 30, float32) over a
    20,000-row warehouse: ``backtest`` at batch 256, then 64 signals through
@@ -25,12 +28,27 @@ Phases, each printed as one JSON line, each fatal on failure:
    saved and backtested on the card.
 6. ``train vs cpu``: the first 16 steps at dropout 0 on the card and on
    the CPU, per-step losses and final params compared.
+7. ``stream``: carried-state streaming serving of a seeded unidirectional
+   model at full width: ``StreamingPredictor`` over ``StreamingBiGRU``, one
+   signal 2,000 rows in (a catch-up of 2,000 ticks), then 64 signals one
+   row apart, with host pieces; recomputed on the CPU and compared.
+   ``stream bidirectional``: the same through
+   ``StreamingBiGRUBidirectional`` (the backward direction re-scanned every
+   tick by the family's forward-scan kernel).
+8. ``pool``: ``SessionPool(capacity=128, window=30)`` with 64 sessions,
+   each with its own norms over its own slice of the warehouse: 100
+   flushes of all 64, then 20 of 16 live sessions padded to 32 through the
+   padding lane; flush times, session ticks/s, the card against the CPU,
+   and a slot exported, freed and imported back and into a fresh pool,
+   both ticking on bit-identically.
 
-Phases 4-6 run for each ported cell family, the BiGRU (``cell="gru"``,
-the default) and then the BiLSTM (``cell="lstm"``); their lines carry
-``cell``.  Every kernel's launch count is reset just before each path
-(serving, training) and read just after it; a path that launched another
-family's kernel fails.  Then the ``{"kernels": [...]}`` summary, the card
+Phases 4-6 run for the BiGRU (``cell="gru"``, the default) and the BiLSTM
+(``cell="lstm"``), phase 4 also for the bidirectional gated SSM
+(``cell="ssm"``, parallel mode, no kernel); phases 7 and 8 for gru, lstm
+and ssm (``stream bidirectional`` for gru and lstm).  Their lines carry
+``cell``.  Every kernel's launch count is reset just before each path and
+read just after it, and must equal what the path should launch, every
+other kernel's 0.  Then the ``{"kernels": [...]}`` summary, the card
 line, and as the last line ``{"ok": true, "device": {...}}``.  TF32 is off
 for matmuls and cuDNN, so float32 means float32 everywhere.  Exits
 non-zero, and prints no result, without a card or outside the repository.
@@ -49,6 +67,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -406,6 +425,101 @@ def phase_kernel_bwd(scan: Scan, n_features: int, device: str = "cuda"):
     return results
 
 
+#: kernel 5: where it lives and what it replaces
+SSM_SOURCE = "fmda_tpu_torch/csrc/ssm_step.cu"
+SSM_REPLACES = "fmda_tpu/ops/pallas_ssm.py:56"
+#: operations per (row, unit) of the tick, a transcendental counted as one:
+#: 11 for a, s' and h, 4 for each EMA; the EMA rates' sigmoids once a unit
+SSM_OPS = 19
+
+
+def ssm_bound(batch, hidden, itemsize):
+    """Least time for one tick on this card: xp (B, 3H), the three carries
+    and the four (H,) vectors read once, four (B, H) outputs written once,
+    against the tick's element-wise operations (no product)."""
+    return roofline_ms(itemsize * (10 * batch * hidden + 4 * hidden), 0,
+                       SSM_OPS * batch * hidden + 2 * hidden, itemsize)
+
+
+def ssm_cases():
+    """Every pool bucket and the solo core's B = 1 at the model's H = 32,
+    bf16, a projection read through a row stride of 4H (a slice, not
+    copied), and the Pallas envelope's largest case (256, 512)."""
+    f32 = dict(hidden=32, dtype=torch.float32, strided=False)
+    return ([dict(f32, batch=b) for b in (1, 8, 32, 64, 128)]
+            + [dict(f32, batch=64, dtype=torch.bfloat16),
+               dict(f32, batch=64, strided=True),
+               dict(f32, batch=256, hidden=512)])
+
+
+def phase_kernel_ssm(device: str = "cuda"):
+    """ssm_cell_step against ssm_cell_step_reference on the card, all four
+    outputs compared, from nonzero carries."""
+    from fmda_tpu_torch.ops import ssm_kernel
+    from fmda_tpu_torch.ops.ssm import SSMWeights
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    results = []
+    for c in ssm_cases():
+        b, h, dtype = c["batch"], c["hidden"], c["dtype"]
+
+        def rand(*shape, lo=-1.0, hi=1.0):
+            u = torch.rand(shape, generator=gen, device=dev)
+            return (u * (hi - lo) + lo).to(dtype)
+
+        xp = rand(b, 4 * h if c["strided"] else 3 * h, lo=-2.0, hi=2.0)
+        xp = xp[:, :3 * h]
+        carry = tuple(rand(b, h, lo=-0.5, hi=0.5) for _ in range(3))
+        w = SSMWeights(None, None, rand(h, lo=1.0, hi=3.0),
+                       rand(h, lo=-0.3, hi=0.3), rand(h, lo=-0.5, hi=0.5),
+                       rand(h, lo=2.5, hi=3.5))
+        args = (xp, carry, w)
+        with torch.inference_mode():
+            got = ssm_kernel.ssm_cell_step(*args)
+            want = ssm_kernel.ssm_cell_step_reference(*args)
+            torch.cuda.synchronize()
+            got, want = (got[0], *got[1]), (want[0], *want[1])
+            check(all(g.shape == r.shape and g.dtype == r.dtype
+                      for g, r in zip(got, want)),
+                  f"ssm_step outputs {[(g.shape, g.dtype) for g in got]}")
+            err = max((g.float() - r.float()).abs().max().item()
+                      for g, r in zip(got, want))
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            ms = time_ms(lambda: ssm_kernel.ssm_cell_step(*args), prime=True)
+            call_ms = time_ms(lambda: ssm_kernel.ssm_cell_step(*args),
+                              prime=False)
+            plain_ms = time_ms(
+                lambda: ssm_kernel.ssm_cell_step_reference(*args), prime=True)
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        bound_ms, bound_by = ssm_bound(b, h, xp.element_size())
+        # no one PyTorch call computes the tick: library_ms stays None
+        row = dict(batch=b, hidden=h, dtype=str(dtype).replace("torch.", ""),
+                   strided=c["strided"], xp_row_stride=xp.stride(0),
+                   max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        emit("kernel ssm_step", **row)
+        check(finite, f"non-finite ssm_step output in {row}")
+        check(err <= tol, f"ssm_step disagrees with its plain version: {row}")
+        results.append(row)
+    return results
+
+
+def median_ms(fn, items) -> float:
+    """Median host time of ``fn(item)`` over ``items``, in ms."""
+    out = []
+    for item in items:
+        t = time.perf_counter()
+        fn(item)
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def p99(values) -> float:
+    return sorted(values)[math.ceil(0.99 * len(values)) - 1]
+
+
 def breakdown(wh, ckpt, model_cfg, window, norm, stamps, device):
     """Where a signal's and a backtest batch's time goes: the warehouse on
     the host against the forward on the card (host clock, each forward
@@ -414,14 +528,6 @@ def breakdown(wh, ckpt, model_cfg, window, norm, stamps, device):
     from fmda_tpu_torch.data.windows import window_index_matrix
     from fmda_tpu_torch.serve.predictor import load_model, make_batched_forward
     from fmda_tpu_torch.train.checkpoint import restore_checkpoint
-
-    def median_ms(fn, items):
-        out = []
-        for item in items:
-            t = time.perf_counter()
-            fn(item)
-            out.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(out)
 
     def on_device(fn):
         def run(item):
@@ -512,23 +618,37 @@ def make_warehouse(directory: str):
     return wh
 
 
-def kernel_modules():
-    from fmda_tpu_torch.ops import gru_kernel, lstm_kernel
+def launch_counts() -> dict:
+    """Every kernel's launch count, by kernel name."""
+    from fmda_tpu_torch.ops import gru_kernel, lstm_kernel, ssm_kernel
 
-    return (gru_kernel, lstm_kernel)
+    return {"gru_scan_fwd": gru_kernel.launches,
+            "gru_scan_bwd": gru_kernel.bwd_launches,
+            "lstm_scan_fwd": lstm_kernel.launches,
+            "lstm_scan_bwd": lstm_kernel.bwd_launches,
+            "ssm_step": ssm_kernel.launches}
 
 
 def start_path() -> None:
     """A path starts: every kernel's launch count to 0."""
-    for m in kernel_modules():
+    from fmda_tpu_torch.ops import gru_kernel, lstm_kernel, ssm_kernel
+
+    for m in (gru_kernel, lstm_kernel):
         m.launches = m.bwd_launches = 0
+    ssm_kernel.launches = 0
 
 
-def check_other_families_idle(kernels, what: str) -> None:
-    others = {m.__name__: (m.launches, m.bwd_launches)
-              for m in kernel_modules() if m is not kernels}
-    check(all(n == (0, 0) for n in others.values()),
-          f"{what} launched another family's kernels: {others}")
+def check_launches(counts: dict, expected: dict, what: str) -> None:
+    """``counts`` (from :func:`launch_counts`) must be ``expected`` and 0
+    for every other kernel."""
+    want = {k: expected.get(k, 0) for k in counts}
+    check(counts == want, f"{what} launched {counts}, expected {want}")
+
+
+def scan_fwd_name(cell: str):
+    """The forward-scan kernel a family's window re-scan launches (the SSM
+    re-scans in parallel mode, with no kernel)."""
+    return f"{cell}_scan_fwd" if cell in ("gru", "lstm") else None
 
 
 def model_config(cell: str, **fields):
@@ -539,11 +659,10 @@ def model_config(cell: str, **fields):
     return dataclasses.replace(FrameworkConfig().model, cell=cell, **fields)
 
 
-def phase_path(kernels, wh, directory: str, device: str = "cuda",
-               cell: str = "gru"):
+def phase_path(wh, directory: str, device: str = "cuda", cell: str = "gru"):
     """The serving slice at full width, on the card and again on the CPU,
-    for one cell family, whose kernel module is ``kernels``.  Returns the
-    forward launches of the path."""
+    for one cell family.  Returns the forward-scan launches of the path
+    (two a forward for gru and lstm, none for ssm)."""
     from fmda_tpu_torch.config import (
         DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP,
         TOPIC_PREDICTION)
@@ -595,45 +714,47 @@ def phase_path(kernels, wh, directory: str, device: str = "cuda",
     run_backtest(device, ids=(window, window + BATCH))
     torch.cuda.synchronize()
 
+    fwd = scan_fwd_name(cell)
+    per_forward = 2 if fwd else 0  # one launch a direction
     start_path()
     t0 = time.perf_counter()
     gpu_bt = run_backtest(device)
     torch.cuda.synchronize()
     bt_s = time.perf_counter() - t0
-    bt_launches = kernels.launches
+    bt_launches = launch_counts().get(fwd, 0)
     gpu_preds, lat_ms, published, errors = serve(device)
-    path_launches = kernels.launches
-    serve_bwd_launches = kernels.bwd_launches  # the path ends here
+    counts = launch_counts()  # the path ends here
+    path_launches = counts.get(fwd, 0)
     pred_launches = path_launches - bt_launches
-    check(serve_bwd_launches == 0,
-          f"serving launched the backward kernel {serve_bwd_launches} times")
-    check_other_families_idle(kernels, f"{cell} serving")
 
     served = len(gpu_bt.probabilities)
+    n_batches = math.ceil(served / BATCH)
+    check_launches(counts, {fwd: per_forward * (n_batches + SIGNALS)},
+                   f"{cell} serving")
     m = gpu_bt.metrics
     emit("path backtest", cell=cell, rows=served, batch=BATCH,
-         batches=math.ceil(served / BATCH), seconds=bt_s,
+         batches=n_batches, seconds=bt_s,
          rows_per_s=served / bt_s, launches=bt_launches,
          accuracy=float(m.accuracy), hamming=float(m.hamming),
          fbeta=[float(v) for v in m.fbeta],
          overall_edge=trading_summary(gpu_bt)["overall"].edge)
     check(served == n - window + 1, f"backtest served {served} rows")
-    check(bt_launches == 2 * math.ceil(served / BATCH),
+    check(bt_launches == per_forward * n_batches,
           f"backtest launched the scan kernel {bt_launches} times, "
-          f"expected {2 * math.ceil(served / BATCH)}")
+          f"expected {per_forward * n_batches}")
     check(bool(torch.isfinite(torch.from_numpy(gpu_bt.probabilities))
                .all()), "non-finite backtest probabilities")
     emit("path predictor", cell=cell, signals=SIGNALS, served=len(gpu_preds),
          published=published, serve_errors=errors,
          launches=pred_launches, p50_ms=statistics.median(lat_ms),
-         p99_ms=sorted(lat_ms)[math.ceil(0.99 * len(lat_ms)) - 1],
+         p99_ms=p99(lat_ms),
          mean_ms=statistics.fmean(lat_ms))
     check(len(gpu_preds) == SIGNALS and published == SIGNALS,
           f"{len(gpu_preds)} predictions served, {published} published, "
           f"of {SIGNALS} signals")
-    check(pred_launches == 2 * SIGNALS,
+    check(pred_launches == per_forward * SIGNALS,
           f"predictor launched the scan kernel {pred_launches} times, "
-          f"expected {2 * SIGNALS}")
+          f"expected {per_forward * SIGNALS}")
     emit("path breakdown", cell=cell, **breakdown(wh, ckpt, model_cfg, window,
                                        norm, stamps, device))
     if torch.device(device).type == "cuda":
@@ -733,12 +854,11 @@ def train_breakdown(trainer, state, dataset, train_chunks, device):
     return out
 
 
-def phase_train(kernels, wh, directory: str, device: str = "cuda",
-                cell: str = "gru"):
-    """The training path at full width for one cell family, whose kernel
-    module is ``kernels``: Trainer.fit for one epoch, then the trained
-    checkpoint backtested on the card.  Returns (forward launches,
-    backward launches, train steps, dataset, weights)."""
+def phase_train(wh, directory: str, device: str = "cuda", cell: str = "gru"):
+    """The training path at full width for one cell family (gru or lstm):
+    Trainer.fit for one epoch, then the trained checkpoint backtested on
+    the card.  Returns (forward launches, backward launches, train steps,
+    dataset, weights)."""
     from fmda_tpu_torch.config import FrameworkConfig, TrainConfig
     from fmda_tpu_torch.data.pipeline import ChunkDataset, WindowBatches
     from fmda_tpu_torch.serve import backtest_from_checkpoint
@@ -780,8 +900,8 @@ def phase_train(kernels, wh, directory: str, device: str = "cuda",
     state, history, _ = trainer.fit(wh, dataset=dataset)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    fwd, bwd = kernels.launches, kernels.bwd_launches  # the path ends here
-    check_other_families_idle(kernels, f"{cell} training")
+    counts = launch_counts()  # the path ends here
+    fwd, bwd = counts[f"{cell}_scan_fwd"], counts[f"{cell}_scan_bwd"]
     tr, va = history["train"][-1], history["val"][-1]
     emit("train fit", cell=cell, epochs=len(history["train"]), steps=state.step,
          seconds=fit_s, samples_per_s=n_windows / fit_s,
@@ -790,12 +910,9 @@ def phase_train(kernels, wh, directory: str, device: str = "cuda",
          val_loss=va.loss, val_accuracy=va.accuracy,
          val_hamming=va.hamming)
     check(state.step == n_train, f"{state.step} steps, expected {n_train}")
-    check(bwd == 2 * n_train,
-          f"training launched the backward kernel {bwd} times, expected "
-          f"{2 * n_train}")
-    check(fwd == 2 * (n_train + n_val),
-          f"training launched the forward kernel {fwd} times, expected "
-          f"{2 * (n_train + n_val)}")
+    check_launches(counts, {f"{cell}_scan_fwd": 2 * (n_train + n_val),
+                            f"{cell}_scan_bwd": 2 * n_train},
+                   f"{cell} training")
     check(all(math.isfinite(m.loss) for m in (tr, va)),
           f"non-finite losses {tr.loss}, {va.loss}")
 
@@ -888,6 +1005,246 @@ def phase_train_vs_cpu(dataset, weights, device: str = "cuda",
           "training on the card and on the CPU disagree")
 
 
+#: the streaming phase's first signal: a predictor started this many rows
+#: into the warehouse catches them all up through the recurrence
+STREAM_CATCHUP = 2_000
+#: the pool phase's fleet: sessions, flushes of all of them, then flushes
+#: of the first few padded to a larger bucket through the padding lane
+POOL_SESSIONS = 64
+POOL_FULL_FLUSHES = 100
+POOL_PADDED_FLUSHES = 20
+POOL_PADDED_LIVE = 16
+POOL_PADDED_BUCKET = 32
+POOL_MOVED_TICKS = 10
+
+
+def serving_setup(wh, cell: str, bidirectional: bool):
+    """A seeded random-init model at full width (dropout 0, as the fleet's
+    worker builds its model), its ``state_dict`` and the warehouse-wide
+    norm stats."""
+    from fmda_tpu_torch.config import FrameworkConfig
+    from fmda_tpu_torch.data.normalize import chunk_norm_params
+    from fmda_tpu_torch.models import build_model
+
+    fc = FrameworkConfig().features
+    model_cfg = model_config(cell, bidirectional=bidirectional, dropout=0.0)
+    model = build_model(model_cfg,
+                        generator=torch.Generator().manual_seed(SEED))
+    norm = chunk_norm_params(wh.fetch(range(1, len(wh) + 1)), wh.x_fields,
+                             bid_levels=fc.bid_levels,
+                             ask_levels=fc.ask_levels)
+    return model_cfg, model.state_dict(), norm
+
+
+def phase_stream(wh, device: str = "cuda", cell: str = "gru",
+                 bidirectional: bool = False):
+    """Carried-state streaming serving at full width for one family:
+    ``StreamingPredictor`` over ``StreamingBiGRU`` (or, ``bidirectional``,
+    ``StreamingBiGRUBidirectional``), one signal STREAM_CATCHUP rows in,
+    then SIGNALS signals one row apart; the same on the CPU, compared.
+    Returns the path's launch counts."""
+    from fmda_tpu_torch.config import (
+        DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP,
+        TOPIC_PREDICTION)
+    from fmda_tpu_torch.serve import (
+        StreamingBiGRU, StreamingBiGRUBidirectional, StreamingPredictor)
+    from fmda_tpu_torch.stream import InProcessBus
+
+    label = "stream bidirectional" if bidirectional else "stream"
+    window = FrameworkConfig().runtime.window
+    model_cfg, state, norm = serving_setup(wh, cell, bidirectional)
+    core_cls = StreamingBiGRUBidirectional if bidirectional else StreamingBiGRU
+    after = dict(wh.timestamps_after(STREAM_CATCHUP - 1))
+    stamps = [after[STREAM_CATCHUP + k] for k in range(SIGNALS + 1)]
+    n_ticks = STREAM_CATCHUP + SIGNALS
+
+    def serve(dev):
+        core = core_cls(model_cfg, state, norm, window=window, device=dev)
+        bus = InProcessBus(DEFAULT_TOPICS)
+        predictor = StreamingPredictor(bus, wh, core, from_end=False)
+        preds, lat_ms = [], []
+        for ts in stamps:
+            bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": ts})
+            t = time.perf_counter()
+            preds += predictor.poll()
+            lat_ms.append((time.perf_counter() - t) * 1e3)
+        published = len(bus.consumer(TOPIC_PREDICTION).poll())
+        return preds, lat_ms, published, core.ticks_seen
+
+    # warm-up: cuBLAS handles and module loads, before the counted run
+    warm = core_cls(model_cfg, state, norm, window=window, device=device)
+    for row in wh.fetch(range(1, 4)):
+        warm.step(row)
+    torch.cuda.synchronize()
+
+    start_path()
+    preds, lat_ms, published, ticks = serve(device)
+    counts = launch_counts()  # the path ends here
+    if cell == "ssm":
+        expected = {"ssm_step": ticks * model_cfg.n_layers}
+    elif bidirectional:  # the backward direction's re-scan, once a tick
+        expected = {scan_fwd_name(cell): ticks}
+    else:
+        expected = {}
+    signal_ms = lat_ms[1:]
+    emit(label, cell=cell, model=str(model_cfg), window=window,
+         signals=len(stamps), served=len(preds), published=published,
+         ticks=ticks, catchup_ticks=STREAM_CATCHUP,
+         catchup_s=lat_ms[0] / 1e3,
+         catchup_ticks_per_s=STREAM_CATCHUP / (lat_ms[0] / 1e3),
+         p50_ms=statistics.median(signal_ms), p99_ms=p99(signal_ms),
+         mean_ms=statistics.fmean(signal_ms), launches=counts)
+    check(len(preds) == published == len(stamps) and ticks == n_ticks,
+          f"{len(preds)} predictions, {published} published, {ticks} ticks "
+          f"for {len(stamps)} signals over {n_ticks} rows")
+    check_launches(counts, expected, f"{cell} {label}")
+    check(all(np.isfinite(p).all() for _, p, _ in preds),
+          "non-finite streaming probabilities")
+
+    # where a signal's time goes: the SQLite lookup and the one-row fetch
+    # on the host, the tick (its probabilities brought back to the host)
+    core = core_cls(model_cfg, state, norm, window=window, device=device)
+    ids = [wh.id_for_timestamp(ts) for ts in stamps[1:]]
+    rows = wh.fetch(ids)
+    pieces = dict(lookup_ms=median_ms(wh.id_for_timestamp, stamps[1:]),
+                  fetch_ms=median_ms(lambda i: wh.fetch(range(i, i + 1)),
+                                     ids),
+                  tick_ms=median_ms(core.step, rows))
+    if torch.device(device).type == "cuda":
+        pieces["device_share"] = device_share(
+            lambda: [core.step(row) for row in rows])
+    emit(f"{label} breakdown", cell=cell, **pieces)
+
+    cpu_preds, _, _, _ = serve("cpu")
+    err = max(float(np.abs(g - c).max())
+              for (_, g, _), (_, c, _) in zip(preds, cpu_preds))
+    same_labels = [g[2] for g in preds] == [c[2] for c in cpu_preds]
+    emit(f"{label} vs cpu", cell=cell, signals=len(cpu_preds),
+         max_abs_err=err, labels_equal=same_labels, tol=PATH_TOL)
+    check(len(cpu_preds) == len(preds) and err <= PATH_TOL,
+          f"{cell} {label}: card and CPU disagree ({err})")
+    check(same_labels, f"{cell} {label}: card and CPU labels differ")
+    return counts
+
+
+def phase_pool(wh, device: str = "cuda", cell: str = "gru"):
+    """The session pool at full width for one family: POOL_SESSIONS
+    sessions, each with its own norms over its own slice of the warehouse,
+    POOL_FULL_FLUSHES flushes of all of them, then POOL_PADDED_FLUSHES of
+    the first POOL_PADDED_LIVE padded to POOL_PADDED_BUCKET; the same on
+    the CPU, compared; then one slot moved.  Returns the path's launch
+    counts."""
+    from fmda_tpu_torch.config import FrameworkConfig
+    from fmda_tpu_torch.data.normalize import chunk_norm_params
+    from fmda_tpu_torch.runtime import SessionPool
+
+    cfg = FrameworkConfig()
+    fc, rt = cfg.features, cfg.runtime
+    check(POOL_SESSIONS in rt.bucket_sizes
+          and POOL_PADDED_BUCKET in rt.bucket_sizes,
+          f"the flush sizes are not buckets of {rt.bucket_sizes}")
+    model_cfg, state, _ = serving_setup(wh, cell, bidirectional=False)
+    span = len(wh) // POOL_SESSIONS
+    x_all = wh.fetch(range(1, POOL_SESSIONS * span + 1))
+    slices = [x_all[i * span:(i + 1) * span] for i in range(POOL_SESSIONS)]
+    norms = [chunk_norm_params(sl, wh.x_fields, bid_levels=fc.bid_levels,
+                               ask_levels=fc.ask_levels) for sl in slices]
+    schedule = ([(POOL_SESSIONS, POOL_SESSIONS)] * POOL_FULL_FLUSHES
+                + [(POOL_PADDED_LIVE, POOL_PADDED_BUCKET)]
+                * POOL_PADDED_FLUSHES)
+
+    def make_pool(dev):
+        return SessionPool(model_cfg, state, capacity=rt.capacity,
+                           window=rt.window, device=dev)
+
+    def flush(pool, handles, ticks, live, bucket):
+        slots = np.full(bucket, pool.padding_slot, np.int64)
+        rows = np.zeros((bucket, len(wh.x_fields)), np.float32)
+        for lane in range(live):
+            slots[lane] = handles[lane].slot
+            rows[lane] = slices[lane][ticks[lane]]
+            ticks[lane] += 1
+        return pool.step(slots, rows)
+
+    def run(dev):
+        pool = make_pool(dev)
+        handles = [pool.alloc(f"s{i}", norms[i])
+                   for i in range(POOL_SESSIONS)]
+        ticks, last, flush_ms = [0] * POOL_SESSIONS, {}, []
+        for live, bucket in schedule:
+            t = time.perf_counter()
+            probs = flush(pool, handles, ticks, live, bucket)
+            flush_ms.append((time.perf_counter() - t) * 1e3)
+            last.update((i, probs[i]) for i in range(live))
+        return pool, handles, ticks, last, flush_ms
+
+    # warm-up: one flush at each bucket on a throwaway pool
+    warm = make_pool(device)
+    warm_handles = [warm.alloc(f"w{i}") for i in range(POOL_SESSIONS)]
+    for live, bucket in sorted(set(schedule)):
+        flush(warm, warm_handles, [0] * POOL_SESSIONS, live, bucket)
+    torch.cuda.synchronize()
+
+    start_path()
+    t0 = time.perf_counter()
+    pool, handles, ticks, last, flush_ms = run(device)
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()  # the path ends here
+    expected = ({"ssm_step": len(schedule) * model_cfg.n_layers}
+                if cell == "ssm" else {})
+    full, padded = (flush_ms[:POOL_FULL_FLUSHES],
+                    flush_ms[POOL_FULL_FLUSHES:])
+    session_ticks = sum(live for live, _ in schedule)
+    snap = pool.export_slot(handles[0])
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        *[c for layer in snap["carry"] for c in layer], snap["ring"]))
+    emit("pool", cell=cell, model=str(model_cfg), capacity=rt.capacity,
+         window=rt.window, sessions=POOL_SESSIONS, flushes=len(schedule),
+         session_ticks=session_ticks, seconds=wall_s,
+         session_ticks_per_s=session_ticks / (sum(flush_ms) / 1e3),
+         bucket64_p50_ms=statistics.median(full), bucket64_p99_ms=p99(full),
+         bucket32_p50_ms=statistics.median(padded),
+         bucket32_p99_ms=p99(padded), launches=counts,
+         state_bytes_per_session=state_bytes)
+    check(pool.n_active == POOL_SESSIONS and sum(ticks) == session_ticks,
+          f"{pool.n_active} sessions, {sum(ticks)} ticks")
+    check_launches(counts, expected, f"{cell} pool")
+    check(all(np.isfinite(p).all() for p in last.values()),
+          "non-finite pool probabilities")
+
+    if torch.device(device).type == "cuda":
+        emit("pool device share", cell=cell, flushes=POOL_PADDED_FLUSHES,
+             bucket=POOL_SESSIONS, **device_share(lambda: [
+                 flush(pool, handles, ticks, POOL_SESSIONS, POOL_SESSIONS)
+                 for _ in range(POOL_PADDED_FLUSHES)]))
+
+    _, _, _, cpu_last, _ = run("cpu")
+    err = max(float(np.abs(last[i] - cpu_last[i]).max()) for i in last)
+    emit("pool vs cpu", cell=cell, sessions=len(cpu_last), max_abs_err=err,
+         tol=PATH_TOL)
+    check(len(cpu_last) == POOL_SESSIONS and err <= PATH_TOL,
+          f"{cell} pool: card and CPU disagree ({err})")
+
+    # one session moved: exported, freed and imported back, and into a
+    # fresh pool; both then tick on the same rows, bit for bit
+    snap = pool.export_slot(handles[0])
+    pool.free(handles[0])
+    back = pool.alloc("s0-back")
+    pool.import_slot(back, snap)
+    fresh = make_pool(device)
+    moved = fresh.alloc("s0")
+    fresh.import_slot(moved, snap)
+    rows = slices[0][ticks[0]:ticks[0] + POOL_MOVED_TICKS]
+    same = all(np.array_equal(pool.step([back.slot], row[None]),
+                              fresh.step([moved.slot], row[None]))
+               for row in rows)
+    emit("pool moved slot", cell=cell, ticks=len(rows), bit_identical=same,
+         pos=snap["pos"], state_bytes=state_bytes)
+    check(len(rows) == POOL_MOVED_TICKS and same,
+          f"{cell} pool: an imported slot ticks differently")
+    return counts
+
+
 def kernel_entry(name, replaces, source, rows, launches, by_path):
     """One kernel's entry of the summary line, at the main shape
     (256, 30, 32) float32, forward direction."""
@@ -910,6 +1267,30 @@ def kernel_entry(name, replaces, source, rows, launches, by_path):
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
         "shape": [BATCH, 30, 32],
+    }
+
+
+def ssm_entry(rows, by_path):
+    """Kernel 5's entry of the summary line, at the pool's (64, 32)
+    float32."""
+    main_shape = next(r for r in rows if r["batch"] == POOL_SESSIONS
+                      and r["hidden"] == 32 and r["dtype"] == "float32"
+                      and not r["strided"])
+    return {
+        "name": "ssm_step",
+        "route": "cuda",
+        "source": SSM_SOURCE,
+        "replaces": SSM_REPLACES,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["dtype"] == "float32"),
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+        "shape": [POOL_SESSIONS, 32],
     }
 
 
@@ -968,7 +1349,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _cuda_lib.build()
     emit("build", kernels=[f"{s.name}_scan_{k}" for s in scans
-                           for k in ("fwd", "bwd")],
+                           for k in ("fwd", "bwd")] + ["ssm_step"],
          sources=[str(p.name) for p in _cuda_lib.SOURCES], library=str(lib),
          nvcc_seconds=_cuda_lib.build_info.get("seconds"),
          seconds=time.perf_counter() - t0, target="sm_90a",
@@ -977,30 +1358,43 @@ def main() -> int:
     n_features = FrameworkConfig().model.n_features
     rows = {s.name: (phase_kernel(s, n_features),
                      phase_kernel_bwd(s, n_features)) for s in scans}
-    launches = {}
+    ssm_rows = phase_kernel_ssm()
+    launches, stream, stream_bi, pool = {}, {}, {}, {}
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
         wh = make_warehouse(tmp)
         for s in scans:
-            serve_fwd = phase_path(s.module, wh, tmp, cell=s.name)
+            serve_fwd = phase_path(wh, tmp, cell=s.name)
             train_fwd, train_bwd, _, dataset, weights = phase_train(
-                s.module, wh, tmp, cell=s.name)
+                wh, tmp, cell=s.name)
             phase_train_vs_cpu(dataset, weights, cell=s.name)
             launches[s.name] = (serve_fwd, train_fwd, train_bwd)
+        phase_path(wh, tmp, cell="ssm")
+        for cell in ("gru", "lstm", "ssm"):
+            stream[cell] = phase_stream(wh, cell=cell)
+            if cell != "ssm":
+                stream_bi[cell] = phase_stream(wh, cell=cell,
+                                               bidirectional=True)
+            pool[cell] = phase_pool(wh, cell=cell)
         wh.close()
 
     entries = []
     for s in scans:
         serve_fwd, train_fwd, train_bwd = launches[s.name]
+        stream_fwd = stream_bi[s.name][f"{s.name}_scan_fwd"]
         fwd_rows, bwd_rows = rows[s.name]
         entries += [
             kernel_entry(f"{s.name}_scan_fwd", s.replaces[0], s.source,
-                         fwd_rows, serve_fwd + train_fwd,
-                         {"serve": serve_fwd, "train": train_fwd}),
+                         fwd_rows, serve_fwd + train_fwd + stream_fwd,
+                         {"serve": serve_fwd, "train": train_fwd,
+                          "stream_bidirectional": stream_fwd}),
             kernel_entry(f"{s.name}_scan_bwd", s.replaces[1], s.source,
                          bwd_rows, train_bwd,
                          {"serve": 0, "train": train_bwd}),
         ]
+    entries.append(ssm_entry(ssm_rows, {
+        "stream": stream["ssm"]["ssm_step"], "pool": pool["ssm"]["ssm_step"],
+        "serve": 0}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

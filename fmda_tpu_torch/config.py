@@ -2,12 +2,12 @@
 
 The same frozen dataclasses as ``fmda_tpu.config`` (field names, defaults
 and the config -> schema codegen of :class:`FeatureConfig`), cut to what
-the window-re-scan serving path and the trainer read: the feature schema,
-the warehouse, the model and the training config (without its continuous
-fine-tuning fields).  A JSON file that ``fmda_tpu.config.save_config``
-wrote loads here too: the sections and keys this package does not model
-(the runtime, fleet, mesh, ...) belong to paths that are not ported yet
-and are skipped.
+the ported paths read: the feature schema, the warehouse, the model, the
+training config (without its continuous fine-tuning fields) and the
+session pool's part of the runtime config.  A JSON file that
+``fmda_tpu.config.save_config`` wrote loads here too: the sections and
+keys this package does not model (the fleet, mesh, the rest of the
+runtime, ...) belong to paths that are not ported yet and are skipped.
 """
 
 from __future__ import annotations
@@ -219,7 +219,7 @@ class FeatureConfig:
 
 
 #: The ``ModelConfig.cell`` values the port runs.
-PORTED_CELLS = ("gru", "lstm")
+PORTED_CELLS = ("gru", "lstm", "ssm")
 
 
 @dataclass(frozen=True)
@@ -235,10 +235,16 @@ class ModelConfig:
     dropout: float = 0.5
     spatial_dropout: bool = True
     bidirectional: bool = True
-    #: Sequence-core family: "gru" (the reference's model) or "lstm" (the
-    #: same head over an LSTM core).  "ssm" and "attn" are not ported yet;
-    #: they are queued in ROADMAP.md.
+    #: Sequence-core family: "gru" (the reference's model), "lstm" (the
+    #: same head over an LSTM core) or "ssm" (the gated diagonal linear
+    #: recurrence with an EMA head, served from an O(1) cache).  "attn"
+    #: is not ported yet; it is queued in ROADMAP.md.
     cell: str = "gru"
+    #: cell="ssm": each channel's decay offset ``a_base`` is initialised so
+    #: ``sigmoid(a_base)`` is uniform in this range.
+    ssm_decay_range: Tuple[float, float] = (0.9, 0.999)
+    #: cell="ssm": initial (fast, slow) head-EMA rates.
+    ssm_ema_init: Tuple[float, float] = (0.6, 0.98)
     #: Compute dtype for the recurrent core and head; params stay float32.
     dtype: str = "float32"
 
@@ -292,11 +298,24 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class RuntimeConfig:
+    """The session pool's part of ``fmda_tpu``'s fleet runtime config."""
+
+    #: Max concurrent sessions (slots in the pooled state).
+    capacity: int = 128
+    #: Ascending padded micro-batch sizes of a flush.
+    bucket_sizes: Tuple[int, ...] = (8, 32, 64, 128)
+    #: Pooled-head trailing window of the carried streaming state.
+    window: int = 30
+
+
+@dataclass(frozen=True)
 class FrameworkConfig:
     features: FeatureConfig = field(default_factory=FeatureConfig)
     warehouse: WarehouseConfig = field(default_factory=WarehouseConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
     def __post_init__(self) -> None:
         if self.model.n_features is None:
@@ -310,6 +329,7 @@ _SECTIONS = {
     "warehouse": WarehouseConfig,
     "model": ModelConfig,
     "train": TrainConfig,
+    "runtime": RuntimeConfig,
 }
 
 

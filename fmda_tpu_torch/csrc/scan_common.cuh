@@ -1,8 +1,9 @@
-// What the recurrent scan kernels share (gru_scan.cu, lstm_scan.cu): dtype
-// conversions, the gate nonlinearity, the batch tiling, and the block-ordered
-// reduction of the backward kernels' weight-gradient partials.  Everything
-// here sits in an anonymous namespace, so each source that includes it gets
-// its own copy and the library exports only the sources' extern "C" entries.
+// What the recurrent kernels share (gru_scan.cu, lstm_scan.cu, ssm_step.cu):
+// dtype conversions, the gate nonlinearity, the batch tiling, and the
+// block-ordered reduction of the backward kernels' weight-gradient partials.
+// Everything here sits in an anonymous namespace, so each source that
+// includes it gets its own copy and the library exports only the sources'
+// extern "C" entries.
 
 #pragma once
 

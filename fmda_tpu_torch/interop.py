@@ -1,11 +1,14 @@
 """Carry weights across from the JAX package, without JAX.
 
-``fmda_tpu``'s BiGRU and BiLSTM params are flax trees whose recurrent
-leaves already use ``nn.GRU``'s and ``nn.LSTM``'s names and layouts
-(``weight_ih_l0`` is (3H, F) or (4H, F), and so on); only the head differs: flax's ``Dense`` keeps its kernel as (in, out),
-``nn.Linear`` its weight as (out, in).  The tree arrives as nested dicts
-of numpy arrays (``jax.device_get(params)``), or flattened into an
-``.npz`` whose keys join the tree's path with ``/``.
+``fmda_tpu``'s BiGRU, BiLSTM and GatedSSM params are flax trees whose
+recurrent leaves already carry the port's names and layouts
+(``weight_ih_l0`` is (3H, F) or (4H, F), the SSM's per-channel
+``a_base_l0``, ``d_l0``, ``rho_f_l0`` and ``rho_s_l0`` are (H,), and so
+on), so they cross as they are; only the head differs: flax's ``Dense``
+keeps its kernel as (in, out), ``nn.Linear`` its weight as (out, in).
+The tree arrives as nested dicts of numpy arrays
+(``jax.device_get(params)``), or flattened into an ``.npz`` whose keys
+join the tree's path with ``/``.
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ def _params_subtree(tree: Mapping) -> Mapping:
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """A flax BiGRU or BiLSTM ``params`` tree (or ``{"params": ...}``) ->
-    the port's ``state_dict``, which loads with ``strict=True``."""
+    """A flax BiGRU, BiLSTM or GatedSSM ``params`` tree (or
+    ``{"params": ...}``) -> the port's ``state_dict``, which loads with
+    ``strict=True``."""
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in _params_subtree(tree).items():
         if name == "linear":

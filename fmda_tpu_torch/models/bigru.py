@@ -11,8 +11,18 @@ params load through :func:`fmda_tpu_torch.interop.params_from_flax`.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import torch
+
 from fmda_tpu_torch.models.common import RecurrentClassifier
 from fmda_tpu_torch.ops.gru import GRUWeights, gru_layer
+
+
+class BiGRUState(NamedTuple):
+    """Carried hidden state: (n_layers, n_directions, B, H)."""
+
+    hidden: torch.Tensor
 
 
 class BiGRU(RecurrentClassifier):
@@ -20,6 +30,9 @@ class BiGRU(RecurrentClassifier):
 
     n_gates = 3
     weights_type = GRUWeights
+    state_type = BiGRUState
 
-    def layer(self, x, weights, *, reverse, mask):
-        return gru_layer(x, weights, reverse=reverse, mask=mask)
+    def layer(self, x, weights, init, *, reverse, mask):
+        h_last, hs = gru_layer(x, weights, None if init is None else init[0],
+                               reverse=reverse, mask=mask)
+        return (h_last,), hs

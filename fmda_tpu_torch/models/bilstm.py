@@ -6,16 +6,27 @@ the same :class:`~fmda_tpu_torch.models.common.RecurrentClassifier` as
 optionally-bidirectional layers, the pool-concat head) over the projection
 + scan ops of :mod:`fmda_tpu_torch.ops.lstm`, whose scan is the CUDA
 kernel.  The head reads the layers' final hiddens and per-step outputs;
-the final cell states are not used.  Parameters are named as ``nn.LSTM``
-names them, gate rows ``[i, f, g, o]``, with the head under ``linear``,
-so the JAX package's flax params load through
+the final cell states are carried state only.  Parameters are named as
+``nn.LSTM`` names them, gate rows ``[i, f, g, o]``, with the head under
+``linear``, so the JAX package's flax params load through
 :func:`fmda_tpu_torch.interop.params_from_flax`.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import torch
+
 from fmda_tpu_torch.models.common import RecurrentClassifier
 from fmda_tpu_torch.ops.lstm import LSTMWeights, lstm_layer
+
+
+class BiLSTMState(NamedTuple):
+    """Carried state: hidden and cell, each (n_layers, n_dirs, B, H)."""
+
+    hidden: torch.Tensor
+    cell: torch.Tensor
 
 
 class BiLSTM(RecurrentClassifier):
@@ -23,7 +34,10 @@ class BiLSTM(RecurrentClassifier):
 
     n_gates = 4
     weights_type = LSTMWeights
+    state_type = BiLSTMState
 
-    def layer(self, x, weights, *, reverse, mask):
-        (h_last, _), hs = lstm_layer(x, weights, reverse=reverse, mask=mask)
-        return h_last, hs
+    def layer(self, x, weights, init, *, reverse, mask):
+        h0, c0 = (None, None) if init is None else init
+        (h_last, c_last), hs = lstm_layer(x, weights, h0, c0,
+                                          reverse=reverse, mask=mask)
+        return (h_last, c_last), hs

@@ -1,9 +1,10 @@
 """Shared pieces of the recurrent model families: input dropout, the
-pool-concat head (as ``fmda_tpu.models.common`` defines them), and
-:class:`RecurrentClassifier`, the module both families are: the
-parameters under ``nn.GRU``/``nn.LSTM``'s names, their init, the stacked
-optionally-bidirectional layers and the head, with the cell's layer op
-left to the family."""
+pool-concat head and the SSM family's EMA-concat head (as
+``fmda_tpu.models.common`` defines them), and :class:`RecurrentClassifier`,
+the module the GRU and LSTM families are: the parameters under
+``nn.GRU``/``nn.LSTM``'s names, their init, the stacked
+optionally-bidirectional layers, the carried state and the head, with the
+cell's layer op left to the family."""
 
 from __future__ import annotations
 
@@ -64,12 +65,29 @@ def pool_concat_logits(
         max_pool = torch.where(m > 0, out_sum, neg).amax(dim=1)
         denom = m.sum(dim=1).clamp_min(1.0)
         avg_pool = (out_sum * m).sum(dim=1) / denom
-    concat = torch.cat([last_hidden, max_pool, avg_pool], dim=-1)
-    # the head's params are float32: the product runs in the promoted dtype
+    return _head_logits(
+        head, torch.cat([last_hidden, max_pool, avg_pool], dim=-1))
+
+
+def _head_logits(head: nn.Linear, concat: torch.Tensor) -> torch.Tensor:
+    """``head(concat)`` as float32 logits; the head's params are float32,
+    so the product runs in the promoted dtype."""
     dtype = torch.promote_types(concat.dtype, head.weight.dtype)
     logits = nn.functional.linear(
         concat.to(dtype), head.weight.to(dtype), head.bias.to(dtype))
     return logits.to(torch.float32)
+
+
+def ema_concat_logits(head: nn.Linear, last_hidden: torch.Tensor,
+                      ema_fast: torch.Tensor,
+                      ema_slow: torch.Tensor) -> torch.Tensor:
+    """The SSM family's head: ``[h_last, ema_fast, ema_slow]`` into
+    ``Linear(3H -> n_classes)``, the O(1)-state twin of
+    :func:`pool_concat_logits` (the serving cores' ``ema_head_logits``
+    reads the same ``linear`` params in the same concat order).  Logits are
+    always float32."""
+    return _head_logits(
+        head, torch.cat([last_hidden, ema_fast, ema_slow], dim=-1))
 
 
 def _suffix(layer: int, reverse: bool) -> str:
@@ -85,10 +103,12 @@ class RecurrentClassifier(nn.Module):
       between layers as ``nn.GRU``/``nn.LSTM`` apply it;
     - the pool-concat head: the sum of the last layer's final forward and
       backward hiddens, and max- and mean-pools of the direction-summed
-      outputs, into ``Linear(3H -> n_classes)``.
+      outputs, into ``Linear(3H -> n_classes)``;
+    - carried state for chunked streaming of unidirectional models: the
+      family's :attr:`state_type`, each field (n_layers, n_dirs, B, H).
 
-    A family sets :attr:`n_gates` and :attr:`weights_type` and implements
-    :meth:`layer`.  Parameters are named as torch's recurrent modules name
+    A family sets :attr:`n_gates`, :attr:`weights_type` and
+    :attr:`state_type` and implements :meth:`layer`.  Parameters are named as torch's recurrent modules name
     them (``weight_ih_l0``, ``bias_hh_l0_reverse``, ...), with the head
     under ``linear``.  ``cfg.n_features`` must be resolved."""
 
@@ -96,6 +116,9 @@ class RecurrentClassifier(nn.Module):
     n_gates: int
     #: The NamedTuple ``(w_ih, w_hh, b_ih, b_hh)`` the layer op takes.
     weights_type: type
+    #: The NamedTuple of carried states (``BiGRUState(hidden)``,
+    #: ``BiLSTMState(hidden, cell)``), fields in the layer op's order.
+    state_type: type
 
     def __init__(self, cfg, *,
                  generator: Optional[torch.Generator] = None) -> None:
@@ -137,10 +160,12 @@ class RecurrentClassifier(nn.Module):
             getattr(self, f"{kind}_{s}").to(dtype)
             for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
 
-    def layer(self, x: torch.Tensor, weights, *, reverse: bool,
+    def layer(self, x: torch.Tensor, weights, init, *, reverse: bool,
               mask: Optional[torch.Tensor]
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One direction of one layer from zero state: (h_last, hs)."""
+              ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+        """One direction of one layer from ``init`` (a tuple of (B, H)
+        states in :attr:`state_type`'s order, or None for zeros): (the
+        final states in that order, hs)."""
         raise NotImplementedError
 
     def forward(
@@ -149,27 +174,43 @@ class RecurrentClassifier(nn.Module):
         mask: Optional[torch.Tensor] = None,
         *,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        state=None,
+        return_state: bool = False,
+    ):
         """(B, T, F) windows -> (B, n_classes) float32 logits.
 
         ``mask`` is an optional (B, T) validity mask for padded windows;
-        ``generator`` feeds the dropout masks in training mode."""
+        ``generator`` feeds the dropout masks in training mode.  ``state``
+        (a :attr:`state_type`) seeds every layer's scan, for chunked
+        streaming of a unidirectional model; ``return_state`` also returns
+        the final :attr:`state_type`."""
         cfg = self.cfg
+        if state is not None and cfg.bidirectional:
+            # a backward carry would flow from the past chunk where a true
+            # backward scan needs the future
+            raise ValueError(
+                f"carried {self.state_type.__name__} requires "
+                "bidirectional=False; re-scan the full window for "
+                "bidirectional models")
         seq_len = x.shape[1]
         compute_dtype = getattr(torch, cfg.dtype)
         x = dropout(x.to(compute_dtype), cfg.dropout, training=self.training,
                     generator=generator, spatial=cfg.spatial_dropout)
 
         layer_input = x
+        all_finals = []  # per layer, per direction: the final states
         for layer in range(cfg.n_layers):
             outs, finals = [], []
             for d in range(self.n_dirs):
-                h_last, hs = self.layer(
+                init = None if state is None else tuple(
+                    s[layer, d].to(compute_dtype) for s in state)
+                final, hs = self.layer(
                     layer_input,
                     self.direction_weights(layer, d == 1, compute_dtype),
-                    reverse=d == 1, mask=mask)
+                    init, reverse=d == 1, mask=mask)
                 outs.append(hs)
-                finals.append(h_last)
+                finals.append(final)
+            all_finals.append(finals)
             layer_input = torch.cat(outs, dim=-1) if self.n_dirs == 2 else outs[0]
             # inter-layer dropout (all but the last layer)
             if layer < cfg.n_layers - 1:
@@ -177,8 +218,15 @@ class RecurrentClassifier(nn.Module):
                                       training=self.training,
                                       generator=generator)
 
-        last_hidden = torch.stack(finals).sum(dim=0)  # sum directions (B, H)
+        # sum directions' final hiddens (B, H)
+        last_hidden = torch.stack([f[0] for f in finals]).sum(dim=0)
         out_sum = outs[0] + outs[1] if self.n_dirs == 2 else outs[0]
-        return pool_concat_logits(
+        logits = pool_concat_logits(
             self.linear, last_hidden, out_sum,
             mask=mask, seq_len=seq_len, compute_dtype=compute_dtype)
+        if return_state:
+            return logits, self.state_type(*(
+                torch.stack([torch.stack([f[k] for f in finals])
+                             for finals in all_finals])
+                for k in range(len(self.state_type._fields))))
+        return logits

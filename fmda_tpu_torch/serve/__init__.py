@@ -12,9 +12,15 @@ from fmda_tpu_torch.serve.predictor import (
     make_batched_forward,
     prediction_message,
 )
+from fmda_tpu_torch.serve.streaming import (
+    StreamingBiGRU,
+    StreamingBiGRUBidirectional,
+    StreamingPredictor,
+)
 
 __all__ = [
-    "BacktestResult", "LabelStats", "Prediction", "Predictor", "backtest",
-    "backtest_from_checkpoint", "labels_over_threshold",
+    "BacktestResult", "LabelStats", "Prediction", "Predictor",
+    "StreamingBiGRU", "StreamingBiGRUBidirectional", "StreamingPredictor",
+    "backtest", "backtest_from_checkpoint", "labels_over_threshold",
     "make_batched_forward", "prediction_message", "trading_summary",
 ]

@@ -39,7 +39,9 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
     for name in ("ops._cuda_lib", "ops.gru_kernel", "ops.lstm_kernel",
                  "ops.lstm", "models.bilstm", "serve.predictor",
                  "train.trainer", "train.losses", "train.checkpoint",
-                 "data.pipeline", "__main__"):
+                 "data.pipeline", "__main__", "ops.ssm", "ops.ssm_kernel",
+                 "models.ssm", "serve.streaming", "runtime",
+                 "runtime.session_pool"):
         assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -103,6 +105,27 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         backtest(None, cfg, {}, norm, window=2)
 
 
+def test_streaming_entry_points_raise_without_a_card(monkeypatch):
+    from fmda_tpu_torch.config import ModelConfig
+    from fmda_tpu_torch.data.normalize import NormParams
+    from fmda_tpu_torch.runtime import SessionPool
+    from fmda_tpu_torch.serve import (
+        StreamingBiGRU, StreamingBiGRUBidirectional)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    norm = NormParams(np.zeros(3, np.float32), np.ones(3, np.float32))
+    for cell in ("gru", "lstm", "ssm"):
+        uni = ModelConfig(hidden_size=4, n_features=3, cell=cell,
+                          bidirectional=False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            StreamingBiGRU(uni, {}, norm, window=2)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SessionPool(uni, {}, capacity=2, window=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingBiGRUBidirectional(
+            ModelConfig(hidden_size=4, n_features=3), {}, norm, window=2)
+
+
 def test_trainer_and_train_command_raise_without_a_card(monkeypatch,
                                                        tmp_path):
     from fmda_tpu_torch.__main__ import main as port_main
@@ -124,10 +147,13 @@ def test_kernel_is_not_built_at_import():
         "import fmda_tpu_torch.ops._cuda_lib as lib, fmda_tpu_torch.serve\n"
         "import fmda_tpu_torch.ops.gru_kernel as g\n"
         "import fmda_tpu_torch.ops.lstm_kernel as l\n"
+        "import fmda_tpu_torch.ops.ssm_kernel as s\n"
         "import fmda_tpu_torch.train, fmda_tpu_torch.__main__\n"
+        "import fmda_tpu_torch.runtime\n"
         "assert lib._lib is None and lib.build_info == {}, lib.build_info\n"
         "assert g.launches == g.bwd_launches == 0\n"
         "assert l.launches == l.bwd_launches == 0\n"
+        "assert s.launches == 0\n"
         "assert 'triton' not in __import__('sys').modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -144,7 +144,7 @@ def test_spatial_dropout_drops_whole_channels_from_the_generator():
         assert torch.equal(model(x), model(x))
 
 
-@pytest.mark.parametrize("cell", ["ssm", "attn"])
+@pytest.mark.parametrize("cell", ["attn"])
 def test_other_cells_are_not_ported(cell):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ModelConfig(cell=cell)

@@ -1,5 +1,5 @@
 """fmda_tpu_torch's serving path against the JAX package's, on the CPU,
-for each ported cell family (``cell="gru"`` and ``"lstm"``).
+for each ported cell family (``cell="gru"``, ``"lstm"`` and ``"ssm"``).
 
 The JAX package's ``Warehouse`` writes a SQLite file and the port reads
 the same file; the JAX ``Predictor`` and ``backtest`` and the port's run on
@@ -87,10 +87,12 @@ def _models(n_features, cell="gru", seed=0):
     return jax_cfg, params, port_cfg, params_from_flax(params)
 
 
-@pytest.fixture(params=["gru", "lstm"])
+@pytest.fixture(params=["gru", "lstm", "ssm"])
 def served(tmp_path, request):
     """A JAX-written warehouse file, opened by both packages, with norm
-    stats and cross-loaded weights of each ported cell family."""
+    stats and cross-loaded weights of each ported cell family (the
+    bidirectional GatedSSM re-scans each window in parallel mode, with no
+    kernel)."""
     path = tmp_path / "wh.sqlite"
     jax_wh = _jax_warehouse(path, _rows())
     port_wh = _port_warehouse(path)
@@ -217,7 +219,8 @@ def _cli_fixture(tmp_path, served):
         "model": {"hidden_size": HIDDEN, "dropout": 0.0,
                   "cell": port_cfg.cell},
         "train": {"window": WINDOW, "epochs": 3},  # epochs: train only
-        "runtime": {"window": 30},  # a section this package skips
+        "runtime": {"window": 30, "max_linger_ms": 2.0},  # a key skipped
+        "fleet": {"workers": 2},  # a section this package skips
     }))
     return port_wh.config.path, ckpt, str(cfg), len(port_wh)
 
