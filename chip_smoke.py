@@ -8,15 +8,18 @@ Phases, each printed as one JSON line, each fatal on failure:
 
 1. ``device``: the card, its power limit, the torch/CUDA versions.
 2. ``build``: nvcc builds the one library that holds every kernel (the
-   GRU and LSTM forward and backward scans, the SSM serve tick) from
-   ``fmda_tpu_torch/csrc`` for sm_90a, one nvcc per source, all started
-   together.
+   GRU and LSTM forward and backward scans, the SSM serve tick, the flash
+   attention forward, dK/dV and dQ sweeps) from ``fmda_tpu_torch/csrc`` for
+   sm_90a, one nvcc per source, all started together.
 3. ``kernel``: each kernel against its plain PyTorch version on the card,
    at the shapes its paths use (and the wider H=128, which takes the scan
    kernels' device-memory branches where shared memory runs out; the SSM
    tick at every pool bucket, in bf16, from a strided projection and at
-   (256, 512)), with times, the roofline bound and the library (cuDNN)
-   yardstick beside it where one exists.
+   (256, 512); the flash kernels at the model's (256, 4, 30, 8) in f32 and
+   bf16, causal or not, with and without a key mask, at the Predictor's
+   batch 1, at T = 1024 and at D = 64 and 512), with times, the roofline
+   bound and the library yardstick (cuDNN, SDPA) beside it where one
+   exists.
 4. ``path``: the window-re-scan serving path at full width
    (``FrameworkConfig()``: H=32, F=108, window 30, float32) over a
    20,000-row warehouse: ``backtest`` at batch 256, then 64 signals through
@@ -42,10 +45,11 @@ Phases, each printed as one JSON line, each fatal on failure:
    and a slot exported, freed and imported back and into a fresh pool,
    both ticking on bit-identically.
 
-Phases 4-6 run for the BiGRU (``cell="gru"``, the default) and the BiLSTM
-(``cell="lstm"``), phase 4 also for the bidirectional gated SSM
-(``cell="ssm"``, parallel mode, no kernel); phases 7 and 8 for gru, lstm
-and ssm (``stream bidirectional`` for gru and lstm).  Their lines carry
+Phases 4-6 run for the BiGRU (``cell="gru"``, the default), the BiLSTM
+(``cell="lstm"``), the TemporalTransformer (``cell="attn"``: the flash
+kernels) and the bidirectional gated SSM (``cell="ssm"``: parallel mode,
+no kernel); phases 7 and 8 for gru, lstm and ssm (``stream
+bidirectional`` for gru and lstm).  Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
 other kernel's 0.  Then the ``{"kernels": [...]}`` summary, the card
@@ -100,8 +104,13 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_TC_FLOP_PER_S = 989e12
 
 
+#: the script's start, for each line's ``elapsed_s``
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
 def check(ok: bool, message: str) -> None:
@@ -506,6 +515,176 @@ def phase_kernel_ssm(device: str = "cuda"):
     return results
 
 
+#: kernels 6-8: where they live and what they replace
+FLASH_SOURCE = "fmda_tpu_torch/csrc/flash_attn.cu"
+FLASH_REPLACES = {"flash_fwd": "fmda_tpu/ops/pallas_attention.py:94",
+                  "flash_dkv": "fmda_tpu/ops/pallas_attention.py:200",
+                  "flash_dq": "fmda_tpu/ops/pallas_attention.py:265"}
+#: the model's attention: (B, N, T, D) at batch 256, 4 heads of 8, window 30
+FLASH_MAIN = (BATCH, 4, 30, 8)
+#: products per visible (query, key) pair, in units of D: the forward's
+#: q.k and p.v; the dK/dV sweep's q.k, do.v, p^T do and ds^T q; the dQ
+#: sweep's q.k, do.v and ds k
+FLASH_FLOPS = {"flash_fwd": 4, "flash_dkv": 8, "flash_dq": 6}
+
+
+def flash_cases():
+    """The serving and training shape in f32 and bf16, causal or not, with
+    and without a key mask (ragged valid lengths, one row fully hidden);
+    the Predictor's batch 1; the long-context (16, 4, 1024, 8), causal or
+    not; the D envelope at 64 and 512."""
+    b, n, t, d = FLASH_MAIN
+    base = dict(batch=b, heads=n, seq=t, d=d, dtype=torch.float32,
+                causal=False, masked=False)
+    return ([dict(base, dtype=dtype, causal=causal, masked=masked)
+             for dtype in (torch.float32, torch.bfloat16)
+             for causal in (False, True) for masked in (False, True)]
+            + [dict(base, batch=1)]
+            + [dict(base, batch=16, seq=1024, causal=causal)
+               for causal in (False, True)]
+            + [dict(base, batch=8, heads=2, seq=256, d=64),
+               dict(base, batch=2, heads=1, seq=128, d=512)])
+
+
+def flash_pairs(c, key_mask) -> int:
+    """The (query, key) pairs this case's data makes visible: the work the
+    function needs (a hidden key needs none)."""
+    b, n, t = c["batch"], c["heads"], c["seq"]
+    keep = (torch.ones(b, t, dtype=torch.bool) if key_mask is None
+            else key_mask.cpu())
+    if c["causal"]:  # keys at or before the query: prefix counts
+        return n * int(keep.long().cumsum(dim=1).sum())
+    return n * t * int(keep.long().sum())
+
+
+def flash_bound(kernel, c, itemsize, pairs, masked):
+    """Least time for one kernel on this card: its inputs read once (q, k,
+    v; the sweeps also do, lse and delta; the key mask) and its outputs
+    written once (o and lse; dk and dv; dq), against its products' FLOPs
+    over the visible pairs."""
+    bntd = c["batch"] * c["heads"] * c["seq"] * c["d"]
+    bnt = c["batch"] * c["heads"] * c["seq"]
+    if kernel == "flash_fwd":
+        bytes_moved = itemsize * 4 * bntd + 4 * bnt
+    else:
+        n_out = 2 if kernel == "flash_dkv" else 1
+        bytes_moved = itemsize * (4 + n_out) * bntd + 2 * 4 * bnt
+    bytes_moved += c["batch"] * c["seq"] if masked else 0
+    return roofline_ms(bytes_moved, FLASH_FLOPS[kernel] * c["d"] * pairs, 0,
+                       itemsize)
+
+
+def sdpa(q, k, v, causal, key_mask):
+    """One PyTorch call of the same attention, the yardstick (never on the
+    port's path)."""
+    if key_mask is None:
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
+    mask = key_mask[:, None, None, :]
+    if causal:
+        t = q.shape[-2]
+        mask = mask & torch.ones(t, t, dtype=torch.bool,
+                                 device=q.device).tril()
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)
+
+
+def phase_kernel_flash(device: str = "cuda"):
+    """flash_fwd against flash_fwd_reference (o, lse), then flash_dkv and
+    flash_dq against theirs (dk, dv; dq) on the kernel forward's o and lse
+    with a nonzero lse cotangent, at every case of :func:`flash_cases`.
+    Returns the rows, each naming its ``kernel``."""
+    from fmda_tpu_torch.ops import attention_kernel as ak
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    results = []
+    for c in flash_cases():
+        b, n, t, d, dtype = (c["batch"], c["heads"], c["seq"], c["d"],
+                             c["dtype"])
+
+        def randn(*shape, s=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) * s).to(
+                dtype)
+
+        q, k, v = (randn(b, n, t, d) for _ in range(3))
+        key_mask = None
+        if c["masked"]:  # ragged valid lengths 1..T, row 0 fully hidden
+            lengths = torch.randint(1, t + 1, (b,), generator=gen,
+                                    device=dev)
+            key_mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+            key_mask[0] = False
+        kw = dict(causal=c["causal"], key_mask=key_mask)
+        pairs = flash_pairs(c, key_mask)
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        shape = dict(batch=b, heads=n, seq=t, d=d,
+                     dtype=str(dtype).replace("torch.", ""),
+                     causal=c["causal"], masked=c["masked"], pairs=pairs,
+                     tol=tol)
+        with torch.inference_mode():
+            o, lse = ak.flash_fwd(q, k, v, **kw)
+            want = ak.flash_fwd_reference(q, k, v, **kw)
+            do, dlse = randn(b, n, t, d), torch.randn(
+                (b, n, t), generator=gen, device=dev) * 0.5
+            bargs = (q, k, v, do, lse, ak.flash_delta(o, do, dlse))
+            got_bwd = {"flash_dkv": ak.flash_dkv(*bargs, **kw),
+                       "flash_dq": (ak.flash_dq(*bargs, **kw),)}
+            want_bwd = {"flash_dkv": ak.flash_dkv_reference(*bargs, **kw),
+                        "flash_dq": (ak.flash_dq_reference(*bargs, **kw),)}
+            torch.cuda.synchronize()
+        outputs = {"flash_fwd": ((o, lse), want), **{
+            name: (got_bwd[name], want_bwd[name]) for name in got_bwd}}
+        fns = {"flash_fwd": (lambda: ak.flash_fwd(q, k, v, **kw),
+                             lambda: ak.flash_fwd_reference(q, k, v, **kw)),
+               "flash_dkv": (lambda: ak.flash_dkv(*bargs, **kw),
+                             lambda: ak.flash_dkv_reference(*bargs, **kw)),
+               "flash_dq": (lambda: ak.flash_dq(*bargs, **kw),
+                            lambda: ak.flash_dq_reference(*bargs, **kw))}
+        # the yardstick: SDPA's forward, its backward alone (dq, dk and dv
+        # in one call) and both, on the same tensors
+        lq, lk, lv = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        lib_out = sdpa(lq, lk, lv, c["causal"], key_mask)
+        library = {"fwd": time_ms(lambda: sdpa(q, k, v, c["causal"],
+                                               key_mask), prime=True,
+                                  prime_cycles=LIBRARY_PRIME_CYCLES),
+                   "bwd": time_ms(lambda: torch.autograd.grad(
+                       lib_out, (lq, lk, lv), do, retain_graph=True),
+                       prime=True, prime_cycles=LIBRARY_PRIME_CYCLES),
+                   "fwd_bwd": time_ms(lambda: torch.autograd.grad(
+                       sdpa(lq, lk, lv, c["causal"], key_mask), (lq, lk, lv),
+                       do), prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)}
+        for name, (got, ref) in outputs.items():
+            errs = [(g.float() - r.float()).abs().max().item()
+                    for g, r in zip(got, ref)]
+            check(all(g.shape == r.shape and g.dtype == r.dtype
+                      for g, r in zip(got, ref)),
+                  f"{name} outputs {[(g.shape, g.dtype) for g in got]}")
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            with torch.inference_mode():
+                kernel_fn, plain_fn = fns[name]
+                ms = time_ms(kernel_fn, prime=True)
+                call_ms = time_ms(kernel_fn, prime=False)
+                plain_ms = time_ms(plain_fn, prime=True)
+            bound_ms, bound_by = flash_bound(name, c, q.element_size(),
+                                             pairs, c["masked"])
+            row = dict(kernel=name, **shape, max_abs_err=max(errs),
+                       errs=errs, out_max_abs=[g.float().abs().max().item()
+                                               for g in got],
+                       ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                       library_ms=library["fwd" if name == "flash_fwd"
+                                          else "bwd"],
+                       library_fwd_bwd_ms=library["fwd_bwd"],
+                       bound_ms=bound_ms, bound_by=bound_by)
+            emit("kernel flash_fwd" if name == "flash_fwd"
+                 else "kernel flash_bwd", **row)
+            check(finite, f"non-finite {name} output in {row}")
+            check(max(errs) <= tol,
+                  f"{name} disagrees with its plain version: {row}")
+            results.append(row)
+    return results
+
+
 def median_ms(fn, items) -> float:
     """Median host time of ``fn(item)`` over ``items``, in ms."""
     out = []
@@ -620,22 +799,29 @@ def make_warehouse(directory: str):
 
 def launch_counts() -> dict:
     """Every kernel's launch count, by kernel name."""
-    from fmda_tpu_torch.ops import gru_kernel, lstm_kernel, ssm_kernel
+    from fmda_tpu_torch.ops import (
+        attention_kernel, gru_kernel, lstm_kernel, ssm_kernel)
 
     return {"gru_scan_fwd": gru_kernel.launches,
             "gru_scan_bwd": gru_kernel.bwd_launches,
             "lstm_scan_fwd": lstm_kernel.launches,
             "lstm_scan_bwd": lstm_kernel.bwd_launches,
-            "ssm_step": ssm_kernel.launches}
+            "ssm_step": ssm_kernel.launches,
+            "flash_fwd": attention_kernel.fwd_launches,
+            "flash_dkv": attention_kernel.dkv_launches,
+            "flash_dq": attention_kernel.dq_launches}
 
 
 def start_path() -> None:
     """A path starts: every kernel's launch count to 0."""
-    from fmda_tpu_torch.ops import gru_kernel, lstm_kernel, ssm_kernel
+    from fmda_tpu_torch.ops import (
+        attention_kernel, gru_kernel, lstm_kernel, ssm_kernel)
 
     for m in (gru_kernel, lstm_kernel):
         m.launches = m.bwd_launches = 0
     ssm_kernel.launches = 0
+    attention_kernel.fwd_launches = attention_kernel.dkv_launches = 0
+    attention_kernel.dq_launches = 0
 
 
 def check_launches(counts: dict, expected: dict, what: str) -> None:
@@ -645,10 +831,25 @@ def check_launches(counts: dict, expected: dict, what: str) -> None:
     check(counts == want, f"{what} launched {counts}, expected {want}")
 
 
-def scan_fwd_name(cell: str):
-    """The forward-scan kernel a family's window re-scan launches (the SSM
-    re-scans in parallel mode, with no kernel)."""
-    return f"{cell}_scan_fwd" if cell in ("gru", "lstm") else None
+def forward_kernel(cell: str):
+    """The kernel a family's window forward launches at full width (one
+    layer), and how often a forward: gru and lstm their forward scan once a
+    direction, attn the flash forward once a layer, the SSM none (it
+    re-scans in parallel mode)."""
+    return {"gru": ("gru_scan_fwd", 2), "lstm": ("lstm_scan_fwd", 2),
+            "attn": ("flash_fwd", 1), "ssm": (None, 0)}[cell]
+
+
+def train_launches(cell: str, n_train: int, n_val: int) -> dict:
+    """What one epoch launches: the family's forward kernel at every train
+    step and val batch, its backward kernels at every train step."""
+    fwd, per_forward = forward_kernel(cell)
+    if fwd is None:
+        return {}
+    backward = ({"flash_dkv": n_train, "flash_dq": n_train}
+                if cell == "attn"
+                else {f"{cell}_scan_bwd": per_forward * n_train})
+    return {fwd: per_forward * (n_train + n_val), **backward}
 
 
 def model_config(cell: str, **fields):
@@ -661,8 +862,9 @@ def model_config(cell: str, **fields):
 
 def phase_path(wh, directory: str, device: str = "cuda", cell: str = "gru"):
     """The serving slice at full width, on the card and again on the CPU,
-    for one cell family.  Returns the forward-scan launches of the path
-    (two a forward for gru and lstm, none for ssm)."""
+    for one cell family.  Returns the path's launch counts (two forward
+    scans a forward for gru and lstm, one flash forward for attn, none for
+    ssm)."""
     from fmda_tpu_torch.config import (
         DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP,
         TOPIC_PREDICTION)
@@ -714,8 +916,7 @@ def phase_path(wh, directory: str, device: str = "cuda", cell: str = "gru"):
     run_backtest(device, ids=(window, window + BATCH))
     torch.cuda.synchronize()
 
-    fwd = scan_fwd_name(cell)
-    per_forward = 2 if fwd else 0  # one launch a direction
+    fwd, per_forward = forward_kernel(cell)
     start_path()
     t0 = time.perf_counter()
     gpu_bt = run_backtest(device)
@@ -724,13 +925,12 @@ def phase_path(wh, directory: str, device: str = "cuda", cell: str = "gru"):
     bt_launches = launch_counts().get(fwd, 0)
     gpu_preds, lat_ms, published, errors = serve(device)
     counts = launch_counts()  # the path ends here
-    path_launches = counts.get(fwd, 0)
-    pred_launches = path_launches - bt_launches
+    pred_launches = counts.get(fwd, 0) - bt_launches
 
     served = len(gpu_bt.probabilities)
     n_batches = math.ceil(served / BATCH)
-    check_launches(counts, {fwd: per_forward * (n_batches + SIGNALS)},
-                   f"{cell} serving")
+    check_launches(counts, {fwd: per_forward * (n_batches + SIGNALS)}
+                   if fwd else {}, f"{cell} serving")
     m = gpu_bt.metrics
     emit("path backtest", cell=cell, rows=served, batch=BATCH,
          batches=n_batches, seconds=bt_s,
@@ -740,7 +940,7 @@ def phase_path(wh, directory: str, device: str = "cuda", cell: str = "gru"):
          overall_edge=trading_summary(gpu_bt)["overall"].edge)
     check(served == n - window + 1, f"backtest served {served} rows")
     check(bt_launches == per_forward * n_batches,
-          f"backtest launched the scan kernel {bt_launches} times, "
+          f"backtest launched its kernel {bt_launches} times, "
           f"expected {per_forward * n_batches}")
     check(bool(torch.isfinite(torch.from_numpy(gpu_bt.probabilities))
                .all()), "non-finite backtest probabilities")
@@ -753,7 +953,7 @@ def phase_path(wh, directory: str, device: str = "cuda", cell: str = "gru"):
           f"{len(gpu_preds)} predictions served, {published} published, "
           f"of {SIGNALS} signals")
     check(pred_launches == per_forward * SIGNALS,
-          f"predictor launched the scan kernel {pred_launches} times, "
+          f"predictor launched its kernel {pred_launches} times, "
           f"expected {per_forward * SIGNALS}")
     emit("path breakdown", cell=cell, **breakdown(wh, ckpt, model_cfg, window,
                                        norm, stamps, device))
@@ -778,7 +978,7 @@ def phase_path(wh, directory: str, device: str = "cuda", cell: str = "gru"):
     check(bt_err <= PATH_TOL and pr_err <= PATH_TOL,
           "GPU and CPU probabilities disagree")
     check(same_labels, "GPU and CPU predicted labels differ")
-    return path_launches
+    return counts
 
 
 def train_breakdown(trainer, state, dataset, train_chunks, device):
@@ -855,10 +1055,9 @@ def train_breakdown(trainer, state, dataset, train_chunks, device):
 
 
 def phase_train(wh, directory: str, device: str = "cuda", cell: str = "gru"):
-    """The training path at full width for one cell family (gru or lstm):
-    Trainer.fit for one epoch, then the trained checkpoint backtested on
-    the card.  Returns (forward launches, backward launches, train steps,
-    dataset, weights)."""
+    """The training path at full width for one cell family: Trainer.fit for
+    one epoch, then the trained checkpoint backtested on the card.  Returns
+    (the epoch's launch counts, train steps, dataset, weights)."""
     from fmda_tpu_torch.config import FrameworkConfig, TrainConfig
     from fmda_tpu_torch.data.pipeline import ChunkDataset, WindowBatches
     from fmda_tpu_torch.serve import backtest_from_checkpoint
@@ -901,17 +1100,14 @@ def phase_train(wh, directory: str, device: str = "cuda", cell: str = "gru"):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = launch_counts()  # the path ends here
-    fwd, bwd = counts[f"{cell}_scan_fwd"], counts[f"{cell}_scan_bwd"]
     tr, va = history["train"][-1], history["val"][-1]
     emit("train fit", cell=cell, epochs=len(history["train"]), steps=state.step,
-         seconds=fit_s, samples_per_s=n_windows / fit_s,
-         launches=fwd, bwd_launches=bwd,
+         seconds=fit_s, samples_per_s=n_windows / fit_s, launches=counts,
          train_loss=tr.loss, train_accuracy=tr.accuracy,
          val_loss=va.loss, val_accuracy=va.accuracy,
          val_hamming=va.hamming)
     check(state.step == n_train, f"{state.step} steps, expected {n_train}")
-    check_launches(counts, {f"{cell}_scan_fwd": 2 * (n_train + n_val),
-                            f"{cell}_scan_bwd": 2 * n_train},
+    check_launches(counts, train_launches(cell, n_train, n_val),
                    f"{cell} training")
     check(all(math.isfinite(m.loss) for m in (tr, va)),
           f"non-finite losses {tr.loss}, {va.loss}")
@@ -960,7 +1156,7 @@ def phase_train(wh, directory: str, device: str = "cuda", cell: str = "gru"):
     check(bool(torch.isfinite(torch.from_numpy(bt.probabilities)).all()),
           "non-finite probabilities from the trained checkpoint")
     check(err <= PATH_TOL, "trained checkpoint: card and CPU disagree")
-    return fwd, bwd, n_train, dataset, weights
+    return counts, n_train, dataset, weights
 
 
 def phase_train_vs_cpu(dataset, weights, device: str = "cuda",
@@ -992,14 +1188,37 @@ def phase_train_vs_cpu(dataset, weights, device: str = "cuda",
                      time.perf_counter() - t0)
     (g_loss, g_par, g_s), (c_loss, c_par, c_s) = runs[device], runs["cpu"]
     loss_err = max(abs(a - b) for a, b in zip(g_loss, c_loss))
-    param_err = max(float((g_par[k] - c_par[k]).abs().max()) for k in g_par)
+    key_bias_max = None
+    if cell == "attn":
+        # The key bias adds q . b_k to every score of a query, which the
+        # softmax cancels: its gradient is 0 in exact arithmetic, so each
+        # device feeds Adam its own rounding noise, which Adam scales to
+        # steps of up to the learning rate.  It changes no output (the
+        # losses agree); it is held to the drift Adam allows, and the query
+        # and value biases are compared with everything else.
+        h = model_cfg.hidden_size
+        key_bias_max = max(float(par[k][h:2 * h].abs().max())
+                           for par in (g_par, c_par) for k in par
+                           if k.endswith("qkv.bias"))
+        check(key_bias_max <= len(host) * train_cfg.learning_rate,
+              f"attn key bias drifted to {key_bias_max}")
+
+    def compared(par):
+        if cell != "attn":
+            return par
+        h = model_cfg.hidden_size
+        return {k: torch.cat([v[:h], v[2 * h:]]) if k.endswith("qkv.bias")
+                else v for k, v in par.items()}
+
+    g_cmp, c_cmp = compared(g_par), compared(c_par)
+    param_err = max(float((g_cmp[k] - c_cmp[k]).abs().max()) for k in g_cmp)
     moved = max(float((g_par[k] - v).abs().max()) for k, v in
                 Trainer(model_cfg, train_cfg, device="cpu").init_state()
                 .model.state_dict().items())
     emit("train vs cpu", cell=cell, steps=len(host), loss_max_abs_err=loss_err,
          param_max_abs_err=param_err, params_moved=moved,
          first_loss=g_loss[0], last_loss=g_loss[-1], card_seconds=g_s,
-         cpu_seconds=c_s, tol=TRAIN_TOL)
+         cpu_seconds=c_s, key_bias_max=key_bias_max, tol=TRAIN_TOL)
     check(len(host) == TRAIN_VS_CPU_STEPS, f"only {len(host)} batches")
     check(loss_err <= TRAIN_TOL and param_err <= TRAIN_TOL,
           "training on the card and on the CPU disagree")
@@ -1083,7 +1302,7 @@ def phase_stream(wh, device: str = "cuda", cell: str = "gru",
     if cell == "ssm":
         expected = {"ssm_step": ticks * model_cfg.n_layers}
     elif bidirectional:  # the backward direction's re-scan, once a tick
-        expected = {scan_fwd_name(cell): ticks}
+        expected = {forward_kernel(cell)[0]: ticks}
     else:
         expected = {}
     signal_ms = lat_ms[1:]
@@ -1294,6 +1513,35 @@ def ssm_entry(rows, by_path):
     }
 
 
+def flash_entry(name, rows, by_path):
+    """Kernel 6's, 7's or 8's entry of the summary line, at the model's
+    (256, 4, 30, 8) float32, not causal, no mask; its library_ms is SDPA's
+    forward (kernel 6) or its backward, which computes dq, dk and dv in one
+    call (kernels 7 and 8)."""
+    b, n, t, d = FLASH_MAIN
+    main_shape = next(r for r in rows if r["kernel"] == name
+                      and (r["batch"], r["heads"], r["seq"], r["d"])
+                      == (b, n, t, d) and r["dtype"] == "float32"
+                      and not (r["causal"] or r["masked"]))
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES[name],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["kernel"] == name
+                           and r["dtype"] == "float32"),
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "shape": list(FLASH_MAIN),
+    }
+
+
 def ptxas_summary(log: str) -> dict:
     """ptxas's report per kernel instance, as ``{"<source>:<kernel><dtype,
     flags>": "<registers> regs, <bytes> B spilled"}``, and the largest
@@ -1306,12 +1554,14 @@ def ptxas_summary(log: str) -> dict:
             src = re.search(r"_\d+_(\w+?)_cu_", mangled)
             # the name follows its length; template arguments follow "I"
             kern = re.search(r"(?<=\d)((?:[a-z]+_)+kernel)(?:I(f|13__nv_"
-                             r"bfloat16)((?:Lb[01]E)*))?", mangled)
+                             r"bfloat16)((?:L[bi]\d+E)*))?", mangled)
             name = mangled[:60]
             if src and kern:
                 args = "bf16" if kern.group(2) == "13__nv_bfloat16" else (
                     "f32" if kern.group(2) else "")
                 flags = "".join(re.findall(r"Lb([01])E", kern.group(3) or ""))
+                # the flash kernels' dims per lane
+                flags += "".join(re.findall(r"Li(\d+)E", kern.group(3) or ""))
                 name = (f"{src.group(1)}:{kern.group(1)}"
                         + (f"<{args},{flags}>" if args else ""))
             kernels[name] = {}
@@ -1349,7 +1599,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _cuda_lib.build()
     emit("build", kernels=[f"{s.name}_scan_{k}" for s in scans
-                           for k in ("fwd", "bwd")] + ["ssm_step"],
+                           for k in ("fwd", "bwd")]
+         + ["ssm_step", *FLASH_REPLACES],
          sources=[str(p.name) for p in _cuda_lib.SOURCES], library=str(lib),
          nvcc_seconds=_cuda_lib.build_info.get("seconds"),
          seconds=time.perf_counter() - t0, target="sm_90a",
@@ -1359,17 +1610,16 @@ def main() -> int:
     rows = {s.name: (phase_kernel(s, n_features),
                      phase_kernel_bwd(s, n_features)) for s in scans}
     ssm_rows = phase_kernel_ssm()
-    launches, stream, stream_bi, pool = {}, {}, {}, {}
+    flash_rows = phase_kernel_flash()
+    serve, train, stream, stream_bi, pool = {}, {}, {}, {}, {}
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
         wh = make_warehouse(tmp)
-        for s in scans:
-            serve_fwd = phase_path(wh, tmp, cell=s.name)
-            train_fwd, train_bwd, _, dataset, weights = phase_train(
-                wh, tmp, cell=s.name)
-            phase_train_vs_cpu(dataset, weights, cell=s.name)
-            launches[s.name] = (serve_fwd, train_fwd, train_bwd)
-        phase_path(wh, tmp, cell="ssm")
+        for cell in ("gru", "lstm", "attn", "ssm"):
+            serve[cell] = phase_path(wh, tmp, cell=cell)
+            train[cell], _, dataset, weights = phase_train(wh, tmp,
+                                                           cell=cell)
+            phase_train_vs_cpu(dataset, weights, cell=cell)
         for cell in ("gru", "lstm", "ssm"):
             stream[cell] = phase_stream(wh, cell=cell)
             if cell != "ssm":
@@ -1380,21 +1630,25 @@ def main() -> int:
 
     entries = []
     for s in scans:
-        serve_fwd, train_fwd, train_bwd = launches[s.name]
-        stream_fwd = stream_bi[s.name][f"{s.name}_scan_fwd"]
+        fwd, bwd = f"{s.name}_scan_fwd", f"{s.name}_scan_bwd"
+        by_path = {"serve": serve[s.name][fwd], "train": train[s.name][fwd],
+                   "stream_bidirectional": stream_bi[s.name][fwd]}
         fwd_rows, bwd_rows = rows[s.name]
         entries += [
-            kernel_entry(f"{s.name}_scan_fwd", s.replaces[0], s.source,
-                         fwd_rows, serve_fwd + train_fwd + stream_fwd,
-                         {"serve": serve_fwd, "train": train_fwd,
-                          "stream_bidirectional": stream_fwd}),
-            kernel_entry(f"{s.name}_scan_bwd", s.replaces[1], s.source,
-                         bwd_rows, train_bwd,
-                         {"serve": 0, "train": train_bwd}),
+            kernel_entry(fwd, s.replaces[0], s.source, fwd_rows,
+                         sum(by_path.values()), by_path),
+            kernel_entry(bwd, s.replaces[1], s.source, bwd_rows,
+                         train[s.name][bwd],
+                         {"serve": serve[s.name][bwd],
+                          "train": train[s.name][bwd]}),
         ]
     entries.append(ssm_entry(ssm_rows, {
         "stream": stream["ssm"]["ssm_step"], "pool": pool["ssm"]["ssm_step"],
-        "serve": 0}))
+        "serve": serve["ssm"]["ssm_step"]}))
+    entries += [flash_entry(name, flash_rows,
+                            {"serve": serve["attn"][name],
+                             "train": train["attn"][name]})
+                for name in FLASH_REPLACES]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ and the config -> schema codegen of :class:`FeatureConfig`), cut to what
 the ported paths read: the feature schema, the warehouse, the model, the
 training config (without its continuous fine-tuning fields) and the
 session pool's part of the runtime config.  A JSON file that
-``fmda_tpu.config.save_config`` wrote loads here too: the sections and
-keys this package does not model (the fleet, mesh, the rest of the
-runtime, ...) belong to paths that are not ported yet and are skipped.
+``fmda_tpu.config.save_config`` wrote loads here too, and a file the
+reference would refuse is refused: :func:`config_from_dict` checks every
+section and key against :data:`REFERENCE_KEYS`, the reference's own table,
+and raises on anything outside it.
 """
 
 from __future__ import annotations
@@ -218,8 +219,9 @@ class FeatureConfig:
         return len(self.x_fields())
 
 
-#: The ``ModelConfig.cell`` values the port runs.
-PORTED_CELLS = ("gru", "lstm", "ssm")
+#: The ``ModelConfig.cell`` values the port runs: every family the
+#: reference has.
+PORTED_CELLS = ("gru", "lstm", "ssm", "attn")
 
 
 @dataclass(frozen=True)
@@ -236,10 +238,17 @@ class ModelConfig:
     spatial_dropout: bool = True
     bidirectional: bool = True
     #: Sequence-core family: "gru" (the reference's model), "lstm" (the
-    #: same head over an LSTM core) or "ssm" (the gated diagonal linear
-    #: recurrence with an EMA head, served from an O(1) cache).  "attn"
-    #: is not ported yet; it is queued in ROADMAP.md.
+    #: same head over an LSTM core), "ssm" (the gated diagonal linear
+    #: recurrence with an EMA head, served from an O(1) cache) or "attn"
+    #: (a pre-LN transformer encoder over the flash-attention kernels).
     cell: str = "gru"
+    #: cell="attn": attention heads; must divide hidden_size.
+    n_heads: int = 4
+    #: cell="attn": causal attention (each position sees only its past).
+    attn_causal: bool = False
+    #: cell="attn": residual dropout of the encoder blocks; None means
+    #: ``dropout``.
+    attn_dropout: Optional[float] = None
     #: cell="ssm": each channel's decay offset ``a_base`` is initialised so
     #: ``sigmoid(a_base)`` is uniform in this range.
     ssm_decay_range: Tuple[float, float] = (0.9, 0.999)
@@ -250,9 +259,9 @@ class ModelConfig:
 
     def __post_init__(self) -> None:
         if self.cell not in PORTED_CELLS:
-            raise NotImplementedError(
-                f"cell={self.cell!r} is not ported to fmda_tpu_torch yet "
-                f"(only {', '.join(PORTED_CELLS)}); see ROADMAP.md, queue 1")
+            raise ValueError(
+                f"unknown ModelConfig.cell {self.cell!r}; expected one of "
+                f"{sorted(PORTED_CELLS)}")
 
 
 @dataclass(frozen=True)
@@ -332,10 +341,114 @@ _SECTIONS = {
     "runtime": RuntimeConfig,
 }
 
+#: Every section and key ``fmda_tpu.config.config_from_dict`` accepts (the
+#: fields of its section dataclasses), as literals.  The port reads the
+#: keys its own dataclasses in :data:`_SECTIONS` have and accepts the rest
+#: without reading them:
+#:
+#: - ``features``: ``floor_s``, ``join_tolerance_s``, ``watermark_s`` (the
+#:   stream engine's join);
+#: - ``warehouse``: ``database_name``, ``journal_path``, ``journal_bound``,
+#:   ``journal_format``, ``user``, ``password``, ``hostname``, ``port``
+#:   (the MySQL backend and the write journal);
+#: - ``model``: ``use_pallas`` (the port has no opt-in: its kernels always
+#:   run on the card) and ``remat``;
+#: - ``train``: the ``continuous_*`` fine-tuning fields;
+#: - ``runtime``: every field but ``capacity``, ``bucket_sizes`` and
+#:   ``window`` (the fleet gateway and the predictor pool);
+#: - the sections ``bus``, ``engine``, ``mesh``, ``session``, ``fleet``,
+#:   ``observability``, ``slo``, ``quality``, ``tracing``, ``profiling``,
+#:   ``chaos``, ``control`` and ``replay`` whole.
+REFERENCE_KEYS = {
+    "features": (
+        "get_cot", "get_vix", "get_stock_volume", "bid_levels", "ask_levels",
+        "volume_ma_periods", "price_ma_periods", "delta_ma_periods",
+        "bollinger_period", "bollinger_std", "stochastic_oscillator",
+        "stoch_preceding", "atr_preceding", "event_list", "target_n1",
+        "target_n2", "target_lead1", "target_lead2", "floor_s",
+        "join_tolerance_s", "watermark_s"),
+    "bus": ("topics", "capacity", "servers"),
+    "warehouse": (
+        "backend", "path", "database_name", "table_name", "journal_path",
+        "journal_bound", "journal_format", "user", "password", "hostname",
+        "port"),
+    "engine": ("join_backend", "checkpoint_every", "checkpoint_path",
+               "staleness_deadline_s"),
+    "model": (
+        "hidden_size", "n_features", "output_size", "n_layers", "dropout",
+        "spatial_dropout", "bidirectional", "cell", "n_heads", "attn_causal",
+        "attn_dropout", "ssm_decay_range", "ssm_ema_init", "dtype",
+        "use_pallas", "remat"),
+    "train": (
+        "batch_size", "window", "chunk_size", "learning_rate", "epochs",
+        "clip", "val_size", "test_size", "fbeta_beta", "prob_threshold",
+        "seed", "checkpoint_dir", "accum_steps", "prefetch_depth",
+        "cache_chunks", "continuous_min_rows", "continuous_window_rows",
+        "continuous_epochs", "continuous_follow_polls", "continuous_poll_s"),
+    "mesh": ("dp", "sp", "processes", "dp_axis", "sp_axis"),
+    "session": ("freq_s", "source", "symbol", "countries", "importance",
+                "cot_subject", "timezone"),
+    "runtime": (
+        "capacity", "bucket_sizes", "max_linger_ms", "queue_bound", "window",
+        "pipeline_depth", "shard_pool", "slo_p99_ms",
+        "predictor_bucket_sizes", "predictor_max_linger_ms",
+        "predictor_queue_bound", "predictor_window", "predictor_ring"),
+    "fleet": (
+        "n_workers", "worker_prefix", "host", "port", "heartbeat_interval_s",
+        "heartbeat_timeout_s", "hash_space", "migration_buffer_bound",
+        "worker_poll_max_records", "max_inflight_ticks", "result_timeout_s",
+        "bus_arena_bytes", "bus_error_grace_s", "control_retry_s",
+        "wire_format"),
+    "observability": ("enabled", "endpoint_enabled", "host", "port",
+                      "events_capacity", "events_path", "max_tick_age_s"),
+    "slo": (
+        "enabled", "interval_s", "retention_s", "scrape_interval_s",
+        "fast_window_s", "slow_window_s", "burn_threshold", "latency_p99_ms",
+        "latency_budget", "loss_budget", "journal_depth", "journal_budget",
+        "degraded_feed_budget_minutes", "recompile_budget",
+        "memory_leak_budget", "quality_accuracy_budget",
+        "quality_fbeta_floor", "quality_fbeta_budget", "quality_drift_psi",
+        "quality_drift_budget", "postmortem_dir", "postmortem_keep",
+        "postmortem_min_interval_s"),
+    "quality": (
+        "enabled", "capture_capacity", "join_interval_s", "prob_threshold",
+        "fbeta", "max_join_attempts", "drift_bins", "drift_min_samples",
+        "profile_path", "swap_margin", "swap_eval_rounds",
+        "swap_eval_sessions"),
+    "tracing": ("enabled", "sample_rate", "max_spans"),
+    "profiling": ("enabled", "cost_analysis", "host_profiler",
+                  "profile_interval_ms", "profile_max_stacks",
+                  "memory_interval_s", "memory_leak_window"),
+    "chaos": (
+        "enabled", "seed", "worker_kills", "revive_after", "router_restarts",
+        "link_partitions", "bus_blips", "delays", "delay_s", "settle_steps",
+        "feed_outages", "feed_outage_steps", "warehouse_outages",
+        "warehouse_outage_steps", "engine_kills", "engine_kill_steps"),
+    "control": (
+        "enabled", "interval_s", "decisions_keep", "batching",
+        "target_p99_ms", "hysteresis", "linger_step_ms", "min_linger_ms",
+        "max_linger_ms", "tenant_classes", "tenant_weights",
+        "tenant_quota_frac", "default_class", "autoscale", "min_workers",
+        "max_workers", "scale_up_burn", "up_sustain_s", "scale_down_frac",
+        "down_sustain_s", "cooldown_s"),
+    "replay": ("source", "n_tickers", "n_rounds", "seed", "duty", "step_s",
+               "start_ts", "end_ts", "chunk", "wire_dialect"),
+}
+
 
 def config_from_dict(data: dict) -> FrameworkConfig:
     """Rebuild the config from the nested dicts of a ``fmda_tpu`` config
-    file, keeping the sections and keys this package models."""
+    file (possibly partial).  A section or key the reference does not
+    know raises, as the reference raises: a typo'd config must fail
+    loudly.  Of the rest, the sections and keys this package models are
+    read; the others are accepted and not read (:data:`REFERENCE_KEYS`)."""
+    unknown = set(data) - set(REFERENCE_KEYS)
+    if unknown:
+        raise ValueError(f"unknown config sections: {sorted(unknown)}")
+    for name, section in data.items():
+        bad = set(section) - set(REFERENCE_KEYS[name])
+        if bad:
+            raise ValueError(f"unknown keys in [{name}]: {sorted(bad)}")
     kwargs = {}
     for name, cls in _SECTIONS.items():
         if name not in data:

@@ -4,8 +4,13 @@
 recurrent leaves already carry the port's names and layouts
 (``weight_ih_l0`` is (3H, F) or (4H, F), the SSM's per-channel
 ``a_base_l0``, ``d_l0``, ``rho_f_l0`` and ``rho_s_l0`` are (H,), and so
-on), so they cross as they are; only the head differs: flax's ``Dense``
-keeps its kernel as (in, out), ``nn.Linear`` its weight as (out, in).
+on), so they cross as they are.  The submodules cross by their paths
+(``block_0/qkv`` becomes ``block_0.qkv``): a flax ``Dense`` (``kernel``,
+``bias``) keeps its kernel as (in, out) where ``nn.Linear`` keeps (out,
+in), so it is transposed; a flax ``LayerNorm``'s ``scale`` is
+``nn.LayerNorm``'s ``weight``.  That covers the head ``linear`` of every
+family and the TemporalTransformer's ``embed``, ``block_{i}/{ln_attn,
+qkv, proj, ln_mlp, mlp_in, mlp_out}`` and ``ln_final``.
 The tree arrives as nested dicts of numpy arrays
 (``jax.device_get(params)``), or flattened into an ``.npz`` whose keys
 join the tree's path with ``/``.
@@ -23,19 +28,30 @@ def _params_subtree(tree: Mapping) -> Mapping:
     return tree["params"] if "params" in tree else tree
 
 
-def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """A flax BiGRU, BiLSTM or GatedSSM ``params`` tree (or
-    ``{"params": ...}``) -> the port's ``state_dict``, which loads with
-    ``strict=True``."""
-    state: Dict[str, torch.Tensor] = {}
-    for name, leaf in _params_subtree(tree).items():
-        if name == "linear":
-            state["linear.weight"] = torch.from_numpy(
-                np.ascontiguousarray(np.asarray(leaf["kernel"]).T))
-            state["linear.bias"] = torch.from_numpy(np.array(leaf["bias"]))
+def _walk(tree: Mapping, prefix: str, state: Dict[str, np.ndarray]) -> None:
+    for name, leaf in tree.items():
+        path = prefix + name
+        if not isinstance(leaf, Mapping):
+            state[path] = np.array(leaf)
+        elif "kernel" in leaf:  # Dense: (in, out) -> (out, in)
+            state[f"{path}.weight"] = np.ascontiguousarray(
+                np.asarray(leaf["kernel"]).T)
+            state[f"{path}.bias"] = np.array(leaf["bias"])
+        elif "scale" in leaf:  # LayerNorm
+            state[f"{path}.weight"] = np.array(leaf["scale"])
+            state[f"{path}.bias"] = np.array(leaf["bias"])
         else:
-            state[name] = torch.from_numpy(np.array(leaf))
-    return {k: v.to(torch.float32) for k, v in state.items()}
+            _walk(leaf, path + ".", state)
+
+
+def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax BiGRU, BiLSTM, GatedSSM or TemporalTransformer ``params``
+    tree (or ``{"params": ...}``) -> the port's ``state_dict``, which loads
+    with ``strict=True``."""
+    state: Dict[str, np.ndarray] = {}
+    _walk(_params_subtree(tree), "", state)
+    return {k: torch.from_numpy(v).to(torch.float32)
+            for k, v in state.items()}
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -2,9 +2,10 @@
 checks every kernel wrapper shares.
 
 Every kernel source under ``csrc/`` (the GRU scans in ``gru_scan.cu``, the
-LSTM scans in ``lstm_scan.cu``, the SSM serve tick in ``ssm_step.cu``, all
-three including ``scan_common.cuh``) goes into one shared library with a plain C interface, loaded with
-:mod:`ctypes`.  Each source is compiled by its own ``nvcc`` for sm_90a, all
+LSTM scans in ``lstm_scan.cu``, the SSM serve tick in ``ssm_step.cu``, the
+flash-attention forward, dK/dV and dQ sweeps in ``flash_attn.cu``, all
+including ``scan_common.cuh``) goes into one shared library with a plain C
+interface, loaded with :mod:`ctypes`.  Each source is compiled by its own ``nvcc`` for sm_90a, all
 started together, and the objects are linked into
 ``build/fmda_tpu_torch/<hash of sources, headers and flags>/`` at the
 repository root.  Nothing is built or loaded at import: :func:`load` does
@@ -27,7 +28,7 @@ import torch
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: The sources compiled into the library, one ``nvcc`` each.
 SOURCES: Tuple[Path, ...] = (_CSRC / "gru_scan.cu", _CSRC / "lstm_scan.cu",
-                             _CSRC / "ssm_step.cu")
+                             _CSRC / "ssm_step.cu", _CSRC / "flash_attn.cu")
 #: Headers the sources include: part of the library's key.
 HEADERS: Tuple[Path, ...] = (_CSRC / "scan_common.cuh",)
 BUILD_ROOT = _CSRC.parents[1] / "build" / "fmda_tpu_torch"
@@ -136,6 +137,14 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fmda_ssm_step_{tag}")
             fn.argtypes = [p, ll, *[p] * 11, i, i, i, p]
             fn.restype = i
+        f = ctypes.c_float
+        # pointer arguments, then B*N, N, T, D, causal, scale, device, stream
+        for name, n_ptrs in (("flash_fwd", 6), ("flash_dkv", 9),
+                             ("flash_dq", 8)):
+            for tag in SUPPORTED.values():
+                fn = getattr(lib, f"fmda_{name}_{tag}")
+                fn.argtypes = [*[p] * n_ptrs, i, i, i, i, i, f, i, p]
+                fn.restype = i
         for name in ("fmda_gru_scan_bwd_blocks", "fmda_lstm_scan_bwd_blocks"):
             getattr(lib, name).argtypes = [i, i, i]
             getattr(lib, name).restype = i

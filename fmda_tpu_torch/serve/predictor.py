@@ -3,7 +3,8 @@
 Each ``predict_timestamp`` signal names a landed warehouse row; the
 predictor fetches the trailing window, normalizes it on the device with
 the checkpoint's stats, runs the model (two scan-kernel launches for a
-one-layer bidirectional BiGRU or BiLSTM) and publishes the label probabilities to
+one-layer bidirectional BiGRU or BiLSTM, one flash-attention launch a
+layer for the TemporalTransformer) and publishes the label probabilities to
 the ``prediction`` topic with the reference's payload fields.
 Stale-signal filtering is injectable through ``now_fn``.
 """

@@ -1,16 +1,17 @@
 """Training harness: chunked epochs over a feature source, on the card.
 
-The counterpart of ``fmda_tpu.train.trainer.Trainer`` for the BiGRU and
-the BiLSTM (whichever ``ModelConfig.cell`` names), with the same
+The counterpart of ``fmda_tpu.train.trainer.Trainer`` for every model
+family (whichever ``ModelConfig.cell`` names), with the same
 semantics: chunk-level contiguous split, per-chunk min-max
 normalization, weighted BCE over padded and masked fixed-shape batches,
 Adam behind a global-norm clip of ``train.clip``, and per-batch metrics
 averaged per epoch.
 
-- The recurrence's forward and backward scans run the CUDA kernels of
+- The family's forward and backward kernels run: the scans of
   :mod:`fmda_tpu_torch.ops.gru_kernel` or
-  :mod:`fmda_tpu_torch.ops.lstm_kernel` (their plain versions on the
-  CPU).
+  :mod:`fmda_tpu_torch.ops.lstm_kernel`, or the flash-attention sweeps of
+  :mod:`fmda_tpu_torch.ops.attention_kernel` (their plain versions on the
+  CPU); the SSM trains through its parallel scan, with no kernel.
 - The optimizer is ``torch.optim.Adam`` with optax's defaults behind
   :func:`clip_by_global_norm`, a copy of ``optax.clip_by_global_norm``.
 - Metrics are summed on the device and read once per pass.

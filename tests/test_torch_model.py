@@ -144,10 +144,12 @@ def test_spatial_dropout_drops_whole_channels_from_the_generator():
         assert torch.equal(model(x), model(x))
 
 
-@pytest.mark.parametrize("cell", ["attn"])
+@pytest.mark.parametrize("cell", ["rnn"])
 def test_other_cells_are_not_ported(cell):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every family of the reference is ported: an unknown cell is refused
+    # with the reference's wording
+    with pytest.raises(ValueError, match="unknown ModelConfig.cell"):
         ModelConfig(cell=cell)
     # a config object that did not come through ModelConfig's own check
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown ModelConfig.cell"):
         build_model(types.SimpleNamespace(cell=cell))

@@ -177,13 +177,15 @@ def _configs(**train):
     return model, tc
 
 
-@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("cell", ["gru", "lstm", "ssm", "attn"])
 def test_trainer_tracks_the_jax_trainer(cell):
     """Two epochs (16 steps) from the same initial params at dropout 0:
     per-epoch train and val metrics and the final params agree."""
     x, y, fields = _data()
     model, tc = _configs()
     model["cell"] = cell
+    if cell == "attn":  # the encoder blocks' residual dropout too
+        model["attn_dropout"] = 0.0
     weight, pos_weight = imbalance_weights_from_source(
         ArraySource(x, y, fields))
     jax_trainer = JaxTrainer(JaxModelConfig(**model, use_pallas=False),
@@ -208,8 +210,22 @@ def test_trainer_tracks_the_jax_trainer(cell):
             np.testing.assert_allclose(g.fbeta, w.fbeta, atol=TRAIN_TOL)
     final = params_from_flax(jax.device_get(jax_state.params))
     for name, p in state.model.state_dict().items():
-        np.testing.assert_allclose(p.numpy(), final[name].numpy(),
-                                   atol=TRAIN_TOL, err_msg=name)
+        got_p, want_p = p.numpy(), final[name].numpy()
+        if name.endswith("qkv.bias"):
+            # The key bias adds q . b_k to every score of a query, which
+            # the softmax cancels: its gradient is 0 in exact arithmetic,
+            # so both frameworks feed Adam rounding noise, which Adam
+            # scales to steps of up to the learning rate.  It changes no
+            # output (the losses above agree); it stays within the drift
+            # Adam allows, and the query and value biases are compared.
+            h = HIDDEN
+            drift = state.step * TrainConfig(**tc).learning_rate
+            for b_k in (got_p[h:2 * h], want_p[h:2 * h]):
+                assert np.abs(b_k).max() <= drift, (name, b_k)
+            got_p, want_p = (np.concatenate([a[:h], a[2 * h:]])
+                             for a in (got_p, want_p))
+        np.testing.assert_allclose(got_p, want_p, atol=TRAIN_TOL,
+                                   err_msg=name)
 
 
 def test_accum_steps_2_equals_accum_steps_1():
@@ -315,7 +331,7 @@ FEATURES = dict(get_cot=False, bid_levels=2, ask_levels=2,
                 event_list=("Core CPI",))
 
 
-@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("cell", ["gru", "lstm", "ssm", "attn"])
 def test_cli_train_then_backtest_its_checkpoint(tmp_path, capsys, cell):
     wh_path = str(tmp_path / "wh.sqlite")
     wh = Warehouse(FeatureConfig(**FEATURES), WarehouseConfig(path=wh_path))
@@ -344,9 +360,11 @@ def test_cli_train_then_backtest_its_checkpoint(tmp_path, capsys, cell):
     assert os.path.dirname(ckpt) == ckpt_dir and os.path.exists(ckpt)
     tree, norm = restore_checkpoint(ckpt)
     assert tree["step"] > 0 and "opt_state" in tree and norm is not None
-    # the checkpoint holds the configured family's weights (4H gate rows)
-    gates = {"gru": 3, "lstm": 4}[cell]
-    assert tree["params"]["weight_hh_l0"].shape == (gates * HIDDEN, HIDDEN)
+    # the checkpoint holds the configured family's weights
+    name, rows = {"gru": ("weight_hh_l0", 3), "lstm": ("weight_hh_l0", 4),
+                  "ssm": ("weight_ih_l0", 3),
+                  "attn": ("block_0.qkv.weight", 3)}[cell]
+    assert tree["params"][name].shape[0] == rows * HIDDEN
 
     rc = port_main(["backtest", "--device", "cpu", "--config", str(cfg),
                     "--warehouse", wh_path, "--checkpoint", ckpt])
