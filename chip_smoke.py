@@ -19,7 +19,9 @@ Phases, each printed as one JSON line, each fatal on failure:
    bf16, causal or not, with and without a key mask, at the Predictor's
    batch 1, at T = 1024 and at D = 64 and 512), with times, the roofline
    bound and the library yardstick (cuDNN, SDPA) beside it where one
-   exists.
+   exists.  Each backward scan is two kernels, the serial sweep and the
+   weight gradient (``scan_dw``), timed apart too (``sweep_ms``,
+   ``dw_ms``), and a second call must give the same bits.
 4. ``path``: the window-re-scan serving path at full width
    (``FrameworkConfig()``: H=32, F=108, window 30, float32) over a
    20,000-row warehouse: ``backtest`` at batch 256, then 64 signals through
@@ -52,8 +54,9 @@ no kernel); phases 7 and 8 for gru, lstm and ssm (``stream
 bidirectional`` for gru and lstm).  Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
-other kernel's 0.  Then the ``{"kernels": [...]}`` summary, the card
-line, and as the last line ``{"ok": true, "device": {...}}``.  TF32 is off
+other kernel's 0 (``scan_dw`` counts the backward scans' weight-gradient
+kernel, once a backward call).  Then the ``{"kernels": [...]}`` summary,
+the card line, and as the last line ``{"ok": true, "device": {...}}``.  TF32 is off
 for matmuls and cuDNN, so float32 means float32 everywhere.  Exits
 non-zero, and prints no result, without a card or outside the repository.
 """
@@ -348,14 +351,20 @@ def phase_kernel(scan: Scan, n_features: int, device: str = "cuda"):
 
 def phase_kernel_bwd(scan: Scan, n_features: int, device: str = "cuda"):
     """<name>_scan_bwd against <name>_scan_bwd_reference on the card, on
-    the same inputs (hs, and cs for the LSTM, from the forward kernel).
+    the same inputs (hs, and cs for the LSTM, from the forward kernel),
+    and against itself: a second call must give the same bits.
     Cotangents of every output (h_last, c_last for the LSTM, hs) are
     uniform in +-COT_SCALE, the order of a training loss's gradient;
     errors are reported absolute and relative to each output's largest
-    entry."""
+    entry.  Beside the call's ``ms``, ``sweep_ms`` and ``dw_ms`` time its
+    two parts alone: the serial sweep, and the weight gradient
+    (scan_dw's kernel and the reduction of its partials) of the sweep's
+    output."""
+    from fmda_tpu_torch.ops.scan_dw import scan_dw
+
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    fwd, bwd = scan.fn("fwd"), scan.fn("bwd")
+    fwd, bwd, sweep = scan.fn("fwd"), scan.fn("bwd"), scan.fn("bwd_sweep")
     ref = getattr(scan.module, f"{scan.name}_scan_bwd_reference")
     names = ("dxp", "dh0", "dc0")[:1 + scan.states] + ("dw_hh", "db_hh")
     base = dict(batch=BATCH, steps=30, hidden=32, dtype=torch.float32,
@@ -380,7 +389,9 @@ def phase_kernel_bwd(scan: Scan, n_features: int, device: str = "cuda"):
             seqs = fwd(*args, **kw)[scan.states:]  # hs (, cs)
             bargs = (*args, *seqs, *d_lasts, dhs)
             got, want = bwd(*bargs, **kw), ref(*bargs, **kw)
+            again = bwd(*bargs, **kw)
             torch.cuda.synchronize()
+            same_bits = all(torch.equal(g, a) for g, a in zip(got, again))
             errs, rel = {}, {}
             for name, g, r in zip(names, got, want):
                 check(g.shape == r.shape and g.dtype == r.dtype,
@@ -395,6 +406,14 @@ def phase_kernel_bwd(scan: Scan, n_features: int, device: str = "cuda"):
             ms = time_ms(lambda: bwd(*bargs, **kw), prime=True)
             call_ms = time_ms(lambda: bwd(*bargs, **kw), prime=False)
             plain_ms = time_ms(lambda: ref(*bargs, **kw), prime=True)
+            swept = sweep(*bargs, **kw)
+            # the weight gradient's operand: dxp, and for the GRU its n
+            # slice replaced by the sweep's round(dn_pre * r)
+            tail = swept[1] if scan.name == "gru" else None
+            sweep_ms = time_ms(lambda: sweep(*bargs, **kw), prime=True)
+            dw_ms = time_ms(lambda: scan_dw(swept[0], args[1], seqs[0],
+                                            reverse=c["reverse"], tail=tail),
+                            prime=True)
         library_ms = library_fwd_bwd_ms = None
         if not (c["reverse"] or c["masked"] or c["h0"]):
             # cuDNN's backward of the same layer (input projection
@@ -422,7 +441,8 @@ def phase_kernel_bwd(scan: Scan, n_features: int, device: str = "cuda"):
                    dtype=str(dtype).replace("torch.", ""),
                    reverse=c["reverse"], masked=c["masked"],
                    nonzero_h0=c["h0"], max_abs_err=err, errs=errs,
-                   rel_errs=rel, tol=tol, ms=ms, call_ms=call_ms,
+                   rel_errs=rel, tol=tol, bit_identical_rerun=same_bits,
+                   ms=ms, sweep_ms=sweep_ms, dw_ms=dw_ms, call_ms=call_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    library_fwd_bwd_ms=library_fwd_bwd_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
@@ -430,6 +450,7 @@ def phase_kernel_bwd(scan: Scan, n_features: int, device: str = "cuda"):
         check(finite, f"non-finite backward kernel output in {row}")
         check(err <= tol,
               f"backward kernel disagrees with its plain version: {row}")
+        check(same_bits, f"backward kernel's second call differs: {row}")
         results.append(row)
     return results
 
@@ -769,7 +790,7 @@ def device_share(fn) -> dict:
             per_kernel[evt.key] = evt.self_device_time_total / 1e3
             device_ops += evt.count
     device_ms = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms if device_ms else None,
                 device_ops=device_ops,
@@ -800,12 +821,13 @@ def make_warehouse(directory: str):
 def launch_counts() -> dict:
     """Every kernel's launch count, by kernel name."""
     from fmda_tpu_torch.ops import (
-        attention_kernel, gru_kernel, lstm_kernel, ssm_kernel)
+        attention_kernel, gru_kernel, lstm_kernel, scan_dw, ssm_kernel)
 
     return {"gru_scan_fwd": gru_kernel.launches,
             "gru_scan_bwd": gru_kernel.bwd_launches,
             "lstm_scan_fwd": lstm_kernel.launches,
             "lstm_scan_bwd": lstm_kernel.bwd_launches,
+            "scan_dw": scan_dw.launches,
             "ssm_step": ssm_kernel.launches,
             "flash_fwd": attention_kernel.fwd_launches,
             "flash_dkv": attention_kernel.dkv_launches,
@@ -815,11 +837,11 @@ def launch_counts() -> dict:
 def start_path() -> None:
     """A path starts: every kernel's launch count to 0."""
     from fmda_tpu_torch.ops import (
-        attention_kernel, gru_kernel, lstm_kernel, ssm_kernel)
+        attention_kernel, gru_kernel, lstm_kernel, scan_dw, ssm_kernel)
 
     for m in (gru_kernel, lstm_kernel):
         m.launches = m.bwd_launches = 0
-    ssm_kernel.launches = 0
+    ssm_kernel.launches = scan_dw.launches = 0
     attention_kernel.fwd_launches = attention_kernel.dkv_launches = 0
     attention_kernel.dq_launches = 0
 
@@ -842,13 +864,15 @@ def forward_kernel(cell: str):
 
 def train_launches(cell: str, n_train: int, n_val: int) -> dict:
     """What one epoch launches: the family's forward kernel at every train
-    step and val batch, its backward kernels at every train step."""
+    step and val batch, its backward kernels at every train step (for gru
+    and lstm a backward scan, whose weight gradient is scan_dw's kernel)."""
     fwd, per_forward = forward_kernel(cell)
     if fwd is None:
         return {}
     backward = ({"flash_dkv": n_train, "flash_dq": n_train}
                 if cell == "attn"
-                else {f"{cell}_scan_bwd": per_forward * n_train})
+                else {f"{cell}_scan_bwd": per_forward * n_train,
+                      "scan_dw": per_forward * n_train})
     return {fwd: per_forward * (n_train + n_val), **backward}
 
 
@@ -1485,6 +1509,9 @@ def kernel_entry(name, replaces, source, rows, launches, by_path):
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+        # the backward scans' two parts, each timed alone
+        **{k: main_shape[k] for k in ("sweep_ms", "dw_ms")
+           if k in main_shape},
         "shape": [BATCH, 30, 32],
     }
 
@@ -1557,13 +1584,12 @@ def ptxas_summary(log: str) -> dict:
                              r"bfloat16)((?:L[bi]\d+E)*))?", mangled)
             name = mangled[:60]
             if src and kern:
-                args = "bf16" if kern.group(2) == "13__nv_bfloat16" else (
-                    "f32" if kern.group(2) else "")
-                flags = "".join(re.findall(r"Lb([01])E", kern.group(3) or ""))
-                # the flash kernels' dims per lane
-                flags += "".join(re.findall(r"Li(\d+)E", kern.group(3) or ""))
+                args = ["bf16" if kern.group(2) == "13__nv_bfloat16"
+                        else "f32"] if kern.group(2) else []
+                # the other template arguments, bools and ints, in order
+                args += re.findall(r"L[bi](\d+)E", kern.group(3) or "")
                 name = (f"{src.group(1)}:{kern.group(1)}"
-                        + (f"<{args},{flags}>" if args else ""))
+                        + (f"<{','.join(args)}>" if args else ""))
             kernels[name] = {}
         elif name is not None:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "

@@ -2,7 +2,8 @@
 checks every kernel wrapper shares.
 
 Every kernel source under ``csrc/`` (the GRU scans in ``gru_scan.cu``, the
-LSTM scans in ``lstm_scan.cu``, the SSM serve tick in ``ssm_step.cu``, the
+LSTM scans in ``lstm_scan.cu``, the backward scans' weight gradient in
+``scan_dw.cu``, the SSM serve tick in ``ssm_step.cu``, the
 flash-attention forward, dK/dV and dQ sweeps in ``flash_attn.cu``, all
 including ``scan_common.cuh``) goes into one shared library with a plain C
 interface, loaded with :mod:`ctypes`.  Each source is compiled by its own ``nvcc`` for sm_90a, all
@@ -28,7 +29,8 @@ import torch
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: The sources compiled into the library, one ``nvcc`` each.
 SOURCES: Tuple[Path, ...] = (_CSRC / "gru_scan.cu", _CSRC / "lstm_scan.cu",
-                             _CSRC / "ssm_step.cu", _CSRC / "flash_attn.cu")
+                             _CSRC / "scan_dw.cu", _CSRC / "ssm_step.cu",
+                             _CSRC / "flash_attn.cu")
 #: Headers the sources include: part of the library's key.
 HEADERS: Tuple[Path, ...] = (_CSRC / "scan_common.cuh",)
 BUILD_ROOT = _CSRC.parents[1] / "build" / "fmda_tpu_torch"
@@ -126,8 +128,8 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         # (entry point, its pointer arguments after xp and its two strides)
-        for name, n_ptrs in (("gru_scan_fwd", 6), ("gru_scan_bwd", 11),
-                             ("lstm_scan_fwd", 9), ("lstm_scan_bwd", 15)):
+        for name, n_ptrs in (("gru_scan_fwd", 6), ("gru_scan_sweep", 10),
+                             ("lstm_scan_fwd", 9), ("lstm_scan_sweep", 13)):
             for tag in SUPPORTED.values():
                 fn = getattr(lib, f"fmda_{name}_{tag}")
                 fn.argtypes = [p, ll, ll, *[p] * n_ptrs, i, i, i, i, i, p]
@@ -145,9 +147,14 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, f"fmda_{name}_{tag}")
                 fn.argtypes = [*[p] * n_ptrs, i, i, i, i, i, f, i, p]
                 fn.restype = i
-        for name in ("fmda_gru_scan_bwd_blocks", "fmda_lstm_scan_bwd_blocks"):
-            getattr(lib, name).argtypes = [i, i, i]
-            getattr(lib, name).restype = i
+        for tag in SUPPORTED.values():
+            # dg, its row stride, tail, tail_from, hs, h0, B, T, H, gH,
+            # reverse, partials, dw_db, device, stream
+            fn = getattr(lib, f"fmda_scan_dw_{tag}")
+            fn.argtypes = [p, i, p, i, p, p, i, i, i, i, i, p, p, i, p]
+            fn.restype = i
+        lib.fmda_scan_dw_splits.argtypes = [i, i, i, i, i]
+        lib.fmda_scan_dw_splits.restype = i
         lib.fmda_cuda_error_string.argtypes = [i]
         lib.fmda_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -5,17 +5,22 @@ their plain versions and the differentiable op that joins them.
   ``_gru_step_kernel``; its plain version :func:`gru_scan_reference` is
   the PyTorch time loop with the same rounding (gate algebra in float32,
   the carry rounded to the I/O dtype each step).
-- :func:`gru_scan_bwd` is the port of ``_gru_bwd_kernel``; its plain
-  version :func:`gru_scan_bwd_reference` is the reverse time loop with
-  the same algebra and the same rounding of ``dg_h``.
+- :func:`gru_scan_bwd` is the port of ``_gru_bwd_kernel``, as two
+  kernels: the serial sweep (:func:`gru_scan_bwd_sweep`, whose plain
+  version :func:`gru_scan_bwd_sweep_reference` is the reverse time loop
+  with the same algebra and the same rounding of ``dg_h``), then the
+  weight gradient after it (:func:`fmda_tpu_torch.ops.scan_dw.scan_dw`).
+  Its plain version :func:`gru_scan_bwd_reference` composes the two plain
+  versions.
 - :func:`gru_scan` is the differentiable scan: a
   :class:`torch.autograd.Function` whose forward is :func:`gru_scan_fwd`
   and whose backward is :func:`gru_scan_bwd`, as ``custom_vjp`` joins the
   Pallas pair.
 
-On CUDA tensors each wrapper launches its kernel (from
-``csrc/gru_scan.cu``, in the library :mod:`fmda_tpu_torch.ops._cuda_lib`
-builds at first use) or raises; on CPU tensors it runs its plain version.
+On CUDA tensors each wrapper launches its kernels (from
+``csrc/gru_scan.cu`` and ``csrc/scan_dw.cu``, in the library
+:mod:`fmda_tpu_torch.ops._cuda_lib` builds at first use) or raises; on CPU
+tensors it runs its plain version.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib
+from fmda_tpu_torch.ops import _cuda_lib, scan_dw
+from fmda_tpu_torch.ops.scan_dw import h_prev_of, scan_dw_reference
+
 # the wrappers' device test, a module global so a rehearsal can stub it
 _on_cpu = _cuda_lib.on_cpu
 
@@ -98,7 +105,7 @@ def gru_scan_reference(
     return h, torch.stack(outs, dim=1)
 
 
-def gru_scan_bwd_reference(
+def gru_scan_bwd_sweep_reference(
     xp: torch.Tensor,
     h0: torch.Tensor,
     w_hh: torch.Tensor,
@@ -109,39 +116,36 @@ def gru_scan_bwd_reference(
     *,
     reverse: bool = False,
     mask: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward of :func:`gru_scan_reference`: the plain version of
-    the backward kernel, an explicit reverse time loop.
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's serial sweep, an explicit reverse time loop: the
+    plain version of the sweep kernel.
 
     Args:
       xp, h0, w_hh, b_hh, reverse, mask: the forward's inputs.
       hs: (B, T, H) the forward's per-step hiddens.
       dh_last, dhs: cotangents of h_last (B, H) and hs (B, T, H).
 
-    Gates are recomputed from ``hs`` and all gate and cotangent algebra
-    runs in float32; ``dg_h`` is rounded once to the I/O dtype and that
-    one rounded value feeds the dh chain, dW_hh and db_hh, as in the
-    Pallas kernel (so this is not autograd through the forward, which
-    would not round it).  A masked step passes dh through and adds
-    nothing.  Returns (dxp, dh0, dw_hh, db_hh): dxp in xp's dtype, the
-    others summed in float32 and cast to their inputs' dtypes.
+    Gates are recomputed from the hidden state entering each step and all
+    gate and cotangent algebra runs in float32; ``dg_h = [dr_pre, dz_pre,
+    dn_pre r]`` is rounded once to the I/O dtype and that one rounded value
+    feeds the dh chain, as in the Pallas kernel (so this is not autograd
+    through the forward, which would not round it).  A masked step passes
+    dh through and writes zeros.  Returns (dxp, dgn, dh0): dxp (B, T, 3H)
+    and dgn (B, T, H), dg_h's n slice, in xp's dtype (with dxp's r and z
+    slices, the operand of :func:`~fmda_tpu_torch.ops.scan_dw.scan_dw`);
+    dh0 in float32.
     """
     dtype, f32 = xp.dtype, torch.float32
     hidden = h0.shape[-1]
     w = w_hh.to(dtype).to(f32)
     b = b_hh.to(dtype).to(f32)
-    n_steps = xp.shape[1]
+    h_prevs = h_prev_of(h0.to(dtype), hs, reverse=reverse)
     dh = dh_last.to(f32)
     dxp = torch.zeros(xp.shape, dtype=dtype, device=xp.device)
-    dw = torch.zeros(w.shape, dtype=f32, device=xp.device)
-    db = torch.zeros(b.shape, dtype=f32, device=xp.device)
-    order = range(n_steps) if reverse else range(n_steps - 1, -1, -1)
-    for s, t in enumerate(order):
-        # the hidden entering step t: h0 at the first processed step
-        if s == n_steps - 1:
-            h_prev = h0.to(dtype).to(f32)
-        else:
-            h_prev = hs[:, t + 1 if reverse else t - 1].to(f32)
+    dgn = torch.zeros(hs.shape, dtype=dtype, device=xp.device)
+    n_steps = xp.shape[1]
+    for t in (range(n_steps) if reverse else range(n_steps - 1, -1, -1)):
+        h_prev = h_prevs[:, t].to(f32)
         hp = torch.matmul(h_prev, w.t()) + b
         x = xp[:, t].to(f32)
         r = torch.sigmoid(x[:, :hidden] + hp[:, :hidden])
@@ -164,9 +168,34 @@ def gru_scan_bwd_reference(
             dg_h = torch.where(keep, dg_h, 0.0)
             dh = torch.where(keep, chained, dh)
         dxp[:, t] = dg_x.to(dtype)
-        dw += torch.matmul(dg_h.t(), h_prev)
-        db += dg_h.sum(dim=0)
-    return dxp, dh.to(h0.dtype), dw.to(w_hh.dtype), db.to(b_hh.dtype)
+        dgn[:, t] = dg_h[:, 2 * hidden:].to(dtype)
+    return dxp, dgn, dh
+
+
+def gru_scan_bwd_reference(
+    xp: torch.Tensor,
+    h0: torch.Tensor,
+    w_hh: torch.Tensor,
+    b_hh: torch.Tensor,
+    hs: torch.Tensor,
+    dh_last: torch.Tensor,
+    dhs: torch.Tensor,
+    *,
+    reverse: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`gru_scan_reference`: the plain version of the
+    backward kernels, the sweep (:func:`gru_scan_bwd_sweep_reference`,
+    whose arguments these are) and the weight gradient of dxp's r and z
+    slices and dgn (:func:`~fmda_tpu_torch.ops.scan_dw.scan_dw_reference`)
+    composed.  Returns (dxp, dh0, dw_hh, db_hh): dxp in xp's dtype, the
+    others summed in float32 and cast to their inputs' dtypes.
+    """
+    dxp, dgn, dh0 = gru_scan_bwd_sweep_reference(
+        xp, h0, w_hh, b_hh, hs, dh_last, dhs, reverse=reverse, mask=mask)
+    dw, db = scan_dw_reference(dxp, h0.to(xp.dtype), hs, reverse=reverse,
+                               tail=dgn)
+    return dxp, dh0.to(h0.dtype), dw.to(w_hh.dtype), db.to(b_hh.dtype)
 
 
 # -- the wrapper ---------------------------------------------------------------
@@ -241,9 +270,9 @@ def gru_scan_bwd(
     """GRU backward scan: (dxp, dh0, dw_hh, db_hh), the signature of
     :func:`gru_scan_bwd_reference`.
 
-    CUDA tensors launch the kernel (one call, counted in
-    :data:`bwd_launches`: the scan and the reduction of its per-block
-    weight-gradient partials) or raise; CPU tensors run the plain
+    CUDA tensors launch the kernels (one call, counted once in
+    :data:`bwd_launches`: the serial sweep, then the weight gradient and
+    the reduction of its partials) or raise; CPU tensors run the plain
     version."""
     tensors = [xp, h0, w_hh, b_hh, hs, dh_last, dhs] + (
         [mask] if mask is not None else [])
@@ -254,9 +283,32 @@ def gru_scan_bwd(
                        reverse=reverse, mask=mask)
 
 
-def _launch_bwd(xp, h0, w_hh, b_hh, hs, dh_last, dhs, *, reverse, mask):
-    global bwd_launches
-    out_dtypes = (h0.dtype, w_hh.dtype, b_hh.dtype)
+def gru_scan_bwd_sweep(
+    xp: torch.Tensor,
+    h0: torch.Tensor,
+    w_hh: torch.Tensor,
+    b_hh: torch.Tensor,
+    hs: torch.Tensor,
+    dh_last: torch.Tensor,
+    dhs: torch.Tensor,
+    *,
+    reverse: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's serial sweep alone: (dxp, dgn, dh0), the signature of
+    :func:`gru_scan_bwd_sweep_reference`.  CUDA tensors launch the sweep
+    kernel (uncounted: :func:`gru_scan_bwd` is the backward) or raise; CPU
+    tensors run the plain version."""
+    tensors = [xp, h0, w_hh, b_hh, hs, dh_last, dhs] + (
+        [mask] if mask is not None else [])
+    if _on_cpu("gru_scan_bwd_sweep", tensors):
+        return gru_scan_bwd_sweep_reference(
+            xp, h0, w_hh, b_hh, hs, dh_last, dhs, reverse=reverse, mask=mask)
+    return _launch_sweep(xp, h0, w_hh, b_hh, hs, dh_last, dhs,
+                         reverse=reverse, mask=mask)
+
+
+def _launch_sweep(xp, h0, w_hh, b_hh, hs, dh_last, dhs, *, reverse, mask):
     batch, n_steps, hidden, h0, w_hh, b_hh = _check_dtype_and_shapes(
         "gru_scan_bwd", xp, h0, w_hh, b_hh)
     _cuda_lib.check_shapes(
@@ -268,29 +320,30 @@ def _launch_bwd(xp, h0, w_hh, b_hh, hs, dh_last, dhs, *, reverse, mask):
     dh_last = dh_last.to(torch.float32).contiguous()
     mask = _cuda_lib.mask_u8(mask, batch, n_steps)
     lib = _cuda_lib.load()
-    device = _cuda_lib.device_index(xp)
-    n_blocks = lib.fmda_gru_scan_bwd_blocks(batch, hidden, device)
-    n_acc = 3 * hidden * hidden + 3 * hidden
-    f32 = dict(dtype=torch.float32, device=xp.device)
     dxp = torch.empty((batch, n_steps, 3 * hidden), dtype=xp.dtype,
                       device=xp.device)
-    dh0 = torch.empty((batch, hidden), **f32)
-    partials = torch.empty((n_blocks, n_acc), **f32)
-    dw_db = torch.empty((n_acc,), **f32)
-    fn = getattr(lib, f"fmda_gru_scan_bwd_{_cuda_lib.SUPPORTED[xp.dtype]}")
-    stream = _cuda_lib.stream_of(xp)
+    dgn = torch.empty((batch, n_steps, hidden), dtype=xp.dtype,
+                      device=xp.device)
+    dh0 = torch.empty((batch, hidden), dtype=torch.float32, device=xp.device)
+    fn = getattr(lib, f"fmda_gru_scan_sweep_{_cuda_lib.SUPPORTED[xp.dtype]}")
     err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
              w_hh.data_ptr(), b_hh.data_ptr(), hs.data_ptr(),
              dh_last.data_ptr(), dhs.data_ptr(),
              None if mask is None else mask.data_ptr(), dxp.data_ptr(),
-             dh0.data_ptr(), partials.data_ptr(), dw_db.data_ptr(), batch,
-             n_steps, hidden, int(bool(reverse)), device, stream)
+             dgn.data_ptr(), dh0.data_ptr(), batch, n_steps, hidden,
+             int(bool(reverse)), _cuda_lib.device_index(xp),
+             _cuda_lib.stream_of(xp))
     _cuda_lib.raise_on(lib, err, "gru_scan_bwd")
+    return dxp, dgn, dh0
+
+
+def _launch_bwd(xp, h0, w_hh, b_hh, hs, dh_last, dhs, *, reverse, mask):
+    global bwd_launches
+    dxp, dgn, dh0 = _launch_sweep(xp, h0, w_hh, b_hh, hs, dh_last, dhs,
+                                  reverse=reverse, mask=mask)
+    dw, db = scan_dw._launch(dxp, h0, hs, reverse=reverse, tail=dgn)
     bwd_launches += 1
-    h3h = 3 * hidden * hidden
-    dw = dw_db[:h3h].view(3 * hidden, hidden)
-    return (dxp, dh0.to(out_dtypes[0]), dw.to(out_dtypes[1]),
-            dw_db[h3h:].to(out_dtypes[2]))
+    return dxp, dh0.to(h0.dtype), dw.to(w_hh.dtype), db.to(b_hh.dtype)
 
 
 # -- the differentiable scan ---------------------------------------------------

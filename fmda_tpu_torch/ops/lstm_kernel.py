@@ -7,10 +7,14 @@ their plain versions and the differentiable op that joins them.
   ``h`` from the unrounded cell state, then ``h`` and ``c`` rounded to the
   I/O dtype each step).  Both return the per-step cell states ``cs``
   beside ``hs``: the backward reads them.
-- :func:`lstm_scan_bwd` is the port of ``_lstm_bwd_kernel``; its plain
-  version :func:`lstm_scan_bwd_reference` is the reverse time loop with
-  the same algebra: ``tanh(c)`` from the rounded ``cs``, ``dh`` and ``dc``
-  carried in float32, the gate gradients rounded once to the I/O dtype.
+- :func:`lstm_scan_bwd` is the port of ``_lstm_bwd_kernel``, as two
+  kernels: the serial sweep (:func:`lstm_scan_bwd_sweep`, whose plain
+  version :func:`lstm_scan_bwd_sweep_reference` is the reverse time loop
+  with the same algebra: ``tanh(c)`` from the rounded ``cs``, ``dh`` and
+  ``dc`` carried in float32, the gate gradients rounded once to the I/O
+  dtype), then the weight gradient after it
+  (:func:`fmda_tpu_torch.ops.scan_dw.scan_dw`).  Its plain version
+  :func:`lstm_scan_bwd_reference` composes the two plain versions.
 - :func:`lstm_scan` is the differentiable scan, with the signature of
   ``fmda_tpu.ops.lstm.lstm_scan``: a :class:`torch.autograd.Function`
   whose forward is :func:`lstm_scan_fwd` and whose backward is
@@ -21,9 +25,10 @@ Pallas pair, every function here takes an optional (B, T) mask with
 ``fmda_tpu.ops.lstm.lstm_scan``'s semantics: a masked step carries ``h``
 and ``c`` through, and its backward passes ``dh`` and ``dc`` through.
 
-On CUDA tensors each wrapper launches its kernel (from
-``csrc/lstm_scan.cu``, in the library :mod:`fmda_tpu_torch.ops._cuda_lib`
-builds at first use) or raises; on CPU tensors it runs its plain version.
+On CUDA tensors each wrapper launches its kernels (from
+``csrc/lstm_scan.cu`` and ``csrc/scan_dw.cu``, in the library
+:mod:`fmda_tpu_torch.ops._cuda_lib` builds at first use) or raises; on CPU
+tensors it runs its plain version.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib
+from fmda_tpu_torch.ops import _cuda_lib, scan_dw
+from fmda_tpu_torch.ops.scan_dw import h_prev_of, scan_dw_reference
 
 # the wrappers' device test, a module global so a rehearsal can stub it
 _on_cpu = _cuda_lib.on_cpu
@@ -42,8 +48,9 @@ launches = 0
 #: Kernel launches made by :func:`lstm_scan_bwd` (CPU calls do not count).
 bwd_launches = 0
 
-#: The kernels run one thread per (batch row, hidden unit) in blocks of at
-#: most 512 threads (csrc/lstm_scan.cu, kMaxThreads).
+#: The forward kernel runs one thread per (batch row, hidden unit), the
+#: backward sweep one to four, in blocks of at most 512 threads
+#: (csrc/lstm_scan.cu, kMaxThreads).
 _MAX_HIDDEN = 512
 
 Tensor = torch.Tensor
@@ -116,7 +123,7 @@ def lstm_scan_reference(
     return h, c, torch.stack(hs, dim=1), torch.stack(cs, dim=1)
 
 
-def lstm_scan_bwd_reference(
+def lstm_scan_bwd_sweep_reference(
     xp: Tensor,
     h0: Tensor,
     c0: Tensor,
@@ -130,9 +137,9 @@ def lstm_scan_bwd_reference(
     *,
     reverse: bool = False,
     mask: Optional[Tensor] = None,
-) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """The backward of :func:`lstm_scan_reference`: the plain version of
-    the backward kernel, an explicit reverse time loop.
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward's serial sweep, an explicit reverse time loop: the
+    plain version of the sweep kernel.
 
     Args:
       xp, h0, c0, w_hh, b_hh, reverse, mask: the forward's inputs.
@@ -144,29 +151,23 @@ def lstm_scan_bwd_reference(
     first processed step, else hs/cs of the previous one), ``tanh(c)``
     from the rounded ``cs``, and all gate and cotangent algebra runs in
     float32; the gate gradients are rounded once to the I/O dtype and that
-    one value is dxp and feeds the dh chain, dW_hh and db_hh, as in the
-    Pallas kernel (so in bfloat16 this is not autograd through the
-    forward).  A masked step passes dh and dc through and adds nothing.
-    Returns (dxp, dh0, dc0, dw_hh, db_hh): dxp in xp's dtype, the others
-    summed in float32 and cast to their inputs' dtypes.
+    one value is dxp and feeds the dh chain, as in the Pallas kernel (so in
+    bfloat16 this is not autograd through the forward).  A masked step
+    passes dh and dc through and writes zeros.  Returns (dxp, dh0, dc0):
+    dxp in xp's dtype (the operand of
+    :func:`~fmda_tpu_torch.ops.scan_dw.scan_dw`), dh0 and dc0 in float32.
     """
     dtype, f32 = xp.dtype, torch.float32
     hidden = h0.shape[-1]
     w = w_hh.to(dtype).to(f32)
     b = b_hh.to(dtype).to(f32)
-    n_steps = xp.shape[1]
+    h_prevs = h_prev_of(h0.to(dtype), hs, reverse=reverse)
+    c_prevs = h_prev_of(c0.to(dtype), cs, reverse=reverse)
     dh, dc = dh_last.to(f32), dc_last.to(f32)
     dxp = torch.zeros(xp.shape, dtype=dtype, device=xp.device)
-    dw = torch.zeros(w.shape, dtype=f32, device=xp.device)
-    db = torch.zeros(b.shape, dtype=f32, device=xp.device)
-    order = range(n_steps) if reverse else range(n_steps - 1, -1, -1)
-    for s, t in enumerate(order):
-        if s == n_steps - 1:  # the forward's first step: h0 and c0 enter it
-            h_prev = h0.to(dtype).to(f32)
-            c_prev = c0.to(dtype).to(f32)
-        else:
-            tp = t + 1 if reverse else t - 1
-            h_prev, c_prev = hs[:, tp].to(f32), cs[:, tp].to(f32)
+    n_steps = xp.shape[1]
+    for t in (range(n_steps) if reverse else range(n_steps - 1, -1, -1)):
+        h_prev, c_prev = h_prevs[:, t].to(f32), c_prevs[:, t].to(f32)
         pre = xp[:, t].to(f32) + (torch.matmul(h_prev, w.t()) + b)
         i = torch.sigmoid(pre[:, :hidden])
         f = torch.sigmoid(pre[:, hidden:2 * hidden])
@@ -189,9 +190,36 @@ def lstm_scan_bwd_reference(
             dh = torch.where(keep, chained_dh, dh)
             dc = torch.where(keep, chained_dc, dc)
         dxp[:, t] = dgates.to(dtype)
-        dw += torch.matmul(dgates.t(), h_prev)
-        db += dgates.sum(dim=0)
-    return (dxp, dh.to(h0.dtype), dc.to(c0.dtype), dw.to(w_hh.dtype),
+    return dxp, dh, dc
+
+
+def lstm_scan_bwd_reference(
+    xp: Tensor,
+    h0: Tensor,
+    c0: Tensor,
+    w_hh: Tensor,
+    b_hh: Tensor,
+    hs: Tensor,
+    cs: Tensor,
+    dh_last: Tensor,
+    dc_last: Tensor,
+    dhs: Tensor,
+    *,
+    reverse: bool = False,
+    mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The backward of :func:`lstm_scan_reference`: the plain version of
+    the backward kernels, the sweep (:func:`lstm_scan_bwd_sweep_reference`,
+    whose arguments these are) and the weight gradient of dxp
+    (:func:`~fmda_tpu_torch.ops.scan_dw.scan_dw_reference`) composed.
+    Returns (dxp, dh0, dc0, dw_hh, db_hh): dxp in xp's dtype, the others
+    summed in float32 and cast to their inputs' dtypes.
+    """
+    dxp, dh0, dc0 = lstm_scan_bwd_sweep_reference(
+        xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs,
+        reverse=reverse, mask=mask)
+    dw, db = scan_dw_reference(dxp, h0.to(xp.dtype), hs, reverse=reverse)
+    return (dxp, dh0.to(h0.dtype), dc0.to(c0.dtype), dw.to(w_hh.dtype),
             db.to(b_hh.dtype))
 
 
@@ -265,9 +293,9 @@ def lstm_scan_bwd(
     """LSTM backward scan: (dxp, dh0, dc0, dw_hh, db_hh), the signature of
     :func:`lstm_scan_bwd_reference`.
 
-    CUDA tensors launch the kernel (one call, counted in
-    :data:`bwd_launches`: the scan and the reduction of its per-block
-    weight-gradient partials) or raise; CPU tensors run the plain
+    CUDA tensors launch the kernels (one call, counted once in
+    :data:`bwd_launches`: the serial sweep, then the weight gradient and
+    the reduction of its partials) or raise; CPU tensors run the plain
     version."""
     tensors = [xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs] + (
         [mask] if mask is not None else [])
@@ -279,10 +307,37 @@ def lstm_scan_bwd(
                        reverse=reverse, mask=mask)
 
 
-def _launch_bwd(xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs, *,
-                reverse, mask):
-    global bwd_launches
-    out_dtypes = (h0.dtype, c0.dtype, w_hh.dtype, b_hh.dtype)
+def lstm_scan_bwd_sweep(
+    xp: Tensor,
+    h0: Tensor,
+    c0: Tensor,
+    w_hh: Tensor,
+    b_hh: Tensor,
+    hs: Tensor,
+    cs: Tensor,
+    dh_last: Tensor,
+    dc_last: Tensor,
+    dhs: Tensor,
+    *,
+    reverse: bool = False,
+    mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward's serial sweep alone: (dxp, dh0, dc0), the signature of
+    :func:`lstm_scan_bwd_sweep_reference`.  CUDA tensors launch the sweep
+    kernel (uncounted: :func:`lstm_scan_bwd` is the backward) or raise;
+    CPU tensors run the plain version."""
+    tensors = [xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs] + (
+        [mask] if mask is not None else [])
+    if _on_cpu("lstm_scan_bwd_sweep", tensors):
+        return lstm_scan_bwd_sweep_reference(
+            xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs,
+            reverse=reverse, mask=mask)
+    return _launch_sweep(xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last,
+                         dhs, reverse=reverse, mask=mask)
+
+
+def _launch_sweep(xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs, *,
+                  reverse, mask):
     batch, n_steps, hidden, p = _cuda_lib.check_scan_inputs(
         "lstm_scan_bwd", xp, 4, _MAX_HIDDEN, h0=h0, c0=c0, w_hh=w_hh,
         b_hh=b_hh)
@@ -297,29 +352,32 @@ def _launch_bwd(xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs, *,
                         for t in (dh_last, dc_last))
     mask = _cuda_lib.mask_u8(mask, batch, n_steps)
     lib = _cuda_lib.load()
-    device = _cuda_lib.device_index(xp)
-    n_blocks = lib.fmda_lstm_scan_bwd_blocks(batch, hidden, device)
-    h4h = 4 * hidden * hidden
-    f32 = dict(dtype=torch.float32, device=xp.device)
     dxp = torch.empty((batch, n_steps, 4 * hidden), dtype=xp.dtype,
                       device=xp.device)
-    dh0, dc0 = (torch.empty(state, **f32) for _ in range(2))
-    partials = torch.empty((n_blocks, h4h + 4 * hidden), **f32)
-    dw_db = torch.empty((h4h + 4 * hidden,), **f32)
-    fn = getattr(lib, f"fmda_lstm_scan_bwd_{_cuda_lib.SUPPORTED[xp.dtype]}")
+    dh0, dc0 = (torch.empty(state, dtype=torch.float32, device=xp.device)
+                for _ in range(2))
+    fn = getattr(lib, f"fmda_lstm_scan_sweep_{_cuda_lib.SUPPORTED[xp.dtype]}")
     err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), p["h0"].data_ptr(),
              p["c0"].data_ptr(), p["w_hh"].data_ptr(), p["b_hh"].data_ptr(),
              hs.data_ptr(), cs.data_ptr(), dh_last.data_ptr(),
              dc_last.data_ptr(), dhs.data_ptr(),
              None if mask is None else mask.data_ptr(), dxp.data_ptr(),
-             dh0.data_ptr(), dc0.data_ptr(), partials.data_ptr(),
-             dw_db.data_ptr(), batch, n_steps, hidden, int(bool(reverse)),
-             device, _cuda_lib.stream_of(xp))
+             dh0.data_ptr(), dc0.data_ptr(), batch, n_steps, hidden,
+             int(bool(reverse)), _cuda_lib.device_index(xp),
+             _cuda_lib.stream_of(xp))
     _cuda_lib.raise_on(lib, err, "lstm_scan_bwd")
+    return dxp, dh0, dc0
+
+
+def _launch_bwd(xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs, *,
+                reverse, mask):
+    global bwd_launches
+    dxp, dh0, dc0 = _launch_sweep(xp, h0, c0, w_hh, b_hh, hs, cs, dh_last,
+                                  dc_last, dhs, reverse=reverse, mask=mask)
+    dw, db = scan_dw._launch(dxp, h0, hs, reverse=reverse, tail=None)
     bwd_launches += 1
-    dw = dw_db[:h4h].view(4 * hidden, hidden)
-    return (dxp, dh0.to(out_dtypes[0]), dc0.to(out_dtypes[1]),
-            dw.to(out_dtypes[2]), dw_db[h4h:].to(out_dtypes[3]))
+    return (dxp, dh0.to(h0.dtype), dc0.to(c0.dtype), dw.to(w_hh.dtype),
+            db.to(b_hh.dtype))
 
 
 # -- the differentiable scan ---------------------------------------------------

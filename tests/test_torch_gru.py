@@ -147,5 +147,5 @@ def test_kernel_build_is_keyed_by_source_content(tmp_path):
     assert first.parent.parent == _cuda_lib.BUILD_ROOT
     # every kernel source and the header they share key the one library
     assert {p.name for p in _cuda_lib.SOURCES + _cuda_lib.HEADERS} == {
-        "gru_scan.cu", "lstm_scan.cu", "ssm_step.cu", "flash_attn.cu",
-        "scan_common.cuh"}
+        "gru_scan.cu", "lstm_scan.cu", "scan_dw.cu", "ssm_step.cu",
+        "flash_attn.cu", "scan_common.cuh"}

@@ -42,7 +42,7 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
                  "data.pipeline", "__main__", "ops.ssm", "ops.ssm_kernel",
                  "models.ssm", "serve.streaming", "runtime",
                  "runtime.session_pool", "ops.attention",
-                 "ops.attention_kernel", "models.attn"):
+                 "ops.attention_kernel", "models.attn", "ops.scan_dw"):
         assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -150,6 +150,7 @@ def test_kernel_is_not_built_at_import():
         "import fmda_tpu_torch.ops.lstm_kernel as l\n"
         "import fmda_tpu_torch.ops.ssm_kernel as s\n"
         "import fmda_tpu_torch.ops.attention_kernel as a\n"
+        "import fmda_tpu_torch.ops.scan_dw as d\n"
         "import fmda_tpu_torch.train, fmda_tpu_torch.__main__\n"
         "import fmda_tpu_torch.runtime\n"
         "assert lib._lib is None and lib.build_info == {}, lib.build_info\n"
@@ -157,6 +158,7 @@ def test_kernel_is_not_built_at_import():
         "assert l.launches == l.bwd_launches == 0\n"
         "assert s.launches == 0\n"
         "assert a.fwd_launches == a.dkv_launches == a.dq_launches == 0\n"
+        "assert d.launches == 0\n"
         "assert 'triton' not in __import__('sys').modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
