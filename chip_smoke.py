@@ -12,8 +12,10 @@ Phases, each printed as one JSON line, each fatal on failure:
    attention forward, dK/dV and dQ sweeps) from ``fmda_tpu_torch/csrc`` for
    sm_90a, one nvcc per source, all started together.
 3. ``kernel``: each kernel against its plain PyTorch version on the card,
-   at the shapes its paths use (and the wider H=128, which takes the scan
-   kernels' device-memory branches where shared memory runs out; the SSM
+   at the shapes its paths use (and wider: each forward scan at H = 33,
+   64, 128 and 512 and from a strided projection, every branch of its
+   plan, named on its line as ``branch``; the backward sweeps at H = 128,
+   past their register layout; the SSM
    tick at every pool bucket, in bf16, from a strided projection and at
    (256, 512); the flash kernels at the model's (256, 4, 30, 8) in f32 and
    bf16, causal or not, with and without a key mask, at the Predictor's
@@ -21,7 +23,7 @@ Phases, each printed as one JSON line, each fatal on failure:
    bound and the library yardstick (cuDNN, SDPA) beside it where one
    exists.  Each backward scan is two kernels, the serial sweep and the
    weight gradient (``scan_dw``), timed apart too (``sweep_ms``,
-   ``dw_ms``), and a second call must give the same bits.
+   ``dw_ms``); a second call of a scan must give the same bits.
 4. ``path``: the window-re-scan serving path at full width
    (``FrameworkConfig()``: H=32, F=108, window 30, float32) over a
    20,000-row warehouse: ``backtest`` at batch 256, then 64 signals through
@@ -250,7 +252,9 @@ def scan_bwd_bound(batch, steps, hidden, itemsize, masked, *, gates=3,
 
 def scan_case_inputs(scan: Scan, c, gen, dev):
     """The forward's inputs of one case: (xp, *initial states, W_hh, b_hh)
-    and the mask, uniform from ``gen``."""
+    and the mask, uniform from ``gen``.  A ``strided`` case's xp is the
+    second half of a (B, T, 2 gH) projection, as a bidirectional layer
+    slices its one projection: batch and time strides of 2 gH."""
     b, t, h, dtype = c["batch"], c["steps"], c["hidden"], c["dtype"]
     scale = 1.0 / math.sqrt(h)
 
@@ -259,7 +263,8 @@ def scan_case_inputs(scan: Scan, c, gen, dev):
                 * s).to(dtype)
 
     gh = scan.gates * h
-    xp = rand(b, t, gh, s=2.0)
+    xp = (rand(b, t, 2 * gh, s=2.0)[..., gh:] if c.get("strided")
+          else rand(b, t, gh, s=2.0))
     states = [rand(b, h, s=0.5) if c["h0"] else
               torch.zeros(b, h, dtype=dtype, device=dev)
               for _ in range(scan.states)]
@@ -291,12 +296,20 @@ def fwd_cases(scan: Scan):
              for dtype in (torch.float32, torch.bfloat16)
              for reverse in (False, True)]
     base = dict(batch=BATCH, steps=30, hidden=32, dtype=torch.float32)
+    # every branch of the forward's plan: H = 33 (shared memory, H not a
+    # multiple of the lanes' chunks, a partial last warp), 64 (shared
+    # memory), 512 (device memory, one lane a unit); xp sliced from a wider
+    # projection at the stream's (1, 30, 32)
+    cases += [dict(base, hidden=h, reverse=False, masked=False, h0=False)
+              for h in (33, 64, 512)]
+    cases.append(dict(base, batch=1, reverse=True, masked=False, h0=False,
+                      strided=True))
     if scan.name == "gru":
         return cases + [dict(base, reverse=True, masked=True, h0=False),
                         dict(base, reverse=False, masked=False, h0=True)]
-    # the LSTM's masked rows with nonzero h0 and c0, in both of its
-    # shared-memory branches (H = 32 f32, 128 bf16) and its device-memory
-    # one (H = 128 f32)
+    # the LSTM's masked rows with nonzero h0 and c0, in its register branch
+    # (H = 32), its shared-memory one (H = 128 bf16) and its cluster one
+    # (H = 128 f32)
     return cases + [dict(base, reverse=False, masked=True, h0=True),
                     dict(base, reverse=True, masked=True, h0=True),
                     dict(base, hidden=128, reverse=True, masked=True,
@@ -307,7 +320,12 @@ def fwd_cases(scan: Scan):
 
 def phase_kernel(scan: Scan, n_features: int, device: str = "cuda"):
     """<name>_scan_fwd against <name>_scan_reference on the card, every
-    output compared."""
+    output compared, and against itself: a second call must give the same
+    bits.  Each line names the branch the launcher's plan took (``branch``:
+    W_hh in registers, shared memory, a cluster's shared memory or device
+    memory) with its lanes a unit and rows a CTA."""
+    from fmda_tpu_torch.ops import _cuda_lib
+
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     fwd, ref = scan.fn("fwd"), getattr(scan.module,
@@ -317,9 +335,13 @@ def phase_kernel(scan: Scan, n_features: int, device: str = "cuda"):
         b, t, h, dtype = c["batch"], c["steps"], c["hidden"], c["dtype"]
         args, mask, _ = scan_case_inputs(scan, c, gen, dev)
         kw = dict(reverse=c["reverse"], mask=mask)
+        plan = _cuda_lib.fwd_plan(scan.name, b, h, dtype,
+                                  dev.index or 0)
         with torch.inference_mode():
             got, want = fwd(*args, **kw), ref(*args, **kw)
+            again = fwd(*args, **kw)
             torch.cuda.synchronize()
+            same_bits = all(torch.equal(g, a) for g, a in zip(got, again))
             err = max((g.float() - w.float()).abs().max().item()
                       for g, w in zip(got, want))
             tol = F32_TOL if dtype == torch.float32 else BF16_TOL
@@ -328,7 +350,8 @@ def phase_kernel(scan: Scan, n_features: int, device: str = "cuda"):
             call_ms = time_ms(lambda: fwd(*args, **kw), prime=False)
             plain_ms = time_ms(lambda: ref(*args, **kw), prime=True)
             library_ms = None
-            if not (c["reverse"] or c["masked"] or c["h0"]):
+            if not (c["reverse"] or c["masked"] or c["h0"]
+                    or c.get("strided")):
                 lib, x = library_layer(scan, c, n_features, gen, dev)
                 library_ms = time_ms(lambda: lib(x), prime=True,
                                      prime_cycles=LIBRARY_PRIME_CYCLES)
@@ -338,13 +361,17 @@ def phase_kernel(scan: Scan, n_features: int, device: str = "cuda"):
         row = dict(batch=b, steps=t, hidden=h,
                    dtype=str(dtype).replace("torch.", ""),
                    reverse=c["reverse"], masked=c["masked"],
-                   nonzero_h0=c["h0"], max_abs_err=err, tol=tol,
+                   nonzero_h0=c["h0"], strided=bool(c.get("strided")),
+                   branch=plan["branch"], lanes=plan["lanes"],
+                   rows_per_cta=plan["rows"], max_abs_err=err, tol=tol,
+                   bit_identical_rerun=same_bits,
                    ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
         emit(f"kernel {scan.name}_scan_fwd", **row)
         check(finite, f"non-finite kernel output in {row}")
         check(err <= tol, f"kernel disagrees with its plain version: {row}")
+        check(same_bits, f"kernel's second call differs: {row}")
         results.append(row)
     return results
 
@@ -1494,7 +1521,7 @@ def kernel_entry(name, replaces, source, rows, launches, by_path):
     main_shape = next(r for r in rows if r["batch"] == BATCH
                       and r["hidden"] == 32 and r["dtype"] == "float32"
                       and not (r["reverse"] or r["masked"]
-                               or r["nonzero_h0"]))
+                               or r["nonzero_h0"] or r.get("strided")))
     return {
         "name": name,
         "route": "cuda",
@@ -1509,8 +1536,9 @@ def kernel_entry(name, replaces, source, rows, launches, by_path):
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
-        # the backward scans' two parts, each timed alone
-        **{k: main_shape[k] for k in ("sweep_ms", "dw_ms")
+        # the backward scans' two parts, each timed alone; the forwards'
+        # branch
+        **{k: main_shape[k] for k in ("sweep_ms", "dw_ms", "branch")
            if k in main_shape},
         "shape": [BATCH, 30, 32],
     }
@@ -1579,15 +1607,18 @@ def ptxas_summary(log: str) -> dict:
         if entry:
             mangled = entry.group(1)
             src = re.search(r"_\d+_(\w+?)_cu_", mangled)
-            # the name follows its length; template arguments follow "I"
-            kern = re.search(r"(?<=\d)((?:[a-z]+_)+kernel)(?:I(f|13__nv_"
-                             r"bfloat16)((?:L[bi]\d+E)*))?", mangled)
+            # the name follows its length; template arguments follow "I":
+            # a class (the forwards' cell), the dtype, then bools and ints
+            kern = re.search(r"(?<=\d)((?:[a-z]+_)+kernel)(?:I(?:NS_\d+"
+                             r"([A-Za-z]+?)E)?(f|13__nv_bfloat16)"
+                             r"((?:L[bi]\d+E)*))?", mangled)
             name = mangled[:60]
             if src and kern:
-                args = ["bf16" if kern.group(2) == "13__nv_bfloat16"
-                        else "f32"] if kern.group(2) else []
-                # the other template arguments, bools and ints, in order
-                args += re.findall(r"L[bi](\d+)E", kern.group(3) or "")
+                args = [kern.group(2)] if kern.group(2) else []
+                if kern.group(3):
+                    args.append("bf16" if kern.group(3) == "13__nv_bfloat16"
+                                else "f32")
+                args += re.findall(r"L[bi](\d+)E", kern.group(4) or "")
                 name = (f"{src.group(1)}:{kern.group(1)}"
                         + (f"<{','.join(args)}>" if args else ""))
             kernels[name] = {}

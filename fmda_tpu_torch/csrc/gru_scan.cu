@@ -12,24 +12,38 @@
 //
 // over precomputed input projections xp (B, T, 3H), giving hs (B, T, H) and
 // h_last (B, H).  The TPU kernel walks a time-major (T, B, 3H) copy on a
-// sequential grid sized for Mosaic's (8, 128) tiles; here one thread block
-// owns a tile of batch rows and runs the whole time loop itself, reading xp
+// sequential grid sized for Mosaic's (8, 128) tiles; here a CTA owns one
+// to four batch rows and runs the whole time loop itself, reading xp
 // batch-major through the strides it is given and writing hs in that order.
+// The kernel body is scan_fwd_kernel in scan_common.cuh, shared with the
+// LSTM; this file gives it the GRU's gate algebra (GruFwdCell).
 //
 // What bounds it.  At the serving shapes (B <= 256, T = 30, H = 32) the
 // bytes (xp in, hs out: about 4 MB at B = 256 f32) take about 1.2 us at
 // 3.35 TB/s and the FLOPs less, but the recurrence is a chain of T
-// dependent steps, each a small matrix-vector product, a few
-// transcendentals and a block barrier.  The kernel is latency-bound by that
-// chain, not by bytes or FLOPs.  What the design does about it:
-//   - W_hh^T (12 KB at H = 32 f32) and the carry live in shared memory for
-//     the whole sequence: no step touches device memory except to read its
-//     xp slice and write its hs slice;
-//   - the carry is double-buffered, so a step costs one __syncthreads();
-//   - the next step's xp is loaded before the current step's dot products,
-//     so its device-memory latency hides behind them;
-//   - the batch tile shrinks until the grid covers the SMs, so a batch of
-//     256 runs as 128 blocks of 2 rows rather than 32 blocks of 8.
+// dependent steps, each a small matrix-vector product, three
+// transcendentals and a barrier: latency-bound.  The design shortens the
+// step (scan_common.cuh):
+//   - four lanes a hidden unit, each a quarter of the unit's three dot
+//     products over k, added by two butterfly shuffles: a row has four
+//     times the warps of one thread a unit, and each chain is 8 FMAs long
+//     at H = 32, not 32;
+//   - at H <= 32 each lane holds its 24 values of W_hh in registers for the
+//     whole sequence and reads h as two float4s from shared memory; wider,
+//     W_hh stays in shared memory while it fits (rows padded so a warp's
+//     float4 reads do not conflict: 221 KB at H = 128 f32), and past that
+//     it is read from device memory in the same 4-wide k-chunks, whole
+//     sectors a lane group;
+//   - a CTA takes 2 or 4 rows where one row each would need a second wave
+//     of CTAs (H = 128 f32 at B = 256: 2), one read of W_hh a step serving
+//     them all;
+//   - h double-buffered by step parity (one barrier a step), the next
+//     step's xp loaded before this step's product, the sigmoids with an
+//     approximate reciprocal (no IEEE division call), the stores made by
+//     lanes chosen by select.
+// What is left is the chain of a step's latencies: the shared-memory
+// reads, the FMAs, the lane shuffles, the transcendentals and the barrier
+// (PERF.md has the measured split, experiments/torch_scan_fwd_profile.py).
 //
 // dtypes: float32 or bfloat16 I/O, gate algebra and accumulation in float32,
 // the carry rounded to the I/O dtype after every step (the TPU kernel's
@@ -94,145 +108,46 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-// W_hh^T stays in shared memory while it and the carry fit under this.
-constexpr size_t kMaxSmemBytes = 200 * 1024;
 
-// blockDim.x == rows * H: thread (r, j) owns hidden unit j of batch row
-// blockIdx.x * rows + r.  Shared memory: the carry [2][rows][H] in f32
-// (holding values already rounded to T), then W_hh^T [H][3H] in T when
-// W_SMEM.
-template <typename T, bool W_SMEM>
-__global__ void __launch_bounds__(kMaxThreads) gru_scan_fwd_kernel(
-    const T* __restrict__ xp, long long sxb, long long sxt,
-    const T* __restrict__ h0, const T* __restrict__ w_hh,
-    const T* __restrict__ b_hh, const uint8_t* __restrict__ mask,
-    T* __restrict__ hs, T* __restrict__ h_last, int B, int n_steps, int H,
-    int rows, int reverse) {
-  extern __shared__ float smem[];
-  float* hbuf = smem;
-  T* wt = reinterpret_cast<T*>(smem + 2 * rows * H);
-
-  const int tid = threadIdx.x;
-  const int r = tid / H;
-  const int j = tid - r * H;
-  const int b = blockIdx.x * rows + r;
-  const bool live = b < B;
-  const int H3 = 3 * H;
-
-  if (W_SMEM) {
-    // coalesced read of W_hh (3H, H), transposed into [k][g] so that the
-    // threads of a warp (consecutive j) read consecutive words
-    for (int i = tid; i < H3 * H; i += blockDim.x) {
-      const int g = i / H;
-      const int k = i - g * H;
-      wt[k * H3 + g] = w_hh[i];
-    }
+// The forward's cell for scan_fwd_kernel (scan_common.cuh): gates [r, z, n],
+// the hidden product's bias inside r * (...) for n, as torch and the TPU
+// kernel have it.
+struct GruFwdCell {
+  static constexpr int kGates = 3;
+  static constexpr bool kCarriesC = false;
+  static constexpr int kThreadLimit = kMaxThreads;
+  static constexpr int kHiddenLimit = kMaxThreads;
+  template <typename T>
+  __device__ __forceinline__ static void step(const float* x, const float* a,
+                                              float& h, float&, bool keep) {
+    const float r = sigmoid_rcp_f32(x[0] + a[0]);
+    const float z = sigmoid_rcp_f32(x[1] + a[1]);
+    const float n = tanhf(x[2] + r * a[2]);
+    const float h_new = round_to<T>((1.0f - z) * n + z * h);
+    h = keep ? h_new : h;
   }
-  const float br = to_f32(b_hh[j]);
-  const float bz = to_f32(b_hh[H + j]);
-  const float bn = to_f32(b_hh[2 * H + j]);
-  float h = live ? to_f32(h0[(long long)b * H + j]) : 0.0f;
-  hbuf[r * H + j] = h;
-  __syncthreads();
-
-  const T* xrow = xp + (live ? (long long)b * sxb : 0);
-  const uint8_t* mrow = mask ? mask + (live ? (long long)b * n_steps : 0)
-                             : nullptr;
-  float xr = 0.0f, xz = 0.0f, xn = 0.0f;
-  bool keep = true;
-  if (live && n_steps > 0) {
-    const int t = reverse ? n_steps - 1 : 0;
-    const T* x = xrow + t * sxt;
-    xr = to_f32(x[j]);
-    xz = to_f32(x[H + j]);
-    xn = to_f32(x[2 * H + j]);
-    keep = mrow ? mrow[t] != 0 : true;
-  }
-
-  int cur = 0;
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = reverse ? n_steps - 1 - s : s;
-    const float cr = xr, cz = xz, cn = xn;
-    const bool ck = keep;
-    if (live && s + 1 < n_steps) {  // prefetch the next step's slice
-      const int tn = reverse ? t - 1 : t + 1;
-      const T* x = xrow + tn * sxt;
-      xr = to_f32(x[j]);
-      xz = to_f32(x[H + j]);
-      xn = to_f32(x[2 * H + j]);
-      keep = mrow ? mrow[tn] != 0 : true;
-    }
-
-    const float* hc = hbuf + cur * rows * H + r * H;
-    float ar = br, az = bz, an = bn;
-    if (W_SMEM) {
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) {
-        const float hk = hc[k];
-        const T* wk = wt + k * H3;
-        ar = fmaf(hk, to_f32(wk[j]), ar);
-        az = fmaf(hk, to_f32(wk[H + j]), az);
-        an = fmaf(hk, to_f32(wk[2 * H + j]), an);
-      }
-    } else {
-      const T* wr = w_hh + (long long)j * H;
-      const T* wz = w_hh + (long long)(H + j) * H;
-      const T* wn = w_hh + (long long)(2 * H + j) * H;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float hk = hc[k];
-        ar = fmaf(hk, to_f32(wr[k]), ar);
-        az = fmaf(hk, to_f32(wz[k]), az);
-        an = fmaf(hk, to_f32(wn[k]), an);
-      }
-    }
-    const float rg = sigmoid_f32(cr + ar);
-    const float zg = sigmoid_f32(cz + az);
-    const float ng = tanhf(cn + rg * an);
-    const float hnew = to_f32(from_f32<T>((1.0f - zg) * ng + zg * h));
-    if (ck) h = hnew;
-    if (live) hs[((long long)b * n_steps + t) * H + j] = from_f32<T>(h);
-    hbuf[(cur ^ 1) * rows * H + r * H + j] = h;
-    __syncthreads();
-    cur ^= 1;
-  }
-  if (live) h_last[(long long)b * H + j] = from_f32<T>(h);
-}
+};
 
 template <typename T>
 int launch(const void* xp, long long sxb, long long sxt, const void* h0,
            const void* w_hh, const void* b_hh, const void* mask, void* hs,
            void* h_last, int B, int n_steps, int H, int reverse, int device,
            void* stream) {
-  if (B <= 0 || H <= 0 || H > kMaxThreads || n_steps < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int rows = tile_rows(B, H, device);
-  const size_t h_bytes = 2 * (size_t)rows * H * sizeof(float);
-  const size_t w_bytes = 3 * (size_t)H * H * sizeof(T);
-  const bool w_smem = h_bytes + w_bytes <= kMaxSmemBytes;
-  const size_t smem = h_bytes + (w_smem ? w_bytes : 0);
-  const dim3 grid((B + rows - 1) / rows);
-  const dim3 block(rows * H);
-  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const T* x = static_cast<const T*>(xp);
-  const T* h = static_cast<const T*>(h0);
-  const T* w = static_cast<const T*>(w_hh);
-  const T* bb = static_cast<const T*>(b_hh);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  T* out = static_cast<T*>(hs);
-  T* last = static_cast<T*>(h_last);
-  if (w_smem) {
-    err = allow_smem(gru_scan_fwd_kernel<T, true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    gru_scan_fwd_kernel<T, true><<<grid, block, smem, s>>>(
-        x, sxb, sxt, h, w, bb, m, out, last, B, n_steps, H, rows, reverse);
-  } else {
-    gru_scan_fwd_kernel<T, false><<<grid, block, smem, s>>>(
-        x, sxb, sxt, h, w, bb, m, out, last, B, n_steps, H, rows, reverse);
-  }
-  return (int)cudaGetLastError();
+  FwdArgs<T> a{};
+  a.xp = static_cast<const T*>(xp);
+  a.sxb = sxb;
+  a.sxt = sxt;
+  a.h0 = static_cast<const T*>(h0);
+  a.w_hh = static_cast<const T*>(w_hh);
+  a.b_hh = static_cast<const T*>(b_hh);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.hs = static_cast<T*>(hs);
+  a.h_last = static_cast<T*>(h_last);
+  a.B = B;
+  a.n_steps = n_steps;
+  a.H = H;
+  a.reverse = reverse;
+  return launch_fwd<GruFwdCell, T>(a, device, stream);
 }
 
 // -- backward: the serial sweep ------------------------------------------------
@@ -242,12 +157,12 @@ int launch(const void* xp, long long sxb, long long sxt, const void* h0,
 // f32 (by step parity; HP = QP / 3 = 32 with W_REG, whose pads stay 0), then
 // W_hh [3H][H + L] in T when W_SMEM.
 //
-// With W_REG (L == kSweepLanes, H <= 32) lane l holds the float4 chunks
+// With W_REG (L == kScanLanes, H <= 32) lane l holds the float4 chunks
 // l, l + L, ... of the k axis of its unit's three gate rows (wr, wz, wn) and
 // of the q axis of its unit's column (wc), 0 past H and 3H.  Otherwise lane
 // l takes k = l, l + L, ... and q = l, l + L, ... and reads W_hh from w.
 template <typename T, int L, bool W_REG, bool W_SMEM>
-__global__ void __launch_bounds__(W_REG ? kSweepRegThreads : kMaxThreads)
+__global__ void __launch_bounds__(W_REG ? kScanRegThreads : kMaxThreads)
     gru_scan_sweep_kernel(const T* __restrict__ xp, long long sxb,
                           long long sxt, const T* __restrict__ h0,
                           const T* __restrict__ w_hh,
@@ -260,7 +175,7 @@ __global__ void __launch_bounds__(W_REG ? kSweepRegThreads : kMaxThreads)
                           float* __restrict__ dh0, int n_steps, int H,
                           int reverse) {
   extern __shared__ __align__(16) float sweep_smem[];
-  constexpr int KR = W_REG ? kSweepRegH / L : 1;  // register k a gate row
+  constexpr int KR = W_REG ? kScanRegH / L : 1;  // register k a gate row
   constexpr int QR = W_REG ? 3 * KR : 1;           // register q a column
   const int H3 = 3 * H;
   const int HP = W_REG ? L * KR : H;
@@ -476,12 +391,12 @@ int launch_sweep(const SweepArgs& a, int device, void* stream) {
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int H = a.H;
-  constexpr int L = kSweepLanes;
-  if (H <= kSweepRegH) {
-    const size_t smem = 2 * (size_t)kSweepRegH * (1 + 3) * sizeof(float);
+  constexpr int L = kScanLanes;
+  if (H <= kScanRegH) {
+    const size_t smem = 2 * (size_t)kScanRegH * (1 + 3) * sizeof(float);
     return (int)launch_sweep_as<T, L, true, false>(a, smem, s);
   }
-  const int lanes = sweep_lanes(H, kMaxThreads);
+  const int lanes = scan_lanes(H, kMaxThreads);
   const size_t base = 2 * (size_t)(H + 3 * H) * sizeof(float);
   const size_t w_bytes = 3 * (size_t)H * (H + lanes) * sizeof(T);
   const bool w_smem = base + w_bytes <= kMaxSweepSmemBytes;
@@ -514,6 +429,15 @@ extern "C" int fmda_gru_scan_fwd_bf16(
     void* stream) {
   return launch<__nv_bfloat16>(xp, sxb, sxt, h0, w_hh, b_hh, mask, hs, h_last,
                                B, n_steps, H, reverse, device, stream);
+}
+
+// How the forward would run (B, H) in a dtype of `itemsize` bytes, as the
+// launcher decides it: out = {branch (0 registers, 1 shared memory,
+// 2 cluster, 3 device memory), lanes a unit, rows a CTA, CTAs a cluster,
+// grid, dynamic shared memory}.  Returns 0, or an error code.
+extern "C" int fmda_gru_scan_fwd_plan(int B, int H, int itemsize, int device,
+                                      int* out) {
+  return report_fwd_plan<GruFwdCell>(B, H, itemsize, device, out);
 }
 
 // The backward's serial sweep.  Strides are in elements; xp's last

@@ -20,23 +20,28 @@
 // unchanged where it is 0, and hs and cs repeat the carried values there
 // (the lax.scan path's semantics; the Pallas pair has no mask).
 //
-// As in gru_scan.cu, one thread block owns a tile of batch rows and runs the
-// whole time loop, reading xp batch-major through the strides it is given,
-// where the TPU kernel walks a time-major copy on a sequential grid.
+// As in gru_scan.cu, a CTA owns one to four batch rows and runs the whole
+// time loop, reading xp batch-major through the strides it is given, where
+// the TPU kernel walks a time-major copy on a sequential grid; the body is
+// scan_common.cuh's scan_fwd_kernel with this file's LstmFwdCell.
 //
 // What bounds it.  At the serving shape (256, 30, 32) f32 the bytes (xp in,
 // hs and cs out: about 5.9 MB) take about 1.8 us at 3.35 TB/s and the FLOPs
 // less, but the recurrence is a chain of T dependent steps, each a small
-// matrix-vector product, five transcendentals and a block barrier: it is
-// latency-bound by that chain.  What the design does about it:
-//   - W_hh^T (16 KB at H = 32 f32, 128 KB at H = 128 bf16) stays in shared
-//     memory for the whole sequence while it fits under kMaxSmemBytes; past
-//     that (H = 128 f32 needs 256 KB) each thread reads its four rows of
-//     W_hh from device memory, where they stay in L1/L2 after the first step;
-//   - h is double-buffered in shared memory, so a step costs one barrier;
-//     c never leaves its thread's register: only thread j needs c[j];
-//   - the next step's xp is loaded before the current step's dot products;
-//   - the batch tile shrinks until the grid covers the SMs (tile_rows).
+// matrix-vector product, five transcendentals and a barrier: latency-bound.
+// The design is gru_scan.cu's with four gates and a second carry:
+//   - four lanes a unit, W_hh in registers at H <= 32 (32 values a lane),
+//     in padded shared memory while it fits (128 KB + pads at H = 128
+//     bf16), h read as float4s, one barrier a step; c never leaves its
+//     lanes' registers: only unit j needs c[j];
+//   - H = 128 f32, whose W_hh (256 KB) fits no block: a cluster of two
+//     CTAs on neighbouring SMs, each holding the rows of half the units
+//     (147 KB with pads) and computing those units for four rows a CTA at
+//     B = 256; each writes its half of the new h into both CTAs' h buffers
+//     through distributed shared memory and the step ends at one cluster
+//     barrier;
+//   - wider still (up to H = 512), W_hh from device memory in 4-wide
+//     k-chunks, one lane a unit past H = 128.
 //
 // ---- backward ---------------------------------------------------------------
 // Replaces: fmda_tpu/ops/pallas_lstm.py::_lstm_bwd_kernel, in two kernels:
@@ -80,172 +85,63 @@
 //     shared-memory read-modify-writes a thread a step, and a barrier) are
 //     out of the loop.
 //
-// Registers: the forward keeps four gates and a step of prefetched inputs
-// live and is bounded at kMaxThreads = 512 threads a block, which leaves a
-// thread up to 128 registers, so the wrapper takes H <= 512; the sweep's
-// blocks outside the register layout are bounded the same way (L = 1 past
-// H = 128), those inside it at kSweepRegThreads = 128 threads.
+// Registers: the sweep's blocks outside the register layout and the
+// forward's device-memory branch with one lane a unit are bounded at
+// kMaxThreads = 512 threads, which leaves a thread up to 128 registers, so
+// the wrapper takes H <= 512; the sweep's blocks inside the register
+// layout are bounded at kScanRegThreads = 128 threads, the forward's other
+// blocks as fwd_block_limit (scan_common.cuh) says.
 
 #include "scan_common.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 512;
-// W_hh^T stays in shared memory while it and the carry fit under this.
-constexpr size_t kMaxSmemBytes = 200 * 1024;
 
-// blockDim.x == rows * H: thread (r, j) owns hidden unit j of batch row
-// blockIdx.x * rows + r.  Shared memory: h [2][rows][H] in f32 (holding
-// values already rounded to T), then W_hh^T [H][4H] in T when W_SMEM.
-template <typename T, bool W_SMEM>
-__global__ void __launch_bounds__(kMaxThreads) lstm_scan_fwd_kernel(
-    const T* __restrict__ xp, long long sxb, long long sxt,
-    const T* __restrict__ h0, const T* __restrict__ c0,
-    const T* __restrict__ w_hh, const T* __restrict__ b_hh,
-    const uint8_t* __restrict__ mask, T* __restrict__ hs, T* __restrict__ cs,
-    T* __restrict__ h_last, T* __restrict__ c_last, int B, int n_steps,
-    int H, int rows, int reverse) {
-  extern __shared__ float smem[];
-  float* hbuf = smem;
-  T* wt = reinterpret_cast<T*>(smem + 2 * rows * H);
-
-  const int tid = threadIdx.x;
-  const int r = tid / H;
-  const int j = tid - r * H;
-  const int b = blockIdx.x * rows + r;
-  const bool live = b < B;
-  const int H4 = 4 * H;
-
-  if (W_SMEM) {
-    // coalesced read of W_hh (4H, H), transposed into [k][g] so that the
-    // threads of a warp (consecutive j) read consecutive words
-    for (int i = tid; i < H4 * H; i += blockDim.x) {
-      const int g = i / H;
-      const int k = i - g * H;
-      wt[k * H4 + g] = w_hh[i];
-    }
-  }
-  const float bi = to_f32(b_hh[j]);
-  const float bf = to_f32(b_hh[H + j]);
-  const float bg = to_f32(b_hh[2 * H + j]);
-  const float bo = to_f32(b_hh[3 * H + j]);
-  float h = live ? to_f32(h0[(long long)b * H + j]) : 0.0f;
-  float c = live ? to_f32(c0[(long long)b * H + j]) : 0.0f;
-  hbuf[r * H + j] = h;
-  __syncthreads();
-
-  const T* xrow = xp + (live ? (long long)b * sxb : 0);
-  const uint8_t* mrow = mask ? mask + (live ? (long long)b * n_steps : 0)
-                             : nullptr;
-  float xi = 0.0f, xf = 0.0f, xg = 0.0f, xo = 0.0f;
-  bool keep = true;
-  auto load = [&](int t) {
-    const T* x = xrow + t * sxt;
-    xi = to_f32(x[j]);
-    xf = to_f32(x[H + j]);
-    xg = to_f32(x[2 * H + j]);
-    xo = to_f32(x[3 * H + j]);
-    keep = mrow ? mrow[t] != 0 : true;
-  };
-  if (live && n_steps > 0) load(reverse ? n_steps - 1 : 0);
-
-  int cur = 0;
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = reverse ? n_steps - 1 - s : s;
-    const float ci = xi, cf = xf, cg = xg, co = xo;
-    const bool ck = keep;
-    if (live && s + 1 < n_steps) load(reverse ? t - 1 : t + 1);  // prefetch
-
-    const float* hc = hbuf + cur * rows * H + r * H;
-    float ai = bi, af = bf, ag = bg, ao = bo;
-    if (W_SMEM) {
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) {
-        const float hk = hc[k];
-        const T* wk = wt + k * H4;
-        ai = fmaf(hk, to_f32(wk[j]), ai);
-        af = fmaf(hk, to_f32(wk[H + j]), af);
-        ag = fmaf(hk, to_f32(wk[2 * H + j]), ag);
-        ao = fmaf(hk, to_f32(wk[3 * H + j]), ao);
-      }
-    } else {
-      const T* wi = w_hh + (long long)j * H;
-      const T* wf = w_hh + (long long)(H + j) * H;
-      const T* wg = w_hh + (long long)(2 * H + j) * H;
-      const T* wo = w_hh + (long long)(3 * H + j) * H;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float hk = hc[k];
-        ai = fmaf(hk, to_f32(wi[k]), ai);
-        af = fmaf(hk, to_f32(wf[k]), af);
-        ag = fmaf(hk, to_f32(wg[k]), ag);
-        ao = fmaf(hk, to_f32(wo[k]), ao);
-      }
-    }
-    const float ig = sigmoid_f32(ci + ai);
-    const float fg = sigmoid_f32(cf + af);
-    const float gg = tanhf(cg + ag);
-    const float og = sigmoid_f32(co + ao);
+// The forward's cell for scan_fwd_kernel (scan_common.cuh): gates
+// [i, f, g, o]; c' from the carried (rounded) c, h' from the unrounded c'.
+struct LstmFwdCell {
+  static constexpr int kGates = 4;
+  static constexpr bool kCarriesC = true;
+  static constexpr int kThreadLimit = kMaxThreads;
+  static constexpr int kHiddenLimit = kMaxThreads;
+  template <typename T>
+  __device__ __forceinline__ static void step(const float* x, const float* a,
+                                              float& h, float& c, bool keep) {
+    const float ig = sigmoid_rcp_f32(x[0] + a[0]);
+    const float fg = sigmoid_rcp_f32(x[1] + a[1]);
+    const float gg = tanhf(x[2] + a[2]);
+    const float og = sigmoid_rcp_f32(x[3] + a[3]);
     const float c_new = fg * c + ig * gg;
-    const float h_new = og * tanhf(c_new);  // from the unrounded c'
-    if (ck) {
-      h = round_to<T>(h_new);
-      c = round_to<T>(c_new);
-    }
-    if (live) {
-      const long long o = ((long long)b * n_steps + t) * H + j;
-      hs[o] = from_f32<T>(h);
-      cs[o] = from_f32<T>(c);
-    }
-    hbuf[(cur ^ 1) * rows * H + r * H + j] = h;
-    __syncthreads();
-    cur ^= 1;
+    const float h_new = og * tanhf(c_new);
+    h = keep ? round_to<T>(h_new) : h;
+    c = keep ? round_to<T>(c_new) : c;
   }
-  if (live) {
-    h_last[(long long)b * H + j] = from_f32<T>(h);
-    c_last[(long long)b * H + j] = from_f32<T>(c);
-  }
-}
+};
 
 template <typename T>
 int launch(const void* xp, long long sxb, long long sxt, const void* h0,
            const void* c0, const void* w_hh, const void* b_hh,
            const void* mask, void* hs, void* cs, void* h_last, void* c_last,
            int B, int n_steps, int H, int reverse, int device, void* stream) {
-  if (B <= 0 || H <= 0 || H > kMaxThreads || n_steps < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int rows = tile_rows(B, H, device);
-  const size_t h_bytes = 2 * (size_t)rows * H * sizeof(float);
-  const size_t w_bytes = 4 * (size_t)H * H * sizeof(T);
-  const bool w_smem = h_bytes + w_bytes <= kMaxSmemBytes;
-  const size_t smem = h_bytes + (w_smem ? w_bytes : 0);
-  const dim3 grid((B + rows - 1) / rows);
-  const dim3 block(rows * H);
-  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const T* x = static_cast<const T*>(xp);
-  const T* h = static_cast<const T*>(h0);
-  const T* c = static_cast<const T*>(c0);
-  const T* w = static_cast<const T*>(w_hh);
-  const T* bb = static_cast<const T*>(b_hh);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  T* hs_out = static_cast<T*>(hs);
-  T* cs_out = static_cast<T*>(cs);
-  T* hl = static_cast<T*>(h_last);
-  T* cl = static_cast<T*>(c_last);
-  if (w_smem) {
-    err = allow_smem(lstm_scan_fwd_kernel<T, true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    lstm_scan_fwd_kernel<T, true><<<grid, block, smem, s>>>(
-        x, sxb, sxt, h, c, w, bb, m, hs_out, cs_out, hl, cl, B, n_steps, H,
-        rows, reverse);
-  } else {
-    lstm_scan_fwd_kernel<T, false><<<grid, block, smem, s>>>(
-        x, sxb, sxt, h, c, w, bb, m, hs_out, cs_out, hl, cl, B, n_steps, H,
-        rows, reverse);
-  }
-  return (int)cudaGetLastError();
+  FwdArgs<T> a{};
+  a.xp = static_cast<const T*>(xp);
+  a.sxb = sxb;
+  a.sxt = sxt;
+  a.h0 = static_cast<const T*>(h0);
+  a.c0 = static_cast<const T*>(c0);
+  a.w_hh = static_cast<const T*>(w_hh);
+  a.b_hh = static_cast<const T*>(b_hh);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.hs = static_cast<T*>(hs);
+  a.cs = static_cast<T*>(cs);
+  a.h_last = static_cast<T*>(h_last);
+  a.c_last = static_cast<T*>(c_last);
+  a.B = B;
+  a.n_steps = n_steps;
+  a.H = H;
+  a.reverse = reverse;
+  return launch_fwd<LstmFwdCell, T>(a, device, stream);
 }
 
 // -- backward: the serial sweep ------------------------------------------------
@@ -256,7 +152,7 @@ int launch(const void* xp, long long sxb, long long sxt, const void* h0,
 // then W_hh [4H][H + L] in T when W_SMEM.  The lanes' shares of W_hh are
 // laid out as in gru_scan.cu's sweep, with four gate rows (wi, wf, wg, wo).
 template <typename T, int L, bool W_REG, bool W_SMEM>
-__global__ void __launch_bounds__(W_REG ? kSweepRegThreads : kMaxThreads)
+__global__ void __launch_bounds__(W_REG ? kScanRegThreads : kMaxThreads)
     lstm_scan_sweep_kernel(const T* __restrict__ xp, long long sxb,
                            long long sxt, const T* __restrict__ h0,
                            const T* __restrict__ c0,
@@ -271,7 +167,7 @@ __global__ void __launch_bounds__(W_REG ? kSweepRegThreads : kMaxThreads)
                            float* __restrict__ dc0, int n_steps, int H,
                            int reverse) {
   extern __shared__ __align__(16) float sweep_smem[];
-  constexpr int KR = W_REG ? kSweepRegH / L : 1;
+  constexpr int KR = W_REG ? kScanRegH / L : 1;
   constexpr int QR = W_REG ? 4 * KR : 1;
   const int H4 = 4 * H;
   const int HP = W_REG ? L * KR : H;
@@ -503,12 +399,12 @@ int launch_sweep(const SweepArgs& a, int device, void* stream) {
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int H = a.H;
-  constexpr int L = kSweepLanes;
-  if (H <= kSweepRegH) {
-    const size_t smem = 2 * (size_t)kSweepRegH * (1 + 4) * sizeof(float);
+  constexpr int L = kScanLanes;
+  if (H <= kScanRegH) {
+    const size_t smem = 2 * (size_t)kScanRegH * (1 + 4) * sizeof(float);
     return (int)launch_sweep_as<T, L, true, false>(a, smem, s);
   }
-  const int lanes = sweep_lanes(H, kMaxThreads);
+  const int lanes = scan_lanes(H, kMaxThreads);
   const size_t base = 2 * (size_t)(H + 4 * H) * sizeof(float);
   const size_t w_bytes = 4 * (size_t)H * (H + lanes) * sizeof(T);
   const bool w_smem = base + w_bytes <= kMaxSweepSmemBytes;
@@ -544,6 +440,13 @@ extern "C" int fmda_lstm_scan_fwd_bf16(
   return launch<__nv_bfloat16>(xp, sxb, sxt, h0, c0, w_hh, b_hh, mask, hs,
                                cs, h_last, c_last, B, n_steps, H, reverse,
                                device, stream);
+}
+
+// How the forward would run (B, H) in a dtype of `itemsize` bytes, as the
+// launcher decides it (the layout of fmda_gru_scan_fwd_plan's out).
+extern "C" int fmda_lstm_scan_fwd_plan(int B, int H, int itemsize,
+                                       int device, int* out) {
+  return report_fwd_plan<LstmFwdCell>(B, H, itemsize, device, out);
 }
 
 // The backward's serial sweep.  Strides are in elements; xp's last

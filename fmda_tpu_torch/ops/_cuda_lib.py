@@ -153,12 +153,40 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fmda_scan_dw_{tag}")
             fn.argtypes = [p, i, p, i, p, p, i, i, i, i, i, p, p, i, p]
             fn.restype = i
+        for cell in ("gru", "lstm"):
+            # B, H, itemsize, device, out[6]
+            fn = getattr(lib, f"fmda_{cell}_scan_fwd_plan")
+            fn.argtypes = [i, i, i, i, p]
+            fn.restype = i
         lib.fmda_scan_dw_splits.argtypes = [i, i, i, i, i]
         lib.fmda_scan_dw_splits.restype = i
         lib.fmda_cuda_error_string.argtypes = [i]
         lib.fmda_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+#: The forward scans' branches, by the code their plan query returns.
+FWD_BRANCHES = ("reg", "smem", "cluster", "device")
+
+
+def fwd_plan(cell: str, batch: int, hidden: int, dtype: torch.dtype,
+             device: int) -> Dict[str, object]:
+    """How ``<cell>_scan_fwd`` runs (batch, hidden) in ``dtype`` on card
+    ``device``, from the launcher's own plan (``fmda_<cell>_scan_fwd_plan``):
+    ``branch`` (W_hh in registers, shared memory, a two-CTA cluster's shared
+    memory, or device memory), ``lanes`` a hidden unit, batch ``rows`` a
+    CTA, CTAs a ``cluster``, ``blocks`` in the grid and ``smem`` bytes a
+    CTA."""
+    lib = load()
+    out = (ctypes.c_int * 6)()
+    err = getattr(lib, f"fmda_{cell}_scan_fwd_plan")(
+        batch, hidden, torch.tensor([], dtype=dtype).element_size(), device,
+        out)
+    raise_on(lib, err, f"{cell}_scan_fwd plan")
+    branch, lanes, rows, cluster, blocks, smem = out
+    return dict(branch=FWD_BRANCHES[branch], lanes=lanes, rows=rows,
+                cluster=cluster, blocks=blocks, smem=smem)
 
 
 # -- what every wrapper checks -------------------------------------------------
