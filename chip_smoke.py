@@ -8,20 +8,25 @@ Phases, each printed as one JSON line, each fatal on failure:
 
 1. ``device``: the card, its power limit, the torch/CUDA versions.
 2. ``build``: nvcc builds the one library that holds every kernel (the
-   GRU and LSTM forward and backward scans, the SSM serve tick, the flash
-   attention forward, dK/dV and dQ sweeps) from ``fmda_tpu_torch/csrc`` for
-   sm_90a, one nvcc per source, all started together.
+   GRU and LSTM forward and backward scans, the SSM step and the fused SSM
+   serve tick, the flash attention forward, dK/dV and dQ sweeps) from
+   ``fmda_tpu_torch/csrc`` for sm_90a, one nvcc per source, all started
+   together.
 3. ``kernel``: each kernel against its plain PyTorch version on the card,
    at the shapes its paths use (and wider: each forward scan at H = 33,
    64, 128 and 512 and from a strided projection, every branch of its
    plan, named on its line as ``branch``; the backward sweeps at H = 128,
    past their register layout; the SSM
-   tick at every pool bucket, in bf16, from a strided projection and at
-   (256, 512); the flash kernels at the model's (256, 4, 30, 8) in f32 and
-   bf16, causal or not, with and without a key mask, at the Predictor's
-   batch 1, at T = 1024 and at D = 64 and 512), with times, the roofline
-   bound and the library yardstick (cuDNN, SDPA) beside it where one
-   exists.  Each backward scan is two kernels, the serial sweep and the
+   step at every pool bucket, in bf16, from a strided projection and at
+   (256, 512); the fused SSM serve tick (``kernel ssm_tick``: a whole
+   flush, every layer, state and positions in place) at buckets 1-128, in
+   bf16, at two layers and padded through a repeated padding slot, and one
+   session's bits alone and in a bucket of 64; the flash kernels at the
+   model's (256, 4, 30, 8) in f32 and bf16, causal or not, with and without
+   a key mask, at the Predictor's batch 1, at T = 1024 and at D = 64 and
+   512, each forward line with the plan its launch took), with times, the
+   roofline bound and the library yardstick (cuDNN, SDPA) beside it where
+   one exists.  Each backward scan is two kernels, the serial sweep and the
    weight gradient (``scan_dw``), timed apart too (``sweep_ms``,
    ``dw_ms``); a second call of a scan must give the same bits.
 4. ``path``: the window-re-scan serving path at full width
@@ -42,12 +47,14 @@ Phases, each printed as one JSON line, each fatal on failure:
    ``stream bidirectional``: the same through
    ``StreamingBiGRUBidirectional`` (the backward direction re-scanned every
    tick by the family's forward-scan kernel).
+   The ssm core ticks through the fused serve tick, one launch a tick.
 8. ``pool``: ``SessionPool(capacity=128, window=30)`` with 64 sessions,
    each with its own norms over its own slice of the warehouse: 100
    flushes of all 64, then 20 of 16 live sessions padded to 32 through the
    padding lane; flush times, session ticks/s, the card against the CPU,
    and a slot exported, freed and imported back and into a fresh pool,
-   both ticking on bit-identically.
+   both ticking on bit-identically.  The ssm pool's flush is one launch of
+   the fused tick, and at most SSM_POOL_MAX_OPS device ops.
 
 Phases 4-6 run for the BiGRU (``cell="gru"``, the default), the BiLSTM
 (``cell="lstm"``), the TemporalTransformer (``cell="attn"``: the flash
@@ -563,8 +570,171 @@ def phase_kernel_ssm(device: str = "cuda"):
     return results
 
 
+#: the fused tick's flushes: every pool bucket and the solo core's B = 1
+#: at the model's width, bf16, two layers, a flush of 16 live lanes padded
+#: to 32 through a repeated padding slot, and H = 512, whose W_ih is too
+#: large to stage in shared memory (the projection reads device memory)
+TICK_LIVE_PADDED = 16
+
+
+def tick_cases():
+    f32 = dict(dtype=torch.float32, n_layers=1, padded=False, hidden=32)
+    return ([dict(f32, batch=b) for b in (1, 8, 32, 64, 128)]
+            + [dict(f32, batch=64, dtype=torch.bfloat16),
+               dict(f32, batch=64, n_layers=2),
+               dict(f32, batch=64, n_layers=2, dtype=torch.bfloat16),
+               dict(f32, batch=32, padded=True),
+               dict(f32, batch=64, hidden=512)])
+
+
+def tick_bound(batch, n_layers, feats, hidden, classes, itemsize):
+    """Least time for one fused tick on this card: the rows, the slots,
+    the lanes' norm rows, every layer's weights and the head read once, the
+    lanes' state read and written once, pos read and written, the
+    probabilities written; against the projections' and the head's
+    products and the step's and the norm's element-wise operations."""
+    g = 3 * hidden
+    weights = (g * (feats + hidden * (n_layers - 1)) + 7 * hidden * n_layers
+               + classes * (g + 1))
+    bytes_moved = (4 * batch * feats + 4 * batch + 2 * 4 * batch * feats
+                   + itemsize * weights
+                   + 2 * itemsize * 3 * n_layers * batch * hidden
+                   + 2 * 8 * batch + 4 * batch * classes)
+    products = 2 * batch * (g * (feats + hidden * (n_layers - 1))
+                            + classes * g)
+    elementwise = (batch * (SSM_OPS * hidden * n_layers + 2 * feats
+                            + 2 * classes) + 2 * hidden * n_layers)
+    return roofline_ms(bytes_moved, products, elementwise, itemsize)
+
+
+def tick_model(n_layers, dtype, dev, hidden=32):
+    """The fused tick's weights for a seeded random ssm model at full width
+    (F=108, C=4; H=32 unless given), packed as the pool packs them."""
+    from fmda_tpu_torch.models import build_model
+    from fmda_tpu_torch.ops import ssm_kernel
+    from fmda_tpu_torch.serve.streaming import _layer_weights, serving_params
+
+    cfg = model_config("ssm", bidirectional=False, dropout=0.0,
+                       n_layers=n_layers, hidden_size=hidden)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    params = serving_params(model.state_dict(), dtype, dev)
+    layers = [_layer_weights(params, False, "ssm", layer)
+              for layer in range(n_layers)]
+    return cfg, ssm_kernel.pack_tick_weights(
+        layers, (params["linear.weight"], params["linear.bias"]))
+
+
+def phase_kernel_ssm_tick(device: str = "cuda"):
+    """ssm_serve_tick against ssm_serve_tick_reference on the card, over a
+    pool of capacity 128 (+ the padding slot) with per-slot norms and a
+    nonzero state: the probabilities of the live lanes, the state and the
+    positions compared; then one session's bits in bucket 1 and bucket 64."""
+    from fmda_tpu_torch.ops import ssm_kernel
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n_slots, pad = 129, 128
+    results = []
+    for c in tick_cases():
+        b, n_layers, dtype = c["batch"], c["n_layers"], c["dtype"]
+        cfg, weights = tick_model(n_layers, dtype, dev, c["hidden"])
+        feats, hidden = cfg.n_features, cfg.hidden_size
+        classes = weights.head[1].shape[0]
+        live = TICK_LIVE_PADDED if c["padded"] else b
+        slots = torch.full((b,), pad, dtype=torch.int32, device=dev)
+        slots[:live] = torch.randperm(pad, generator=gen, device=dev)[
+            :live].int()
+        rows = torch.randn((b, feats), generator=gen, device=dev) * 3.0
+        x_min = torch.randn((n_slots, feats), generator=gen, device=dev)
+        x_range = torch.rand((n_slots, feats), generator=gen,
+                             device=dev) * 4.0 + 1.0
+        state0 = (torch.rand((n_layers, 3, n_slots, hidden), generator=gen,
+                             device=dev) - 0.5).to(dtype)
+        pos0 = torch.randint(0, 1000, (n_slots,), generator=gen, device=dev)
+        tensors = dict(rows=rows, slots=slots, x_min=x_min, x_range=x_range,
+                       weights=weights)
+        with torch.inference_mode():
+            got_state, got_pos = state0.clone(), pos0.clone()
+            got = ssm_kernel.ssm_serve_tick(**tensors, state=got_state,
+                                            pos=got_pos)
+            want_state, want_pos = state0.clone(), pos0.clone()
+            want = ssm_kernel.ssm_serve_tick_reference(
+                **tensors, state=want_state, pos=want_pos)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape == (b, classes)
+                  and got.dtype == torch.float32,
+                  f"ssm_tick probabilities {tuple(got.shape)} {got.dtype}")
+            keep = torch.ones(n_slots, dtype=torch.bool, device=dev)
+            keep[pad] = False  # the padding slot's racing writes
+            err = max((got[:live] - want[:live]).abs().max().item(),
+                      (got_state[..., keep, :].float()
+                       - want_state[..., keep, :].float()).abs().max().item())
+            pos_equal = torch.equal(got_pos[keep], want_pos[keep])
+            finite = bool(torch.isfinite(got[:live]).all()) and bool(
+                torch.isfinite(got_state.float()).all())
+            run_state, run_pos = state0.clone(), pos0.clone()
+
+            def kernel():
+                return ssm_kernel.ssm_serve_tick(**tensors, state=run_state,
+                                                 pos=run_pos)
+
+            def plain():
+                return ssm_kernel.ssm_serve_tick_reference(
+                    **tensors, state=run_state, pos=run_pos)
+
+            ms = time_ms(kernel, prime=True)
+            call_ms = time_ms(kernel, prime=False)
+            plain_ms = time_ms(plain, prime=True)
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        bound_ms, bound_by = tick_bound(b, n_layers, feats, hidden, classes,
+                                        torch.tensor([], dtype=dtype)
+                                        .element_size())
+        # no one PyTorch call computes the tick: library_ms stays None
+        row = dict(batch=b, live=live, n_layers=n_layers, features=feats,
+                   hidden=hidden, dtype=str(dtype).replace("torch.", ""),
+                   padded=c["padded"], max_abs_err=err, pos_equal=pos_equal,
+                   tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        emit("kernel ssm_tick", **row)
+        check(finite, f"non-finite ssm_tick output in {row}")
+        check(err <= tol and pos_equal,
+              f"ssm_tick disagrees with its plain version: {row}")
+        results.append(row)
+
+    # one session, the same state, alone and in a bucket of 64: the same
+    # bits
+    cfg, weights = tick_model(1, torch.float32, dev)
+    feats, hidden = cfg.n_features, cfg.hidden_size
+    rows = torch.randn((64, feats), generator=gen, device=dev)
+    slots = torch.randperm(pad, generator=gen, device=dev)[:64].int()
+    x_min = torch.zeros((n_slots, feats), device=dev)
+    x_range = torch.ones((n_slots, feats), device=dev)
+    state0 = torch.rand((1, 3, n_slots, hidden), generator=gen,
+                        device=dev) - 0.5
+    lane = 17
+    with torch.inference_mode():
+        solo_state, solo_pos = state0.clone(), torch.zeros(
+            n_slots, dtype=torch.int64, device=dev)
+        solo = ssm_kernel.ssm_serve_tick(
+            rows[lane:lane + 1], slots[lane:lane + 1], x_min, x_range,
+            weights, solo_state, solo_pos)
+        full_state, full_pos = state0.clone(), torch.zeros_like(solo_pos)
+        full = ssm_kernel.ssm_serve_tick(rows, slots, x_min, x_range,
+                                         weights, full_state, full_pos)
+        torch.cuda.synchronize()
+    s = int(slots[lane])
+    same = (torch.equal(solo[0], full[lane])
+            and torch.equal(solo_state[:, :, s], full_state[:, :, s]))
+    emit("kernel ssm_tick bucket bits", slot=s, lane=lane, buckets=[1, 64],
+         bit_identical=same)
+    check(same, "a session's ssm_tick result depends on its bucket")
+    return results
+
+
 #: kernels 6-8: where they live and what they replace
-FLASH_SOURCE = "fmda_tpu_torch/csrc/flash_attn.cu"
+FLASH_SOURCES = {"flash_fwd": "fmda_tpu_torch/csrc/flash_fwd.cu",
+                 "flash_dkv": "fmda_tpu_torch/csrc/flash_attn.cu",
+                 "flash_dq": "fmda_tpu_torch/csrc/flash_attn.cu"}
 FLASH_REPLACES = {"flash_fwd": "fmda_tpu/ops/pallas_attention.py:94",
                   "flash_dkv": "fmda_tpu/ops/pallas_attention.py:200",
                   "flash_dq": "fmda_tpu/ops/pallas_attention.py:265"}
@@ -702,6 +872,7 @@ def phase_kernel_flash(device: str = "cuda"):
                    "fwd_bwd": time_ms(lambda: torch.autograd.grad(
                        sdpa(lq, lk, lv, c["causal"], key_mask), (lq, lk, lv),
                        do), prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)}
+        plan = ak.flash_fwd_plan(b * n, n, t, d, dtype)
         for name, (got, ref) in outputs.items():
             errs = [(g.float() - r.float()).abs().max().item()
                     for g, r in zip(got, ref)]
@@ -724,6 +895,8 @@ def phase_kernel_flash(device: str = "cuda"):
                                           else "bwd"],
                        library_fwd_bwd_ms=library["fwd_bwd"],
                        bound_ms=bound_ms, bound_by=bound_by)
+            if name == "flash_fwd":
+                row.update(plan=plan)
             emit("kernel flash_fwd" if name == "flash_fwd"
                  else "kernel flash_bwd", **row)
             check(finite, f"non-finite {name} output in {row}")
@@ -795,8 +968,9 @@ def breakdown(wh, ckpt, model_cfg, window, norm, stamps, device):
 def device_share(fn) -> dict:
     """Kernel time on the card while ``fn`` runs, from torch.profiler's
     CUDA activity, against the wall time (profiler on, so the wall time
-    is inflated and the share a lower bound), and ``device_ops``, the
-    kernels and copies the card ran.  ``busy_share`` is None when the
+    is inflated and the share a lower bound), ``device_ops``, the kernels
+    and copies the card ran, and ``port_kernels_ms``, the device time of
+    each of the port's kernels.  ``busy_share`` is None when the
     profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -818,10 +992,17 @@ def device_share(fn) -> dict:
             device_ops += evt.count
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # the port's own kernels by name, every instance summed
+    port = {}
+    for name, ms in per_kernel.items():
+        found = re.search(r"namespace\)::(\w+_kernel)\b", name)
+        if found:
+            port[found.group(1)] = port.get(found.group(1), 0.0) + ms
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms if device_ms else None,
                 device_ops=device_ops,
-                top_kernels_ms={k[:60]: v for k, v in top})
+                top_kernels_ms={k[:60]: v for k, v in top},
+                port_kernels_ms=port)
 
 
 def make_warehouse(directory: str):
@@ -856,6 +1037,7 @@ def launch_counts() -> dict:
             "lstm_scan_bwd": lstm_kernel.bwd_launches,
             "scan_dw": scan_dw.launches,
             "ssm_step": ssm_kernel.launches,
+            "ssm_tick": ssm_kernel.tick_launches,
             "flash_fwd": attention_kernel.fwd_launches,
             "flash_dkv": attention_kernel.dkv_launches,
             "flash_dq": attention_kernel.dq_launches}
@@ -868,7 +1050,7 @@ def start_path() -> None:
 
     for m in (gru_kernel, lstm_kernel):
         m.launches = m.bwd_launches = 0
-    ssm_kernel.launches = scan_dw.launches = 0
+    ssm_kernel.launches = ssm_kernel.tick_launches = scan_dw.launches = 0
     attention_kernel.fwd_launches = attention_kernel.dkv_launches = 0
     attention_kernel.dq_launches = 0
 
@@ -1286,6 +1468,9 @@ POOL_PADDED_FLUSHES = 20
 POOL_PADDED_LIVE = 16
 POOL_PADDED_BUCKET = 32
 POOL_MOVED_TICKS = 10
+#: the ssm pool's device ops a flush: one copy of the slots and rows, the
+#: fused tick, the probabilities' copy back (and one to spare)
+SSM_POOL_MAX_OPS = 4
 
 
 def serving_setup(wh, cell: str, bidirectional: bool):
@@ -1350,8 +1535,8 @@ def phase_stream(wh, device: str = "cuda", cell: str = "gru",
     start_path()
     preds, lat_ms, published, ticks = serve(device)
     counts = launch_counts()  # the path ends here
-    if cell == "ssm":
-        expected = {"ssm_step": ticks * model_cfg.n_layers}
+    if cell == "ssm":  # the fused tick, every layer, once a tick
+        expected = {"ssm_tick": ticks}
     elif bidirectional:  # the backward direction's re-scan, once a tick
         expected = {forward_kernel(cell)[0]: ticks}
     else:
@@ -1381,8 +1566,9 @@ def phase_stream(wh, device: str = "cuda", cell: str = "gru",
                                      ids),
                   tick_ms=median_ms(core.step, rows))
     if torch.device(device).type == "cuda":
-        pieces["device_share"] = device_share(
+        pieces["device_share"] = share = device_share(
             lambda: [core.step(row) for row in rows])
+        pieces["device_ops_per_tick"] = share["device_ops"] / len(rows)
     emit(f"{label} breakdown", cell=cell, **pieces)
 
     cpu_preds, _, _, _ = serve("cpu")
@@ -1460,8 +1646,8 @@ def phase_pool(wh, device: str = "cuda", cell: str = "gru"):
     pool, handles, ticks, last, flush_ms = run(device)
     wall_s = time.perf_counter() - t0
     counts = launch_counts()  # the path ends here
-    expected = ({"ssm_step": len(schedule) * model_cfg.n_layers}
-                if cell == "ssm" else {})
+    # ssm: the fused tick, every layer, once a flush
+    expected = {"ssm_tick": len(schedule)} if cell == "ssm" else {}
     full, padded = (flush_ms[:POOL_FULL_FLUSHES],
                     flush_ms[POOL_FULL_FLUSHES:])
     session_ticks = sum(live for live, _ in schedule)
@@ -1483,10 +1669,16 @@ def phase_pool(wh, device: str = "cuda", cell: str = "gru"):
           "non-finite pool probabilities")
 
     if torch.device(device).type == "cuda":
+        share = device_share(lambda: [
+            flush(pool, handles, ticks, POOL_SESSIONS, POOL_SESSIONS)
+            for _ in range(POOL_PADDED_FLUSHES)])
+        per_flush = share["device_ops"] / POOL_PADDED_FLUSHES
         emit("pool device share", cell=cell, flushes=POOL_PADDED_FLUSHES,
-             bucket=POOL_SESSIONS, **device_share(lambda: [
-                 flush(pool, handles, ticks, POOL_SESSIONS, POOL_SESSIONS)
-                 for _ in range(POOL_PADDED_FLUSHES)]))
+             bucket=POOL_SESSIONS, device_ops_per_flush=per_flush, **share)
+        # ssm: the staged copy in, the tick, the probabilities back
+        check(cell != "ssm" or per_flush <= SSM_POOL_MAX_OPS,
+              f"ssm pool: {per_flush} device ops a flush, expected at most "
+              f"{SSM_POOL_MAX_OPS}")
 
     _, _, _, cpu_last, _ = run("cpu")
     err = max(float(np.abs(last[i] - cpu_last[i]).max()) for i in last)
@@ -1544,27 +1736,40 @@ def kernel_entry(name, replaces, source, rows, launches, by_path):
     }
 
 
-def ssm_entry(rows, by_path):
-    """Kernel 5's entry of the summary line, at the pool's (64, 32)
+def ssm_entry(tick_rows, step_rows, by_path, step_by_path):
+    """Kernel 5's entry of the summary line: the fused tick, at the pool's
+    bucket 64, one layer, float32; the step kernel that keeps the Pallas
+    kernel's contract, off every path now (``step_by_path``, its counts on
+    the paths, checked to be 0), rides along as ``step_kernel`` at (64, 32)
     float32."""
-    main_shape = next(r for r in rows if r["batch"] == POOL_SESSIONS
-                      and r["hidden"] == 32 and r["dtype"] == "float32"
-                      and not r["strided"])
+    main_tick = next(r for r in tick_rows if r["batch"] == POOL_SESSIONS
+                     and r["n_layers"] == 1 and r["dtype"] == "float32"
+                     and r["hidden"] == 32 and not r["padded"])
+    main_step = next(r for r in step_rows if r["batch"] == POOL_SESSIONS
+                     and r["hidden"] == 32 and r["dtype"] == "float32"
+                     and not r["strided"])
+
+    def numbers(main, rows):
+        return {"max_abs_err": max(r["max_abs_err"] for r in rows
+                                   if r["dtype"] == "float32"),
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}}
+
     return {
-        "name": "ssm_step",
+        "name": "ssm_tick",
         "route": "cuda",
         "source": SSM_SOURCE,
         "replaces": SSM_REPLACES,
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "float32"),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": None,
-        "shape": [POOL_SESSIONS, 32],
+        **numbers(main_tick, tick_rows),
+        "shape": [POOL_SESSIONS, 1, 108, 32],
+        "step_kernel": {"name": "ssm_step", "route": "cuda",
+                        "source": SSM_SOURCE, "replaces": SSM_REPLACES,
+                        "launches": sum(step_by_path.values()),
+                        "launches_by_path": step_by_path,
+                        **numbers(main_step, step_rows),
+                        "shape": [POOL_SESSIONS, 32]},
     }
 
 
@@ -1581,7 +1786,7 @@ def flash_entry(name, rows, by_path):
     return {
         "name": name,
         "route": "cuda",
-        "source": FLASH_SOURCE,
+        "source": FLASH_SOURCES[name],
         "replaces": FLASH_REPLACES[name],
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
@@ -1657,7 +1862,7 @@ def main() -> int:
     lib = _cuda_lib.build()
     emit("build", kernels=[f"{s.name}_scan_{k}" for s in scans
                            for k in ("fwd", "bwd")]
-         + ["ssm_step", *FLASH_REPLACES],
+         + ["ssm_step", "ssm_tick", *FLASH_REPLACES],
          sources=[str(p.name) for p in _cuda_lib.SOURCES], library=str(lib),
          nvcc_seconds=_cuda_lib.build_info.get("seconds"),
          seconds=time.perf_counter() - t0, target="sm_90a",
@@ -1667,6 +1872,7 @@ def main() -> int:
     rows = {s.name: (phase_kernel(s, n_features),
                      phase_kernel_bwd(s, n_features)) for s in scans}
     ssm_rows = phase_kernel_ssm()
+    tick_rows = phase_kernel_ssm_tick()
     flash_rows = phase_kernel_flash()
     serve, train, stream, stream_bi, pool = {}, {}, {}, {}, {}
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
@@ -1699,9 +1905,9 @@ def main() -> int:
                          {"serve": serve[s.name][bwd],
                           "train": train[s.name][bwd]}),
         ]
-    entries.append(ssm_entry(ssm_rows, {
-        "stream": stream["ssm"]["ssm_step"], "pool": pool["ssm"]["ssm_step"],
-        "serve": serve["ssm"]["ssm_step"]}))
+    entries.append(ssm_entry(tick_rows, ssm_rows, *(
+        {"stream": stream["ssm"][k], "pool": pool["ssm"][k],
+         "serve": serve["ssm"][k]} for k in ("ssm_tick", "ssm_step"))))
     entries += [flash_entry(name, flash_rows,
                             {"serve": serve["attn"][name],
                              "train": train["attn"][name]})

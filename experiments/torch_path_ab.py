@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Two trees of the repository, each driving the GRU and LSTM serving,
-training and bidirectional streaming paths on one card, in turns.
+"""Two trees of the repository, each driving some of the port's paths on
+one card, in turns.
 
-    python3 experiments/torch_path_ab.py OLD NEW   # repository roots, one card
+    python3 experiments/torch_path_ab.py OLD NEW [--paths a,b,...]
 
-Runs ``chip_smoke.py``'s ``phase_path``, ``phase_train`` and
-``phase_stream(..., bidirectional=True)`` for ``cell`` in gru and lstm, in
-a fresh process per run, from each tree in the order OLD, NEW, NEW, OLD, so
-that a drift of the host during the call falls on both.  Each tree builds
-its own kernels (under its own ``build/``).  Prints every phase line with
-``tree`` (``old`` or ``new``) and ``run`` added, then one ``summary`` line
-per metric: each tree's values and their spread.  Host times spread
-between calls and hosts, so compare the trees only inside one call.  Needs
-a CUDA card.
+OLD and NEW are repository roots; one card.  The paths (default: all),
+each a phase of ``chip_smoke.py``:
+
+- ``scans``: ``phase_path``, ``phase_train`` and ``phase_stream(...,
+  bidirectional=True)`` for gru and lstm;
+- ``ssm_stream``: ``phase_stream`` for ssm (the solo carried-state core);
+- ``ssm_pool``: ``phase_pool`` for ssm (the session pool);
+- ``attn_serve``: ``phase_path`` for attn (backtest and Predictor).
+
+Each tree runs in a fresh process per run, in the order OLD, NEW, NEW, OLD,
+so that a drift of the host during the call falls on both.  Each tree
+builds its own kernels (under its own ``build/``).  Prints every phase line
+with ``tree`` (``old`` or ``new``) and ``run`` added, then one ``summary``
+line per metric and cell: each tree's values (null where a tree's line
+lacks the metric).  Host times spread between calls and hosts, so compare
+the trees only inside one call.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -24,23 +31,47 @@ import sys
 import tempfile
 
 ORDER = ("old", "new", "new", "old")
-CELLS = ("gru", "lstm")
-#: (phase, key path) of the metrics the summary lists
+PATHS = ("scans", "ssm_stream", "ssm_pool", "attn_serve")
+#: (path, phase, key path, cells) of the metrics the summary lists; the key
+#: ``flash_fwd_ms`` is the flash forward's device time in the profiled
+#: backtest
 METRICS = (
-    ("path backtest", ("rows_per_s",)),
-    ("path predictor", ("p50_ms",)),
-    ("path device share", ("backtest", "device_ms")),
-    ("train fit", ("samples_per_s",)),
-    ("train breakdown", ("mean_step_ms",)),
-    ("train device share", ("epoch", "device_ms")),
-    ("stream bidirectional", ("catchup_ticks_per_s",)),
-    ("stream bidirectional", ("p50_ms",)),
-    ("stream bidirectional breakdown", ("tick_ms",)),
-    ("stream bidirectional breakdown", ("device_share", "device_ms")),
+    ("scans", "path backtest", ("rows_per_s",), ("gru", "lstm")),
+    ("scans", "path predictor", ("p50_ms",), ("gru", "lstm")),
+    ("scans", "path device share", ("backtest", "device_ms"),
+     ("gru", "lstm")),
+    ("scans", "train fit", ("samples_per_s",), ("gru", "lstm")),
+    ("scans", "train breakdown", ("mean_step_ms",), ("gru", "lstm")),
+    ("scans", "train device share", ("epoch", "device_ms"), ("gru", "lstm")),
+    ("scans", "stream bidirectional", ("catchup_ticks_per_s",),
+     ("gru", "lstm")),
+    ("scans", "stream bidirectional", ("p50_ms",), ("gru", "lstm")),
+    ("scans", "stream bidirectional breakdown", ("tick_ms",),
+     ("gru", "lstm")),
+    ("scans", "stream bidirectional breakdown",
+     ("device_share", "device_ms"), ("gru", "lstm")),
+    ("ssm_stream", "stream", ("catchup_ticks_per_s",), ("ssm",)),
+    ("ssm_stream", "stream", ("p50_ms",), ("ssm",)),
+    ("ssm_stream", "stream breakdown", ("tick_ms",), ("ssm",)),
+    ("ssm_stream", "stream breakdown", ("device_share", "busy_share"),
+     ("ssm",)),
+    ("ssm_stream", "stream breakdown", ("device_share", "device_ops"),
+     ("ssm",)),
+    ("ssm_pool", "pool", ("bucket64_p50_ms",), ("ssm",)),
+    ("ssm_pool", "pool", ("bucket64_p99_ms",), ("ssm",)),
+    ("ssm_pool", "pool", ("session_ticks_per_s",), ("ssm",)),
+    ("ssm_pool", "pool device share", ("busy_share",), ("ssm",)),
+    ("ssm_pool", "pool device share", ("device_ops",), ("ssm",)),
+    ("attn_serve", "path backtest", ("rows_per_s",), ("attn",)),
+    ("attn_serve", "path predictor", ("p50_ms",), ("attn",)),
+    ("attn_serve", "path device share", ("backtest", "busy_share"),
+     ("attn",)),
+    ("attn_serve", "path device share", ("backtest", "flash_fwd_ms"),
+     ("attn",)),
 )
 
 
-def run_one(root: str) -> int:
+def run_one(root: str, paths) -> int:
     """The paths from the tree at ``root``, in this process."""
     sys.path.insert(0, root)
     os.chdir(root)
@@ -58,27 +89,44 @@ def run_one(root: str) -> int:
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
         wh = chip_smoke.make_warehouse(tmp)
-        for cell in CELLS:
-            chip_smoke.phase_path(wh, tmp, cell=cell)
-            chip_smoke.phase_train(wh, tmp, cell=cell)
-            chip_smoke.phase_stream(wh, cell=cell, bidirectional=True)
+        if "scans" in paths:
+            for cell in ("gru", "lstm"):
+                chip_smoke.phase_path(wh, tmp, cell=cell)
+                chip_smoke.phase_train(wh, tmp, cell=cell)
+                chip_smoke.phase_stream(wh, cell=cell, bidirectional=True)
+        if "ssm_stream" in paths:
+            chip_smoke.phase_stream(wh, cell="ssm")
+        if "ssm_pool" in paths:
+            chip_smoke.phase_pool(wh, cell="ssm")
+        if "attn_serve" in paths:
+            chip_smoke.phase_path(wh, tmp, cell="attn")
         wh.close()
     return 0
 
 
-def value(line: dict, keys) -> float:
+def value(line: dict, keys):
+    """The metric at ``keys`` in a phase line, None where it is missing."""
+    if keys[-1] == "flash_fwd_ms":  # the forward kernel's profiled time
+        share = line.get(keys[0], {})
+        if "port_kernels_ms" in share:
+            return share["port_kernels_ms"].get("flash_fwd_kernel", 0.0)
+        return sum(ms for name, ms in share.get("top_kernels_ms", {}).items()
+                   if "flash_fwd" in name)
     for k in keys:
+        if not isinstance(line, dict) or k not in line:
+            return None
         line = line[k]
     return line
 
 
-def main(old: str, new: str) -> int:
+def main(old: str, new: str, paths) -> int:
     roots = {"old": os.path.abspath(old), "new": os.path.abspath(new)}
     lines = []
     for run, tree in enumerate(ORDER):
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one",
-             roots[tree]], capture_output=True, text=True, timeout=900)
+             roots[tree], ",".join(paths)], capture_output=True, text=True,
+            timeout=900)
         if out.returncode != 0:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
             return out.returncode
@@ -87,8 +135,10 @@ def main(old: str, new: str) -> int:
                 line = dict(json.loads(ln), tree=tree, run=run)
                 lines.append(line)
                 print(json.dumps(line), flush=True)
-    for phase, keys in METRICS:
-        for cell in CELLS:
+    for path, phase, keys, cells in METRICS:
+        if path not in paths:
+            continue
+        for cell in cells:
             got = {tree: [value(ln, keys) for ln in lines
                           if ln["phase"] == phase and ln.get("cell") == cell
                           and ln["tree"] == tree] for tree in roots}
@@ -97,10 +147,23 @@ def main(old: str, new: str) -> int:
     return 0
 
 
+def parse_paths(arg: str):
+    paths = tuple(arg.split(","))
+    unknown = set(paths) - set(PATHS)
+    if unknown:
+        raise SystemExit(f"unknown paths {sorted(unknown)}; choose from "
+                         f"{PATHS}")
+    return paths
+
+
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        sys.exit(run_one(sys.argv[2]))
-    if len(sys.argv) != 3:
+    args = sys.argv[1:]
+    if len(args) == 3 and args[0] == "--one":
+        sys.exit(run_one(args[1], parse_paths(args[2])))
+    paths = PATHS
+    if len(args) == 4 and args[2] == "--paths":
+        paths, args = parse_paths(args[3]), args[:2]
+    if len(args) != 2:
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1], sys.argv[2]))
+    sys.exit(main(args[0], args[1], paths))

@@ -1,27 +1,21 @@
-// Flash attention forward, dK/dV and dQ sweeps for NVIDIA Hopper (sm_90a),
-// bound to PyTorch via ctypes by fmda_tpu_torch/ops/attention_kernel.py (the
-// library is built by fmda_tpu_torch/ops/_cuda_lib.py).
+// Flash attention's dK/dV and dQ sweeps for NVIDIA Hopper (sm_90a), bound to
+// PyTorch via ctypes by fmda_tpu_torch/ops/attention_kernel.py (the library
+// is built by fmda_tpu_torch/ops/_cuda_lib.py; the forward, whose o and lse
+// they read, is flash_fwd.cu's).
 //
-// Replaces the three Pallas TPU kernels of fmda_tpu/ops/pallas_attention.py:
-//   _fwd_kernel  (flash forward)  -> flash_fwd_kernel
+// Replaces two Pallas TPU kernels of fmda_tpu/ops/pallas_attention.py:
 //   _dkv_kernel  (dK/dV sweep)    -> flash_dkv_kernel
 //   _dq_kernel   (dQ sweep)       -> flash_dq_kernel
-// on (B*N, T, D) q, k, v in the I/O dtype, with scale = 1/sqrt(D):
+// on (B*N, T, D) q, k, v in the I/O dtype, with scale = 1/sqrt(D) and
+// delta = rowsum(do o) - dlse computed outside:
 //
-//   forward, over key blocks of kSoftmaxBlock (128) keys:
-//     s = q k^T scale          m' = max(m, rowmax s)      corr = exp(m - m')
-//     p = exp(s - m')          l = l corr + rowsum p      acc = acc corr + p v
-//     o = acc / l              lse = m + log l
-//   backward, with delta = rowsum(do o) - dlse computed outside:
-//     p = exp(s - lse)   dv += p^T do   ds = p (do v^T - delta) scale
-//     dk += ds^T q       dq += ds k
+//   p = exp(s - lse)   dv += p^T do   ds = p (do v^T - delta) scale
+//   dk += ds^T q       dq += ds k
 //
 // The same arithmetic as the Pallas kernels: masked scores are the finite
-// kNeg and their probabilities are forced to exactly 0 (s <= kNeg / 2), so
-// a row whose keys are all masked gives o = 0 and lse = kNeg with no NaN; p
-// (forward and backward) and ds are rounded to the I/O dtype before their
-// products; m, l, acc, dk, dv, dq and every product accumulate in float32.
-// The row max moves once per 128-key block, as the Pallas kernel's does.
+// kNeg and their probabilities are forced to exactly 0 (s <= kNeg / 2); p
+// and ds are rounded to the I/O dtype before their products; dk, dv, dq and
+// every product accumulate in float32.
 //
 // The envelope is wider than the Pallas kernels' (T % 128 == 0, no mask):
 // any T >= 1 (the last key and query tiles are ragged and masked), D <= 512,
@@ -31,8 +25,8 @@
 // Design.  The TPU kernels walk a sequential (B*N, q block, k block) grid
 // and carry the online state across it in VMEM scratch.  Here each block
 // owns one (b*n, tile of `rows` rows) pair and walks the other axis itself:
-//   - the forward and the dQ sweep own query rows and walk key tiles; the
-//     dK/dV sweep owns key rows and walks query tiles;
+//   - the dQ sweep owns query rows and walks key tiles; the dK/dV sweep owns
+//     key rows and walks query tiles;
 //   - a row is held by a group of g lanes (g a power of two, g * DPT >= D),
 //     each lane holding dims lane, lane + g, ... (DPT of them) of the row
 //     and of its float32 accumulators in registers; a dot product is DPT
@@ -40,23 +34,17 @@
 //   - the walked side is staged tile by tile in shared memory, converted to
 //     float32 and zero-padded to g * DPT dims, so the inner loops have no
 //     bounds checks and a warp's reads of one tile row are conflict-free;
-//   - the forward needs each 128-key block's row max before its
-//     probabilities: it walks the block twice, first for the max, then for
-//     p, l and acc, recomputing the scores (the block is loaded once when it
-//     fits one tile, as it does for D <= 64);
-//   - causal blocks skip the tiles above the diagonal: the forward and dQ
-//     stop at their last row's key, the dK/dV sweep starts at its first
-//     row's query; inside a tile each entry above the diagonal is masked;
+//   - causal blocks skip the tiles above the diagonal: the dQ sweep stops at
+//     its last row's key, the dK/dV sweep starts at its first row's query;
+//     inside a tile each entry above the diagonal is masked;
 //   - every output element is owned by one thread and summed in one fixed
 //     order: no atomics, the same result from run to run.
 //
-// What bounds it.  At the model's shape (B*N = 1024, T = 30, D = 8) the
-// forward moves about 4 MB (1.2 us at 3.35 TB/s) and does 30 MFLOP, the
-// backward about 8 MB: far below one launch, so the kernels sit at the
-// launch floor and the design only has to keep each pass to one launch.
-// At the long-context shape (64, 1024, 8) the work is 2.1 GFLOP forward
-// (32 us at the 67 TFLOP/s float32 rate) on scalar FMAs; tensor cores
-// (mma/wgmma) are later work.
+// What bounds them.  At the model's shape (B*N = 1024, T = 30, D = 8) the
+// backward moves about 8 MB: far below one launch, so the sweeps sit at the
+// launch floor and the design only has to keep each to one launch.  At the
+// long-context shape (64, 1024, 8) they are scalar-FMA designs; tensor cores
+// (the forward's mma.sync) are later work for them.
 
 #include "scan_common.cuh"
 
@@ -155,94 +143,6 @@ __device__ __forceinline__ const uint8_t* key_mask_row(const uint8_t* km,
                                                        const Shape& s) {
   return km == nullptr ? nullptr
                        : km + (long long)(blockIdx.x / s.n_heads) * s.t;
-}
-
-// grid (B*N, ceil(T / rows)); thread (r, lane) owns query row
-// blockIdx.y * rows + r.  Shared memory: K and V tiles [bcol][dp], then the
-// tile's key-mask flags [bcol].
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const uint8_t* __restrict__ key_mask,
-    T* __restrict__ o, float* __restrict__ lse, Shape s) {
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + s.bcol * s.dp;
-  float* keep = vs + s.bcol * s.dp;
-
-  const long long base = (long long)blockIdx.x * s.t * s.d;
-  const int row0 = blockIdx.y * s.rows;
-  const int lane = threadIdx.x % s.g;
-  const int i = row0 + threadIdx.x / s.g;
-  const uint8_t* km = key_mask_row(key_mask, s);
-
-  float qr[DPT], acc[DPT], pv[DPT];
-  load_row<T, DPT>(q + base, i, s, lane, qr);
-#pragma unroll
-  for (int c = 0; c < DPT; ++c) acc[c] = 0.0f;
-  float m = kNeg, l = 0.0f;
-
-  // causal: no key past the block's last row is visible to it
-  const int k_end = s.causal ? min(row0 + s.rows, s.t) : s.t;
-  for (int kb = 0; kb < k_end; kb += kSoftmaxBlock) {
-    const int kb_end = min(kb + kSoftmaxBlock, k_end);
-    const bool one_tile = kb_end - kb <= s.bcol;
-    // pass 1: the block's row max
-    float mb = kNeg;
-    for (int t0 = kb; t0 < kb_end; t0 += s.bcol) {
-      const int n = min(s.bcol, kb_end - t0);
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<T>(k + base, t0, n, s, ks);
-      load_keep(km, t0, n, keep);
-      if (one_tile) load_tile<T>(v + base, t0, n, s, vs);
-      __syncthreads();
-      for (int c = 0; c < n; ++c) {
-        float sc = row_dot<DPT>(qr, ks + c * s.dp, lane, s.g) * s.scale;
-        if (keep[c] == 0.0f || (s.causal && t0 + c > i)) sc = kNeg;
-        mb = fmaxf(mb, sc);
-      }
-    }
-    const float m_new = fmaxf(m, mb);
-    const float corr = expf(m - m_new);
-    // pass 2: p, its row sum and p v
-    float lb = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) pv[c] = 0.0f;
-    for (int t0 = kb; t0 < kb_end; t0 += s.bcol) {
-      const int n = min(s.bcol, kb_end - t0);
-      if (!one_tile) {
-        __syncthreads();
-        load_tile<T>(k + base, t0, n, s, ks);
-        load_tile<T>(v + base, t0, n, s, vs);
-        load_keep(km, t0, n, keep);
-        __syncthreads();
-      }
-      for (int c = 0; c < n; ++c) {
-        float sc = row_dot<DPT>(qr, ks + c * s.dp, lane, s.g) * s.scale;
-        if (keep[c] == 0.0f || (s.causal && t0 + c > i)) sc = kNeg;
-        const float p = sc <= kNeg * 0.5f ? 0.0f : expf(sc - m_new);
-        lb += p;
-        const float pr = round_to<T>(p);
-        const float* vc = vs + c * s.dp;
-#pragma unroll
-        for (int e = 0; e < DPT; ++e) pv[e] = fmaf(pr, vc[lane + s.g * e], pv[e]);
-      }
-    }
-    l = l * corr + lb;
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) acc[e] = acc[e] * corr + pv[e];
-    m = m_new;
-  }
-
-  if (i < s.t) {
-    const bool empty = l == 0.0f;
-    const float l_safe = empty ? 1.0f : l;
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) acc[e] = acc[e] / l_safe;
-    store_row<T, DPT>(o + base, i, s, lane, acc);
-    if (lane == 0)
-      lse[(long long)blockIdx.x * s.t + i] = empty ? kNeg : m + logf(l_safe);
-  }
 }
 
 // grid (B*N, ceil(T / rows)); thread (r, lane) owns key row
@@ -387,7 +287,7 @@ size_t smem_bytes(const Shape& s) {
   return (size_t)(2 * s.bcol * s.dp + 2 * s.bcol) * sizeof(float);
 }
 
-// kind 0: forward, 1: dK/dV, 2: dQ.
+// kind 1: dK/dV, 2: dQ.
 template <typename T, int DPT>
 cudaError_t launch_dpt(int kind, const Shape& s, const void* q, const void* k,
                        const void* v, const void* dout, const void* lse_in,
@@ -400,12 +300,7 @@ cudaError_t launch_dpt(int kind, const Shape& s, const void* q, const void* k,
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   cudaError_t err;
-  if (kind == 0) {
-    err = allow_smem(flash_fwd_kernel<T, DPT>, smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_kernel<T, DPT><<<grid, block, smem, stream>>>(
-        qp, kp, vp, km, static_cast<T*>(out0), static_cast<float*>(out1), s);
-  } else if (kind == 1) {
+  if (kind == 1) {
     err = allow_smem(flash_dkv_kernel<T, DPT>, smem);
     if (err != cudaSuccess) return err;
     flash_dkv_kernel<T, DPT><<<grid, block, smem, stream>>>(
@@ -452,28 +347,10 @@ int launch(int kind, const void* q, const void* k, const void* v,
 
 // Plain C interface for ctypes.  q, k, v, do and the outputs are contiguous
 // (B*N, T, D) in the I/O dtype; lse and delta contiguous (B*N, T) float32;
-// key_mask a contiguous (B, T) uint8 or null.  Returns cudaGetLastError()
+// key_mask a contiguous (B, T) uint8 or null.  (The forward's entries are in
+// flash_fwd.cu.)  Returns cudaGetLastError()
 // after the launch (0 = success); cudaErrorInvalidValue outside the
 // envelope.
-extern "C" int fmda_flash_fwd_f32(const void* q, const void* k, const void* v,
-                                  const void* key_mask, void* o, void* lse,
-                                  int bn, int n_heads, int t, int d,
-                                  int causal, float scale, int device,
-                                  void* stream) {
-  return launch<float>(0, q, k, v, nullptr, nullptr, nullptr, key_mask, o,
-                       lse, bn, n_heads, t, d, causal, scale, device, stream);
-}
-
-extern "C" int fmda_flash_fwd_bf16(const void* q, const void* k,
-                                   const void* v, const void* key_mask,
-                                   void* o, void* lse, int bn, int n_heads,
-                                   int t, int d, int causal, float scale,
-                                   int device, void* stream) {
-  return launch<__nv_bfloat16>(0, q, k, v, nullptr, nullptr, nullptr,
-                               key_mask, o, lse, bn, n_heads, t, d, causal,
-                               scale, device, stream);
-}
-
 extern "C" int fmda_flash_dkv_f32(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* key_mask,

@@ -83,8 +83,9 @@ def ema_concat_logits(head: nn.Linear, last_hidden: torch.Tensor,
                       ema_slow: torch.Tensor) -> torch.Tensor:
     """The SSM family's head: ``[h_last, ema_fast, ema_slow]`` into
     ``Linear(3H -> n_classes)``, the O(1)-state twin of
-    :func:`pool_concat_logits` (the serving cores' ``ema_head_logits``
-    reads the same ``linear`` params in the same concat order).  Logits are
+    :func:`pool_concat_logits` (the serving cores' fused tick,
+    ``ops.ssm_kernel.ssm_serve_tick``, reads the same ``linear`` params in
+    the same concat order).  Logits are
     always float32."""
     return _head_logits(
         head, torch.cat([last_hidden, ema_fast, ema_slow], dim=-1))

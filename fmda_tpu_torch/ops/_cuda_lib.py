@@ -3,11 +3,13 @@ checks every kernel wrapper shares.
 
 Every kernel source under ``csrc/`` (the GRU scans in ``gru_scan.cu``, the
 LSTM scans in ``lstm_scan.cu``, the backward scans' weight gradient in
-``scan_dw.cu``, the SSM serve tick in ``ssm_step.cu``, the
-flash-attention forward, dK/dV and dQ sweeps in ``flash_attn.cu``, all
-including ``scan_common.cuh``) goes into one shared library with a plain C
-interface, loaded with :mod:`ctypes`.  Each source is compiled by its own ``nvcc`` for sm_90a, all
-started together, and the objects are linked into
+``scan_dw.cu``, the SSM step and the fused serve tick in ``ssm_step.cu``,
+the flash-attention forward in ``flash_fwd.cu``, laid out by the host code
+of ``flash_fwd_plan.cc``, and its dK/dV and dQ sweeps in ``flash_attn.cu``,
+the kernels all including ``scan_common.cuh``) goes into one
+shared library with a plain C interface, loaded with :mod:`ctypes`.  Each
+source is compiled by its own ``nvcc`` for sm_90a, all started together,
+and the objects are linked into
 ``build/fmda_tpu_torch/<hash of sources, headers and flags>/`` at the
 repository root.  Nothing is built or loaded at import: :func:`load` does
 it at the first launch on a card.
@@ -30,9 +32,11 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: The sources compiled into the library, one ``nvcc`` each.
 SOURCES: Tuple[Path, ...] = (_CSRC / "gru_scan.cu", _CSRC / "lstm_scan.cu",
                              _CSRC / "scan_dw.cu", _CSRC / "ssm_step.cu",
+                             _CSRC / "flash_fwd.cu", _CSRC / "flash_fwd_plan.cc",
                              _CSRC / "flash_attn.cu")
 #: Headers the sources include: part of the library's key.
-HEADERS: Tuple[Path, ...] = (_CSRC / "scan_common.cuh",)
+HEADERS: Tuple[Path, ...] = (_CSRC / "scan_common.cuh",
+                             _CSRC / "flash_fwd_plan.h")
 BUILD_ROOT = _CSRC.parents[1] / "build" / "fmda_tpu_torch"
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -139,10 +143,23 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fmda_ssm_step_{tag}")
             fn.argtypes = [p, ll, *[p] * 11, i, i, i, p]
             fn.restype = i
+            # rows, slots, x_min, x_range, norm_rows, weights, state, pos,
+            # probs, B, S, F, H, C, L, device, stream
+            fn = getattr(lib, f"fmda_ssm_tick_{tag}")
+            fn.argtypes = [p, p, p, p, i, p, p, p, p, *[i] * 7, p]
+            fn.restype = i
         f = ctypes.c_float
+        for tag in SUPPORTED.values():
+            # q, k, v, key_mask, o, lse, B*N, N, T, D, causal, scale, device,
+            # stream
+            fn = getattr(lib, f"fmda_flash_fwd_{tag}")
+            fn.argtypes = [*[p] * 6, i, i, i, i, i, f, i, p]
+            fn.restype = i
+        # B*N, N, T, D, itemsize, out[13]
+        lib.fmda_flash_fwd_plan.argtypes = [i, i, i, i, i, p]
+        lib.fmda_flash_fwd_plan.restype = i
         # pointer arguments, then B*N, N, T, D, causal, scale, device, stream
-        for name, n_ptrs in (("flash_fwd", 6), ("flash_dkv", 9),
-                             ("flash_dq", 8)):
+        for name, n_ptrs in (("flash_dkv", 9), ("flash_dq", 8)):
             for tag in SUPPORTED.values():
                 fn = getattr(lib, f"fmda_{name}_{tag}")
                 fn.argtypes = [*[p] * n_ptrs, i, i, i, i, i, f, i, p]

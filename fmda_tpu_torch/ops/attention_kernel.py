@@ -4,7 +4,9 @@ versions and the differentiable op that joins them.
 - :func:`flash_fwd` is the port of ``fmda_tpu/ops/pallas_attention.py``'s
   ``_fwd_kernel``: the online softmax over key blocks of
   :data:`SOFTMAX_BLOCK` in float32, giving ``o = acc / l`` in the I/O dtype
-  and ``lse = m + log l`` in float32.
+  and ``lse = m + log l`` in float32.  Its kernel (``csrc/flash_fwd.cu``)
+  takes each block in one pass, a warp a 16-row query tile;
+  :func:`flash_fwd_plan` reports how the kernel lays a call out.
 - :func:`flash_dkv` and :func:`flash_dq` are the ports of ``_dkv_kernel``
   and ``_dq_kernel``: each recomputes ``p = exp(s - lse)`` and sweeps the
   other axis for its gradients.  ``delta = rowsum(do * o) - dlse`` is
@@ -25,15 +27,16 @@ mask): self-attention on (B, N, T, D) with any T >= 1 (the last key block
 is ragged), D <= 512, causal or not, and an optional (B, T) key mask
 (True = the key is visible to every query of that row).  Anything else
 raises.  On CUDA tensors each wrapper launches its kernels (from
-``csrc/flash_attn.cu``, in the library :mod:`fmda_tpu_torch.ops._cuda_lib`
-builds at first use) or raises; on CPU tensors it runs its plain version.
+``csrc/flash_fwd.cu`` and ``csrc/flash_attn.cu``, in the library
+:mod:`fmda_tpu_torch.ops._cuda_lib` builds at first use) or raises; on CPU
+tensors it runs its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -56,8 +59,39 @@ NEG = -1e30
 SOFTMAX_BLOCK = 128
 #: The largest head dimension the kernels take (the Pallas envelope's).
 MAX_D = 512
+#: The fields of the forward's plan, in the order its query reports them.
+FWD_PLAN_FIELDS = ("split", "dw", "units", "wph", "resident", "keys", "tk",
+                   "stages", "ldq", "ldk", "ldv", "grid", "smem")
 
 Tensor = torch.Tensor
+
+
+def flash_fwd_plan(bn: int, n_heads: int, t: int, d: int, dtype: torch.dtype,
+                   lib: Optional[ctypes.CDLL] = None) -> Dict[str, int]:
+    """How the forward kernel runs (B*N, T, D) in ``dtype``, from the
+    launch's own plan (``fmda_flash_fwd_plan`` in ``csrc/flash_fwd_plan.cc``,
+    read from ``lib``, the card's library by default).
+
+    A warp owns a 16-row query tile; ``split`` warps share one when D > 64,
+    each holding ``dw`` dims.  Where ``resident`` (T <= 128, D <= 64) a CTA
+    holds ``units`` whole (b*n) heads whose K and V stay in shared memory,
+    and ``wph`` warps a head walk its query tiles; otherwise it holds
+    ``units`` consecutive query tiles of one head, and K and V stream
+    through ``stages`` buffers of ``tk`` keys.  ``keys``: the keys of a
+    block a warp holds scores for (128, or 32 where T <= 32 and D <= 16).
+    ``ldq``, ``ldk``, ``ldv``: the shared tiles' row strides in elements;
+    ``smem``: the bytes a CTA takes; ``grid``: the CTAs."""
+    if dtype not in _cuda_lib.SUPPORTED:
+        raise TypeError(f"flash_fwd takes float32 or bfloat16, got {dtype}")
+    lib = lib or _cuda_lib.load()
+    out = (ctypes.c_int * len(FWD_PLAN_FIELDS))()
+    item = torch.tensor([], dtype=dtype).element_size()
+    if lib.fmda_flash_fwd_plan(bn, n_heads, t, d, item, out) != 0:
+        raise ValueError(f"flash_fwd plan outside the envelope: B*N={bn}, "
+                         f"N={n_heads}, T={t}, D={d}")
+    plan = dict(zip(FWD_PLAN_FIELDS, out))
+    plan["resident"] = bool(plan["resident"])
+    return plan
 
 
 def check_envelope(q: Tensor, k: Tensor, v: Tensor,

@@ -30,12 +30,13 @@ to the bit.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from fmda_tpu_torch.ops.ssm_kernel import (
+    SSMWeights,
     ssm_cell_step,
     ssm_cell_step_reference,
     ssm_gates,
@@ -48,19 +49,6 @@ __all__ = [
     "linear_scan_parallel", "ssm_cell_step", "ssm_cell_step_reference",
     "ssm_gates", "ssm_input_projection", "ssm_scan", "ssm_scan_parallel",
 ]
-
-
-class SSMWeights(NamedTuple):
-    """One direction's parameters: the packed projection and four
-    per-channel vectors (the diagonal transition is the family's defining
-    constraint)."""
-
-    w_ih: Tensor  # (3H, F) packed [z, v, g]
-    b_ih: Tensor  # (3H,)
-    a_base: Tensor  # (H,) decay offset: a = sigmoid(zp + a_base)
-    d: Tensor  # (H,) feedthrough
-    rho_f: Tensor  # (H,) fast head-EMA rate pre-activation
-    rho_s: Tensor  # (H,) slow head-EMA rate pre-activation
 
 
 #: Cell-carry arity of the serving cache: (s, ema_fast, ema_slow).

@@ -9,10 +9,15 @@ device, and a flush (:meth:`SessionPool.step_device`) is
 
 - a *gather* of the rows named by ``slots (B,)``;
 - the solo core's per-tick math on that (B, ...) slice, the same functions
-  (:func:`~fmda_tpu_torch.serve.streaming.advance_cells` and the pooled or
-  EMA head), so a pooled session serves what a solo
+  (:func:`~fmda_tpu_torch.serve.streaming.advance_cells` and the pooled
+  head), so a pooled session serves what a solo
   :class:`~fmda_tpu_torch.serve.streaming.StreamingBiGRU` serves;
 - a *scatter* of the new rows back into the pooled tensors, in place.
+
+For ``cell="ssm"`` all of that is one kernel launch
+(:func:`~fmda_tpu_torch.ops.ssm_kernel.ssm_serve_tick`, every layer
+included), fed by one copy of the slots and rows through a pinned staging
+buffer: a flush is that copy, the launch and the probabilities' copy back.
 
 The extra slot (index ``capacity``) is the **padding lane**: lanes of a
 padded micro-batch past the real requests point at it, so a flush needs no
@@ -22,10 +27,10 @@ generation, so a :class:`SessionHandle` kept past ``free`` can never read
 or advance the slot's next session.
 
 Scope: the unidirectional carried-state cores (``cell="gru"``, ``"lstm"``,
-``"ssm"``, any ``n_layers``).  The ``"ssm"`` pool carries three H-vectors
-a layer per session and a zero-width ring, and advances them with the
-serve-tick kernel, one launch per layer per flush.  Bidirectional models
-are served by the window-re-scan Predictor.
+``"ssm"``, any ``n_layers``).  Every carry lives in one
+``(n_layers, n_carry, capacity + 1, H)`` tensor.  The ``"ssm"`` pool
+carries three H-vectors a layer per session and a zero-width ring.
+Bidirectional models are served by the window-re-scan Predictor.
 """
 
 from __future__ import annotations
@@ -38,11 +43,11 @@ import torch
 
 from fmda_tpu_torch.data.normalize import NormParams
 from fmda_tpu_torch.device import DeviceLike, resolve_device
+from fmda_tpu_torch.ops.ssm_kernel import pack_tick_weights, ssm_serve_tick
 from fmda_tpu_torch.serve.streaming import (
     _layer_weights,
     _recurrent_cell_ops,
     advance_cells,
-    ema_head_logits,
     pooled_head_logits,
     serving_params,
 )
@@ -103,10 +108,11 @@ class SessionPool:
         hidden, feats = cfg.hidden_size, cfg.n_features
         n, kw = self.n_slots, dict(dtype=self._dtype, device=self.device)
         with torch.inference_mode():
-            self._carry = tuple(
-                tuple(torch.zeros((n, hidden), **kw)
-                      for _ in range(self._n_carry))
-                for _ in range(cfg.n_layers))
+            # one tensor for every layer's carries (the fused ssm tick
+            # reaches them all through one pointer); ``_carry`` views it
+            self._state = torch.zeros(
+                (cfg.n_layers, self._n_carry, n, hidden), **kw)
+            self._carry = tuple(tuple(layer) for layer in self._state)
             # carry-head cells (ssm) keep a zero-width ring: nothing in
             # the pool is sized by `window`
             ring_w = window if self._head == "ring" else 0
@@ -124,12 +130,18 @@ class SessionPool:
         self._generations = [0] * capacity
         self._free: List[int] = list(range(capacity - 1, -1, -1))
         self._by_id: Dict[str, SessionHandle] = {}
+        # the fused tick's staging, by flush size: (pinned host buffer,
+        # its device twin, the event of the last copy out of it)
+        self._staging: Dict[int, tuple] = {}
 
     def _set_params(self, params: Dict[str, Tensor]) -> None:
         self._params = params
         self._layers = [_layer_weights(params, False, self.cfg.cell, layer)
                         for layer in range(self.cfg.n_layers)]
         self._linear = (params["linear.weight"], params["linear.bias"])
+        if self._head == "carry":
+            self._tick_weights = pack_tick_weights(self._layers,
+                                                   self._linear)
 
     # -- slot lifecycle (host-side, off the hot path) -------------------------
 
@@ -316,21 +328,24 @@ class SessionPool:
                 slots.min() < 0 or slots.max() > self.padding_slot):
             raise IndexError(
                 f"slots must be a (B,) list of slots 0..{self.padding_slot}")
+        rows = np.asarray(rows, np.float32)
+        if self._head == "carry":
+            rows_d, slots_d = self._stage(slots, rows)
+            return ssm_serve_tick(rows_d, slots_d, self._x_min,
+                                  self._x_range, self._tick_weights,
+                                  self._state, self._pos)
         idx = torch.as_tensor(slots).to(self.device)
-        rows = torch.as_tensor(np.asarray(rows, np.float32)).to(self.device)
+        rows = torch.as_tensor(rows).to(self.device)
         x = ((rows - self._x_min[idx]) / self._x_range[idx]).to(self._dtype)
         pos_b = self._pos[idx]
         carry_b = tuple(tuple(c[idx] for c in layer)
                         for layer in self._carry)
         h_new, carry_new = advance_cells(self._layers, self._gate_step, x,
                                          carry_b)
-        if self._head == "carry":
-            logits = ema_head_logits(self._linear, h_new, carry_new[-1])
-        else:
-            self._ring[idx, pos_b % self.window] = h_new
-            n_valid = torch.clamp(pos_b + 1, max=self.window)[:, None]
-            logits = pooled_head_logits(self._linear, h_new, self._ring[idx],
-                                        n_valid)
+        self._ring[idx, pos_b % self.window] = h_new
+        n_valid = torch.clamp(pos_b + 1, max=self.window)[:, None]
+        logits = pooled_head_logits(self._linear, h_new, self._ring[idx],
+                                    n_valid)
         # the scatters: a live slot appears at most once in `slots`; only
         # the padding lane repeats, and which of its writes lands does not
         # matter, since nothing reads it
@@ -339,6 +354,32 @@ class SessionPool:
                 c[idx] = cb
         self._pos[idx] = pos_b + 1
         return torch.sigmoid(logits)
+
+    def _stage(self, slots: np.ndarray, rows: np.ndarray):
+        """``rows`` (B, F) float32 and ``slots`` (B,) int32 on the pool's
+        device.  On a card both go through one pinned buffer and one
+        non-blocking copy; the buffer is rewritten only once the previous
+        copy out of it has run."""
+        batch, feats = slots.size, self.cfg.n_features
+        if rows.shape != (batch, feats):
+            raise ValueError(
+                f"rows must be (B, F) = {(batch, feats)}, got {rows.shape}")
+        if self.device.type != "cuda":
+            return (torch.from_numpy(rows),
+                    torch.from_numpy(slots.astype(np.int32)))
+        if batch not in self._staging:
+            host = torch.empty(batch * (feats + 1), dtype=torch.float32,
+                               pin_memory=True)
+            self._staging[batch] = (host, torch.empty_like(
+                host, device=self.device), torch.cuda.Event())
+        host, dev, copied = self._staging[batch]
+        copied.synchronize()
+        buf = host.numpy()
+        buf[:batch].view(np.int32)[:] = slots
+        buf[batch:] = rows.reshape(-1)
+        dev.copy_(host, non_blocking=True)
+        copied.record()
+        return dev[batch:].view(batch, feats), dev[:batch].view(torch.int32)
 
     def step(self, slots, rows) -> np.ndarray:
         """Blocking :meth:`step_device`: probabilities as a host array."""

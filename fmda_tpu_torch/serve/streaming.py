@@ -8,10 +8,12 @@ history, so each tick feeds only the newest row and carries the state.
 
 - :class:`StreamingBiGRU` carries, per layer, the family's cell carry:
   ``(h,)`` for ``cell="gru"``, ``(h, c)`` for ``"lstm"``, and for ``"ssm"``
-  the constant-size ``(s, ema_fast, ema_slow)`` cache, advanced by the
-  serve-tick kernel (:mod:`fmda_tpu_torch.ops.ssm_kernel`).  The gru and
-  lstm heads pool over a ring of the last ``window`` hidden outputs; the
-  ssm head reads its two EMAs out of the carry, so its ring is zero-width.
+  the constant-size ``(s, ema_fast, ema_slow)`` cache, a whole tick of
+  which (every layer and the head) is one launch of the fused serve-tick
+  kernel (:func:`~fmda_tpu_torch.ops.ssm_kernel.ssm_serve_tick`).  The gru
+  and lstm heads pool over a ring of the last ``window`` hidden outputs;
+  the ssm head reads its two EMAs out of the carry, so its ring is
+  zero-width.
 - :class:`StreamingBiGRUBidirectional` serves the one-layer bidirectional
   gru and lstm models: the forward direction is carried as above, and the
   backward direction, which needs each row's future, is re-scanned every
@@ -71,13 +73,15 @@ class CellOps(NamedTuple):
     """One recurrent family's carried-state serving contract.
 
     ``gate_step(xp, carry, w) -> (h_new, carry_new)`` advances one tick
-    (carry is a tuple: ``(h,)`` GRU, ``(h, c)`` LSTM, ``(s, ema_fast,
-    ema_slow)`` SSM); ``bwd_scan(xp_nf, zeros, w) -> hs`` is the
-    backward-direction window re-scan from a zero state (None for
-    families without one); ``head`` names the pooling state the core
-    carries: ``"ring"`` (a (window, H) ring of per-step hiddens fed to
-    :func:`pooled_head_logits`) or ``"carry"`` (the pooling state lives in
-    the cell carry, read by :func:`ema_head_logits`)."""
+    (carry is a tuple: ``(h,)`` GRU, ``(h, c)`` LSTM); ``bwd_scan(xp_nf,
+    zeros, w) -> hs`` is the backward-direction window re-scan from a zero
+    state (None for families without one); ``head`` names the pooling
+    state the core carries: ``"ring"`` (a (window, H) ring of per-step
+    hiddens fed to :func:`pooled_head_logits`) or ``"carry"`` (the SSM:
+    the pooling state lives in the cell carry ``(s, ema_fast, ema_slow)``,
+    and the whole tick, head included, is
+    :func:`~fmda_tpu_torch.ops.ssm_kernel.ssm_serve_tick`, so there is no
+    ``gate_step``)."""
 
     gate_step: Callable
     bwd_scan: Optional[Callable]
@@ -108,7 +112,7 @@ def _recurrent_cell_ops(cell: str) -> CellOps:
 
         return CellOps(gate_step, bwd_scan, 2, 4, "ring")
     if cell == "ssm":
-        return CellOps(ssm_kernel.ssm_cell_step, None, 3, 3, "carry")
+        return CellOps(None, None, 3, 3, "carry")
     raise ValueError(
         "the carried-state streaming cores cover the recurrent families "
         "(cell='gru'/'lstm'/'ssm'); use the window-re-scan Predictor "
@@ -147,16 +151,6 @@ def pooled_head_logits(head: Tuple[Tensor, Tensor], h_last: Tensor,
     avg_pool = torch.where(valid, ring, 0.0).sum(dim=1) / n_valid
     concat = torch.cat([h_last, max_pool, avg_pool], dim=-1)
     return F.linear(concat, *head)
-
-
-def ema_head_logits(head: Tuple[Tensor, Tensor], h_last: Tensor,
-                    carry_last: Tuple[Tensor, ...]) -> Tensor:
-    """The SSM family's head over its carried pooling state:
-    ``[h_last, ema_fast, ema_slow]`` through the linear head, the
-    serving twin of ``models.common.ema_concat_logits``.  ``carry_last``
-    is the last layer's ``(s, ema_fast, ema_slow)``."""
-    _, ema_fast, ema_slow = carry_last
-    return F.linear(torch.cat([h_last, ema_fast, ema_slow], dim=-1), *head)
 
 
 def serving_params(params: Mapping[str, Tensor], dtype: torch.dtype,
@@ -215,18 +209,37 @@ class StreamingBiGRU:
         self._linear = (self._params["linear.weight"],
                         self._params["linear.bias"])
         self._x_min, self._x_range = _norm_tensors(norm, self.device)
+        if self._head == "carry":
+            # the fused tick: lane b is slot b of the core's state, every
+            # lane under the core's one norm (a one-row table)
+            self._tick_weights = ssm_kernel.pack_tick_weights(self._layers,
+                                                              self._linear)
+            self._slots = torch.arange(batch, dtype=torch.int32,
+                                       device=self.device)
+            self._x_min, self._x_range = (self._x_min[None],
+                                          self._x_range[None])
         self.reset()
 
     @torch.inference_mode()
     def reset(self) -> None:
+        kw = dict(dtype=self._dtype, device=self.device)
         shape = (self.batch, self.cfg.hidden_size)
-        self._h = tuple(
-            tuple(torch.zeros(shape, dtype=self._dtype, device=self.device)
-                  for _ in range(self._n_carry))
-            for _ in range(self.cfg.n_layers))
+        if self._head == "carry":
+            # the fused tick writes every layer's carries in place, in one
+            # tensor that ``_h`` views, and counts each lane's ticks as the
+            # pool's positions
+            self._state = torch.zeros((self.cfg.n_layers, self._n_carry,
+                                       *shape), **kw)
+            self._h = tuple(tuple(layer) for layer in self._state)
+            self._tick_pos = torch.zeros((self.batch,), dtype=torch.int64,
+                                         device=self.device)
+        else:
+            self._h = tuple(
+                tuple(torch.zeros(shape, **kw) for _ in range(self._n_carry))
+                for _ in range(self.cfg.n_layers))
         ring_w = self.window if self._head == "ring" else 0
         self._ring = torch.zeros((self.batch, ring_w, self.cfg.hidden_size),
-                                 dtype=self._dtype, device=self.device)
+                                 **kw)
         self._pos = 0
 
     @property
@@ -238,16 +251,18 @@ class StreamingBiGRU:
         """Advance one tick with the newest feature row (B, F) or (F,);
         returns sigmoid probabilities (B, n_classes)."""
         row = _row_tensor(row, self.device)
+        if self._head == "carry":
+            probs = ssm_kernel.ssm_serve_tick(
+                row, self._slots, self._x_min, self._x_range,
+                self._tick_weights, self._state, self._tick_pos)
+            self._pos += 1
+            return probs.cpu().numpy()
         x = ((row - self._x_min) / self._x_range).to(self._dtype)
         h_new, self._h = advance_cells(self._layers, self._gate_step, x,
                                        self._h)
-        if self._head == "carry":
-            logits = ema_head_logits(self._linear, h_new, self._h[-1])
-        else:
-            self._ring[:, self._pos % self.window] = h_new
-            n_valid = min(self._pos + 1, self.window)
-            logits = pooled_head_logits(self._linear, h_new, self._ring,
-                                        n_valid)
+        self._ring[:, self._pos % self.window] = h_new
+        n_valid = min(self._pos + 1, self.window)
+        logits = pooled_head_logits(self._linear, h_new, self._ring, n_valid)
         self._pos += 1
         return _probabilities(logits)
 

@@ -145,7 +145,8 @@ def test_kernel_build_is_keyed_by_source_content(tmp_path):
     header.write_text("// two\n")
     assert len({first, second, _cuda_lib.library_path((src, header))}) == 3
     assert first.parent.parent == _cuda_lib.BUILD_ROOT
-    # every kernel source and the header they share key the one library
+    # every kernel source and the headers they share key the one library
     assert {p.name for p in _cuda_lib.SOURCES + _cuda_lib.HEADERS} == {
         "gru_scan.cu", "lstm_scan.cu", "scan_dw.cu", "ssm_step.cu",
-        "flash_attn.cu", "scan_common.cuh"}
+        "flash_fwd.cu", "flash_fwd_plan.cc", "flash_attn.cu",
+        "scan_common.cuh", "flash_fwd_plan.h"}
