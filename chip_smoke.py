@@ -9,7 +9,8 @@ Phases, each printed as one JSON line, each fatal on failure:
 1. ``device``: the card, its power limit, the torch/CUDA versions.
 2. ``build``: nvcc builds the one library that holds every kernel (the
    GRU and LSTM forward and backward scans, the SSM step and the fused SSM
-   serve tick, the flash attention forward, dK/dV and dQ sweeps) from
+   serve tick, the flash attention forward, its fused backward and its
+   dK/dV and dQ sweeps) from
    ``fmda_tpu_torch/csrc`` for sm_90a, one nvcc per source, all started
    together.
 3. ``kernel``: each kernel against its plain PyTorch version on the card,
@@ -24,7 +25,10 @@ Phases, each printed as one JSON line, each fatal on failure:
    session's bits alone and in a bucket of 64; the flash kernels at the
    model's (256, 4, 30, 8) in f32 and bf16, causal or not, with and without
    a key mask, at the Predictor's batch 1, at T = 1024 and at D = 64 and
-   512, each forward line with the plan its launch took), with times, the
+   512, each line with the plan its launch took: the fused backward where
+   a CTA holds whole heads, the two sweeps at T = 1024 and D = 512; each
+   backward's second call must give the same bits, and no backward
+   instance may spill), with times, the
    roofline bound and the library yardstick (cuDNN, SDPA) beside it where
    one exists.  Each backward scan is two kernels, the serial sweep and the
    weight gradient (``scan_dw``), timed apart too (``sweep_ms``,
@@ -731,26 +735,33 @@ def phase_kernel_ssm_tick(device: str = "cuda"):
     return results
 
 
-#: kernels 6-8: where they live and what they replace
+#: kernels 6-8: where they live and what they replace (the fused backward,
+#: flash_bwd, replaces both backward kernels: the dK/dV one here, the dQ
+#: one as its entry's ``also_replaces``)
 FLASH_SOURCES = {"flash_fwd": "fmda_tpu_torch/csrc/flash_fwd.cu",
                  "flash_dkv": "fmda_tpu_torch/csrc/flash_attn.cu",
-                 "flash_dq": "fmda_tpu_torch/csrc/flash_attn.cu"}
+                 "flash_dq": "fmda_tpu_torch/csrc/flash_attn.cu",
+                 "flash_bwd": "fmda_tpu_torch/csrc/flash_bwd.cu"}
 FLASH_REPLACES = {"flash_fwd": "fmda_tpu/ops/pallas_attention.py:94",
                   "flash_dkv": "fmda_tpu/ops/pallas_attention.py:200",
-                  "flash_dq": "fmda_tpu/ops/pallas_attention.py:265"}
+                  "flash_dq": "fmda_tpu/ops/pallas_attention.py:265",
+                  "flash_bwd": "fmda_tpu/ops/pallas_attention.py:200"}
 #: the model's attention: (B, N, T, D) at batch 256, 4 heads of 8, window 30
 FLASH_MAIN = (BATCH, 4, 30, 8)
 #: products per visible (query, key) pair, in units of D: the forward's
 #: q.k and p.v; the dK/dV sweep's q.k, do.v, p^T do and ds^T q; the dQ
-#: sweep's q.k, do.v and ds k
-FLASH_FLOPS = {"flash_fwd": 4, "flash_dkv": 8, "flash_dq": 6}
+#: sweep's q.k, do.v and ds k; the fused backward's q.k, do.v, p^T do,
+#: ds^T q and ds k
+FLASH_FLOPS = {"flash_fwd": 4, "flash_dkv": 8, "flash_dq": 6, "flash_bwd": 10}
+#: the backward kernels' outputs of (B*N, T, D)
+FLASH_BWD_OUTPUTS = {"flash_dkv": 2, "flash_dq": 1, "flash_bwd": 3}
 
 
 def flash_cases():
     """The serving and training shape in f32 and bf16, causal or not, with
     and without a key mask (ragged valid lengths, one row fully hidden);
     the Predictor's batch 1; the long-context (16, 4, 1024, 8), causal or
-    not; the D envelope at 64 and 512."""
+    not; the D envelope at 64 and 512, in f32 and bf16."""
     b, n, t, d = FLASH_MAIN
     base = dict(batch=b, heads=n, seq=t, d=d, dtype=torch.float32,
                 causal=False, masked=False)
@@ -760,8 +771,10 @@ def flash_cases():
             + [dict(base, batch=1)]
             + [dict(base, batch=16, seq=1024, causal=causal)
                for causal in (False, True)]
-            + [dict(base, batch=8, heads=2, seq=256, d=64),
-               dict(base, batch=2, heads=1, seq=128, d=512)])
+            + [dict(base, batch=8, heads=2, seq=256, d=64, dtype=dtype)
+               for dtype in (torch.float32, torch.bfloat16)]
+            + [dict(base, batch=2, heads=1, seq=128, d=512, dtype=dtype)
+               for dtype in (torch.float32, torch.bfloat16)])
 
 
 def flash_pairs(c, key_mask) -> int:
@@ -777,15 +790,15 @@ def flash_pairs(c, key_mask) -> int:
 
 def flash_bound(kernel, c, itemsize, pairs, masked):
     """Least time for one kernel on this card: its inputs read once (q, k,
-    v; the sweeps also do, lse and delta; the key mask) and its outputs
-    written once (o and lse; dk and dv; dq), against its products' FLOPs
-    over the visible pairs."""
+    v; the backward also do, lse and delta; the key mask) and its outputs
+    written once (o and lse; dk and dv; dq; dq, dk and dv), against its
+    products' FLOPs over the visible pairs."""
     bntd = c["batch"] * c["heads"] * c["seq"] * c["d"]
     bnt = c["batch"] * c["heads"] * c["seq"]
     if kernel == "flash_fwd":
         bytes_moved = itemsize * 4 * bntd + 4 * bnt
     else:
-        n_out = 2 if kernel == "flash_dkv" else 1
+        n_out = FLASH_BWD_OUTPUTS[kernel]
         bytes_moved = itemsize * (4 + n_out) * bntd + 2 * 4 * bnt
     bytes_moved += c["batch"] * c["seq"] if masked else 0
     return roofline_ms(bytes_moved, FLASH_FLOPS[kernel] * c["d"] * pairs, 0,
@@ -808,10 +821,14 @@ def sdpa(q, k, v, causal, key_mask):
 
 
 def phase_kernel_flash(device: str = "cuda"):
-    """flash_fwd against flash_fwd_reference (o, lse), then flash_dkv and
-    flash_dq against theirs (dk, dv; dq) on the kernel forward's o and lse
-    with a nonzero lse cotangent, at every case of :func:`flash_cases`.
-    Returns the rows, each naming its ``kernel``."""
+    """flash_fwd against flash_fwd_reference (o, lse), then flash_dkv,
+    flash_dq and flash_bwd against theirs (dk, dv; dq; dq, dk, dv) on the
+    kernel forward's o and lse with a nonzero lse cotangent, at every case
+    of :func:`flash_cases`; a second call of each backward must give the
+    same bits.  flash_bwd must run its fused kernel exactly where the plan
+    fuses (T <= 128, D <= 64: the model's shape) and the two sweeps
+    elsewhere (T = 1024, D = 512), as the launch counts show.  Returns the
+    rows, each naming its ``kernel`` and carrying its launch's plan."""
     from fmda_tpu_torch.ops import attention_kernel as ak
 
     dev = torch.device(device)
@@ -845,11 +862,26 @@ def phase_kernel_flash(device: str = "cuda"):
             do, dlse = randn(b, n, t, d), torch.randn(
                 (b, n, t), generator=gen, device=dev) * 0.5
             bargs = (q, k, v, do, lse, ak.flash_delta(o, do, dlse))
+            before = launch_counts()
             got_bwd = {"flash_dkv": ak.flash_dkv(*bargs, **kw),
-                       "flash_dq": (ak.flash_dq(*bargs, **kw),)}
+                       "flash_dq": (ak.flash_dq(*bargs, **kw),),
+                       "flash_bwd": ak.flash_bwd(*bargs, **kw)}
+            moved = {name: count - before[name]
+                     for name, count in launch_counts().items()
+                     if count != before[name]}
+            again = {"flash_dkv": ak.flash_dkv(*bargs, **kw),
+                     "flash_dq": (ak.flash_dq(*bargs, **kw),),
+                     "flash_bwd": ak.flash_bwd(*bargs, **kw)}
             want_bwd = {"flash_dkv": ak.flash_dkv_reference(*bargs, **kw),
-                        "flash_dq": (ak.flash_dq_reference(*bargs, **kw),)}
+                        "flash_dq": (ak.flash_dq_reference(*bargs, **kw),),
+                        "flash_bwd": ak.flash_bwd_reference(*bargs, **kw)}
             torch.cuda.synchronize()
+        bwd_plan = ak.flash_bwd_plan(b * n, n, t, d, dtype)
+        fused = t <= ak.SOFTMAX_BLOCK and d <= 64
+        check(bwd_plan["fused"] == fused and moved == (
+            {"flash_dkv": 1, "flash_dq": 1, "flash_bwd": 1} if fused else
+            {"flash_dkv": 2, "flash_dq": 2}),
+              f"flash_bwd at {shape} launched {moved} under {bwd_plan}")
         outputs = {"flash_fwd": ((o, lse), want), **{
             name: (got_bwd[name], want_bwd[name]) for name in got_bwd}}
         fns = {"flash_fwd": (lambda: ak.flash_fwd(q, k, v, **kw),
@@ -857,7 +889,14 @@ def phase_kernel_flash(device: str = "cuda"):
                "flash_dkv": (lambda: ak.flash_dkv(*bargs, **kw),
                              lambda: ak.flash_dkv_reference(*bargs, **kw)),
                "flash_dq": (lambda: ak.flash_dq(*bargs, **kw),
-                            lambda: ak.flash_dq_reference(*bargs, **kw))}
+                            lambda: ak.flash_dq_reference(*bargs, **kw)),
+               "flash_bwd": (lambda: ak.flash_bwd(*bargs, **kw),
+                             lambda: ak.flash_bwd_reference(*bargs, **kw))}
+        plans = {"flash_fwd": ak.flash_fwd_plan(b * n, n, t, d, dtype),
+                 "flash_dkv": ak.flash_bwd_plan(b * n, n, t, d, dtype,
+                                                sweeps=True),
+                 "flash_bwd": bwd_plan}
+        plans["flash_dq"] = plans["flash_dkv"]
         # the yardstick: SDPA's forward, its backward alone (dq, dk and dv
         # in one call) and both, on the same tensors
         lq, lk, lv = (x.detach().clone().requires_grad_(True)
@@ -872,7 +911,6 @@ def phase_kernel_flash(device: str = "cuda"):
                    "fwd_bwd": time_ms(lambda: torch.autograd.grad(
                        sdpa(lq, lk, lv, c["causal"], key_mask), (lq, lk, lv),
                        do), prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)}
-        plan = ak.flash_fwd_plan(b * n, n, t, d, dtype)
         for name, (got, ref) in outputs.items():
             errs = [(g.float() - r.float()).abs().max().item()
                     for g, r in zip(got, ref)]
@@ -894,12 +932,16 @@ def phase_kernel_flash(device: str = "cuda"):
                        library_ms=library["fwd" if name == "flash_fwd"
                                           else "bwd"],
                        library_fwd_bwd_ms=library["fwd_bwd"],
-                       bound_ms=bound_ms, bound_by=bound_by)
-            if name == "flash_fwd":
-                row.update(plan=plan)
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       plan=plans[name])
+            if name != "flash_fwd":
+                row.update(bit_identical_rerun=all(
+                    torch.equal(g, a) for g, a in zip(got, again[name])))
             emit("kernel flash_fwd" if name == "flash_fwd"
                  else "kernel flash_bwd", **row)
             check(finite, f"non-finite {name} output in {row}")
+            check(row.get("bit_identical_rerun", True),
+                  f"{name} gave other bits on a second call: {row}")
             check(max(errs) <= tol,
                   f"{name} disagrees with its plain version: {row}")
             results.append(row)
@@ -1040,7 +1082,8 @@ def launch_counts() -> dict:
             "ssm_tick": ssm_kernel.tick_launches,
             "flash_fwd": attention_kernel.fwd_launches,
             "flash_dkv": attention_kernel.dkv_launches,
-            "flash_dq": attention_kernel.dq_launches}
+            "flash_dq": attention_kernel.dq_launches,
+            "flash_bwd": attention_kernel.bwd_launches}
 
 
 def start_path() -> None:
@@ -1052,7 +1095,7 @@ def start_path() -> None:
         m.launches = m.bwd_launches = 0
     ssm_kernel.launches = ssm_kernel.tick_launches = scan_dw.launches = 0
     attention_kernel.fwd_launches = attention_kernel.dkv_launches = 0
-    attention_kernel.dq_launches = 0
+    attention_kernel.dq_launches = attention_kernel.bwd_launches = 0
 
 
 def check_launches(counts: dict, expected: dict, what: str) -> None:
@@ -1074,11 +1117,13 @@ def forward_kernel(cell: str):
 def train_launches(cell: str, n_train: int, n_val: int) -> dict:
     """What one epoch launches: the family's forward kernel at every train
     step and val batch, its backward kernels at every train step (for gru
-    and lstm a backward scan, whose weight gradient is scan_dw's kernel)."""
+    and lstm a backward scan, whose weight gradient is scan_dw's kernel;
+    for attn the fused backward, one launch: the model's (T, D) = (30, 8)
+    fuses, and the sweeps launch 0 times)."""
     fwd, per_forward = forward_kernel(cell)
     if fwd is None:
         return {}
-    backward = ({"flash_dkv": n_train, "flash_dq": n_train}
+    backward = ({"flash_bwd": n_train}
                 if cell == "attn"
                 else {f"{cell}_scan_bwd": per_forward * n_train,
                       "scan_dw": per_forward * n_train})
@@ -1774,10 +1819,10 @@ def ssm_entry(tick_rows, step_rows, by_path, step_by_path):
 
 
 def flash_entry(name, rows, by_path):
-    """Kernel 6's, 7's or 8's entry of the summary line, at the model's
-    (256, 4, 30, 8) float32, not causal, no mask; its library_ms is SDPA's
-    forward (kernel 6) or its backward, which computes dq, dk and dv in one
-    call (kernels 7 and 8)."""
+    """Kernel 6's, 7's or 8's entry of the summary line, or the fused
+    backward's (7 and 8 in one launch), at the model's (256, 4, 30, 8)
+    float32, not causal, no mask; its library_ms is SDPA's forward (kernel
+    6) or its backward, which computes dq, dk and dv in one call."""
     b, n, t, d = FLASH_MAIN
     main_shape = next(r for r in rows if r["kernel"] == name
                       and (r["batch"], r["heads"], r["seq"], r["d"])
@@ -1799,6 +1844,8 @@ def flash_entry(name, rows, by_path):
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
         "shape": list(FLASH_MAIN),
+        **({"also_replaces": FLASH_REPLACES["flash_dq"]}
+           if name == "flash_bwd" else {}),
     }
 
 
@@ -1860,13 +1907,17 @@ def main() -> int:
     scans = scan_specs()
     t0 = time.perf_counter()
     lib = _cuda_lib.build()
+    ptxas = ptxas_summary(str(_cuda_lib.build_info.get("log", "")))
     emit("build", kernels=[f"{s.name}_scan_{k}" for s in scans
                            for k in ("fwd", "bwd")]
          + ["ssm_step", "ssm_tick", *FLASH_REPLACES],
          sources=[str(p.name) for p in _cuda_lib.SOURCES], library=str(lib),
          nvcc_seconds=_cuda_lib.build_info.get("seconds"),
-         seconds=time.perf_counter() - t0, target="sm_90a",
-         **ptxas_summary(str(_cuda_lib.build_info.get("log", ""))))
+         seconds=time.perf_counter() - t0, target="sm_90a", **ptxas)
+    spills = {k: v for k, v in ptxas["ptxas"].items()
+              if k.startswith(("flash_attn:", "flash_bwd:"))
+              and not v.endswith(" 0 B spilled")}
+    check(not spills, f"flash backward instances spill: {spills}")
 
     n_features = FrameworkConfig().model.n_features
     rows = {s.name: (phase_kernel(s, n_features),

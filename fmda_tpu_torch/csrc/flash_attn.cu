@@ -1,7 +1,8 @@
 // Flash attention's dK/dV and dQ sweeps for NVIDIA Hopper (sm_90a), bound to
 // PyTorch via ctypes by fmda_tpu_torch/ops/attention_kernel.py (the library
 // is built by fmda_tpu_torch/ops/_cuda_lib.py; the forward, whose o and lse
-// they read, is flash_fwd.cu's).
+// they read, is flash_fwd.cu's, and the fused backward that takes their
+// place where a CTA holds whole heads is flash_bwd.cu's).
 //
 // Replaces two Pallas TPU kernels of fmda_tpu/ops/pallas_attention.py:
 //   _dkv_kernel  (dK/dV sweep)    -> flash_dkv_kernel
@@ -9,348 +10,326 @@
 // on (B*N, T, D) q, k, v in the I/O dtype, with scale = 1/sqrt(D) and
 // delta = rowsum(do o) - dlse computed outside:
 //
-//   p = exp(s - lse)   dv += p^T do   ds = p (do v^T - delta) scale
+//   p = exp(s - lse)   dv += p^T do   ds = p (dp - delta) scale, dp = do v^T
 //   dk += ds^T q       dq += ds k
 //
-// The same arithmetic as the Pallas kernels: masked scores are the finite
-// kNeg and their probabilities are forced to exactly 0 (s <= kNeg / 2); p
-// and ds are rounded to the I/O dtype before their products; dk, dv, dq and
-// every product accumulate in float32.
-//
+// The same arithmetic as the Pallas kernels (flash_bwd_common.cuh): p of a
+// hidden score is exactly 0, p and ds are rounded to the I/O dtype before
+// their products, and dk, dv, dq and every product accumulate in float32.
 // The envelope is wider than the Pallas kernels' (T % 128 == 0, no mask):
-// any T >= 1 (the last key and query tiles are ragged and masked), D <= 512,
-// causal or not, and an optional (B, T) uint8 key mask (0 = the key is
-// hidden from every query of that batch row).
+// any T >= 1 (the last tiles ragged and masked), D <= 512, causal or not,
+// and an optional (B, T) uint8 key mask (0 = the key is hidden from every
+// query of that batch row).
 //
 // Design.  The TPU kernels walk a sequential (B*N, q block, k block) grid
-// and carry the online state across it in VMEM scratch.  Here each block
-// owns one (b*n, tile of `rows` rows) pair and walks the other axis itself:
-//   - the dQ sweep owns query rows and walks key tiles; the dK/dV sweep owns
-//     key rows and walks query tiles;
-//   - a row is held by a group of g lanes (g a power of two, g * DPT >= D),
-//     each lane holding dims lane, lane + g, ... (DPT of them) of the row
-//     and of its float32 accumulators in registers; a dot product is DPT
-//     FMAs and log2(g) shuffles;
-//   - the walked side is staged tile by tile in shared memory, converted to
-//     float32 and zero-padded to g * DPT dims, so the inner loops have no
-//     bounds checks and a warp's reads of one tile row are conflict-free;
-//   - causal blocks skip the tiles above the diagonal: the dQ sweep stops at
-//     its last row's key, the dK/dV sweep starts at its first row's query;
-//     inside a tile each entry above the diagonal is masked;
-//   - every output element is owned by one thread and summed in one fixed
+// and carry their sums across it in VMEM scratch.  Here a CTA owns `units`
+// consecutive 16-row tiles of one head, a warp a tile (`split` warps a
+// tile where D > 64, each 64 dims), and walks the other axis itself, in
+// the forward's fragment layout (flash_bwd_common.cuh's steps):
+//   - the dK/dV sweep owns key tiles, holds their k and v as A operands
+//     (mma fragments in bf16) and computes s^T = k q^T with keys as rows,
+//     so p^T and ds^T feed p^T do and ds^T q from the accumulators; the dQ
+//     sweep owns query tiles and forms s = q k^T, then ds k;
+//   - the walked rows (q, do, lse and delta; or k, v and the key flags)
+//     are staged in chunks by cp.async, double-buffered where they fit,
+//     zero-filled past T and past D;
+//   - causal CTAs skip the chunks that see none of their rows (the dK/dV
+//     sweep starts at its first key, the dQ sweep stops at its last
+//     query), and a warp of one tile (split 1) skips the steps that see
+//     none of its own;
+//   - every output element is owned by one lane and summed in one fixed
 //     order: no atomics, the same result from run to run.
+// The plan (tiles, warps, chunks, stages, the shared-memory layout) is
+// flash_bwd_plan.cc's, the same one the fused kernel's launch reads.
 //
-// What bounds them.  At the model's shape (B*N = 1024, T = 30, D = 8) the
-// backward moves about 8 MB: far below one launch, so the sweeps sit at the
-// launch floor and the design only has to keep each to one launch.  At the
-// long-context shape (64, 1024, 8) they are scalar-FMA designs; tensor cores
-// (the forward's mma.sync) are later work for them.
+// What bounds them.  At the long-context (64, 1024, 8) the work is the
+// products: 4 (dK/dV) and 3 (dQ) of 2 D FLOPs a visible pair, 1.1 and 0.8
+// GFLOP, 16 and 12 us at the 67 TFLOP/s float32 rate, beside 67M
+// exponentials a sweep; float32 runs them on FFMA, bf16 on the tensor
+// cores.  At D = 512 the partial scores' sums through shared memory (two
+// CTA barriers a step) come beside them.  At the model's (1024, 30, 8) the
+// sweeps move ~8 MB, far below a launch: there the fused kernel runs.
 
-#include "scan_common.cuh"
+#include "flash_bwd_common.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int kSoftmaxBlock = 128;
-constexpr int kThreads = 128;
-// Shared memory the walked side's tiles may take.
-constexpr int kSmemBudget = 96 * 1024;
+using namespace fmda_flash_bwd;
 
-// One launch's geometry, computed on the host by make_shape.
-struct Shape {
-  int bn;       // B * N
-  int n_heads;  // N: the key mask row of b*n is b = bn / N
-  int t;        // T
-  int d;        // D
-  int g;        // lanes per row, a power of two <= 32
-  int dp;       // g * DPT: the padded row length in shared memory
-  int rows;     // rows a block owns (blockDim.x = rows * g)
-  int bcol;     // rows of the walked side per shared-memory tile
-  int causal;
-  float scale;
+// The buffer of a sweep's walked chunk `i`: two matrices [rows][ld], then
+// the rows' lse and delta, then their key flags.
+template <typename T>
+struct Stage {
+  T* m0;
+  T* m1;
+  float* lse;
+  float* delta;
+  uint8_t* keep;
+  __device__ __forceinline__ Stage(unsigned char* smem, const Plan& p,
+                                   int i) {
+    unsigned char* base =
+        smem + p.off_walk + (p.stages == 2 ? (i & 1) : 0) * p.stage_bytes;
+    m0 = reinterpret_cast<T*>(base);
+    m1 = m0 + p.rows * p.ld;
+    lse = reinterpret_cast<float*>(m1 + p.rows * p.ld);
+    delta = lse + p.rows;
+    keep = reinterpret_cast<uint8_t*>(delta + p.rows);
+  }
 };
 
-__device__ __forceinline__ float group_sum(float x, int g) {
-  // the g lanes of a row group are consecutive and aligned, and every
-  // warp is full (rows * g is a multiple of 32)
-  for (int off = g >> 1; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// This lane's DPT dims of row `row` of a (T, D) matrix, float32, zero past D
-// or past T.
-template <typename T, int DPT>
-__device__ __forceinline__ void load_row(const T* __restrict__ m, int row,
-                                         const Shape& s, int lane,
-                                         float (&r)[DPT]) {
-  const bool live = row < s.t;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int c = lane + s.g * i;
-    r[i] = (live && c < s.d) ? to_f32(m[(long long)row * s.d + c]) : 0.0f;
+// The head a CTA works on and its first own row.
+struct Owner {
+  int head, row0;
+  __device__ __forceinline__ explicit Owner(const Plan& p) {
+    const int own = p.units * kTile;
+    const int per_head = (p.t + own - 1) / own;
+    head = blockIdx.x / per_head;
+    row0 = (blockIdx.x - head * per_head) * own;
   }
-}
+};
 
-template <typename T, int DPT>
-__device__ __forceinline__ void store_row(T* __restrict__ m, int row,
-                                          const Shape& s, int lane,
-                                          const float (&r)[DPT]) {
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int c = lane + s.g * i;
-    if (c < s.d) m[(long long)row * s.d + c] = from_f32<T>(r[i]);
-  }
-}
+// grid (plan.grid), units * SPLIT warps.  CTA c owns key tiles of head
+// c / per_head from key (c % per_head) * units * 16, and warp w the tile
+// w / SPLIT, its dims (w % SPLIT) * DW ...; the queries come in chunks of
+// `rows`.
+template <typename T, int SPLIT, int DW>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    flash_dkv_kernel(Args<T> a, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int unit = warp / SPLIT, ws = warp - unit * SPLIT, dbase = ws * DW;
+  const int own = p.units * kTile;
+  const Owner o(p);
+  const int key0 = o.row0 + unit * kTile;  // the warp's first key
+  const long long hoff = (long long)o.head * p.t * p.d;
+  const long long voff = (long long)o.head * p.t;
+  T* const ks = reinterpret_cast<T*>(smem);
+  T* const vs = ks + own * p.ld;
+  uint8_t* const keep = smem + p.off_vec + 2 * own * 4;
+  float* const buf = reinterpret_cast<float*>(smem + p.off_buf) +
+                     warp * 2 * kTile * kLdw;
+  float4* const red =
+      reinterpret_cast<float4*>(smem + p.off_red) + unit * SPLIT * 4 * 32;
+  const uint8_t* km =
+      a.key_mask == nullptr ? nullptr
+                            : a.key_mask + (long long)(o.head / p.n_heads) * p.t;
 
-// Rows [r0, r0 + n) of a (T, D) matrix into tile[n][dp], float32, zero-padded.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ m, int r0,
-                                          int n, const Shape& s,
-                                          float* __restrict__ tile) {
-  for (int e = threadIdx.x; e < n * s.dp; e += blockDim.x) {
-    const int r = e / s.dp;
-    const int c = e - r * s.dp;
-    tile[e] = c < s.d ? to_f32(m[(long long)(r0 + r) * s.d + c]) : 0.0f;
-  }
-}
-
-// Entries [r0, r0 + n) of a float32 vector (lse, delta) or of the key mask
-// (as 1 / 0) into shared memory.
-__device__ __forceinline__ void load_vec(const float* __restrict__ x, int r0,
-                                         int n, float* __restrict__ out) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) out[e] = x[r0 + e];
-}
-
-__device__ __forceinline__ void load_keep(const uint8_t* __restrict__ km,
-                                          int r0, int n,
-                                          float* __restrict__ out) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x)
-    out[e] = (km == nullptr || km[r0 + e] != 0) ? 1.0f : 0.0f;
-}
-
-template <int DPT>
-__device__ __forceinline__ float row_dot(const float (&r)[DPT],
-                                         const float* __restrict__ col,
-                                         int lane, int g) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc = fmaf(r[i], col[lane + g * i], acc);
-  return group_sum(acc, g);
-}
-
-__device__ __forceinline__ const uint8_t* key_mask_row(const uint8_t* km,
-                                                       const Shape& s) {
-  return km == nullptr ? nullptr
-                       : km + (long long)(blockIdx.x / s.n_heads) * s.t;
-}
-
-// grid (B*N, ceil(T / rows)); thread (r, lane) owns key row
-// blockIdx.y * rows + r and walks the query tiles.  Shared memory: Q and dO
-// tiles [bcol][dp], then the tile's lse and delta [bcol] each.
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const uint8_t* __restrict__ key_mask, T* __restrict__ dk,
-    T* __restrict__ dv, Shape s) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + s.bcol * s.dp;
-  float* lses = dos + s.bcol * s.dp;
-  float* deltas = lses + s.bcol;
-
-  const long long base = (long long)blockIdx.x * s.t * s.d;
-  const long long rbase = (long long)blockIdx.x * s.t;
-  const int row0 = blockIdx.y * s.rows;
-  const int lane = threadIdx.x % s.g;
-  const int j = row0 + threadIdx.x / s.g;
-  const uint8_t* km = key_mask_row(key_mask, s);
-  const bool visible = j < s.t && (km == nullptr || km[j] != 0);
-
-  float kr[DPT], vr[DPT], dk_acc[DPT], dv_acc[DPT];
-  load_row<T, DPT>(k + base, j, s, lane, kr);
-  load_row<T, DPT>(v + base, j, s, lane, vr);
-#pragma unroll
-  for (int e = 0; e < DPT; ++e) dk_acc[e] = dv_acc[e] = 0.0f;
-
-  // causal: no query before the block's first key sees it
-  for (int t0 = s.causal ? row0 : 0; t0 < s.t; t0 += s.bcol) {
-    const int n = min(s.bcol, s.t - t0);
+  if (p.d < SPLIT * DW) {  // columns past D read as zeros
+    zero_smem(smem, p.off_buf);
     __syncthreads();
-    load_tile<T>(q + base, t0, n, s, qs);
-    load_tile<T>(dout + base, t0, n, s, dos);
-    load_vec(lse + rbase, t0, n, lses);
-    load_vec(delta + rbase, t0, n, deltas);
+  }
+  stage_rows<T>(ks, p.ld, a.k + hoff, o.row0, own, p.t, p.d, p.vec);
+  stage_rows<T>(vs, p.ld, a.v + hoff, o.row0, own, p.t, p.d, p.vec);
+  stage_keep(keep, km, o.row0, own, p.t);
+  cp_async_commit();
+
+  // causal: no query before the CTA's first key sees it
+  const int q_begin = p.causal ? o.row0 : 0;
+  const int n_chunks = (p.t - q_begin + p.rows - 1) / p.rows;
+  auto issue = [&](int i) {
+    const Stage<T> st(smem, p, i);
+    const int q0 = q_begin + i * p.rows;
+    stage_rows<T>(st.m0, p.ld, a.q + hoff, q0, p.rows, p.t, p.d, p.vec);
+    stage_rows<T>(st.m1, p.ld, a.dout + hoff, q0, p.rows, p.t, p.d, p.vec);
+    stage_vec(st.lse, a.lse + voff, q0, p.rows, p.t);
+    stage_vec(st.delta, a.delta + voff, q0, p.rows, p.t);
+  };
+  if (p.stages == 2) issue(0);
+  cp_async_commit();
+  cp_async_wait<1>();  // the own rows
+  __syncthreads();
+
+  RowsA<T, DW> ka, va;
+  ka.load(ks + unit * kTile * p.ld + dbase, p.ld, lane);
+  va.load(vs + unit * kTile * p.ld + dbase, p.ld, lane);
+  const KeySpan ksp(keep + unit * kTile, key0, p, lane);
+  float dk[DW / 8][4], dv[DW / 8][4], ds[2][4];
+  zero_acc<DW>(dk);
+  zero_acc<DW>(dv);
+
+  for (int i = 0; i < n_chunks; ++i) {
+    __syncthreads();  // every reader of the buffer refilled next is done
+    if (p.stages == 2) {
+      if (i + 1 < n_chunks) issue(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      issue(i);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    for (int c = 0; c < n; ++c) {
-      const float* qc = qs + c * s.dp;
-      const float* dc = dos + c * s.dp;
-      float sc = row_dot<DPT>(kr, qc, lane, s.g) * s.scale;
-      if (!visible || (s.causal && j > t0 + c)) sc = kNeg;
-      const float p = sc <= kNeg * 0.5f ? 0.0f : expf(sc - lses[c]);
-      const float pr = round_to<T>(p);
-#pragma unroll
-      for (int e = 0; e < DPT; ++e)
-        dv_acc[e] = fmaf(pr, dc[lane + s.g * e], dv_acc[e]);
-      const float dp = row_dot<DPT>(vr, dc, lane, s.g);
-      const float ds = round_to<T>(p * (dp - deltas[c]) * s.scale);
-#pragma unroll
-      for (int e = 0; e < DPT; ++e)
-        dk_acc[e] = fmaf(ds, qc[lane + s.g * e], dk_acc[e]);
+    const Stage<T> st(smem, p, i);
+    const int q0 = q_begin + i * p.rows;
+    const int steps = (min(p.rows, p.t - q0) + kTile - 1) / kTile;
+    for (int s = 0; s < steps; ++s) {
+      const int qb = q0 + s * kTile;
+      // causal, one warp a tile: these queries precede the warp's keys
+      if (SPLIT == 1 && p.causal && qb + kTile - 1 < key0) continue;
+      dkv_step<T, SPLIT, DW>(ka, va, st.m0 + s * kTile * p.ld + dbase,
+                             st.m1 + s * kTile * p.ld + dbase,
+                             st.lse + s * kTile, st.delta + s * kTile, qb,
+                             ksp, p, dk, dv, ds, buf, red, ws, lane);
     }
   }
-  if (j < s.t) {
-    store_row<T, DPT>(dk + base, j, s, lane, dk_acc);
-    store_row<T, DPT>(dv + base, j, s, lane, dv_acc);
-  }
+  store_rows<T, DW>(a.dk + hoff, dk, key0, dbase, p, lane);
+  store_rows<T, DW>(a.dv + hoff, dv, key0, dbase, p, lane);
 }
 
-// grid (B*N, ceil(T / rows)); thread (r, lane) owns query row
-// blockIdx.y * rows + r and walks the key tiles.  Shared memory: K and V
-// tiles [bcol][dp], then the tile's key-mask flags [bcol].
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const uint8_t* __restrict__ key_mask, T* __restrict__ dq, Shape s) {
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + s.bcol * s.dp;
-  float* keep = vs + s.bcol * s.dp;
+// grid (plan.grid), units * SPLIT warps.  CTA c owns query tiles of head
+// c / per_head from query (c % per_head) * units * 16, warp w the tile
+// w / SPLIT; the keys come in chunks of `rows`.
+template <typename T, int SPLIT, int DW>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    flash_dq_kernel(Args<T> a, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int unit = warp / SPLIT, ws = warp - unit * SPLIT, dbase = ws * DW;
+  const int own = p.units * kTile;
+  const Owner o(p);
+  const int query0 = o.row0 + unit * kTile;  // the warp's first query
+  const long long hoff = (long long)o.head * p.t * p.d;
+  const long long voff = (long long)o.head * p.t;
+  T* const qs = reinterpret_cast<T*>(smem);
+  T* const dos = qs + own * p.ld;
+  float* const lses = reinterpret_cast<float*>(smem + p.off_vec);
+  float* const deltas = lses + own;
+  float* const buf = reinterpret_cast<float*>(smem + p.off_buf) +
+                     warp * 2 * kTile * kLdw;
+  float4* const red =
+      reinterpret_cast<float4*>(smem + p.off_red) + unit * SPLIT * 4 * 32;
+  const uint8_t* km =
+      a.key_mask == nullptr ? nullptr
+                            : a.key_mask + (long long)(o.head / p.n_heads) * p.t;
 
-  const long long base = (long long)blockIdx.x * s.t * s.d;
-  const long long rbase = (long long)blockIdx.x * s.t;
-  const int row0 = blockIdx.y * s.rows;
-  const int lane = threadIdx.x % s.g;
-  const int i = row0 + threadIdx.x / s.g;
-  const uint8_t* km = key_mask_row(key_mask, s);
-
-  float qr[DPT], dor[DPT], dq_acc[DPT];
-  load_row<T, DPT>(q + base, i, s, lane, qr);
-  load_row<T, DPT>(dout + base, i, s, lane, dor);
-#pragma unroll
-  for (int e = 0; e < DPT; ++e) dq_acc[e] = 0.0f;
-  const float lse_i = i < s.t ? lse[rbase + i] : 0.0f;
-  const float delta_i = i < s.t ? delta[rbase + i] : 0.0f;
-
-  const int k_end = s.causal ? min(row0 + s.rows, s.t) : s.t;
-  for (int t0 = 0; t0 < k_end; t0 += s.bcol) {
-    const int n = min(s.bcol, k_end - t0);
+  if (p.d < SPLIT * DW) {
+    zero_smem(smem, p.off_buf);
     __syncthreads();
-    load_tile<T>(k + base, t0, n, s, ks);
-    load_tile<T>(v + base, t0, n, s, vs);
-    load_keep(km, t0, n, keep);
+  }
+  stage_rows<T>(qs, p.ld, a.q + hoff, o.row0, own, p.t, p.d, p.vec);
+  stage_rows<T>(dos, p.ld, a.dout + hoff, o.row0, own, p.t, p.d, p.vec);
+  stage_vec(lses, a.lse + voff, o.row0, own, p.t);
+  stage_vec(deltas, a.delta + voff, o.row0, own, p.t);
+  cp_async_commit();
+
+  // causal: no key after the CTA's last query is seen by it
+  const int k_end = p.causal ? min(p.t, o.row0 + own) : p.t;
+  const int n_chunks = (k_end + p.rows - 1) / p.rows;
+  auto issue = [&](int i) {
+    const Stage<T> st(smem, p, i);
+    const int k0 = i * p.rows;
+    stage_rows<T>(st.m0, p.ld, a.k + hoff, k0, p.rows, p.t, p.d, p.vec);
+    stage_rows<T>(st.m1, p.ld, a.v + hoff, k0, p.rows, p.t, p.d, p.vec);
+    stage_keep(st.keep, km, k0, p.rows, p.t);
+  };
+  if (p.stages == 2) issue(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  RowsA<T, DW> qa, doa;
+  qa.load(qs + unit * kTile * p.ld + dbase, p.ld, lane);
+  doa.load(dos + unit * kTile * p.ld + dbase, p.ld, lane);
+  const float lse_r[2] = {lses[unit * kTile + g], lses[unit * kTile + g + 8]};
+  const float delta_r[2] = {deltas[unit * kTile + g],
+                            deltas[unit * kTile + g + 8]};
+  float dq[DW / 8][4];
+  zero_acc<DW>(dq);
+
+  for (int i = 0; i < n_chunks; ++i) {
     __syncthreads();
-    for (int c = 0; c < n; ++c) {
-      const float* kc = ks + c * s.dp;
-      float sc = row_dot<DPT>(qr, kc, lane, s.g) * s.scale;
-      if (keep[c] == 0.0f || (s.causal && t0 + c > i)) sc = kNeg;
-      const float p = sc <= kNeg * 0.5f ? 0.0f : expf(sc - lse_i);
-      const float dp = row_dot<DPT>(dor, vs + c * s.dp, lane, s.g);
-      const float ds = round_to<T>(p * (dp - delta_i) * s.scale);
-#pragma unroll
-      for (int e = 0; e < DPT; ++e)
-        dq_acc[e] = fmaf(ds, kc[lane + s.g * e], dq_acc[e]);
+    if (p.stages == 2) {
+      if (i + 1 < n_chunks) issue(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      issue(i);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const Stage<T> st(smem, p, i);
+    const int k0 = i * p.rows;
+    const int steps = (min(p.rows, k_end - k0) + kTile - 1) / kTile;
+    for (int s = 0; s < steps; ++s) {
+      const int kb = k0 + s * kTile;
+      // causal, one warp a tile: these keys follow the warp's queries
+      if (SPLIT == 1 && p.causal && kb > query0 + kTile - 1) continue;
+      dq_step<T, SPLIT, DW>(qa, doa, st.m0 + s * kTile * p.ld + dbase,
+                            st.m1 + s * kTile * p.ld + dbase,
+                            st.keep + s * kTile, lse_r, delta_r, query0, kb,
+                            p, dq, buf, red, ws, lane);
     }
   }
-  if (i < s.t) store_row<T, DPT>(dq + base, i, s, lane, dq_acc);
+  store_rows<T, DW>(a.dq + hoff, dq, query0, dbase, p, lane);
 }
 
-// The geometry of a launch, or false outside the envelope.  DPT (dims per
-// lane) is 4, 8 or 16; g the fewest lanes that cover D with it.
-bool make_shape(int bn, int n_heads, int t, int d, int causal, float scale,
-                Shape* s, int* dpt) {
-  if (bn <= 0 || n_heads <= 0 || bn % n_heads != 0 || t <= 0 || d <= 0 ||
-      d > 512)
-    return false;
-  *dpt = d <= 4 ? 4 : (d <= 8 ? 8 : 16);
-  int g = 1;
-  while (g * *dpt < d) g <<= 1;
-  // rows: whole warps, no more than T needs (T = 30 takes one warp at g = 1)
-  const int per_warp = 32 / g;
-  int rows = kThreads / g;
-  const int need = (t + per_warp - 1) / per_warp * per_warp;
-  if (rows > need) rows = need;
-  const int dp = g * *dpt;
-  int bcol = kSoftmaxBlock;
-  while (bcol > 1 &&
-         (2 * bcol * dp + 2 * bcol) * (int)sizeof(float) > kSmemBudget)
-    bcol >>= 1;
-  *s = Shape{bn, n_heads, t, d, g, dp, rows, bcol, causal != 0, scale};
-  return true;
-}
-
-size_t smem_bytes(const Shape& s) {
-  return (size_t)(2 * s.bcol * s.dp + 2 * s.bcol) * sizeof(float);
-}
+// -- the launch --------------------------------------------------------------
 
 // kind 1: dK/dV, 2: dQ.
-template <typename T, int DPT>
-cudaError_t launch_dpt(int kind, const Shape& s, const void* q, const void* k,
-                       const void* v, const void* dout, const void* lse_in,
-                       const void* delta, const uint8_t* km, void* out0,
-                       void* out1, cudaStream_t stream) {
-  const dim3 grid((unsigned)s.bn, (unsigned)((s.t + s.rows - 1) / s.rows));
-  const dim3 block((unsigned)(s.rows * s.g));
-  const size_t smem = smem_bytes(s);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  cudaError_t err;
-  if (kind == 1) {
-    err = allow_smem(flash_dkv_kernel<T, DPT>, smem);
-    if (err != cudaSuccess) return err;
-    flash_dkv_kernel<T, DPT><<<grid, block, smem, stream>>>(
-        qp, kp, vp, static_cast<const T*>(dout),
-        static_cast<const float*>(lse_in), static_cast<const float*>(delta),
-        km, static_cast<T*>(out0), static_cast<T*>(out1), s);
-  } else {
-    err = allow_smem(flash_dq_kernel<T, DPT>, smem);
-    if (err != cudaSuccess) return err;
-    flash_dq_kernel<T, DPT><<<grid, block, smem, stream>>>(
-        qp, kp, vp, static_cast<const T*>(dout),
-        static_cast<const float*>(lse_in), static_cast<const float*>(delta),
-        km, static_cast<T*>(out0), s);
-  }
+template <typename T, int SPLIT, int DW>
+cudaError_t launch_one(int kind, const Plan& p, const Args<T>& a,
+                       cudaStream_t stream) {
+  auto kernel = kind == 1 ? flash_dkv_kernel<T, SPLIT, DW>
+                          : flash_dq_kernel<T, SPLIT, DW>;
+  const cudaError_t err = allow_smem(kernel, (size_t)p.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<p.grid, p.threads, p.smem, stream>>>(a, p);
   return cudaGetLastError();
+}
+
+// The instance of the plan's (split, dw), or cudaErrorInvalidValue where
+// there is none.
+template <typename T>
+cudaError_t dispatch(int kind, const Plan& p, const Args<T>& a,
+                     cudaStream_t st) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if (p.split == 1) {
+    if constexpr (!kBf16) {  // bf16's k-step is 16 dims
+      if (p.dw == 8) return launch_one<T, 1, 8>(kind, p, a, st);
+    }
+    if (p.dw == 16) return launch_one<T, 1, 16>(kind, p, a, st);
+    if (p.dw == 32) return launch_one<T, 1, 32>(kind, p, a, st);
+    if (p.dw == 64) return launch_one<T, 1, 64>(kind, p, a, st);
+  } else if (p.dw == 64) {
+    if (p.split == 2) return launch_one<T, 2, 64>(kind, p, a, st);
+    if (p.split == 4) return launch_one<T, 4, 64>(kind, p, a, st);
+    if (p.split == 8) return launch_one<T, 8, 64>(kind, p, a, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch(int kind, const void* q, const void* k, const void* v,
-           const void* dout, const void* lse_in, const void* delta,
+           const void* dout, const void* lse, const void* delta,
            const void* key_mask, void* out0, void* out1, int bn, int n_heads,
            int t, int d, int causal, float scale, int device, void* stream) {
-  Shape s;
-  int dpt;
-  if (!make_shape(bn, n_heads, t, d, causal, scale, &s, &dpt))
+  Plan p;
+  if (!make_plan(bn, n_heads, t, d, causal, scale, (int)sizeof(T),
+                 /*sweeps=*/1, q, k, v, dout, &p))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const uint8_t* km = static_cast<const uint8_t*>(key_mask);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dpt == 4)
-    err = launch_dpt<T, 4>(kind, s, q, k, v, dout, lse_in, delta, km, out0,
-                           out1, st);
-  else if (dpt == 8)
-    err = launch_dpt<T, 8>(kind, s, q, k, v, dout, lse_in, delta, km, out0,
-                           out1, st);
-  else
-    err = launch_dpt<T, 16>(kind, s, q, k, v, dout, lse_in, delta, km, out0,
-                            out1, st);
-  return (int)err;
+  Args<T> a{static_cast<const T*>(q),      static_cast<const T*>(k),
+            static_cast<const T*>(v),      static_cast<const T*>(dout),
+            static_cast<const float*>(lse), static_cast<const float*>(delta),
+            static_cast<const uint8_t*>(key_mask), nullptr, nullptr, nullptr};
+  if (kind == 1) {
+    a.dk = static_cast<T*>(out0);
+    a.dv = static_cast<T*>(out1);
+  } else {
+    a.dq = static_cast<T*>(out0);
+  }
+  return (int)dispatch<T>(kind, p, a, reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  q, k, v, do and the outputs are contiguous
 // (B*N, T, D) in the I/O dtype; lse and delta contiguous (B*N, T) float32;
-// key_mask a contiguous (B, T) uint8 or null.  (The forward's entries are in
-// flash_fwd.cu.)  Returns cudaGetLastError()
-// after the launch (0 = success); cudaErrorInvalidValue outside the
-// envelope.
+// key_mask a contiguous (B, T) uint8 or null.  The launch is laid out by
+// fmda_flash_bwd::plan's sweeps.  Returns cudaGetLastError() after the
+// launch (0 = success); cudaErrorInvalidValue outside the envelope.
 extern "C" int fmda_flash_dkv_f32(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* key_mask,

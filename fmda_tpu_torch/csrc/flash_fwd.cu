@@ -1,7 +1,7 @@
 // The flash-attention forward for NVIDIA Hopper (sm_90a), bound to PyTorch
 // via ctypes by fmda_tpu_torch/ops/attention_kernel.py (the library is built
-// by fmda_tpu_torch/ops/_cuda_lib.py; the dK/dV and dQ sweeps live in
-// flash_attn.cu).
+// by fmda_tpu_torch/ops/_cuda_lib.py; the backward lives in flash_bwd.cu
+// and flash_attn.cu, and the primitives they share in flash_mma.cuh).
 //
 // Replaces: fmda_tpu/ops/pallas_attention.py::_fwd_kernel, the Pallas TPU
 // kernel behind flash_attention_with_lse.  On (B*N, T, D) q, k, v in the I/O
@@ -60,7 +60,7 @@
 // 20 us on the SFUs) come close beside them.
 
 #include "flash_fwd_plan.h"
-#include "scan_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -76,85 +76,21 @@ struct Plan : fmda_flash::Geometry {
   float scale;
 };
 
-// -- the primitives ----------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned ld_u32(const void* p) {
-  return *static_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1,
-                                                  const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(s));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
 // -- staging -----------------------------------------------------------------
 
-// Rows [key0, key0 + tk) of one head's (T, D) matrix into a tile [tk][ld]:
-// cp.async 16-byte chunks when the rows allow them (zero-filled past T),
-// else plain loads.  Columns past D keep the zeros they were given once.
+// The plan's tk rows of one head's (T, D) matrix from key0 into a tile
+// [tk][ld], and their key flags (flash_mma.cuh's staging).
 template <typename T>
 __device__ __forceinline__ void stage_rows(T* __restrict__ dst, int ld,
                                            const T* __restrict__ head,
                                            int key0, const Plan& p) {
-  if (p.vec) {
-    constexpr int kChunk = 16 / sizeof(T);
-    const int per_row = p.d / kChunk;
-    for (int e = threadIdx.x; e < p.tk * per_row; e += blockDim.x) {
-      const int r = e / per_row, c = (e - r * per_row) * kChunk;
-      const bool live = key0 + r < p.t;
-      cp_async16(dst + r * ld + c,
-                 head + (long long)(live ? key0 + r : 0) * p.d + c,
-                 live ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < p.tk * p.d; e += blockDim.x) {
-      const int r = e / p.d, c = e - r * p.d;
-      dst[r * ld + c] = key0 + r < p.t
-                            ? head[(long long)(key0 + r) * p.d + c]
-                            : from_f32<T>(0.0f);
-    }
-  }
+  ::stage_rows<T>(dst, ld, head, key0, p.tk, p.t, p.d, p.vec != 0);
 }
 
 __device__ __forceinline__ void stage_keep(uint8_t* __restrict__ dst,
                                            const uint8_t* __restrict__ km,
                                            int key0, const Plan& p) {
-  for (int r = threadIdx.x; r < p.tk; r += blockDim.x) {
-    const int key = key0 + r;
-    dst[r] = key < p.t && (km == nullptr || km[key] != 0);
-  }
+  ::stage_keep(dst, km, key0, p.tk, p.t);
 }
 
 // -- the kernel --------------------------------------------------------------

@@ -5,9 +5,12 @@ Every kernel source under ``csrc/`` (the GRU scans in ``gru_scan.cu``, the
 LSTM scans in ``lstm_scan.cu``, the backward scans' weight gradient in
 ``scan_dw.cu``, the SSM step and the fused serve tick in ``ssm_step.cu``,
 the flash-attention forward in ``flash_fwd.cu``, laid out by the host code
-of ``flash_fwd_plan.cc``, and its dK/dV and dQ sweeps in ``flash_attn.cu``,
-the kernels all including ``scan_common.cuh``) goes into one
-shared library with a plain C interface, loaded with :mod:`ctypes`.  Each
+of ``flash_fwd_plan.cc``, its fused backward in ``flash_bwd.cu`` and its
+dK/dV and dQ sweeps in ``flash_attn.cu``, both laid out by
+``flash_bwd_plan.cc`` and sharing ``flash_bwd_common.cuh``; the kernels all
+including ``scan_common.cuh``, the flash kernels ``flash_mma.cuh``) goes
+into one shared library with a plain C interface, loaded with
+:mod:`ctypes`.  Each
 source is compiled by its own ``nvcc`` for sm_90a, all started together,
 and the objects are linked into
 ``build/fmda_tpu_torch/<hash of sources, headers and flags>/`` at the
@@ -33,10 +36,14 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES: Tuple[Path, ...] = (_CSRC / "gru_scan.cu", _CSRC / "lstm_scan.cu",
                              _CSRC / "scan_dw.cu", _CSRC / "ssm_step.cu",
                              _CSRC / "flash_fwd.cu", _CSRC / "flash_fwd_plan.cc",
-                             _CSRC / "flash_attn.cu")
+                             _CSRC / "flash_attn.cu", _CSRC / "flash_bwd.cu",
+                             _CSRC / "flash_bwd_plan.cc")
 #: Headers the sources include: part of the library's key.
 HEADERS: Tuple[Path, ...] = (_CSRC / "scan_common.cuh",
-                             _CSRC / "flash_fwd_plan.h")
+                             _CSRC / "flash_fwd_plan.h",
+                             _CSRC / "flash_mma.cuh",
+                             _CSRC / "flash_bwd_common.cuh",
+                             _CSRC / "flash_bwd_plan.h")
 BUILD_ROOT = _CSRC.parents[1] / "build" / "fmda_tpu_torch"
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -164,6 +171,17 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, f"fmda_{name}_{tag}")
                 fn.argtypes = [*[p] * n_ptrs, i, i, i, i, i, f, i, p]
                 fn.restype = i
+        for tag in SUPPORTED.values():
+            # q, k, v, do, lse, delta, key_mask, dq, dk, dv, B*N, N, T, D,
+            # causal, scale, device, stream, then the int it sets to 1
+            # where the fused kernel ran
+            fn = getattr(lib, f"fmda_flash_bwd_{tag}")
+            fn.argtypes = [*[p] * 10, i, i, i, i, i, f, i, p,
+                           ctypes.POINTER(i)]
+            fn.restype = i
+        # B*N, N, T, D, itemsize, sweeps, out[12]
+        lib.fmda_flash_bwd_plan.argtypes = [i, i, i, i, i, i, p]
+        lib.fmda_flash_bwd_plan.restype = i
         for tag in SUPPORTED.values():
             # dg, its row stride, tail, tail_from, hs, h0, B, T, H, gH,
             # reverse, partials, dw_db, device, stream

@@ -1,5 +1,5 @@
-"""Flash attention as three hand-written CUDA kernels, with their plain
-versions and the differentiable op that joins them.
+"""Flash attention as hand-written CUDA kernels, with their plain versions
+and the differentiable op that joins them.
 
 - :func:`flash_fwd` is the port of ``fmda_tpu/ops/pallas_attention.py``'s
   ``_fwd_kernel``: the online softmax over key blocks of
@@ -9,12 +9,19 @@ versions and the differentiable op that joins them.
   :func:`flash_fwd_plan` reports how the kernel lays a call out.
 - :func:`flash_dkv` and :func:`flash_dq` are the ports of ``_dkv_kernel``
   and ``_dq_kernel``: each recomputes ``p = exp(s - lse)`` and sweeps the
-  other axis for its gradients.  ``delta = rowsum(do * o) - dlse`` is
-  computed in torch outside them (:func:`flash_delta`), as
-  ``pallas_attention._bwd_impl`` computes it outside its kernels.
+  other axis for its gradients (``csrc/flash_attn.cu``).  ``delta =
+  rowsum(do * o) - dlse`` is computed in torch outside them
+  (:func:`flash_delta`), as ``pallas_attention._bwd_impl`` computes it
+  outside its kernels.
+- :func:`flash_bwd` is the backward the differentiable op runs: dq, dk and
+  dv in one launch of ``csrc/flash_bwd.cu``'s kernel where a CTA holds
+  whole heads (T <= 128, D <= 64: the model's window), which computes s
+  and ds once and forms dq from the ds it kept; elsewhere the two sweeps.
+  :func:`flash_bwd_plan` reports which, and how the launch is laid out.
 - :func:`flash_attention_with_lse` is the differentiable op, a
-  :class:`torch.autograd.Function` over the three, as ``custom_vjp`` joins
-  the Pallas kernels; :func:`flash_attention` returns ``o`` alone.
+  :class:`torch.autograd.Function` over :func:`flash_fwd` and
+  :func:`flash_bwd`, as ``custom_vjp`` joins the Pallas kernels;
+  :func:`flash_attention` returns ``o`` alone.
 
 Their arithmetic is the Pallas kernels': scores ``q k^T / sqrt(D)`` in
 float32, masked entries set to the finite :data:`NEG` and their
@@ -27,9 +34,9 @@ mask): self-attention on (B, N, T, D) with any T >= 1 (the last key block
 is ragged), D <= 512, causal or not, and an optional (B, T) key mask
 (True = the key is visible to every query of that row).  Anything else
 raises.  On CUDA tensors each wrapper launches its kernels (from
-``csrc/flash_fwd.cu`` and ``csrc/flash_attn.cu``, in the library
-:mod:`fmda_tpu_torch.ops._cuda_lib` builds at first use) or raises; on CPU
-tensors it runs its plain version.
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` and ``csrc/flash_attn.cu``, in
+the library :mod:`fmda_tpu_torch.ops._cuda_lib` builds at first use) or
+raises; on CPU tensors it runs its plain version.
 """
 
 from __future__ import annotations
@@ -47,10 +54,14 @@ _on_cpu = _cuda_lib.on_cpu
 
 #: Kernel launches made by :func:`flash_fwd` (CPU calls do not count).
 fwd_launches = 0
-#: Kernel launches made by :func:`flash_dkv`.
+#: Kernel launches made by :func:`flash_dkv`, and by :func:`flash_bwd`
+#: where it runs the sweeps.
 dkv_launches = 0
-#: Kernel launches made by :func:`flash_dq`.
+#: Kernel launches made by :func:`flash_dq`, and by :func:`flash_bwd`
+#: where it runs the sweeps.
 dq_launches = 0
+#: Launches of the fused backward kernel made by :func:`flash_bwd`.
+bwd_launches = 0
 
 #: The finite stand-in for -inf in masked score slots.
 NEG = -1e30
@@ -62,6 +73,9 @@ MAX_D = 512
 #: The fields of the forward's plan, in the order its query reports them.
 FWD_PLAN_FIELDS = ("split", "dw", "units", "wph", "resident", "keys", "tk",
                    "stages", "ldq", "ldk", "ldv", "grid", "smem")
+#: The fields of the backward's plan, in the order its query reports them.
+BWD_PLAN_FIELDS = ("fused", "split", "dw", "units", "wph", "rows", "stages",
+                   "ld", "ldd", "grid", "smem", "threads")
 
 Tensor = torch.Tensor
 
@@ -91,6 +105,36 @@ def flash_fwd_plan(bn: int, n_heads: int, t: int, d: int, dtype: torch.dtype,
                          f"N={n_heads}, T={t}, D={d}")
     plan = dict(zip(FWD_PLAN_FIELDS, out))
     plan["resident"] = bool(plan["resident"])
+    return plan
+
+
+def flash_bwd_plan(bn: int, n_heads: int, t: int, d: int, dtype: torch.dtype,
+                   *, sweeps: bool = False,
+                   lib: Optional[ctypes.CDLL] = None) -> Dict[str, int]:
+    """How the backward runs (B*N, T, D) in ``dtype``, from the launch's own
+    plan (``fmda_flash_bwd_plan`` in ``csrc/flash_bwd_plan.cc``, read from
+    ``lib``, the card's library by default): :func:`flash_bwd`'s, or with
+    ``sweeps`` that of :func:`flash_dkv` and :func:`flash_dq`.
+
+    ``fused`` (T <= 128 and D <= 64, unless ``sweeps``): one launch, a CTA
+    holding ``units`` whole (b*n) heads and ``wph`` warps a head, each warp
+    owning the head's key tiles w, w + wph, ... and then its query tiles.
+    Else each sweep's CTA owns ``units`` 16-row tiles of one head,
+    ``split`` warps a tile of ``dw`` dims each, and walks the other axis in
+    chunks of ``rows`` through ``stages`` buffers.  ``ld``: the q, k, v and
+    do tiles' row stride in elements; ``ldd``: the fused kernel's ds rows;
+    ``grid``: CTAs; ``smem``: bytes a CTA; ``threads``: a CTA's."""
+    if dtype not in _cuda_lib.SUPPORTED:
+        raise TypeError(f"flash_bwd takes float32 or bfloat16, got {dtype}")
+    lib = lib or _cuda_lib.load()
+    out = (ctypes.c_int * len(BWD_PLAN_FIELDS))()
+    item = torch.tensor([], dtype=dtype).element_size()
+    if lib.fmda_flash_bwd_plan(bn, n_heads, t, d, item, int(sweeps),
+                               out) != 0:
+        raise ValueError(f"flash_bwd plan outside the envelope: B*N={bn}, "
+                         f"N={n_heads}, T={t}, D={d}")
+    plan = dict(zip(BWD_PLAN_FIELDS, out))
+    plan["fused"] = bool(plan["fused"])
     return plan
 
 
@@ -214,6 +258,17 @@ def flash_dq_reference(
     return torch.matmul(up(ds), up(k)).to(q.dtype)
 
 
+def flash_bwd_reference(
+    q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: Tensor,
+    *, causal: bool = False, key_mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The plain version of the fused backward: (dq, dk, dv), the two plain
+    sweeps :func:`flash_dq_reference` and :func:`flash_dkv_reference`."""
+    kw = dict(causal=causal, key_mask=key_mask)
+    dk, dv = flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    return flash_dq_reference(q, k, v, do, lse, delta, **kw), dk, dv
+
+
 def flash_delta(o: Tensor, do: Tensor, dlse: Tensor) -> Tensor:
     """``rowsum(do * o) - dlse`` in float32, (B, N, T): the backward's
     per-row term, the lse cotangent folded in (d lse_i / d s_ij = p_ij)."""
@@ -274,6 +329,24 @@ def flash_dq(
     return _launch_bwd("dq", q, k, v, do, lse, delta, causal, key_mask)[0]
 
 
+def flash_bwd(
+    q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: Tensor,
+    *, causal: bool = False, key_mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward: (dq, dk, dv), the signature of
+    :func:`flash_bwd_reference`.  CUDA tensors run one C call that launches
+    the fused kernel (counted in :data:`bwd_launches`) where
+    :func:`flash_bwd_plan` fuses, else the two sweeps (counted in
+    :data:`dkv_launches` and :data:`dq_launches`), or raise; CPU tensors
+    run the plain version."""
+    tensors = [q, k, v, do, lse, delta] + (
+        [key_mask] if key_mask is not None else [])
+    if _on_cpu("flash_bwd", tensors):
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal=causal,
+                                   key_mask=key_mask)
+    return _launch_flash_bwd(q, k, v, do, lse, delta, causal, key_mask)
+
+
 def _folded(name: str, q: Tensor, k: Tensor, v: Tensor,
             key_mask: Optional[Tensor]):
     """The checks every launch makes; q, k, v as contiguous (B*N, T, D) and
@@ -305,32 +378,56 @@ def _launch_fwd(q, k, v, causal, key_mask):
     return o.view(b, n, t, d), lse.view(b, n, t)
 
 
-def _launch_bwd(kind, q, k, v, do, lse, delta, causal, key_mask):
-    """Launch the ``kind`` ("dkv" or "dq") sweep: (dk, dv) or (dq,)."""
-    global dkv_launches, dq_launches
-    (b, n, t, d), (q3, k3, v3), mask = _folded(f"flash_{kind}", q, k, v,
-                                               key_mask)
+def _call_bwd(name, n_outs, q, k, v, do, lse, delta, causal, key_mask,
+              *extra):
+    """Call the C entry ``fmda_<name>_<dtype>`` of a backward: the checks,
+    the operands as the kernels read them, ``n_outs`` (B*N, T, D) outputs
+    in q's dtype, then ``extra`` arguments after the stream."""
+    (b, n, t, d), (q3, k3, v3), mask = _folded(name, q, k, v, key_mask)
     _cuda_lib.check_shapes(
         {"do": (b, n, t, d), "lse": (b, n, t), "delta": (b, n, t)},
         {"do": do, "lse": lse, "delta": delta})
     do3 = do.to(q.dtype).reshape(b * n, t, d).contiguous()
     lse2, delta2 = (x.to(torch.float32).reshape(b * n, t).contiguous()
                     for x in (lse, delta))
-    outs = [torch.empty_like(q3) for _ in range(2 if kind == "dkv" else 1)]
+    outs = [torch.empty_like(q3) for _ in range(n_outs)]
     lib = _cuda_lib.load()
-    fn = getattr(lib, f"fmda_flash_{kind}_{_cuda_lib.SUPPORTED[q.dtype]}")
+    fn = getattr(lib, f"fmda_{name}_{_cuda_lib.SUPPORTED[q.dtype]}")
     err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
              lse2.data_ptr(), delta2.data_ptr(),
              None if mask is None else mask.data_ptr(),
              *(x.data_ptr() for x in outs), b * n, n, t, d,
              int(bool(causal)), ctypes.c_float(_scale(d)),
-             _cuda_lib.device_index(q), _cuda_lib.stream_of(q))
-    _cuda_lib.raise_on(lib, err, f"flash_{kind}")
+             _cuda_lib.device_index(q), _cuda_lib.stream_of(q), *extra)
+    _cuda_lib.raise_on(lib, err, name)
+    return tuple(x.view(b, n, t, d) for x in outs)
+
+
+def _launch_bwd(kind, q, k, v, do, lse, delta, causal, key_mask):
+    """Launch the ``kind`` ("dkv" or "dq") sweep: (dk, dv) or (dq,)."""
+    global dkv_launches, dq_launches
+    outs = _call_bwd(f"flash_{kind}", 2 if kind == "dkv" else 1, q, k, v, do,
+                     lse, delta, causal, key_mask)
     if kind == "dkv":
         dkv_launches += 1
     else:
         dq_launches += 1
-    return tuple(x.view(b, n, t, d) for x in outs)
+    return outs
+
+
+def _launch_flash_bwd(q, k, v, do, lse, delta, causal, key_mask):
+    """Run the backward in one C call: (dq, dk, dv), from the fused kernel
+    or the two sweeps, as the plan has it."""
+    global bwd_launches, dkv_launches, dq_launches
+    fused = ctypes.c_int(-1)
+    outs = _call_bwd("flash_bwd", 3, q, k, v, do, lse, delta, causal,
+                     key_mask, ctypes.byref(fused))
+    if fused.value:
+        bwd_launches += 1
+    else:
+        dkv_launches += 1
+        dq_launches += 1
+    return outs
 
 
 # -- the differentiable op -----------------------------------------------------
@@ -338,7 +435,7 @@ def _launch_bwd(kind, q, k, v, do, lse, delta, causal, key_mask):
 
 class _Flash(torch.autograd.Function):
     """Forward :func:`flash_fwd`; backward :func:`flash_delta`, then
-    :func:`flash_dkv` and :func:`flash_dq`; the residuals are the inputs, o and lse (the
+    :func:`flash_bwd`; the residuals are the inputs, o and lse (the
     backward recomputes p), as ``pallas_attention._flash_fwd`` saves them.
     An output whose cotangent autograd leaves undefined gets zeros."""
 
@@ -352,10 +449,9 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, o, lse, key_mask = ctx.saved_tensors
-        args = (q, k, v, do, lse, flash_delta(o, do, dlse))
-        kw = dict(causal=ctx.causal, key_mask=key_mask)
-        dk, dv = flash_dkv(*args, **kw)
-        return flash_dq(*args, **kw), dk, dv, None, None
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, flash_delta(o, do, dlse),
+                               causal=ctx.causal, key_mask=key_mask)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_with_lse(

@@ -34,6 +34,7 @@ from fmda_tpu_torch.runtime import SessionPool
 from fmda_tpu_torch.serve import StreamingBiGRU
 
 TOL = 1e-5
+BF16_TOL = 2e-2
 
 
 def _jax_params(cfg, seed=0, steps=7):
@@ -98,6 +99,29 @@ def test_full_width_transformer_matches_jax(masked):
     x = np.random.default_rng(6).normal(size=(4, 30, 108)).astype(np.float32)
     mask = _ragged_mask(4, 30) if masked else None
     _check(*_logits_and_grads(jax_model, params, port, x, mask, seed=2))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_full_width_transformer_matches_jax_in_bf16(masked):
+    """The logits of 8 windows with ``dtype="bfloat16"`` (params float32 on
+    both sides): the two frameworks round the bf16 compute at other
+    places, so 2e-2."""
+    jax_cfg = dataclasses.replace(jax_config.FrameworkConfig().model,
+                                  cell="attn", dtype="bfloat16")
+    cfg = dataclasses.replace(FrameworkConfig().model, cell="attn",
+                              dtype="bfloat16")
+    jax_model, params = _jax_params(jax_cfg, seed=1, steps=30)
+    port = _port(cfg, params)
+    x = np.random.default_rng(8).normal(size=(8, 30, 108)).astype(np.float32)
+    mask = _ragged_mask(8, 30) if masked else None
+    want = jax_model.apply({"params": params}, x,
+                           mask=None if mask is None else jnp.asarray(mask))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x),
+                   mask=None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=BF16_TOL,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("masked", [False, True])

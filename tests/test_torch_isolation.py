@@ -158,6 +158,7 @@ def test_kernel_is_not_built_at_import():
         "assert l.launches == l.bwd_launches == 0\n"
         "assert s.launches == s.tick_launches == 0\n"
         "assert a.fwd_launches == a.dkv_launches == a.dq_launches == 0\n"
+        "assert a.bwd_launches == 0\n"
         "assert d.launches == 0\n"
         "assert 'triton' not in __import__('sys').modules\n"
     )

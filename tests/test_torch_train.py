@@ -68,6 +68,7 @@ LOSS_TOL = 1e-6
 #: sums in two frameworks differ in the last bits each step, and the
 #: steps compound it
 TRAIN_TOL = 1e-5
+BF16_TOL = 2e-2
 N_ROWS, N_FEATURES, N_CLASSES = 150, 6, 4
 HIDDEN, WINDOW, CHUNK, BATCH = 8, 6, 40, 16
 
@@ -226,6 +227,41 @@ def test_trainer_tracks_the_jax_trainer(cell):
                              for a in (got_p, want_p))
         np.testing.assert_allclose(got_p, want_p, atol=TRAIN_TOL,
                                    err_msg=name)
+
+
+def test_attn_trainer_tracks_the_jax_trainer_in_bf16():
+    """The attn family's 16 steps with ``dtype="bfloat16"`` (params float32
+    on both sides, dropout 0): per-epoch losses within 2e-2, the bf16
+    tolerance; the params within Adam's drift bound, 16 steps x lr, since
+    each framework rounds the bf16 compute at other places and Adam scales
+    what the gradients then differ by to steps of up to lr."""
+    x, y, fields = _data()
+    model, tc = _configs()
+    model.update(cell="attn", attn_dropout=0.0, dtype="bfloat16")
+    weight, pos_weight = imbalance_weights_from_source(
+        ArraySource(x, y, fields))
+    jax_trainer = JaxTrainer(JaxModelConfig(**model, use_pallas=False),
+                             JaxTrainConfig(**tc), weight=weight,
+                             pos_weight=pos_weight)
+    init_rng, _ = jax.random.split(jax.random.PRNGKey(0))
+    init = jax.device_get(jax_trainer.init_state(init_rng).params)
+    jax_state, want, _ = jax_trainer.fit(JaxArraySource(x, y, fields))
+    trainer = Trainer(ModelConfig(**model), TrainConfig(**tc),
+                      weight=weight, pos_weight=pos_weight, device="cpu")
+    state, got, _ = trainer.fit(
+        ArraySource(x, y, fields),
+        initial_state=trainer.init_state(params_from_flax(init)))
+    assert state.step == int(jax_state.step) == 16
+    for split in ("train", "val"):
+        np.testing.assert_allclose([g.loss for g in got[split]],
+                                   [w.loss for w in want[split]],
+                                   atol=BF16_TOL)
+    drift = state.step * TrainConfig(**tc).learning_rate
+    final = params_from_flax(jax.device_get(jax_state.params))
+    for name, p in state.model.state_dict().items():
+        assert p.dtype == torch.float32
+        np.testing.assert_allclose(p.numpy(), final[name].numpy(),
+                                   atol=drift, rtol=0, err_msg=name)
 
 
 def test_accum_steps_2_equals_accum_steps_1():
