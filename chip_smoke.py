@@ -59,11 +59,21 @@ Phases, each printed as one JSON line, each fatal on failure:
    and a slot exported, freed and imported back and into a fresh pool,
    both ticking on bit-identically.  The ssm pool's flush is one launch of
    the fused tick, and at most SSM_POOL_MAX_OPS device ops.
+9. ``fleet``: ``FleetGateway`` over the same pool, driven by
+   ``run_fleet_load`` through FLEET_LOADS (64 sessions x 100 rounds, 128
+   sessions, a ragged fleet at duty 0.5 with reconnect storms on a virtual
+   clock), each at pipeline depth 1 and 0: ticks/s, total and device
+   p50/p99, flushes by bucket, the busy share; both depths the same bits,
+   every session's last probabilities against the same load on the CPU.
+10. ``predictor fleet``: ``PredictorGateway`` over the warehouse, 2,048
+   signals in bursts of 32 through ``run_predictor_load``, the device
+   window ring off then on (the same bits); a bucket-1 flush the solo
+   Predictor's bits, bucketed flushes within PATH_TOL of it.
 
-Phases 4-6 run for the BiGRU (``cell="gru"``, the default), the BiLSTM
-(``cell="lstm"``), the TemporalTransformer (``cell="attn"``: the flash
-kernels) and the bidirectional gated SSM (``cell="ssm"``: parallel mode,
-no kernel); phases 7 and 8 for gru, lstm and ssm (``stream
+Phases 4-6 and 10 run for the BiGRU (``cell="gru"``, the default), the
+BiLSTM (``cell="lstm"``), the TemporalTransformer (``cell="attn"``: the
+flash kernels) and the bidirectional gated SSM (``cell="ssm"``: parallel
+mode, no kernel); phases 7-9 for gru, lstm and ssm (``stream
 bidirectional`` for gru and lstm).  Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
@@ -94,6 +104,8 @@ SEED = 0
 WAREHOUSE_ROWS = 20_000
 SIGNALS = 64
 BATCH = 256
+#: the predictor fleet's flush buckets (RuntimeConfig.predictor_bucket_sizes)
+PREDICTOR_BUCKETS = (8, 32, 64)
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
 PATH_TOL = 1e-5
@@ -315,6 +327,9 @@ def fwd_cases(scan: Scan):
               for h in (33, 64, 512)]
     cases.append(dict(base, batch=1, reverse=True, masked=False, h0=False,
                       strided=True))
+    # the predictor fleet's buckets
+    cases += [dict(base, batch=b, reverse=False, masked=False, h0=False)
+              for b in PREDICTOR_BUCKETS]
     if scan.name == "gru":
         return cases + [dict(base, reverse=True, masked=True, h0=False),
                         dict(base, reverse=False, masked=False, h0=True)]
@@ -760,8 +775,9 @@ FLASH_BWD_OUTPUTS = {"flash_dkv": 2, "flash_dq": 1, "flash_bwd": 3}
 def flash_cases():
     """The serving and training shape in f32 and bf16, causal or not, with
     and without a key mask (ragged valid lengths, one row fully hidden);
-    the Predictor's batch 1; the long-context (16, 4, 1024, 8), causal or
-    not; the D envelope at 64 and 512, in f32 and bf16."""
+    the Predictor's batch 1 and the predictor fleet's buckets; the
+    long-context (16, 4, 1024, 8), causal or not; the D envelope at 64 and
+    512, in f32 and bf16."""
     b, n, t, d = FLASH_MAIN
     base = dict(batch=b, heads=n, seq=t, d=d, dtype=torch.float32,
                 causal=False, masked=False)
@@ -769,6 +785,7 @@ def flash_cases():
              for dtype in (torch.float32, torch.bfloat16)
              for causal in (False, True) for masked in (False, True)]
             + [dict(base, batch=1)]
+            + [dict(base, batch=b) for b in PREDICTOR_BUCKETS]
             + [dict(base, batch=16, seq=1024, causal=causal)
                for causal in (False, True)]
             + [dict(base, batch=8, heads=2, seq=256, d=64, dtype=dtype)
@@ -1070,32 +1087,16 @@ def make_warehouse(directory: str):
 
 def launch_counts() -> dict:
     """Every kernel's launch count, by kernel name."""
-    from fmda_tpu_torch.ops import (
-        attention_kernel, gru_kernel, lstm_kernel, scan_dw, ssm_kernel)
+    from fmda_tpu_torch.ops import launch_counts as counts
 
-    return {"gru_scan_fwd": gru_kernel.launches,
-            "gru_scan_bwd": gru_kernel.bwd_launches,
-            "lstm_scan_fwd": lstm_kernel.launches,
-            "lstm_scan_bwd": lstm_kernel.bwd_launches,
-            "scan_dw": scan_dw.launches,
-            "ssm_step": ssm_kernel.launches,
-            "ssm_tick": ssm_kernel.tick_launches,
-            "flash_fwd": attention_kernel.fwd_launches,
-            "flash_dkv": attention_kernel.dkv_launches,
-            "flash_dq": attention_kernel.dq_launches,
-            "flash_bwd": attention_kernel.bwd_launches}
+    return counts()
 
 
 def start_path() -> None:
     """A path starts: every kernel's launch count to 0."""
-    from fmda_tpu_torch.ops import (
-        attention_kernel, gru_kernel, lstm_kernel, scan_dw, ssm_kernel)
+    from fmda_tpu_torch.ops import reset_launch_counts
 
-    for m in (gru_kernel, lstm_kernel):
-        m.launches = m.bwd_launches = 0
-    ssm_kernel.launches = ssm_kernel.tick_launches = scan_dw.launches = 0
-    attention_kernel.fwd_launches = attention_kernel.dkv_launches = 0
-    attention_kernel.dq_launches = attention_kernel.bwd_launches = 0
+    reset_launch_counts()
 
 
 def check_launches(counts: dict, expected: dict, what: str) -> None:
@@ -1752,6 +1753,322 @@ def phase_pool(wh, device: str = "cuda", cell: str = "gru"):
     return counts
 
 
+#: the fleet phase's loads through FleetGateway + run_fleet_load, each run
+#: at pipeline depth 1 and 0: the reference serve-fleet default (64
+#: sessions, 100 rounds, duty 1.0), the largest bucket filled (128
+#: sessions), and a ragged fleet (duty 0.5) with reconnect storms
+FLEET_LOADS = {
+    "default": dict(),
+    "full128": dict(n_sessions=128),
+    "ragged_storm": dict(duty=0.5, storm_every=10),
+}
+#: the ragged load's virtual clock: advanced this much after each round's
+#: pump, so which ticks share a flush (the deadline path) is the same at
+#: both pipeline depths and on the CPU (a real clock would make it depend
+#: on the host's speed); the other loads flush batch-full every round
+FLEET_ROUND_S = 0.0015
+#: the predictor fleet phase: signals, and the burst sizes a load polls,
+#: in turn: bursts of 32 (every flush bucket 32), and ragged bursts whose
+#: flushes land in buckets 8, 32 and 64, some padded (a burst of 100
+#: flushes 64 and 36); the solo Predictor comparisons (bucket 1 bit for
+#: bit; bucketed to PATH_TOL)
+PREDICTOR_SIGNALS = 2048
+PREDICTOR_LOADS = {"burst32": (32,), "ragged": (5, 8, 20, 32, 50, 64, 100)}
+PREDICTOR_SOLO_BITS = 8
+PREDICTOR_SOLO_SAMPLES = 64
+
+
+class RoundClock:
+    """A virtual monotonic clock that the load advances after each
+    round."""
+
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, _round: int) -> None:
+        self.t += FLEET_ROUND_S
+
+
+def fleet_run(model_cfg, state, load_fields, *, device, depth,
+              profile=False):
+    """One run of a fleet load through a fresh FleetGateway over
+    ``SessionPool(capacity=128, window=30)``: the load's summary, the
+    fleet topic's messages in order, and (``profile``) the busy share."""
+    from fmda_tpu_torch.config import (
+        DEFAULT_TOPICS, FrameworkConfig, TOPIC_FLEET_PREDICTION)
+    from fmda_tpu_torch.runtime import (
+        BatcherConfig, FleetGateway, FleetLoadConfig, SessionPool,
+        run_fleet_load)
+    from fmda_tpu_torch.stream import InProcessBus
+
+    rt = FrameworkConfig().runtime
+    virtual = load_fields.get("duty", 1.0) < 1.0
+    clock = RoundClock() if virtual else time.monotonic
+    pool = SessionPool(model_cfg, state, capacity=rt.capacity,
+                       window=rt.window, device=device)
+    bus = InProcessBus(DEFAULT_TOPICS, capacity=1 << 20)
+    gateway = FleetGateway(
+        pool, bus, batcher_config=BatcherConfig(
+            bucket_sizes=rt.bucket_sizes,
+            max_linger_s=rt.max_linger_ms / 1e3),
+        queue_bound=rt.queue_bound, pipeline_depth=depth, clock=clock)
+    load = FleetLoadConfig(**load_fields)
+    on_round = clock.advance if virtual else None
+    share = None
+    if profile:
+        out = {}
+        share = device_share(lambda: out.update(
+            run_fleet_load(gateway, load, on_round=on_round)))
+    else:
+        out = run_fleet_load(gateway, load, on_round=on_round)
+    messages = [r.value for r in bus.consumer(TOPIC_FLEET_PREDICTION).poll()]
+    return out, messages, share, virtual
+
+
+def published_same(overlapped, serial) -> bool:
+    """Whether the fleet topic's transcripts of one load at pipeline depth
+    1 (``overlapped``) and 0 (``serial``), each ``(summary, messages)``,
+    carry the same results, bit for bit.  Without closes they are the same
+    list.  A session closed while a flush of its ticks is in flight drops
+    those results (``stale_results_dropped``), and only the overlapped
+    gateway has a flush in flight across a close: so its transcript must
+    be the serial one's, in order, less exactly that many more results."""
+    (out1, msgs1), (out0, msgs0) = overlapped, serial
+    extra = (out1["counters"].get("stale_results_dropped", 0)
+             - out0["counters"].get("stale_results_dropped", 0))
+    if len(msgs0) - len(msgs1) != extra:
+        return False
+    it = iter(msgs0)
+    return all(any(m == m0 for m0 in it) for m in msgs1)
+
+
+def phase_fleet(device: str = "cuda", cell: str = "gru"):
+    """The fleet runtime for one carried-state family: FleetGateway over
+    SessionPool(capacity=128, window=30) at full width, driven by
+    run_fleet_load through each of FLEET_LOADS at pipeline depth 1 and 0;
+    every published result the same bits at both depths, every session's
+    last probabilities within PATH_TOL of the same load on the CPU, and
+    the launches: ssm's fused tick once a flush, gru and lstm none.
+    Returns the path's launch counts (depth-1 runs and depth-0 runs
+    together)."""
+    model_cfg = model_config(cell, bidirectional=False, dropout=0.0)
+    from fmda_tpu_torch.models import build_model
+
+    state = build_model(
+        model_cfg, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    # warm-up: one short load, before the counted runs
+    fleet_run(model_cfg, state, dict(n_sessions=8, n_ticks=2),
+              device=device, depth=1)
+    torch.cuda.synchronize()
+
+    totals = {}
+    for name, fields in FLEET_LOADS.items():
+        runs = {}
+        for depth in (1, 0):
+            start_path()
+            t0 = time.perf_counter()
+            out, messages, _, virtual = fleet_run(
+                model_cfg, state, fields, device=device, depth=depth)
+            wall_s = time.perf_counter() - t0
+            counts = launch_counts()  # the path ends here
+            flushes = out["counters"]["flushes"]
+            expected = {"ssm_tick": flushes} if cell == "ssm" else {}
+            check_launches(counts, expected,
+                           f"{cell} fleet {name} depth {depth}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            lat = out["latency"]
+            emit("fleet", cell=cell, load=name, pipeline_depth=depth,
+                 sessions=out["sessions"], rounds=out["rounds"],
+                 ticks_submitted=out["ticks_submitted"],
+                 ticks_served=out["ticks_served"], seconds=wall_s,
+                 ticks_per_s=out["ticks_served"] / out["wall_s"]
+                 if out["wall_s"] else None,
+                 latency_clock="virtual" if virtual else "host",
+                 total_p50_ms=lat["total"]["p50_ms"],
+                 total_p99_ms=lat["total"]["p99_ms"],
+                 device_p50_ms=lat["device"]["p50_ms"],
+                 device_p99_ms=lat["device"]["p99_ms"],
+                 counters=out["counters"],
+                 kernel_launches_by_bucket=out["kernel_launches_by_bucket"],
+                 launches=counts)
+            check(out["ticks_served"] + out["counters"].get(
+                      "stale_dropped", 0) + out["counters"].get(
+                      "stale_results_dropped", 0) == out["ticks_submitted"]
+                  and out["counters"].get("shed_oldest", 0) == 0,
+                  f"{cell} fleet {name}: ticks lost: {out['counters']}")
+            check(all(np.isfinite(m["probabilities"]).all()
+                      for m in messages), f"{cell} fleet {name}: non-finite")
+            runs[depth] = (out, messages)
+        same = published_same(runs[1], runs[0])
+        # what forms the flushes is the same at both depths; what differs
+        # is when a flush completes, so how many results a reconnect storm
+        # finds stale (see published_same)
+        counters_same = all(
+            runs[1][0]["counters"].get(k) == runs[0][0]["counters"].get(k)
+            for k in ("flushes", "padded_lanes", "stale_dropped",
+                      *(k for k in runs[0][0]["counters"]
+                        if k.startswith("flushes_bucket_"))))
+        cpu_out, cpu_messages, _, _ = fleet_run(
+            model_cfg, state, fields, device="cpu", depth=1)
+        last = {m["session"]: np.asarray(m["probabilities"])
+                for m in runs[1][1]}
+        cpu_last = {m["session"]: np.asarray(m["probabilities"])
+                    for m in cpu_messages}
+        err = max(float(np.abs(last[k] - cpu_last[k]).max()) for k in last)
+        emit("fleet depths and cpu", cell=cell, load=name,
+             results=len(runs[1][1]), results_serial=len(runs[0][1]),
+             bit_identical_depths=same,
+             counters_equal=counters_same,
+             overlapped_flushes=runs[1][0]["counters"].get(
+                 "overlapped_flushes", 0),
+             sessions=len(last), max_abs_err_vs_cpu=err, tol=PATH_TOL)
+        check(same and counters_same and len(runs[1][1]) > 0,
+              f"{cell} fleet {name}: pipeline depths 1 and 0 differ")
+        check(set(last) == set(cpu_last) and err <= PATH_TOL,
+              f"{cell} fleet {name}: card and CPU disagree ({err})")
+
+    if torch.device(device).type == "cuda":
+        out, _, share, _ = fleet_run(model_cfg, state, FLEET_LOADS["default"],
+                                     device=device, depth=1, profile=True)
+        emit("fleet device share", cell=cell, load="default",
+             flushes=out["counters"]["flushes"],
+             device_ops_per_flush=share["device_ops"]
+             / out["counters"]["flushes"], **share)
+    return totals
+
+
+def phase_predictor_fleet(wh, device: str = "cuda", cell: str = "gru"):
+    """The batched Predictor for one family at full width:
+    PredictorGateway over the warehouse, PREDICTOR_SIGNALS signals through
+    run_predictor_load in each of PREDICTOR_LOADS, with the device window
+    ring off and then on (the ring's flushes the same bits as the fetch
+    flushes); the ragged load flushes in every bucket, some padded; a
+    bucket-1 flush the same bits as the solo Predictor, every load's
+    bucketed flushes within PATH_TOL of it; the launches: gru and lstm
+    their forward scan twice a flush, attn kernel 6 once, ssm none.
+    Returns the path's launch counts (every run)."""
+    from fmda_tpu_torch.config import (
+        DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICTION)
+    from fmda_tpu_torch.runtime import (
+        BatcherConfig, PredictorGateway, PredictorLoadConfig, PredictorPool,
+        run_predictor_load)
+    from fmda_tpu_torch.serve import Predictor
+    from fmda_tpu_torch.stream import InProcessBus
+
+    rt = FrameworkConfig().runtime
+    check(tuple(rt.predictor_bucket_sizes) == PREDICTOR_BUCKETS,
+          f"predictor buckets {rt.predictor_bucket_sizes}, expected "
+          f"{PREDICTOR_BUCKETS}")
+    window = rt.window
+    model_cfg, state, norm = serving_setup(wh, cell, bidirectional=True)
+    stamps = wh.timestamps()[window - 1:][:PREDICTOR_SIGNALS]
+
+    def gateway(use_ring, buckets=PREDICTOR_BUCKETS):
+        pool = PredictorPool(model_cfg, state, norm, window=window,
+                             use_ring=use_ring, device=device)
+        return PredictorGateway(
+            pool, InProcessBus(DEFAULT_TOPICS, capacity=1 << 20), wh,
+            batcher_config=BatcherConfig(
+                bucket_sizes=buckets,
+                max_linger_s=rt.predictor_max_linger_ms / 1e3),
+            queue_bound=rt.predictor_queue_bound,
+            pipeline_depth=rt.pipeline_depth, max_staleness_s=None)
+
+    # warm-up: one burst at each bucket, before the counted runs
+    warm = gateway(False)
+    for b in PREDICTOR_BUCKETS:
+        for ts in stamps[:b]:
+            warm.submit(ts)
+        warm.drain()
+    torch.cuda.synchronize()
+
+    fwd, per_flush = forward_kernel(cell)
+    totals, fetched = {}, {}
+    for load, bursts in PREDICTOR_LOADS.items():
+        transcripts = {}
+        for use_ring in (False, True):
+            gw = gateway(use_ring)
+            start_path()
+            out = run_predictor_load(gw, stamps, PredictorLoadConfig(
+                n_signals=PREDICTOR_SIGNALS, bursts=bursts))
+            counts = launch_counts()  # the path ends here
+            flushes = out["counters"]["flushes"]
+            check_launches(counts, {fwd: per_flush * flushes} if fwd else {},
+                           f"{cell} predictor fleet {load} ring={use_ring}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            transcripts[use_ring] = [
+                r.value for r in gw.bus.consumer(TOPIC_PREDICTION).poll()]
+            lat, c = out["latency"], out["counters"]
+            emit("predictor fleet", cell=cell, load=load, ring=use_ring,
+                 signals=out["signals_submitted"],
+                 served=out["signals_served"], bursts=list(bursts),
+                 seconds=out["wall_s"],
+                 signals_per_s=out["signals_served"] / out["wall_s"],
+                 total_p50_ms=lat["total"]["p50_ms"],
+                 total_p99_ms=lat["total"]["p99_ms"],
+                 gather_p50_ms=lat["gather"]["p50_ms"],
+                 gather_p99_ms=lat["gather"]["p99_ms"],
+                 device_p50_ms=lat["device"]["p50_ms"],
+                 device_p99_ms=lat["device"]["p99_ms"],
+                 ring_hits=c.get("ring_hits", 0),
+                 ring_misses=c.get("ring_misses", 0), counters=c,
+                 kernel_launches_by_bucket=out["kernel_launches_by_bucket"],
+                 launches=counts)
+            check(out["signals_served"] == len(stamps) == PREDICTOR_SIGNALS,
+                  f"{cell} predictor fleet {load}: {out['signals_served']} "
+                  f"served of {len(stamps)}")
+            check(not use_ring or (c.get("ring_hits", 0) == flushes - 1
+                                   and c.get("ring_misses", 0) == 1),
+                  f"{cell} predictor fleet {load}: ring hits/misses {c}")
+            used = {b for b in PREDICTOR_BUCKETS
+                    if c.get(f"flushes_bucket_{b}", 0)}
+            check(len(bursts) == 1 or (used == set(PREDICTOR_BUCKETS)
+                                       and c.get("padded_lanes", 0) > 0),
+                  f"{cell} predictor fleet {load}: flushed in buckets "
+                  f"{sorted(used)} with {c.get('padded_lanes', 0)} padded "
+                  "lanes")
+        check(transcripts[True] == transcripts[False],
+              f"{cell} predictor fleet {load}: ring and fetch flushes differ")
+        fetched[load] = transcripts[False]
+
+    # the solo Predictor on the card: a bucket-1 flush gives its bits, every
+    # load's bucketed flushes its values within PATH_TOL
+    solo = Predictor(InProcessBus(DEFAULT_TOPICS), wh, model_cfg, state,
+                     norm, window=window, from_end=False,
+                     max_staleness_s=None, device=device)
+    one = gateway(False, buckets=(1,))
+    step = len(stamps) // PREDICTOR_SOLO_BITS
+    bits_same = True
+    for ts in stamps[::step][:PREDICTOR_SOLO_BITS]:
+        one.submit(ts)
+        bits_same &= one.drain() == [solo.predict_for_timestamp(ts)]
+    step = len(stamps) // PREDICTOR_SOLO_SAMPLES
+    sampled = stamps[::step][:PREDICTOR_SOLO_SAMPLES]
+    solo_p = {ts: np.asarray(solo.predict_for_timestamp(ts).probabilities)
+              for ts in sampled}
+    errs = {}
+    for load, messages in fetched.items():
+        by_ts = {m["timestamp"]: np.asarray(m["probabilities"])
+                 for m in messages}
+        errs[load] = max(float(np.abs(by_ts[ts] - solo_p[ts]).max())
+                         for ts in sampled)
+    emit("predictor fleet vs solo", cell=cell, ring_bit_identical=True,
+         bucket1_bit_identical=bits_same, bucket1_signals=PREDICTOR_SOLO_BITS,
+         bucketed_samples=PREDICTOR_SOLO_SAMPLES,
+         max_abs_err=max(errs.values()), max_abs_err_by_load=errs,
+         tol=PATH_TOL)
+    check(bits_same, f"{cell} predictor fleet: a bucket-1 flush differs "
+          "from the solo Predictor")
+    check(max(errs.values()) <= PATH_TOL,
+          f"{cell} predictor fleet: bucketed flushes off the solo ({errs})")
+    return totals
+
+
 def kernel_entry(name, replaces, source, rows, launches, by_path):
     """One kernel's entry of the summary line, at the main shape
     (256, 30, 32) float32, forward direction."""
@@ -1926,6 +2243,7 @@ def main() -> int:
     tick_rows = phase_kernel_ssm_tick()
     flash_rows = phase_kernel_flash()
     serve, train, stream, stream_bi, pool = {}, {}, {}, {}, {}
+    fleet, predictor_fleet = {}, {}
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
         wh = make_warehouse(tmp)
@@ -1940,28 +2258,40 @@ def main() -> int:
                 stream_bi[cell] = phase_stream(wh, cell=cell,
                                                bidirectional=True)
             pool[cell] = phase_pool(wh, cell=cell)
+            fleet[cell] = phase_fleet(cell=cell)
+        for cell in ("gru", "lstm", "attn", "ssm"):
+            predictor_fleet[cell] = phase_predictor_fleet(wh, cell=cell)
         wh.close()
 
     entries = []
     for s in scans:
         fwd, bwd = f"{s.name}_scan_fwd", f"{s.name}_scan_bwd"
         by_path = {"serve": serve[s.name][fwd], "train": train[s.name][fwd],
-                   "stream_bidirectional": stream_bi[s.name][fwd]}
+                   "stream_bidirectional": stream_bi[s.name][fwd],
+                   "fleet": fleet[s.name][fwd],
+                   "predictor_fleet": predictor_fleet[s.name][fwd]}
+        bwd_by_path = {"serve": serve[s.name][bwd],
+                       "train": train[s.name][bwd],
+                       "fleet": fleet[s.name][bwd],
+                       "predictor_fleet": predictor_fleet[s.name][bwd]}
         fwd_rows, bwd_rows = rows[s.name]
         entries += [
             kernel_entry(fwd, s.replaces[0], s.source, fwd_rows,
                          sum(by_path.values()), by_path),
             kernel_entry(bwd, s.replaces[1], s.source, bwd_rows,
-                         train[s.name][bwd],
-                         {"serve": serve[s.name][bwd],
-                          "train": train[s.name][bwd]}),
+                         sum(bwd_by_path.values()), bwd_by_path),
         ]
     entries.append(ssm_entry(tick_rows, ssm_rows, *(
         {"stream": stream["ssm"][k], "pool": pool["ssm"][k],
-         "serve": serve["ssm"][k]} for k in ("ssm_tick", "ssm_step"))))
+         "serve": serve["ssm"][k], "fleet": fleet["ssm"][k],
+         "predictor_fleet": predictor_fleet["ssm"][k]}
+        for k in ("ssm_tick", "ssm_step"))))
     entries += [flash_entry(name, flash_rows,
                             {"serve": serve["attn"][name],
-                             "train": train["attn"][name]})
+                             "train": train["attn"][name],
+                             "fleet": sum(fleet[c][name] for c in fleet),
+                             "predictor_fleet":
+                                 predictor_fleet["attn"][name]})
                 for name in FLASH_REPLACES]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -3,6 +3,7 @@
 one card, in turns.
 
     python3 experiments/torch_path_ab.py OLD NEW [--paths a,b,...]
+        [--rounds N]
 
 OLD and NEW are repository roots; one card.  The paths (default: all),
 each a phase of ``chip_smoke.py``:
@@ -10,11 +11,12 @@ each a phase of ``chip_smoke.py``:
 - ``scans``: ``phase_path``, ``phase_train`` and ``phase_stream(...,
   bidirectional=True)`` for gru and lstm;
 - ``ssm_stream``: ``phase_stream`` for ssm (the solo carried-state core);
-- ``ssm_pool``: ``phase_pool`` for ssm (the session pool);
+- ``pool``: ``phase_pool`` for gru, lstm and ssm (the session pool);
 - ``attn_serve``: ``phase_path`` for attn (backtest and Predictor).
 
-Each tree runs in a fresh process per run, in the order OLD, NEW, NEW, OLD,
-so that a drift of the host during the call falls on both.  Each tree
+Each tree runs in a fresh process per run, in the order OLD, NEW, NEW, OLD
+(``--rounds N``: that order N times), so that a drift of the host during
+the call falls on both.  Each tree
 builds its own kernels (under its own ``build/``).  Prints every phase line
 with ``tree`` (``old`` or ``new``) and ``run`` added, then one ``summary``
 line per metric and cell: each tree's values (null where a tree's line
@@ -31,7 +33,8 @@ import sys
 import tempfile
 
 ORDER = ("old", "new", "new", "old")
-PATHS = ("scans", "ssm_stream", "ssm_pool", "attn_serve")
+PATHS = ("scans", "ssm_stream", "pool", "attn_serve")
+POOL_CELLS = ("gru", "lstm", "ssm")
 #: (path, phase, key path, cells) of the metrics the summary lists; the key
 #: ``flash_fwd_ms`` is the flash forward's device time in the profiled
 #: backtest
@@ -57,11 +60,13 @@ METRICS = (
      ("ssm",)),
     ("ssm_stream", "stream breakdown", ("device_share", "device_ops"),
      ("ssm",)),
-    ("ssm_pool", "pool", ("bucket64_p50_ms",), ("ssm",)),
-    ("ssm_pool", "pool", ("bucket64_p99_ms",), ("ssm",)),
-    ("ssm_pool", "pool", ("session_ticks_per_s",), ("ssm",)),
-    ("ssm_pool", "pool device share", ("busy_share",), ("ssm",)),
-    ("ssm_pool", "pool device share", ("device_ops",), ("ssm",)),
+    ("pool", "pool", ("bucket64_p50_ms",), POOL_CELLS),
+    ("pool", "pool", ("bucket64_p99_ms",), POOL_CELLS),
+    ("pool", "pool", ("session_ticks_per_s",), POOL_CELLS),
+    ("pool", "pool device share", ("wall_ms",), POOL_CELLS),
+    ("pool", "pool device share", ("device_ms",), POOL_CELLS),
+    ("pool", "pool device share", ("busy_share",), POOL_CELLS),
+    ("pool", "pool device share", ("device_ops",), POOL_CELLS),
     ("attn_serve", "path backtest", ("rows_per_s",), ("attn",)),
     ("attn_serve", "path predictor", ("p50_ms",), ("attn",)),
     ("attn_serve", "path device share", ("backtest", "busy_share"),
@@ -96,8 +101,9 @@ def run_one(root: str, paths) -> int:
                 chip_smoke.phase_stream(wh, cell=cell, bidirectional=True)
         if "ssm_stream" in paths:
             chip_smoke.phase_stream(wh, cell="ssm")
-        if "ssm_pool" in paths:
-            chip_smoke.phase_pool(wh, cell="ssm")
+        if "pool" in paths:
+            for cell in POOL_CELLS:
+                chip_smoke.phase_pool(wh, cell=cell)
         if "attn_serve" in paths:
             chip_smoke.phase_path(wh, tmp, cell="attn")
         wh.close()
@@ -119,10 +125,10 @@ def value(line: dict, keys):
     return line
 
 
-def main(old: str, new: str, paths) -> int:
+def main(old: str, new: str, paths, rounds: int = 1) -> int:
     roots = {"old": os.path.abspath(old), "new": os.path.abspath(new)}
     lines = []
-    for run, tree in enumerate(ORDER):
+    for run, tree in enumerate(ORDER * rounds):
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one",
              roots[tree], ",".join(paths)], capture_output=True, text=True,
@@ -160,10 +166,14 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     if len(args) == 3 and args[0] == "--one":
         sys.exit(run_one(args[1], parse_paths(args[2])))
-    paths = PATHS
-    if len(args) == 4 and args[2] == "--paths":
-        paths, args = parse_paths(args[3]), args[:2]
-    if len(args) != 2:
+    paths, rounds = PATHS, 1
+    while len(args) >= 4 and args[-2] in ("--paths", "--rounds"):
+        if args[-2] == "--paths":
+            paths = parse_paths(args[-1])
+        else:
+            rounds = int(args[-1])
+        args = args[:-2]
+    if len(args) != 2 or rounds < 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(args[0], args[1], paths))
+    sys.exit(main(args[0], args[1], paths, rounds))

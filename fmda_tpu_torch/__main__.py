@@ -4,10 +4,16 @@
                                       [--seed S] [--checkpoint-dir D] [--device cpu]
     python -m fmda_tpu_torch backtest --warehouse W --checkpoint C [--device cpu]
     python -m fmda_tpu_torch serve    --warehouse W --checkpoint C [--device cpu]
+    python -m fmda_tpu_torch serve-fleet --role solo [--cell ssm] [--predictor]
+                                      [--sessions N] [--ticks N] [--device cpu]
 
-All read a warehouse file ``fmda_tpu`` (or this package) wrote; ``train``
-writes a port checkpoint (:mod:`fmda_tpu_torch.train.checkpoint`) that the
-other two read.  They run on the CUDA card unless ``--device cpu`` is
+``train``, ``backtest`` and ``serve`` read a warehouse file ``fmda_tpu``
+(or this package) wrote; ``train`` writes a port checkpoint
+(:mod:`fmda_tpu_torch.train.checkpoint`) that the other two read.
+``serve-fleet`` runs the fleet runtime against a synthetic load: seeded
+ticker sessions through the FleetGateway, or (``--predictor``)
+predict-timestamp signals over a seeded random-walk warehouse through the
+batched Predictor.  All run on the CUDA card unless ``--device cpu`` is
 given.
 """
 
@@ -158,6 +164,278 @@ def cmd_serve(args) -> int:
     return 0
 
 
+#: serve-fleet flags whose planes are not ported yet, each with the
+#: ROADMAP item (queue 1) that ports it; a run that sets one exits 2.
+UNPORTED_FLEET_FLAGS = {
+    "workers": "item 7 (multi-host serving)",
+    "listen": "item 7 (multi-host serving)",
+    "connect": "item 7 (multi-host serving)",
+    "worker_id": "item 7 (multi-host serving)",
+    "shared_bus": "item 7 (multi-host serving)",
+    "wire_format": "item 7 (multi-host serving)",
+    "duration_s": "item 7 (multi-host serving)",
+    "no_controller": "item 7 (control/)",
+    "tenant_mix": "item 7 (control/)",
+    "chaos_plan": "item 7 (chaos/)",
+    "chaos_no_reference": "item 7 (chaos/)",
+    "replay": "item 7 (replay/)",
+    "hot_swap": "item 7 (replay/)",
+    "continuous_train": "item 3 (continuous training)",
+    "swap_guard": "item 3 (eval/shadow.py)",
+    "continuous_days": "item 3 (continuous training)",
+    "train_rounds": "item 3 (continuous training)",
+    "train_checkpoint_dir": "item 3 (continuous training)",
+    "trace": "item 5 (observability: tracing)",
+    "trace_out": "item 5 (observability: tracing)",
+    "trace_sample": "item 5 (observability: tracing)",
+    "trace_dir": "item 5 (observability: tracing)",
+    "metrics_port": "item 5 (observability: the metrics endpoint)",
+    "metrics_hold_s": "item 5 (observability: the metrics endpoint)",
+    "postmortem_dir": "item 5 (observability: the flight recorder)",
+    "jax_profile": "item 5 (observability: device profiles)",
+    "shard_pool": "item 8 (parallelism)",
+}
+
+
+def _unported_fleet_flag(args) -> str:
+    """The first unported serve-fleet flag the run sets, as its message;
+    '' when none is set."""
+    if args.role != "solo":
+        return (f"--role {args.role} is not ported yet (ROADMAP queue 1, "
+                "item 7: multi-host serving); use --role solo")
+    for dest, item in UNPORTED_FLEET_FLAGS.items():
+        if getattr(args, dest) not in (None, False):
+            flag = "--" + dest.replace("_", "-")
+            return f"{flag} is not ported yet (ROADMAP queue 1, {item})"
+    return ""
+
+
+def cmd_serve_fleet(args) -> int:
+    """Multi-tenant serving against a synthetic load, one process
+    (``--role solo``): N ticker sessions through the micro-batching fleet
+    runtime — one pool step a flush serves every session in it — or, with
+    ``--predictor``, predict-timestamp signals through the batched
+    window-re-scan Predictor.  Prints the runtime's metrics (per-stage
+    latency histograms, counters, gauges, host stages, kernel launches per
+    bucket) as one JSON object; exits 1 when ``--slo-p99-ms`` is missed
+    (unless ``--slo-soft``)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from fmda_tpu_torch.config import DEFAULT_TOPICS
+    from fmda_tpu_torch.device import resolve_device
+    from fmda_tpu_torch.models import build_model
+    from fmda_tpu_torch.runtime import BatcherConfig
+    from fmda_tpu_torch.stream import InProcessBus
+
+    refused = _unported_fleet_flag(args)
+    if refused:
+        print(refused, file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    cfg = _config(args)
+    cell = args.cell or os.environ.get("FMDA_FLEET_CELL")
+    if cell:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, cell=cell))
+    bucket_sizes = (tuple(int(b) for b in args.bucket_sizes.split(","))
+                    if args.bucket_sizes else None)
+    if args.predictor:
+        # the window-re-scan Predictor: the batching knobs land on the
+        # predictor_* half of RuntimeConfig
+        overrides = dict(
+            predictor_max_linger_ms=args.max_linger_ms,
+            predictor_queue_bound=args.queue_bound,
+            predictor_window=args.window,
+            predictor_bucket_sizes=bucket_sizes,
+            predictor_ring=(True if args.ring else None))
+    else:
+        overrides = dict(
+            capacity=max(args.sessions, cfg.runtime.capacity),
+            max_linger_ms=args.max_linger_ms, queue_bound=args.queue_bound,
+            window=args.window, bucket_sizes=bucket_sizes)
+    overrides.update(pipeline_depth=(0 if args.serial else None),
+                     slo_p99_ms=args.slo_p99_ms)
+    rc = dataclasses.replace(cfg.runtime, **{
+        k: v for k, v in overrides.items() if v is not None})
+    bus = InProcessBus(DEFAULT_TOPICS)
+    generator = torch.Generator().manual_seed(args.seed)
+
+    if args.predictor:
+        from fmda_tpu_torch.data.normalize import NormParams
+        from fmda_tpu_torch.data.synthetic import (
+            BARS_PER_DAY, random_walk_rows)
+        from fmda_tpu_torch.runtime import (
+            PredictorGateway, PredictorLoadConfig, PredictorPool,
+            run_predictor_load)
+        from fmda_tpu_torch.stream import Warehouse
+
+        # the reference builds its corpus through the streaming engine
+        # (data/synthetic.build_corpus, not ported yet); the port lands
+        # the same number of bars as a seeded random walk
+        wh = Warehouse(cfg.features, cfg.warehouse)
+        wh.insert_rows(random_walk_rows(
+            cfg.features.table_columns(), args.predictor_days * BARS_PER_DAY,
+            seed=args.seed))
+        window = (rc.predictor_window if rc.predictor_window is not None
+                  else rc.window)
+        model_cfg = dataclasses.replace(
+            cfg.model, dropout=0.0, hidden_size=args.hidden,
+            n_features=len(wh.x_fields))
+        state = build_model(model_cfg, generator=generator).state_dict()
+        norm = NormParams(np.zeros(model_cfg.n_features, np.float32),
+                          np.ones(model_cfg.n_features, np.float32))
+        pool = PredictorPool(model_cfg, state, norm, window=window,
+                             use_ring=rc.predictor_ring, device=device)
+        gateway = PredictorGateway(
+            pool, bus, wh,
+            batcher_config=BatcherConfig(
+                bucket_sizes=tuple(rc.predictor_bucket_sizes),
+                max_linger_s=rc.predictor_max_linger_ms / 1e3),
+            queue_bound=rc.predictor_queue_bound,
+            pipeline_depth=rc.pipeline_depth,
+            threshold=cfg.train.prob_threshold, max_staleness_s=None)
+        out = run_predictor_load(
+            gateway, wh.timestamps()[window - 1:],
+            PredictorLoadConfig(n_signals=args.signals, burst=args.burst))
+        out["ring"] = pool.use_ring
+        wh.close()
+    else:
+        from fmda_tpu_torch.runtime import (
+            FleetGateway, FleetLoadConfig, SessionPool, run_fleet_load)
+
+        # a seeded random-init unidirectional carrier (the serving math
+        # does not depend on the checkpoint; --hidden sizes it)
+        model_cfg = dataclasses.replace(
+            cfg.model, bidirectional=False, dropout=0.0,
+            hidden_size=args.hidden, n_features=cfg.features.n_features,
+            cell=cfg.model.cell if cfg.model.cell != "attn" else "gru")
+        state = build_model(model_cfg, generator=generator).state_dict()
+        pool = SessionPool(model_cfg, state, capacity=rc.capacity,
+                           window=rc.window, device=device)
+        gateway = FleetGateway(
+            pool, bus,
+            batcher_config=BatcherConfig(
+                bucket_sizes=tuple(rc.bucket_sizes),
+                max_linger_s=rc.max_linger_ms / 1e3),
+            queue_bound=rc.queue_bound, pipeline_depth=rc.pipeline_depth,
+            threshold=cfg.train.prob_threshold)
+        out = run_fleet_load(gateway, FleetLoadConfig(
+            n_sessions=args.sessions, n_ticks=args.ticks, duty=args.duty,
+            seed=args.seed, storm_every=args.storm_every,
+            storm_fraction=args.storm_fraction,
+            burst_every=args.burst_every, burst_rounds=args.burst_rounds,
+            slow_fraction=args.slow_fraction, slow_duty=args.slow_duty))
+        out["cell"] = model_cfg.cell
+    out["device"] = str(device)
+    slo_ok = True
+    if rc.slo_p99_ms is not None:
+        p99 = out.get("latency", {}).get("total", {}).get("p99_ms")
+        slo_ok = p99 is not None and p99 <= rc.slo_p99_ms
+        out["slo"] = {"p99_ms_bound": rc.slo_p99_ms, "p99_ms": p99,
+                      "ok": slo_ok, "soft": bool(args.slo_soft)}
+    print(json.dumps(out, indent=2))
+    if not slo_ok and not args.slo_soft:
+        p99 = out["slo"]["p99_ms"]
+        print("SLO gate failed: "
+              + (f"total p99 {p99}ms > {rc.slo_p99_ms}ms bound"
+                 if p99 is not None else
+                 "no latency data collected (nothing served)")
+              + " (--slo-soft reports without failing)", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _add_serve_fleet(sub, common) -> None:
+    p = sub.add_parser(
+        "serve-fleet", parents=[common],
+        help="the micro-batching fleet runtime against a synthetic load")
+    p.add_argument("--role",
+                   choices=("solo", "broker", "router", "worker", "local"),
+                   default="solo",
+                   help="'solo' (the default) runs the one-process fleet "
+                        "runtime; the multi-host roles are not ported yet "
+                        "and exit 2")
+    p.add_argument("--sessions", type=int, default=64,
+                   help="concurrent ticker sessions (pool capacity grows "
+                        "to fit when the config's is smaller)")
+    p.add_argument("--ticks", type=int, default=100,
+                   help="submission rounds over the fleet")
+    p.add_argument("--duty", type=float, default=1.0,
+                   help="fraction of sessions ticking per round")
+    p.add_argument("--storm-every", type=int, default=0,
+                   help="reconnect storm: every N rounds, close and reopen "
+                        "a burst of sessions (0 = off)")
+    p.add_argument("--storm-fraction", type=float, default=0.25,
+                   help="fraction of sessions hit per reconnect storm")
+    p.add_argument("--burst-every", type=int, default=0,
+                   help="synchronized burst: every N rounds every session "
+                        "ticks for --burst-rounds rounds (0 = off)")
+    p.add_argument("--burst-rounds", type=int, default=1,
+                   help="consecutive all-tick rounds per burst")
+    p.add_argument("--slow-fraction", type=float, default=0.0,
+                   help="fraction of sessions ticking at --slow-duty")
+    p.add_argument("--slow-duty", type=float, default=0.05,
+                   help="tick probability per round of the slow sessions")
+    p.add_argument("--hidden", type=int, default=32)
+    p.add_argument("--cell", default=None, choices=["gru", "lstm", "ssm"],
+                   help="carried-state cell family of the pool (overrides "
+                        "[model] cell; default env FMDA_FLEET_CELL, else "
+                        "the config)")
+    p.add_argument("--window", type=int, default=None,
+                   help="override config runtime.window (default 30)")
+    p.add_argument("--bucket-sizes", default=None, metavar="N,N,...",
+                   help="override config runtime.bucket_sizes (ascending)")
+    p.add_argument("--max-linger-ms", type=float, default=None,
+                   help="override config runtime.max_linger_ms")
+    p.add_argument("--queue-bound", type=int, default=None,
+                   help="override config runtime.queue_bound")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--predictor", action="store_true",
+                   help="serve the window-re-scan Predictor instead of "
+                        "carried-state sessions: predict-timestamp signals "
+                        "over a seeded random-walk warehouse (78 bars a "
+                        "day; the reference's synthetic corpus is not "
+                        "ported yet), batched into bucketed (B, window, F) "
+                        "forwards (runtime.predictor_* knobs)")
+    p.add_argument("--predictor-days", type=int, default=3,
+                   help="warehouse size for --predictor (days of bars)")
+    p.add_argument("--signals", type=int, default=0,
+                   help="signal count for --predictor (0 = every servable "
+                        "warehouse timestamp)")
+    p.add_argument("--burst", type=int, default=32,
+                   help="signals published per poll for --predictor")
+    p.add_argument("--ring", action="store_true", default=None,
+                   help="keep the device-resident window ring for "
+                        "--predictor (runtime.predictor_ring)")
+    p.add_argument("--serial", action="store_true", default=None,
+                   help="disable the one-deep flush overlap pipeline "
+                        "(runtime.pipeline_depth=0; the bit-identical A/B "
+                        "reference)")
+    p.add_argument("--slo-p99-ms", type=float, default=None,
+                   help="latency-SLO gate: exit 1 unless p99 of "
+                        "submit->publish stays under this bound "
+                        "(overrides config runtime.slo_p99_ms)")
+    p.add_argument("--slo-soft", action="store_true",
+                   help="report the SLO verdict in the JSON but never "
+                        "fail the run")
+    # the reference's flags of planes not ported yet: accepted by the
+    # parser so that a run setting one exits 2 naming its ROADMAP item
+    unported = p.add_argument_group(
+        "not ported yet (each exits 2 and names its ROADMAP item)")
+    for dest in UNPORTED_FLEET_FLAGS:
+        flag = "--" + dest.replace("_", "-")
+        if dest in ("shared_bus", "no_controller", "chaos_no_reference",
+                    "replay", "hot_swap", "continuous_train", "swap_guard",
+                    "trace", "shard_pool"):
+            unported.add_argument(flag, action="store_true", default=None)
+        else:
+            unported.add_argument(flag, default=None)
+    p.set_defaults(fn=cmd_serve_fleet)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="fmda_tpu_torch", description=__doc__,
@@ -166,7 +444,7 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument(
         "--config", default=None, metavar="JSON",
         help="FrameworkConfig overrides as JSON (the fmda_tpu schema; the "
-             "features/warehouse/model/train sections are read)")
+             "features/warehouse/model/train/runtime sections are read)")
     common.add_argument(
         "--device", default=None,
         help="torch device (default: cuda; pass 'cpu' to run the plain "
@@ -207,6 +485,7 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--from-start", action="store_true",
                            help="serve existing history too, not just new "
                                 "rows")
+    _add_serve_fleet(sub, common)
     return parser
 
 

@@ -4,7 +4,7 @@ The same frozen dataclasses as ``fmda_tpu.config`` (field names, defaults
 and the config -> schema codegen of :class:`FeatureConfig`), cut to what
 the ported paths read: the feature schema, the warehouse, the model, the
 training config (without its continuous fine-tuning fields) and the
-session pool's part of the runtime config.  A JSON file that
+fleet runtime config (without ``shard_pool``).  A JSON file that
 ``fmda_tpu.config.save_config`` wrote loads here too, and a file the
 reference would refuse is refused: :func:`config_from_dict` checks every
 section and key against :data:`REFERENCE_KEYS`, the reference's own table,
@@ -20,7 +20,11 @@ from typing import Optional, Tuple
 
 TOPIC_PREDICT_TIMESTAMP = "predict_timestamp"
 TOPIC_PREDICTION = "prediction"
-DEFAULT_TOPICS: Tuple[str, ...] = (TOPIC_PREDICT_TIMESTAMP, TOPIC_PREDICTION)
+#: Fleet-serving results (:mod:`fmda_tpu_torch.runtime`): one topic,
+#: per-session consumption keyed on the message's ``session`` field.
+TOPIC_FLEET_PREDICTION = "fleet_prediction"
+DEFAULT_TOPICS: Tuple[str, ...] = (
+    TOPIC_PREDICT_TIMESTAMP, TOPIC_PREDICTION, TOPIC_FLEET_PREDICTION)
 
 
 @dataclass(frozen=True)
@@ -306,16 +310,47 @@ class TrainConfig:
                 f"{self.prefetch_depth}/{self.cache_chunks}")
 
 
+#: Fleet-runtime defaults shared by RuntimeConfig and the direct
+#: constructors (BatcherConfig, FleetGateway, PredictorGateway).
+DEFAULT_BUCKET_SIZES: Tuple[int, ...] = (8, 32, 64, 128)
+DEFAULT_MAX_LINGER_S: float = 0.002
+DEFAULT_QUEUE_BOUND: int = 1024
+
+
 @dataclass(frozen=True)
 class RuntimeConfig:
-    """The session pool's part of ``fmda_tpu``'s fleet runtime config."""
+    """The fleet runtime's knobs: the session pool, the fleet gateway in
+    front of it and the batched Predictor, with ``fmda_tpu``'s defaults."""
 
     #: Max concurrent sessions (slots in the pooled state).
     capacity: int = 128
     #: Ascending padded micro-batch sizes of a flush.
-    bucket_sizes: Tuple[int, ...] = (8, 32, 64, 128)
+    bucket_sizes: Tuple[int, ...] = DEFAULT_BUCKET_SIZES
+    #: Max time (ms) the oldest queued tick may linger before a flush.
+    max_linger_ms: float = DEFAULT_MAX_LINGER_S * 1e3
+    #: Bound on queued ticks; overload sheds the oldest, counted.
+    queue_bound: int = DEFAULT_QUEUE_BOUND
     #: Pooled-head trailing window of the carried streaming state.
     window: int = 30
+    #: 1 = one-deep overlap (flush k completes while flush k+1 runs on
+    #: the card), 0 = strictly serial flushes; the results are the same
+    #: bits either way.
+    pipeline_depth: int = 1
+    #: Latency-SLO gate of ``serve-fleet``: p99 of the submit -> publish
+    #: ("total") histogram must stay under this bound (ms); None = off.
+    slo_p99_ms: Optional[float] = None
+    #: Padded micro-batch sizes of the batched Predictor's (B, window, F)
+    #: forward.
+    predictor_bucket_sizes: Tuple[int, ...] = (8, 32, 64)
+    #: Max time (ms) the oldest queued signal may linger before a flush.
+    predictor_max_linger_ms: float = DEFAULT_MAX_LINGER_S * 1e3
+    #: Bound on queued signals; overload sheds the oldest, counted.
+    predictor_queue_bound: int = DEFAULT_QUEUE_BOUND
+    #: Model input window of the batched Predictor; None = ``window``.
+    predictor_window: Optional[int] = None
+    #: Keep the stream's newest ``window`` rows on the device, so that
+    #: consecutive signals send only their new rows.
+    predictor_ring: bool = False
 
 
 @dataclass(frozen=True)
@@ -354,8 +389,8 @@ _SECTIONS = {
 #: - ``model``: ``use_pallas`` (the port has no opt-in: its kernels always
 #:   run on the card) and ``remat``;
 #: - ``train``: the ``continuous_*`` fine-tuning fields;
-#: - ``runtime``: every field but ``capacity``, ``bucket_sizes`` and
-#:   ``window`` (the fleet gateway and the predictor pool);
+#: - ``runtime``: ``shard_pool`` (sharding the pool's slots across
+#:   devices waits for the port's parallelism);
 #: - the sections ``bus``, ``engine``, ``mesh``, ``session``, ``fleet``,
 #:   ``observability``, ``slo``, ``quality``, ``tracing``, ``profiling``,
 #:   ``chaos``, ``control`` and ``replay`` whole.

@@ -1,4 +1,48 @@
 """Tensor ops of the port: the GRU and LSTM projections and scans, the
 SSM's scans and serve tick, multi-head attention and its flash op (with
 their CUDA kernels), the technical indicators (numpy) and the multi-label
-metrics."""
+metrics.
+
+Each kernel's wrapper adds one to its counter where it launches the
+kernel; :func:`launch_counts` reads them all, by kernel name."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+#: kernel name -> (module of its wrapper, the counter the wrapper adds to)
+LAUNCH_COUNTERS = {
+    "gru_scan_fwd": ("gru_kernel", "launches"),
+    "gru_scan_bwd": ("gru_kernel", "bwd_launches"),
+    "lstm_scan_fwd": ("lstm_kernel", "launches"),
+    "lstm_scan_bwd": ("lstm_kernel", "bwd_launches"),
+    "scan_dw": ("scan_dw", "launches"),
+    "ssm_step": ("ssm_kernel", "launches"),
+    "ssm_tick": ("ssm_kernel", "tick_launches"),
+    "flash_fwd": ("attention_kernel", "fwd_launches"),
+    "flash_dkv": ("attention_kernel", "dkv_launches"),
+    "flash_dq": ("attention_kernel", "dq_launches"),
+    "flash_bwd": ("attention_kernel", "bwd_launches"),
+}
+
+
+def _module(name: str):
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launches so far in this process, by kernel name."""
+    return {kernel: getattr(_module(mod), attr)
+            for kernel, (mod, attr) in LAUNCH_COUNTERS.items()}
+
+
+def total_launches() -> int:
+    """The launches of every kernel together."""
+    return sum(launch_counts().values())
+
+
+def reset_launch_counts() -> None:
+    """Every kernel's launch count to 0."""
+    for mod, attr in LAUNCH_COUNTERS.values():
+        setattr(_module(mod), attr, 0)

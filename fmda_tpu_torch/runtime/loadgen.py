@@ -1,0 +1,277 @@
+"""Synthetic multi-ticker load generator for the serving runtime, as
+``fmda_tpu.runtime.loadgen`` defines it.
+
+Drives a :class:`~fmda_tpu_torch.runtime.gateway.FleetGateway` with N
+independent ticker sessions — each with its own price scale (per-session
+normalization stats) and its own random-walk feature stream — submitting
+rows round by round and pumping the gateway, the traffic shape the fleet
+runtime exists for; and a
+:class:`~fmda_tpu_torch.runtime.predictor_pool.PredictorGateway` with
+bursts of predict-timestamp signals.  Used by ``python -m fmda_tpu_torch
+serve-fleet`` and by ``chip_smoke.py``.  Where the reference's summaries
+carry ``compile_count``, these carry ``kernel_launches_by_bucket``: the
+port has no compiles, and its kernels' launches per flush bucket say what
+ran on the card (all 0 on the CPU).
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from fmda_tpu_torch.config import TOPIC_PREDICT_TIMESTAMP
+from fmda_tpu_torch.data.normalize import NormParams
+
+
+def _by_bucket(gateway) -> Dict[str, int]:
+    """``gateway.kernel_launches_by_bucket`` with JSON keys."""
+    counts = getattr(gateway, "kernel_launches_by_bucket", {})
+    return {str(b): n for b, n in sorted(counts.items())}
+
+
+@dataclass(frozen=True)
+class FleetLoadConfig:
+    """Shape of the synthetic fleet."""
+
+    n_sessions: int = 64
+    #: Submission rounds; every session ticks each round with prob ``duty``.
+    n_ticks: int = 100
+    #: Fraction of sessions ticking per round (1.0 = lockstep fleet;
+    #: lower values exercise ragged arrival + padded buckets).
+    duty: float = 1.0
+    seed: int = 0
+    #: Adversarial reconnect storm: every ``storm_every`` rounds, a
+    #: burst of sessions closes and immediately reopens (the traffic
+    #: shape a fleet membership change produces — clients stampeding
+    #: back).  0 disables.  Reopened sessions restart their stream:
+    #: fresh carried state, seq back to 0.
+    storm_every: int = 0
+    #: Fraction of sessions hit per storm burst.
+    storm_fraction: float = 0.25
+    #: Synchronized burst (the market-open spike): every ``burst_every``
+    #: rounds, EVERY session ticks — duty and the slow-drip set are
+    #: overridden — for ``burst_rounds`` consecutive rounds, so the
+    #: largest bucket, the queue bound, and the shedder all get hit at
+    #: once.  0 disables.
+    burst_every: int = 0
+    burst_rounds: int = 1
+    #: Slow-drip stragglers: this fraction of sessions tick at
+    #: ``slow_duty`` instead of ``duty`` — long-lived sessions that
+    #: barely tick keep slots pinned, drag the linger deadline, and
+    #: ragged-fill the small buckets (the anti-batching shape).
+    slow_fraction: float = 0.0
+    slow_duty: float = 0.05
+    #: Tenant-labeled traffic mix (per-tenant QoS): parallel
+    #: tuples of class names and per-class session weights.  Each
+    #: session is assigned one class (deterministic from ``seed``,
+    #: proportional to weight) and opened with ``tenant=<class>`` —
+    #: composable with bursts, storms, and stragglers, so a spiky gold
+    #: tenant can storm a best-effort background fleet.  Empty =
+    #: unlabeled sessions (the pre-QoS shape, byte-for-byte).
+    tenant_classes: tuple = ()
+    tenant_weights: tuple = ()
+
+    def __post_init__(self) -> None:
+        if len(self.tenant_classes) != len(self.tenant_weights):
+            raise ValueError(
+                "tenant_classes and tenant_weights must be parallel: "
+                f"{self.tenant_classes} vs {self.tenant_weights}")
+
+
+def assign_tenants(load: "FleetLoadConfig", rng) -> Optional[list]:
+    """Per-session tenant labels for the configured mix (None when no
+    mix): weight-proportional draw, deterministic in the load's rng
+    stream so a reference replay assigns identically."""
+    if not load.tenant_classes:
+        return None
+    weights = np.asarray(load.tenant_weights, float)
+    probs = weights / weights.sum()
+    idx = rng.choice(len(load.tenant_classes), size=load.n_sessions, p=probs)
+    return [load.tenant_classes[i] for i in idx]
+
+
+def run_fleet_load(
+    gateway,
+    load: Optional[FleetLoadConfig] = None,
+    *,
+    on_round=None,
+) -> Dict:
+    """Run the synthetic fleet to completion; returns a result dict with
+    throughput, per-stage latency summaries, and the loss counters.
+
+    ``gateway`` is anything speaking the gateway serving API
+    (open/submit/pump/drain, ``saturated``, ``metrics``):
+    :class:`~fmda_tpu_torch.runtime.gateway.FleetGateway` in-process.
+
+    ``on_round`` (optional) is called with the round index after each
+    round's pump (a virtual clock advances here, for one).
+    """
+    load = load or FleetLoadConfig()
+    pool = getattr(gateway, "pool", None)
+    feats = pool.cfg.n_features if pool is not None else gateway.n_features
+    rng = np.random.default_rng(load.seed)
+
+    session_ids = [f"T{i:04d}" for i in range(load.n_sessions)]
+    tenants = assign_tenants(load, rng)
+    # per-session price scale: normalization stats differ per ticker, so
+    # the pool's per-slot norm gather is actually exercised
+    mins = rng.normal(0.0, 1.0, size=(load.n_sessions, feats)).astype(
+        np.float32)
+    maxs = mins + rng.uniform(1.0, 5.0, size=(load.n_sessions, feats)).astype(
+        np.float32)
+    for i, sid in enumerate(session_ids):
+        if tenants is None:
+            gateway.open_session(sid, NormParams(mins[i], maxs[i]))
+        else:
+            gateway.open_session(
+                sid, NormParams(mins[i], maxs[i]), tenant=tenants[i])
+
+    # independent random walks (B, F), advanced only for sessions that tick
+    walk = rng.normal(size=(load.n_sessions, feats)).astype(np.float32)
+    # the slow-drip straggler set is fixed for the whole load (the same
+    # long-lived barely-ticking clients every round, not a rotating one)
+    per_session_duty = np.full(load.n_sessions, load.duty)
+    n_slow = int(load.n_sessions * load.slow_fraction)
+    if n_slow:
+        slow_idx = rng.choice(load.n_sessions, size=n_slow, replace=False)
+        per_session_duty[slow_idx] = load.slow_duty
+    submitted = 0
+    submitted_by_class: Dict[str, int] = {}
+    served = 0
+    reopened = 0
+    burst_ticks = 0
+    t0 = time.perf_counter()
+    for r in range(load.n_ticks):
+        if load.storm_every and r and r % load.storm_every == 0:
+            # reconnect storm: close + instantly reopen a burst of
+            # sessions (keeps their norm stats — same client, new
+            # connection), the shape that drives the migration/reopen
+            # machinery hardest
+            n_hit = max(1, int(load.n_sessions * load.storm_fraction))
+            for i in rng.choice(load.n_sessions, size=n_hit,
+                                replace=False):
+                sid = session_ids[i]
+                gateway.close_session(sid)
+                if tenants is None:
+                    gateway.open_session(sid, NormParams(mins[i], maxs[i]))
+                else:
+                    # same client reconnecting: the class sticks
+                    gateway.open_session(
+                        sid, NormParams(mins[i], maxs[i]),
+                        tenant=tenants[i])
+                reopened += 1
+        in_burst = (load.burst_every and r >= load.burst_every
+                    and r % load.burst_every < load.burst_rounds)
+        if in_burst:
+            # market-open spike: everyone ticks, stragglers included
+            ticking = np.ones(load.n_sessions, bool)
+            burst_ticks += load.n_sessions
+        else:
+            ticking = rng.random(load.n_sessions) < per_session_duty
+        steps = rng.normal(
+            scale=0.1, size=(load.n_sessions, feats)).astype(np.float32)
+        walk[ticking] += steps[ticking]
+        for i in np.flatnonzero(ticking):
+            while gateway.saturated:
+                # well-behaved producer: drain instead of racing the
+                # shedder (fleets larger than queue_bound would otherwise
+                # lose ticks before pump() ever ran).  A multi-host
+                # router stays saturated until its workers catch up —
+                # yield the GIL so the bus-server threads can serve them
+                drained = gateway.pump(force=True)
+                served += len(drained)
+                if not drained and gateway.saturated:
+                    time.sleep(0.002)
+            gateway.submit(session_ids[i], walk[i])
+            submitted += 1
+            if tenants is not None:
+                cls = tenants[i]
+                submitted_by_class[cls] = \
+                    submitted_by_class.get(cls, 0) + 1
+        served += len(gateway.pump())
+        if on_round is not None:
+            on_round(r)
+    served += len(gateway.drain())
+    wall_s = time.perf_counter() - t0
+
+    summary = gateway.metrics.summary()
+    out = {
+        "sessions": load.n_sessions,
+        "rounds": load.n_ticks,
+        "ticks_submitted": submitted,
+        "ticks_served": served,
+        "wall_s": wall_s,
+        "ticks_per_s": served / wall_s if wall_s > 0 else None,
+        "kernel_launches_by_bucket": _by_bucket(gateway),
+        **summary,
+    }
+    if load.storm_every:
+        out["sessions_reopened"] = reopened
+    if load.burst_every:
+        out["burst_ticks"] = burst_ticks
+    if n_slow:
+        out["slow_sessions"] = n_slow
+    if tenants is not None:
+        out["submitted_by_class"] = submitted_by_class
+    return out
+
+
+@dataclass(frozen=True)
+class PredictorLoadConfig:
+    """Shape of a batched-Predictor load: serve ``n_signals`` warehouse
+    timestamps (0 = every servable one) in bursts of ``burst`` signals
+    per poll — the traffic the engine's signal-after-commit cadence
+    produces.  ``bursts``, where given, are the burst sizes taken in
+    turn and cycled, in place of ``burst``: ragged traffic whose flushes
+    land in every bucket, some of them padded."""
+
+    n_signals: int = 0
+    burst: int = 32
+    bursts: Tuple[int, ...] = ()
+
+    def __post_init__(self) -> None:
+        if min((self.burst, *self.bursts)) < 1:
+            raise ValueError(
+                f"bursts must be >= 1, got {self.burst} and {self.bursts}")
+
+
+def run_predictor_load(
+    gateway, timestamps, load: Optional[PredictorLoadConfig] = None
+) -> Dict:
+    """Publish predict-timestamp signals in bursts on the gateway's bus
+    and poll the :class:`~fmda_tpu_torch.runtime.predictor_pool
+    .PredictorGateway` after each burst; returns throughput + per-stage
+    latency + loss counters (``serve-fleet --predictor`` and
+    ``chip_smoke.py``)."""
+
+    load = load or PredictorLoadConfig()
+    timestamps = list(timestamps)
+    if load.n_signals:
+        timestamps = timestamps[: load.n_signals]
+    sizes = itertools.cycle(load.bursts or (load.burst,))
+    served, i = 0, 0
+    t0 = time.perf_counter()
+    while i < len(timestamps):
+        burst = next(sizes)
+        for ts in timestamps[i:i + burst]:
+            gateway.bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": ts})
+        served += len(gateway.poll())
+        i += burst
+    served += len(gateway.drain())
+    wall_s = time.perf_counter() - t0
+
+    summary = gateway.metrics.summary()
+    return {
+        "signals_submitted": len(timestamps),
+        "signals_served": served,
+        "burst": load.burst,
+        **({"bursts": list(load.bursts)} if load.bursts else {}),
+        "wall_s": wall_s,
+        "signals_per_s": served / wall_s if wall_s > 0 else None,
+        "kernel_launches_by_bucket": _by_bucket(gateway),
+        **summary,
+    }

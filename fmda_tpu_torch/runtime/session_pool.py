@@ -14,10 +14,11 @@ device, and a flush (:meth:`SessionPool.step_device`) is
   :class:`~fmda_tpu_torch.serve.streaming.StreamingBiGRU` serves;
 - a *scatter* of the new rows back into the pooled tensors, in place.
 
-For ``cell="ssm"`` all of that is one kernel launch
+Every flush's slots and rows reach the card in one non-blocking copy out
+of a pinned staging buffer, so a flush never waits on the card before its
+launches.  For ``cell="ssm"`` the flush is then one kernel launch
 (:func:`~fmda_tpu_torch.ops.ssm_kernel.ssm_serve_tick`, every layer
-included), fed by one copy of the slots and rows through a pinned staging
-buffer: a flush is that copy, the launch and the probabilities' copy back.
+included): that copy, the launch and the probabilities' copy back.
 
 The extra slot (index ``capacity``) is the **padding lane**: lanes of a
 padded micro-batch past the real requests point at it, so a flush needs no
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from fmda_tpu_torch.data.normalize import NormParams
-from fmda_tpu_torch.device import DeviceLike, resolve_device
+from fmda_tpu_torch.device import DeviceLike, PinnedStaging, resolve_device
 from fmda_tpu_torch.ops.ssm_kernel import pack_tick_weights, ssm_serve_tick
 from fmda_tpu_torch.serve.streaming import (
     _layer_weights,
@@ -130,9 +131,11 @@ class SessionPool:
         self._generations = [0] * capacity
         self._free: List[int] = list(range(capacity - 1, -1, -1))
         self._by_id: Dict[str, SessionHandle] = {}
-        # the fused tick's staging, by flush size: (pinned host buffer,
-        # its device twin, the event of the last copy out of it)
-        self._staging: Dict[int, tuple] = {}
+        # a flush's slots and rows reach the card in one pinned copy; the
+        # slots in the dtype their reader takes (the ssm tick's kernel
+        # int32, torch indexing int64), so no flush casts them
+        self._staging = PinnedStaging()
+        self._slot_dtype = np.int32 if self._head == "carry" else np.int64
 
     def _set_params(self, params: Dict[str, Tensor]) -> None:
         self._params = params
@@ -328,15 +331,14 @@ class SessionPool:
                 slots.min() < 0 or slots.max() > self.padding_slot):
             raise IndexError(
                 f"slots must be a (B,) list of slots 0..{self.padding_slot}")
-        rows = np.asarray(rows, np.float32)
+        rows_d, slots_d = self._stage(slots, np.asarray(rows, np.float32))
         if self._head == "carry":
-            rows_d, slots_d = self._stage(slots, rows)
             return ssm_serve_tick(rows_d, slots_d, self._x_min,
                                   self._x_range, self._tick_weights,
                                   self._state, self._pos)
-        idx = torch.as_tensor(slots).to(self.device)
-        rows = torch.as_tensor(rows).to(self.device)
-        x = ((rows - self._x_min[idx]) / self._x_range[idx]).to(self._dtype)
+        idx = slots_d
+        x = ((rows_d - self._x_min[idx]) / self._x_range[idx]).to(
+            self._dtype)
         pos_b = self._pos[idx]
         carry_b = tuple(tuple(c[idx] for c in layer)
                         for layer in self._carry)
@@ -356,30 +358,17 @@ class SessionPool:
         return torch.sigmoid(logits)
 
     def _stage(self, slots: np.ndarray, rows: np.ndarray):
-        """``rows`` (B, F) float32 and ``slots`` (B,) int32 on the pool's
-        device.  On a card both go through one pinned buffer and one
-        non-blocking copy; the buffer is rewritten only once the previous
-        copy out of it has run."""
+        """``rows`` (B, F) float32 and ``slots`` (B,) on the pool's
+        device, the slots in :attr:`_slot_dtype`; on a card both through
+        one pinned buffer and one non-blocking copy."""
         batch, feats = slots.size, self.cfg.n_features
         if rows.shape != (batch, feats):
             raise ValueError(
                 f"rows must be (B, F) = {(batch, feats)}, got {rows.shape}")
-        if self.device.type != "cuda":
-            return (torch.from_numpy(rows),
-                    torch.from_numpy(slots.astype(np.int32)))
-        if batch not in self._staging:
-            host = torch.empty(batch * (feats + 1), dtype=torch.float32,
-                               pin_memory=True)
-            self._staging[batch] = (host, torch.empty_like(
-                host, device=self.device), torch.cuda.Event())
-        host, dev, copied = self._staging[batch]
-        copied.synchronize()
-        buf = host.numpy()
-        buf[:batch].view(np.int32)[:] = slots
-        buf[batch:] = rows.reshape(-1)
-        dev.copy_(host, non_blocking=True)
-        copied.record()
-        return dev[batch:].view(batch, feats), dev[:batch].view(torch.int32)
+        slots_d, rows_d = self._staging.to_device(
+            "flush", (slots.astype(self._slot_dtype, copy=False), rows),
+            self.device)
+        return rows_d, slots_d
 
     def step(self, slots, rows) -> np.ndarray:
         """Blocking :meth:`step_device`: probabilities as a host array."""

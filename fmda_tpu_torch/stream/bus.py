@@ -1,14 +1,17 @@
 """A minimal in-process message bus: append-only topics, monotonically
 increasing offsets, independent consumer positions, and per-topic ring
-retention.  Values are copied on publish, as a broker would decouple them
-from the caller."""
+retention.  Values are copied on publish (:func:`~fmda_tpu_torch.stream.
+codec.wire_copy`: containers copied, arrays passed through as immutable),
+as a broker would decouple them from the caller, and a value the wire
+could not carry is refused."""
 
 from __future__ import annotations
 
-import copy
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
+
+from fmda_tpu_torch.stream import codec
 
 
 @dataclass(frozen=True)
@@ -53,20 +56,43 @@ class InProcessBus:
             raise KeyError(
                 f"unknown topic {topic!r}; configured: {sorted(self._logs)}")
 
+    def topics(self) -> List[str]:
+        """The configured topics."""
+        with self._lock:
+            return list(self._logs)
+
+    def add_topic(self, topic: str) -> None:
+        """Create a topic after construction; an existing topic keeps its
+        log and offsets."""
+        with self._lock:
+            if topic not in self._logs:
+                self._logs[topic] = []
+                self._base[topic] = 0
+                self._next[topic] = 0
+
     def publish(self, topic: str, value: dict) -> int:
         """Append a message; returns its offset."""
-        value = copy.deepcopy(value)
+        return self._append(topic, [codec.wire_copy(value)])[0]
+
+    def publish_many(self, topic: str, values: Sequence[dict]) -> List[int]:
+        """Append a batch of messages in order under one lock; returns
+        their offsets (``[publish(topic, v) for v in values]``, once)."""
+        values = [codec.wire_copy(v) for v in values]
+        return self._append(topic, values) if values else []
+
+    def _append(self, topic: str, values: List[dict]) -> List[int]:
         with self._lock:
             self._check_topic(topic)
-            offset = self._next[topic]
-            self._next[topic] = offset + 1
             log = self._logs[topic]
-            log.append(Record(topic, offset, value))
+            first = self._next[topic]
+            log.extend(Record(topic, first + i, value)
+                       for i, value in enumerate(values))
+            self._next[topic] = first + len(values)
             if len(log) > self._capacity:  # retention: drop the oldest
                 drop = len(log) - self._capacity
                 del log[:drop]
                 self._base[topic] += drop
-        return offset
+        return list(range(first, first + len(values)))
 
     def read(self, topic: str, offset: int,
              max_records: Optional[int] = None) -> List[Record]:

@@ -1,0 +1,660 @@
+"""Versioned binary wire codec: the data plane's framing, as
+``fmda_tpu.stream.codec`` defines it, byte for byte.
+
+- A **fixed frame header** (magic ``0xFB``, version, op, flags) in front
+  of a tagged little-endian value encoding (``None``/bool/i64/f64/str/
+  bytes/list/dict/ndarray).  The magic byte can never begin a JSON text,
+  so binary and JSON frames coexist on one link and every receiver
+  detects the format per frame.
+- **Zero-copy arrays**: an ndarray crosses as dtype, shape and raw bytes
+  and decodes as a read-only ``np.frombuffer`` view into the frame.
+- **Columnar blocks**: :func:`pack_ticks` / :func:`iter_ticks` for routed
+  ticks, :func:`pack_results` / :func:`iter_results` for a gateway
+  flush's results, :func:`pack_rows` / :func:`unpack_rows` for landing
+  rows.
+- A **JSON fallback** (:func:`dumps` / :func:`loads`) carrying the same
+  value model with arrays and bytes tagged as base64.
+
+A frame this module writes is the reference's frame, and each side decodes
+the other's.  Floats: the binary format carries every float's bits,
+NaN payloads included; the JSON fallback writes a scalar NaN as ``NaN``,
+so a scalar NaN comes back as the canonical NaN (arrays carry their bits
+in both formats).
+
+numpy and the stdlib only.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import struct
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+#: First payload byte of every binary frame.  0xFB is not a legal first
+#: byte of any UTF-8 sequence, so a binary frame can never be mistaken
+#: for JSON text (and vice versa: JSON starts '{', '[', '"', a digit…).
+MAGIC = 0xFB
+
+#: Bumped on any incompatible layout change; decoders reject unknown
+#: versions loudly instead of mis-parsing.
+CODEC_VERSION = 1
+
+#: Frame ops (header byte 3).  One op today — the generic value frame —
+#: with the byte reserved so future layouts don't need a version bump.
+OP_VALUE = 0
+
+_HEADER = struct.Struct("<BBBB")  # magic, version, op, flags
+_I64 = struct.Struct("<q")
+_F64 = struct.Struct("<d")
+_U32 = struct.Struct("<I")
+
+# value tags
+_T_NONE = 0x00
+_T_FALSE = 0x01
+_T_TRUE = 0x02
+_T_INT = 0x03
+_T_FLOAT = 0x04
+_T_STR = 0x05
+_T_BYTES = 0x06
+_T_LIST = 0x07
+_T_DICT = 0x08
+_T_ARRAY = 0x09
+
+
+class CodecError(ValueError):
+    """A buffer that is not a well-formed frame (truncated, bad magic or
+    version, unknown tag, trailing garbage) or a value outside the wire
+    data model.  Decode errors are *content* errors: the transport
+    framing around the payload is intact, so a link survives them."""
+
+
+# ---------------------------------------------------------------------------
+# binary encode
+# ---------------------------------------------------------------------------
+
+
+def _encode_value(out: bytearray, value: Any) -> None:
+    if value is None:
+        out.append(_T_NONE)
+    elif value is True:
+        out.append(_T_TRUE)
+    elif value is False:
+        out.append(_T_FALSE)
+    elif isinstance(value, int):
+        out.append(_T_INT)
+        try:
+            out += _I64.pack(value)
+        except struct.error as e:
+            raise CodecError(f"int {value} exceeds i64 range") from e
+    elif isinstance(value, float):
+        out.append(_T_FLOAT)
+        out += _F64.pack(value)
+    elif isinstance(value, str):
+        raw = value.encode("utf-8")
+        out.append(_T_STR)
+        out += _U32.pack(len(raw))
+        out += raw
+    elif isinstance(value, (bytes, bytearray, memoryview)):
+        raw = bytes(value)
+        out.append(_T_BYTES)
+        out += _U32.pack(len(raw))
+        out += raw
+    elif isinstance(value, np.ndarray):
+        _encode_array(out, value)
+    elif isinstance(value, (list, tuple)):
+        out.append(_T_LIST)
+        out += _U32.pack(len(value))
+        for item in value:
+            _encode_value(out, item)
+    elif isinstance(value, dict):
+        out.append(_T_DICT)
+        out += _U32.pack(len(value))
+        for k, v in value.items():
+            if not isinstance(k, str):
+                k = _coerce_key(k)
+            raw = k.encode("utf-8")
+            out += _U32.pack(len(raw))
+            out += raw
+            _encode_value(out, v)
+    elif isinstance(value, (np.integer, np.floating, np.bool_)):
+        _encode_value(out, value.item())
+    else:
+        raise CodecError(
+            f"value of type {type(value).__name__} is not wire-encodable")
+
+
+def _encode_array(out: bytearray, a: np.ndarray) -> None:
+    if a.dtype.hasobject:
+        raise CodecError("object-dtype arrays are not wire-encodable")
+    a = np.ascontiguousarray(a)
+    dt = a.dtype.str.encode("ascii")  # e.g. b"<f4" — byte order explicit
+    out.append(_T_ARRAY)
+    out.append(len(dt))
+    out += dt
+    out.append(a.ndim)
+    for dim in a.shape:
+        out += _I64.pack(dim)
+    raw = a.tobytes()  # one memcpy; the only copy on the encode side
+    out += _U32.pack(len(raw))
+    out += raw
+
+
+def _coerce_key(k: Any) -> str:
+    """Match ``json.dumps`` key coercion so the binary format accepts
+    exactly the dicts the JSON fallback accepts."""
+    if k is True:
+        return "true"
+    if k is False:
+        return "false"
+    if k is None:
+        return "null"
+    if isinstance(k, (int, float)):
+        return repr(k)
+    raise CodecError(f"dict key of type {type(k).__name__} is not "
+                     "wire-encodable")
+
+
+def encode(value: Any, *, op: int = OP_VALUE) -> bytes:
+    """``value`` as one self-contained binary frame (header + body)."""
+    out = bytearray(_HEADER.pack(MAGIC, CODEC_VERSION, op, 0))
+    _encode_value(out, value)
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# binary decode
+# ---------------------------------------------------------------------------
+#
+# The decoder is written flat — (buf, pos) in, (value, pos) out, struct
+# ``unpack_from`` against the buffer, no reader object — because its
+# per-value overhead is the hot path: a 256-tick block decodes a few
+# hundred values.
+
+_u32_from = _U32.unpack_from
+_i64_from = _I64.unpack_from
+_f64_from = _F64.unpack_from
+
+
+def _decode_value(buf: bytes, pos: int, end: int) -> Tuple[Any, int]:
+    if pos >= end:
+        raise CodecError("truncated frame: missing value tag")
+    tag = buf[pos]
+    pos += 1
+    if tag == _T_STR:
+        (n,) = _u32_from(buf, pos)
+        pos += 4
+        stop = pos + n
+        if stop > end:
+            raise CodecError("truncated frame: short string")
+        try:
+            return buf[pos:stop].decode("utf-8"), stop
+        except UnicodeDecodeError as e:
+            raise CodecError(f"malformed utf-8 in string: {e}") from e
+    if tag == _T_INT:
+        (v,) = _i64_from(buf, pos)
+        return v, pos + 8
+    if tag == _T_FLOAT:
+        (v,) = _f64_from(buf, pos)
+        return v, pos + 8
+    if tag == _T_DICT:
+        (n,) = _u32_from(buf, pos)
+        pos += 4
+        out: Dict[str, Any] = {}
+        for _ in range(n):
+            (kn,) = _u32_from(buf, pos)
+            pos += 4
+            kstop = pos + kn
+            if kstop > end:
+                raise CodecError("truncated frame: short dict key")
+            key = buf[pos:kstop].decode("utf-8")
+            out[key], pos = _decode_value(buf, kstop, end)
+        return out, pos
+    if tag == _T_LIST:
+        (n,) = _u32_from(buf, pos)
+        pos += 4
+        items = []
+        append = items.append
+        for _ in range(n):
+            v, pos = _decode_value(buf, pos, end)
+            append(v)
+        return items, pos
+    if tag == _T_ARRAY:
+        return _decode_array(buf, pos, end)
+    if tag == _T_NONE:
+        return None, pos
+    if tag == _T_TRUE:
+        return True, pos
+    if tag == _T_FALSE:
+        return False, pos
+    if tag == _T_BYTES:
+        (n,) = _u32_from(buf, pos)
+        pos += 4
+        stop = pos + n
+        if stop > end:
+            raise CodecError("truncated frame: short bytes")
+        return buf[pos:stop], stop
+    raise CodecError(f"unknown value tag 0x{tag:02x}")
+
+
+def _decode_array(buf: bytes, pos: int, end: int) -> Tuple[np.ndarray, int]:
+    dn = buf[pos]
+    pos += 1
+    try:
+        dtype = np.dtype(buf[pos:pos + dn].decode("ascii"))
+    except (TypeError, ValueError, UnicodeDecodeError) as e:
+        raise CodecError(f"bad array dtype: {e}") from e
+    pos += dn
+    ndim = buf[pos]
+    pos += 1
+    shape = []
+    for _ in range(ndim):
+        (d,) = _i64_from(buf, pos)
+        pos += 8
+        if d < 0:
+            raise CodecError(f"negative array dimension {d}")
+        shape.append(d)
+    (nbytes,) = _u32_from(buf, pos)
+    pos += 4
+    stop = pos + nbytes
+    if stop > end:
+        raise CodecError("truncated frame: short array payload")
+    count = 1
+    for d in shape:
+        count *= d
+    if count * dtype.itemsize != nbytes:
+        raise CodecError(
+            f"array payload {nbytes}B does not match shape "
+            f"{tuple(shape)} of {dtype}")
+    # zero-copy: a read-only view into the received frame buffer —
+    # callers that need to mutate copy; everything else reads in place
+    a = np.frombuffer(buf, dtype=dtype, count=count, offset=pos)
+    return a.reshape(shape), stop
+
+
+def decode(buf: bytes) -> Any:
+    """Inverse of :func:`encode`; raises :class:`CodecError` on any
+    malformed input (truncation, trailing bytes, bad magic/version)."""
+    if not isinstance(buf, bytes):
+        buf = bytes(buf)
+    if len(buf) < _HEADER.size:
+        raise CodecError(f"frame of {len(buf)}B is shorter than a header")
+    magic, version, op, _flags = _HEADER.unpack_from(buf, 0)
+    if magic != MAGIC:
+        raise CodecError(f"bad magic 0x{magic:02x} (not a binary frame)")
+    if version != CODEC_VERSION:
+        raise CodecError(
+            f"frame version {version} unknown (this codec speaks "
+            f"{CODEC_VERSION})")
+    if op != OP_VALUE:
+        raise CodecError(f"unknown frame op {op}")
+    end = len(buf)
+    try:
+        value, pos = _decode_value(buf, _HEADER.size, end)
+    except (struct.error, IndexError) as e:  # read past the end
+        raise CodecError(f"truncated frame: {e}") from e
+    except UnicodeDecodeError as e:  # malformed utf-8 in a dict key or
+        # dtype string (string VALUES convert in place; this is the
+        # backstop) — a content error, never a connection-killer
+        raise CodecError(f"malformed utf-8 in frame: {e}") from e
+    if pos != end:
+        raise CodecError(
+            f"{end - pos} trailing byte(s) after the value")
+    return value
+
+
+def is_binary(payload: bytes) -> bool:
+    """Does this payload start a binary frame (vs JSON text)?"""
+    return bool(payload) and payload[0] == MAGIC
+
+
+# ---------------------------------------------------------------------------
+# the JSON fallback (negotiated debug/control format)
+# ---------------------------------------------------------------------------
+
+
+def to_jsonable(value: Any) -> Any:
+    """The wire value model lowered to plain JSON types: arrays become
+    ``{"__nd__": [dtype, shape, base64]}``, bytes ``{"__b64__": ...}``.
+    base64 survives only here — the binary format carries raw bytes.
+    Scalar floats stay JSON numbers, so a NaN's payload bits do not
+    survive (``json`` writes every NaN as ``NaN``)."""
+    if isinstance(value, np.ndarray):
+        a = np.ascontiguousarray(value)
+        if a.dtype.hasobject:
+            raise CodecError("object-dtype arrays are not wire-encodable")
+        return {"__nd__": [
+            a.dtype.str, list(a.shape),
+            base64.b64encode(a.tobytes()).decode("ascii")]}
+    if isinstance(value, (bytes, bytearray, memoryview)):
+        return {"__b64__": base64.b64encode(bytes(value)).decode("ascii")}
+    if isinstance(value, dict):
+        return {k: to_jsonable(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [to_jsonable(v) for v in value]
+    if isinstance(value, (np.integer, np.floating, np.bool_)):
+        return value.item()
+    return value
+
+
+def from_jsonable(value: Any) -> Any:
+    if isinstance(value, dict):
+        if len(value) == 1:
+            if "__nd__" in value:
+                tagged = value["__nd__"]
+                if isinstance(tagged, list) and len(tagged) == 3:
+                    dtype, shape, b64 = tagged
+                    a = np.frombuffer(
+                        base64.b64decode(b64), dtype=np.dtype(dtype))
+                    return a.reshape(shape)
+            if "__b64__" in value and isinstance(value["__b64__"], str):
+                return base64.b64decode(value["__b64__"])
+        return {k: from_jsonable(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [from_jsonable(v) for v in value]
+    return value
+
+
+def dumps(value: Any) -> bytes:
+    """The JSON wire format: UTF-8 text, arrays/bytes tagged base64.
+    Equality through it is canonical-NaN equality for scalar floats and
+    bit equality for arrays."""
+    return json.dumps(to_jsonable(value)).encode("utf-8")
+
+
+def loads(data: bytes) -> Any:
+    try:
+        return from_jsonable(json.loads(data))
+    except (json.JSONDecodeError, UnicodeDecodeError) as e:
+        raise CodecError(f"malformed JSON frame: {e}") from e
+
+
+# ---------------------------------------------------------------------------
+# one payload surface for both formats
+# ---------------------------------------------------------------------------
+
+
+def encode_payload(value: Any, *, binary: bool) -> bytes:
+    """``value`` in the requested wire format (the sender's negotiated
+    choice); either output decodes through :func:`decode_payload`."""
+    return encode(value) if binary else dumps(value)
+
+
+def decode_payload(payload: bytes) -> Tuple[Any, bool]:
+    """Auto-detecting decode: ``(value, was_binary)``.  Raises
+    :class:`CodecError` on malformed content in either format."""
+    if is_binary(payload):
+        return decode(payload), True
+    return loads(payload), False
+
+
+def wire_copy(value: Any) -> Any:
+    """Structural copy + serializability check for in-process buses:
+    containers are copied (decoupling the stored record from the caller's
+    later mutation), scalars pass through, and arrays pass through
+    uncopied (the bus treats array payloads as immutable).  Raises
+    :class:`CodecError` for values the wire could not carry."""
+    if isinstance(value, (np.integer, np.floating, np.bool_)):
+        return value.item()  # before the plain-scalar test: np.float64
+        # IS a float subclass, but must leave the bus as a python float
+    if value is None or isinstance(value, (bool, int, float, str, bytes)):
+        return value
+    if isinstance(value, np.ndarray):
+        if value.dtype.hasobject:
+            raise CodecError("object-dtype arrays are not wire-encodable")
+        return np.ascontiguousarray(value)
+    if isinstance(value, dict):
+        return {
+            (k if isinstance(k, str) else _coerce_key(k)): wire_copy(v)
+            for k, v in value.items()
+        }
+    if isinstance(value, (list, tuple)):
+        return [wire_copy(v) for v in value]
+    raise CodecError(
+        f"bus value of type {type(value).__name__} is not wire-encodable")
+
+
+def contains_array(value: Any) -> bool:
+    """Does this value carry an ndarray anywhere?  (Backends that store
+    opaque bytes pick the binary layout exactly when it pays.)"""
+    if isinstance(value, np.ndarray):
+        return True
+    if isinstance(value, dict):
+        return any(contains_array(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return any(contains_array(v) for v in value)
+    return False
+
+
+# ---------------------------------------------------------------------------
+# columnar tick blocks
+# ---------------------------------------------------------------------------
+
+
+def pack_ticks(msgs: Sequence[dict]) -> dict:
+    """A run of per-tick routed messages as ONE columnar block message.
+
+    ``msgs`` are ``{"kind": "tick", "session", "row", "seq"[, "trace"]}``
+    dicts with ndarray rows.  The block stacks the rows into a
+    contiguous ``(B, F)`` float32 array and the seqs into one int64
+    column; session ids are dictionary-encoded (the unique ids plus an
+    int32 index column)."""
+    rows = np.stack([m["row"] for m in msgs])
+    if rows.dtype != np.float32:
+        rows = rows.astype(np.float32)
+    uniq: Dict[str, int] = {}
+    ids: List[str] = []
+    idx: List[int] = []
+    seqs: List[int] = []
+    for m in msgs:
+        s = m["session"]
+        j = uniq.get(s)
+        if j is None:
+            j = uniq[s] = len(ids)
+            ids.append(s)
+        idx.append(j)
+        seqs.append(m["seq"])
+    block = {
+        "kind": "tick_block",
+        "ids": ids,
+        "idx": np.asarray(idx, np.int32),
+        "seqs": np.asarray(seqs, np.int64),
+        "rows": rows,
+    }
+    traces = [m.get("trace") for m in msgs]
+    if any(t is not None for t in traces):
+        block["traces"] = traces
+    return block
+
+
+def iter_ticks(block: dict) -> Iterator[Tuple[str, np.ndarray, int, Optional[str]]]:
+    """``(session, row_view, seq, trace)`` per tick of a block.  Rows
+    are views into the block's contiguous array (zero copy — the
+    gateway's staging copy is the first and only one)."""
+    ids = block["ids"]
+    idx = np.asarray(block["idx"]).tolist()  # one C pass, not B boxes
+    rows = np.asarray(block["rows"], np.float32)
+    seqs = np.asarray(block["seqs"]).tolist()
+    traces = block.get("traces")
+    for i, j in enumerate(idx):
+        yield (ids[j], rows[i], seqs[i],
+               None if traces is None else traces[i])
+
+
+#: below this run length a block's envelope costs more than it saves
+MIN_BLOCK_TICKS = 2
+
+
+def coalesce_ticks(msgs: List[dict]) -> List[dict]:
+    """Collapse runs of consecutive ``tick`` messages into columnar
+    blocks, preserving order with interleaved control messages (opens,
+    closes, drain markers break runs — the inbox stays FIFO)."""
+    out: List[dict] = []
+    run: List[dict] = []
+
+    def flush_run() -> None:
+        if len(run) >= MIN_BLOCK_TICKS:
+            out.append(pack_ticks(run))
+        else:
+            out.extend(run)
+        run.clear()
+
+    for m in msgs:
+        if m.get("kind") == "tick":
+            run.append(m)
+        else:
+            flush_run()
+            out.append(m)
+    flush_run()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# columnar result blocks (the return path's mirror of tick blocks)
+# ---------------------------------------------------------------------------
+
+
+def pack_results(msgs: Sequence[dict], label_vocab: Sequence[str]) -> dict:
+    """A run of per-tick result messages as ONE columnar block.
+
+    ``msgs`` are the gateway's published results
+    (``{"session", "seq", "probabilities", "pred_labels",
+    "prob_threshold"[, "trace"]}``).  The block stacks probabilities
+    into one contiguous ``(B, C)`` float32 array (bit-exact: the
+    per-tick path's float64 boxing of float32 values round-trips
+    exactly, so both dialects hand back identical bits), seqs into one
+    int64 column, dictionary-encodes session ids, and packs each
+    result's label set as a bitmask over ``label_vocab`` — the
+    gateway's ``y_fields``, whose order IS the per-tick label order, so
+    decode reproduces the exact label lists.  The threshold is uniform
+    per flush and stored once, as is the optional ``weights_version``
+    a hot-swapping gateway stamps into its results — a run straddling
+    a swap barrier mixes versions and is *not* packable (the gateway
+    falls back to per-tick messages, which is exactly what bounds the
+    mixed-version window to one flush)."""
+    probs = np.asarray(
+        [m["probabilities"] for m in msgs], np.float32)
+    vid = {lab: j for j, lab in enumerate(label_vocab)}
+    if len(vid) > 63:
+        raise CodecError(
+            f"label vocabulary of {len(vid)} does not fit an i64 mask")
+    uniq: Dict[str, int] = {}
+    ids: List[str] = []
+    idx: List[int] = []
+    seqs: List[int] = []
+    masks: List[int] = []
+    threshold = float(msgs[0]["prob_threshold"])
+    weights_version = msgs[0].get("weights_version")
+    for m in msgs:
+        s = m["session"]
+        j = uniq.get(s)
+        if j is None:
+            j = uniq[s] = len(ids)
+            ids.append(s)
+        idx.append(j)
+        seqs.append(m["seq"])
+        if float(m["prob_threshold"]) != threshold:
+            raise CodecError(
+                "result run mixes prob_threshold values — not packable")
+        if m.get("weights_version") != weights_version:
+            raise CodecError(
+                "result run mixes weights_version values — not packable")
+        mask = 0
+        for lab in m["pred_labels"]:
+            bit = vid.get(lab)
+            if bit is None:
+                raise CodecError(
+                    f"label {lab!r} is not in the block vocabulary")
+            mask |= 1 << bit
+        masks.append(mask)
+    block = {
+        "kind": "result_block",
+        "ids": ids,
+        "idx": np.asarray(idx, np.int32),
+        "seqs": np.asarray(seqs, np.int64),
+        "probs": probs,
+        "labels": list(label_vocab),
+        "masks": np.asarray(masks, np.int64),
+        "prob_threshold": threshold,
+    }
+    if weights_version is not None:
+        block["weights_version"] = int(weights_version)
+    traces = [m.get("trace") for m in msgs]
+    if any(t is not None for t in traces):
+        block["traces"] = traces
+    return block
+
+
+def iter_results(block: dict) -> Iterator[dict]:
+    """Per-result messages (the per-tick wire shape) out of a block.
+    Probability rows are views into the block's contiguous array —
+    zero copy on a binary link, same bits on either dialect."""
+    ids = block["ids"]
+    idx = np.asarray(block["idx"]).tolist()
+    probs = np.asarray(block["probs"], np.float32)
+    seqs = np.asarray(block["seqs"]).tolist()
+    masks = np.asarray(block["masks"]).tolist()
+    vocab = list(block["labels"])
+    threshold = block["prob_threshold"]
+    weights_version = block.get("weights_version")
+    traces = block.get("traces")
+    for i, j in enumerate(idx):
+        msg = {
+            "session": ids[j],
+            "seq": seqs[i],
+            "probabilities": probs[i],
+            "pred_labels": [
+                lab for b, lab in enumerate(vocab) if masks[i] >> b & 1],
+            "prob_threshold": threshold,
+        }
+        if weights_version is not None:
+            msg["weights_version"] = weights_version
+        if traces is not None and traces[i] is not None:
+            msg["trace"] = traces[i]
+        yield msg
+
+
+# ---------------------------------------------------------------------------
+# packed row columns (the warehouse journal's binary record layout)
+# ---------------------------------------------------------------------------
+
+
+def pack_rows(rows: Sequence[Dict[str, Any]]) -> dict:
+    """Landing-row dicts as packed columns: every key whose value is a
+    float in every row becomes one contiguous float64 column; everything
+    else (timestamps, ints, missing keys) stays a per-row list.  f64
+    columns carry the doubles bit-exact — the crash-replay dedupe
+    compares what :func:`unpack_rows` returns against the store."""
+    rows = list(rows)
+    keys: List[str] = []
+    seen = set()
+    for row in rows:
+        for k in row:
+            if k not in seen:
+                seen.add(k)
+                keys.append(k)
+    num: Dict[str, np.ndarray] = {}
+    obj: Dict[str, List[Any]] = {}
+    for k in keys:
+        vals = [row.get(k) for row in rows]
+        if all(type(v) is float for v in vals):
+            num[k] = np.asarray(vals, np.float64)
+        else:
+            obj[k] = vals
+    return {"n": len(rows), "num": num, "obj": obj}
+
+
+def unpack_rows(block: dict) -> List[Dict[str, Any]]:
+    n = int(block["n"])
+    rows: List[Dict[str, Any]] = [{} for _ in range(n)]
+    for k, col in block["obj"].items():
+        for i, v in enumerate(col):
+            if v is not None:
+                rows[i][k] = v
+    for k, col in block["num"].items():
+        col = np.asarray(col, np.float64)
+        for i in range(n):
+            rows[i][k] = float(col[i])
+    return rows

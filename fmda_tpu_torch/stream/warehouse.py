@@ -111,6 +111,14 @@ class Warehouse:
                 f"SELECT COUNT(ID) FROM {self.table}").fetchone()
         return int(n)
 
+    def timestamps(self) -> List[str]:
+        """Every row's timestamp, in row order."""
+        with self._lock:
+            rows = self._conn.execute(
+                f"SELECT Timestamp FROM {self.table} ORDER BY ID"
+            ).fetchall()
+        return [r[0] for r in rows]
+
     def timestamps_after(self, position: int) -> List[Tuple[int, str]]:
         """``(position, timestamp)`` of the rows past ``position``, in row
         order: the tail-follow query of a serving daemon."""
@@ -139,6 +147,53 @@ class Warehouse:
                 (int(row[0]),),
             ).fetchone()
             return int(pos)
+
+    def ids_for_timestamps(
+        self, ts_list: Sequence[str]
+    ) -> List[Optional[int]]:
+        """Batched :meth:`id_for_timestamp`: the positions of a whole
+        flush of signal timestamps from ONE indexed query plus a sorted
+        lookup in the row-ID cache.  Unknown timestamps map to None."""
+        ts_list = list(ts_list)
+        if not ts_list:
+            return []
+        qmarks = ", ".join("?" * len(ts_list))
+        with self._lock:
+            # the refresh makes _ids cover every committed row the query
+            # can return (signals fire after commit)
+            self._refresh_derived()
+            rows = self._conn.execute(
+                f"SELECT Timestamp, MAX(ID) FROM {self.table} "
+                f"WHERE Timestamp IN ({qmarks}) GROUP BY Timestamp",
+                ts_list,
+            ).fetchall()
+            by_ts = {r[0]: int(r[1]) for r in rows}
+            # _ids is strictly increasing (insertion order), so an ID's
+            # rank — its 1-based position, the space fetch() speaks — is
+            # one searchsorted away
+            return [
+                int(np.searchsorted(self._ids, by_ts[ts])) + 1
+                if ts in by_ts else None
+                for ts in ts_list
+            ]
+
+    def fetch_windows(
+        self, row_ids: Sequence[int], window: int
+    ) -> np.ndarray:
+        """Batched trailing-window gather: ``(B, window, F)`` feature
+        windows ending at each 1-based position of ``row_ids``, from one
+        cache refresh and one gather — bit-identical to stacking
+        :meth:`fetch` windows (the same gather, the same NaN policy).
+        Raises IndexError when a window would reach before row 1 or past
+        the newest row."""
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        pos = np.asarray(list(row_ids), np.int64)
+        if pos.size == 0:
+            return np.zeros((0, window, len(self.x_fields)), np.float32)
+        flat = (pos[:, None]
+                - np.arange(window - 1, -1, -1)[None, :]).reshape(-1)
+        return self.fetch(flat).reshape(len(pos), window, -1)
 
     def _fetch_rows_after(
         self, row_id: int

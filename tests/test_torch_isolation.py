@@ -42,7 +42,11 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
                  "data.pipeline", "__main__", "ops.ssm", "ops.ssm_kernel",
                  "models.ssm", "serve.streaming", "runtime",
                  "runtime.session_pool", "ops.attention",
-                 "ops.attention_kernel", "models.attn", "ops.scan_dw"):
+                 "ops.attention_kernel", "models.attn", "ops.scan_dw",
+                 "stream.codec", "stream.bus", "stream.warehouse",
+                 "obs", "obs.registry", "utils.tracing", "utils.timeutils",
+                 "runtime.batcher", "runtime.metrics", "runtime.gateway",
+                 "runtime.predictor_pool", "runtime.loadgen"):
         assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -143,6 +147,23 @@ def test_trainer_and_train_command_raise_without_a_card(monkeypatch,
     Trainer(cfg, TrainConfig(), device="cpu")
 
 
+def test_fleet_entry_points_raise_without_a_card(monkeypatch):
+    from fmda_tpu_torch.__main__ import main as port_main
+    from fmda_tpu_torch.config import ModelConfig
+    from fmda_tpu_torch.data.normalize import NormParams
+    from fmda_tpu_torch.runtime import PredictorPool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    norm = NormParams(np.zeros(3, np.float32), np.ones(3, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PredictorPool(ModelConfig(hidden_size=4, n_features=3), {}, norm,
+                      window=2)
+    for extra in ([], ["--predictor"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_main(["serve-fleet", "--sessions", "2", "--ticks", "1"]
+                      + extra)
+
+
 def test_kernel_is_not_built_at_import():
     code = (
         "import fmda_tpu_torch.ops._cuda_lib as lib, fmda_tpu_torch.serve\n"
@@ -153,6 +174,11 @@ def test_kernel_is_not_built_at_import():
         "import fmda_tpu_torch.ops.scan_dw as d\n"
         "import fmda_tpu_torch.train, fmda_tpu_torch.__main__\n"
         "import fmda_tpu_torch.runtime\n"
+        "import fmda_tpu_torch.runtime.gateway, "
+        "fmda_tpu_torch.runtime.predictor_pool, "
+        "fmda_tpu_torch.runtime.loadgen, fmda_tpu_torch.stream.codec\n"
+        "from fmda_tpu_torch.ops import launch_counts\n"
+        "assert set(launch_counts().values()) == {0}\n"
         "assert lib._lib is None and lib.build_info == {}, lib.build_info\n"
         "assert g.launches == g.bwd_launches == 0\n"
         "assert l.launches == l.bwd_launches == 0\n"

@@ -25,6 +25,9 @@ from fmda_tpu_torch.interop import load_flax_npz, params_from_flax, save_flax_np
 from fmda_tpu_torch.models import BiGRU, BiLSTM, build_model
 
 TOL = 1e-5
+#: bfloat16 compute (params float32 on both sides): the two frameworks
+#: round the bf16 arithmetic at other places
+BF16_TOL = 2e-2
 CELLS = ["gru", "lstm"]
 
 
@@ -83,6 +86,27 @@ def test_full_width_default_config_matches_jax(cell):
     with torch.inference_mode():
         got = port(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm", "ssm"])
+def test_full_width_model_matches_jax_in_bf16(cell):
+    """The logits of 8 windows at full width (H = 32, F = 108, T = 30)
+    with ``dtype="bfloat16"``, against the JAX model at 2e-2."""
+    jax_cfg = dataclasses.replace(JaxFrameworkConfig().model, cell=cell,
+                                  dtype="bfloat16")
+    cfg = dataclasses.replace(FrameworkConfig().model, cell=cell,
+                              dtype="bfloat16")
+    jax_model, params = _jax_params(jax_cfg, seed=1, steps=30)
+    port = build_model(cfg)
+    port.load_state_dict(params_from_flax(params), strict=True)
+    port.eval()
+    x = np.random.default_rng(8).normal(size=(8, 30, 108)).astype(np.float32)
+    want = jax_model.apply({"params": params}, x)
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=BF16_TOL,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("cell", CELLS)

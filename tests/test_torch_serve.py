@@ -52,6 +52,9 @@ from fmda_tpu_torch.train.checkpoint import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
+#: bfloat16 compute against the JAX package's: the two frameworks round
+#: the bf16 arithmetic at other places
+BF16_TOL = 2e-2
 WINDOW = 6
 HIDDEN = 8
 #: a narrow schema: 2-level book, one economic event, no COT feed
@@ -162,6 +165,48 @@ def test_port_predictor_matches_jax_predictor(served):
         "timestamp", "probabilities", "prob_threshold", "pred_indices",
         "pred_labels"}
     assert port_pred.poll() == []
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm", "ssm"])
+def test_port_serving_matches_jax_in_bf16(tmp_path, cell):
+    """``dtype="bfloat16"``: the Predictor's probabilities for 8 signals
+    and the backtest's over every window within 2e-2 of the JAX
+    package's."""
+    path = tmp_path / "wh.sqlite"
+    jax_wh = _jax_warehouse(path, _rows())
+    port_wh = _port_warehouse(path)
+    x = port_wh.fetch(range(1, len(port_wh) + 1))
+    norm = chunk_norm_params(x, port_wh.x_fields, bid_levels=2, ask_levels=2)
+    fields = dict(hidden_size=HIDDEN, n_features=len(port_wh.x_fields),
+                  dropout=0.0, cell=cell, dtype="bfloat16")
+    jax_cfg = JaxModelConfig(**fields)
+    params = jax.device_get(jax_build_model(jax_cfg).init(
+        {"params": jax.random.PRNGKey(0)},
+        jnp.zeros((1, WINDOW, fields["n_features"])))["params"])
+    port_cfg, state = ModelConfig(**fields), params_from_flax(params)
+    jax_bus, port_bus = JaxBus(JAX_TOPICS), InProcessBus(DEFAULT_TOPICS)
+    common = dict(window=WINDOW, from_end=False, max_staleness_s=None)
+    jax_pred = JaxPredictor(jax_bus, jax_wh, jax_cfg, params, norm, **common)
+    port_pred = Predictor(port_bus, port_wh, port_cfg, state, norm,
+                          device="cpu", **common)
+    for _, ts in port_wh.timestamps_after(len(port_wh) - 8):
+        jax_bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": ts})
+        port_bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": ts})
+    want, got = jax_pred.poll(), port_pred.poll()
+    assert [g.timestamp for g in got] == [w.timestamp for w in want]
+    assert len(got) == 8
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.probabilities, w.probabilities,
+                                   atol=BF16_TOL, rtol=0)
+    want = jax_backtest(jax_wh, jax_cfg, params, norm, window=WINDOW,
+                        batch_size=16)
+    got = backtest(port_wh, port_cfg, state, norm, window=WINDOW,
+                   batch_size=16, device="cpu")
+    np.testing.assert_allclose(got.probabilities,
+                               np.asarray(want.probabilities, np.float32),
+                               atol=BF16_TOL, rtol=0)
+    jax_wh.close()
+    port_wh.close()
 
 
 def test_port_backtest_matches_jax_backtest(served):

@@ -29,6 +29,9 @@ from fmda_tpu_torch.serve import StreamingBiGRU
 
 TOL = 1e-5
 SOLO_TOL = 1e-6
+#: bfloat16 compute against the JAX package's: the two frameworks round
+#: the bf16 arithmetic at other places
+BF16_TOL = 2e-2
 FEATS, HIDDEN, WINDOW = 6, 5, 4
 CELLS = ["gru", "lstm", "ssm"]
 
@@ -161,6 +164,39 @@ def test_pool_matches_jax_pool_with_padded_buckets(cell, n_layers):
                                    atol=TOL, err_msg=f"flush {k}")
     for a, b in zip(th, jh):
         assert pool.ticks_seen(a) == jax_pool.ticks_seen(b)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_pool_matches_jax_pool_in_bf16(cell):
+    """40 flushes of a full-width (H = 32, F = 108, window 30) bfloat16
+    pool, live and padded lanes mixed: the probabilities within 2e-2 of
+    the JAX pool's."""
+    fields = dict(hidden_size=32, n_features=108, output_size=4,
+                  dropout=0.0, bidirectional=False, cell=cell,
+                  dtype="bfloat16")
+    jax_cfg = JaxModelConfig(use_pallas=False, **fields)
+    params = jax.device_get(jax_build_model(jax_cfg).init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 30, 108)))["params"])
+    n = 4
+    jax_pool = JaxSessionPool(jax_cfg, params, capacity=n, window=30)
+    pool = SessionPool(ModelConfig(**fields), params_from_flax(params),
+                       capacity=n, window=30, device="cpu")
+    rng = np.random.default_rng(3)
+    for i in range(n):
+        lo = rng.normal(size=108).astype(np.float32)
+        hi = lo + rng.uniform(1.0, 5.0, size=108).astype(np.float32)
+        jax_pool.alloc(f"T{i}", JaxNormParams(lo, hi))
+        pool.alloc(f"T{i}", NormParams(lo, hi))
+    for k in range(40):
+        live = np.flatnonzero(rng.random(n) < 0.75)
+        slots = np.full(8, pool.padding_slot, np.int32)
+        slots[:len(live)] = live
+        rows = (3.0 * rng.normal(size=(8, 108))).astype(np.float32)
+        got = pool.step(slots, rows)
+        want = np.asarray(jax_pool.step(slots, rows), np.float32)
+        np.testing.assert_allclose(got[:len(live)], want[:len(live)],
+                                   atol=BF16_TOL, rtol=0,
+                                   err_msg=f"flush {k}")
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -56,6 +56,9 @@ from fmda_tpu_torch.stream import InProcessBus, Warehouse
 
 TOL = 1e-5
 DUALITY_TOL = 2e-5
+#: bfloat16 compute against the JAX package's: the two frameworks round
+#: the bf16 arithmetic at other places
+BF16_TOL = 2e-2
 FEATS, HIDDEN, WINDOW = 6, 5, 4
 
 
@@ -118,6 +121,50 @@ def test_bidirectional_streaming_core_matches_jax(cell):
         np.testing.assert_allclose(core.step(row), jax_core.step(row),
                                    atol=TOL, err_msg=f"tick {t}")
     assert core.ticks_seen == 41
+
+
+def _full_width_bf16(cell, *, bidirectional=False, seed=0):
+    """Full width (H = 32, F = 108, window 30), dtype bfloat16, weights
+    cross-loaded; and seeded norms and 40 rows."""
+    fields = dict(hidden_size=32, n_features=108, output_size=4,
+                  dropout=0.0, bidirectional=bidirectional, cell=cell,
+                  dtype="bfloat16")
+    jax_cfg = JaxModelConfig(use_pallas=False, **fields)
+    params = jax.device_get(jax_build_model(jax_cfg).init(
+        {"params": jax.random.PRNGKey(seed)},
+        jnp.zeros((1, 30, 108)))["params"])
+    return (jax_cfg, params, ModelConfig(**fields), params_from_flax(params),
+            _norm(108), _rows(40, 108))
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm", "ssm"])
+def test_streaming_core_matches_jax_in_bf16(cell):
+    """40 ticks of the carried-state core in bfloat16 at full width: the
+    probabilities within 2e-2 of the JAX core's."""
+    jax_cfg, params, cfg, state, (x_min, x_max), rows = _full_width_bf16(
+        cell)
+    jax_core = JaxStreamingBiGRU(jax_cfg, params, JaxNormParams(x_min, x_max),
+                                 window=30)
+    core = StreamingBiGRU(cfg, state, NormParams(x_min, x_max), window=30,
+                          device="cpu")
+    for t, row in enumerate(rows):
+        np.testing.assert_allclose(
+            core.step(row), np.asarray(jax_core.step(row), np.float32),
+            atol=BF16_TOL, rtol=0, err_msg=f"tick {t}")
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_bidirectional_streaming_core_matches_jax_in_bf16(cell):
+    jax_cfg, params, cfg, state, (x_min, x_max), rows = _full_width_bf16(
+        cell, bidirectional=True)
+    jax_core = JaxStreamingBiGRUBidirectional(
+        jax_cfg, params, JaxNormParams(x_min, x_max), window=30)
+    core = StreamingBiGRUBidirectional(cfg, state, NormParams(x_min, x_max),
+                                       window=30, device="cpu")
+    for t, row in enumerate(rows):
+        np.testing.assert_allclose(
+            core.step(row), np.asarray(jax_core.step(row), np.float32),
+            atol=BF16_TOL, rtol=0, err_msg=f"tick {t}")
 
 
 def _warehouse_pair(tmp_path, n=60):

@@ -235,9 +235,20 @@ def test_attn_trainer_tracks_the_jax_trainer_in_bf16():
     tolerance; the params within Adam's drift bound, 16 steps x lr, since
     each framework rounds the bf16 compute at other places and Adam scales
     what the gradients then differ by to steps of up to lr."""
+    _check_bf16_trainer(cell="attn", attn_dropout=0.0)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm", "ssm"])
+def test_trainer_tracks_the_jax_trainer_in_bf16(cell):
+    """The recurrent families' 16 steps in bfloat16, held as the attn
+    family's are above."""
+    _check_bf16_trainer(cell=cell)
+
+
+def _check_bf16_trainer(**model_fields):
     x, y, fields = _data()
     model, tc = _configs()
-    model.update(cell="attn", attn_dropout=0.0, dtype="bfloat16")
+    model.update(dtype="bfloat16", **model_fields)
     weight, pos_weight = imbalance_weights_from_source(
         ArraySource(x, y, fields))
     jax_trainer = JaxTrainer(JaxModelConfig(**model, use_pallas=False),
