@@ -22,7 +22,8 @@ Phases, each printed as one JSON line, each fatal on failure:
    (256, 512); the fused SSM serve tick (``kernel ssm_tick``: a whole
    flush, every layer, state and positions in place) at buckets 1-128, in
    bf16, at two layers and padded through a repeated padding slot, and one
-   session's bits alone and in a bucket of 64; the flash kernels at the
+   session's bits alone and in a bucket of 64; the scans and the flash
+   kernels at the multi-ticker batch of 800 too; the flash kernels at the
    model's (256, 4, 30, 8) in f32 and bf16, causal or not, with and without
    a key mask, at the Predictor's batch 1, at T = 1024 and at D = 64 and
    512, each line with the plan its launch took: the fused backward where
@@ -69,12 +70,27 @@ Phases, each printed as one JSON line, each fatal on failure:
    signals in bursts of 32 through ``run_predictor_load``, the device
    window ring off then on (the same bits); a bucket-1 flush the solo
    Predictor's bits, bucketed flushes within PATH_TOL of it.
+11. ``train multi``: ``Trainer.fit_multi`` over 50 tickers (in-memory
+   warehouses of 2,000 random-walk rows each) for one epoch in the mixed
+   composition, 16 windows of every ticker a step (800 rows), launches
+   against the counts of the dataset's own batches, steps back to back,
+   the composer's time a batch and the busy share; for gru one epoch of
+   chunk-interleaved batches of 256 too; then ``train multi vs cpu``, the
+   first 8 mixed steps at dropout 0 on the card and on the CPU.
+12. ``continuous``: ``ContinuousTrainer`` tailing a 4,096-row file
+   warehouse as a backlog in a thread beside default fleet loads through
+   a ``FleetGateway``, every round hot-swapped into it by
+   ``gateway_publisher``: rounds, swaps, checkpoints and their drift
+   profiles, ticks served under several versions, every tick published
+   or counted dropped, the pool serving the last round's weights bit for
+   bit; the fleet's ticks/s and latencies with the trainer and without
+   it; then ``continuous vs cpu``, the same loop alone on both devices.
 
-Phases 4-6 and 10 run for the BiGRU (``cell="gru"``, the default), the
-BiLSTM (``cell="lstm"``), the TemporalTransformer (``cell="attn"``: the
-flash kernels) and the bidirectional gated SSM (``cell="ssm"``: parallel
-mode, no kernel); phases 7-9 for gru, lstm and ssm (``stream
-bidirectional`` for gru and lstm).  Their lines carry
+Phases 4-6, 10 and 11 run for the BiGRU (``cell="gru"``, the default),
+the BiLSTM (``cell="lstm"``), the TemporalTransformer (``cell="attn"``:
+the flash kernels) and the bidirectional gated SSM (``cell="ssm"``:
+parallel mode, no kernel); phases 7-9 for gru, lstm and ssm (``stream
+bidirectional`` for gru and lstm); phase 12 for gru and ssm.  Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
 other kernel's 0 (``scan_dw`` counts the backward scans' weight-gradient
@@ -327,9 +343,9 @@ def fwd_cases(scan: Scan):
               for h in (33, 64, 512)]
     cases.append(dict(base, batch=1, reverse=True, masked=False, h0=False,
                       strided=True))
-    # the predictor fleet's buckets
+    # the predictor fleet's buckets and the multi-ticker mixed batch
     cases += [dict(base, batch=b, reverse=False, masked=False, h0=False)
-              for b in PREDICTOR_BUCKETS]
+              for b in (*PREDICTOR_BUCKETS, MULTI_BATCH)]
     if scan.name == "gru":
         return cases + [dict(base, reverse=True, masked=True, h0=False),
                         dict(base, reverse=False, masked=False, h0=True)]
@@ -427,7 +443,8 @@ def phase_kernel_bwd(scan: Scan, n_features: int, device: str = "cuda"):
              dict(base, masked=True, h0=True, reverse=True),
              dict(base, dtype=torch.bfloat16),
              dict(base, dtype=torch.bfloat16, reverse=True),
-             dict(base, batch=1), dict(base, hidden=128)]
+             dict(base, batch=1), dict(base, batch=MULTI_BATCH),
+             dict(base, hidden=128)]
     if scan.name == "lstm":  # W_hh in shared memory at H = 128 in bf16 only
         cases += [dict(base, hidden=128, dtype=torch.bfloat16),
                   dict(base, hidden=128, masked=True, h0=True)]
@@ -775,7 +792,8 @@ FLASH_BWD_OUTPUTS = {"flash_dkv": 2, "flash_dq": 1, "flash_bwd": 3}
 def flash_cases():
     """The serving and training shape in f32 and bf16, causal or not, with
     and without a key mask (ragged valid lengths, one row fully hidden);
-    the Predictor's batch 1 and the predictor fleet's buckets; the
+    the Predictor's batch 1, the predictor fleet's buckets and the
+    multi-ticker mixed batch; the
     long-context (16, 4, 1024, 8), causal or not; the D envelope at 64 and
     512, in f32 and bf16."""
     b, n, t, d = FLASH_MAIN
@@ -785,7 +803,8 @@ def flash_cases():
              for dtype in (torch.float32, torch.bfloat16)
              for causal in (False, True) for masked in (False, True)]
             + [dict(base, batch=1)]
-            + [dict(base, batch=b) for b in PREDICTOR_BUCKETS]
+            + [dict(base, batch=b) for b in (*PREDICTOR_BUCKETS,
+                                             MULTI_BATCH)]
             + [dict(base, batch=16, seq=1024, causal=causal)
                for causal in (False, True)]
             + [dict(base, batch=8, heads=2, seq=256, d=64, dtype=dtype)
@@ -1445,15 +1464,24 @@ def phase_train_vs_cpu(dataset, weights, device: str = "cuda",
     final params compared."""
     from fmda_tpu_torch.config import TrainConfig
     from fmda_tpu_torch.data.pipeline import WindowBatches
-    from fmda_tpu_torch.train import Trainer
 
-    model_cfg = model_config(cell, dropout=0.0)
     train_cfg = TrainConfig(batch_size=BATCH, chunk_size=TRAIN_CHUNK)
     train_chunks, _, _ = dataset.split(train_cfg.val_size,
                                        train_cfg.test_size)
     host = [b for idx in train_chunks[:3]
             for b in WindowBatches(dataset, idx, BATCH)]
-    host = host[:TRAIN_VS_CPU_STEPS]
+    steps_vs_cpu("train vs cpu", host[:TRAIN_VS_CPU_STEPS],
+                 TRAIN_VS_CPU_STEPS, train_cfg, weights, device, cell)
+
+
+def steps_vs_cpu(phase: str, host, n_steps: int, train_cfg, weights,
+                 device: str, cell: str, **fields) -> None:
+    """Train steps over the host batches ``host`` at dropout 0 from the
+    same initial weights, on the card and on the CPU: per-step losses and
+    the final params within TRAIN_TOL (emitted as ``phase``)."""
+    from fmda_tpu_torch.train import Trainer
+
+    model_cfg = model_config(cell, dropout=0.0)
     runs = {}
     for dev in (device, "cpu"):
         trainer = Trainer(model_cfg, train_cfg, weight=weights[0],
@@ -1494,13 +1522,14 @@ def phase_train_vs_cpu(dataset, weights, device: str = "cuda",
     moved = max(float((g_par[k] - v).abs().max()) for k, v in
                 Trainer(model_cfg, train_cfg, device="cpu").init_state()
                 .model.state_dict().items())
-    emit("train vs cpu", cell=cell, steps=len(host), loss_max_abs_err=loss_err,
-         param_max_abs_err=param_err, params_moved=moved,
-         first_loss=g_loss[0], last_loss=g_loss[-1], card_seconds=g_s,
-         cpu_seconds=c_s, key_bias_max=key_bias_max, tol=TRAIN_TOL)
-    check(len(host) == TRAIN_VS_CPU_STEPS, f"only {len(host)} batches")
+    emit(phase, cell=cell, steps=len(host), batch=train_cfg.batch_size,
+         loss_max_abs_err=loss_err, param_max_abs_err=param_err,
+         params_moved=moved, first_loss=g_loss[0], last_loss=g_loss[-1],
+         card_seconds=g_s, cpu_seconds=c_s, key_bias_max=key_bias_max,
+         tol=TRAIN_TOL, **fields)
+    check(len(host) == n_steps, f"only {len(host)} batches")
     check(loss_err <= TRAIN_TOL and param_err <= TRAIN_TOL,
-          "training on the card and on the CPU disagree")
+          f"{phase}: training on the card and on the CPU disagree")
 
 
 #: the streaming phase's first signal: a predictor started this many rows
@@ -2069,13 +2098,428 @@ def phase_predictor_fleet(wh, device: str = "cuda", cell: str = "gru"):
     return totals
 
 
+#: the multi-ticker phase: the experiment's mixed batch, 16 windows of
+#: each of 50 tickers (800 rows a step), over 50 in-memory warehouses of
+#: MULTI_ROWS seeded random-walk rows (seeds 0-49, ~26 sessions each) in
+#: chunks of MULTI_CHUNK; then the chunk-interleaved composition at
+#: BATCH; and the first MULTI_VS_CPU_STEPS mixed steps on the CPU
+MULTI_TICKERS = 50
+MULTI_PER_TICKER = 16
+MULTI_BATCH = MULTI_TICKERS * MULTI_PER_TICKER
+MULTI_ROWS = 2000
+MULTI_CHUNK = 100
+MULTI_VS_CPU_STEPS = 8
+MULTI_STEP_BATCHES = 16
+#: the rounds of the train pass the busy share is measured over
+MULTI_SHARE_ROUNDS = 4
+#: the continuous phase: a file warehouse of CONTINUOUS_ROWS random-walk
+#: rows tailed as a backlog in pages of CONTINUOUS_PAGE rows; the tail's
+#: empty polls CONTINUOUS_POLL_S apart (the [train] default is 1 s: the
+#: backlog's quiescence would idle 8 s a run)
+CONTINUOUS_ROWS = 4096
+CONTINUOUS_PAGE = 1024
+CONTINUOUS_POLL_S = 0.05
+CONTINUOUS_BATCH = 256
+CONTINUOUS_CHUNK = 512
+
+
+def multi_sources():
+    """The multi-ticker phase's tickers: ``{ticker: Warehouse}``, each
+    in memory with MULTI_ROWS random-walk rows of its own seed, and the
+    class weights over the union of their targets (as the experiment
+    weighs them)."""
+    from fmda_tpu_torch.config import FrameworkConfig
+    from fmda_tpu_torch.data.synthetic import random_walk_rows
+    from fmda_tpu_torch.stream import Warehouse
+    from fmda_tpu_torch.train import class_weights
+
+    cfg = FrameworkConfig()
+    t0 = time.perf_counter()
+    sources = {}
+    for i in range(MULTI_TICKERS):
+        wh = Warehouse(cfg.features, cfg.warehouse)
+        wh.insert_rows(random_walk_rows(cfg.features.table_columns(),
+                                        MULTI_ROWS, seed=SEED + i))
+        sources[f"T{i:02d}"] = wh
+    y = np.concatenate([wh.fetch_targets(range(1, len(wh) + 1))
+                        for wh in sources.values()])
+    weights = class_weights(np.maximum(y.sum(axis=0), 1.0), len(y))
+    emit("multi setup", tickers=len(sources), rows_per_ticker=MULTI_ROWS,
+         features=len(next(iter(sources.values())).x_fields),
+         seconds=time.perf_counter() - t0)
+    return sources, weights
+
+
+def mixed_pass(mtd, chunks):
+    """A pass's mixed batches, composed on the host: (batches, real
+    windows, the composer's ms a batch)."""
+    t0 = time.perf_counter()
+    batches = [b for rc in mtd.rounds(chunks)
+               for b in mtd.mixed_batches(rc, MULTI_PER_TICKER)]
+    ms = (time.perf_counter() - t0) * 1e3 / max(len(batches), 1)
+    return batches, int(sum(b.mask.sum() for b in batches)), ms
+
+
+def phase_train_multi(sources, weights, device: str = "cuda",
+                      cell: str = "gru"):
+    """Multi-ticker training for one family at full width: one epoch of
+    ``Trainer.fit_multi`` in the mixed composition (MULTI_PER_TICKER
+    windows of every ticker, MULTI_BATCH rows a step; dropout 0.5,
+    spatial), launches checked against the counts the dataset's splits
+    and mixed batches give; steps back to back, and the busy share over
+    the pass's first MULTI_SHARE_ROUNDS rounds; for gru one epoch
+    chunk-interleaved at BATCH too; then the first MULTI_VS_CPU_STEPS
+    mixed steps at dropout 0 on the card and on the CPU.  Returns the
+    path's launch counts."""
+    from fmda_tpu_torch.config import FrameworkConfig, TrainConfig
+    from fmda_tpu_torch.data.pipeline import prefetch_batches
+    from fmda_tpu_torch.train import MultiTickerDataset, Trainer
+
+    fc = FrameworkConfig().features
+    levels = dict(bid_levels=fc.bid_levels, ask_levels=fc.ask_levels)
+    model_cfg = model_config(cell)
+    train_cfg = TrainConfig(batch_size=MULTI_BATCH, chunk_size=MULTI_CHUNK,
+                            window=30, epochs=1)
+    mtd = MultiTickerDataset(sources, MULTI_CHUNK, train_cfg.window,
+                             **levels)
+    train_chunks, val_chunks, _ = mtd.splits(train_cfg.val_size,
+                                             train_cfg.test_size)
+    host, n_windows, compose_ms = mixed_pass(mtd, train_chunks)
+    n_train, n_val = len(host), len(mixed_pass(mtd, val_chunks)[0])
+    trainer = Trainer(model_cfg, train_cfg, weight=weights[0],
+                      pos_weight=weights[1], device=device)
+    # warm-up on a throwaway state, before the counted run
+    warm = trainer.init_state()
+    for b in host[:2]:
+        trainer.train_step(warm, trainer.place(b))
+    torch.cuda.synchronize()
+
+    start_path()
+    t0 = time.perf_counter()
+    state, history, fitted = trainer.fit_multi(
+        sources, mixed_batch_per_ticker=MULTI_PER_TICKER, **levels)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()  # the path ends here
+    fit_steps = state.step
+    tr, va = history["train"][-1], history["val"][-1]
+    # the mean step with the host ahead of the card: placed batches back
+    # to back, one synchronize at the end
+    placed = [trainer.place(b) for b in host[:MULTI_STEP_BATCHES]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in placed:
+        trainer.train_step(state, b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(placed)
+    emit("train multi", cell=cell, tickers=len(sources),
+         per_ticker=MULTI_PER_TICKER, batch=MULTI_BATCH,
+         train_rounds=len(mtd.rounds(train_chunks)), steps=n_train,
+         val_batches=n_val, train_windows=n_windows, seconds=fit_s,
+         samples_per_s=n_windows / fit_s, mean_step_ms=step_ms,
+         compose_ms_per_batch=compose_ms, launches=counts,
+         train_loss=tr.loss, train_accuracy=tr.accuracy, val_loss=va.loss,
+         val_accuracy=va.accuracy)
+    check(fit_steps == n_train, f"{fit_steps} steps, expected {n_train}")
+    check_launches(counts, train_launches(cell, n_train, n_val),
+                   f"{cell} multi-ticker training")
+    check(all(math.isfinite(m.loss) for m in (tr, va)),
+          f"non-finite losses {tr.loss}, {va.loss}")
+    if torch.device(device).type == "cuda":
+        # a steady window of the pass: the first MULTI_SHARE_ROUNDS rounds
+        # through the pipeline fit_multi runs (the composer thread, the
+        # placed batches, the steps); a whole epoch's trace costs the
+        # profiler a minute for ssm's ~95,000 device ops
+        rounds = mtd.rounds(train_chunks)[:MULTI_SHARE_ROUNDS]
+
+        def window():
+            for b in prefetch_batches(
+                    (b for rc in rounds
+                     for b in mtd.mixed_batches(rc, MULTI_PER_TICKER)),
+                    trainer.place, depth=train_cfg.prefetch_depth):
+                trainer.train_step(state, b)
+
+        emit("train multi device share", cell=cell, rounds=len(rounds),
+             batches=sum(max(len(mtd.batches(t, c, MULTI_PER_TICKER))
+                             for t, c in rc.items()) for rc in rounds),
+             window=device_share(window))
+
+    if cell == "gru":
+        # the chunk-interleaved composition: single-ticker batches
+        inter_cfg = dataclasses.replace(train_cfg, batch_size=BATCH)
+        inter = Trainer(model_cfg, inter_cfg, weight=weights[0],
+                        pos_weight=weights[1], device=device)
+        n_inter = sum(len(mtd.batches(t, c, BATCH)) for t, c in train_chunks)
+        n_inter_val = sum(len(mtd.batches(t, c, BATCH))
+                          for t, c in val_chunks)
+        start_path()
+        t0 = time.perf_counter()
+        istate, ihist, _ = inter.fit_multi(sources, **levels)
+        torch.cuda.synchronize()
+        inter_s = time.perf_counter() - t0
+        inter_counts = launch_counts()  # the path ends here
+        emit("train multi interleaved", cell=cell, batch=BATCH,
+             steps=n_inter, val_batches=n_inter_val,
+             train_windows=n_windows, seconds=inter_s,
+             samples_per_s=n_windows / inter_s, launches=inter_counts,
+             train_loss=ihist["train"][-1].loss)
+        check(istate.step == n_inter,
+              f"{istate.step} interleaved steps, expected {n_inter}")
+        check_launches(inter_counts, train_launches(cell, n_inter,
+                                                    n_inter_val),
+                       f"{cell} interleaved multi-ticker training")
+        counts = {k: v + inter_counts[k] for k, v in counts.items()}
+
+    # the card against the CPU: the first mixed steps at dropout 0, and
+    # each ticker's serving stats
+    norms = fitted.final_norm_params()
+    again = MultiTickerDataset(sources, MULTI_CHUNK, train_cfg.window,
+                               **levels).final_norm_params()
+    same_norms = norms.keys() == again.keys() and all(
+        np.array_equal(norms[t].x_min, again[t].x_min)
+        and np.array_equal(norms[t].x_max, again[t].x_max) for t in norms)
+    steps_vs_cpu("train multi vs cpu", host[:MULTI_VS_CPU_STEPS],
+                 MULTI_VS_CPU_STEPS, train_cfg, weights, device, cell,
+                 norm_params_equal=same_norms)
+    check(same_norms, "per-ticker serving stats differ between datasets")
+    return counts
+
+
+def close_sessions(gateway) -> None:
+    """Close every open session of a fleet gateway (between loads)."""
+    for session_id in gateway.pool.session_ids():
+        gateway.close_session(session_id)
+
+
+def fleet_loads(gateway, *, until=None, n=1):
+    """Default fleet loads through ``gateway``, each with fresh sessions
+    closed after it: ``n`` of them, or (``until``, an Event) one after
+    another until it is set.  Returns each load's summary and the
+    gateway's metrics over all of them."""
+    from fmda_tpu_torch.runtime import (
+        FleetLoadConfig, RuntimeMetrics, run_fleet_load)
+
+    gateway.metrics = RuntimeMetrics()
+    outs = []
+    while True:
+        outs.append(run_fleet_load(gateway, FleetLoadConfig()))
+        close_sessions(gateway)
+        finished = until.is_set() if until is not None else len(outs) >= n
+        if finished:
+            return outs, gateway.metrics.summary()
+
+
+def load_fields(outs, summary) -> dict:
+    """Ticks/s over the loads' wall time, each load's ticks/s (median,
+    least, most), and the device and total latencies over all of them."""
+    lat = summary["latency"]
+    served = sum(o["ticks_served"] for o in outs)
+    per_load = [o["ticks_served"] / o["wall_s"] for o in outs]
+    return dict(loads=len(outs), ticks_served=served,
+                ticks_per_s=served / sum(o["wall_s"] for o in outs),
+                load_ticks_per_s_median=float(np.median(per_load)),
+                load_ticks_per_s_min=min(per_load),
+                load_ticks_per_s_max=max(per_load),
+                device_p50_ms=lat["device"]["p50_ms"],
+                device_p99_ms=lat["device"]["p99_ms"],
+                total_p50_ms=lat["total"]["p50_ms"],
+                total_p99_ms=lat["total"]["p99_ms"])
+
+
+def phase_continuous(directory: str, device: str = "cuda",
+                     cell: str = "gru"):
+    """Continuous fine-tuning beside the live fleet for one carried-state
+    family at full width: a ContinuousTrainer over a file warehouse of
+    CONTINUOUS_ROWS rows, tailed as a backlog, publishing every round into
+    a FleetGateway over SessionPool(capacity=128, window=30) through
+    gateway_publisher, from its own thread, while default loads run one
+    after another through the gateway (as ``serve-fleet
+    --continuous-train`` runs them).  Checks rounds, swaps, checkpoints
+    and profiles, that ticks were served under several versions, that
+    every submitted tick was published or counted as dropped, that the
+    pool serves the last round's weights bit for bit, and the launches.
+    Then the same loop with no fleet on the card and on the CPU at
+    dropout 0.  Returns the path's launch counts."""
+    import threading
+
+    from fmda_tpu_torch.config import (
+        DEFAULT_TOPICS, FrameworkConfig, TOPIC_FLEET_PREDICTION, TrainConfig)
+    from fmda_tpu_torch.data.synthetic import random_walk_rows
+    from fmda_tpu_torch.eval import profile_path_for
+    from fmda_tpu_torch.models import build_model
+    from fmda_tpu_torch.obs import default_registry
+    from fmda_tpu_torch.runtime import BatcherConfig, FleetGateway, SessionPool
+    from fmda_tpu_torch.stream import InProcessBus, Warehouse
+    from fmda_tpu_torch.train import ContinuousTrainer, gateway_publisher
+
+    cfg = FrameworkConfig()
+    fc, rt = cfg.features, cfg.runtime
+    t0 = time.perf_counter()
+    wh = Warehouse(fc, dataclasses.replace(
+        cfg.warehouse, path=f"{directory}/continuous_{cell}.sqlite"))
+    wh.insert_rows(random_walk_rows(fc.table_columns(), CONTINUOUS_ROWS,
+                                    seed=SEED))
+    model_cfg = model_config(cell, bidirectional=False, dropout=0.0)
+    check(len(wh.x_fields) == model_cfg.n_features,
+          f"continuous warehouse serves {len(wh.x_fields)} features")
+    train_cfg = TrainConfig(batch_size=CONTINUOUS_BATCH,
+                            chunk_size=CONTINUOUS_CHUNK, window=30,
+                            val_size=0.0, test_size=0.0,
+                            continuous_poll_s=CONTINUOUS_POLL_S)
+
+    def trainer(dev, tag, publish=None):
+        return ContinuousTrainer(
+            wh, model_cfg, train_cfg,
+            checkpoint_dir=f"{directory}/continuous_{cell}_{tag}",
+            publish=publish, bid_levels=fc.bid_levels,
+            ask_levels=fc.ask_levels, drift_bins=cfg.quality.drift_bins,
+            target_lead=fc.max_lead, chunk=CONTINUOUS_PAGE, device=dev)
+
+    params = build_model(
+        model_cfg, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    pool = SessionPool(model_cfg, params, capacity=rt.capacity,
+                       window=rt.window, device=device)
+    bus = InProcessBus(DEFAULT_TOPICS, capacity=1 << 22)
+    results = bus.consumer(TOPIC_FLEET_PREDICTION)
+    gateway = FleetGateway(
+        pool, bus, batcher_config=BatcherConfig(
+            bucket_sizes=rt.bucket_sizes,
+            max_linger_s=rt.max_linger_ms / 1e3),
+        queue_bound=rt.queue_bound, pipeline_depth=rt.pipeline_depth)
+    ct = trainer(device, "fleet", gateway_publisher(gateway))
+    emit("continuous setup", cell=cell, rows=len(wh), page=CONTINUOUS_PAGE,
+         train=str(train_cfg), model=str(model_cfg),
+         seconds=time.perf_counter() - t0)
+
+    fleet_loads(gateway)  # warms the gateway
+    results.poll()
+    before_ticks = gateway.version_ticks
+    gateway.kernel_launches_by_bucket.clear()
+    rounds_hist = default_registry().histogram("continuous_round_seconds")
+    before_rounds = rounds_hist.snapshot()
+
+    start_path()
+    done, summary, errors = threading.Event(), {}, []
+
+    def run():
+        try:
+            summary.update(ct.run())
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+        finally:
+            done.set()
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, name="chip-smoke-continuous",
+                              daemon=True)
+    thread.start()
+    outs, with_trainer = fleet_loads(gateway, until=done)
+    thread.join(timeout=600)
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()  # the path ends here
+    by_bucket = dict(gateway.kernel_launches_by_bucket)
+    check(not thread.is_alive(), "the continuous trainer did not finish")
+    if errors:
+        raise errors[0]
+    after = rounds_hist.snapshot()
+    n_rounds = after["n"] - before_rounds["n"]
+    version_ticks = {v: n - before_ticks.get(v, 0)
+                     for v, n in gateway.version_ticks.items()
+                     if n > before_ticks.get(v, 0)}
+    published = len(results.poll())
+    c = with_trainer["counters"]
+    submitted = sum(o["ticks_submitted"] for o in outs)
+    dropped = c.get("stale_dropped", 0) + c.get("stale_results_dropped", 0)
+    served_params = pool.live_tree()[0]
+    trained = ct.state.model.state_dict()
+    same_weights = served_params.keys() == trained.keys() and all(
+        torch.equal(served_params[k], v) for k, v in trained.items())
+    files = [(ck, profile_path_for(ck)) for ck in summary["checkpoints"]]
+    steps = ct.state.step
+    expected = ({"ssm_tick": c["flushes"]} if cell == "ssm" else
+                {f"{cell}_scan_fwd": steps, f"{cell}_scan_bwd": steps,
+                 "scan_dw": steps})
+    # the fleet alone for as many loads, just after: with the trainer and
+    # without it, each load's ticks/s
+    alone_outs, alone = fleet_loads(gateway, n=len(outs))
+    results.poll()
+    with_fields = load_fields(outs, with_trainer)
+    alone_fields = load_fields(alone_outs, alone)
+    emit("continuous", cell=cell, **{k: summary[k] for k in (
+        "rounds", "rows_seen", "swaps_accepted", "swaps_refused",
+        "last_metrics")}, weights_version=gateway.weights_version,
+        train_steps=steps, seconds=wall_s,
+        round_mean_s=(after["total_s"] - before_rounds["total_s"])
+        / max(n_rounds, 1),
+        version_ticks=version_ticks, ticks_submitted=submitted,
+        ticks_dropped=dropped, results_published=published,
+        served_weights_equal_trained=same_weights, launches=counts,
+        kernel_launches_by_bucket=by_bucket, alone=alone_fields,
+        with_trainer=with_fields,
+        load_ticks_per_s_median_ratio=with_fields["load_ticks_per_s_median"]
+        / alone_fields["load_ticks_per_s_median"],
+        loads_separate=with_fields["load_ticks_per_s_max"]
+        < alone_fields["load_ticks_per_s_min"])
+    check(summary["rounds"] >= 2 and n_rounds == summary["rounds"],
+          f"{cell} continuous: {summary['rounds']} rounds")
+    check(summary["swaps_accepted"] == summary["rounds"]
+          == gateway.weights_version,
+          f"{cell} continuous: swaps {summary['swaps_accepted']}, version "
+          f"{gateway.weights_version}, rounds {summary['rounds']}")
+    check(all(os.path.exists(f) for pair in files for f in pair),
+          f"{cell} continuous: a checkpoint or its profile is missing")
+    check(len(version_ticks) >= 2,
+          f"{cell} continuous: ticks served under {version_ticks}")
+    check(published == c["ticks_served"] == submitted - dropped
+          and c.get("shed_oldest", 0) == 0,
+          f"{cell} continuous: {published} published, {submitted} "
+          f"submitted, {dropped} dropped ({c})")
+    check(same_weights, f"{cell} continuous: the pool does not serve the "
+          "last round's weights")
+    check_launches(counts, expected, f"{cell} continuous")
+    # a flush books its own launches only, none of the trainer's
+    check(sum(by_bucket.values()) == (c["flushes"] if cell == "ssm" else 0),
+          f"{cell} continuous: flushes booked {by_bucket} launches over "
+          f"{c['flushes']} flushes")
+
+    # the same loop alone, on the card and on the CPU: the backlog makes
+    # its rounds the same
+    finals = {}
+    for dev in (device, "cpu"):
+        alone_ct = trainer(dev, f"alone_{torch.device(dev).type}")
+        t0 = time.perf_counter()
+        out = alone_ct.run()
+        finals[dev] = (out, {k: v.detach().cpu() for k, v in
+                             alone_ct.state.model.state_dict().items()},
+                       time.perf_counter() - t0)
+    (g_out, g_par, g_s), (c_out, c_par, c_s) = finals[device], finals["cpu"]
+    err = max(float((g_par[k] - c_par[k]).abs().max()) for k in g_par)
+    emit("continuous vs cpu", cell=cell, rounds=g_out["rounds"],
+         cpu_rounds=c_out["rounds"], param_max_abs_err=err,
+         card_seconds=g_s, cpu_seconds=c_s, tol=TRAIN_TOL)
+    check(g_out["rounds"] == c_out["rounds"] == summary["rounds"],
+          f"{cell} continuous vs cpu: rounds differ")
+    check(err <= TRAIN_TOL,
+          f"{cell} continuous: card and CPU disagree ({err})")
+    wh.close()
+    return counts
+
+
+#: what an entry of the summary line carries of its kernel at a shape
+TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
 def kernel_entry(name, replaces, source, rows, launches, by_path):
     """One kernel's entry of the summary line, at the main shape
-    (256, 30, 32) float32, forward direction."""
-    main_shape = next(r for r in rows if r["batch"] == BATCH
-                      and r["hidden"] == 32 and r["dtype"] == "float32"
-                      and not (r["reverse"] or r["masked"]
-                               or r["nonzero_h0"] or r.get("strided")))
+    (256, 30, 32) float32, forward direction; ``b800`` the same at the
+    multi-ticker mixed batch."""
+    def plain_case(batch):
+        return next(r for r in rows if r["batch"] == batch
+                    and r["hidden"] == 32 and r["dtype"] == "float32"
+                    and not (r["reverse"] or r["masked"]
+                             or r["nonzero_h0"] or r.get("strided")))
+
+    main_shape, mixed = plain_case(BATCH), plain_case(MULTI_BATCH)
     return {
         "name": name,
         "route": "cuda",
@@ -2095,6 +2539,7 @@ def kernel_entry(name, replaces, source, rows, launches, by_path):
         **{k: main_shape[k] for k in ("sweep_ms", "dw_ms", "branch")
            if k in main_shape},
         "shape": [BATCH, 30, 32],
+        "b800": {k: mixed[k] for k in TIMES},
     }
 
 
@@ -2138,13 +2583,18 @@ def ssm_entry(tick_rows, step_rows, by_path, step_by_path):
 def flash_entry(name, rows, by_path):
     """Kernel 6's, 7's or 8's entry of the summary line, or the fused
     backward's (7 and 8 in one launch), at the model's (256, 4, 30, 8)
-    float32, not causal, no mask; its library_ms is SDPA's forward (kernel
-    6) or its backward, which computes dq, dk and dv in one call."""
-    b, n, t, d = FLASH_MAIN
-    main_shape = next(r for r in rows if r["kernel"] == name
-                      and (r["batch"], r["heads"], r["seq"], r["d"])
-                      == (b, n, t, d) and r["dtype"] == "float32"
-                      and not (r["causal"] or r["masked"]))
+    float32, not causal, no mask (``b800``: at batch 800); its library_ms
+    is SDPA's forward (kernel 6) or its backward, which computes dq, dk
+    and dv in one call."""
+    _, n, t, d = FLASH_MAIN
+
+    def plain_case(batch):
+        return next(r for r in rows if r["kernel"] == name
+                    and (r["batch"], r["heads"], r["seq"], r["d"])
+                    == (batch, n, t, d) and r["dtype"] == "float32"
+                    and not (r["causal"] or r["masked"]))
+
+    main_shape, mixed = plain_case(BATCH), plain_case(MULTI_BATCH)
     return {
         "name": name,
         "route": "cuda",
@@ -2161,6 +2611,7 @@ def flash_entry(name, rows, by_path):
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
         "shape": list(FLASH_MAIN),
+        "b800": {k: mixed[k] for k in TIMES},
         **({"also_replaces": FLASH_REPLACES["flash_dq"]}
            if name == "flash_bwd" else {}),
     }
@@ -2243,7 +2694,7 @@ def main() -> int:
     tick_rows = phase_kernel_ssm_tick()
     flash_rows = phase_kernel_flash()
     serve, train, stream, stream_bi, pool = {}, {}, {}, {}, {}
-    fleet, predictor_fleet = {}, {}
+    fleet, predictor_fleet, train_multi, continuous = {}, {}, {}, {}
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
         wh = make_warehouse(tmp)
@@ -2262,6 +2713,14 @@ def main() -> int:
         for cell in ("gru", "lstm", "attn", "ssm"):
             predictor_fleet[cell] = phase_predictor_fleet(wh, cell=cell)
         wh.close()
+        sources, weights = multi_sources()
+        for cell in ("gru", "lstm", "attn", "ssm"):
+            train_multi[cell] = phase_train_multi(sources, weights,
+                                                  cell=cell)
+        for wh in sources.values():
+            wh.close()
+        for cell in ("gru", "ssm"):
+            continuous[cell] = phase_continuous(tmp, cell=cell)
 
     entries = []
     for s in scans:
@@ -2269,11 +2728,15 @@ def main() -> int:
         by_path = {"serve": serve[s.name][fwd], "train": train[s.name][fwd],
                    "stream_bidirectional": stream_bi[s.name][fwd],
                    "fleet": fleet[s.name][fwd],
-                   "predictor_fleet": predictor_fleet[s.name][fwd]}
+                   "predictor_fleet": predictor_fleet[s.name][fwd],
+                   "train_multi": train_multi[s.name][fwd],
+                   "continuous": continuous.get(s.name, {}).get(fwd, 0)}
         bwd_by_path = {"serve": serve[s.name][bwd],
                        "train": train[s.name][bwd],
                        "fleet": fleet[s.name][bwd],
-                       "predictor_fleet": predictor_fleet[s.name][bwd]}
+                       "predictor_fleet": predictor_fleet[s.name][bwd],
+                       "train_multi": train_multi[s.name][bwd],
+                       "continuous": continuous.get(s.name, {}).get(bwd, 0)}
         fwd_rows, bwd_rows = rows[s.name]
         entries += [
             kernel_entry(fwd, s.replaces[0], s.source, fwd_rows,
@@ -2284,14 +2747,19 @@ def main() -> int:
     entries.append(ssm_entry(tick_rows, ssm_rows, *(
         {"stream": stream["ssm"][k], "pool": pool["ssm"][k],
          "serve": serve["ssm"][k], "fleet": fleet["ssm"][k],
-         "predictor_fleet": predictor_fleet["ssm"][k]}
+         "predictor_fleet": predictor_fleet["ssm"][k],
+         "train_multi": train_multi["ssm"][k],
+         "continuous": continuous["ssm"][k]}
         for k in ("ssm_tick", "ssm_step"))))
     entries += [flash_entry(name, flash_rows,
                             {"serve": serve["attn"][name],
                              "train": train["attn"][name],
                              "fleet": sum(fleet[c][name] for c in fleet),
                              "predictor_fleet":
-                                 predictor_fleet["attn"][name]})
+                                 predictor_fleet["attn"][name],
+                             "train_multi": train_multi["attn"][name],
+                             "continuous": sum(continuous[c][name]
+                                               for c in continuous)})
                 for name in FLASH_REPLACES]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

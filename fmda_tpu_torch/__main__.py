@@ -2,18 +2,24 @@
 
     python -m fmda_tpu_torch train    --warehouse W [--epochs N] [--batch-size B]
                                       [--seed S] [--checkpoint-dir D] [--device cpu]
+                                      [--continuous [--max-rounds N]]
     python -m fmda_tpu_torch backtest --warehouse W --checkpoint C [--device cpu]
     python -m fmda_tpu_torch serve    --warehouse W --checkpoint C [--device cpu]
     python -m fmda_tpu_torch serve-fleet --role solo [--cell ssm] [--predictor]
                                       [--sessions N] [--ticks N] [--device cpu]
+                                      [--continuous-train [--train-rounds N]]
 
 ``train``, ``backtest`` and ``serve`` read a warehouse file ``fmda_tpu``
 (or this package) wrote; ``train`` writes a port checkpoint
-(:mod:`fmda_tpu_torch.train.checkpoint`) that the other two read.
-``serve-fleet`` runs the fleet runtime against a synthetic load: seeded
-ticker sessions through the FleetGateway, or (``--predictor``)
+(:mod:`fmda_tpu_torch.train.checkpoint`) that the other two read, with
+the drift reference profile beside it; ``train --continuous`` tails the
+warehouse and fine-tunes round by round, a checkpoint and a profile a
+round.  ``serve-fleet`` runs the fleet runtime against a synthetic load:
+seeded ticker sessions through the FleetGateway, or (``--predictor``)
 predict-timestamp signals over a seeded random-walk warehouse through the
-batched Predictor.  All run on the CUDA card unless ``--device cpu`` is
+batched Predictor; ``--continuous-train`` runs the continuous trainer in
+a thread beside the sessions' load, each accepted round hot-swapped into
+the live gateway.  All run on the CUDA card unless ``--device cpu`` is
 given.
 """
 
@@ -53,12 +59,37 @@ def _window_threshold(args, cfg):
     return window, threshold
 
 
+def _save_quality_profile(wh, cfg, ckpt, *, max_rows: int = 4096) -> None:
+    """Write the training-time drift reference profile beside the
+    checkpoint, over the newest ``max_rows`` rows.  Best effort: a
+    profile that cannot be built (degenerate data) does not fail
+    training."""
+    from fmda_tpu_torch.eval.drift import (
+        build_profile, profile_path_for, save_profile)
+
+    try:
+        n = len(wh)
+        ids = list(range(max(1, n - max_rows + 1), n + 1))
+        rows = wh.fetch(ids)
+        targets = wh.fetch_targets(ids) if n > cfg.features.max_lead else None
+        profile = build_profile(rows, targets, bins=cfg.quality.drift_bins,
+                                columns=list(wh.x_fields))
+        path = save_profile(profile_path_for(ckpt), profile)
+        print(f"drift reference profile: {path}")
+    except (ValueError, IndexError, OSError) as e:
+        print(f"drift reference profile not written: {e}", file=sys.stderr)
+
+
 def cmd_train(args) -> int:
-    """Train over a warehouse file and write a checkpoint: imbalance
-    weights from the whole target table, then ``Trainer.fit``."""
+    """Train over a warehouse file and write a checkpoint and its drift
+    reference profile: imbalance weights from the whole target table,
+    then ``Trainer.fit``.  ``--continuous`` runs the continuous
+    fine-tuning loop over the file instead (no fleet attached: its
+    checkpoints are the output)."""
     from fmda_tpu_torch.device import resolve_device
     from fmda_tpu_torch.train import (
-        Trainer, imbalance_weights_from_source, save_checkpoint)
+        ContinuousTrainer, Trainer, imbalance_weights_from_source,
+        save_checkpoint)
 
     device = resolve_device(args.device)  # before any data is read
     cfg = _config(args)
@@ -67,6 +98,8 @@ def cmd_train(args) -> int:
         batch_size=args.batch_size, epochs=args.epochs,
         seed=args.seed).items() if v is not None}
     train_cfg = dataclasses.replace(cfg.train, **overrides)
+    ckpt_dir = (args.checkpoint_dir if args.checkpoint_dir is not None
+                else train_cfg.checkpoint_dir)
     wh = _warehouse(args.warehouse, cfg)
     try:
         if len(wh) == 0:
@@ -75,20 +108,34 @@ def cmd_train(args) -> int:
         fc = cfg.features
         model_cfg = dataclasses.replace(cfg.model,
                                         n_features=len(wh.x_fields))
+        if args.continuous:
+            ct = ContinuousTrainer(
+                wh, model_cfg, train_cfg, checkpoint_dir=ckpt_dir,
+                bid_levels=fc.bid_levels, ask_levels=fc.ask_levels,
+                drift_bins=cfg.quality.drift_bins, target_lead=fc.max_lead,
+                device=device)
+            out = ct.run(max_rounds=args.max_rounds)
+            print(f"continuous train: {out['rounds']} round(s), "
+                  f"{out['rows_seen']} rows seen, "
+                  f"{len(out['checkpoints'])} checkpoint(s) "
+                  f"(device={ct.trainer.device})")
+            for ckpt in out["checkpoints"]:
+                print(f"checkpoint: {ckpt}")
+            return 0 if out["rounds"] > 0 else 2
         weight, pos_weight = imbalance_weights_from_source(wh)
         trainer = Trainer(model_cfg, train_cfg, weight=weight,
                           pos_weight=pos_weight, device=device)
         state, history, dataset = trainer.fit(
             wh, bid_levels=fc.bid_levels, ask_levels=fc.ask_levels)
+        ckpt = save_checkpoint(ckpt_dir, state, dataset.final_norm_params)
+        last = history["train"][-1]
+        print(f"trained {len(history['train'])} epochs: "
+              f"loss={last.loss:.4f} acc={last.accuracy:.4f} "
+              f"(device={trainer.device})")
+        print(f"checkpoint: {ckpt}")
+        _save_quality_profile(wh, cfg, ckpt)
     finally:
         wh.close()
-    ckpt_dir = (args.checkpoint_dir if args.checkpoint_dir is not None
-                else train_cfg.checkpoint_dir)
-    ckpt = save_checkpoint(ckpt_dir, state, dataset.final_norm_params)
-    last = history["train"][-1]
-    print(f"trained {len(history['train'])} epochs: loss={last.loss:.4f} "
-          f"acc={last.accuracy:.4f} (device={trainer.device})")
-    print(f"checkpoint: {ckpt}")
     return 0
 
 
@@ -180,11 +227,8 @@ UNPORTED_FLEET_FLAGS = {
     "chaos_no_reference": "item 7 (chaos/)",
     "replay": "item 7 (replay/)",
     "hot_swap": "item 7 (replay/)",
-    "continuous_train": "item 3 (continuous training)",
-    "swap_guard": "item 3 (eval/shadow.py)",
-    "continuous_days": "item 3 (continuous training)",
-    "train_rounds": "item 3 (continuous training)",
-    "train_checkpoint_dir": "item 3 (continuous training)",
+    "swap_guard": ("item 3: eval/shadow.py, which waits on items 5 "
+                   "(obs.quality) and 7 (replay/)"),
     "trace": "item 5 (observability: tracing)",
     "trace_out": "item 5 (observability: tracing)",
     "trace_sample": "item 5 (observability: tracing)",
@@ -220,6 +264,8 @@ def cmd_serve_fleet(args) -> int:
     bucket) as one JSON object; exits 1 when ``--slo-p99-ms`` is missed
     (unless ``--slo-soft``)."""
     import os
+    import tempfile
+    import threading
 
     import numpy as np
     import torch
@@ -233,6 +279,10 @@ def cmd_serve_fleet(args) -> int:
     refused = _unported_fleet_flag(args)
     if refused:
         print(refused, file=sys.stderr)
+        return 2
+    if args.continuous_train and args.predictor:
+        print("--continuous-train is its own load shape; drop --predictor",
+              file=sys.stderr)
         return 2
     device = resolve_device(args.device)
     cfg = _config(args)
@@ -306,11 +356,29 @@ def cmd_serve_fleet(args) -> int:
         from fmda_tpu_torch.runtime import (
             FleetGateway, FleetLoadConfig, SessionPool, run_fleet_load)
 
+        n_features = cfg.features.n_features
+        if args.continuous_train:
+            # the trainer tails a real warehouse: a seeded random walk of
+            # --continuous-days days (the reference builds its corpus
+            # through the streaming engine, data/synthetic.build_corpus,
+            # not ported yet), landed before the load starts and tailed
+            # as a backlog; the model is sized to its joined width, so
+            # the trainer trains the weights the pool serves
+            from fmda_tpu_torch.data.synthetic import (
+                BARS_PER_DAY, random_walk_rows)
+
+            corpus_dir = tempfile.TemporaryDirectory()
+            wh = _warehouse(os.path.join(corpus_dir.name, "corpus.sqlite"),
+                            cfg)
+            wh.insert_rows(random_walk_rows(
+                cfg.features.table_columns(),
+                args.continuous_days * BARS_PER_DAY, seed=args.seed))
+            n_features = len(wh.x_fields)
         # a seeded random-init unidirectional carrier (the serving math
         # does not depend on the checkpoint; --hidden sizes it)
         model_cfg = dataclasses.replace(
             cfg.model, bidirectional=False, dropout=0.0,
-            hidden_size=args.hidden, n_features=cfg.features.n_features,
+            hidden_size=args.hidden, n_features=n_features,
             cell=cfg.model.cell if cfg.model.cell != "attn" else "gru")
         state = build_model(model_cfg, generator=generator).state_dict()
         pool = SessionPool(model_cfg, state, capacity=rc.capacity,
@@ -322,6 +390,26 @@ def cmd_serve_fleet(args) -> int:
                 max_linger_s=rc.max_linger_ms / 1e3),
             queue_bound=rc.queue_bound, pipeline_depth=rc.pipeline_depth,
             threshold=cfg.train.prob_threshold)
+        continuous = None
+        if args.continuous_train:
+            # each accepted round hot-swaps the live pool from the
+            # trainer's thread; serving never stops
+            from fmda_tpu_torch.train import (
+                ContinuousTrainer, gateway_publisher)
+
+            continuous = ContinuousTrainer(
+                wh, model_cfg, cfg.train,
+                checkpoint_dir=(args.train_checkpoint_dir
+                                or cfg.train.checkpoint_dir),
+                publish=gateway_publisher(gateway),
+                bid_levels=cfg.features.bid_levels,
+                ask_levels=cfg.features.ask_levels,
+                drift_bins=cfg.quality.drift_bins,
+                target_lead=cfg.features.max_lead, device=device)
+            continuous_thread = threading.Thread(
+                target=lambda: continuous.run(max_rounds=args.train_rounds),
+                daemon=True, name="fmda-torch-continuous-train")
+            continuous_thread.start()
         out = run_fleet_load(gateway, FleetLoadConfig(
             n_sessions=args.sessions, n_ticks=args.ticks, duty=args.duty,
             seed=args.seed, storm_every=args.storm_every,
@@ -329,6 +417,19 @@ def cmd_serve_fleet(args) -> int:
             burst_every=args.burst_every, burst_rounds=args.burst_rounds,
             slow_fraction=args.slow_fraction, slow_duty=args.slow_duty))
         out["cell"] = model_cfg.cell
+        if continuous is not None:
+            # the tail quiesces by itself (at most continuous_follow_polls
+            # empty polls), so the backlog's last round lands; stop() is
+            # the backstop
+            continuous_thread.join(timeout=120.0)
+            if continuous_thread.is_alive():
+                continuous.stop()
+                continuous_thread.join(timeout=120.0)
+            summary = continuous.summary()
+            summary["weights_version"] = gateway.weights_version
+            out["continuous_train"] = summary
+            wh.close()
+            corpus_dir.cleanup()
     out["device"] = str(device)
     slo_ok = True
     if rc.slo_p99_ms is not None:
@@ -421,6 +522,21 @@ def _add_serve_fleet(sub, common) -> None:
     p.add_argument("--slo-soft", action="store_true",
                    help="report the SLO verdict in the JSON but never "
                         "fail the run")
+    p.add_argument("--continuous-train", action="store_true",
+                   help="run the continuous fine-tuning loop in a thread "
+                        "beside the load, over a seeded random-walk "
+                        "warehouse of --continuous-days days tailed as a "
+                        "backlog; every accepted round hot-swaps the live "
+                        "gateway ([train] continuous_* knobs)")
+    p.add_argument("--continuous-days", type=int, default=2,
+                   help="corpus size (trading days of 78 bars) for the "
+                        "--continuous-train warehouse")
+    p.add_argument("--train-rounds", type=int, default=None,
+                   help="bound --continuous-train fine-tune rounds "
+                        "(default: until the backlog quiesces)")
+    p.add_argument("--train-checkpoint-dir", default=None,
+                   help="--continuous-train checkpoint directory "
+                        "(default: config train.checkpoint_dir)")
     # the reference's flags of planes not ported yet: accepted by the
     # parser so that a run setting one exits 2 naming its ROADMAP item
     unported = p.add_argument_group(
@@ -428,8 +544,8 @@ def _add_serve_fleet(sub, common) -> None:
     for dest in UNPORTED_FLEET_FLAGS:
         flag = "--" + dest.replace("_", "-")
         if dest in ("shared_bus", "no_controller", "chaos_no_reference",
-                    "replay", "hot_swap", "continuous_train", "swap_guard",
-                    "trace", "shard_pool"):
+                    "replay", "hot_swap", "swap_guard", "trace",
+                    "shard_pool"):
             unported.add_argument(flag, action="store_true", default=None)
         else:
             unported.add_argument(flag, default=None)
@@ -462,6 +578,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override config train.batch_size (default 2)")
     p.add_argument("--seed", type=int, default=None,
                    help="override config train.seed (default 0)")
+    p.add_argument("--continuous", action="store_true",
+                   help="tail the warehouse and fine-tune continuously "
+                        "([train] continuous_* knobs; a checkpoint and a "
+                        "drift profile a round)")
+    p.add_argument("--max-rounds", type=int, default=None,
+                   help="bound --continuous fine-tune rounds (default: "
+                        "until the warehouse quiesces)")
     p.set_defaults(fn=cmd_train)
 
     for name, fn, text in (

@@ -3,12 +3,12 @@
 The same frozen dataclasses as ``fmda_tpu.config`` (field names, defaults
 and the config -> schema codegen of :class:`FeatureConfig`), cut to what
 the ported paths read: the feature schema, the warehouse, the model, the
-training config (without its continuous fine-tuning fields) and the
-fleet runtime config (without ``shard_pool``).  A JSON file that
-``fmda_tpu.config.save_config`` wrote loads here too, and a file the
-reference would refuse is refused: :func:`config_from_dict` checks every
-section and key against :data:`REFERENCE_KEYS`, the reference's own table,
-and raises on anything outside it.
+training config, the fleet runtime config (without ``shard_pool``) and
+the quality plane's knobs (only ``drift_bins`` has a reader yet).  A
+JSON file that ``fmda_tpu.config.save_config`` wrote loads here too, and
+a file the reference would refuse is refused: :func:`config_from_dict`
+checks every section and key against :data:`REFERENCE_KEYS`, the
+reference's own table, and raises on anything outside it.
 """
 
 from __future__ import annotations
@@ -294,6 +294,18 @@ class TrainConfig:
     #: Chunks whose normalized windows (and placed batches) are kept for
     #: later epochs; 0 disables the caches.
     cache_chunks: int = 64
+    #: Continuous fine-tuning (``ContinuousTrainer``): fresh rows that
+    #: must land in the warehouse before a fine-tune round fires.
+    continuous_min_rows: int = 256
+    #: Sliding history window (rows) each round trains over.
+    continuous_window_rows: int = 2048
+    #: Epochs per fine-tune round (warm-started from the last round).
+    continuous_epochs: int = 1
+    #: Consecutive empty tail polls before the follow reader concludes
+    #: the warehouse has quiesced and the loop drains and exits.
+    continuous_follow_polls: int = 8
+    #: Wall seconds between empty tail polls (tests inject a waiter).
+    continuous_poll_s: float = 1.0
 
     def __post_init__(self) -> None:
         if self.accum_steps < 1:
@@ -308,6 +320,16 @@ class TrainConfig:
             raise ValueError(
                 f"train.prefetch_depth/cache_chunks must be >= 0, got "
                 f"{self.prefetch_depth}/{self.cache_chunks}")
+        if (self.continuous_min_rows < 1 or self.continuous_window_rows < 1
+                or self.continuous_epochs < 1
+                or self.continuous_follow_polls < 1):
+            raise ValueError(
+                "train.continuous_min_rows/continuous_window_rows/"
+                "continuous_epochs/continuous_follow_polls must be >= 1")
+        if self.continuous_poll_s <= 0:
+            raise ValueError(
+                f"train.continuous_poll_s must be > 0, got "
+                f"{self.continuous_poll_s}")
 
 
 #: Fleet-runtime defaults shared by RuntimeConfig and the direct
@@ -354,12 +376,77 @@ class RuntimeConfig:
 
 
 @dataclass(frozen=True)
+class QualityConfig:
+    """The model-quality plane's knobs, with ``fmda_tpu``'s defaults.
+
+    Only ``drift_bins`` is read so far: the quantile bins of the drift
+    reference profile that ``train`` and the continuous loop write beside
+    each checkpoint (:mod:`fmda_tpu_torch.eval.drift`).  The rest wait
+    for their readers: ``enabled`` through ``drift_min_samples`` and
+    ``profile_path`` for the label-join evaluator (``obs/quality.py``,
+    ROADMAP queue 1 item 5), the three ``swap_*`` fields for the hot-swap
+    guardrail (``eval/shadow.py``, items 5 and 7)."""
+
+    #: Master switch for the quality plane (capture + join + drift).
+    enabled: bool = True
+    #: Capture-ring capacity; overflow evicts the oldest prediction.
+    capture_capacity: int = 4096
+    #: Label-join cadence (seconds).
+    join_interval_s: float = 5.0
+    #: Probability threshold for label decisions.
+    prob_threshold: float = 0.5
+    #: F-beta beta (0.5 = precision-weighted, the trainer's choice).
+    fbeta: float = 0.5
+    #: Join rounds before an unjoinable capture ages out, counted.
+    max_join_attempts: int = 8
+    #: Reference-profile quantile bins (built at train time).
+    drift_bins: int = 10
+    #: Drift scores stay None below this many observed rows.
+    drift_min_samples: int = 64
+    #: Reference-profile path; None = the profile beside the checkpoint.
+    profile_path: Optional[str] = None
+    #: Hot-swap guardrail: a candidate may score at most this much below
+    #: the incumbent's shadow accuracy.
+    swap_margin: float = 0.02
+    #: Shadow-scoring replay size: rounds x sessions per side.
+    swap_eval_rounds: int = 48
+    swap_eval_sessions: int = 4
+
+    def __post_init__(self) -> None:
+        if self.capture_capacity < 1:
+            raise ValueError(
+                f"capture_capacity must be >= 1, got {self.capture_capacity}")
+        if self.join_interval_s <= 0:
+            raise ValueError(
+                f"join_interval_s must be > 0, got {self.join_interval_s}")
+        if not 0.0 < self.prob_threshold < 1.0:
+            raise ValueError(
+                f"prob_threshold must be in (0, 1), got "
+                f"{self.prob_threshold}")
+        if self.max_join_attempts < 1:
+            raise ValueError(
+                f"max_join_attempts must be >= 1, got "
+                f"{self.max_join_attempts}")
+        if self.drift_bins < 2:
+            raise ValueError(
+                f"drift_bins must be >= 2, got {self.drift_bins}")
+        if self.swap_margin < 0:
+            raise ValueError(
+                f"swap_margin must be >= 0, got {self.swap_margin}")
+        if self.swap_eval_rounds < 1 or self.swap_eval_sessions < 1:
+            raise ValueError(
+                "swap_eval_rounds and swap_eval_sessions must be >= 1, "
+                f"got {self.swap_eval_rounds} x {self.swap_eval_sessions}")
+
+
+@dataclass(frozen=True)
 class FrameworkConfig:
     features: FeatureConfig = field(default_factory=FeatureConfig)
     warehouse: WarehouseConfig = field(default_factory=WarehouseConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    quality: QualityConfig = field(default_factory=QualityConfig)
 
     def __post_init__(self) -> None:
         if self.model.n_features is None:
@@ -374,6 +461,7 @@ _SECTIONS = {
     "model": ModelConfig,
     "train": TrainConfig,
     "runtime": RuntimeConfig,
+    "quality": QualityConfig,
 }
 
 #: Every section and key ``fmda_tpu.config.config_from_dict`` accepts (the
@@ -388,12 +476,13 @@ _SECTIONS = {
 #:   (the MySQL backend and the write journal);
 #: - ``model``: ``use_pallas`` (the port has no opt-in: its kernels always
 #:   run on the card) and ``remat``;
-#: - ``train``: the ``continuous_*`` fine-tuning fields;
 #: - ``runtime``: ``shard_pool`` (sharding the pool's slots across
 #:   devices waits for the port's parallelism);
+#: - ``quality``: read whole into :class:`QualityConfig`, of which only
+#:   ``drift_bins`` has a reader yet;
 #: - the sections ``bus``, ``engine``, ``mesh``, ``session``, ``fleet``,
-#:   ``observability``, ``slo``, ``quality``, ``tracing``, ``profiling``,
-#:   ``chaos``, ``control`` and ``replay`` whole.
+#:   ``observability``, ``slo``, ``tracing``, ``profiling``, ``chaos``,
+#:   ``control`` and ``replay`` whole.
 REFERENCE_KEYS = {
     "features": (
         "get_cot", "get_vix", "get_stock_volume", "bid_levels", "ask_levels",

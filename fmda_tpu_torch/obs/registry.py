@@ -1,19 +1,91 @@
-"""The observability plane's latency histogram, as
-``fmda_tpu.obs.registry`` defines it.
+"""Process-wide metrics registry, as ``fmda_tpu.obs.registry`` defines
+it: one vocabulary for the instruments of the port.
 
-Only :class:`LatencyHistogram` is ported so far: the fleet runtime's
-per-stage latencies (:mod:`fmda_tpu_torch.runtime.metrics`) are built on
-it.  The metrics registry, its exporters and the rest of the plane are
-still to come.
+A :class:`MetricsRegistry` holds every instrument under one namespace:
+
+- :class:`Counter`: monotonic totals (training epochs, continuous rounds,
+  hot swaps by outcome);
+- :class:`Gauge`: last-observed values;
+- :class:`LatencyHistogram`: a fixed log-spaced latency distribution
+  (the fleet runtime's per-stage latencies are built on it), thread-safe
+  with ``snapshot()``/``merge()`` for cross-thread aggregation.
+
+Instruments are cheap enough for hot loops (one lock acquisition per
+update).  The exporters (the Prometheus text, the ``/snapshot``
+endpoint, ``status``) are not ported yet; they read
+:meth:`MetricsRegistry.snapshot`.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
-__all__ = ["LatencyHistogram"]
+__all__ = ["Counter", "Gauge", "LatencyHistogram", "MetricsRegistry",
+           "default_registry"]
+
+#: snapshot sample: {"name": str, "labels": {k: v}, ...value fields}
+Sample = Dict[str, object]
+#: snapshot: {"counters": [Sample], "gauges": [Sample], "histograms": [Sample]}
+Snapshot = Dict[str, List[Sample]]
+
+_LabelKey = Tuple[Tuple[str, str], ...]
+
+
+def _label_key(labels: Dict[str, str]) -> _LabelKey:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+class Counter:
+    """Monotonic counter (float deltas allowed, e.g. seconds waited)."""
+
+    __slots__ = ("name", "labels", "_value", "_lock")
+
+    def __init__(self, name: str, labels: Dict[str, str]) -> None:
+        self.name = name
+        self.labels = dict(labels)
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, delta: float = 1.0) -> None:
+        with self._lock:
+            self._value += delta
+
+    @property
+    def value(self) -> float:
+        # a GIL-atomic float read: pollers tolerate skew
+        return self._value
+
+    def sample(self) -> Sample:
+        with self._lock:  # a scrape must not tear against inc()
+            return {"name": self.name, "labels": self.labels,
+                    "value": self._value}
+
+
+class Gauge:
+    """Last-observed value."""
+
+    __slots__ = ("name", "labels", "_value", "_lock")
+
+    def __init__(self, name: str, labels: Dict[str, str]) -> None:
+        self.name = name
+        self.labels = dict(labels)
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def sample(self) -> Sample:
+        with self._lock:
+            return {"name": self.name, "labels": self.labels,
+                    "value": self._value}
 
 
 class LatencyHistogram:
@@ -142,3 +214,57 @@ class LatencyHistogram:
                 # fact
                 "counts": list(self.counts),
             }
+
+
+class MetricsRegistry:
+    """Get-or-create instrument store.
+
+    ``counter``/``gauge``/``histogram`` return the same instrument for the
+    same ``(name, labels)``: callers keep the handle and update it on the
+    hot path.  The reference's switch-off (``enabled=False``), collectors,
+    ``include`` and ``set_process`` serve its exporters and are not ported
+    with them (ROADMAP queue 1 item 5)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counters: Dict[Tuple[str, _LabelKey], Counter] = {}
+        self._gauges: Dict[Tuple[str, _LabelKey], Gauge] = {}
+        self._histograms: Dict[Tuple[str, _LabelKey], LatencyHistogram] = {}
+
+    def _get(self, store: dict, cls, name: str, labels: Dict[str, str]):
+        key = (name, _label_key(labels))
+        with self._lock:
+            inst = store.get(key)
+            if inst is None:
+                inst = store[key] = cls(name, labels)
+        return inst
+
+    def counter(self, name: str, **labels: str) -> Counter:
+        return self._get(self._counters, Counter, name, labels)
+
+    def gauge(self, name: str, **labels: str) -> Gauge:
+        return self._get(self._gauges, Gauge, name, labels)
+
+    def histogram(self, name: str, **labels: str) -> LatencyHistogram:
+        return self._get(self._histograms, LatencyHistogram, name, labels)
+
+    def snapshot(self) -> Snapshot:
+        """Every instrument's samples.  Each instrument is consistent
+        under its own lock; skew across instruments is inherent to any
+        scrape."""
+        with self._lock:
+            counters = list(self._counters.values())
+            gauges = list(self._gauges.values())
+            histograms = list(self._histograms.values())
+        return {"counters": [c.sample() for c in counters],
+                "gauges": [g.sample() for g in gauges],
+                "histograms": [h.sample() for h in histograms]}
+
+
+#: The process-default registry: instrumentation with no other registry
+#: handed to it (the trainer, the continuous loop) reports here.
+_DEFAULT = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    return _DEFAULT

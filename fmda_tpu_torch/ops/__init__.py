@@ -4,11 +4,14 @@ their CUDA kernels), the technical indicators (numpy) and the multi-label
 metrics.
 
 Each kernel's wrapper adds one to its counter where it launches the
-kernel; :func:`launch_counts` reads them all, by kernel name."""
+kernel, and calls :func:`count_launch` beside it; :func:`launch_counts`
+reads the counters, by kernel name, and :func:`thread_launches` the
+launches of the calling thread alone."""
 
 from __future__ import annotations
 
 import importlib
+import threading
 from typing import Dict
 
 #: kernel name -> (module of its wrapper, the counter the wrapper adds to)
@@ -40,6 +43,21 @@ def launch_counts() -> Dict[str, int]:
 def total_launches() -> int:
     """The launches of every kernel together."""
     return sum(launch_counts().values())
+
+
+_thread = threading.local()
+
+
+def count_launch(n: int = 1) -> None:
+    """Add ``n`` launches to the calling thread's count."""
+    _thread.launches = getattr(_thread, "launches", 0) + n
+
+
+def thread_launches() -> int:
+    """The launches of every kernel made by the calling thread so far: a
+    flush's own launches, when a trainer launches kernels from another
+    thread at the same time."""
+    return getattr(_thread, "launches", 0)
 
 
 def reset_launch_counts() -> None:

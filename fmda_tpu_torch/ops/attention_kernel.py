@@ -47,7 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib
+from fmda_tpu_torch.ops import _cuda_lib, count_launch
 
 # the wrappers' device test, a module global so a rehearsal can stub it
 _on_cpu = _cuda_lib.on_cpu
@@ -375,6 +375,7 @@ def _launch_fwd(q, k, v, causal, key_mask):
              _cuda_lib.stream_of(q))
     _cuda_lib.raise_on(lib, err, "flash_fwd")
     fwd_launches += 1
+    count_launch()
     return o.view(b, n, t, d), lse.view(b, n, t)
 
 
@@ -412,6 +413,7 @@ def _launch_bwd(kind, q, k, v, do, lse, delta, causal, key_mask):
         dkv_launches += 1
     else:
         dq_launches += 1
+    count_launch()
     return outs
 
 
@@ -424,9 +426,11 @@ def _launch_flash_bwd(q, k, v, do, lse, delta, causal, key_mask):
                      key_mask, ctypes.byref(fused))
     if fused.value:
         bwd_launches += 1
+        count_launch()
     else:
         dkv_launches += 1
         dq_launches += 1
+        count_launch(2)
     return outs
 
 

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib, scan_dw
+from fmda_tpu_torch.ops import _cuda_lib, count_launch, scan_dw
 from fmda_tpu_torch.ops.scan_dw import h_prev_of, scan_dw_reference
 
 # the wrappers' device test, a module global so a rehearsal can stub it
@@ -252,6 +252,7 @@ def _launch(xp, h0, w_hh, b_hh, *, reverse, mask):
              _cuda_lib.device_index(xp), stream)
     _cuda_lib.raise_on(lib, err, "gru_scan_fwd")
     launches += 1
+    count_launch()
     return h_last, hs
 
 
@@ -343,6 +344,7 @@ def _launch_bwd(xp, h0, w_hh, b_hh, hs, dh_last, dhs, *, reverse, mask):
                                   reverse=reverse, mask=mask)
     dw, db = scan_dw._launch(dxp, h0, hs, reverse=reverse, tail=dgn)
     bwd_launches += 1
+    count_launch()
     return dxp, dh0.to(h0.dtype), dw.to(w_hh.dtype), db.to(b_hh.dtype)
 
 

@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib, scan_dw
+from fmda_tpu_torch.ops import _cuda_lib, count_launch, scan_dw
 from fmda_tpu_torch.ops.scan_dw import h_prev_of, scan_dw_reference
 
 # the wrappers' device test, a module global so a rehearsal can stub it
@@ -272,6 +272,7 @@ def _launch(xp, h0, c0, w_hh, b_hh, *, reverse, mask):
              _cuda_lib.stream_of(xp))
     _cuda_lib.raise_on(lib, err, "lstm_scan_fwd")
     launches += 1
+    count_launch()
     return h_last, c_last, hs, cs
 
 
@@ -376,6 +377,7 @@ def _launch_bwd(xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs, *,
                                   dc_last, dhs, reverse=reverse, mask=mask)
     dw, db = scan_dw._launch(dxp, h0, hs, reverse=reverse, tail=None)
     bwd_launches += 1
+    count_launch()
     return (dxp, dh0.to(h0.dtype), dc0.to(c0.dtype), dw.to(w_hh.dtype),
             db.to(b_hh.dtype))
 

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib
+from fmda_tpu_torch.ops import _cuda_lib, count_launch
 
 # the wrapper's device test, a module global so a rehearsal can stub it
 _on_cpu = _cuda_lib.on_cpu
@@ -115,4 +115,5 @@ def _launch(dg, h0, hs, *, reverse, tail):
              device, _cuda_lib.stream_of(dg))
     _cuda_lib.raise_on(lib, err, "scan_dw")
     launches += 1
+    count_launch()
     return dw_db[:gh * hidden].view(gh, hidden), dw_db[gh * hidden:]

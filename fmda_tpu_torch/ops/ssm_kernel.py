@@ -35,7 +35,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from fmda_tpu_torch.ops import _cuda_lib
+from fmda_tpu_torch.ops import _cuda_lib, count_launch
 
 # the wrapper's device test, a module global so a rehearsal can stub it
 _on_cpu = _cuda_lib.on_cpu
@@ -169,6 +169,7 @@ def _launch(xp, carry, w):
              _cuda_lib.stream_of(xp))
     _cuda_lib.raise_on(lib, err, "ssm_cell_step")
     launches += 1
+    count_launch()
     return h, (s_new, ef_new, es_new)
 
 
@@ -322,4 +323,5 @@ def _launch_tick(rows, slots, x_min, x_range, weights, state, pos):
              _cuda_lib.device_index(rows), _cuda_lib.stream_of(rows))
     _cuda_lib.raise_on(lib, err, "ssm_serve_tick")
     tick_launches += 1
+    count_launch()
     return probs

@@ -38,6 +38,13 @@ every loss path is a counter, never a silent drop.  Under overlap,
 device work that overlapped hides inside the preceding ``dispatch`` and
 ``publish`` wall clock, which is the point.
 
+**Swaps from another thread.**  :meth:`FleetGateway.hot_swap` may be
+called from another thread than the one that pumps (the continuous
+trainer publishes from its own): one lock serialises it against
+:meth:`FleetGateway.pump`, so a flush is completed and published exactly
+once, whichever thread completes it, and the version a result carries
+never goes down.
+
 Tracing spans are not ported yet; a tick's in-band ``wire`` context is
 carried onto its published result as the reference carries it.
 """
@@ -46,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -59,7 +67,7 @@ from fmda_tpu_torch.config import (
 )
 from fmda_tpu_torch.data.normalize import NormParams
 from fmda_tpu_torch.device import PinnedStaging
-from fmda_tpu_torch.ops import total_launches
+from fmda_tpu_torch.ops import thread_launches
 from fmda_tpu_torch.runtime.batcher import BatcherConfig, MicroBatcher, Tick
 from fmda_tpu_torch.runtime.metrics import RuntimeMetrics
 from fmda_tpu_torch.runtime.session_pool import (
@@ -180,8 +188,12 @@ class FleetGateway:
         self._version_ticks: Dict[int, int] = {}
         #: kernel launches by flush bucket (the port's counterpart of the
         #: reference's compiles per bucket; 0 on the CPU, where the
-        #: kernels' plain versions run)
+        #: kernels' plain versions run): the dispatching thread's own, so
+        #: a trainer launching from another thread books none here
         self.kernel_launches_by_bucket: Dict[int, int] = {}
+        #: serialises pump and hot_swap: a swap may come from another
+        #: thread than the pumping one
+        self._lock = threading.RLock()
 
     # -- admission ----------------------------------------------------------
 
@@ -259,17 +271,20 @@ class FleetGateway:
         published under the old version; everything still queued in the
         batcher dispatches after the rebind and is served by the new
         weights.  Returns the new ``weights_version`` (``version`` when
-        given, else bumped from 1)."""
-        if self._inflight is not None:
-            prev, self._inflight = self._inflight, None
-            self._barrier_results.extend(self._complete_counted(prev))
-        self.pool.swap_weights(params)
-        self.weights_version = (
-            int(version) if version is not None
-            else (self.weights_version or 0) + 1)
-        self.metrics.count("hot_swaps_applied")
-        self.metrics.gauge("weights_version", float(self.weights_version))
-        return self.weights_version
+        given, else bumped from 1).  Safe from any thread: it waits for a
+        pump in progress to return."""
+        with self._lock:
+            if self._inflight is not None:
+                prev, self._inflight = self._inflight, None
+                self._barrier_results.extend(self._complete_counted(prev))
+            self.pool.swap_weights(params)
+            self.weights_version = (
+                int(version) if version is not None
+                else (self.weights_version or 0) + 1)
+            self.metrics.count("hot_swaps_applied")
+            self.metrics.gauge("weights_version",
+                               float(self.weights_version))
+            return self.weights_version
 
     def _sessions_changed(self) -> None:
         self.metrics.gauge("active_sessions", self.pool.n_active)
@@ -427,6 +442,10 @@ class FleetGateway:
         completes the pending flush, ``force`` completes everything, and
         ``pipeline_depth=0`` keeps the strictly serial same-call contract.
         """
+        with self._lock:
+            return self._pump_locked(force)
+
+    def _pump_locked(self, force: bool) -> List[FleetResult]:
         results: List[FleetResult] = []
         if self._barrier_results:
             # old-weights results completed by a hot-swap barrier since
@@ -543,12 +562,12 @@ class FleetGateway:
         # reads) — but their slot entries MUST point at the padding lane
         slots[len(live):] = self.pool.padding_slot
         with self.metrics.timer.stage("dispatch"):
-            launched = total_launches()
+            launched = thread_launches()
             probs = self._to_host.to_host(
                 self.pool.step_device(slots, rows).float(), (bucket, parity))
             self.kernel_launches_by_bucket[bucket] = (
                 self.kernel_launches_by_bucket.get(bucket, 0)
-                + total_launches() - launched)
+                + thread_launches() - launched)
         t_dispatched = self.clock()
 
         m = self.metrics

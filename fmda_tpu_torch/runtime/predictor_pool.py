@@ -61,7 +61,7 @@ from fmda_tpu_torch.config import (
 )
 from fmda_tpu_torch.data.normalize import NormParams
 from fmda_tpu_torch.device import DeviceLike, PinnedStaging, resolve_device
-from fmda_tpu_torch.ops import total_launches
+from fmda_tpu_torch.ops import thread_launches
 from fmda_tpu_torch.runtime.batcher import BatcherConfig, MicroBatcher, Tick
 from fmda_tpu_torch.runtime.metrics import RuntimeMetrics
 from fmda_tpu_torch.runtime.session_pool import SessionHandle
@@ -516,7 +516,7 @@ class PredictorGateway:
                 return None
         t_dispatch = self.clock()
         with self.metrics.timer.stage("dispatch"):
-            launched = total_launches()
+            launched = thread_launches()
             if ring_hit:
                 probs_dev = self.pool.ring_forward_device(
                     rows_staging, n, live_ids[-1])
@@ -525,7 +525,7 @@ class PredictorGateway:
             probs = self._to_host.to_host(probs_dev.float(), (bucket, parity))
             self.kernel_launches_by_bucket[bucket] = (
                 self.kernel_launches_by_bucket.get(bucket, 0)
-                + total_launches() - launched)
+                + thread_launches() - launched)
         t_dispatched = self.clock()
 
         m = self.metrics

@@ -17,11 +17,18 @@ averaged per epoch.
 - Metrics are summed on the device and read once per pass.
 - With ``train.cache_chunks``, later epochs replay the placed device
   batches of the first pass.
+- :meth:`Trainer.fit_multi` trains one model over many tickers, in
+  chunk-interleaved single-ticker batches or in mixed batches of every
+  ticker (:mod:`fmda_tpu_torch.train.multiticker`).
+- Each epoch's wall time and count land in the process-default metrics
+  registry (``train_epoch_seconds``, ``train_epochs_total``).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
+import time
 from dataclasses import dataclass
 from typing import (
     Any,
@@ -48,6 +55,7 @@ from fmda_tpu_torch.data.pipeline import (
 from fmda_tpu_torch.data.source import FeatureSource
 from fmda_tpu_torch.device import DeviceLike, resolve_device
 from fmda_tpu_torch.models import build_model
+from fmda_tpu_torch.obs.registry import default_registry
 from fmda_tpu_torch.ops.metrics import MultilabelMetrics, multilabel_metrics
 from fmda_tpu_torch.train.losses import (
     class_weights,
@@ -381,7 +389,11 @@ class Trainer:
             state = initial_state
             self._warn_if_norm_drifted(dataset)
         history: Dict[str, List[EpochMetrics]] = {"train": [], "val": []}
+        reg = default_registry()
+        epoch_hist = reg.histogram("train_epoch_seconds")
+        epoch_counter = reg.counter("train_epochs_total")
         for epoch in range(epochs if epochs is not None else tc.epochs):
+            t_epoch = time.perf_counter()
             state, train_metrics, _ = self._run_chunks(
                 state, dataset, train_chunks, train=True)
             history["train"].append(train_metrics)
@@ -393,12 +405,68 @@ class Trainer:
                 val_metrics = EpochMetrics(
                     nan, nan, nan, np.zeros(self.model_cfg.output_size))
             history["val"].append(val_metrics)
+            epoch_hist.observe(time.perf_counter() - t_epoch)
+            epoch_counter.inc()
             log.info(
                 "epoch %d: train loss=%.4f acc=%.4f hamming=%.4f | "
                 "val acc=%.4f hamming=%.4f", epoch + 1, train_metrics.loss,
                 train_metrics.accuracy, train_metrics.hamming,
                 val_metrics.accuracy, val_metrics.hamming)
         return state, history, dataset
+
+    def fit_multi(
+        self,
+        sources: Mapping[str, FeatureSource],
+        *,
+        epochs: Optional[int] = None,
+        bid_levels: int = 0,
+        ask_levels: int = 0,
+        mixed_batch_per_ticker: Optional[int] = None,
+    ) -> Tuple[TrainState, Dict[str, List[EpochMetrics]], Any]:
+        """Multi-ticker shared-encoder training: one model, batches
+        interleaved across instruments, per-ticker chunk normalization.
+        Returns (state, history, :class:`MultiTickerDataset`).
+
+        By default each step is a single-ticker batch of ``batch_size``,
+        the tickers' chunks interleaved.  ``mixed_batch_per_ticker=k``
+        switches to the mixed composition: every step concatenates ``k``
+        windows of every ticker (``len(sources) * k`` rows a step, e.g. 50
+        x 16 = 800; a ticker with none left is zero-filled with mask 0),
+        so each gradient mixes all instruments.  Either way a pass's
+        batches are composed in the pipeline's background thread and
+        placed ahead of the steps: the mixed composition is the costly
+        host stage.  Placed batches are not cached across epochs.
+        """
+        from fmda_tpu_torch.train.multiticker import MultiTickerDataset
+
+        tc = self.train_cfg
+        mtd = MultiTickerDataset(sources, tc.chunk_size, tc.window,
+                                 bid_levels=bid_levels, ask_levels=ask_levels)
+        train_chunks, val_chunks, _ = mtd.splits(tc.val_size, tc.test_size)
+        k = mixed_batch_per_ticker
+
+        def placed(chunks) -> Iterable[Batch]:
+            if k:
+                host = (mtd.mixed_batches(rc, k) for rc in mtd.rounds(chunks))
+            else:
+                host = (mtd.batches(t, c, tc.batch_size) for t, c in chunks)
+            return prefetch_batches(itertools.chain.from_iterable(host),
+                                    self.place, depth=tc.prefetch_depth)
+
+        state = self.init_state()
+        history: Dict[str, List[EpochMetrics]] = {"train": [], "val": []}
+        for epoch in range(epochs if epochs is not None else tc.epochs):
+            state, train_metrics, _ = self._run_batches(
+                state, placed(train_chunks), train=True)
+            history["train"].append(train_metrics)
+            _, val_metrics, _ = self._run_batches(
+                state, placed(val_chunks), train=False)
+            history["val"].append(val_metrics)
+            log.info(
+                "multi epoch %d: train loss=%.4f acc=%.4f | val acc=%.4f",
+                epoch + 1, train_metrics.loss, train_metrics.accuracy,
+                val_metrics.accuracy)
+        return state, history, mtd
 
     def evaluate(
         self,

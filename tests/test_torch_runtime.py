@@ -8,6 +8,7 @@ same counters, and probabilities within 1e-5 (float32).
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -911,7 +912,8 @@ def test_serve_fleet_cli_serial_matches_default(capsys):
     (["--role", "broker"], "item 7"), (["--role", "router"], "item 7"),
     (["--role", "worker"], "item 7"), (["--role", "local"], "item 7"),
     (["--replay"], "item 7"), (["--hot-swap"], "item 7"),
-    (["--continuous-train"], "item 3"), (["--swap-guard"], "item 3"),
+    (["--continuous-train", "--swap-guard"], "item 3"),
+    (["--swap-guard"], "item 3"),
     (["--trace"], "item 5"), (["--trace-out", "t.json"], "item 5"),
     (["--metrics-port", "0"], "item 5"), (["--jax-profile", "d"], "item 5"),
     (["--shard-pool"], "item 8"), (["--workers", "2"], "item 7"),
@@ -923,3 +925,41 @@ def test_serve_fleet_refuses_unported_planes(capsys, extra, item):
     assert main(FLEET_ARGS + extra) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP queue 1, {item}" in err
+
+
+def test_serve_fleet_continuous_train_swaps_into_the_live_gateway(
+        tmp_path, capsys):
+    """``--continuous-train``: 14 days of bars (1,092 rows) tailed in pages
+    of 1,024 beside the load, two rounds, each swapped into the gateway."""
+    from fmda_tpu_torch.__main__ import main
+
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"train": {
+        "window": 6, "chunk_size": 100, "batch_size": 64,
+        "continuous_poll_s": 0.01}}))
+    ckpt_dir = tmp_path / "ckpt"
+    assert main(FLEET_ARGS + [
+        "--config", str(cfg), "--sessions", "4", "--ticks", "5",
+        "--continuous-train", "--continuous-days", "14", "--train-rounds",
+        "2", "--train-checkpoint-dir", str(ckpt_dir)]) == 0
+    out = json.loads(capsys.readouterr().out)
+    ct = out["continuous_train"]
+    assert ct["rounds"] == 2 and ct["rows_seen"] == 14 * 78
+    assert ct["swaps_accepted"] == ct["weights_version"] == 2
+    assert ct["swaps_refused"] == 0
+    assert "trainer_unexpected_recompiles" not in ct
+    assert [os.path.dirname(c) for c in ct["checkpoints"]] == \
+        [str(ckpt_dir)] * 2
+    assert all(os.path.exists(c) for c in ct["checkpoints"])
+    assert out["ticks_served"] == out["ticks_submitted"] == 20
+
+
+def test_serve_fleet_swap_guard_waits_on_the_shadow_evaluator(capsys):
+    from fmda_tpu_torch.__main__ import main
+
+    assert main(FLEET_ARGS + ["--continuous-train", "--swap-guard"]) == 2
+    err = capsys.readouterr().err
+    assert "--swap-guard is not ported yet" in err
+    assert "eval/shadow.py" in err and "items 5" in err and "7" in err
+    assert main(FLEET_ARGS + ["--continuous-train", "--predictor"]) == 2
+    assert "drop --predictor" in capsys.readouterr().err

@@ -418,3 +418,65 @@ def test_cli_train_then_backtest_its_checkpoint(tmp_path, capsys, cell):
     assert rc == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith(f"backtest over {n - WINDOW + 1} rows: ")
+
+
+def _cli_warehouse(tmp_path, n_rows, seed=6):
+    wh_path = str(tmp_path / "wh.sqlite")
+    wh = Warehouse(FeatureConfig(**FEATURES), WarehouseConfig(path=wh_path))
+    wh.insert_rows(random_walk_rows(FeatureConfig(**FEATURES).table_columns(),
+                                    n_rows, seed=seed))
+    wh.close()
+    return wh_path
+
+
+def test_cli_train_writes_the_drift_profile_beside_its_checkpoint(
+        tmp_path, capsys):
+    from fmda_tpu_torch.eval import build_profile, load_profile
+    from fmda_tpu_torch.eval import profile_path_for
+
+    wh_path = _cli_warehouse(tmp_path, 120)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({
+        "features": FEATURES, "model": {"hidden_size": HIDDEN},
+        "train": {"window": WINDOW, "chunk_size": CHUNK},
+        "quality": {"drift_bins": 6}}))
+    assert port_main([
+        "train", "--device", "cpu", "--config", str(cfg), "--warehouse",
+        wh_path, "--epochs", "1", "--batch-size", str(BATCH),
+        "--checkpoint-dir", str(tmp_path / "ckpt")]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    ckpt = lines[1].removeprefix("checkpoint: ")
+    path = lines[2].removeprefix("drift reference profile: ")
+    assert path == profile_path_for(ckpt) and os.path.exists(path)
+    wh = Warehouse(FeatureConfig(**FEATURES), WarehouseConfig(path=wh_path))
+    ids = range(1, len(wh) + 1)
+    want = build_profile(wh.fetch(ids), wh.fetch_targets(ids), bins=6,
+                         columns=list(wh.x_fields))
+    assert load_profile(path) == json.loads(json.dumps(want))
+
+
+def test_cli_train_continuous_runs_bounded_rounds(tmp_path, capsys):
+    """1,100 rows tailed in pages of 1,024: a round on the first page, and
+    the 76 left over drain into a second when the tail quiesces."""
+    wh_path = _cli_warehouse(tmp_path, 1100, seed=7)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({
+        "features": FEATURES, "model": {"hidden_size": HIDDEN},
+        "train": {"window": WINDOW, "chunk_size": 100, "batch_size": 64,
+                  "continuous_poll_s": 0.01}}))
+    ckpt_dir = tmp_path / "ckpt"
+    assert port_main([
+        "train", "--device", "cpu", "--config", str(cfg), "--warehouse",
+        wh_path, "--continuous", "--max-rounds", "2", "--checkpoint-dir",
+        str(ckpt_dir)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == ("continuous train: 2 round(s), 1100 rows seen, "
+                        "2 checkpoint(s) (device=cpu)")
+    ckpts = [ln.removeprefix("checkpoint: ") for ln in lines[1:]]
+    assert len(ckpts) == 2
+    for ckpt in ckpts:
+        assert os.path.dirname(ckpt) == str(ckpt_dir)
+        tree, norm = restore_checkpoint(ckpt)
+        assert "opt_state" in tree and norm is not None
+        assert os.path.exists(ckpt.removesuffix(".pt")
+                              + ".quality_profile.json")
