@@ -86,11 +86,23 @@ Phases, each printed as one JSON line, each fatal on failure:
    bit; the fleet's ticks/s and latencies with the trainer and without
    it; then ``continuous vs cpu``, the same loop alone on both devices.
 
+13. ``pipeline``: the reference's main path from raw feed messages to
+   predictions: a year of synthetic days (252 x 78 bars) through the bus
+   and the port's ``StreamEngine`` into a file warehouse (ingest rows/s,
+   the engine's step ms and stats), the ``demo`` command's train (one
+   epoch at batch 256) and backtest on it, then the next day live, bar by
+   bar, into the ``Predictor``, a bidirectional gru ``StreamingPredictor``
+   on the trained checkpoint and an ssm one (both caught up over the year
+   first): bar-to-prediction p50/p99 per consumer, its split, the busy
+   share, the card's Predictor against the CPU's, and the golden day
+   (``tests/data/golden_day.jsonl``) through the engine.
+
 Phases 4-6, 10 and 11 run for the BiGRU (``cell="gru"``, the default),
 the BiLSTM (``cell="lstm"``), the TemporalTransformer (``cell="attn"``:
 the flash kernels) and the bidirectional gated SSM (``cell="ssm"``:
 parallel mode, no kernel); phases 7-9 for gru, lstm and ssm (``stream
-bidirectional`` for gru and lstm); phase 12 for gru and ssm.  Their lines carry
+bidirectional`` for gru and lstm); phase 12 for gru and ssm; phase 13
+for the BiGRU (its streaming consumers gru and ssm).  Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
 other kernel's 0 (``scan_dw`` counts the backward scans' weight-gradient
@@ -1043,19 +1055,21 @@ def breakdown(wh, ckpt, model_cfg, window, norm, stamps, device):
                 lambda x: model(torch.from_numpy(x).to(device))), batches))
 
 
-def device_share(fn) -> dict:
+def device_share(fn, *, host_activity: bool = True) -> dict:
     """Kernel time on the card while ``fn`` runs, from torch.profiler's
     CUDA activity, against the wall time (profiler on, so the wall time
     is inflated and the share a lower bound), ``device_ops``, the kernels
     and copies the card ran, and ``port_kernels_ms``, the device time of
     each of the port's kernels.  ``busy_share`` is None when the
-    profiler saw no device activity."""
+    profiler saw no device activity.  ``host_activity=False`` records the
+    device's activity alone, which adds less to the host's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host_activity else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2505,6 +2519,326 @@ def phase_continuous(directory: str, device: str = "cuda",
     return counts
 
 
+#: the pipeline phase: a year of synthetic trading days landed through the
+#: port's engine (252 x 78 = 19,656 rows), then the next day live, bar by
+#: bar
+PIPELINE_DAYS = 252
+#: the golden day's narrow schema (the reference's engine tests' own)
+GOLDEN_FEATURES = dict(
+    bid_levels=2, ask_levels=2, event_list=("Core CPI",),
+    volume_ma_periods=(3,), price_ma_periods=(3,), delta_ma_periods=(2,),
+    bollinger_period=3, stoch_preceding=2, atr_preceding=2,
+    target_lead1=2, target_lead2=3, get_cot=False)
+
+
+def golden_day() -> dict:
+    """``tests/data/golden_day.jsonl`` through the port's engine on this
+    host: x within 1e-6 of ``golden_day_expected.npz``, targets exact."""
+    from fmda_tpu_torch.config import (
+        DEFAULT_TOPICS, FeatureConfig, WarehouseConfig)
+    from fmda_tpu_torch.stream import InProcessBus, StreamEngine, Warehouse
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    with open(os.path.join(data, "golden_day.jsonl")) as fh:
+        messages = [json.loads(line) for line in fh]
+    expected = np.load(os.path.join(data, "golden_day_expected.npz"),
+                       allow_pickle=False)
+    fc = FeatureConfig(**GOLDEN_FEATURES)
+    bus = InProcessBus(DEFAULT_TOPICS)
+    wh = Warehouse(fc, WarehouseConfig(path=":memory:"))
+    engine = StreamEngine(bus, wh, fc)
+    for msg in messages:
+        bus.publish(msg["topic"], msg["value"])
+    engine.step()
+    n = len(expected["x"])
+    check(len(wh) == n, f"golden day landed {len(wh)} rows, expected {n}")
+    check(tuple(expected["fields"]) == wh.x_fields, "golden day schema")
+    x_err = float(np.abs(wh.fetch(range(1, n + 1)) - expected["x"]).max())
+    y_same = bool((wh.fetch_targets(range(1, n + 1)) == expected["y"]).all())
+    check(x_err <= 1e-6 and y_same,
+          f"golden day differs: x {x_err}, targets equal {y_same}")
+    wh.close()
+    return dict(messages=len(messages), rows=n, x_max_abs_err=x_err,
+                targets_equal=y_same)
+
+
+def phase_pipeline(directory: str, device: str = "cuda"):
+    """The reference's main path from raw feed messages to predictions:
+    synthetic feeds -> InProcessBus -> StreamEngine -> Warehouse ->
+    ``demo``'s train and backtest -> checkpoint -> a live day bar by bar ->
+    Predictor and two StreamingPredictors -> the prediction topic.
+
+    - corpus: one seeded stream of PIPELINE_DAYS + 1 synthetic days; the
+      first PIPELINE_DAYS land through the engine as ``build_corpus``
+      lands them (a day published, one step), into a file warehouse;
+    - demo: the ``demo`` command's own train and backtest code on that
+      warehouse, one epoch at batch 256 (the train phase's settings);
+    - live day: the last day, bar by bar: the bar's five messages
+      published, one engine step, then three consumers of the signal
+      topic poll: ``Predictor.from_checkpoint`` (no staleness check: the
+      synthetic clock is in 2020), a bidirectional gru
+      ``StreamingPredictor`` on the same checkpoint and an ssm one from a
+      seeded init, both caught up over the year first.  A consumer's
+      bar-to-prediction latency is the engine's part (first publish to
+      the end of the step) plus its own poll, as each would see it alone;
+    - the card's Predictor against the port's on the CPU for the live
+      day's timestamps, and the golden day.
+
+    Returns the path's launch counts (the demo's and the live day's)."""
+    import contextlib
+    import io
+
+    from fmda_tpu_torch import __main__ as cli
+    from fmda_tpu_torch.config import (
+        DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP,
+        TOPIC_PREDICTION, TrainConfig)
+    from fmda_tpu_torch.data.pipeline import WindowBatches
+    from fmda_tpu_torch.data.synthetic import (
+        BARS_PER_DAY, SyntheticMarketConfig, synthetic_session_messages)
+    from fmda_tpu_torch.obs.registry import MetricsRegistry, default_registry
+    from fmda_tpu_torch.serve import (
+        Predictor, StreamingBiGRU, StreamingBiGRUBidirectional,
+        StreamingPredictor)
+    from fmda_tpu_torch.serve.predictor import load_model, make_batched_forward
+    from fmda_tpu_torch.stream import InProcessBus, StreamEngine, Warehouse
+    from fmda_tpu_torch.train import imbalance_weights_from_source
+    from fmda_tpu_torch.train.checkpoint import restore_checkpoint
+
+    cfg = FrameworkConfig(train=TrainConfig(
+        batch_size=BATCH, chunk_size=TRAIN_CHUNK, epochs=1, seed=SEED))
+    fc, window = cfg.features, cfg.train.window
+    per_day = 5 * BARS_PER_DAY
+    phase_t0 = time.perf_counter()
+
+    # -- the corpus: a year through the engine, a step a day ------------------
+    registry = MetricsRegistry()
+    wh = Warehouse(fc, dataclasses.replace(
+        cfg.warehouse, path=f"{directory}/pipeline.sqlite"))
+    bus = InProcessBus(DEFAULT_TOPICS)
+    engine = StreamEngine(bus, wh, fc, metrics=registry)
+    messages = synthetic_session_messages(fc, SyntheticMarketConfig(
+        seed=SEED, n_days=PIPELINE_DAYS + 1))
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(PIPELINE_DAYS):
+        for _ in range(per_day):
+            bus.publish(*next(messages))
+        t = time.perf_counter()
+        engine.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    corpus_s = time.perf_counter() - t0
+    stats = engine.stats
+    n_rows = PIPELINE_DAYS * BARS_PER_DAY
+    emit("pipeline corpus", days=PIPELINE_DAYS, rows=len(wh),
+         features=len(wh.x_fields), seconds=corpus_s,
+         ingest_rows_per_s=len(wh) / corpus_s,
+         step_ms_p50=statistics.median(step_ms), step_ms_p99=p99(step_ms),
+         step_ms_mean=statistics.fmean(step_ms),
+         stages=engine.timer.summary(),
+         step_histogram=registry.histogram("engine_step_seconds").summary(),
+         stats=stats)
+    check(len(wh) == n_rows and stats["emitted"] == n_rows,
+          f"corpus landed {len(wh)} rows, expected {n_rows}")
+    check(stats["dropped"] == 0 and stats["bad_messages"] == 0
+          and stats["pending"] == 0,
+          f"corpus dropped or held rows: {stats}")
+    check(len(wh.x_fields) == cfg.model.n_features,
+          f"corpus serves {len(wh.x_fields)} features")
+
+    # -- demo: its train and backtest code on the corpus ------------------------
+    epoch_hist = default_registry().histogram("train_epoch_seconds")
+    epoch_s0 = epoch_hist.total_s
+    start_path()
+    demo_out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(demo_out):
+        ckpt, history, dataset = cli._train(
+            wh, cfg, epochs=None, batch_size=None,
+            checkpoint_dir=f"{directory}/pipeline_ckpt", seed=None,
+            device=device)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bt = cli._backtest(wh, cfg, ckpt, window=window,
+                           threshold=cfg.train.prob_threshold, device=device)
+        torch.cuda.synchronize()
+        bt_s = time.perf_counter() - t0
+    demo_counts = launch_counts()  # the demo ends here
+    epoch_s = epoch_hist.total_s - epoch_s0
+    # the demo's train call, split: its host pieces again, alone
+    t = time.perf_counter()
+    imbalance_weights_from_source(wh)
+    weights_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli._save_quality_profile(wh, cfg, f"{directory}/profile_probe.pt")
+    profile_s = time.perf_counter() - t
+    train_chunks, val_chunks, _ = dataset.split(cfg.train.val_size,
+                                                cfg.train.test_size)
+    n_train = sum(len(WindowBatches(dataset, i, BATCH)) for i in train_chunks)
+    n_val = sum(len(WindowBatches(dataset, i, BATCH)) for i in val_chunks)
+    n_windows = sum(len(dataset.windows(i)[0]) for i in train_chunks)
+    served = len(bt.probabilities)
+    expected = train_launches("gru", n_train, n_val)
+    expected["gru_scan_fwd"] += 2 * math.ceil(served / BATCH)
+    tr = history["train"][-1]
+    emit("pipeline demo", checkpoint=os.path.basename(ckpt),
+         train_steps=n_train, val_batches=n_val, train_windows=n_windows,
+         train_s=train_s, train_windows_per_s=n_windows / train_s,
+         epoch_s=epoch_s, epoch_train_windows_per_s=n_windows / epoch_s,
+         weights_s=weights_s, drift_profile_s=profile_s,
+         train_loss=tr.loss, train_accuracy=tr.accuracy,
+         backtest_rows=served, backtest_s=bt_s,
+         backtest_windows_per_s=served / bt_s,
+         accuracy=float(bt.metrics.accuracy),
+         hamming=float(bt.metrics.hamming), launches=demo_counts,
+         output=demo_out.getvalue().splitlines())
+    check_launches(demo_counts, expected, "pipeline demo")
+    check(served == n_rows - window + 1, f"demo backtest served {served}")
+    check(math.isfinite(tr.loss) and bool(np.isfinite(bt.probabilities).all()),
+          "demo: non-finite loss or probabilities")
+
+    # -- the live day's consumers, the streaming ones caught up -----------------
+    model_cfg = dataclasses.replace(cfg.model, n_features=len(wh.x_fields))
+    tree, norm = restore_checkpoint(ckpt)
+    ssm_cfg, ssm_state, ssm_norm = serving_setup(wh, "ssm", False)
+    cores = {
+        "gru_bidirectional": StreamingBiGRUBidirectional(
+            model_cfg, tree["params"], norm, window=window, device=device),
+        "ssm": StreamingBiGRU(ssm_cfg, ssm_state, ssm_norm, window=window,
+                              device=device),
+    }
+    start_path()
+    streams = {name: StreamingPredictor(
+        bus, wh, core, threshold=cfg.train.prob_threshold, from_end=True)
+        for name, core in cores.items()}
+    last_ts = wh.timestamps_after(n_rows - 1)[0][1]
+    bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": last_ts})
+    catchup_s = {}
+    for name, sp in streams.items():
+        t0 = time.perf_counter()
+        check(len(sp.poll()) == 1, f"{name} catch-up served nothing")
+        torch.cuda.synchronize()
+        catchup_s[name] = time.perf_counter() - t0
+    predictor = Predictor.from_checkpoint(
+        ckpt, bus, wh, model_cfg, window=window,
+        threshold=cfg.train.prob_threshold, from_end=True,
+        max_staleness_s=None, device=device)
+    consumers = {"predictor": predictor.poll,
+                 **{name: sp.poll for name, sp in streams.items()}}
+    emit("pipeline catch-up", ticks=n_rows, seconds=catchup_s,
+         ticks_per_s={k: n_rows / v for k, v in catchup_s.items()})
+
+    # -- the live day, bar by bar -------------------------------------------------
+    out_offset = bus.end_offset(TOPIC_PREDICTION)
+    live = {name: [] for name in consumers}
+    latency = {name: [] for name in consumers}
+    engine_ms, stamps = [], []
+
+    def live_day():
+        for _ in range(BARS_PER_DAY):
+            bar = [next(messages) for _ in range(5)]
+            t_bar = time.perf_counter()
+            for topic, msg in bar:
+                bus.publish(topic, msg)
+            check(engine.step() == 1, "a live bar did not land one row")
+            t_engine = time.perf_counter()
+            engine_ms.append((t_engine - t_bar) * 1e3)
+            stamps.append(bar[0][1]["Timestamp"])
+            for name, poll in consumers.items():
+                t = time.perf_counter()
+                got = poll()
+                latency[name].append((t_engine - t_bar
+                                      + time.perf_counter() - t) * 1e3)
+                live[name].append(got)
+
+    share = device_share(live_day, host_activity=False)
+    counts = launch_counts()  # the live day ends here
+    catchup_ticks = n_rows
+    expected_live = {
+        "gru_scan_fwd": 2 * BARS_PER_DAY + catchup_ticks + BARS_PER_DAY,
+        "ssm_tick": catchup_ticks + BARS_PER_DAY}
+    check(all(len(got) == 1 for v in live.values() for got in v),
+          "a consumer did not serve exactly one prediction a bar: "
+          + str({k: [len(g) for g in v] for k, v in live.items()}))
+    probs = {
+        "predictor": [np.asarray(g[0].probabilities) for g in
+                      live["predictor"]],
+        **{name: [g[0][1] for g in live[name]] for name in streams}}
+    served_ts = {"predictor": [g[0].timestamp for g in live["predictor"]],
+                 **{name: [g[0][0] for g in live[name]] for name in streams}}
+    check(all(v == stamps for v in served_ts.values()),
+          "a consumer served other timestamps than the bars'")
+    check(all(np.isfinite(p).all() for v in probs.values() for p in v),
+          "non-finite live probabilities")
+    published = bus.end_offset(TOPIC_PREDICTION) - out_offset
+    check(published == 3 * BARS_PER_DAY,
+          f"{published} predictions published for {BARS_PER_DAY} bars")
+    emit("pipeline live day", bars=BARS_PER_DAY, rows=len(wh),
+         published=published, engine_step_ms_p50=statistics.median(engine_ms),
+         engine_step_ms_p99=p99(engine_ms),
+         bar_to_prediction_ms={name: dict(
+             p50=statistics.median(v), p99=p99(v), mean=statistics.fmean(v))
+             for name, v in latency.items()},
+         device_share=share, profiler="device activity only",
+         launches=counts, engine_stats=engine.stats)
+    check_launches(counts, expected_live, "pipeline live day")
+
+    # -- where a bar's consumer time goes ---------------------------------------
+    ids = [wh.id_for_timestamp(ts) for ts in stamps]
+    forward = make_batched_forward(load_model(
+        model_cfg, tree["params"], torch.device(device)))
+    x_min = torch.as_tensor(norm.x_min, device=device)
+    x_range = torch.as_tensor(norm.x_max - norm.x_min, device=device)
+    windows = [wh.fetch(range(i - window + 1, i + 1))[None] for i in ids]
+    rows = wh.fetch(ids)
+
+    def synced(fn):
+        def run(item):
+            fn(item)
+            torch.cuda.synchronize()
+        return run
+
+    pieces = dict(
+        lookup_ms=median_ms(wh.id_for_timestamp, stamps),
+        fetch_window_ms=median_ms(
+            lambda i: wh.fetch(range(i - window + 1, i + 1)), ids),
+        fetch_row_ms=median_ms(lambda i: wh.fetch(range(i, i + 1)), ids),
+        forward_ms=median_ms(synced(lambda x: forward(
+            x_min, x_range, torch.from_numpy(x).to(device)).cpu()), windows))
+    for name, core in cores.items():
+        fresh = type(core)(core.cfg,
+                           tree["params"] if name != "ssm" else ssm_state,
+                           norm if name != "ssm" else ssm_norm,
+                           window=window, device=device)
+        pieces[f"{name}_tick_ms"] = median_ms(fresh.step, rows)
+    emit("pipeline live breakdown", **pieces)
+
+    # -- the card's Predictor against the port's on the CPU ----------------------
+    cpu_bus = InProcessBus(DEFAULT_TOPICS)
+    cpu_pred = Predictor.from_checkpoint(
+        ckpt, cpu_bus, wh, model_cfg, window=window,
+        threshold=cfg.train.prob_threshold, from_end=False,
+        max_staleness_s=None, device="cpu")
+    for ts in stamps:
+        cpu_bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": ts})
+    cpu_preds = cpu_pred.poll()
+    err = max(float(np.abs(g - np.asarray(c.probabilities)).max())
+              for g, c in zip(probs["predictor"], cpu_preds))
+    same_labels = ([g[0].labels for g in live["predictor"]]
+                   == [c.labels for c in cpu_preds])
+    golden = golden_day()
+    emit("pipeline vs cpu", signals=len(cpu_preds), max_abs_err=err,
+         labels_equal=same_labels, tol=PATH_TOL, golden_day=golden)
+    check(len(cpu_preds) == BARS_PER_DAY and err <= PATH_TOL,
+          f"pipeline: card and CPU Predictor disagree ({err})")
+    check(same_labels, "pipeline: card and CPU labels differ")
+    wh.close()
+    emit("pipeline done", seconds=time.perf_counter() - phase_t0)
+    return {k: demo_counts[k] + counts[k] for k in counts}
+
+
 #: what an entry of the summary line carries of its kernel at a shape
 TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2721,6 +3055,7 @@ def main() -> int:
             wh.close()
         for cell in ("gru", "ssm"):
             continuous[cell] = phase_continuous(tmp, cell=cell)
+        pipeline = phase_pipeline(tmp)
 
     entries = []
     for s in scans:
@@ -2730,13 +3065,15 @@ def main() -> int:
                    "fleet": fleet[s.name][fwd],
                    "predictor_fleet": predictor_fleet[s.name][fwd],
                    "train_multi": train_multi[s.name][fwd],
-                   "continuous": continuous.get(s.name, {}).get(fwd, 0)}
+                   "continuous": continuous.get(s.name, {}).get(fwd, 0),
+                   "pipeline": pipeline[fwd]}
         bwd_by_path = {"serve": serve[s.name][bwd],
                        "train": train[s.name][bwd],
                        "fleet": fleet[s.name][bwd],
                        "predictor_fleet": predictor_fleet[s.name][bwd],
                        "train_multi": train_multi[s.name][bwd],
-                       "continuous": continuous.get(s.name, {}).get(bwd, 0)}
+                       "continuous": continuous.get(s.name, {}).get(bwd, 0),
+                       "pipeline": pipeline[bwd]}
         fwd_rows, bwd_rows = rows[s.name]
         entries += [
             kernel_entry(fwd, s.replaces[0], s.source, fwd_rows,
@@ -2749,7 +3086,7 @@ def main() -> int:
          "serve": serve["ssm"][k], "fleet": fleet["ssm"][k],
          "predictor_fleet": predictor_fleet["ssm"][k],
          "train_multi": train_multi["ssm"][k],
-         "continuous": continuous["ssm"][k]}
+         "continuous": continuous["ssm"][k], "pipeline": pipeline[k]}
         for k in ("ssm_tick", "ssm_step"))))
     entries += [flash_entry(name, flash_rows,
                             {"serve": serve["attn"][name],
@@ -2759,7 +3096,8 @@ def main() -> int:
                                  predictor_fleet["attn"][name],
                              "train_multi": train_multi["attn"][name],
                              "continuous": sum(continuous[c][name]
-                                               for c in continuous)})
+                                               for c in continuous),
+                             "pipeline": pipeline[name]})
                 for name in FLASH_REPLACES]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

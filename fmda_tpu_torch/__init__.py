@@ -1,12 +1,14 @@
 """fmda_tpu_torch: the PyTorch/CUDA port of ``fmda_tpu`` for NVIDIA Hopper.
 
 This package stands beside ``fmda_tpu`` (the JAX reference) and imports
-none of it.  The ported slices are the window-re-scan serving path and the
-training path of every model family (``ModelConfig.cell`` "gru", "lstm",
-"ssm" or "attn"), and carried-state streaming serving of the three
-recurrent ones:
+none of it.  The ported slices are the data plane (the acquisition layer,
+the streaming engine and its journal, the synthetic corpus), the
+window-re-scan serving path and the training path of every model family
+(``ModelConfig.cell`` "gru", "lstm", "ssm" or "attn"), and carried-state
+streaming serving of the three recurrent ones:
 
-    warehouse (SQLite) -> normalization -> model -> Predictor / backtest
+    feeds -> bus -> StreamEngine (features, join) -> warehouse (SQLite)
+    warehouse -> normalization -> model -> Predictor / backtest
     warehouse -> chunked windows -> Trainer.fit -> checkpoint -> backtest
     warehouse -> StreamingBiGRU(Bidirectional) -> StreamingPredictor
     rows of many sessions -> SessionPool (one flush a micro-batch)

@@ -1,5 +1,10 @@
 """fmda_tpu_torch command line: the ported slices of ``python -m fmda_tpu``.
 
+    python -m fmda_tpu_torch demo     [--days N] [--epochs N] [--batch-size B]
+                                      [--seed S] [--checkpoint-dir D] [--device cpu]
+    python -m fmda_tpu_torch ingest   --warehouse W (--synthetic-days N
+                                      | --replay FIXTURES [--replay-start TS]
+                                      [--ticks N]) [--engine-checkpoint P]
     python -m fmda_tpu_torch train    --warehouse W [--epochs N] [--batch-size B]
                                       [--seed S] [--checkpoint-dir D] [--device cpu]
                                       [--continuous [--max-rounds N]]
@@ -9,18 +14,22 @@
                                       [--sessions N] [--ticks N] [--device cpu]
                                       [--continuous-train [--train-rounds N]]
 
-``train``, ``backtest`` and ``serve`` read a warehouse file ``fmda_tpu``
-(or this package) wrote; ``train`` writes a port checkpoint
+``demo`` is the end-to-end proof run: a synthetic corpus through the
+streaming engine into a warehouse, training, and a backtest of the
+checkpoint it just trained.  ``ingest`` lands feeds into a warehouse file
+through the streaming engine: the synthetic corpus, or a recorded session
+replayed through the acquisition layer.  ``train``, ``backtest`` and
+``serve`` read a warehouse file ``fmda_tpu`` (or this package) wrote; ``train`` writes a port checkpoint
 (:mod:`fmda_tpu_torch.train.checkpoint`) that the other two read, with
 the drift reference profile beside it; ``train --continuous`` tails the
 warehouse and fine-tunes round by round, a checkpoint and a profile a
 round.  ``serve-fleet`` runs the fleet runtime against a synthetic load:
 seeded ticker sessions through the FleetGateway, or (``--predictor``)
-predict-timestamp signals over a seeded random-walk warehouse through the
+predict-timestamp signals over a synthetic corpus warehouse through the
 batched Predictor; ``--continuous-train`` runs the continuous trainer in
 a thread beside the sessions' load, each accepted round hot-swapped into
-the live gateway.  All run on the CUDA card unless ``--device cpu`` is
-given.
+the live gateway.  All run their models on the CUDA card unless
+``--device cpu`` is given (``ingest`` runs no model).
 """
 
 from __future__ import annotations
@@ -44,12 +53,16 @@ def _warehouse(path: str, cfg):
     return Warehouse(cfg.features, dataclasses.replace(cfg.warehouse, path=path))
 
 
+def _checkpoint_dir(args, cfg) -> str:
+    """--checkpoint-dir if passed, else the config's train.checkpoint_dir."""
+    return (args.checkpoint_dir if args.checkpoint_dir is not None
+            else cfg.train.checkpoint_dir)
+
+
 def _checkpoint(args, cfg):
     from fmda_tpu_torch.train.checkpoint import latest_checkpoint
 
-    return args.checkpoint or latest_checkpoint(
-        args.checkpoint_dir if args.checkpoint_dir is not None
-        else cfg.train.checkpoint_dir)
+    return args.checkpoint or latest_checkpoint(_checkpoint_dir(args, cfg))
 
 
 def _window_threshold(args, cfg):
@@ -80,78 +93,49 @@ def _save_quality_profile(wh, cfg, ckpt, *, max_rows: int = 4096) -> None:
         print(f"drift reference profile not written: {e}", file=sys.stderr)
 
 
-def cmd_train(args) -> int:
-    """Train over a warehouse file and write a checkpoint and its drift
-    reference profile: imbalance weights from the whole target table,
-    then ``Trainer.fit``.  ``--continuous`` runs the continuous
-    fine-tuning loop over the file instead (no fleet attached: its
-    checkpoints are the output)."""
-    from fmda_tpu_torch.device import resolve_device
+def _train(wh, cfg, *, epochs, batch_size, checkpoint_dir, seed, device):
+    """Train over a warehouse and write a checkpoint and its drift
+    reference profile: imbalance weights from the whole target table, then
+    ``Trainer.fit``.  Flags given (not None) override the config.  Returns
+    ``(checkpoint, history, dataset)``, or None (after saying why) when
+    the warehouse is empty.  Shared by ``train`` and ``demo``."""
     from fmda_tpu_torch.train import (
-        ContinuousTrainer, Trainer, imbalance_weights_from_source,
-        save_checkpoint)
+        Trainer, imbalance_weights_from_source, save_checkpoint)
 
-    device = resolve_device(args.device)  # before any data is read
-    cfg = _config(args)
-    # flags given override the config file; absent flags (None) leave it
+    if len(wh) == 0:
+        print("warehouse is empty: ingest rows first", file=sys.stderr)
+        return None
+    fc = cfg.features
+    model_cfg = dataclasses.replace(cfg.model, n_features=len(wh.x_fields))
     overrides = {k: v for k, v in dict(
-        batch_size=args.batch_size, epochs=args.epochs,
-        seed=args.seed).items() if v is not None}
+        batch_size=batch_size, epochs=epochs, seed=seed).items()
+        if v is not None}
     train_cfg = dataclasses.replace(cfg.train, **overrides)
-    ckpt_dir = (args.checkpoint_dir if args.checkpoint_dir is not None
-                else train_cfg.checkpoint_dir)
-    wh = _warehouse(args.warehouse, cfg)
-    try:
-        if len(wh) == 0:
-            print("warehouse is empty: ingest rows first", file=sys.stderr)
-            return 2
-        fc = cfg.features
-        model_cfg = dataclasses.replace(cfg.model,
-                                        n_features=len(wh.x_fields))
-        if args.continuous:
-            ct = ContinuousTrainer(
-                wh, model_cfg, train_cfg, checkpoint_dir=ckpt_dir,
-                bid_levels=fc.bid_levels, ask_levels=fc.ask_levels,
-                drift_bins=cfg.quality.drift_bins, target_lead=fc.max_lead,
-                device=device)
-            out = ct.run(max_rounds=args.max_rounds)
-            print(f"continuous train: {out['rounds']} round(s), "
-                  f"{out['rows_seen']} rows seen, "
-                  f"{len(out['checkpoints'])} checkpoint(s) "
-                  f"(device={ct.trainer.device})")
-            for ckpt in out["checkpoints"]:
-                print(f"checkpoint: {ckpt}")
-            return 0 if out["rounds"] > 0 else 2
-        weight, pos_weight = imbalance_weights_from_source(wh)
-        trainer = Trainer(model_cfg, train_cfg, weight=weight,
-                          pos_weight=pos_weight, device=device)
-        state, history, dataset = trainer.fit(
-            wh, bid_levels=fc.bid_levels, ask_levels=fc.ask_levels)
-        ckpt = save_checkpoint(ckpt_dir, state, dataset.final_norm_params)
-        last = history["train"][-1]
-        print(f"trained {len(history['train'])} epochs: "
-              f"loss={last.loss:.4f} acc={last.accuracy:.4f} "
-              f"(device={trainer.device})")
-        print(f"checkpoint: {ckpt}")
-        _save_quality_profile(wh, cfg, ckpt)
-    finally:
-        wh.close()
-    return 0
+    weight, pos_weight = imbalance_weights_from_source(wh)
+    trainer = Trainer(model_cfg, train_cfg, weight=weight,
+                      pos_weight=pos_weight, device=device)
+    state, history, dataset = trainer.fit(
+        wh, bid_levels=fc.bid_levels, ask_levels=fc.ask_levels)
+    ckpt = save_checkpoint(checkpoint_dir, state, dataset.final_norm_params)
+    last = history["train"][-1]
+    print(f"trained {len(history['train'])} epochs: "
+          f"loss={last.loss:.4f} acc={last.accuracy:.4f} "
+          f"(device={trainer.device})")
+    print(f"checkpoint: {ckpt}")
+    _save_quality_profile(wh, cfg, ckpt)
+    return ckpt, history, dataset
 
 
-def cmd_backtest(args) -> int:
+def _backtest(wh, cfg, ckpt: str, *, window: int, threshold: float,
+              device):
+    """Score a checkpoint over the warehouse and print the signal-quality
+    table; returns the backtest result.  Shared by ``backtest`` and
+    ``demo``."""
     from fmda_tpu_torch.serve import backtest_from_checkpoint, trading_summary
 
-    cfg = _config(args)
-    ckpt = _checkpoint(args, cfg)
-    if ckpt is None:
-        print("no checkpoint found", file=sys.stderr)
-        return 2
-    wh = _warehouse(args.warehouse, cfg)
-    window, threshold = _window_threshold(args, cfg)
     result = backtest_from_checkpoint(
         wh, ckpt, dataclasses.replace(cfg.model, n_features=len(wh.x_fields)),
-        window=window, threshold=threshold, device=args.device)
+        window=window, threshold=threshold, device=device)
     m = result.metrics
     print(f"backtest over {len(result.probabilities)} rows: "
           f"accuracy={float(m.accuracy):.3f} hamming={float(m.hamming):.3f}")
@@ -160,6 +144,210 @@ def cmd_backtest(args) -> int:
     for label, s in trading_summary(result).items():
         print(f"{label:>8} {s.signals:>8} {s.hits:>6} {s.precision:>10.3f} "
               f"{s.recall:>7.3f} {s.edge:>+7.3f}")
+    return result
+
+
+def cmd_demo(args) -> int:
+    """The synthetic end-to-end proof run: ``build_corpus`` (the feeds
+    through the streaming engine into an in-memory warehouse), training,
+    then a backtest of exactly the checkpoint just trained.  Absent flags
+    fall back to the config file when one is given, else to quick demo
+    defaults (2 epochs at batch 32)."""
+    from fmda_tpu_torch.data.synthetic import (
+        SyntheticMarketConfig, build_corpus)
+    from fmda_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)  # before any work
+    cfg = _config(args)
+    epochs = args.epochs if args.epochs is not None else (
+        cfg.train.epochs if args.config else 2)
+    batch_size = args.batch_size if args.batch_size is not None else (
+        cfg.train.batch_size if args.config else 32)
+    seed = args.seed if args.seed is not None else cfg.train.seed
+    wh, stats = build_corpus(
+        cfg.features, SyntheticMarketConfig(seed=seed, n_days=args.days))
+    print(f"corpus: {len(wh)} rows ({stats})")
+    try:
+        trained = _train(
+            wh, cfg, epochs=epochs, batch_size=batch_size,
+            checkpoint_dir=_checkpoint_dir(args, cfg), seed=seed,
+            device=device)
+        if trained is None:
+            return 2
+        _backtest(wh, cfg, trained[0], window=cfg.train.window,
+                  threshold=cfg.train.prob_threshold, device=device)
+    finally:
+        wh.close()
+    return 0
+
+
+def ingest_stack(cfg, *, metrics=None):
+    """The ingest wiring: ``(bus, warehouse, engine)`` from the config's
+    bus, warehouse and engine sections.  The warehouse is a
+    :class:`~fmda_tpu_torch.stream.journal.BufferedWarehouse` when
+    ``warehouse.journal_path`` is set."""
+    from fmda_tpu_torch.stream import (
+        BufferedWarehouse, InProcessBus, StreamEngine, Warehouse)
+
+    bus = InProcessBus(cfg.bus.topics, capacity=cfg.bus.capacity)
+    wc, ec = cfg.warehouse, cfg.engine
+    wh = Warehouse(cfg.features, wc)
+    if wc.journal_path:
+        wh = BufferedWarehouse(wh, wc.journal_path, bound=wc.journal_bound,
+                               fmt=wc.journal_format)
+    try:
+        engine = StreamEngine(
+            bus, wh, cfg.features, checkpoint_path=ec.checkpoint_path,
+            checkpoint_every=ec.checkpoint_every,
+            join_backend=ec.join_backend,
+            staleness_deadline_s=ec.staleness_deadline_s, metrics=metrics)
+    except Exception:
+        wh.close()
+        raise
+    return bus, wh, engine
+
+
+def cmd_ingest(args) -> int:
+    """Land feeds into a warehouse file through the streaming engine:
+    ``--synthetic-days`` publishes the synthetic corpus, ``--replay`` a
+    recorded session through the acquisition layer; everything is
+    published first, then the engine steps once."""
+    from fmda_tpu_torch.data.synthetic import (
+        SyntheticMarketConfig, synthetic_session_messages)
+    from fmda_tpu_torch.obs.registry import default_registry
+
+    cfg = _config(args)
+    engine_overrides = {k: v for k, v in dict(
+        checkpoint_path=args.engine_checkpoint,
+        checkpoint_every=args.checkpoint_every).items() if v is not None}
+    cfg = dataclasses.replace(
+        cfg,
+        warehouse=dataclasses.replace(cfg.warehouse, path=args.warehouse),
+        engine=dataclasses.replace(cfg.engine, **engine_overrides))
+    if not (args.synthetic_days or args.replay):
+        print("pass --synthetic-days or --replay (a RecordingTransport "
+              "fixture file)", file=sys.stderr)
+        return 2
+    try:
+        bus, wh, engine = ingest_stack(cfg, metrics=default_registry())
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    try:
+        if args.synthetic_days:
+            for topic, msg in synthetic_session_messages(
+                    cfg.features, SyntheticMarketConfig(
+                        seed=args.seed, n_days=args.synthetic_days)):
+                bus.publish(topic, msg)
+        else:
+            ticks = _replay_session(args, cfg, bus)
+            print(f"replayed {ticks} session tick(s)", file=sys.stderr)
+            if ticks == 0:
+                print("0 ticks replayed: check --replay-start against the "
+                      "recording's market-calendar date", file=sys.stderr)
+                return 2
+        engine.step()
+        print(f"warehouse {args.warehouse}: {len(wh)} rows; "
+              f"engine {engine.stats}")
+    finally:
+        wh.close()
+    return 0
+
+
+def _replay_session(args, cfg, bus) -> int:
+    """Re-run a recorded session (a RecordingTransport file) through the
+    acquisition layer: the same clients and scrapers, the responses served
+    back in recorded order, the clock simulated at the session cadence."""
+    import datetime as dt
+
+    from fmda_tpu_torch.ingest import (
+        AlphaVantageClient, COTScraper, EconomicCalendarScraper, IEXClient,
+        RecordingTransport, SessionDriver, SessionReplayTransport,
+        TradierCalendarClient, VIXScraper)
+
+    transport = SessionReplayTransport(
+        RecordingTransport.load_fixtures(args.replay))
+    clock = {"now": dt.datetime.strptime(args.replay_start,
+                                         "%Y-%m-%d %H:%M:%S")}
+
+    def fast_sleep(seconds):
+        clock["now"] += dt.timedelta(seconds=seconds)
+
+    sc = cfg.session
+    driver = SessionDriver(
+        bus, sc,
+        iex=IEXClient("replay", transport),
+        alpha_vantage=AlphaVantageClient("replay", transport),
+        calendar=TradierCalendarClient("replay", transport),
+        indicator_scraper=EconomicCalendarScraper(
+            cfg.features, transport=transport),
+        vix_scraper=VIXScraper(transport),
+        cot_scraper=COTScraper(sc.cot_subject, transport),
+        now_fn=lambda: clock["now"], sleep_fn=fast_sleep)
+    ticks = driver.run_session(max_ticks=args.ticks or None)
+    if transport.misses:
+        # the replay ran under feeds or a cadence the recording lacks:
+        # the per-feed warnings say which ticks, this which endpoints
+        print("recording has no responses for: "
+              + ", ".join(sorted(set(transport.misses))), file=sys.stderr)
+    return ticks
+
+
+def cmd_train(args) -> int:
+    """Train over a warehouse file and write a checkpoint and its drift
+    reference profile.  ``--continuous`` runs the continuous fine-tuning
+    loop over the file instead (no fleet attached: its checkpoints are the
+    output)."""
+    from fmda_tpu_torch.device import resolve_device
+    from fmda_tpu_torch.train import ContinuousTrainer
+
+    device = resolve_device(args.device)  # before any data is read
+    cfg = _config(args)
+    ckpt_dir = _checkpoint_dir(args, cfg)
+    wh = _warehouse(args.warehouse, cfg)
+    try:
+        if not args.continuous:
+            return 0 if _train(
+                wh, cfg, epochs=args.epochs, batch_size=args.batch_size,
+                checkpoint_dir=ckpt_dir, seed=args.seed,
+                device=device) else 2
+        if len(wh) == 0:
+            print("warehouse is empty: ingest rows first", file=sys.stderr)
+            return 2
+        fc = cfg.features
+        model_cfg = dataclasses.replace(cfg.model,
+                                        n_features=len(wh.x_fields))
+        train_cfg = dataclasses.replace(cfg.train, **{
+            k: v for k, v in dict(batch_size=args.batch_size,
+                                  epochs=args.epochs, seed=args.seed).items()
+            if v is not None})
+        ct = ContinuousTrainer(
+            wh, model_cfg, train_cfg, checkpoint_dir=ckpt_dir,
+            bid_levels=fc.bid_levels, ask_levels=fc.ask_levels,
+            drift_bins=cfg.quality.drift_bins, target_lead=fc.max_lead,
+            device=device)
+        out = ct.run(max_rounds=args.max_rounds)
+        print(f"continuous train: {out['rounds']} round(s), "
+              f"{out['rows_seen']} rows seen, "
+              f"{len(out['checkpoints'])} checkpoint(s) "
+              f"(device={ct.trainer.device})")
+        for ckpt in out["checkpoints"]:
+            print(f"checkpoint: {ckpt}")
+        return 0 if out["rounds"] > 0 else 2
+    finally:
+        wh.close()
+
+
+def cmd_backtest(args) -> int:
+    cfg = _config(args)
+    ckpt = _checkpoint(args, cfg)
+    if ckpt is None:
+        print("no checkpoint found", file=sys.stderr)
+        return 2
+    wh = _warehouse(args.warehouse, cfg)
+    window, threshold = _window_threshold(args, cfg)
+    _backtest(wh, cfg, ckpt, window=window, threshold=threshold,
+              device=args.device)
     return 0
 
 
@@ -316,19 +504,15 @@ def cmd_serve_fleet(args) -> int:
     if args.predictor:
         from fmda_tpu_torch.data.normalize import NormParams
         from fmda_tpu_torch.data.synthetic import (
-            BARS_PER_DAY, random_walk_rows)
+            SyntheticMarketConfig, build_corpus)
         from fmda_tpu_torch.runtime import (
             PredictorGateway, PredictorLoadConfig, PredictorPool,
             run_predictor_load)
-        from fmda_tpu_torch.stream import Warehouse
 
-        # the reference builds its corpus through the streaming engine
-        # (data/synthetic.build_corpus, not ported yet); the port lands
-        # the same number of bars as a seeded random walk
-        wh = Warehouse(cfg.features, cfg.warehouse)
-        wh.insert_rows(random_walk_rows(
-            cfg.features.table_columns(), args.predictor_days * BARS_PER_DAY,
-            seed=args.seed))
+        # the synthetic corpus, landed through the streaming engine
+        wh, _ = build_corpus(
+            cfg.features, SyntheticMarketConfig(
+                seed=args.seed, n_days=args.predictor_days))
         window = (rc.predictor_window if rc.predictor_window is not None
                   else rc.window)
         model_cfg = dataclasses.replace(
@@ -358,21 +542,20 @@ def cmd_serve_fleet(args) -> int:
 
         n_features = cfg.features.n_features
         if args.continuous_train:
-            # the trainer tails a real warehouse: a seeded random walk of
-            # --continuous-days days (the reference builds its corpus
-            # through the streaming engine, data/synthetic.build_corpus,
-            # not ported yet), landed before the load starts and tailed
-            # as a backlog; the model is sized to its joined width, so
-            # the trainer trains the weights the pool serves
+            # the trainer tails a real warehouse: the synthetic corpus of
+            # --continuous-days days, landed through the streaming engine
+            # before the load starts and tailed as a backlog; the model is
+            # sized to its joined width, so the trainer trains the weights
+            # the pool serves
             from fmda_tpu_torch.data.synthetic import (
-                BARS_PER_DAY, random_walk_rows)
+                SyntheticMarketConfig, build_corpus)
 
             corpus_dir = tempfile.TemporaryDirectory()
-            wh = _warehouse(os.path.join(corpus_dir.name, "corpus.sqlite"),
-                            cfg)
-            wh.insert_rows(random_walk_rows(
-                cfg.features.table_columns(),
-                args.continuous_days * BARS_PER_DAY, seed=args.seed))
+            wh, _ = build_corpus(
+                cfg.features, SyntheticMarketConfig(
+                    seed=args.seed, n_days=args.continuous_days),
+                dataclasses.replace(cfg.warehouse, path=os.path.join(
+                    corpus_dir.name, "corpus.sqlite")))
             n_features = len(wh.x_fields)
         # a seeded random-init unidirectional carrier (the serving math
         # does not depend on the checkpoint; --hidden sizes it)
@@ -497,10 +680,10 @@ def _add_serve_fleet(sub, common) -> None:
     p.add_argument("--predictor", action="store_true",
                    help="serve the window-re-scan Predictor instead of "
                         "carried-state sessions: predict-timestamp signals "
-                        "over a seeded random-walk warehouse (78 bars a "
-                        "day; the reference's synthetic corpus is not "
-                        "ported yet), batched into bucketed (B, window, F) "
-                        "forwards (runtime.predictor_* knobs)")
+                        "over the synthetic corpus (78 bars a day, landed "
+                        "through the streaming engine), batched into "
+                        "bucketed (B, window, F) forwards "
+                        "(runtime.predictor_* knobs)")
     p.add_argument("--predictor-days", type=int, default=3,
                    help="warehouse size for --predictor (days of bars)")
     p.add_argument("--signals", type=int, default=0,
@@ -524,7 +707,7 @@ def _add_serve_fleet(sub, common) -> None:
                         "fail the run")
     p.add_argument("--continuous-train", action="store_true",
                    help="run the continuous fine-tuning loop in a thread "
-                        "beside the load, over a seeded random-walk "
+                        "beside the load, over a synthetic corpus "
                         "warehouse of --continuous-days days tailed as a "
                         "backlog; every accepted round hot-swaps the live "
                         "gateway ([train] continuous_* knobs)")
@@ -560,12 +743,42 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument(
         "--config", default=None, metavar="JSON",
         help="FrameworkConfig overrides as JSON (the fmda_tpu schema; the "
-             "features/warehouse/model/train/runtime sections are read)")
+             "features/bus/warehouse/engine/model/train/session/runtime/"
+             "quality sections are read)")
     common.add_argument(
         "--device", default=None,
         help="torch device (default: cuda; pass 'cpu' to run the plain "
              "PyTorch path without a card)")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("demo", parents=[common],
+                       help="synthetic end-to-end proof run")
+    p.add_argument("--days", type=int, default=8)
+    p.add_argument("--epochs", type=int, default=None,
+                   help="default: config's train.epochs, or 2 standalone")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="default: config's train.batch_size, or 32 "
+                        "standalone")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.set_defaults(fn=cmd_demo)
+
+    p = sub.add_parser("ingest", parents=[common],
+                       help="fill a warehouse file through the streaming "
+                            "engine (host only: --device is not read)")
+    p.add_argument("--warehouse", required=True, help="sqlite file path")
+    p.add_argument("--synthetic-days", type=int, default=0)
+    p.add_argument("--replay", default=None, metavar="FIXTURES",
+                   help="re-run a recorded session (RecordingTransport "
+                        "file) through the acquisition layer")
+    p.add_argument("--replay-start", default="2020-02-07 09:30:00",
+                   help="simulated clock start for --replay")
+    p.add_argument("--ticks", type=int, default=0,
+                   help="cap on --replay session ticks (0 = until close)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--engine-checkpoint", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None)
+    p.set_defaults(fn=cmd_ingest)
 
     p = sub.add_parser("train", parents=[common],
                        help="train over a warehouse file")

@@ -18,22 +18,52 @@ import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
+#: The five raw feeds the streaming engine joins.
+TOPIC_VIX = "vix"
+TOPIC_VOLUME = "volume"
+TOPIC_COT = "cot"
+TOPIC_IND = "ind"
+TOPIC_DEEP = "deep"
 TOPIC_PREDICT_TIMESTAMP = "predict_timestamp"
 TOPIC_PREDICTION = "prediction"
 #: Fleet-serving results (:mod:`fmda_tpu_torch.runtime`): one topic,
 #: per-session consumption keyed on the message's ``session`` field.
 TOPIC_FLEET_PREDICTION = "fleet_prediction"
 DEFAULT_TOPICS: Tuple[str, ...] = (
+    TOPIC_VIX, TOPIC_VOLUME, TOPIC_COT, TOPIC_IND, TOPIC_DEEP,
     TOPIC_PREDICT_TIMESTAMP, TOPIC_PREDICTION, TOPIC_FLEET_PREDICTION)
 
 
 @dataclass(frozen=True)
+class BusConfig:
+    """Message-bus layout."""
+
+    topics: Tuple[str, ...] = DEFAULT_TOPICS
+    #: Ring-buffer capacity per topic (records).
+    capacity: int = 1 << 16
+    #: External Kafka brokers (read by the Kafka adapter, not ported yet).
+    servers: Tuple[str, ...] = ("localhost:9092",)
+
+
+@dataclass(frozen=True)
 class WarehouseConfig:
-    """Embedded SQLite warehouse: the same file layout ``fmda_tpu`` writes."""
+    """Embedded SQLite warehouse: the same file layout ``fmda_tpu`` writes.
+
+    The MySQL fields of the reference (``database_name``, ``user``,
+    ``password``, ``hostname``, ``port``) wait for the MySQL backend."""
 
     backend: str = "sqlite"
     path: str = ":memory:"
     table_name: str = "stock_data_joined"
+    #: Write-ahead journal of :class:`~fmda_tpu_torch.stream.journal.
+    #: BufferedWarehouse`: rows the store refuses spill here and drain
+    #: back on recovery.  None: no journal (a failed insert raises).
+    journal_path: Optional[str] = None
+    #: Bound on journaled rows; overflow sheds the oldest, counted.
+    journal_bound: int = 65536
+    #: Journal record layout: ``jsonl`` (a JSON line a row) or ``binary``
+    #: (length-prefixed codec frames); recovery reads either.
+    journal_format: str = "jsonl"
 
 
 DEFAULT_EVENT_LIST: Tuple[str, ...] = (
@@ -115,9 +145,24 @@ class FeatureConfig:
     target_lead1: int = 8
     target_lead2: int = 15
 
+    #: Stream alignment: timestamps floor to this many seconds, and a side
+    #: feed joins a book tick when its timestamp lies within
+    #: ``join_tolerance_s`` after the tick's; the watermark trails each
+    #: feed's newest event by ``watermark_s``.
+    floor_s: int = 5 * 60
+    join_tolerance_s: int = 3 * 60
+    watermark_s: int = 5 * 60
+
     @property
     def event_list_repl(self) -> Tuple[str, ...]:
         return tuple(sanitize_event(e) for e in self.event_list)
+
+    def empty_ind_message(self) -> dict:
+        """The economic-indicator message template, every value 0."""
+        msg: dict = {"Timestamp": 0}
+        for event in self.event_list_repl:
+            msg[event] = {value: 0 for value in EVENT_VALUES}
+        return msg
 
     def deep_columns(self) -> Tuple[str, ...]:
         """Order-book columns: sizes for all levels, rebased prices for
@@ -440,11 +485,44 @@ class QualityConfig:
 
 
 @dataclass(frozen=True)
+class EngineConfig:
+    """The streaming engine's knobs."""
+
+    #: "python"; "native" (the C++ join scheduler) is not ported yet and
+    #: is refused.
+    join_backend: str = "python"
+    #: Durable-state write cadence in steps.
+    checkpoint_every: int = 1
+    #: Engine state file (offsets and in-flight join state); None: none.
+    checkpoint_path: Optional[str] = None
+    #: Degraded-mode join deadline (stream-time seconds): a side feed
+    #: whose watermark trails the newest book tick by more than this stops
+    #: blocking the join.  None keeps the strict inner-join stall.
+    staleness_deadline_s: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class SessionConfig:
+    """The ingestion session driver's knobs."""
+
+    freq_s: int = 300
+    source: str = "IEX"
+    symbol: str = "spy"
+    countries: Tuple[str, ...] = ("United States",)
+    importance: Tuple[str, ...] = ("1", "2", "3")
+    cot_subject: str = "S&P 500 STOCK INDEX"
+    timezone: str = "US/Eastern"
+
+
+@dataclass(frozen=True)
 class FrameworkConfig:
     features: FeatureConfig = field(default_factory=FeatureConfig)
+    bus: BusConfig = field(default_factory=BusConfig)
     warehouse: WarehouseConfig = field(default_factory=WarehouseConfig)
+    engine: EngineConfig = field(default_factory=EngineConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    session: SessionConfig = field(default_factory=SessionConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     quality: QualityConfig = field(default_factory=QualityConfig)
 
@@ -457,9 +535,12 @@ class FrameworkConfig:
 
 _SECTIONS = {
     "features": FeatureConfig,
+    "bus": BusConfig,
     "warehouse": WarehouseConfig,
+    "engine": EngineConfig,
     "model": ModelConfig,
     "train": TrainConfig,
+    "session": SessionConfig,
     "runtime": RuntimeConfig,
     "quality": QualityConfig,
 }
@@ -469,20 +550,17 @@ _SECTIONS = {
 #: keys its own dataclasses in :data:`_SECTIONS` have and accepts the rest
 #: without reading them:
 #:
-#: - ``features``: ``floor_s``, ``join_tolerance_s``, ``watermark_s`` (the
-#:   stream engine's join);
-#: - ``warehouse``: ``database_name``, ``journal_path``, ``journal_bound``,
-#:   ``journal_format``, ``user``, ``password``, ``hostname``, ``port``
-#:   (the MySQL backend and the write journal);
+#: - ``warehouse``: ``database_name``, ``user``, ``password``,
+#:   ``hostname``, ``port`` (the MySQL backend);
 #: - ``model``: ``use_pallas`` (the port has no opt-in: its kernels always
 #:   run on the card) and ``remat``;
 #: - ``runtime``: ``shard_pool`` (sharding the pool's slots across
 #:   devices waits for the port's parallelism);
 #: - ``quality``: read whole into :class:`QualityConfig`, of which only
 #:   ``drift_bins`` has a reader yet;
-#: - the sections ``bus``, ``engine``, ``mesh``, ``session``, ``fleet``,
-#:   ``observability``, ``slo``, ``tracing``, ``profiling``, ``chaos``,
-#:   ``control`` and ``replay`` whole.
+#: - the sections ``mesh``, ``fleet``, ``observability``, ``slo``,
+#:   ``tracing``, ``profiling``, ``chaos``, ``control`` and ``replay``
+#:   whole.
 REFERENCE_KEYS = {
     "features": (
         "get_cot", "get_vix", "get_stock_volume", "bid_levels", "ask_levels",

@@ -1,4 +1,10 @@
-from fmda_tpu_torch.data.normalize import NormParams, chunk_norm_params, normalize
+from fmda_tpu_torch.data.normalize import (
+    NormParams,
+    chunk_norm_params,
+    load_norm_params,
+    normalize,
+    save_norm_params,
+)
 from fmda_tpu_torch.data.pipeline import (
     Batch,
     ChunkDataset,
@@ -16,6 +22,6 @@ from fmda_tpu_torch.data.windows import (
 __all__ = [
     "ArraySource", "Batch", "ChunkDataset", "FeatureSource", "NormParams",
     "WindowBatches", "background_compose", "chunk_norm_params",
-    "chunk_ranges", "normalize", "prefetch_batches", "train_val_test_split",
-    "window_index_matrix",
+    "chunk_ranges", "load_norm_params", "normalize", "prefetch_batches",
+    "save_norm_params", "train_val_test_split", "window_index_matrix",
 ]

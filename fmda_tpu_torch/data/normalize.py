@@ -4,11 +4,16 @@
 - a MIN==MAX jitter guard (``max += max*1e-3``, or ``1e-3`` if zero);
 - order-book size columns share one MIN/MAX across the levels of a side;
 - the last chunk's stats are kept for validation, test and serving.
+
+:func:`save_norm_params`/:func:`load_norm_params` read and write the
+reference's JSON artifact (``{name: {"MIN": .., "MAX": ..}}``), so a
+model trained by ``fmda_tpu`` carries its norm stats into the port.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+import json
+from typing import Dict, List, NamedTuple, Sequence
 
 import numpy as np
 
@@ -67,3 +72,26 @@ def normalize(x: np.ndarray, params: NormParams) -> np.ndarray:
     return (np.asarray(x, np.float32) - params.x_min) / (
         params.x_max - params.x_min
     )
+
+
+def save_norm_params(
+    path: str, params: NormParams, x_fields: Sequence[str]
+) -> None:
+    """Write the stats as ``{name: {"MIN": .., "MAX": ..}}`` JSON, in
+    ``x_fields`` order."""
+    payload: Dict[str, Dict[str, float]] = {
+        name: {"MIN": float(params.x_min[i]), "MAX": float(params.x_max[i])}
+        for i, name in enumerate(x_fields)
+    }
+    with open(path, "w") as fh:
+        json.dump(payload, fh)
+
+
+def load_norm_params(path: str) -> NormParams:
+    """Read the stats :func:`save_norm_params` (or ``fmda_tpu``'s) wrote,
+    float32, in the file's column order."""
+    with open(path) as fh:
+        payload = json.load(fh)
+    x_min = np.array([v["MIN"] for v in payload.values()], np.float32)
+    x_max = np.array([v["MAX"] for v in payload.values()], np.float32)
+    return NormParams(x_min, x_max)

@@ -154,6 +154,42 @@ def derived_features(
     return out
 
 
+def landed_row_transform(columns, cfg: FeatureConfig):
+    """Stateful chunk mapper from raw landed table columns to the joined
+    ``x_fields`` rows :meth:`Warehouse.fetch` serves for the same
+    positions.
+
+    Each call maps one ``(B, W)`` float64 chunk (columns in ``columns``
+    order, as ``iter_row_chunks`` yields them) to ``(B, W+D)`` float32
+    rows: the raw columns, then :meth:`FeatureConfig.derived_columns`,
+    NaN -> 0.  The closure keeps the trailing ``cfg.max_lookback - 1`` raw
+    rows as context, so the windowed views at chunk boundaries equal the
+    whole table's; build a fresh transform per replay (its state carries
+    across calls, in landed order only).
+    """
+    columns = tuple(columns)
+    derived_cols = cfg.derived_columns()
+    context = max(0, cfg.max_lookback - 1)
+    buf = np.empty((0, len(columns)), np.float64)
+
+    def transform(matrix: np.ndarray) -> np.ndarray:
+        nonlocal buf
+        matrix = np.asarray(matrix, np.float64).reshape(-1, len(columns))
+        full = np.concatenate([buf, matrix], axis=0)
+        table = {c: full[:, j] for j, c in enumerate(columns)}
+        derived = derived_features(table, cfg)
+        b = matrix.shape[0]
+        out = np.empty((b, len(columns) + len(derived_cols)), np.float64)
+        out[:, : len(columns)] = matrix
+        for j, c in enumerate(derived_cols):
+            out[:, len(columns) + j] = derived[c][len(full) - b:]
+        if context:
+            buf = full[-context:]
+        return np.nan_to_num(out, nan=0.0).astype(np.float32)
+
+    return transform
+
+
 def build_targets(table: Dict[str, np.ndarray], cfg: FeatureConfig) -> np.ndarray:
     """Target matrix (N, 4) from the warehoused table."""
     atr = average_true_range(table["2_high"], table["3_low"], cfg.atr_preceding)

@@ -1,4 +1,8 @@
-from fmda_tpu_torch.stream.bus import Consumer, InProcessBus, Record
+from fmda_tpu_torch.stream.bus import (
+    Consumer, InProcessBus, MessageBus, Record)
+from fmda_tpu_torch.stream.engine import StreamEngine
+from fmda_tpu_torch.stream.journal import BufferedWarehouse
 from fmda_tpu_torch.stream.warehouse import Warehouse
 
-__all__ = ["Consumer", "InProcessBus", "Record", "Warehouse"]
+__all__ = ["BufferedWarehouse", "Consumer", "InProcessBus", "MessageBus",
+           "Record", "StreamEngine", "Warehouse"]

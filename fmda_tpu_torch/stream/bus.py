@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Protocol, Sequence
 
 from fmda_tpu_torch.stream import codec
 
@@ -26,7 +26,7 @@ class Record:
 class Consumer:
     """A positioned reader of one topic."""
 
-    def __init__(self, bus: "InProcessBus", topic: str, offset: int = 0) -> None:
+    def __init__(self, bus: "MessageBus", topic: str, offset: int = 0) -> None:
         self._bus = bus
         self.topic = topic
         self.offset = offset
@@ -37,8 +37,38 @@ class Consumer:
             self.offset = records[-1].offset + 1
         return records
 
+    def seek(self, offset: int) -> None:
+        self.offset = offset
+
     def seek_to_end(self) -> None:
         self.offset = self._bus.end_offset(self.topic)
+
+
+class MessageBus(Protocol):
+    """The topic transport contract every bus backend keeps."""
+
+    def publish(self, topic: str, value: dict) -> int:
+        """Append a message; returns its offset."""
+        ...
+
+    def publish_many(self, topic: str, values: Sequence[dict]) -> List[int]:
+        """Append a batch of messages in order; returns their offsets."""
+        ...
+
+    def read(self, topic: str, offset: int,
+             max_records: Optional[int] = None) -> List[Record]:
+        """Records with offsets >= ``offset`` (bounded by retention)."""
+        ...
+
+    def end_offset(self, topic: str) -> int:
+        """The offset one past the last published record."""
+        ...
+
+    def topics(self) -> Sequence[str]:
+        ...
+
+    def consumer(self, topic: str, *, from_end: bool = False) -> Consumer:
+        ...
 
 
 class InProcessBus:

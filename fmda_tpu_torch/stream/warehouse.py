@@ -64,6 +64,30 @@ class Warehouse:
             c: np.empty(0, np.float64) for c in self.features.derived_columns()
         }
         self._targets = np.empty((0, len(TARGET_COLUMNS)), np.float64)
+        # instruments of bind_metrics; None: not instrumented
+        self._obs_write_hist = None
+        self._obs_query_hist = None
+        self._obs_rows_counter = None
+
+    def bind_metrics(self, registry) -> None:
+        """Report write and query latency and the rows landed through a
+        :class:`~fmda_tpu_torch.obs.registry.MetricsRegistry`."""
+        self._obs_write_hist = registry.histogram("warehouse_write_seconds")
+        self._obs_query_hist = registry.histogram("warehouse_query_seconds")
+        self._obs_rows_counter = registry.counter(
+            "warehouse_rows_written_total")
+
+    def healthy(self) -> bool:
+        """Whether the store still takes writes: take (and release) a
+        write lock.  False once the connection is closed or the file went
+        read-only."""
+        try:
+            with self._lock:
+                self._conn.execute("BEGIN IMMEDIATE")
+                self._conn.execute("ROLLBACK")
+            return True
+        except Exception:  # noqa: BLE001 — any failure is the answer
+            return False
 
     def _create_table(self) -> None:
         cols = ", ".join(f"{_quote(c)} REAL" for c in self._columns)
@@ -98,12 +122,16 @@ class Warehouse:
             get = row.get
             values.append(
                 [get("Timestamp")] + [float(get(c) or 0.0) for c in cols])
+        t0 = time.perf_counter() if self._obs_write_hist is not None else 0.0
         with self._lock:
             self._conn.executemany(
                 f"INSERT INTO {self.table} ({col_list}) VALUES ({placeholders})",
                 values,
             )
             self._conn.commit()
+        if self._obs_write_hist is not None:
+            self._obs_write_hist.observe(time.perf_counter() - t0)
+            self._obs_rows_counter.inc(len(values))
         return len(values)
 
     # -- raw reads -----------------------------------------------------------
@@ -133,6 +161,43 @@ class Warehouse:
                 (max(0, int(position)),),
             ).fetchall()
         return [(int(r[0]), r[1]) for r in rows]
+
+    def recent_timestamps(self, limit: int) -> List[str]:
+        """Timestamps of the newest ``limit`` rows, newest first: the
+        engine seeds its landed-tick dedupe set from them."""
+        with self._lock:
+            rows = self._conn.execute(
+                f"SELECT Timestamp FROM {self.table} ORDER BY ID DESC "
+                "LIMIT ?",
+                (int(limit),),
+            ).fetchall()
+        return [r[0] for r in rows]
+
+    def raw_rows_for(self, ts_list: Sequence[str]) -> Dict[str, Tuple]:
+        """The raw landed values keyed by timestamp (the newest row of a
+        timestamp), straight from SQL: no derived views, no caches."""
+        ts_list = list(ts_list)
+        if not ts_list:
+            return {}
+        cols = ", ".join(_quote(c) for c in self._columns)
+        qmarks = ", ".join("?" * len(ts_list))
+        with self._lock:
+            rows = self._conn.execute(
+                f"SELECT Timestamp, {cols} FROM {self.table} "
+                f"WHERE Timestamp IN ({qmarks}) ORDER BY ID",
+                ts_list,
+            ).fetchall()
+        return {r[0]: tuple(r[1:]) for r in rows}
+
+    def has_timestamp(self, ts: str) -> bool:
+        """Whether a row holds ``ts``: one point lookup on the index (the
+        engine's dedupe needs membership, not the position)."""
+        with self._lock:
+            row = self._conn.execute(
+                f"SELECT 1 FROM {self.table} WHERE Timestamp = ? LIMIT 1",
+                (ts,),
+            ).fetchone()
+        return row is not None
 
     def id_for_timestamp(self, ts: str) -> Optional[int]:
         """1-based row position of a timestamp (the newest row holding it),
@@ -189,14 +254,19 @@ class Warehouse:
         :meth:`fetch` windows (the same gather, the same NaN policy).
         Raises IndexError when a window would reach before row 1 or past
         the newest row."""
-        if window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
-        pos = np.asarray(list(row_ids), np.int64)
-        if pos.size == 0:
-            return np.zeros((0, window, len(self.x_fields)), np.float32)
-        flat = (pos[:, None]
-                - np.arange(window - 1, -1, -1)[None, :]).reshape(-1)
-        return self.fetch(flat).reshape(len(pos), window, -1)
+        t0 = time.perf_counter() if self._obs_query_hist is not None else 0.0
+        try:
+            if window < 1:
+                raise ValueError(f"window must be >= 1, got {window}")
+            pos = np.asarray(list(row_ids), np.int64)
+            if pos.size == 0:
+                return np.zeros((0, window, len(self.x_fields)), np.float32)
+            flat = (pos[:, None]
+                    - np.arange(window - 1, -1, -1)[None, :]).reshape(-1)
+            return self._fetch(flat).reshape(len(pos), window, -1)
+        finally:
+            if self._obs_query_hist is not None:
+                self._obs_query_hist.observe(time.perf_counter() - t0)
 
     def iter_row_chunks(
         self,
@@ -264,6 +334,15 @@ class Warehouse:
             yield [r[1] or "" for r in rows], matrix
             if len(rows) < chunk and follow <= 0:
                 return
+
+    def joined_row_transform(self):
+        """A fresh stateful mapper from :meth:`iter_row_chunks`' raw
+        chunks to the joined ``x_fields`` rows :meth:`fetch` serves (pass
+        the bound method as a factory wherever a replay of this warehouse
+        feeds a model sized to the joined view)."""
+        from fmda_tpu_torch.ops.indicators import landed_row_transform
+
+        return landed_row_transform(self._columns, self.features)
 
     def _fetch_rows_after(
         self, row_id: int
@@ -372,6 +451,14 @@ class Warehouse:
 
     def fetch(self, ids: Sequence[int]) -> np.ndarray:
         """Feature rows (1-based positions), NaN -> 0, float32."""
+        t0 = time.perf_counter() if self._obs_query_hist is not None else 0.0
+        try:
+            return self._fetch(ids)
+        finally:
+            if self._obs_query_hist is not None:
+                self._obs_query_hist.observe(time.perf_counter() - t0)
+
+    def _fetch(self, ids: Sequence[int]) -> np.ndarray:
         with self._lock:
             self._refresh_derived()
             idx = self._positions(ids)

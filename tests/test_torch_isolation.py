@@ -46,7 +46,11 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
                  "stream.codec", "stream.bus", "stream.warehouse",
                  "obs", "obs.registry", "utils.tracing", "utils.timeutils",
                  "runtime.batcher", "runtime.metrics", "runtime.gateway",
-                 "runtime.predictor_pool", "runtime.loadgen"):
+                 "runtime.predictor_pool", "runtime.loadgen",
+                 "stream.engine", "stream.journal", "ops.microstructure",
+                 "data.synthetic", "utils.jsonutils", "ingest",
+                 "ingest.htmldom", "ingest.transport", "ingest.clients",
+                 "ingest.scrapers", "ingest.session"):
         assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -164,6 +168,20 @@ def test_fleet_entry_points_raise_without_a_card(monkeypatch):
                       + extra)
 
 
+def test_demo_raises_without_a_card_and_ingest_needs_none(monkeypatch,
+                                                         tmp_path):
+    from fmda_tpu_torch.__main__ import main as port_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_main(["demo", "--days", "1", "--checkpoint-dir",
+                   str(tmp_path / "ckpt")])
+    assert not (tmp_path / "ckpt").exists()  # refused before any work
+    # the engine and the acquisition layer are host code
+    assert port_main(["ingest", "--warehouse", str(tmp_path / "w.sqlite"),
+                      "--synthetic-days", "1"]) == 0
+
+
 def test_kernel_is_not_built_at_import():
     code = (
         "import fmda_tpu_torch.ops._cuda_lib as lib, fmda_tpu_torch.serve\n"
@@ -173,7 +191,8 @@ def test_kernel_is_not_built_at_import():
         "import fmda_tpu_torch.ops.attention_kernel as a\n"
         "import fmda_tpu_torch.ops.scan_dw as d\n"
         "import fmda_tpu_torch.train, fmda_tpu_torch.__main__\n"
-        "import fmda_tpu_torch.runtime\n"
+        "import fmda_tpu_torch.runtime, fmda_tpu_torch.stream\n"
+        "import fmda_tpu_torch.ingest, fmda_tpu_torch.data.synthetic\n"
         "import fmda_tpu_torch.runtime.gateway, "
         "fmda_tpu_torch.runtime.predictor_pool, "
         "fmda_tpu_torch.runtime.loadgen, fmda_tpu_torch.stream.codec\n"
