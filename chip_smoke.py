@@ -96,13 +96,27 @@ Phases, each printed as one JSON line, each fatal on failure:
    first): bar-to-prediction p50/p99 per consumer, its split, the busy
    share, the card's Predictor against the CPU's, and the golden day
    (``tests/data/golden_day.jsonl``) through the engine.
+14. ``obs``: the observability plane.  The pipeline's next day, traced at
+   100 % through the same bus, engine and consumers (``obs traced day``):
+   every bar split into its spans (bus_publish, join, land, signal, each
+   consumer's serve), their medians against the phase's own host clocks,
+   and a QualityEvaluator over the Predictor's predictions.  Then tracing's
+   cost on the default fleet load (gru, ssm; off, 1 % and 100 %
+   alternating, OBS_LOADS loads of off and of 1 %), the device plane's cost
+   on the ssm pool's flush loop (kernel ledger and memory monitor, then the
+   host profiler too, against all off), a MetricsServer on 127.0.0.1:0 over a
+   traced ssm fleet scraped and read by the ``trace``, ``perf`` and
+   ``status`` commands (the ledger's launches, its sampled device time
+   against the kernel phase's, MFU, the memory watermark, the traces), and
+   a ``device_trace`` of 10 fleet flushes.
 
 Phases 4-6, 10 and 11 run for the BiGRU (``cell="gru"``, the default),
 the BiLSTM (``cell="lstm"``), the TemporalTransformer (``cell="attn"``:
 the flash kernels) and the bidirectional gated SSM (``cell="ssm"``:
 parallel mode, no kernel); phases 7-9 for gru, lstm and ssm (``stream
 bidirectional`` for gru and lstm); phase 12 for gru and ssm; phase 13
-for the BiGRU (its streaming consumers gru and ssm).  Their lines carry
+for the BiGRU (its streaming consumers gru and ssm); phase 14 for ssm (its
+tracing cost for gru too).  Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
 other kernel's 0 (``scan_dw`` counts the backward scans' weight-gradient
@@ -127,6 +141,15 @@ import time
 
 import numpy as np
 import torch
+
+from fmda_tpu_torch.ops.cost import (
+    SCAN_SHAPES,
+    flash_bound,
+    scan_bound,
+    scan_bwd_bound,
+    ssm_bound,
+    tick_bound,
+)
 
 SEED = 0
 WAREHOUSE_ROWS = 20_000
@@ -153,12 +176,6 @@ REPS = 60
 #: that to enqueue on a busy host, so the library yardstick gets ~10 ms
 PRIME_CYCLES = 2_000_000
 LIBRARY_PRIME_CYCLES = 20_000_000
-# published H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth,
-# float32 outside the tensor cores, and bf16 on the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_TC_FLOP_PER_S = 989e12
-
 
 #: the script's start, for each line's ``elapsed_s``
 START = time.perf_counter()
@@ -205,22 +222,6 @@ def time_ms(fn, *, prime: bool, prime_cycles: int = PRIME_CYCLES) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def roofline_ms(bytes_moved, product_flops, elementwise_flops, itemsize):
-    """(bound_ms, bound_by): the larger of the bytes' time at the card's
-    memory rate and the operations' time.  The products' operands are in
-    the I/O dtype: float32 products run at the float32 rate beside the
-    element-wise algebra; bf16 products (f32 accumulation) at the tensor
-    cores' rate, alongside the element-wise algebra at the float32 rate."""
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_elem = elementwise_flops / PEAK_F32_FLOP_PER_S * 1e3
-    if itemsize == 2:
-        t_ops = max(product_flops / PEAK_BF16_TC_FLOP_PER_S * 1e3, t_elem)
-    else:
-        t_ops = product_flops / PEAK_F32_FLOP_PER_S * 1e3 + t_elem
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
-
-
 @dataclasses.dataclass(frozen=True)
 class Scan:
     """One recurrence's kernel pair, as the kernel phases drive it: the
@@ -248,57 +249,16 @@ def scan_specs():
     from fmda_tpu_torch.ops import gru_kernel, lstm_kernel
 
     return (
-        Scan("gru", gru_kernel, 3, 1, 10, 30, torch.nn.GRU,
-             "fmda_tpu_torch/csrc/gru_scan.cu",
-             ("fmda_tpu/ops/pallas_gru.py:147",
-              "fmda_tpu/ops/pallas_gru.py:252")),
-        # LSTM: 4 gate adds, 4 nonlinearities, c' = f c + i g, tanh(c'),
-        # o tanh(c'); the backward's recompute and cotangent algebra
-        Scan("lstm", lstm_kernel, 4, 2, 14, 40, torch.nn.LSTM,
-             "fmda_tpu_torch/csrc/lstm_scan.cu",
-             ("fmda_tpu/ops/pallas_lstm.py:80",
-              "fmda_tpu/ops/pallas_lstm.py:195")),
+        Scan("gru", gru_kernel, **SCAN_SHAPES["gru"], library=torch.nn.GRU,
+             source="fmda_tpu_torch/csrc/gru_scan.cu",
+             replaces=("fmda_tpu/ops/pallas_gru.py:147",
+                       "fmda_tpu/ops/pallas_gru.py:252")),
+        Scan("lstm", lstm_kernel, **SCAN_SHAPES["lstm"],
+             library=torch.nn.LSTM,
+             source="fmda_tpu_torch/csrc/lstm_scan.cu",
+             replaces=("fmda_tpu/ops/pallas_lstm.py:80",
+                       "fmda_tpu/ops/pallas_lstm.py:195")),
     )
-
-
-def scan_bound(batch, steps, hidden, itemsize, masked, *, gates=3,
-               states=1, elementwise=10):
-    """Least time for the forward scan on this card: each input read
-    once, each output written once (xp, the initial states and the
-    weights in; the per-step hiddens, and cell states for the LSTM, and
-    the final states out), against the hidden product's and gates'
-    FLOPs."""
-    bytes_moved = itemsize * (
-        batch * steps * gates * hidden          # xp in
-        + states * batch * steps * hidden       # hs (and cs) out
-        + 2 * states * batch * hidden           # initial in, final out
-        + gates * hidden * hidden + gates * hidden)  # W_hh, b_hh in
-    bytes_moved += batch * steps if masked else 0
-    # 2*gH*H per (row, step) for h . W_hh^T, `elementwise` per (row, step,
-    # unit) for the gate algebra (a transcendental counted as one)
-    return roofline_ms(bytes_moved,
-                       2 * batch * steps * gates * hidden * hidden,
-                       elementwise * batch * steps * hidden, itemsize)
-
-
-def scan_bwd_bound(batch, steps, hidden, itemsize, masked, *, gates=3,
-                   states=1, elementwise=30):
-    """Least time for the backward scan: xp, hs (and cs), dhs, the initial
-    states, W_hh, b_hh (I/O dtype), the final states' cotangents and the
-    mask read once; dxp (I/O dtype), the initial states' gradients, dW_hh
-    and db_hh (float32) written once; against its FLOPs (the gate
-    recompute's, the dh chain's and the dW_hh products, 6·B·T·gH·H in
-    all, and `elementwise` per (row, step, unit) of gate and cotangent
-    algebra)."""
-    bt = batch * steps
-    bytes_moved = itemsize * (
-        bt * (gates * hidden + states * hidden + hidden + gates * hidden)
-        + states * batch * hidden + gates * hidden * hidden + gates * hidden)
-    bytes_moved += 4 * (2 * states * batch * hidden + gates * hidden * hidden
-                        + gates * hidden)
-    bytes_moved += bt if masked else 0
-    return roofline_ms(bytes_moved, 6 * gates * hidden * hidden * bt,
-                       elementwise * bt * hidden, itemsize)
 
 
 def scan_case_inputs(scan: Scan, c, gen, dev):
@@ -540,19 +500,6 @@ def phase_kernel_bwd(scan: Scan, n_features: int, device: str = "cuda"):
 #: kernel 5: where it lives and what it replaces
 SSM_SOURCE = "fmda_tpu_torch/csrc/ssm_step.cu"
 SSM_REPLACES = "fmda_tpu/ops/pallas_ssm.py:56"
-#: operations per (row, unit) of the tick, a transcendental counted as one:
-#: 11 for a, s' and h, 4 for each EMA; the EMA rates' sigmoids once a unit
-SSM_OPS = 19
-
-
-def ssm_bound(batch, hidden, itemsize):
-    """Least time for one tick on this card: xp (B, 3H), the three carries
-    and the four (H,) vectors read once, four (B, H) outputs written once,
-    against the tick's element-wise operations (no product)."""
-    return roofline_ms(itemsize * (10 * batch * hidden + 4 * hidden), 0,
-                       SSM_OPS * batch * hidden + 2 * hidden, itemsize)
-
-
 def ssm_cases():
     """Every pool bucket and the solo core's B = 1 at the model's H = 32,
     bf16, a projection read through a row stride of 4H (a slice, not
@@ -633,26 +580,6 @@ def tick_cases():
                dict(f32, batch=64, n_layers=2, dtype=torch.bfloat16),
                dict(f32, batch=32, padded=True),
                dict(f32, batch=64, hidden=512)])
-
-
-def tick_bound(batch, n_layers, feats, hidden, classes, itemsize):
-    """Least time for one fused tick on this card: the rows, the slots,
-    the lanes' norm rows, every layer's weights and the head read once, the
-    lanes' state read and written once, pos read and written, the
-    probabilities written; against the projections' and the head's
-    products and the step's and the norm's element-wise operations."""
-    g = 3 * hidden
-    weights = (g * (feats + hidden * (n_layers - 1)) + 7 * hidden * n_layers
-               + classes * (g + 1))
-    bytes_moved = (4 * batch * feats + 4 * batch + 2 * 4 * batch * feats
-                   + itemsize * weights
-                   + 2 * itemsize * 3 * n_layers * batch * hidden
-                   + 2 * 8 * batch + 4 * batch * classes)
-    products = 2 * batch * (g * (feats + hidden * (n_layers - 1))
-                            + classes * g)
-    elementwise = (batch * (SSM_OPS * hidden * n_layers + 2 * feats
-                            + 2 * classes) + 2 * hidden * n_layers)
-    return roofline_ms(bytes_moved, products, elementwise, itemsize)
 
 
 def tick_model(n_layers, dtype, dev, hidden=32):
@@ -792,13 +719,6 @@ FLASH_REPLACES = {"flash_fwd": "fmda_tpu/ops/pallas_attention.py:94",
                   "flash_bwd": "fmda_tpu/ops/pallas_attention.py:200"}
 #: the model's attention: (B, N, T, D) at batch 256, 4 heads of 8, window 30
 FLASH_MAIN = (BATCH, 4, 30, 8)
-#: products per visible (query, key) pair, in units of D: the forward's
-#: q.k and p.v; the dK/dV sweep's q.k, do.v, p^T do and ds^T q; the dQ
-#: sweep's q.k, do.v and ds k; the fused backward's q.k, do.v, p^T do,
-#: ds^T q and ds k
-FLASH_FLOPS = {"flash_fwd": 4, "flash_dkv": 8, "flash_dq": 6, "flash_bwd": 10}
-#: the backward kernels' outputs of (B*N, T, D)
-FLASH_BWD_OUTPUTS = {"flash_dkv": 2, "flash_dq": 1, "flash_bwd": 3}
 
 
 def flash_cases():
@@ -834,23 +754,6 @@ def flash_pairs(c, key_mask) -> int:
     if c["causal"]:  # keys at or before the query: prefix counts
         return n * int(keep.long().cumsum(dim=1).sum())
     return n * t * int(keep.long().sum())
-
-
-def flash_bound(kernel, c, itemsize, pairs, masked):
-    """Least time for one kernel on this card: its inputs read once (q, k,
-    v; the backward also do, lse and delta; the key mask) and its outputs
-    written once (o and lse; dk and dv; dq; dq, dk and dv), against its
-    products' FLOPs over the visible pairs."""
-    bntd = c["batch"] * c["heads"] * c["seq"] * c["d"]
-    bnt = c["batch"] * c["heads"] * c["seq"]
-    if kernel == "flash_fwd":
-        bytes_moved = itemsize * 4 * bntd + 4 * bnt
-    else:
-        n_out = FLASH_BWD_OUTPUTS[kernel]
-        bytes_moved = itemsize * (4 + n_out) * bntd + 2 * 4 * bnt
-    bytes_moved += c["batch"] * c["seq"] if masked else 0
-    return roofline_ms(bytes_moved, FLASH_FLOPS[kernel] * c["d"] * pairs, 0,
-                       itemsize)
 
 
 def sdpa(q, k, v, causal, key_mask):
@@ -1835,21 +1738,15 @@ class RoundClock:
         self.t += FLEET_ROUND_S
 
 
-def fleet_run(model_cfg, state, load_fields, *, device, depth,
-              profile=False):
-    """One run of a fleet load through a fresh FleetGateway over
-    ``SessionPool(capacity=128, window=30)``: the load's summary, the
-    fleet topic's messages in order, and (``profile``) the busy share."""
-    from fmda_tpu_torch.config import (
-        DEFAULT_TOPICS, FrameworkConfig, TOPIC_FLEET_PREDICTION)
-    from fmda_tpu_torch.runtime import (
-        BatcherConfig, FleetGateway, FleetLoadConfig, SessionPool,
-        run_fleet_load)
+def fleet_gateway(model_cfg, state, *, device, depth, clock=time.monotonic):
+    """A fresh FleetGateway over ``SessionPool(capacity=128, window=30)``
+    with the config's batching, publishing onto its own bus: (gateway,
+    bus)."""
+    from fmda_tpu_torch.config import DEFAULT_TOPICS, FrameworkConfig
+    from fmda_tpu_torch.runtime import BatcherConfig, FleetGateway, SessionPool
     from fmda_tpu_torch.stream import InProcessBus
 
     rt = FrameworkConfig().runtime
-    virtual = load_fields.get("duty", 1.0) < 1.0
-    clock = RoundClock() if virtual else time.monotonic
     pool = SessionPool(model_cfg, state, capacity=rt.capacity,
                        window=rt.window, device=device)
     bus = InProcessBus(DEFAULT_TOPICS, capacity=1 << 20)
@@ -1858,6 +1755,21 @@ def fleet_run(model_cfg, state, load_fields, *, device, depth,
             bucket_sizes=rt.bucket_sizes,
             max_linger_s=rt.max_linger_ms / 1e3),
         queue_bound=rt.queue_bound, pipeline_depth=depth, clock=clock)
+    return gateway, bus
+
+
+def fleet_run(model_cfg, state, load_fields, *, device, depth,
+              profile=False):
+    """One run of a fleet load through a fresh FleetGateway over
+    ``SessionPool(capacity=128, window=30)``: the load's summary, the
+    fleet topic's messages in order, and (``profile``) the busy share."""
+    from fmda_tpu_torch.config import TOPIC_FLEET_PREDICTION
+    from fmda_tpu_torch.runtime import FleetLoadConfig, run_fleet_load
+
+    virtual = load_fields.get("duty", 1.0) < 1.0
+    clock = RoundClock() if virtual else time.monotonic
+    gateway, bus = fleet_gateway(model_cfg, state, device=device,
+                                 depth=depth, clock=clock)
     load = FleetLoadConfig(**load_fields)
     on_round = clock.advance if virtual else None
     share = None
@@ -2563,7 +2475,7 @@ def golden_day() -> dict:
                 targets_equal=y_same)
 
 
-def phase_pipeline(directory: str, device: str = "cuda"):
+def phase_pipeline(directory: str, device: str = "cuda", traced_day=None):
     """The reference's main path from raw feed messages to predictions:
     synthetic feeds -> InProcessBus -> StreamEngine -> Warehouse ->
     ``demo``'s train and backtest -> checkpoint -> a live day bar by bar ->
@@ -2585,7 +2497,10 @@ def phase_pipeline(directory: str, device: str = "cuda"):
     - the card's Predictor against the port's on the CPU for the live
       day's timestamps, and the golden day.
 
-    Returns the path's launch counts (the demo's and the live day's)."""
+    ``traced_day(live)``, when given, runs after all that on the same bus,
+    engine, warehouse and consumers (``live``), with the corpus's next day
+    left in ``live["messages"]``.  Returns the path's launch counts (the
+    demo's and the live day's)."""
     import contextlib
     import io
 
@@ -2617,8 +2532,10 @@ def phase_pipeline(directory: str, device: str = "cuda"):
         cfg.warehouse, path=f"{directory}/pipeline.sqlite"))
     bus = InProcessBus(DEFAULT_TOPICS)
     engine = StreamEngine(bus, wh, fc, metrics=registry)
+    # a year, the live day and the obs phase's traced day: the generator
+    # is sequential, so the first days are the same whatever n_days
     messages = synthetic_session_messages(fc, SyntheticMarketConfig(
-        seed=SEED, n_days=PIPELINE_DAYS + 1))
+        seed=SEED, n_days=PIPELINE_DAYS + 2))
     step_ms = []
     t0 = time.perf_counter()
     for _ in range(PIPELINE_DAYS):
@@ -2834,9 +2751,518 @@ def phase_pipeline(directory: str, device: str = "cuda"):
     check(len(cpu_preds) == BARS_PER_DAY and err <= PATH_TOL,
           f"pipeline: card and CPU Predictor disagree ({err})")
     check(same_labels, "pipeline: card and CPU labels differ")
-    wh.close()
     emit("pipeline done", seconds=time.perf_counter() - phase_t0)
+    if traced_day is not None:
+        traced_day(dict(bus=bus, engine=engine, wh=wh, messages=messages,
+                        consumers=consumers, cfg=cfg))
+    wh.close()
     return {k: demo_counts[k] + counts[k] for k in counts}
+
+
+#: the obs phase: default fleet loads of tracing off and of 1 % sampling
+#: (alternating; 100 % every other round), the settings (a sample rate;
+#: None is tracing off), the gross-loss floor of 1 % sampling's median
+#: ticks/s against off's, and the reference's budget for the plane
+#: (bench.py trace_overhead: 2 %).  A load's ticks/s spreads ~2x on the
+#: card's host (PERF.md section 7), so the floor needs many loads a side
+OBS_LOADS = 20
+OBS_TRACE_RATES = (None, 0.01, 1.0)
+OBS_TRACE_FLOOR = 0.90
+OBS_BUDGET = 0.98
+#: the device plane's cost on the ssm pool's flush loop: sessions (one
+#: flush of bucket 64 a step), steps a run, interleaved runs a setting
+OBS_PLANE_STEPS = 300
+OBS_PLANE_REPS = 20
+#: the ledger's sampled ssm_tick time against the kernel phase's primed
+#: time at bucket 64 must agree within this factor either way: each event
+#: pair brackets the kernel plus the host's enqueue of it (the ctypes call,
+#: the launch) on a card that idles between flushes (the fleet is
+#: host-bound), so every pair reads above the kernel's own ~12 us; their
+#: minimum, the tightest of those bounds, by about one launch's host time,
+#: not by an order of magnitude (their mean carries the host's jitter: a
+#: pair that waits on a descheduled host thread reads 0.1 ms and more)
+OBS_DEVICE_MS_FACTOR = 10.0
+#: the traced live day against the phase's own host clocks for the same
+#: bars: the medians agree within the larger of this many ms and this
+#: share of the clock's median (the clock brackets the call, the spans
+#: start inside it: the engine's step before its first stamp and after its
+#: signals, a consumer's poll of the bus around its serve span)
+OBS_CLOCK_TOL_MS = 0.25
+OBS_CLOCK_TOL_SHARE = 0.10
+#: fleet flushes inside the device_trace capture
+OBS_PROFILE_FLUSHES = 10
+#: the argument that runs the capture alone (``device_trace_child``)
+DEVICE_TRACE_ARG = "--obs-device-trace"
+
+
+def prometheus_parses(text: str) -> bool:
+    """Every line of a text exposition a ``# TYPE`` comment or a
+    ``name{labels} value`` sample with a float value."""
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? (\S+)$')
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            continue
+        m = sample.match(line)
+        if m is None:
+            return False
+        try:
+            float(m.group(2))
+        except ValueError:
+            return False
+    return bool(text)
+
+
+def scrape(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def cli_output(argv) -> tuple:
+    """(exit code, stdout) of ``python -m fmda_tpu_torch ARGV``, in this
+    process."""
+    import contextlib
+    import io
+
+    from fmda_tpu_torch import __main__ as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def obs_trace_cost(models, device):
+    """The default fleet load with tracing off, at 1 % and at 100 %,
+    alternating in one process, OBS_LOADS loads of off and of 1 % and half
+    as many at 100 % for each family: each setting's median ticks/s and
+    range."""
+    from fmda_tpu_torch.obs import configure_tracing, default_tracer
+
+    flushes = {}
+    for cell, (model_cfg, state) in models.items():
+        tps = {rate: [] for rate in OBS_TRACE_RATES}
+        finished = {rate: 0 for rate in OBS_TRACE_RATES}
+        served = {rate: 0 for rate in OBS_TRACE_RATES}
+        flushes[cell] = 0
+        for i in range(OBS_LOADS):
+            for rate in OBS_TRACE_RATES:
+                if rate == 1.0 and i % 2:
+                    continue
+                configure_tracing(enabled=rate is not None,
+                                  sample_rate=rate or 1.0)
+                default_tracer().clear()
+                out, _, _, _ = fleet_run(model_cfg, state,
+                                         FLEET_LOADS["default"],
+                                         device=device, depth=1)
+                tps[rate].append(out["ticks_served"] / out["wall_s"])
+                finished[rate] += default_tracer().traces_finished
+                served[rate] += out["ticks_served"]
+                flushes[cell] += out["counters"]["flushes"]
+        configure_tracing(enabled=False)
+        default_tracer().clear()
+        med = {rate: statistics.median(v) for rate, v in tps.items()}
+        row = {str(rate or "off"): dict(
+            median_ticks_per_s=med[rate], min=min(tps[rate]),
+            max=max(tps[rate]), traces_finished=finished[rate])
+            for rate in OBS_TRACE_RATES}
+        ratio_1 = med[0.01] / med[None]
+        ratio_100 = med[1.0] / med[None]
+        emit("obs tracing cost", cell=cell,
+             loads={str(rate or "off"): len(v) for rate, v in tps.items()},
+             settings=row, ratio_1pct=ratio_1, ratio_100pct=ratio_100,
+             floor=OBS_TRACE_FLOOR, budget_2pct_held=ratio_1 >= OBS_BUDGET)
+        check(ratio_1 >= OBS_TRACE_FLOOR,
+              f"{cell} fleet: 1 % tracing costs more than a gross loss "
+              f"({ratio_1:.3f} of off)")
+        check(finished[None] == 0 and finished[1.0] == served[1.0]
+              and 0 < finished[0.01] < served[0.01],
+              f"{cell} fleet: traces {finished} for ticks {served}")
+    return flushes
+
+
+def obs_plane_cost(model_cfg, state, device):
+    """The device plane's cost on the ssm pool's flush loop: the pool
+    stepped directly (the batcher's scheduling noise is larger than the
+    cost priced), one flush of all 64 sessions a step, with the kernel
+    ledger (CUDA-event sampling included) and the memory monitor's cadence
+    check a step, then with the host profiler running too, against all of
+    them off; interleaved, OBS_PLANE_REPS runs a setting."""
+    from fmda_tpu_torch import ops
+    from fmda_tpu_torch.config import ProfilingConfig
+    from fmda_tpu_torch.obs import (
+        configure_device_obs, default_ledger, default_memory_monitor)
+    from fmda_tpu_torch.obs.pyprof import HostProfiler
+    from fmda_tpu_torch.runtime import SessionPool
+
+    pool = SessionPool(model_cfg, state, capacity=128, window=30,
+                       device=device)
+    for i in range(POOL_SESSIONS):
+        pool.alloc(f"S{i}")
+    gen = np.random.default_rng(SEED)
+    slots = np.arange(POOL_SESSIONS, dtype=np.int32)
+    rows = gen.normal(size=(POOL_SESSIONS, model_cfg.n_features)).astype(
+        np.float32)
+    memory = default_memory_monitor()
+    memory.register_owner("obs_plane_pool", pool.live_tree)
+    launched0 = ops.launch_counts()["ssm_tick"]
+    for _ in range(50):
+        pool.step(slots, rows)
+    ledger = default_ledger()
+    samples = 0
+
+    def run(setting):
+        nonlocal samples
+        configure_device_obs(ProfilingConfig(enabled=setting != "off"))
+        profiler = HostProfiler() if setting == "plane+profiler" else None
+        if profiler is not None:
+            profiler.start()
+        try:
+            t0 = time.perf_counter()
+            for _ in range(OBS_PLANE_STEPS):
+                pool.step(slots, rows)
+                memory.maybe_sample()
+            return time.perf_counter() - t0
+        finally:
+            if profiler is not None:
+                profiler.stop()
+                samples += sum(HostProfiler.parse_folded(
+                    profiler.folded()).values())
+
+    settings = ("off", "plane", "plane+profiler")
+    times = {k: [] for k in settings}
+    ledger.reset()
+    for _ in range(OBS_PLANE_REPS):
+        for k in settings:
+            times[k].append(run(k))
+    configure_device_obs(ProfilingConfig(enabled=False))
+    booked = ledger.launches().get("ssm_tick", 0)
+    launched = ops.launch_counts()["ssm_tick"] - launched0
+    med = {k: statistics.median(v) for k, v in times.items()}
+    low = {k: min(v) for k, v in times.items()}
+    emit("obs device plane cost", cell="ssm", steps=OBS_PLANE_STEPS,
+         reps=OBS_PLANE_REPS, seconds_median=med, seconds_min=low,
+         plane_ratio=med["plane"] / med["off"],
+         plane_ratio_min=low["plane"] / low["off"],
+         profiler_share=(med["plane+profiler"] - med["plane"]) / med["off"],
+         profiler_share_min=(low["plane+profiler"] - low["plane"])
+         / low["off"],
+         profiler_samples=samples, ledger_launches=booked,
+         ssm_tick_launches=launched,
+         sampled=ledger.kernel_totals().get("ssm_tick", {}).get("sampled"))
+    # the ledger books exactly the launches made while it was attached
+    check(booked == 2 * OBS_PLANE_REPS * OBS_PLANE_STEPS
+          and launched == 50 + 3 * OBS_PLANE_REPS * OBS_PLANE_STEPS,
+          f"ledger booked {booked} of {launched} ssm_tick launches")
+    return launched
+
+
+def obs_endpoint(model_cfg, state, tick_rows, device):
+    """A MetricsServer on 127.0.0.1:0 over a traced ssm fleet (100 %): the
+    default load between two scrapes of /metrics, then /healthz,
+    /snapshot, /trace and /device, and the CLI's trace, perf and status
+    against it."""
+    from fmda_tpu_torch import ops
+    from fmda_tpu_torch.config import ObservabilityConfig, ProfilingConfig
+    from fmda_tpu_torch.obs import (
+        Observability, configure_device_obs, configure_tracing,
+        default_ledger, default_memory_monitor, default_tracer)
+    from fmda_tpu_torch.obs.trace import group_chrome_traces
+    from fmda_tpu_torch.runtime import FleetLoadConfig, run_fleet_load
+
+    configure_device_obs(ProfilingConfig(memory_interval_s=0.0))
+    ledger = default_ledger()
+    ledger.reset()
+    tracer = configure_tracing(enabled=True, sample_rate=1.0)
+    tracer.clear()
+    gateway, _ = fleet_gateway(model_cfg, state, device=device, depth=1)
+    obs = Observability(ObservabilityConfig(port=0))
+    obs.track_fleet(gateway)
+    try:
+        server = obs.start_server(host="127.0.0.1", port=0)
+        endpoint = f"127.0.0.1:{server.port}"
+        scrape(server.url + "/metrics")  # the MFU's first reading
+        launched0 = ops.launch_counts()["ssm_tick"]
+        t0 = time.perf_counter()
+        out = run_fleet_load(gateway, FleetLoadConfig(
+            **FLEET_LOADS["default"]))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        launched = ops.launch_counts()["ssm_tick"] - launched0
+        status, metrics = scrape(server.url + "/metrics")
+        health_status, health = scrape(server.url + "/healthz")
+        snap = json.loads(scrape(server.url + "/snapshot")[1])
+        trace_doc = json.loads(scrape(server.url + "/trace")[1])
+        device_doc = json.loads(scrape(server.url + "/device")[1])
+        cli = {name: cli_output([name, "--endpoint", endpoint, *extra])
+               for name, extra in (("trace", ["--last", "3"]),
+                                   ("perf", []), ("status", []))}
+    finally:
+        obs.close()
+        configure_tracing(enabled=False)
+        configure_device_obs(ProfilingConfig(enabled=False))
+    def gauge(name):
+        found = re.search(rf"^fmda_{name}\{{[^}}]*\}} (\S+)$", metrics, re.M)
+        return float(found.group(1)) if found else None
+
+    mfu = gauge("device_mfu")
+    totals = {k["kernel"]: k for k in device_doc["ledger"]["kernels"]}
+    tick = totals["ssm_tick"]
+    sampled_ms = tick["device_ms_mean"]
+    tightest_ms = tick["device_ms_min"]
+    kernel_ms = next(r for r in tick_rows if r["batch"] == POOL_SESSIONS
+                     and r["n_layers"] == 1 and r["dtype"] == "float32"
+                     and r["hidden"] == 32 and not r["padded"])["ms"]
+    memory = device_doc["memory"]
+    pool_bytes = memory["by_owner"].get("session_pool", 0)
+    grouped = group_chrome_traces(trace_doc)
+    served = out["ticks_served"]
+    emit("obs endpoint", cell="ssm", endpoint=endpoint, load_s=load_s,
+         ticks_served=served, metrics_lines=len(metrics.splitlines()),
+         prometheus_parses=prometheus_parses(metrics), healthz=health_status,
+         ledger_ssm_tick=tick["launches"], ssm_tick_launches=launched,
+         sampled=tick["sampled"], sampled_device_ms_mean=sampled_ms,
+         sampled_device_ms_min=tightest_ms, kernel_phase_ms=kernel_ms,
+         min_over_kernel=(tightest_ms / kernel_ms
+                          if tightest_ms and kernel_ms else None),
+         mean_over_kernel=(sampled_ms / kernel_ms
+                           if sampled_ms and kernel_ms else None),
+         device_mfu=mfu,
+         arithmetic_intensity=gauge("device_arithmetic_intensity"),
+         snapshot_series=sum(len(v) for v in snap.values()),
+         nvcc_seconds=device_doc["ledger"]["nvcc_seconds"],
+         memory_watermark_bytes=memory["watermark_bytes"],
+         pool_bytes=pool_bytes, allocated_bytes=memory["allocated_bytes"],
+         reserved_bytes=memory["reserved_bytes"],
+         traces_started=tracer.traces_started,
+         traces_finished=tracer.traces_finished,
+         traces_in_ring=len(grouped),
+         cli_exit={k: v[0] for k, v in cli.items()},
+         cli_lines={k: len(v[1].splitlines()) for k, v in cli.items()})
+    check(status == 200 and prometheus_parses(metrics),
+          "the /metrics text does not parse")
+    check(health_status == 200 and json.loads(health)["status"] == "ok",
+          f"/healthz: {health}")
+    check(tick["launches"] == launched == out["counters"]["flushes"],
+          f"ledger booked {tick['launches']} ssm_tick launches, the "
+          f"counter {launched}, flushes {out['counters']['flushes']}")
+    check(tightest_ms is not None
+          and kernel_ms / OBS_DEVICE_MS_FACTOR <= tightest_ms
+          <= kernel_ms * OBS_DEVICE_MS_FACTOR,
+          f"sampled ssm_tick {tightest_ms} ms (the least of "
+          f"{tick['sampled']}) against the kernel phase's {kernel_ms} ms")
+    check(mfu is not None and 0 < mfu < 1, f"device_mfu {mfu}")
+    check(pool_bytes > 0 and memory["watermark_bytes"] >= pool_bytes,
+          f"memory watermark {memory['watermark_bytes']} under the pool's "
+          f"{pool_bytes} bytes")
+    check(tracer.traces_started == tracer.traces_finished == served
+          == out["ticks_submitted"],
+          f"traces {tracer.traces_started}/{tracer.traces_finished} for "
+          f"{served} ticks")
+    check(all(rc == 0 for rc, _ in cli.values())
+          and cli["trace"][1].count("root=tick") == 3
+          and "kernel ledger" in cli["perf"][1]
+          and "status: ok" in cli["status"][1],
+          f"the CLI against the endpoint: {cli}")
+    return launched
+
+
+def obs_device_trace(device):
+    """``device_trace`` over OBS_PROFILE_FLUSHES flushes of the ssm fleet
+    into the build directory, in a process of its own: a CPU and CUDA
+    profile late in a process that has run many profiles before (the
+    busy shares of the earlier phases) keeps no device activity on this
+    card's torch, while a CUDA-only profile in the same process still
+    does, so the capture runs as ``device_trace`` would in a serving
+    process that traces once.  The child checks the Chrome JSON for the
+    numbered ``pool_flush`` ranges and the ssm tick kernel; its launches
+    are its own process's."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), DEVICE_TRACE_ARG,
+         device], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in child.stdout.splitlines():
+        print(line, flush=True)
+    check(child.returncode == 0,
+          f"the device_trace capture failed ({child.returncode}): "
+          f"{child.stderr[-2000:]}")
+
+
+def device_trace_child(device: str) -> int:
+    """The capture of :func:`obs_device_trace`, in this process."""
+    from fmda_tpu_torch.models import build_model
+    from fmda_tpu_torch.ops import _cuda_lib
+    from fmda_tpu_torch.utils.tracing import device_trace
+
+    model_cfg = model_config("ssm", bidirectional=False, dropout=0.0)
+    state = build_model(model_cfg, generator=torch.Generator().manual_seed(
+        SEED)).state_dict()
+    gateway, _ = fleet_gateway(model_cfg, state, device=device, depth=1)
+    gateway.annotate_device_steps = True
+    for i in range(POOL_SESSIONS):
+        gateway.open_session(f"S{i}")
+    gen = np.random.default_rng(SEED)
+    rows = gen.normal(size=(POOL_SESSIONS, model_cfg.n_features)).astype(
+        np.float32)
+    out_dir = _cuda_lib.BUILD_ROOT / "obs_device_trace"
+    for old in out_dir.glob("*.json") if out_dir.exists() else ():
+        old.unlink()
+    for i in range(POOL_SESSIONS):  # warm-up, outside the capture
+        gateway.submit(f"S{i}", rows[i])
+    gateway.pump(force=True)
+    t0 = time.perf_counter()
+    with device_trace(str(out_dir)):
+        for _ in range(OBS_PROFILE_FLUSHES):
+            for i in range(POOL_SESSIONS):
+                gateway.submit(f"S{i}", rows[i])
+            gateway.pump(force=True)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    files = sorted(out_dir.glob("*.json"))
+    check(len(files) == 1, f"device_trace wrote {files}")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    flushes = sorted({n for n in names if n.startswith("pool_flush#")})
+    kernels = [n for n in names if "ssm_tick_kernel" in n]
+    categories = {}
+    for e in events:
+        categories[e.get("cat", "")] = categories.get(e.get("cat", ""), 0) + 1
+    emit("obs device trace", file=str(files[0]), bytes=files[0].stat().st_size,
+         seconds=seconds, events=len(events), categories=categories,
+         pool_flush_ranges=len(flushes), ssm_tick_kernels=len(kernels))
+    check(len(flushes) == OBS_PROFILE_FLUSHES,
+          f"{len(flushes)} pool_flush ranges in the device trace")
+    check(torch.device(device).type != "cuda" or len(kernels) > 0,
+          "no ssm_tick kernel in the device trace")
+    return 0
+
+
+def obs_traced_day(live):
+    """One more synthetic day through the pipeline's bus, engine and
+    three consumers with tracing at 100 %: each bar's messages published
+    inside a ``session_tick`` root (as ``SessionDriver.run_tick`` publishes
+    them), every bar split into its spans (bus_publish, the engine's join,
+    land and signal, each consumer's serve), their medians, the trace
+    against the phase's own host clocks for the same bars, and a
+    QualityEvaluator over the Predictor's predictions.  Returns the day's
+    launch counts."""
+    from fmda_tpu_torch.data.synthetic import BARS_PER_DAY
+    from fmda_tpu_torch.obs import configure_tracing
+    from fmda_tpu_torch.obs.quality import QualityEvaluator
+
+    bus, engine, wh = live["bus"], live["engine"], live["wh"]
+    consumers, messages, cfg = live["consumers"], live["messages"], live["cfg"]
+    tracer = configure_tracing(enabled=True, sample_rate=1.0,
+                               capacity=1 << 16)
+    tracer.clear()
+    quality = QualityEvaluator(cfg.quality, warehouse=wh,
+                               max_lead=cfg.features.max_lead)
+    clock_ms = {"engine": [], **{name: [] for name in consumers}}
+    roots = []
+    start_path()
+    try:
+        for _ in range(BARS_PER_DAY):
+            bar = [next(messages) for _ in range(5)]
+            with tracer.root("session_tick", "ingest"):
+                for topic, msg in bar:
+                    bus.publish(topic, msg)
+            roots.append(tracer.spans()[-1].trace_id)
+            t = time.perf_counter()
+            check(engine.step() == 1, "a traced bar did not land one row")
+            clock_ms["engine"].append((time.perf_counter() - t) * 1e3)
+            for name, poll in consumers.items():
+                t = time.perf_counter()
+                got = poll()
+                clock_ms[name].append((time.perf_counter() - t) * 1e3)
+                check(len(got) == 1, f"{name} served {len(got)} on a "
+                      "traced bar")
+                if name == "predictor":
+                    pred = got[0]
+                    quality.capture("SPY", pred.timestamp,
+                                    np.asarray(pred.probabilities))
+        counts = launch_counts()  # the traced day ends here
+    finally:
+        configure_tracing(enabled=False)
+    by_trace = tracer.traces()
+    stages = {k: [] for k in ("bus_publish", "join", "land", "signal",
+                              "engine", *consumers)}
+    for tid in roots:
+        spans = by_trace[tid]
+        named = {}
+        for s in spans:
+            named.setdefault(s.name, []).append(s)
+        stages["bus_publish"].append(
+            sum(s.dur_ns for s in named["bus_publish"]) / 1e6)
+        for k in ("join", "land", "signal"):
+            stages[k].append(named[k][0].dur_ns / 1e6)
+        first, last = named["join"][0], named["signal"][0]
+        stages["engine"].append(
+            (last.t0_ns + last.dur_ns - first.t0_ns) / 1e6)
+        serves = sorted(named["serve"], key=lambda s: s.t0_ns)
+        check(len(serves) == len(consumers),
+              f"a traced bar has {len(serves)} serve spans")
+        for name, s in zip(consumers, serves):
+            stages[name].append(s.dur_ns / 1e6)
+    medians = {k: statistics.median(v) for k, v in stages.items()}
+    clock_medians = {k: statistics.median(v) for k, v in clock_ms.items()}
+    agree = {}
+    for k in clock_ms:
+        tol = max(OBS_CLOCK_TOL_MS, OBS_CLOCK_TOL_SHARE * clock_medians[k])
+        agree[k] = abs(medians[k] - clock_medians[k]) <= tol
+    quality.join(now=0.0)
+    cons = quality.conservation()
+    emit("obs traced day", bars=BARS_PER_DAY, traces=len(roots),
+         spans=tracer.recorded, stage_median_ms=medians,
+         clock_median_ms=clock_medians, tol_ms=OBS_CLOCK_TOL_MS,
+         tol_share=OBS_CLOCK_TOL_SHARE, agree=agree,
+         quality_joined=cons["joined"], quality=cons,
+         quality_overall=quality.summary()["overall"], launches=counts)
+    check(all(agree.values()),
+          f"the trace and the host clocks disagree: {medians} against "
+          f"{clock_medians}")
+    check(cons["captured"] == BARS_PER_DAY and cons["joined"] > 0
+          and cons["captured"] == cons["joined"] + cons["pending"]
+          + cons["expired"] + cons["shed"],
+          f"quality conservation: {cons}")
+    check_launches(counts, {"gru_scan_fwd": 3 * BARS_PER_DAY,
+                            "ssm_tick": BARS_PER_DAY}, "obs traced day")
+    return counts
+
+
+def phase_obs(tick_rows, traced_day_counts, device: str = "cuda"):
+    """The observability plane on the card, after the pipeline (whose
+    end ran ``obs_traced_day``): tracing's cost on the default fleet load
+    (gru, ssm), the device plane's cost on the ssm pool's flush loop, a
+    live endpoint over a traced ssm fleet with the CLI against it, and a
+    device trace of the fleet's flushes.  Returns the phase's launch
+    counts, the traced day's included."""
+    from fmda_tpu_torch.models import build_model
+
+    phase_t0 = time.perf_counter()
+    models = {}
+    for cell in ("gru", "ssm"):
+        model_cfg = model_config(cell, bidirectional=False, dropout=0.0)
+        models[cell] = (model_cfg, build_model(
+            model_cfg, generator=torch.Generator().manual_seed(
+                SEED)).state_dict())
+    fleet_run(*models["ssm"], dict(n_sessions=8, n_ticks=2), device=device,
+              depth=1)  # warm-up
+    start_path()
+    # the ssm fleet's flushes and the pool's steps, one tick launch each;
+    # the gru pool launches no kernel
+    flushes = obs_trace_cost(models, device)
+    ticks = flushes["ssm"]
+    ticks += obs_plane_cost(*models["ssm"], device)
+    ticks += obs_endpoint(*models["ssm"], tick_rows, device)
+    obs_device_trace(device)  # its launches are its own process's
+    counts = launch_counts()  # the phase ends here
+    check_launches(counts, {"ssm_tick": ticks}, "obs")
+    emit("obs done", seconds=time.perf_counter() - phase_t0,
+         launches=counts, traced_day_launches=traced_day_counts)
+    return {k: counts[k] + traced_day_counts[k] for k in counts}
 
 
 #: what an entry of the summary line carries of its kernel at a shape
@@ -3055,7 +3481,11 @@ def main() -> int:
             wh.close()
         for cell in ("gru", "ssm"):
             continuous[cell] = phase_continuous(tmp, cell=cell)
-        pipeline = phase_pipeline(tmp)
+        traced_day = {}
+        pipeline = phase_pipeline(
+            tmp, traced_day=lambda live: traced_day.update(
+                obs_traced_day(live)))
+        obs = phase_obs(tick_rows, traced_day)
 
     entries = []
     for s in scans:
@@ -3066,7 +3496,7 @@ def main() -> int:
                    "predictor_fleet": predictor_fleet[s.name][fwd],
                    "train_multi": train_multi[s.name][fwd],
                    "continuous": continuous.get(s.name, {}).get(fwd, 0),
-                   "pipeline": pipeline[fwd]}
+                   "pipeline": pipeline[fwd], "obs": obs[fwd]}
         bwd_by_path = {"serve": serve[s.name][bwd],
                        "train": train[s.name][bwd],
                        "fleet": fleet[s.name][bwd],
@@ -3086,7 +3516,8 @@ def main() -> int:
          "serve": serve["ssm"][k], "fleet": fleet["ssm"][k],
          "predictor_fleet": predictor_fleet["ssm"][k],
          "train_multi": train_multi["ssm"][k],
-         "continuous": continuous["ssm"][k], "pipeline": pipeline[k]}
+         "continuous": continuous["ssm"][k], "pipeline": pipeline[k],
+         "obs": obs[k]}
         for k in ("ssm_tick", "ssm_step"))))
     entries += [flash_entry(name, flash_rows,
                             {"serve": serve["attn"][name],
@@ -3108,4 +3539,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [DEVICE_TRACE_ARG]:
+        sys.exit(device_trace_child(sys.argv[2]))
     sys.exit(main())

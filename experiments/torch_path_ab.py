@@ -12,7 +12,11 @@ each a phase of ``chip_smoke.py``:
   bidirectional=True)`` for gru and lstm;
 - ``ssm_stream``: ``phase_stream`` for ssm (the solo carried-state core);
 - ``pool``: ``phase_pool`` for gru, lstm and ssm (the session pool);
-- ``attn_serve``: ``phase_path`` for attn (backtest and Predictor).
+- ``attn_serve``: ``phase_path`` for attn (backtest and Predictor);
+- ``fleet``: the default fleet load (``FLEET_LOADS["default"]``: 64
+  sessions x 100 rounds, pipeline depth 1, tracing off) through
+  ``fleet_run``, FLEET_AB_LOADS loads each for gru and ssm, each load's
+  ticks/s a line (``fleet ab``).
 
 Each tree runs in a fresh process per run, in the order OLD, NEW, NEW, OLD
 (``--rounds N``: that order N times), so that a drift of the host during
@@ -33,7 +37,9 @@ import sys
 import tempfile
 
 ORDER = ("old", "new", "new", "old")
-PATHS = ("scans", "ssm_stream", "pool", "attn_serve")
+PATHS = ("scans", "ssm_stream", "pool", "attn_serve", "fleet")
+#: default fleet loads a ``fleet`` run makes for each family
+FLEET_AB_LOADS = 10
 POOL_CELLS = ("gru", "lstm", "ssm")
 #: (path, phase, key path, cells) of the metrics the summary lists; the key
 #: ``flash_fwd_ms`` is the flash forward's device time in the profiled
@@ -73,6 +79,7 @@ METRICS = (
      ("attn",)),
     ("attn_serve", "path device share", ("backtest", "flash_fwd_ms"),
      ("attn",)),
+    ("fleet", "fleet ab", ("ticks_per_s",), ("gru", "ssm")),
 )
 
 
@@ -93,6 +100,9 @@ def run_one(root: str, paths) -> int:
     _cuda_lib.build()
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
+        if set(paths) <= {"fleet"}:  # the fleet needs no warehouse
+            fleet_ab(chip_smoke, torch)
+            return 0
         wh = chip_smoke.make_warehouse(tmp)
         if "scans" in paths:
             for cell in ("gru", "lstm"):
@@ -107,7 +117,30 @@ def run_one(root: str, paths) -> int:
         if "attn_serve" in paths:
             chip_smoke.phase_path(wh, tmp, cell="attn")
         wh.close()
+    if "fleet" in paths:
+        fleet_ab(chip_smoke, torch)
     return 0
+
+
+def fleet_ab(chip_smoke, torch) -> None:
+    """FLEET_AB_LOADS default fleet loads for gru and ssm through the
+    tree's own ``fleet_run``, after one short warm-up load."""
+    from fmda_tpu_torch.models import build_model
+
+    for cell in ("gru", "ssm"):
+        model_cfg = chip_smoke.model_config(cell, bidirectional=False,
+                                            dropout=0.0)
+        state = build_model(model_cfg, generator=torch.Generator(
+        ).manual_seed(chip_smoke.SEED)).state_dict()
+        chip_smoke.fleet_run(model_cfg, state,
+                             dict(n_sessions=8, n_ticks=2), device="cuda",
+                             depth=1)
+        for load in range(FLEET_AB_LOADS):
+            out = chip_smoke.fleet_run(
+                model_cfg, state, chip_smoke.FLEET_LOADS["default"],
+                device="cuda", depth=1)[0]
+            chip_smoke.emit("fleet ab", cell=cell, load=load,
+                            ticks_per_s=out["ticks_served"] / out["wall_s"])
 
 
 def value(line: dict, keys):

@@ -13,6 +13,17 @@
     python -m fmda_tpu_torch serve-fleet --role solo [--cell ssm] [--predictor]
                                       [--sessions N] [--ticks N] [--device cpu]
                                       [--continuous-train [--train-rounds N]]
+                                      [--trace [--trace-sample R]] [--trace-out F]
+                                      [--metrics-port P [--metrics-hold-s S]]
+                                      [--jax-profile DIR]
+    python -m fmda_tpu_torch status   --endpoint HOST:PORT [...] [--watch N]
+    python -m fmda_tpu_torch trace    (--input F | --endpoint HOST:PORT
+                                      | --merge F ... [--out F]) [--last N]
+                                      [--slowest N] [--min-ms X] [--json]
+    python -m fmda_tpu_torch perf     (--endpoint HOST:PORT | --input F)
+                                      [--profile F] [--top N] [--json]
+    python -m fmda_tpu_torch quality  (--endpoint HOST:PORT | --bundle D
+                                      | --artifact F) [--json]
 
 ``demo`` is the end-to-end proof run: a synthetic corpus through the
 streaming engine into a warehouse, training, and a backtest of the
@@ -28,8 +39,12 @@ seeded ticker sessions through the FleetGateway, or (``--predictor``)
 predict-timestamp signals over a synthetic corpus warehouse through the
 batched Predictor; ``--continuous-train`` runs the continuous trainer in
 a thread beside the sessions' load, each accepted round hot-swapped into
-the live gateway.  All run their models on the CUDA card unless
-``--device cpu`` is given (``ingest`` runs no model).
+the live gateway; ``--trace``/``--trace-out`` trace it end to end,
+``--metrics-port`` serves the observability endpoint while it runs.
+``status``, ``trace``, ``perf`` and ``quality`` read that endpoint (or
+saved files) and print its snapshot, trace breakdowns, device report and
+model quality (:mod:`fmda_tpu_torch.obs.report`).  All run their models on
+the CUDA card unless ``--device cpu`` is given (``ingest`` runs no model).
 """
 
 from __future__ import annotations
@@ -415,16 +430,10 @@ UNPORTED_FLEET_FLAGS = {
     "chaos_no_reference": "item 7 (chaos/)",
     "replay": "item 7 (replay/)",
     "hot_swap": "item 7 (replay/)",
-    "swap_guard": ("item 3: eval/shadow.py, which waits on items 5 "
-                   "(obs.quality) and 7 (replay/)"),
-    "trace": "item 5 (observability: tracing)",
-    "trace_out": "item 5 (observability: tracing)",
-    "trace_sample": "item 5 (observability: tracing)",
-    "trace_dir": "item 5 (observability: tracing)",
-    "metrics_port": "item 5 (observability: the metrics endpoint)",
-    "metrics_hold_s": "item 5 (observability: the metrics endpoint)",
-    "postmortem_dir": "item 5 (observability: the flight recorder)",
-    "jax_profile": "item 5 (observability: device profiles)",
+    "swap_guard": ("item 3: eval/shadow.py, which waits on item 7 "
+                   "(replay/)"),
+    "trace_dir": "item 7 (multi-host serving: one trace file a process)",
+    "postmortem_dir": "item 7 (obs/recorder.py, the flight recorder)",
     "shard_pool": "item 8 (parallelism)",
 }
 
@@ -450,19 +459,12 @@ def cmd_serve_fleet(args) -> int:
     window-re-scan Predictor.  Prints the runtime's metrics (per-stage
     latency histograms, counters, gauges, host stages, kernel launches per
     bucket) as one JSON object; exits 1 when ``--slo-p99-ms`` is missed
-    (unless ``--slo-soft``)."""
+    (unless ``--slo-soft``).  ``--trace``/``--trace-out`` trace the load,
+    ``--metrics-port`` serves the observability endpoint during it,
+    ``--jax-profile DIR`` writes a torch profile of it into DIR."""
     import os
-    import tempfile
-    import threading
 
-    import numpy as np
-    import torch
-
-    from fmda_tpu_torch.config import DEFAULT_TOPICS
     from fmda_tpu_torch.device import resolve_device
-    from fmda_tpu_torch.models import build_model
-    from fmda_tpu_torch.runtime import BatcherConfig
-    from fmda_tpu_torch.stream import InProcessBus
 
     refused = _unported_fleet_flag(args)
     if refused:
@@ -498,6 +500,42 @@ def cmd_serve_fleet(args) -> int:
                      slo_p99_ms=args.slo_p99_ms)
     rc = dataclasses.replace(cfg.runtime, **{
         k: v for k, v in overrides.items() if v is not None})
+    # tracing and [profiling] apply before anything is built, so every
+    # component captures a configured tracer and the ledger books the
+    # first launch
+    from fmda_tpu_torch.obs import (
+        Observability,
+        configure_device_obs,
+        configure_tracing,
+    )
+
+    tracing = bool(args.trace or args.trace_out)
+    configure_tracing(
+        enabled=tracing or cfg.tracing.enabled,
+        sample_rate=(args.trace_sample if tracing
+                     else cfg.tracing.sample_rate),
+        capacity=cfg.tracing.max_spans)
+    configure_device_obs(cfg.profiling)
+    obs = Observability(cfg.observability)
+    try:
+        return _serve_fleet(args, cfg, rc, device, obs)
+    finally:
+        obs.close()
+
+
+def _serve_fleet(args, cfg, rc, device, obs) -> int:
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fmda_tpu_torch.config import DEFAULT_TOPICS
+    from fmda_tpu_torch.models import build_model
+    from fmda_tpu_torch.runtime import BatcherConfig
+    from fmda_tpu_torch.stream import InProcessBus
+
     bus = InProcessBus(DEFAULT_TOPICS)
     generator = torch.Generator().manual_seed(args.seed)
 
@@ -531,9 +569,10 @@ def cmd_serve_fleet(args) -> int:
             queue_bound=rc.predictor_queue_bound,
             pipeline_depth=rc.pipeline_depth,
             threshold=cfg.train.prob_threshold, max_staleness_s=None)
-        out = run_predictor_load(
+        obs.track_predictor_fleet(gateway)
+        out = _run_observed(args, obs, gateway, lambda: run_predictor_load(
             gateway, wh.timestamps()[window - 1:],
-            PredictorLoadConfig(n_signals=args.signals, burst=args.burst))
+            PredictorLoadConfig(n_signals=args.signals, burst=args.burst)))
         out["ring"] = pool.use_ring
         wh.close()
     else:
@@ -573,6 +612,7 @@ def cmd_serve_fleet(args) -> int:
                 max_linger_s=rc.max_linger_ms / 1e3),
             queue_bound=rc.queue_bound, pipeline_depth=rc.pipeline_depth,
             threshold=cfg.train.prob_threshold)
+        obs.track_fleet(gateway)
         continuous = None
         if args.continuous_train:
             # each accepted round hot-swaps the live pool from the
@@ -593,12 +633,13 @@ def cmd_serve_fleet(args) -> int:
                 target=lambda: continuous.run(max_rounds=args.train_rounds),
                 daemon=True, name="fmda-torch-continuous-train")
             continuous_thread.start()
-        out = run_fleet_load(gateway, FleetLoadConfig(
-            n_sessions=args.sessions, n_ticks=args.ticks, duty=args.duty,
-            seed=args.seed, storm_every=args.storm_every,
-            storm_fraction=args.storm_fraction,
-            burst_every=args.burst_every, burst_rounds=args.burst_rounds,
-            slow_fraction=args.slow_fraction, slow_duty=args.slow_duty))
+        out = _run_observed(args, obs, gateway, lambda: run_fleet_load(
+            gateway, FleetLoadConfig(
+                n_sessions=args.sessions, n_ticks=args.ticks, duty=args.duty,
+                seed=args.seed, storm_every=args.storm_every,
+                storm_fraction=args.storm_fraction,
+                burst_every=args.burst_every, burst_rounds=args.burst_rounds,
+                slow_fraction=args.slow_fraction, slow_duty=args.slow_duty)))
         out["cell"] = model_cfg.cell
         if continuous is not None:
             # the tail quiesces by itself (at most continuous_follow_polls
@@ -614,6 +655,22 @@ def cmd_serve_fleet(args) -> int:
             wh.close()
             corpus_dir.cleanup()
     out["device"] = str(device)
+    if args.trace or args.trace_out:
+        from fmda_tpu_torch.obs import default_tracer
+
+        tracer = default_tracer()
+        out["tracing"] = {
+            "traces_finished": tracer.traces_finished,
+            "spans_buffered": len(tracer.spans()),
+            "e2e": tracer.e2e.summary(),
+        }
+        if args.trace_out:
+            with open(args.trace_out, "w") as fh:
+                json.dump(tracer.chrome(), fh)
+            out["tracing"]["file"] = args.trace_out
+            print(f"perfetto trace written to {args.trace_out} (load at "
+                  f"https://ui.perfetto.dev, or `python -m fmda_tpu_torch "
+                  f"trace --input {args.trace_out}`)", file=sys.stderr)
     slo_ok = True
     if rc.slo_p99_ms is not None:
         p99 = out.get("latency", {}).get("total", {}).get("p99_ms")
@@ -621,6 +678,12 @@ def cmd_serve_fleet(args) -> int:
         out["slo"] = {"p99_ms_bound": rc.slo_p99_ms, "p99_ms": p99,
                       "ok": slo_ok, "soft": bool(args.slo_soft)}
     print(json.dumps(out, indent=2))
+    if args.metrics_port is not None and args.metrics_hold_s > 0:
+        # keep the endpoint scrapeable after the (finite) load, before the
+        # SLO verdict exits
+        print(f"holding metrics endpoint for {args.metrics_hold_s:.0f}s",
+              file=sys.stderr)
+        time.sleep(args.metrics_hold_s)
     if not slo_ok and not args.slo_soft:
         p99 = out["slo"]["p99_ms"]
         print("SLO gate failed: "
@@ -630,6 +693,28 @@ def cmd_serve_fleet(args) -> int:
               + " (--slo-soft reports without failing)", file=sys.stderr)
         return 1
     return 0
+
+
+def _run_observed(args, obs, gateway, run_load) -> dict:
+    """Run the load with the endpoint up (``--metrics-port``, or the
+    config's ``observability.endpoint_enabled`` on its port) and inside a
+    torch profile (``--jax-profile``), the carried-state pool's flushes
+    annotated as numbered ``pool_flush`` ranges."""
+    if args.metrics_port is not None or obs.config.endpoint_enabled:
+        server = obs.start_server(port=args.metrics_port)
+        print(f"metrics endpoint: {server.url}/metrics (healthz, snapshot, "
+              f"events, trace, device, profile)", file=sys.stderr)
+    if not args.jax_profile:
+        return run_load()
+    from fmda_tpu_torch.utils.tracing import device_trace
+
+    if hasattr(gateway, "annotate_device_steps"):
+        gateway.annotate_device_steps = True
+    with device_trace(args.jax_profile):
+        out = run_load()
+    print(f"torch profile (Chrome trace) written into {args.jax_profile}",
+          file=sys.stderr)
+    return out
 
 
 def _add_serve_fleet(sub, common) -> None:
@@ -720,6 +805,31 @@ def _add_serve_fleet(sub, common) -> None:
     p.add_argument("--train-checkpoint-dir", default=None,
                    help="--continuous-train checkpoint directory "
                         "(default: config train.checkpoint_dir)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve /metrics, /healthz, /snapshot, /events, "
+                        "/trace, /device and /profile on this port during "
+                        "the run (0 = ephemeral)")
+    p.add_argument("--metrics-hold-s", type=float, default=0.0,
+                   help="keep the metrics endpoint up this long after the "
+                        "load finishes")
+    p.add_argument("--trace", action="store_true",
+                   help="trace every sampled tick end to end "
+                        "(fmda_tpu_torch.obs.trace; spans also served on "
+                        "/trace when --metrics-port is up)")
+    p.add_argument("--trace-sample", type=float, default=1.0,
+                   help="trace sampling rate in [0,1] (default 1.0: every "
+                        "tick)")
+    p.add_argument("--trace-out", default=None, metavar="FILE",
+                   help="write the span ring as Chrome/Perfetto "
+                        "trace_event JSON after the load (implies --trace; "
+                        "read it with `python -m fmda_tpu_torch trace "
+                        "--input FILE` or ui.perfetto.dev)")
+    p.add_argument("--jax-profile", default=None, metavar="DIR",
+                   help="the reference's flag, so one command line runs on "
+                        "both packages: here a torch.profiler capture (CPU "
+                        "and CUDA activity) of the load, written into DIR "
+                        "as a Chrome trace, the pool's flushes annotated "
+                        "as numbered pool_flush ranges")
     # the reference's flags of planes not ported yet: accepted by the
     # parser so that a run setting one exits 2 naming its ROADMAP item
     unported = p.add_argument_group(
@@ -727,8 +837,7 @@ def _add_serve_fleet(sub, common) -> None:
     for dest in UNPORTED_FLEET_FLAGS:
         flag = "--" + dest.replace("_", "-")
         if dest in ("shared_bus", "no_controller", "chaos_no_reference",
-                    "replay", "hot_swap", "swap_guard", "trace",
-                    "shard_pool"):
+                    "replay", "hot_swap", "swap_guard", "shard_pool"):
             unported.add_argument(flag, action="store_true", default=None)
         else:
             unported.add_argument(flag, default=None)
@@ -744,7 +853,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--config", default=None, metavar="JSON",
         help="FrameworkConfig overrides as JSON (the fmda_tpu schema; the "
              "features/bus/warehouse/engine/model/train/session/runtime/"
-             "quality sections are read)")
+             "quality/observability/tracing/profiling sections are read)")
     common.add_argument(
         "--device", default=None,
         help="torch device (default: cuda; pass 'cpu' to run the plain "
@@ -822,6 +931,9 @@ def build_parser() -> argparse.ArgumentParser:
                            help="serve existing history too, not just new "
                                 "rows")
     _add_serve_fleet(sub, common)
+    from fmda_tpu_torch.obs.report import add_parsers
+
+    add_parsers(sub, common)
     return parser
 
 

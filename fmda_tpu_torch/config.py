@@ -3,8 +3,9 @@
 The same frozen dataclasses as ``fmda_tpu.config`` (field names, defaults
 and the config -> schema codegen of :class:`FeatureConfig`), cut to what
 the ported paths read: the feature schema, the warehouse, the model, the
-training config, the fleet runtime config (without ``shard_pool``) and
-the quality plane's knobs (only ``drift_bins`` has a reader yet).  A
+training config, the fleet runtime config (without ``shard_pool``), the
+quality plane's knobs and the observability plane's (``observability``,
+``tracing``, ``profiling`` without ``cost_analysis``).  A
 JSON file that ``fmda_tpu.config.save_config`` wrote loads here too, and
 a file the reference would refuse is refused: :func:`config_from_dict`
 checks every section and key against :data:`REFERENCE_KEYS`, the
@@ -424,13 +425,14 @@ class RuntimeConfig:
 class QualityConfig:
     """The model-quality plane's knobs, with ``fmda_tpu``'s defaults.
 
-    Only ``drift_bins`` is read so far: the quantile bins of the drift
-    reference profile that ``train`` and the continuous loop write beside
-    each checkpoint (:mod:`fmda_tpu_torch.eval.drift`).  The rest wait
-    for their readers: ``enabled`` through ``drift_min_samples`` and
-    ``profile_path`` for the label-join evaluator (``obs/quality.py``,
-    ROADMAP queue 1 item 5), the three ``swap_*`` fields for the hot-swap
-    guardrail (``eval/shadow.py``, items 5 and 7)."""
+    ``drift_bins`` sizes the quantile bins of the drift reference
+    profile that ``train`` and the continuous loop write beside each
+    checkpoint (:mod:`fmda_tpu_torch.eval.drift`); ``enabled`` through
+    ``max_join_attempts`` drive the label-join evaluator
+    (:mod:`fmda_tpu_torch.obs.quality`).  The three ``swap_*`` fields,
+    ``drift_min_samples`` and ``profile_path`` wait for the hot-swap
+    guardrail (``eval/shadow.py``, ROADMAP queue 1 item 3, which waits on
+    item 7's ``replay/``)."""
 
     #: Master switch for the quality plane (capture + join + drift).
     enabled: bool = True
@@ -515,6 +517,68 @@ class SessionConfig:
 
 
 @dataclass(frozen=True)
+class ObservabilityConfig:
+    """The observability plane's knobs (:mod:`fmda_tpu_torch.obs`): one
+    metrics registry and JSONL event ring, with an optional scrape
+    endpoint."""
+
+    #: False hands out no-op instruments, registers no collectors and
+    #: starts no endpoint.
+    enabled: bool = True
+    #: Serve ``/metrics``, ``/healthz``, ``/snapshot`` ... over HTTP.  Off
+    #: by default so tests and one-shot runs never bind a port
+    #: (``serve-fleet --metrics-port`` turns it on for a run).
+    endpoint_enabled: bool = False
+    host: str = "127.0.0.1"
+    #: 0 = ephemeral (the bound port is logged and on the handle).
+    port: int = 9100
+    #: Bounded event-ring capacity (the oldest events fall off).
+    events_capacity: int = 2048
+    #: Mirror events to this JSONL file; None = ring only.
+    events_path: Optional[str] = None
+    #: ``/healthz`` turns degraded when the newest completed tick is older
+    #: than this (healthy until the first tick).
+    max_tick_age_s: float = 900.0
+
+
+@dataclass(frozen=True)
+class TracingConfig:
+    """End-to-end tick tracing (:mod:`fmda_tpu_torch.obs.trace`).  Off by
+    default: disabled tracing costs one branch on every hot path (submit,
+    flush, bus publish, engine step)."""
+
+    #: Master switch for the process tracer.
+    enabled: bool = False
+    #: Fraction of trace roots sampled in [0, 1]; 1.0 traces every tick.
+    sample_rate: float = 1.0
+    #: Span-ring capacity; overflow evicts the oldest spans.
+    max_spans: int = 16384
+
+
+@dataclass(frozen=True)
+class ProfilingConfig:
+    """The device plane's knobs (:mod:`fmda_tpu_torch.obs.device`, the
+    host profiler of :mod:`fmda_tpu_torch.obs.pyprof`).  The reference's
+    ``cost_analysis`` has no counterpart (the port compiles nothing per
+    shape: the kernel ledger's costs come from each launch's shapes), so
+    the key is accepted and not read."""
+
+    #: Master switch for the kernel ledger and the memory monitor.
+    enabled: bool = True
+    #: Run the continuous host sampling profiler (``/profile``).
+    host_profiler: bool = False
+    #: Host-profiler sampling period (milliseconds).
+    profile_interval_ms: float = 10.0
+    #: Bounded distinct-stack table; overflow folds into ``<other>``.
+    profile_max_stacks: int = 4096
+    #: Device memory sampling cadence (seconds).
+    memory_interval_s: float = 5.0
+    #: Consecutive strictly-growing samples of allocated bytes before the
+    #: leak heuristic raises ``device_memory_leak_suspected``.
+    memory_leak_window: int = 12
+
+
+@dataclass(frozen=True)
 class FrameworkConfig:
     features: FeatureConfig = field(default_factory=FeatureConfig)
     bus: BusConfig = field(default_factory=BusConfig)
@@ -525,6 +589,10 @@ class FrameworkConfig:
     session: SessionConfig = field(default_factory=SessionConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     quality: QualityConfig = field(default_factory=QualityConfig)
+    observability: ObservabilityConfig = field(
+        default_factory=ObservabilityConfig)
+    tracing: TracingConfig = field(default_factory=TracingConfig)
+    profiling: ProfilingConfig = field(default_factory=ProfilingConfig)
 
     def __post_init__(self) -> None:
         if self.model.n_features is None:
@@ -543,6 +611,9 @@ _SECTIONS = {
     "session": SessionConfig,
     "runtime": RuntimeConfig,
     "quality": QualityConfig,
+    "observability": ObservabilityConfig,
+    "tracing": TracingConfig,
+    "profiling": ProfilingConfig,
 }
 
 #: Every section and key ``fmda_tpu.config.config_from_dict`` accepts (the
@@ -556,11 +627,13 @@ _SECTIONS = {
 #:   run on the card) and ``remat``;
 #: - ``runtime``: ``shard_pool`` (sharding the pool's slots across
 #:   devices waits for the port's parallelism);
-#: - ``quality``: read whole into :class:`QualityConfig`, of which only
-#:   ``drift_bins`` has a reader yet;
-#: - the sections ``mesh``, ``fleet``, ``observability``, ``slo``,
-#:   ``tracing``, ``profiling``, ``chaos``, ``control`` and ``replay``
-#:   whole.
+#: - ``quality``: read whole into :class:`QualityConfig`;
+#: - ``profiling``: ``cost_analysis`` (the port compiles nothing per
+#:   shape, so there is no program to analyse: the kernel ledger computes
+#:   each launch's cost from its shapes);
+#: - the sections ``mesh``, ``fleet``, ``slo`` (waits with the fleet
+#:   telemetry, ROADMAP queue 1 item 7), ``chaos``, ``control`` and
+#:   ``replay`` whole.
 REFERENCE_KEYS = {
     "features": (
         "get_cot", "get_vix", "get_stock_volume", "bid_levels", "ask_levels",

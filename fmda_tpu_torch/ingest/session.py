@@ -6,8 +6,14 @@ the OHLCV bar, run the three scrapers, and publish everything onto the feed
 topics.  Clock and sleep are injectable, so a whole trading day replays in
 milliseconds; one feed failing logs a warning and the tick goes on.
 
-Not ported yet: the tick's tracing root span (ROADMAP queue 1, item 5) and
-the per-feed chaos injection point (item 7).
+While the process tracer is enabled, a sampled tick runs inside a
+``session_tick`` root span (stage ``ingest``): every transport GET becomes
+a child span, and every feed message published in the tick carries the
+tick's trace context in-band, so the engine, the warehouse land and
+serving stitch their stages into the same trace.
+
+Not ported yet: the per-feed chaos injection point (ROADMAP queue 1,
+item 7).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from fmda_tpu_torch.config import (
 )
 from fmda_tpu_torch.ingest.clients import AlphaVantageClient, IEXClient, TradierCalendarClient
 from fmda_tpu_torch.ingest.scrapers import COTScraper, EconomicCalendarScraper, VIXScraper
+from fmda_tpu_torch.obs.trace import default_tracer
 from fmda_tpu_torch.stream.bus import MessageBus
 from fmda_tpu_torch.utils.timeutils import forex_market_hours, get_timezone, stock_market_hours
 
@@ -62,6 +69,8 @@ class SessionDriver:
         self.now_fn = now_fn or (lambda: _dt.datetime.now(tz).replace(tzinfo=None))
         self.sleep_fn = sleep_fn
         self.ticks = 0
+        #: the process-default tracer, captured once
+        self._tracer = default_tracer()
 
     # -- market gating -------------------------------------------------------
 
@@ -84,7 +93,12 @@ class SessionDriver:
 
     def run_tick(self) -> Dict[str, bool]:
         """Fetch + publish every enabled feed once; returns per-feed
-        success."""
+        success.  A sampled tick runs inside a ``session_tick`` root
+        span."""
+        with self._tracer.root("session_tick", "ingest"):
+            return self._run_tick()
+
+    def _run_tick(self) -> Dict[str, bool]:
         now = self.now_fn()
         results: Dict[str, bool] = {}
 

@@ -8,8 +8,8 @@ tests and air-gapped deployments.  The live stack
 jittered exponential-backoff retries and a per-host circuit breaker; its
 counters and the request-latency histogram go to the process registry
 (:func:`fmda_tpu_torch.obs.registry.default_registry`) under the
-reference's names (:data:`INGEST_COUNTER_NAMES`).  The tracing spans of a
-request wait for the port's tracer (ROADMAP queue 1, item 5).
+reference's names (:data:`INGEST_COUNTER_NAMES`).  A live request made
+inside an active trace is an ``http_get`` span (stage ``ingest``) of it.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import time as _time
 from typing import Dict, List, Optional, Protocol
 
 from fmda_tpu_torch.obs.registry import default_registry
+from fmda_tpu_torch.obs.trace import default_tracer
 
 log = logging.getLogger("fmda_tpu_torch.ingest")
 
@@ -106,6 +107,7 @@ class UrllibTransport:
         self._m_requests = reg.counter("ingest_requests_total")
         self._m_failures = reg.counter("ingest_request_failures_total")
         self._m_latency = reg.histogram("ingest_request_seconds")
+        self._tracer = default_tracer()
 
     def get(self, url: str, headers: Optional[Dict[str, str]] = None) -> bytes:
         import urllib.error
@@ -118,9 +120,12 @@ class UrllibTransport:
         self._m_requests.inc()
         t0 = _time.perf_counter()
         try:
-            with urllib.request.urlopen(
-                    request, timeout=self.timeout_s) as resp:
-                return resp.read()
+            # span() is the shared no-op singleton when tracing is off or
+            # no trace is active (a one-shot fetch outside a tick)
+            with self._tracer.span("http_get", "ingest"):
+                with urllib.request.urlopen(
+                        request, timeout=self.timeout_s) as resp:
+                    return resp.read()
         except urllib.error.HTTPError as e:  # pragma: no cover - live only
             # carry the status + Retry-After so the retry layer can obey
             # a rate limiter / recovering feed instead of hammering it

@@ -1,0 +1,109 @@
+"""Structured JSONL event log with a bounded ring buffer, as
+``fmda_tpu.obs.events`` defines it.
+
+Metrics answer "how much / how fast"; events answer "what happened when"
+— a fleet attach, a tick crash, a health flip.  :class:`EventLog` keeps
+the newest ``capacity`` events in memory (a deque — old events fall off,
+the log can never grow a long-running daemon out of memory) and can
+mirror every event to a JSONL file for offline tooling (``jq``, Loki,
+a spreadsheet).
+
+Event schema (one JSON object per line):
+
+    {"ts": <unix seconds, float>, "kind": "<event-kind>", ...fields}
+
+``kind`` is a short dot-separated identifier (``app.tick_error``,
+``fleet.attached``, ``obs.server_started``); all other fields are
+caller-supplied and must be JSON-serialisable.  Events emitted while a
+trace span is active (:mod:`fmda_tpu_torch.obs.trace`) are stamped with that
+span's ``trace_id``, so ``/events?trace_id=...`` correlates the event
+stream with a specific tick's trace.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+from fmda_tpu_torch.obs.trace import current_trace_id
+
+
+class EventLog:
+    """Bounded in-memory event ring + optional JSONL file sink."""
+
+    def __init__(
+        self,
+        capacity: int = 2048,
+        path: Optional[str] = None,
+        clock=time.time,
+    ) -> None:
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self.path = path
+        self.clock = clock
+        self._ring: deque = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self._fh = open(path, "a", buffering=1) if path else None
+        self.emitted = 0  # total ever emitted (ring only holds the tail)
+
+    def emit(self, kind: str, **fields) -> Dict[str, object]:
+        """Record one event; returns the event dict (already serialised
+        to the file sink when one is configured, so a crash right after
+        ``emit`` still leaves the line on disk)."""
+        event: Dict[str, object] = {"ts": self.clock(), "kind": kind}
+        event.update(fields)
+        if "trace_id" not in event:
+            # one ContextVar read; only ever non-None while a tracer
+            # span is active on this thread/task
+            tid = current_trace_id()
+            if tid is not None:
+                event["trace_id"] = tid
+        line = json.dumps(event)  # serialise outside the lock; also
+        # rejects non-JSON payloads before they poison the ring
+        with self._lock:
+            self._ring.append(event)
+            self.emitted += 1
+            if self._fh is not None:
+                self._fh.write(line + "\n")
+        return event
+
+    def tail(
+        self,
+        n: Optional[int] = None,
+        *,
+        trace_id: Optional[str] = None,
+    ) -> List[Dict[str, object]]:
+        """Newest-last copy of the ring (all of it, or the last ``n``),
+        optionally filtered to one trace's events."""
+        with self._lock:
+            events = list(self._ring)
+        if trace_id is not None:
+            events = [e for e in events if e.get("trace_id") == trace_id]
+        return events if n is None else events[-n:]
+
+    def to_jsonl(self, *, trace_id: Optional[str] = None) -> str:
+        """The ring as JSONL text (the ``/events`` wire form)."""
+        events = self.tail(trace_id=trace_id)
+        return "\n".join(json.dumps(e) for e in events) + (
+            "\n" if events else ""
+        )
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+
+    def __len__(self) -> int:
+        # lock-free: deque len is GIL-atomic; scrape-time skew tolerated
+        return len(self._ring)
+
+    def __enter__(self) -> "EventLog":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

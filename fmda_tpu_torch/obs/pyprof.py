@@ -1,0 +1,215 @@
+"""Continuous host sampling profiler (stdlib only), as
+``fmda_tpu.obs.pyprof`` defines it.
+
+Serving hosts burn CPU in places no device counter sees: codec work,
+bus framing, the gateway compose loop, GIL convoys.  This module is a
+low-duty-cycle sampling profiler over ``sys._current_frames()``:
+
+- a daemon thread wakes every ``interval_ms``, snapshots every live
+  thread's Python stack, and folds it into **flamegraph-collapsed**
+  form (``thread;root;...;leaf count`` lines — the format every
+  flamegraph tool ingests directly, and round-trippable via
+  :meth:`HostProfiler.parse_folded`);
+- stacks are attributed to pipeline **stages** through the
+  ``THREAD_STAGES`` thread-name prefix table (the repo names its
+  service threads ``fmda-<role>-...``), so an SLO postmortem answers
+  "where was the host" without reading frames;
+- the distinct-stack table is bounded (``max_stacks``): overflow
+  folds into an ``<other>`` bucket and is counted, never dropped
+  silently.
+
+Exported at ``/profile`` (text exposition).  Cost: sampling is
+O(live threads × stack depth) per tick at 100 Hz by default, and the
+sampler holds the GIL while it walks the stacks: ``chip_smoke.py``'s
+``obs`` phase measures its share of the fleet's hot loop apart from the
+kernel ledger's.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+#: thread-name prefix -> pipeline stage attribution (first match wins)
+THREAD_STAGES: Tuple[Tuple[str, str], ...] = (
+    ("fmda-bus", "bus"),
+    ("fmda-batch", "gateway"),
+    ("fmda-fleet", "fleet"),
+    ("fmda-obs", "observability"),
+    ("fmda-profiler", "profiler"),
+    ("MainThread", "main"),
+)
+
+#: the bounded-table overflow bucket
+OTHER_BUCKET = "<other>"
+
+
+def thread_stage(name: str) -> str:
+    for prefix, stage in THREAD_STAGES:
+        if name.startswith(prefix):
+            return stage
+    return "other"
+
+
+class HostProfiler:
+    """Continuous ``sys._current_frames()`` stack sampler."""
+
+    def __init__(self, *, interval_ms: float = 10.0,
+                 max_stacks: int = 4096, max_depth: int = 64) -> None:
+        self.interval_ms = float(interval_ms)
+        self.max_stacks = int(max_stacks)
+        self.max_depth = int(max_depth)
+        self._lock = threading.Lock()
+        self._stacks: Dict[str, int] = {}
+        self._stages: Dict[str, int] = {}
+        self._samples = 0
+        self._overflowed = 0
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    # -- lifecycle -----------------------------------------------------------
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def start(self) -> None:
+        if self.running:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="fmda-profiler")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+        self._thread = None
+
+    def _run(self) -> None:
+        interval = max(self.interval_ms, 1.0) / 1e3
+        while not self._stop.wait(interval):
+            self.sample_once()
+
+    # -- sampling ------------------------------------------------------------
+
+    @staticmethod
+    def _frame_label(frame) -> str:
+        co = frame.f_code
+        module = frame.f_globals.get("__name__") or co.co_filename
+        return f"{module}:{co.co_name}"
+
+    def sample_once(self) -> int:
+        """Snapshot every live thread's stack once.  Returns the
+        number of stacks folded in (also callable directly from tests
+        — no daemon thread required)."""
+        me = threading.get_ident()
+        names = {t.ident: t.name for t in threading.enumerate()}
+        try:
+            frames = sys._current_frames()
+        except Exception:  # noqa: BLE001 — loss-free: a runtime
+            # without the hook simply yields no samples; the profiler
+            # stays quiet rather than killing its own thread
+            return 0
+        folded: List[Tuple[str, str]] = []
+        for tid, frame in frames.items():
+            if tid == me:
+                continue
+            name = names.get(tid, f"tid-{tid}")
+            parts: List[str] = []
+            f = frame
+            while f is not None and len(parts) < self.max_depth:
+                parts.append(self._frame_label(f))
+                f = f.f_back
+            parts.reverse()  # folded form is root-first
+            folded.append((name, f"{name};" + ";".join(parts)))
+        with self._lock:
+            for name, key in folded:
+                self._stages[thread_stage(name)] = \
+                    self._stages.get(thread_stage(name), 0) + 1
+                if key in self._stacks or len(self._stacks) < self.max_stacks:
+                    self._stacks[key] = self._stacks.get(key, 0) + 1
+                else:
+                    self._stacks[OTHER_BUCKET] = \
+                        self._stacks.get(OTHER_BUCKET, 0) + 1
+                    self._overflowed += 1
+            self._samples += 1
+        return len(folded)
+
+    # -- export --------------------------------------------------------------
+
+    def folded(self) -> str:
+        """The flamegraph-collapsed exposition: one ``stack count``
+        line per distinct stack, hottest first."""
+        with self._lock:
+            items = sorted(self._stacks.items(),
+                           key=lambda kv: (-kv[1], kv[0]))
+        return "".join(f"{stack} {count}\n" for stack, count in items)
+
+    @staticmethod
+    def parse_folded(text: str) -> Dict[str, int]:
+        """Inverse of :meth:`folded` (round-trip pinned in tests)."""
+        out: Dict[str, int] = {}
+        for line in text.splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            stack, _, count = line.rpartition(" ")
+            if not stack:
+                continue
+            out[stack] = out.get(stack, 0) + int(count)
+        return out
+
+    def hottest(self, n: int = 10) -> List[Tuple[str, int]]:
+        with self._lock:
+            items = sorted(self._stacks.items(),
+                           key=lambda kv: (-kv[1], kv[0]))
+        return items[:n]
+
+    def stage_summary(self) -> Dict[str, int]:
+        """Samples attributed per pipeline stage (THREAD_STAGES)."""
+        with self._lock:
+            return dict(self._stages)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._stacks = {}
+            self._stages = {}
+            self._samples = 0
+            self._overflowed = 0
+
+    def families(self) -> Dict[str, List[Dict[str, object]]]:
+        """Scrape-time collector (registry snapshot shape)."""
+        with self._lock:
+            samples = self._samples
+            overflowed = self._overflowed
+            stages = dict(self._stages)
+            distinct = len(self._stacks)
+        counters = [
+            {"name": "profile_samples_total", "labels": {},
+             "value": samples},
+            {"name": "profile_stacks_overflowed_total", "labels": {},
+             "value": overflowed},
+        ]
+        for stage, n in sorted(stages.items()):
+            counters.append({
+                "name": "profile_stage_samples_total",
+                "labels": {"stage": stage},
+                "value": n,
+            })
+        gauges = [
+            {"name": "profile_distinct_stacks", "labels": {},
+             "value": distinct},
+        ]
+        return {"counters": counters, "gauges": gauges}
+
+
+_DEFAULT = HostProfiler()
+
+
+def default_profiler() -> HostProfiler:
+    return _DEFAULT

@@ -1,29 +1,32 @@
-"""Process-wide metrics registry, as ``fmda_tpu.obs.registry`` defines
-it: one vocabulary for the instruments of the port.
+"""Process-wide metrics registry, as ``fmda_tpu.obs.registry`` defines it:
+one vocabulary for the instruments of the port.
 
 A :class:`MetricsRegistry` holds every instrument under one namespace:
 
-- :class:`Counter`: monotonic totals (training epochs, continuous rounds,
-  hot swaps by outcome);
-- :class:`Gauge`: last-observed values;
+- :class:`Counter`: monotonic totals (requests, retries, rows landed);
+- :class:`Gauge`: last-observed values (queue depth, pending joins);
 - :class:`LatencyHistogram`: a fixed log-spaced latency distribution
   (the fleet runtime's per-stage latencies are built on it), thread-safe
-  with ``snapshot()``/``merge()`` for cross-thread aggregation.
+  with ``snapshot()``/``merge()`` for cross-thread aggregation;
+- **collectors**: callables sampled at snapshot time, for state that is
+  cheaper to read on a scrape than to push on every hot-loop iteration
+  (engine lag, the runtime's instruments, the kernel ledger).
 
-Instruments are cheap enough for hot loops (one lock acquisition per
-update).  The exporters (the Prometheus text, the ``/snapshot``
-endpoint, ``status``) are not ported yet; they read
-:meth:`MetricsRegistry.snapshot`.
-"""
+The exporters read :meth:`MetricsRegistry.snapshot`:
+:func:`fmda_tpu_torch.obs.prometheus.render_prometheus` renders the text
+exposition, the ``/snapshot`` endpoint and ``python -m fmda_tpu_torch
+status`` serve and print the JSON form.
+
+Cost discipline: instruments are plain Python objects with one small lock
+each (a hot-loop update is a lock acquire plus a float add or a bin
+update), and a registry constructed with ``enabled=False`` hands out
+shared no-op instruments, so a disabled plane costs one attribute call."""
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, List, Optional, Tuple
-
-__all__ = ["Counter", "Gauge", "LatencyHistogram", "MetricsRegistry",
-           "default_registry"]
+from typing import Callable, Dict, List, Optional, Tuple
 
 #: snapshot sample: {"name": str, "labels": {k: v}, ...value fields}
 Sample = Dict[str, object]
@@ -33,12 +36,18 @@ Snapshot = Dict[str, List[Sample]]
 _LabelKey = Tuple[Tuple[str, str], ...]
 
 
+def _log():
+    import logging
+
+    return logging.getLogger("fmda_tpu_torch.obs")
+
+
 def _label_key(labels: Dict[str, str]) -> _LabelKey:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
 
 class Counter:
-    """Monotonic counter (float deltas allowed, e.g. seconds waited)."""
+    """Monotonic counter (float deltas allowed — e.g. seconds waited)."""
 
     __slots__ = ("name", "labels", "_value", "_lock")
 
@@ -54,11 +63,12 @@ class Counter:
 
     @property
     def value(self) -> float:
-        # a GIL-atomic float read: pollers tolerate skew
+        # hot-loop callers poll this between updates and tolerate skew
+        # lock-free: GIL-atomic float read
         return self._value
 
     def sample(self) -> Sample:
-        with self._lock:  # a scrape must not tear against inc()
+        with self._lock:  # scrape reads must not tear against inc()
             return {"name": self.name, "labels": self.labels,
                     "value": self._value}
 
@@ -80,10 +90,11 @@ class Gauge:
 
     @property
     def value(self) -> float:
+        # lock-free: GIL-atomic float read (see Counter.value)
         return self._value
 
     def sample(self) -> Sample:
-        with self._lock:
+        with self._lock:  # scrape reads must not tear against set()
             return {"name": self.name, "labels": self.labels,
                     "value": self._value}
 
@@ -123,7 +134,8 @@ class LatencyHistogram:
 
     @classmethod
     def bin_upper_edge(cls, b: int) -> float:
-        """Upper edge (seconds) of bin ``b``."""
+        """Upper edge (seconds) of bin ``b`` — the ``le`` bound exemplar
+        export keys on (the tracer's sample-linked exemplars)."""
         return 10.0 ** (cls._LO_EXP + (b + 1) / cls.BINS_PER_DECADE)
 
     def observe(self, seconds: float) -> None:
@@ -199,7 +211,7 @@ class LatencyHistogram:
             self.max_s = max(self.max_s, snap["max_s"])
         return self
 
-    def sample(self) -> Dict[str, object]:
+    def sample(self) -> Sample:
         with self._lock:
             return {
                 "name": self.name,
@@ -209,60 +221,188 @@ class LatencyHistogram:
                 "max_s": self.max_s,
                 "p50_s": self._percentile_locked(50),
                 "p99_s": self._percentile_locked(99),
-                # raw bin counts ride the sample so it stays mergeable:
-                # the summary quantiles above cannot be merged after the
-                # fact
+                # raw bin counts ride the sample so a scraped /snapshot
+                # stays MERGEABLE: the fleet aggregator diffs cumulative
+                # snapshots into window distributions and folds them
+                # across workers — the
+                # summary quantiles above cannot be merged after the fact
                 "counts": list(self.counts),
             }
 
 
+class _NullInstrument:
+    """Shared no-op stand-in handed out by a disabled registry: every
+    update is one attribute lookup + a pass, every read is zero."""
+
+    __slots__ = ()
+    name = ""
+    labels: Dict[str, str] = {}
+    value = 0.0
+    n = 0
+
+    def inc(self, delta: float = 1.0) -> None:
+        pass
+
+    def set(self, value: float) -> None:
+        pass
+
+    def observe(self, seconds: float) -> None:
+        pass
+
+    def percentile(self, p: float) -> float:
+        return 0.0
+
+    def summary(self) -> Dict[str, float]:
+        return {}
+
+    def snapshot(self) -> Dict[str, object]:
+        return {"counts": [], "n": 0, "total_s": 0.0, "max_s": 0.0}
+
+    def merge(self, other) -> "_NullInstrument":
+        return self
+
+
+_NULL = _NullInstrument()
+
+
 class MetricsRegistry:
-    """Get-or-create instrument store.
+    """Get-or-create instrument store + snapshot-time collectors.
 
-    ``counter``/``gauge``/``histogram`` return the same instrument for the
-    same ``(name, labels)``: callers keep the handle and update it on the
-    hot path.  The reference's switch-off (``enabled=False``), collectors,
-    ``include`` and ``set_process`` serve its exporters and are not ported
-    with them (ROADMAP queue 1 item 5)."""
+    ``counter``/``gauge``/``histogram`` return the same instrument for
+    the same ``(name, labels)`` — callers cache the handle at
+    construction and update it lock-cheap on the hot path.  Collectors
+    are sampled only inside :meth:`snapshot` (scrape time), the right
+    home for state that is derived rather than accumulated.  A registry
+    can :meth:`include` other registries, so a per-Application registry
+    folds in the process-default one (where module-level instrumentation
+    such as the ingest transports lands).
+    """
 
-    def __init__(self) -> None:
+    def __init__(self, *, enabled: bool = True) -> None:
+        self.enabled = enabled
         self._lock = threading.Lock()
         self._counters: Dict[Tuple[str, _LabelKey], Counter] = {}
         self._gauges: Dict[Tuple[str, _LabelKey], Gauge] = {}
         self._histograms: Dict[Tuple[str, _LabelKey], LatencyHistogram] = {}
+        self._collectors: List[Tuple[str, Callable[[], Snapshot]]] = []
+        self._included: List["MetricsRegistry"] = []
+        self._process: Optional[str] = None
 
-    def _get(self, store: dict, cls, name: str, labels: Dict[str, str]):
-        key = (name, _label_key(labels))
-        with self._lock:
-            inst = store.get(key)
-            if inst is None:
-                inst = store[key] = cls(name, labels)
-        return inst
+    def set_process(self, name: Optional[str]) -> None:
+        """Stamp every exported sample with a ``process`` label (worker
+        id, role) — a multi-process fleet scraped into one Prometheus
+        must not collide series names across its workers.  Applied at
+        snapshot time over instruments, collectors, AND included
+        registries, so the whole process's export is labelled."""
+        self._process = name
+
+    # -- instruments ---------------------------------------------------------
 
     def counter(self, name: str, **labels: str) -> Counter:
-        return self._get(self._counters, Counter, name, labels)
+        if not self.enabled:
+            return _NULL  # type: ignore[return-value]
+        key = (name, _label_key(labels))
+        with self._lock:
+            inst = self._counters.get(key)
+            if inst is None:
+                inst = self._counters[key] = Counter(name, labels)
+        return inst
 
     def gauge(self, name: str, **labels: str) -> Gauge:
-        return self._get(self._gauges, Gauge, name, labels)
+        if not self.enabled:
+            return _NULL  # type: ignore[return-value]
+        key = (name, _label_key(labels))
+        with self._lock:
+            inst = self._gauges.get(key)
+            if inst is None:
+                inst = self._gauges[key] = Gauge(name, labels)
+        return inst
 
     def histogram(self, name: str, **labels: str) -> LatencyHistogram:
-        return self._get(self._histograms, LatencyHistogram, name, labels)
+        if not self.enabled:
+            return _NULL  # type: ignore[return-value]
+        key = (name, _label_key(labels))
+        with self._lock:
+            inst = self._histograms.get(key)
+            if inst is None:
+                inst = self._histograms[key] = LatencyHistogram(name, labels)
+        return inst
+
+    # -- composition ---------------------------------------------------------
+
+    def register_collector(
+        self, name: str, fn: Callable[[], Snapshot]
+    ) -> None:
+        """Register a snapshot-time sampler.  ``fn`` returns a (possibly
+        partial) snapshot dict merged into :meth:`snapshot` output.  A
+        second registration under the same name replaces the first (an
+        Application re-attaching a fleet must not double-report)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._collectors = [
+                (n, f) for n, f in self._collectors if n != name
+            ]
+            self._collectors.append((name, fn))
+
+    def include(self, other: "MetricsRegistry") -> None:
+        """Fold another registry's snapshot into this one's (no copy —
+        sampled live at snapshot time)."""
+        if not self.enabled or other is self:
+            return
+        with self._lock:
+            if other not in self._included:
+                self._included.append(other)
+
+    # -- export --------------------------------------------------------------
 
     def snapshot(self) -> Snapshot:
-        """Every instrument's samples.  Each instrument is consistent
-        under its own lock; skew across instruments is inherent to any
-        scrape."""
+        """One consistent-enough view of every instrument + collector.
+        ("Enough": each instrument is internally consistent under its own
+        lock; cross-instrument skew is inherent to any scrape.)"""
+        out: Snapshot = {"counters": [], "gauges": [], "histograms": []}
+        if not self.enabled:
+            return out
         with self._lock:
             counters = list(self._counters.values())
             gauges = list(self._gauges.values())
             histograms = list(self._histograms.values())
-        return {"counters": [c.sample() for c in counters],
-                "gauges": [g.sample() for g in gauges],
-                "histograms": [h.sample() for h in histograms]}
+            collectors = list(self._collectors)
+            included = list(self._included)
+        out["counters"] = [c.sample() for c in counters]
+        out["gauges"] = [g.sample() for g in gauges]
+        out["histograms"] = [h.sample() for h in histograms]
+        for name, fn in collectors:
+            try:
+                part = fn()
+            except Exception:  # noqa: BLE001 — loss-free: one dead
+                # component (e.g. a closed warehouse) must not take the
+                # whole scrape down; /healthz reports its failure
+                _log().warning(
+                    "metrics collector %r failed; skipped", name,
+                    exc_info=True)
+                continue
+            for kind in out:
+                out[kind].extend(part.get(kind, ()))
+        for reg in included:
+            part = reg.snapshot()
+            for kind in out:
+                out[kind].extend(part.get(kind, ()))
+        if self._process is not None:
+            # rebind, never mutate: instrument samples share the
+            # instrument's own labels dict
+            for kind in out:
+                for s in out[kind]:
+                    labels = s.get("labels") or {}
+                    if "process" not in labels:
+                        s["labels"] = {**labels, "process": self._process}
+        return out
 
 
-#: The process-default registry: instrumentation with no other registry
-#: handed to it (the trainer, the continuous loop) reports here.
+#: The process-default registry.  Module-level instrumentation (ingest
+#: transports, the trainer) that has no Application handle to receive a
+#: registry from reports here; ``Application`` includes it, so one
+#: scrape sees the whole process.
 _DEFAULT = MetricsRegistry()
 
 

@@ -1,0 +1,700 @@
+"""End-to-end tick tracing, as ``fmda_tpu.obs.trace`` defines it: spans,
+in-band context, Perfetto export.
+
+The metrics plane (:mod:`fmda_tpu_torch.obs.registry`) answers "how fast
+is each stage on average"; this module answers "where did tick T spend its
+time".  One tick's journey stitches into a single **trace** across ingest
+transport → bus publish → engine join → warehouse land → fleet gateway
+enqueue → batcher flush → pool dispatch and copy home → result publish:
+
+- a :class:`Tracer` holds a bounded thread-safe ring of finished
+  :class:`Span` records plus trace-level aggregates (an
+  ``e2e_tick_seconds`` histogram and a per-stage attribution table,
+  exported through :func:`tracer_families`);
+- trace context travels **in-band**: a compact ``trace`` field
+  (``"<trace_id>:<span_id>"``) on bus message values, stamped by
+  :func:`stamp_message` (publishers) and read back by consumers;
+- in-process propagation rides a :class:`~contextvars.ContextVar`
+  (:meth:`Tracer.root`/:meth:`Tracer.span` context managers), which is
+  also where :class:`~fmda_tpu_torch.obs.events.EventLog` reads the
+  active ``trace_id`` from;
+- export is Chrome/Perfetto ``trace_event`` JSON (:meth:`Tracer.chrome`,
+  the ``/trace`` endpoint, ``python -m fmda_tpu_torch trace``): load the
+  file at https://ui.perfetto.dev, one lane per pipeline stage.
+
+Cost contract: **disabled tracing costs one branch** on every hot path
+(``tracer.enabled`` is checked first and the no-op context manager and
+``None`` ref are shared singletons, zero allocation).
+
+Span clocks are ``time.perf_counter_ns`` throughout: monotonic and
+ns-resolution, so spans recorded on different threads of one process
+share a timeline and a clock step can never fold a trace back on itself.
+The ids and the span layout are the reference's, so a trace file from
+either package reads the same through either package's ``trace``
+command."""
+
+from __future__ import annotations
+
+import contextvars
+import os
+import random
+import threading
+import time
+from collections import deque
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+from fmda_tpu_torch.obs.registry import LatencyHistogram, Snapshot
+
+#: The one span clock (see module docstring).
+now_ns = time.perf_counter_ns
+
+#: Active (trace_id, span_id) for in-process propagation; only ever set
+#: while a Tracer span context manager is entered, so reading it costs
+#: one ContextVar.get on paths that never trace.
+_CURRENT: contextvars.ContextVar[Optional[Tuple[str, str]]] = (
+    contextvars.ContextVar("fmda_trace_ctx", default=None)
+)
+
+#: Canonical pipeline stages, in journey order — also the Perfetto lane
+#: order.  Unknown stages get lanes after these.
+STAGE_LANES: Tuple[str, ...] = (
+    "ingest", "bus", "engine", "warehouse", "gateway", "pool",
+    "publish", "serve",
+)
+
+
+#: id source: a PRNG seeded once from the OS — NOT uuid4, whose
+#: per-call getrandom syscall costs ~25µs on older kernels, 50x the
+#: whole span-record budget.  getrandbits is a single C call (atomic
+#: under the GIL), ~0.5µs.
+_ID_RNG = random.Random(int.from_bytes(os.urandom(8), "big"))
+
+
+def _new_id() -> str:
+    """16-hex-char random id — compact enough for the in-band wire
+    field, unique enough for a bounded ring."""
+    return f"{_ID_RNG.getrandbits(64):016x}"
+
+
+class TraceRef(NamedTuple):
+    """A begun-but-unfinished root span: what a producer holds on to
+    while its tick is in flight (the fleet gateway keeps one per traced
+    queued tick)."""
+
+    trace_id: str
+    span_id: str
+    t0_ns: int
+
+    @property
+    def wire(self) -> str:
+        return f"{self.trace_id}:{self.span_id}"
+
+
+def parse_wire(wire: str) -> Optional[Tuple[str, str]]:
+    """``"trace_id:span_id"`` -> (trace_id, span_id); None if malformed
+    (a foreign producer's junk must not break the consumer)."""
+    if not isinstance(wire, str):
+        return None
+    trace_id, sep, span_id = wire.partition(":")
+    if not sep or not trace_id or not span_id:
+        return None
+    return trace_id, span_id
+
+
+def current_context() -> Optional[Tuple[str, str]]:
+    """The active (trace_id, span_id), or None."""
+    return _CURRENT.get()
+
+
+def current_trace_id() -> Optional[str]:
+    ctx = _CURRENT.get()
+    return ctx[0] if ctx is not None else None
+
+
+class Span:
+    """One finished timed region of one trace."""
+
+    __slots__ = (
+        "trace_id", "span_id", "parent_id", "name", "stage",
+        "t0_ns", "dur_ns",
+    )
+
+    def __init__(
+        self,
+        trace_id: str,
+        span_id: str,
+        parent_id: Optional[str],
+        name: str,
+        stage: str,
+        t0_ns: int,
+        dur_ns: int,
+    ) -> None:
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.name = name
+        self.stage = stage
+        self.t0_ns = t0_ns
+        self.dur_ns = dur_ns
+
+    def to_dict(self) -> Dict[str, object]:
+        return {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "name": self.name,
+            "stage": self.stage,
+            "t0_ns": self.t0_ns,
+            "dur_ns": self.dur_ns,
+        }
+
+
+class _NullSpanCM:
+    """Shared no-op context manager: what a disabled tracer's
+    ``root()``/``span()`` hand out — one branch, zero allocation."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpanCM":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_CM = _NullSpanCM()
+
+
+class _SpanCM:
+    """Context manager recording one span and exposing its context to
+    the enclosed code (via the module ContextVar)."""
+
+    __slots__ = ("_tracer", "name", "stage", "trace_id", "span_id",
+                 "parent_id", "_t0", "_token")
+
+    def __init__(self, tracer: "Tracer", name: str, stage: str,
+                 trace_id: str, parent_id: Optional[str]) -> None:
+        self._tracer = tracer
+        self.name = name
+        self.stage = stage
+        self.trace_id = trace_id
+        self.span_id = _new_id()
+        self.parent_id = parent_id
+
+    def __enter__(self) -> "_SpanCM":
+        self._t0 = now_ns()
+        self._token = _CURRENT.set((self.trace_id, self.span_id))
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _CURRENT.reset(self._token)
+        t1 = now_ns()
+        self._tracer._record(Span(
+            self.trace_id, self.span_id, self.parent_id,
+            self.name, self.stage, self._t0, t1 - self._t0,
+        ))
+        return False
+
+
+class Tracer:
+    """Bounded span recorder with sampling and trace-level aggregates.
+
+    Thread-safe: one lock around the ring append + aggregate update
+    (span bodies run outside it).  The ring is a ``deque(maxlen=...)``,
+    so overflow evicts the *oldest* spans — a long-running daemon keeps
+    the newest traces and bounded memory; :attr:`recorded` minus
+    ``len(spans())`` says how many fell off.
+    """
+
+    def __init__(
+        self,
+        *,
+        enabled: bool = False,
+        sample_rate: float = 1.0,
+        capacity: int = 16384,
+    ) -> None:
+        self.enabled = enabled
+        self.sample_rate = float(sample_rate)
+        self._ring: deque = deque(maxlen=max(1, int(capacity)))
+        self._lock = threading.Lock()
+        #: deterministic enough for a sampling knob; reseeded per process
+        self._rng = random.Random(os.getpid() ^ 0x5EED)
+        self.recorded = 0       # spans ever recorded (ring holds the tail)
+        self.traces_started = 0
+        self.traces_finished = 0
+        self.e2e = LatencyHistogram("e2e_tick_seconds")
+        #: per-span-name attribution: name -> [total_s, count]
+        self._stage_totals: Dict[str, List[float]] = {}
+        #: sample-linked exemplars: e2e histogram bin -> (trace_id,
+        #: seconds) of the LAST journey landing in that bin — the
+        #: aggregate-to-forensics bridge ("which tick made p99 bad?"):
+        #: /snapshot and /metrics expose the trace id per bucket.
+        self._exemplars: Dict[int, Tuple[str, float]] = {}
+
+    @property
+    def capacity(self) -> int:
+        with self._lock:  # configure() can swap the ring under us
+            return self._ring.maxlen or 0
+
+    def configure(
+        self,
+        *,
+        enabled: Optional[bool] = None,
+        sample_rate: Optional[float] = None,
+        capacity: Optional[int] = None,
+    ) -> "Tracer":
+        """Mutate in place (the process-default tracer is captured at
+        module import by the instrumented components, so it must never
+        be *replaced*)."""
+        with self._lock:
+            if enabled is not None:
+                self.enabled = bool(enabled)
+            if sample_rate is not None:
+                self.sample_rate = float(sample_rate)
+            if capacity is not None and capacity != self._ring.maxlen:
+                self._ring = deque(self._ring, maxlen=max(1, int(capacity)))
+        return self
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self._stage_totals.clear()
+            self._exemplars.clear()
+            self.recorded = 0
+            self.traces_started = 0
+            self.traces_finished = 0
+            self.e2e = LatencyHistogram("e2e_tick_seconds")
+
+    # -- recording ------------------------------------------------------------
+
+    def _sampled(self) -> bool:
+        # a configure() race skews at most one sampling draw
+        # lock-free: GIL-atomic read of a config float on the hot path
+        return (self.sample_rate >= 1.0
+                or self._rng.random() < self.sample_rate)
+
+    def _record(self, span: Span, *, e2e: bool = False) -> None:
+        seconds = span.dur_ns / 1e9
+        with self._lock:
+            self._ring.append(span)
+            self.recorded += 1
+            acc = self._stage_totals.get(span.name)
+            if acc is None:
+                acc = self._stage_totals[span.name] = [0.0, 0]
+            acc[0] += seconds
+            acc[1] += 1
+            if span.parent_id is None:
+                self.traces_finished += 1
+            if e2e:
+                # exemplar: the last trace id to land in this latency
+                # bucket (keyed on the e2e histogram's own binning)
+                self._exemplars[self.e2e._bin(seconds)] = (
+                    span.trace_id, seconds)
+        if e2e:
+            # only roots closed via finish_root feed e2e_tick_seconds:
+            # those close AT the journey's end (the fleet publish), so
+            # their duration IS the end-to-end latency.  Context-manager
+            # roots (e.g. session_tick) close before downstream stages
+            # attach, so their duration would understate the journey.
+            # the histogram carries its own lock — never nest it under
+            # ours; a clear() race loses at most one observation
+            # lock-free: e2e observe deliberately outside the ring lock
+            self.e2e.observe(seconds)
+
+    def maybe_trace(self) -> Optional[TraceRef]:
+        """Begin a sampled trace for an asynchronous journey (the fleet
+        gateway holds the ref while the tick is queued/in flight and
+        closes it with :meth:`finish_root` at publish).  Returns None —
+        no allocation past the sampling draw — when disabled or
+        unsampled: **the** one-branch hot-path check.
+        """
+        if not self.enabled or not self._sampled():  # lock-free: THE
+            # one-branch disabled-path check (GIL-atomic bool read)
+            return None
+        with self._lock:  # two gateways starting ticks must not lose
+            # a count to a torn read-modify-write
+            self.traces_started += 1
+        return TraceRef(_new_id(), _new_id(), now_ns())
+
+    def finish_root(self, ref: TraceRef, name: str, stage: str,
+                    t_end_ns: int) -> None:
+        """Close a :meth:`maybe_trace` root: records the root span and
+        feeds the ``e2e_tick_seconds`` histogram (these roots close at
+        the journey's end, so their duration is the e2e latency)."""
+        self._record(Span(
+            ref.trace_id, ref.span_id, None, name, stage,
+            ref.t0_ns, t_end_ns - ref.t0_ns,
+        ), e2e=True)
+
+    def add_span(self, trace_id: str, parent_id: Optional[str], name: str,
+                 stage: str, t0_ns: int, t1_ns: int) -> str:
+        """Record an already-measured child span; returns its span id
+        (so further children can nest under it)."""
+        span_id = _new_id()
+        self._record(Span(
+            trace_id, span_id, parent_id, name, stage, t0_ns,
+            max(t1_ns - t0_ns, 0),
+        ))
+        return span_id
+
+    def add_span_wire(self, wire: str, name: str, stage: str,
+                      t0_ns: int, t1_ns: int) -> Optional[str]:
+        """:meth:`add_span` parented on an in-band ``trace`` field (a
+        consumer stitching its stage into the publisher's trace)."""
+        ctx = parse_wire(wire)
+        if ctx is None:
+            return None
+        return self.add_span(ctx[0], ctx[1], name, stage, t0_ns, t1_ns)
+
+    # -- context-manager spans ------------------------------------------------
+
+    def root(self, name: str, stage: str = "ingest"):
+        """New sampled trace scoping the enclosed code (sets the
+        ContextVar, so nested :meth:`span` calls and bus publishes
+        inherit it).  No-op singleton when disabled/unsampled."""
+        if not self.enabled or not self._sampled():  # lock-free: the
+            # one-branch disabled-path check (GIL-atomic bool read)
+            return _NULL_CM
+        with self._lock:  # see maybe_trace — counted, not torn
+            self.traces_started += 1
+        return _SpanCM(self, name, stage, _new_id(), None)
+
+    def span(self, name: str, stage: str):
+        """Child span of the *active* context; no-op singleton when
+        disabled or when no trace is active (never creates orphans)."""
+        if not self.enabled:  # lock-free: one-branch disabled path
+            return _NULL_CM
+        ctx = _CURRENT.get()
+        if ctx is None:
+            return _NULL_CM
+        return _SpanCM(self, name, stage, ctx[0], ctx[1])
+
+    # -- export ---------------------------------------------------------------
+
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._ring)
+
+    def traces(self) -> Dict[str, List[Span]]:
+        """Ring contents grouped by trace id (insertion order kept)."""
+        out: Dict[str, List[Span]] = {}
+        for s in self.spans():
+            out.setdefault(s.trace_id, []).append(s)
+        return out
+
+    def chrome(self) -> Dict[str, object]:
+        """The ring as Chrome/Perfetto ``trace_event`` JSON (see
+        :func:`chrome_trace`)."""
+        return chrome_trace(self.spans())
+
+    def families(self) -> Snapshot:
+        """Registry samples: the ``e2e_tick_seconds`` histogram plus the
+        per-stage attribution table (``trace_stage_seconds_total`` /
+        ``trace_stage_count`` keyed by span name) and ring gauges — what
+        ``/snapshot`` and ``python -m fmda_tpu_torch status`` show."""
+        out: Snapshot = {"counters": [], "gauges": [], "histograms": []}
+        if not self.enabled:  # lock-free: one-branch disabled path
+            return out
+        with self._lock:
+            totals = {k: tuple(v) for k, v in self._stage_totals.items()}
+            buffered = len(self._ring)
+            recorded = self.recorded
+            started = self.traces_started
+            finished = self.traces_finished
+            exemplars = dict(self._exemplars)
+            e2e = self.e2e  # clear() swaps the histogram; pin one
+        for name in sorted(totals):
+            total_s, count = totals[name]
+            out["counters"].append({
+                "name": "trace_stage_seconds_total",
+                "labels": {"stage": name}, "value": total_s,
+            })
+            out["counters"].append({
+                "name": "trace_stage_count",
+                "labels": {"stage": name}, "value": count,
+            })
+        out["counters"].append(
+            {"name": "trace_spans_total", "labels": {}, "value": recorded})
+        out["counters"].append(
+            {"name": "traces_started_total", "labels": {}, "value": started})
+        out["counters"].append(
+            {"name": "traces_finished_total", "labels": {},
+             "value": finished})
+        out["gauges"].append(
+            {"name": "trace_spans_buffered", "labels": {},
+             "value": buffered})
+        if e2e.n:
+            s = e2e.sample()
+            # sample-linked exemplars: sparse cumulative buckets (only
+            # the occupied bins + the implicit +Inf — cumulative counts
+            # stay exact over a sparse `le` series) with the last trace
+            # id per bucket.  /snapshot serves this verbatim; the
+            # Prometheus renderer switches this one series to histogram
+            # exposition with OpenMetrics exemplar syntax.
+            snap = e2e.snapshot()
+            buckets = []
+            cum = 0
+            for b, c in enumerate(snap["counts"]):
+                cum += c
+                if not c:
+                    continue
+                entry: Dict[str, object] = {
+                    "le": round(LatencyHistogram.bin_upper_edge(b), 9),
+                    "count": cum,
+                }
+                if b in exemplars:
+                    tid, secs = exemplars[b]
+                    entry["exemplar"] = {
+                        "trace_id": tid, "value_s": round(secs, 9)}
+                buckets.append(entry)
+            buckets.append({"le": "+Inf", "count": snap["n"]})
+            s["buckets"] = buckets
+            out["histograms"].append(s)
+        return out
+
+
+#: The process-default tracer — **disabled** until an entry point (such as
+#: ``serve-fleet --trace``) configures it.  Instrumented components
+#: capture this singleton at construction; ``configure_tracing`` mutates
+#: it in place so those captures stay live.
+_DEFAULT = Tracer()
+
+
+def default_tracer() -> Tracer:
+    return _DEFAULT
+
+
+def configure_tracing(
+    *,
+    enabled: Optional[bool] = None,
+    sample_rate: Optional[float] = None,
+    capacity: Optional[int] = None,
+) -> Tracer:
+    """Configure the process-default tracer (in place); returns it."""
+    return _DEFAULT.configure(
+        enabled=enabled, sample_rate=sample_rate, capacity=capacity)
+
+
+def tracer_families(tracer: Optional[Tracer] = None) -> Snapshot:
+    """Scrape-time collector for a tracer (the default one if None) —
+    the same shape as :func:`fmda_tpu_torch.obs.observability.runtime_families`."""
+    return (tracer if tracer is not None else _DEFAULT).families()
+
+
+def stamp_message(value: dict) -> dict:
+    """Inject the *active* trace context into a bus message value as the
+    compact ``trace`` field (copy-on-write: the caller's dict is never
+    mutated).  A message that already carries ``trace`` — e.g. stamped
+    per-tick by the fleet gateway — keeps its own.  One enabled-check
+    branch when tracing is off."""
+    if not _DEFAULT.enabled:
+        return value
+    ctx = _CURRENT.get()
+    if ctx is None or "trace" in value:
+        return value
+    return {**value, "trace": f"{ctx[0]}:{ctx[1]}"}
+
+
+def stamp_messages(values):
+    """Batch form of :func:`stamp_message` for ``publish_many``: when no
+    trace is active (the fleet gateway pre-stamps per tick, so its
+    publishes carry no ambient context) the caller's sequence is
+    returned untouched — no per-message work at all."""
+    if not _DEFAULT.enabled:
+        return values
+    ctx = _CURRENT.get()
+    if ctx is None:
+        return values
+    wire = f"{ctx[0]}:{ctx[1]}"
+    return [v if "trace" in v else {**v, "trace": wire} for v in values]
+
+
+# ---------------------------------------------------------------------------
+# Chrome/Perfetto trace_event export + trace reconstruction
+# ---------------------------------------------------------------------------
+
+
+def _lane(stage: str, extra: Dict[str, int]) -> int:
+    """Stable small ``tid`` per stage so Perfetto renders one lane per
+    pipeline stage."""
+    try:
+        return STAGE_LANES.index(stage) + 1
+    except ValueError:  # loss-free: unknown stage gets a fresh lane
+        return extra.setdefault(stage, len(STAGE_LANES) + 1 + len(extra))
+
+
+def chrome_trace(spans: List[Span]) -> Dict[str, object]:
+    """Spans -> Chrome ``trace_event`` JSON (Perfetto-loadable).
+
+    Complete events (``"ph": "X"``) with µs timestamps off the
+    ``perf_counter_ns`` timeline (monotonic by construction; events are
+    additionally sorted by ``ts``), one ``tid`` lane per stage, and the
+    trace/span/parent ids in ``args`` so tooling — including
+    ``python -m fmda_tpu_torch trace`` — can reassemble traces exactly.
+    """
+    pid = os.getpid()
+    extra_lanes: Dict[str, int] = {}
+    events: List[Dict[str, object]] = []
+    lanes_seen: Dict[int, str] = {}
+    for s in spans:
+        tid = _lane(s.stage, extra_lanes)
+        lanes_seen.setdefault(tid, s.stage)
+        events.append({
+            "name": s.name,
+            "cat": s.stage,
+            "ph": "X",
+            "ts": s.t0_ns / 1e3,
+            "dur": s.dur_ns / 1e3,
+            "pid": pid,
+            "tid": tid,
+            "args": {
+                "trace_id": s.trace_id,
+                "span_id": s.span_id,
+                "parent_id": s.parent_id,
+            },
+        })
+    events.sort(key=lambda e: e["ts"])
+    meta = [
+        {
+            "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+            "args": {"name": f"stage:{stage}"},
+        }
+        for tid, stage in sorted(lanes_seen.items())
+    ]
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+
+
+def group_chrome_traces(doc: Dict[str, object]) -> List[Dict[str, object]]:
+    """Chrome trace JSON -> per-trace summaries, ordered by root start.
+
+    Each summary: ``trace_id``, ``root`` (name), ``e2e_ms``, ``spans``
+    (count), ``start_ms``, and ``stages`` — the root's direct children
+    in time order as ``(name, stage, offset_ms, dur_ms)`` rows, the
+    per-stage latency attribution ``python -m fmda_tpu_torch trace`` prints.
+
+    ``e2e_ms`` is the **journey extent**: root start to the latest end
+    of *any* span in the trace.  For fleet ticks (children tile the
+    root) that equals the root's duration; for app-tick journeys the
+    ``session_tick`` root closes when ingestion ends while the engine/
+    serve spans attach later — the extent covers them, so stage shares
+    stay meaningful (gaps between stages, e.g. bus queueing, simply
+    leave the sum below 100%).
+    """
+    by_trace: Dict[str, List[dict]] = {}
+    for ev in doc.get("traceEvents", ()):
+        if ev.get("ph") != "X":
+            continue
+        args = ev.get("args") or {}
+        tid = args.get("trace_id")
+        if not tid:
+            continue
+        by_trace.setdefault(tid, []).append(ev)
+    out: List[Dict[str, object]] = []
+    for trace_id, evs in by_trace.items():
+        roots = [e for e in evs if not (e["args"].get("parent_id"))]
+        if not roots:
+            continue
+        root = min(roots, key=lambda e: e["ts"])
+        root_sid = root["args"].get("span_id")
+        children = sorted(
+            (e for e in evs if e["args"].get("parent_id") == root_sid),
+            key=lambda e: e["ts"],
+        )
+        extent = max(e["ts"] + e["dur"] for e in evs) - root["ts"]
+        out.append({
+            "trace_id": trace_id,
+            "root": root["name"],
+            "start_ms": root["ts"] / 1e3,
+            "e2e_ms": extent / 1e3,
+            "spans": len(evs),
+            "stages": [
+                (
+                    e["name"], e.get("cat", ""),
+                    (e["ts"] - root["ts"]) / 1e3, e["dur"] / 1e3,
+                )
+                for e in children
+            ],
+        })
+    out.sort(key=lambda t: t["start_ms"])
+    return out
+
+
+def merge_chrome_traces(docs: List[Dict[str, object]]) -> Dict[str, object]:
+    """Stitch per-process ``--trace-out`` files into ONE Perfetto trace.
+
+    Trace/span ids are process-agnostic (the in-band ``trace`` field
+    crosses the bus), but span rings are per-process and each process's
+    ``perf_counter_ns`` timeline has its own arbitrary epoch.  This
+    merges the documents by **trace id**: every later document's
+    timeline is shifted so journeys shared with the first document line
+    up (per shared trace, the delta between the two files' earliest
+    span; the median delta across shared traces is the offset — robust
+    to one skewed journey).  Documents sharing no trace ids are
+    concatenated unshifted (nothing to align on — their relative offset
+    is unknowable without a shared clock, and Perfetto still renders
+    them on distinct pid lanes).
+
+    The result groups cleanly: a consumer process's spans (parented via
+    ``add_span_wire``) land under the producer process's root, so
+    ``python -m fmda_tpu_torch trace`` attributes the full cross-process
+    journey.
+    """
+    merged: List[Dict[str, object]] = []
+    base_starts: Dict[str, float] = {}
+    for doc in docs:
+        starts: Dict[str, float] = {}
+        for ev in doc.get("traceEvents", ()):
+            if ev.get("ph") != "X":
+                continue
+            tid = (ev.get("args") or {}).get("trace_id")
+            if not tid:
+                continue
+            ts = float(ev["ts"])
+            if tid not in starts or ts < starts[tid]:
+                starts[tid] = ts
+        shared = sorted(set(base_starts) & set(starts))
+        if shared:
+            deltas = sorted(base_starts[t] - starts[t] for t in shared)
+            offset = deltas[len(deltas) // 2]
+        else:
+            offset = 0.0
+        for ev in doc.get("traceEvents", ()):
+            if offset and ev.get("ph") == "X":
+                ev = {**ev, "ts": float(ev["ts"]) + offset}
+            merged.append(ev)
+        for tid, ts in starts.items():
+            aligned = ts + offset
+            if tid not in base_starts or aligned < base_starts[tid]:
+                base_starts[tid] = aligned
+    meta = [e for e in merged if e.get("ph") == "M"]
+    events = sorted(
+        (e for e in merged if e.get("ph") != "M"),
+        key=lambda e: float(e.get("ts", 0.0)))
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+
+
+def format_trace(t: Dict[str, object]) -> str:
+    """Human-readable per-stage breakdown of one grouped trace."""
+    e2e_ms = t["e2e_ms"]
+    lines = [
+        f"trace {t['trace_id']}  root={t['root']}  "
+        f"e2e={e2e_ms:.3f}ms  spans={t['spans']}"
+    ]
+    stages = t["stages"]
+    if not stages:
+        lines.append("  (no stage spans recorded)")
+        return "\n".join(lines)
+    lines.append(
+        f"  {'stage':<10} {'span':<14} {'offset_ms':>10} "
+        f"{'dur_ms':>9} {'share':>7}")
+    total = 0.0
+    for name, stage, offset_ms, dur_ms in stages:
+        total += dur_ms
+        share = (dur_ms / e2e_ms * 100.0) if e2e_ms > 0 else 0.0
+        lines.append(
+            f"  {stage:<10} {name:<14} {offset_ms:>10.3f} "
+            f"{dur_ms:>9.3f} {share:>6.1f}%")
+    pct = (total / e2e_ms * 100.0) if e2e_ms > 0 else 0.0
+    lines.append(
+        f"  stages sum {total:.3f}ms = {pct:.1f}% of e2e")
+    return "\n".join(lines)

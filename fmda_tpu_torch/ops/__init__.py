@@ -6,7 +6,10 @@ metrics.
 Each kernel's wrapper adds one to its counter where it launches the
 kernel, and calls :func:`count_launch` beside it; :func:`launch_counts`
 reads the counters, by kernel name, and :func:`thread_launches` the
-launches of the calling thread alone."""
+launches of the calling thread alone.  Around its C call each wrapper also
+makes its C call through :func:`call_booked`, which books the launch in
+the kernel ledger when one is attached (:func:`attach_ledger`; see
+:mod:`fmda_tpu_torch.obs.device`)."""
 
 from __future__ import annotations
 
@@ -58,6 +61,49 @@ def thread_launches() -> int:
     flush's own launches, when a trainer launches kernels from another
     thread at the same time."""
     return getattr(_thread, "launches", 0)
+
+
+#: the kernel ledger the wrappers book their launches into; None (the
+#: default) books nothing
+_ledger = None
+
+
+def attach_ledger(ledger) -> None:
+    """Book every launch from now on into ``ledger`` (an object with
+    ``begin(kernel, signature)`` and ``end(token)``), or into none."""
+    global _ledger
+    _ledger = ledger
+
+
+def book_launch(kernel: str, signature: tuple):
+    """Just before a kernel's C call: book the launch of ``kernel`` with
+    the shapes ``signature`` (its cost's arguments,
+    :data:`fmda_tpu_torch.ops.cost.LAUNCH_COSTS`).  Returns the token
+    :func:`launch_done` takes."""
+    ledger = _ledger
+    if ledger is None:
+        return None
+    return ledger.begin(kernel, signature)
+
+
+def launch_done(token, kernels=None) -> None:
+    """Just after the C call that :func:`book_launch` booked.  ``kernels``
+    names what the call launched when that differs from the booked name
+    (a backward that ran as two sweeps)."""
+    if token is not None:
+        token[0].end(token, kernels)
+
+
+def call_booked(kernel: str, signature: tuple, fn, args, kernels=None):
+    """``fn(*args)``, a kernel's C entry, booked as a launch of ``kernel``
+    with the shapes ``signature``: the arguments are evaluated before the
+    booking, so a timed launch's events bracket the C call alone.
+    ``kernels()``, when given, names what the call launched (read after
+    it)."""
+    token = book_launch(kernel, signature)
+    err = fn(*args)
+    launch_done(token, None if kernels is None else kernels())
+    return err
 
 
 def reset_launch_counts() -> None:

@@ -54,8 +54,8 @@ LIBRARY_NAME = "libfmda_scans.so"
 #: The dtypes the kernels take, and the suffix of their C entry points.
 SUPPORTED = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-#: What the last build in this process did: ``path``, ``seconds`` (None
-#: when the library was already built), ``log`` (nvcc/ptxas output).
+#: What the build of the library in use did: ``path``, ``seconds`` (None
+#: when another process built it), ``log`` (nvcc/ptxas output).
 build_info: Dict[str, object] = {}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -105,7 +105,8 @@ def build() -> Path:
     on a missing ``nvcc`` or a failed build."""
     lib = library_path()
     if lib.exists():
-        build_info.update(path=str(lib), seconds=None, log="")
+        if build_info.get("path") != str(lib):  # built by another process
+            build_info.update(path=str(lib), seconds=None, log="")
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"

@@ -47,7 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib, count_launch
+from fmda_tpu_torch.ops import _cuda_lib, call_booked, count_launch
 
 # the wrappers' device test, a module global so a rehearsal can stub it
 _on_cpu = _cuda_lib.on_cpu
@@ -368,11 +368,14 @@ def _launch_fwd(q, k, v, causal, key_mask):
     lse = torch.empty((b * n, t), dtype=torch.float32, device=q.device)
     lib = _cuda_lib.load()
     fn = getattr(lib, f"fmda_flash_fwd_{_cuda_lib.SUPPORTED[q.dtype]}")
-    err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-             None if mask is None else mask.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), b * n, n, t, d, int(bool(causal)),
-             ctypes.c_float(_scale(d)), _cuda_lib.device_index(q),
-             _cuda_lib.stream_of(q))
+    err = call_booked(
+        "flash_fwd",
+        (b, n, t, d, q.element_size(), bool(causal), mask is not None), fn,
+        (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+         None if mask is None else mask.data_ptr(), o.data_ptr(),
+         lse.data_ptr(), b * n, n, t, d, int(bool(causal)),
+         ctypes.c_float(_scale(d)), _cuda_lib.device_index(q),
+         _cuda_lib.stream_of(q)))
     _cuda_lib.raise_on(lib, err, "flash_fwd")
     fwd_launches += 1
     count_launch()
@@ -380,10 +383,12 @@ def _launch_fwd(q, k, v, causal, key_mask):
 
 
 def _call_bwd(name, n_outs, q, k, v, do, lse, delta, causal, key_mask,
-              *extra):
+              fused=None):
     """Call the C entry ``fmda_<name>_<dtype>`` of a backward: the checks,
     the operands as the kernels read them, ``n_outs`` (B*N, T, D) outputs
-    in q's dtype, then ``extra`` arguments after the stream."""
+    in q's dtype, then, for ``flash_bwd``, the ``fused`` flag it sets
+    after the stream (a ``ctypes.c_int``: 1 for the fused kernel, 0 for
+    the two sweeps, booked as such)."""
     (b, n, t, d), (q3, k3, v3), mask = _folded(name, q, k, v, key_mask)
     _cuda_lib.check_shapes(
         {"do": (b, n, t, d), "lse": (b, n, t), "delta": (b, n, t)},
@@ -394,12 +399,18 @@ def _call_bwd(name, n_outs, q, k, v, do, lse, delta, causal, key_mask,
     outs = [torch.empty_like(q3) for _ in range(n_outs)]
     lib = _cuda_lib.load()
     fn = getattr(lib, f"fmda_{name}_{_cuda_lib.SUPPORTED[q.dtype]}")
-    err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
-             lse2.data_ptr(), delta2.data_ptr(),
-             None if mask is None else mask.data_ptr(),
-             *(x.data_ptr() for x in outs), b * n, n, t, d,
-             int(bool(causal)), ctypes.c_float(_scale(d)),
-             _cuda_lib.device_index(q), _cuda_lib.stream_of(q), *extra)
+    extra = () if fused is None else (ctypes.byref(fused),)
+    err = call_booked(
+        name, (b, n, t, d, q.element_size(), bool(causal), mask is not None),
+        fn,
+        (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+         lse2.data_ptr(), delta2.data_ptr(),
+         None if mask is None else mask.data_ptr(),
+         *(x.data_ptr() for x in outs), b * n, n, t, d, int(bool(causal)),
+         ctypes.c_float(_scale(d)), _cuda_lib.device_index(q),
+         _cuda_lib.stream_of(q), *extra),
+        kernels=(None if fused is None else
+                 lambda: None if fused.value else ("flash_dkv", "flash_dq")))
     _cuda_lib.raise_on(lib, err, name)
     return tuple(x.view(b, n, t, d) for x in outs)
 
@@ -423,7 +434,7 @@ def _launch_flash_bwd(q, k, v, do, lse, delta, causal, key_mask):
     global bwd_launches, dkv_launches, dq_launches
     fused = ctypes.c_int(-1)
     outs = _call_bwd("flash_bwd", 3, q, k, v, do, lse, delta, causal,
-                     key_mask, ctypes.byref(fused))
+                     key_mask, fused)
     if fused.value:
         bwd_launches += 1
         count_launch()

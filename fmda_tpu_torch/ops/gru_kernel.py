@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib, count_launch, scan_dw
+from fmda_tpu_torch.ops import _cuda_lib, call_booked, count_launch, scan_dw
 from fmda_tpu_torch.ops.scan_dw import h_prev_of, scan_dw_reference
 
 # the wrappers' device test, a module global so a rehearsal can stub it
@@ -245,11 +245,14 @@ def _launch(xp, h0, w_hh, b_hh, *, reverse, mask):
     lib = _cuda_lib.load()
     fn = getattr(lib, f"fmda_gru_scan_fwd_{_cuda_lib.SUPPORTED[xp.dtype]}")
     stream = _cuda_lib.stream_of(xp)
-    err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
-             w_hh.data_ptr(), b_hh.data_ptr(),
-             None if mask is None else mask.data_ptr(), hs.data_ptr(),
-             h_last.data_ptr(), batch, n_steps, hidden, int(bool(reverse)),
-             _cuda_lib.device_index(xp), stream)
+    err = call_booked(
+        "gru_scan_fwd",
+        (batch, n_steps, hidden, xp.element_size(), mask is not None), fn,
+        (xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
+         w_hh.data_ptr(), b_hh.data_ptr(),
+         None if mask is None else mask.data_ptr(), hs.data_ptr(),
+         h_last.data_ptr(), batch, n_steps, hidden, int(bool(reverse)),
+         _cuda_lib.device_index(xp), stream))
     _cuda_lib.raise_on(lib, err, "gru_scan_fwd")
     launches += 1
     count_launch()
@@ -327,13 +330,16 @@ def _launch_sweep(xp, h0, w_hh, b_hh, hs, dh_last, dhs, *, reverse, mask):
                       device=xp.device)
     dh0 = torch.empty((batch, hidden), dtype=torch.float32, device=xp.device)
     fn = getattr(lib, f"fmda_gru_scan_sweep_{_cuda_lib.SUPPORTED[xp.dtype]}")
-    err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
-             w_hh.data_ptr(), b_hh.data_ptr(), hs.data_ptr(),
-             dh_last.data_ptr(), dhs.data_ptr(),
-             None if mask is None else mask.data_ptr(), dxp.data_ptr(),
-             dgn.data_ptr(), dh0.data_ptr(), batch, n_steps, hidden,
-             int(bool(reverse)), _cuda_lib.device_index(xp),
-             _cuda_lib.stream_of(xp))
+    err = call_booked(
+        "gru_scan_bwd",
+        (batch, n_steps, hidden, xp.element_size(), mask is not None), fn,
+        (xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
+         w_hh.data_ptr(), b_hh.data_ptr(), hs.data_ptr(),
+         dh_last.data_ptr(), dhs.data_ptr(),
+         None if mask is None else mask.data_ptr(), dxp.data_ptr(),
+         dgn.data_ptr(), dh0.data_ptr(), batch, n_steps, hidden,
+         int(bool(reverse)), _cuda_lib.device_index(xp),
+         _cuda_lib.stream_of(xp)))
     _cuda_lib.raise_on(lib, err, "gru_scan_bwd")
     return dxp, dgn, dh0
 

@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib, count_launch, scan_dw
+from fmda_tpu_torch.ops import _cuda_lib, call_booked, count_launch, scan_dw
 from fmda_tpu_torch.ops.scan_dw import h_prev_of, scan_dw_reference
 
 # the wrappers' device test, a module global so a rehearsal can stub it
@@ -264,12 +264,15 @@ def _launch(xp, h0, c0, w_hh, b_hh, *, reverse, mask):
                                   device=xp.device) for _ in range(2))
     lib = _cuda_lib.load()
     fn = getattr(lib, f"fmda_lstm_scan_fwd_{_cuda_lib.SUPPORTED[xp.dtype]}")
-    err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), p["h0"].data_ptr(),
-             p["c0"].data_ptr(), p["w_hh"].data_ptr(), p["b_hh"].data_ptr(),
-             None if mask is None else mask.data_ptr(), hs.data_ptr(),
-             cs.data_ptr(), h_last.data_ptr(), c_last.data_ptr(), batch,
-             n_steps, hidden, int(bool(reverse)), _cuda_lib.device_index(xp),
-             _cuda_lib.stream_of(xp))
+    err = call_booked(
+        "lstm_scan_fwd",
+        (batch, n_steps, hidden, xp.element_size(), mask is not None), fn,
+        (xp.data_ptr(), xp.stride(0), xp.stride(1), p["h0"].data_ptr(),
+         p["c0"].data_ptr(), p["w_hh"].data_ptr(), p["b_hh"].data_ptr(),
+         None if mask is None else mask.data_ptr(), hs.data_ptr(),
+         cs.data_ptr(), h_last.data_ptr(), c_last.data_ptr(), batch,
+         n_steps, hidden, int(bool(reverse)), _cuda_lib.device_index(xp),
+         _cuda_lib.stream_of(xp)))
     _cuda_lib.raise_on(lib, err, "lstm_scan_fwd")
     launches += 1
     count_launch()
@@ -358,14 +361,17 @@ def _launch_sweep(xp, h0, c0, w_hh, b_hh, hs, cs, dh_last, dc_last, dhs, *,
     dh0, dc0 = (torch.empty(state, dtype=torch.float32, device=xp.device)
                 for _ in range(2))
     fn = getattr(lib, f"fmda_lstm_scan_sweep_{_cuda_lib.SUPPORTED[xp.dtype]}")
-    err = fn(xp.data_ptr(), xp.stride(0), xp.stride(1), p["h0"].data_ptr(),
-             p["c0"].data_ptr(), p["w_hh"].data_ptr(), p["b_hh"].data_ptr(),
-             hs.data_ptr(), cs.data_ptr(), dh_last.data_ptr(),
-             dc_last.data_ptr(), dhs.data_ptr(),
-             None if mask is None else mask.data_ptr(), dxp.data_ptr(),
-             dh0.data_ptr(), dc0.data_ptr(), batch, n_steps, hidden,
-             int(bool(reverse)), _cuda_lib.device_index(xp),
-             _cuda_lib.stream_of(xp))
+    err = call_booked(
+        "lstm_scan_bwd",
+        (batch, n_steps, hidden, xp.element_size(), mask is not None), fn,
+        (xp.data_ptr(), xp.stride(0), xp.stride(1), p["h0"].data_ptr(),
+         p["c0"].data_ptr(), p["w_hh"].data_ptr(), p["b_hh"].data_ptr(),
+         hs.data_ptr(), cs.data_ptr(), dh_last.data_ptr(),
+         dc_last.data_ptr(), dhs.data_ptr(),
+         None if mask is None else mask.data_ptr(), dxp.data_ptr(),
+         dh0.data_ptr(), dc0.data_ptr(), batch, n_steps, hidden,
+         int(bool(reverse)), _cuda_lib.device_index(xp),
+         _cuda_lib.stream_of(xp)))
     _cuda_lib.raise_on(lib, err, "lstm_scan_bwd")
     return dxp, dh0, dc0
 

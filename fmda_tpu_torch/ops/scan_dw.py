@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from fmda_tpu_torch.ops import _cuda_lib, count_launch
+from fmda_tpu_torch.ops import _cuda_lib, call_booked, count_launch
 
 # the wrapper's device test, a module global so a rehearsal can stub it
 _on_cpu = _cuda_lib.on_cpu
@@ -109,10 +109,12 @@ def _launch(dg, h0, hs, *, reverse, tail):
     partials = torch.empty((splits, n_acc), **f32)
     dw_db = torch.empty((n_acc,), **f32)
     fn = getattr(lib, f"fmda_scan_dw_{_cuda_lib.SUPPORTED[dg.dtype]}")
-    err = fn(dg.data_ptr(), gh, None if tail is None else tail.data_ptr(),
-             tail_from, hs.data_ptr(), h0.data_ptr(), batch, n_steps, hidden,
-             gh, int(bool(reverse)), partials.data_ptr(), dw_db.data_ptr(),
-             device, _cuda_lib.stream_of(dg))
+    err = call_booked(
+        "scan_dw", (batch, n_steps, hidden), fn,
+        (dg.data_ptr(), gh, None if tail is None else tail.data_ptr(),
+         tail_from, hs.data_ptr(), h0.data_ptr(), batch, n_steps, hidden,
+         gh, int(bool(reverse)), partials.data_ptr(), dw_db.data_ptr(),
+         device, _cuda_lib.stream_of(dg)))
     _cuda_lib.raise_on(lib, err, "scan_dw")
     launches += 1
     count_launch()

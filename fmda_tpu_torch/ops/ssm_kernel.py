@@ -35,7 +35,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from fmda_tpu_torch.ops import _cuda_lib, count_launch
+from fmda_tpu_torch.ops import _cuda_lib, call_booked, count_launch
 
 # the wrapper's device test, a module global so a rehearsal can stub it
 _on_cpu = _cuda_lib.on_cpu
@@ -162,11 +162,12 @@ def _launch(xp, carry, w):
         for _ in range(4))
     lib = _cuda_lib.load()
     fn = getattr(lib, f"fmda_ssm_step_{_cuda_lib.SUPPORTED[xp.dtype]}")
-    err = fn(xp.data_ptr(), xp.stride(0),
-             *(cast[k].data_ptr() for k in named),
-             h.data_ptr(), s_new.data_ptr(), ef_new.data_ptr(),
-             es_new.data_ptr(), batch, hidden, _cuda_lib.device_index(xp),
-             _cuda_lib.stream_of(xp))
+    err = call_booked(
+        "ssm_step", (batch, hidden, xp.element_size()), fn,
+        (xp.data_ptr(), xp.stride(0), *(cast[k].data_ptr() for k in named),
+         h.data_ptr(), s_new.data_ptr(), ef_new.data_ptr(),
+         es_new.data_ptr(), batch, hidden, _cuda_lib.device_index(xp),
+         _cuda_lib.stream_of(xp)))
     _cuda_lib.raise_on(lib, err, "ssm_cell_step")
     launches += 1
     count_launch()
@@ -316,11 +317,14 @@ def _launch_tick(rows, slots, x_min, x_range, weights, state, pos):
                         device=rows.device)
     lib = _cuda_lib.load()
     fn = getattr(lib, f"fmda_ssm_tick_{_cuda_lib.SUPPORTED[state.dtype]}")
-    err = fn(rows.data_ptr(), slots.data_ptr(), x_min.data_ptr(),
-             x_range.data_ptr(), norm_rows, weights.packed.data_ptr(),
-             state.data_ptr(), pos.data_ptr(), probs.data_ptr(), batch,
-             n_slots, feats, hidden, n_classes, n_layers,
-             _cuda_lib.device_index(rows), _cuda_lib.stream_of(rows))
+    err = call_booked(
+        "ssm_tick",
+        (batch, n_layers, feats, hidden, n_classes, state.element_size()), fn,
+        (rows.data_ptr(), slots.data_ptr(), x_min.data_ptr(),
+         x_range.data_ptr(), norm_rows, weights.packed.data_ptr(),
+         state.data_ptr(), pos.data_ptr(), probs.data_ptr(), batch, n_slots,
+         feats, hidden, n_classes, n_layers, _cuda_lib.device_index(rows),
+         _cuda_lib.stream_of(rows)))
     _cuda_lib.raise_on(lib, err, "ssm_serve_tick")
     tick_launches += 1
     count_launch()

@@ -63,8 +63,12 @@ class Tick:
     row: np.ndarray
     t_enqueue: float
     seq: int = 0
+    #: sampled trace root (:class:`fmda_tpu_torch.obs.trace.TraceRef`)
+    #: begun at submit; None when tracing is off or the tick unsampled
+    trace: Optional[object] = None
     #: in-band trace context (``"trace_id:span_id"``) the request arrived
-    #: with; carried onto the published result untouched
+    #: with; carried onto the published result untouched, and the parent
+    #: of the gateway's spans when tracing is on
     wire: Optional[str] = None
 
 

@@ -45,8 +45,17 @@ trainer publishes from its own): one lock serialises it against
 once, whichever thread completes it, and the version a result carries
 never goes down.
 
-Tracing spans are not ported yet; a tick's in-band ``wire`` context is
-carried onto its published result as the reference carries it.
+**Tracing.**  When the process tracer (:mod:`fmda_tpu_torch.obs.trace`)
+is enabled, a sampled tick gets a root span begun at :meth:`submit` and
+four children that tile it: ``queued`` (submit to dispatch), ``dispatch``
+(assembly and the card's enqueue), ``device`` (the wait for the copy
+home) and ``publish`` (with the bus publish under it), closed at publish;
+the result message carries the tick's ``trace`` context in-band.  A tick
+that arrives with a context (``wire``) gets its children under a
+``serve`` span on that trace instead.  With tracing off, :meth:`submit`
+and a flush pay one attribute check each.  ``annotate_device_steps``
+wraps each flush's pool step in a numbered ``pool_flush`` range for
+:func:`fmda_tpu_torch.utils.tracing.device_trace`.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ from fmda_tpu_torch.config import (
 )
 from fmda_tpu_torch.data.normalize import NormParams
 from fmda_tpu_torch.device import PinnedStaging
+from fmda_tpu_torch.obs.trace import TraceRef, default_tracer, now_ns, parse_wire
 from fmda_tpu_torch.ops import thread_launches
 from fmda_tpu_torch.runtime.batcher import BatcherConfig, MicroBatcher, Tick
 from fmda_tpu_torch.runtime.metrics import RuntimeMetrics
@@ -101,6 +111,10 @@ class _InFlight:
 
     live: List[Tick]
     probs: object  # PinnedStaging.to_host's handle
+    #: perf_counter_ns stamps of the dispatch window (0 when untraced):
+    #: the queued/dispatch span boundaries of this flush's traced ticks
+    t_dispatch_ns: int = 0
+    t_dispatched_ns: int = 0
 
 
 class FleetGateway:
@@ -194,6 +208,13 @@ class FleetGateway:
         #: serialises pump and hot_swap: a swap may come from another
         #: thread than the pumping one
         self._lock = threading.RLock()
+        #: span recorder: the process-default tracer, captured once;
+        #: disabled = one branch a submit and a flush
+        self._tracer = default_tracer()
+        #: wrap each flush's pool step in a numbered ``pool_flush`` range
+        #: (``serve-fleet --jax-profile``)
+        self.annotate_device_steps = False
+        self._flush_idx = 0
 
     # -- admission ----------------------------------------------------------
 
@@ -351,7 +372,9 @@ class FleetGateway:
         per-session sequence number.  Overload sheds the oldest queued
         tick (counted + heartbeat-logged), never blocks, never grows the
         queue past ``queue_bound``.  ``wire`` is in-band trace context,
-        carried onto the published result."""
+        carried onto the published result; with tracing on, the flush's
+        spans go under a ``serve`` span on that trace instead of a root of
+        their own."""
         handle = self.pool.handle_for(session_id)
         if handle is None:
             raise KeyError(f"no open session {session_id!r}")
@@ -400,9 +423,20 @@ class FleetGateway:
                     self.queue_bound, shed.handle.session_id, shed.seq, n)
         seq = self._seq.get(session_id, 0)
         self._seq[session_id] = seq + 1
+        ref = None
+        if self._tracer.enabled:  # one branch when tracing is off
+            if wire is None:
+                # sampled: this tick's trace root, closed at publish
+                ref = self._tracer.maybe_trace()
+            else:
+                ctx = parse_wire(wire)
+                if ctx is not None:
+                    # ride the sender's journey: flush spans parent on
+                    # its span, t0 stamps the serve stage's start
+                    ref = TraceRef(ctx[0], ctx[1], now_ns())
         self.batcher.add(Tick(
             handle=handle, row=row, t_enqueue=self.clock(), seq=seq,
-            wire=wire))
+            trace=ref, wire=wire))
         if self.qos is not None:
             self._queued_by_class[cls] = \
                 self._queued_by_class.get(cls, 0) + 1
@@ -543,6 +577,8 @@ class FleetGateway:
         home on the card.  Returns the in-flight record (None if every
         tick went stale in queue)."""
         t_dispatch = self.clock()
+        tracing = self._tracer.enabled
+        t_dispatch_ns = now_ns() if tracing else 0
         live = []
         for tick in ticks:
             # a session freed while its tick was queued: drop, visibly
@@ -563,12 +599,20 @@ class FleetGateway:
         slots[len(live):] = self.pool.padding_slot
         with self.metrics.timer.stage("dispatch"):
             launched = thread_launches()
-            probs = self._to_host.to_host(
-                self.pool.step_device(slots, rows).float(), (bucket, parity))
+            if self.annotate_device_steps:
+                from fmda_tpu_torch.utils.tracing import step_annotation
+
+                self._flush_idx += 1
+                with step_annotation("pool_flush", self._flush_idx):
+                    step = self.pool.step_device(slots, rows)
+            else:
+                step = self.pool.step_device(slots, rows)
+            probs = self._to_host.to_host(step.float(), (bucket, parity))
             self.kernel_launches_by_bucket[bucket] = (
                 self.kernel_launches_by_bucket.get(bucket, 0)
                 + thread_launches() - launched)
         t_dispatched = self.clock()
+        t_dispatched_ns = now_ns() if tracing else 0
 
         m = self.metrics
         m.count("flushes")
@@ -577,18 +621,23 @@ class FleetGateway:
         m.observe("dispatch", t_dispatched - t_dispatch)
         for tick in live:
             m.observe("enqueue_to_dispatch", t_dispatch - tick.t_enqueue)
-        return _InFlight(live=live, probs=probs)
+        return _InFlight(live=live, probs=probs,
+                         t_dispatch_ns=t_dispatch_ns,
+                         t_dispatched_ns=t_dispatched_ns)
 
     def _complete(self, inflight: _InFlight) -> List[FleetResult]:
         """Stage 2 of a flush: wait for the probabilities' copy, threshold
         labels, publish the whole flush in one batched bus call."""
+        tracing = self._tracer.enabled
         t_synced = self.clock()
         with self.metrics.timer.stage("device"):
             probs = PinnedStaging.wait(inflight.probs)
         t_device = self.clock()
+        t_device_ns = now_ns() if tracing else 0
 
         results = []
         messages = [] if self.bus is not None else None
+        t_pub0_ns = 0
         with self.metrics.timer.stage("publish"):
             for i, tick in enumerate(inflight.live):
                 # the persistent pipeline lets close_session (and a
@@ -615,8 +664,14 @@ class FleetGateway:
                     }
                     if self.weights_version is not None:
                         msg["weights_version"] = self.weights_version
-                    if tick.wire is not None:
-                        msg["trace"] = tick.wire
+                    # the tick's context in-band, so downstream consumers
+                    # stitch into the same trace; an incoming wire is
+                    # forwarded even when this process's tracer is off
+                    wire = tick.wire if tick.wire is not None else (
+                        tick.trace.wire if tick.trace is not None
+                        else None)
+                    if wire is not None:
+                        msg["trace"] = wire
                     messages.append(msg)
             if messages:
                 wire_msgs = messages
@@ -634,6 +689,7 @@ class FleetGateway:
                         log.warning(
                             "result-block packing failed (%s) — "
                             "publishing the per-tick dialect", e)
+                t_pub0_ns = now_ns() if tracing else 0
                 try:
                     if self._publish_many is not None:
                         self._publish_many(self.prediction_topic, wire_msgs)
@@ -659,4 +715,48 @@ class FleetGateway:
         m.observe("publish", t_publish - t_device)
         for tick in inflight.live:
             m.observe("total", t_publish - tick.t_enqueue)
+        if tracing:
+            self._record_flush_spans(inflight, t_device_ns, t_pub0_ns)
         return results
+
+    def _record_flush_spans(
+        self, inflight: _InFlight, t_device_ns: int, t_pub0_ns: int
+    ) -> None:
+        """Close the trace of every sampled tick in a completed flush.
+
+        The four children tile the root: queued [submit → dispatch
+        start], dispatch [assembly + the card's enqueue], device [enqueue
+        return → probabilities on the host; under the overlap pipeline
+        the hidden device and pipeline wait lives here], publish
+        [thresholding + the batched bus publish], so a trace's stages sum
+        to its e2e duration by construction."""
+        if not inflight.t_dispatch_ns:
+            return  # dispatched before tracing was enabled: no timeline
+        tr = self._tracer
+        t_publish_ns = now_ns()
+        for tick in inflight.live:
+            ref = tick.trace
+            if ref is None:
+                continue
+            tid = ref.trace_id
+            if tick.wire is not None:
+                # the tick arrived with a sender's context: this
+                # process's stage spans go under one "serve" span on the
+                # sender's trace (no second root, no double e2e count)
+                root = tr.add_span(tid, ref.span_id, "serve", "serve",
+                                   ref.t0_ns, t_publish_ns)
+            else:
+                root = ref.span_id
+            tr.add_span(tid, root, "queued", "gateway",
+                        ref.t0_ns, inflight.t_dispatch_ns)
+            tr.add_span(tid, root, "dispatch", "gateway",
+                        inflight.t_dispatch_ns, inflight.t_dispatched_ns)
+            tr.add_span(tid, root, "device", "engine",
+                        inflight.t_dispatched_ns, t_device_ns)
+            pub = tr.add_span(tid, root, "publish", "publish",
+                              t_device_ns, t_publish_ns)
+            if t_pub0_ns:
+                tr.add_span(tid, pub, "bus_publish", "bus",
+                            t_pub0_ns, t_publish_ns)
+            if tick.wire is None:
+                tr.finish_root(ref, "tick", "ingest", t_publish_ns)

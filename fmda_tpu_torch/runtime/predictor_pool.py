@@ -34,8 +34,11 @@ directly: no slot pool, no carried state, just bucketed
   ``short_history``).  Where the reference counts compiles per bucket,
   the gateway counts kernel launches per bucket
   (:attr:`PredictorGateway.kernel_launches_by_bucket`), as the fleet
-  gateway does.  Tracing spans are not ported yet; a signal's
-  in-band ``trace`` context rides onto its prediction.
+  gateway does.  Per-signal trace spans (queued/gather/dispatch/device/
+  publish) tile the signal's journey when the process tracer is on; a
+  signal arriving with in-band trace context gets them under a ``serve``
+  span on *its* trace (the engine → serve journey), a bare sampled signal
+  a ``predict`` root of its own.
 
 :class:`~fmda_tpu_torch.runtime.metrics.RuntimeMetrics` instruments the
 whole path (the ``gather`` stage prices the batched warehouse read).
@@ -61,6 +64,7 @@ from fmda_tpu_torch.config import (
 )
 from fmda_tpu_torch.data.normalize import NormParams
 from fmda_tpu_torch.device import DeviceLike, PinnedStaging, resolve_device
+from fmda_tpu_torch.obs.trace import TraceRef, default_tracer, now_ns, parse_wire
 from fmda_tpu_torch.ops import thread_launches
 from fmda_tpu_torch.runtime.batcher import BatcherConfig, MicroBatcher, Tick
 from fmda_tpu_torch.runtime.metrics import RuntimeMetrics
@@ -193,6 +197,10 @@ class _InFlight:
 
     live: List[Tick]
     probs: object  # PinnedStaging.to_host's handle
+    #: perf_counter_ns stamps of the dispatch window (0 when untraced)
+    t_gather_ns: int = 0
+    t_dispatch_ns: int = 0
+    t_dispatched_ns: int = 0
 
 
 class PredictorGateway:
@@ -281,6 +289,8 @@ class PredictorGateway:
         self._inflight: Optional[_InFlight] = None
         self._ids_for = getattr(warehouse, "ids_for_timestamps", None)
         self._fetch_windows = getattr(warehouse, "fetch_windows", None)
+        #: span recorder: the process-default tracer, captured once
+        self._tracer = default_tracer()
 
     # -- the request path ---------------------------------------------------
 
@@ -292,8 +302,8 @@ class PredictorGateway:
 
     def submit(self, ts_str: str, wire: Optional[str] = None) -> None:
         """Enqueue a predict-timestamp signal.  ``wire`` is the signal's
-        in-band trace context, carried onto the prediction message.
-        Overload sheds the oldest queued signal (counted + heartbeat-
+        in-band trace context, carried onto the prediction message and
+        used as the span parent.  Overload sheds the oldest queued signal (counted + heartbeat-
         logged) — stale market signals are the cheapest thing to lose."""
         while len(self.batcher) >= self.queue_bound:
             shed = self.batcher.shed_oldest()
@@ -304,10 +314,21 @@ class PredictorGateway:
                     "signal queue full (bound=%d): shed oldest (%s); "
                     "%d shed so far",
                     self.queue_bound, shed.handle.session_id, n)
+        ref = None
+        if self._tracer.enabled:  # one branch when tracing is off
+            if wire is None:
+                # a bare signal may become its own sampled root
+                ref = self._tracer.maybe_trace()
+            else:
+                ctx = parse_wire(wire)
+                if ctx is not None:
+                    # ride the signal's journey: serve spans parent on
+                    # the publisher's span, t0 stamps the serve start
+                    ref = TraceRef(ctx[0], ctx[1], now_ns())
         slot, self._next_slot = self._next_slot, self._next_slot + 1
         self.batcher.add(Tick(
             handle=SessionHandle(ts_str, slot, 0), row=_NO_ROW,
-            t_enqueue=self.clock(), wire=wire))
+            t_enqueue=self.clock(), trace=ref, wire=wire))
         self.metrics.gauge("queue_depth", len(self.batcher))
 
     @property
@@ -492,7 +513,9 @@ class PredictorGateway:
         plus counters) or when the warehouse read failed (the batched
         analogue of the solo poll()'s per-signal error isolation: the
         flush's signals are dropped, counted, and serving goes on)."""
+        tracing = self._tracer.enabled
         t_gather = self.clock()
+        t_gather_ns = now_ns() if tracing else 0
         window = self.pool.window
         with self.metrics.timer.stage("gather"):
             try:
@@ -515,6 +538,7 @@ class PredictorGateway:
                     "queued signal(s) and continuing", len(ticks))
                 return None
         t_dispatch = self.clock()
+        t_dispatch_ns = now_ns() if tracing else 0
         with self.metrics.timer.stage("dispatch"):
             launched = thread_launches()
             if ring_hit:
@@ -527,6 +551,7 @@ class PredictorGateway:
                 self.kernel_launches_by_bucket.get(bucket, 0)
                 + thread_launches() - launched)
         t_dispatched = self.clock()
+        t_dispatched_ns = now_ns() if tracing else 0
 
         m = self.metrics
         m.count("flushes")
@@ -536,18 +561,23 @@ class PredictorGateway:
         m.observe("dispatch", t_dispatched - t_dispatch)
         for tick in live:
             m.observe("enqueue_to_dispatch", t_gather - tick.t_enqueue)
-        return _InFlight(live=live, probs=probs)
+        return _InFlight(
+            live=live, probs=probs, t_gather_ns=t_gather_ns,
+            t_dispatch_ns=t_dispatch_ns, t_dispatched_ns=t_dispatched_ns)
 
     def _complete(self, inflight: _InFlight) -> List[Prediction]:
         """Stage 2: wait for the probabilities' copy, threshold labels,
         publish the whole flush in one batched bus call."""
+        tracing = self._tracer.enabled
         t_synced = self.clock()
         with self.metrics.timer.stage("device"):
             probs = PinnedStaging.wait(inflight.probs)
         t_device = self.clock()
+        t_device_ns = now_ns() if tracing else 0
 
         results: List[Prediction] = []
         messages = [] if self.bus is not None else None
+        t_pub0_ns = 0
         with self.metrics.timer.stage("publish"):
             for i, tick in enumerate(inflight.live):
                 p = probs[i]
@@ -562,8 +592,14 @@ class PredictorGateway:
                 )
                 results.append(pred)
                 if messages is not None:
-                    messages.append(prediction_message(pred, tick.wire))
+                    # in-band context propagates onward: the signal's own
+                    # wire when it arrived with one, this tick's sampled
+                    # root otherwise
+                    wire = tick.wire if tick.wire is not None else (
+                        tick.trace.wire if tick.trace is not None else None)
+                    messages.append(prediction_message(pred, wire))
             if messages:
+                t_pub0_ns = now_ns() if tracing else 0
                 if self._publish_many is not None:
                     self._publish_many(self.prediction_topic, messages)
                 else:
@@ -577,4 +613,45 @@ class PredictorGateway:
         m.observe("publish", t_publish - t_device)
         for tick in inflight.live:
             m.observe("total", t_publish - tick.t_enqueue)
+        if tracing:
+            self._record_flush_spans(inflight, t_device_ns, t_pub0_ns)
         return results
+
+    def _record_flush_spans(
+        self, inflight: _InFlight, t_device_ns: int, t_pub0_ns: int
+    ) -> None:
+        """Close every traced signal in a completed flush: queued /
+        gather / dispatch / device / publish children tiling the serve
+        journey.  Signals with in-band context get the children under a
+        ``serve`` span on their own trace; bare sampled signals get their
+        own root, closed via ``finish_root`` so they feed
+        ``e2e_tick_seconds``."""
+        if not inflight.t_gather_ns:
+            return  # dispatched before tracing was enabled
+        tr = self._tracer
+        t_publish_ns = now_ns()
+        for tick in inflight.live:
+            ref = tick.trace
+            if ref is None:
+                continue
+            tid = ref.trace_id
+            if tick.wire is not None:
+                parent = tr.add_span(tid, ref.span_id, "serve", "serve",
+                                     ref.t0_ns, t_publish_ns)
+            else:
+                parent = ref.span_id
+            tr.add_span(tid, parent, "queued", "gateway",
+                        ref.t0_ns, inflight.t_gather_ns)
+            tr.add_span(tid, parent, "gather", "warehouse",
+                        inflight.t_gather_ns, inflight.t_dispatch_ns)
+            tr.add_span(tid, parent, "dispatch", "gateway",
+                        inflight.t_dispatch_ns, inflight.t_dispatched_ns)
+            tr.add_span(tid, parent, "device", "pool",
+                        inflight.t_dispatched_ns, t_device_ns)
+            pub = tr.add_span(tid, parent, "publish", "publish",
+                              t_device_ns, t_publish_ns)
+            if t_pub0_ns:
+                tr.add_span(tid, pub, "bus_publish", "bus",
+                            t_pub0_ns, t_publish_ns)
+            if tick.wire is None:
+                tr.finish_root(ref, "predict", "serve", t_publish_ns)

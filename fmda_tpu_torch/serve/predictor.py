@@ -6,7 +6,10 @@ the checkpoint's stats, runs the model (two scan-kernel launches for a
 one-layer bidirectional BiGRU or BiLSTM, one flash-attention launch a
 layer for the TemporalTransformer) and publishes the label probabilities to
 the ``prediction`` topic with the reference's payload fields.
-Stale-signal filtering is injectable through ``now_fn``.
+Stale-signal filtering is injectable through ``now_fn``.  A signal
+carrying an in-band trace context gets a ``serve`` span on that trace
+(while the process tracer is enabled) and passes the context on to its
+prediction message.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from fmda_tpu_torch.config import (
 from fmda_tpu_torch.data.normalize import NormParams
 from fmda_tpu_torch.device import DeviceLike, resolve_device
 from fmda_tpu_torch.models import build_model
+from fmda_tpu_torch.obs.trace import default_tracer, now_ns
 from fmda_tpu_torch.stream.bus import InProcessBus
 from fmda_tpu_torch.stream.warehouse import Warehouse
 from fmda_tpu_torch.utils.timeutils import get_timezone, parse_ts
@@ -170,7 +174,11 @@ class Predictor:
         self, ts_str: str, trace: Optional[str] = None
     ) -> Optional[Prediction]:
         """Serve one landed row; None if the row is missing or has less
-        than a window of history."""
+        than a window of history.  ``trace`` is the signal's in-band trace
+        context: the serve stage is recorded as a span on it and the
+        prediction message carries it onward."""
+        tracer = default_tracer()
+        t0_ns = now_ns() if (trace is not None and tracer.enabled) else 0
         row_id = self.warehouse.id_for_timestamp(ts_str)
         if row_id is None:
             log.warning("no warehouse row for signal %s", ts_str)
@@ -194,6 +202,8 @@ class Predictor:
         )
         self.bus.publish(self.prediction_topic,
                          prediction_message(pred, trace))
+        if t0_ns:
+            tracer.add_span_wire(trace, "serve", "serve", t0_ns, now_ns())
         return pred
 
     def poll(self) -> List[Prediction]:

@@ -390,12 +390,19 @@ class StreamingPredictor:
         Rows are consumed strictly in position order: if signals skipped
         rows (a predictor started mid-session, say), the gap rows go
         through the recurrence first, fetched in batches of
-        :data:`CATCHUP_CHUNK`, so the carried state stays exact."""
+        :data:`CATCHUP_CHUNK`, so the carried state stays exact.  A signal
+        carrying an in-band trace context gets a ``serve`` span on it and
+        passes the context on to its prediction message."""
+        from fmda_tpu_torch.obs.trace import default_tracer, now_ns
+
+        tracer = default_tracer()
         out = []
         for rec in self._consumer.poll():
             ts = rec.value.get("Timestamp")
             if not ts:
                 continue
+            trace = rec.value.get("trace")
+            t0_ns = now_ns() if (trace is not None and tracer.enabled) else 0
             row_id = self.warehouse.id_for_timestamp(ts)
             if row_id is None or row_id <= self._last_row_id:
                 continue
@@ -414,9 +421,10 @@ class StreamingPredictor:
                 "pred_indices": list(idx),
                 "pred_labels": list(labels),
             }
-            trace = rec.value.get("trace")
             if trace is not None:
                 msg["trace"] = trace
             self.bus.publish(self.prediction_topic, msg)
+            if t0_ns:
+                tracer.add_span_wire(trace, "serve", "serve", t0_ns, now_ns())
             out.append((ts, probs, labels))
         return out

@@ -3,7 +3,13 @@ increasing offsets, independent consumer positions, and per-topic ring
 retention.  Values are copied on publish (:func:`~fmda_tpu_torch.stream.
 codec.wire_copy`: containers copied, arrays passed through as immutable),
 as a broker would decouple them from the caller, and a value the wire
-could not carry is refused."""
+could not carry is refused.
+
+When the process tracer (:mod:`fmda_tpu_torch.obs.trace`) is enabled, a
+publish under an active trace stamps the message with the trace's
+in-band ``trace`` field and records a ``bus_publish`` span; consumers
+read the context back from ``record.value.get("trace")``.  With tracing
+disabled the publish path pays one branch."""
 
 from __future__ import annotations
 
@@ -11,7 +17,15 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Protocol, Sequence
 
+from fmda_tpu_torch.obs.trace import (
+    default_tracer,
+    stamp_message,
+    stamp_messages,
+)
 from fmda_tpu_torch.stream import codec
+
+#: Captured once: configure_tracing mutates this singleton in place.
+_TRACER = default_tracer()
 
 
 @dataclass(frozen=True)
@@ -102,11 +116,19 @@ class InProcessBus:
 
     def publish(self, topic: str, value: dict) -> int:
         """Append a message; returns its offset."""
+        if _TRACER.enabled:  # in-band trace context + a bus-stage span
+            value = stamp_message(value)
+            with _TRACER.span("bus_publish", "bus"):
+                return self._append(topic, [codec.wire_copy(value)])[0]
         return self._append(topic, [codec.wire_copy(value)])[0]
 
     def publish_many(self, topic: str, values: Sequence[dict]) -> List[int]:
         """Append a batch of messages in order under one lock; returns
-        their offsets (``[publish(topic, v) for v in values]``, once)."""
+        their offsets (``[publish(topic, v) for v in values]``, once).
+        A message that carries its own ``trace`` keeps it; the others
+        inherit the active context."""
+        if _TRACER.enabled:
+            values = stamp_messages(values)
         values = [codec.wire_copy(v) for v in values]
         return self._append(topic, values) if values else []
 

@@ -20,10 +20,16 @@ Semantics:
 - the signal is published strictly after the warehouse insert commits, so
   a consumer never sees a signal for a row it cannot read.
 
+Tracing: a book tick that carries an in-band trace context passes it
+onto its row's signal, and, while the process tracer is enabled, each
+landed row gets three spans on that trace from the step that emitted it:
+``join`` (stage ``engine``: the step's poll and match), ``land``
+(``warehouse``: the insert) and ``signal`` (``bus``: the signal
+publishes).  With tracing disabled a step pays one branch.
+
 Not ported yet: the C++ join scheduler (``join_backend="native"``, ROADMAP
-queue 1, item 4's native part), the chaos injection point of ``step``
-(item 7) and the tracing spans of a landed row (item 5); the trace context
-a book tick carries in-band still rides onto its signal.
+queue 1, item 4's native part) and the chaos injection point of ``step``
+(item 7).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from fmda_tpu_torch.config import (
     TOPIC_VIX,
     TOPIC_VOLUME,
 )
+from fmda_tpu_torch.obs.trace import default_tracer, now_ns
 from fmda_tpu_torch.ops.microstructure import deep_features, wick_percentage
 from fmda_tpu_torch.stream.bus import MessageBus
 from fmda_tpu_torch.stream.warehouse import Warehouse
@@ -394,6 +401,9 @@ class StreamEngine:
             metrics.histogram("engine_step_seconds")
             if metrics is not None else None
         )
+        #: span recorder: the process-default tracer, captured once;
+        #: disabled = one branch a step
+        self._tracer = default_tracer()
         if checkpoint_path:
             tmp = f"{checkpoint_path}.tmp"
             if os.path.exists(tmp):
@@ -536,6 +546,9 @@ class StreamEngine:
 
     def _step(self) -> int:
         fc = self.features
+        tr = self._tracer
+        tracing = tr.enabled  # one branch; ns stamps only when tracing
+        t_step0_ns = now_ns() if tracing else 0
         if self._wh_drain is not None:
             # backfill a spilled write-ahead journal before this step's
             # rows land (ordering: journaled rows are older); a no-op
@@ -595,6 +608,7 @@ class StreamEngine:
                         row_traces[deep_ev.ts_str] = deep_ev.trace
 
         self._pending_deep = still_pending
+        t_join_ns = now_ns() if tracing else 0
 
         # one output row per book tick: a tick whose timestamp already
         # landed (a duplicate feed message, or a crash-replay after the
@@ -623,8 +637,10 @@ class StreamEngine:
                 )
             emitted_rows = fresh
         if emitted_rows:
+            t_land0_ns = now_ns() if tracing else 0
             with self.timer.stage("land"):
                 self.warehouse.insert_rows(emitted_rows)
+            t_land1_ns = now_ns() if tracing else 0
             # mark landed and signal AFTER the write commits: no phantom
             # dedupe entry on a failed insert, no signal for a row a
             # consumer cannot read yet
@@ -643,6 +659,21 @@ class StreamEngine:
                             msg["trace"] = wire
                     self.bus.publish(self.signal_topic, msg)
             self._emitted += len(emitted_rows)
+            if tracing and row_traces:
+                # per landed row, on the book tick's trace: the step's
+                # measured boundaries (join covers the poll and match of
+                # the step that emitted the row)
+                t_sig1_ns = now_ns()
+                for row in emitted_rows:
+                    wire = row_traces.get(row["Timestamp"])
+                    if wire is None:
+                        continue
+                    tr.add_span_wire(
+                        wire, "join", "engine", t_step0_ns, t_join_ns)
+                    tr.add_span_wire(
+                        wire, "land", "warehouse", t_land0_ns, t_land1_ns)
+                    tr.add_span_wire(
+                        wire, "signal", "bus", t_land1_ns, t_sig1_ns)
 
         # bound buffer state by the global watermark; a degraded stream's
         # stalled watermark is excluded from the min (its book ticks flow

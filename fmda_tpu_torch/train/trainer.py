@@ -316,11 +316,17 @@ class Trainer:
     ) -> Tuple[TrainState, EpochMetrics, np.ndarray]:
         # per-batch results are added into running device tensors; the
         # host reads them once, after the pass
+        from fmda_tpu_torch.utils.tracing import step_annotation
+
         step = self.train_step if train else self.eval_step
+        phase = "train" if train else "eval"
         acc = None
         n_steps = 0
         for batch in batches:
-            loss, m = step(state, batch)
+            # marks each step in a device profile when one is being
+            # captured (utils.tracing.device_trace)
+            with step_annotation(phase, n_steps):
+                loss, m = step(state, batch)
             vals = (loss, m.accuracy, m.hamming, m.fbeta, m.confusion)
             acc = vals if acc is None else tuple(
                 a + v for a, v in zip(acc, vals))

@@ -1,14 +1,19 @@
-"""Host wall clock per named pipeline stage, as
-``fmda_tpu.utils.tracing`` defines it.
+"""Host wall clock per named pipeline stage, and device-trace helpers, as
+``fmda_tpu.utils.tracing`` defines them.
 
-Only :class:`StageTimer` is ported so far; the reference's device-trace
-helpers wrap the JAX profiler and have no counterpart yet.
+:class:`StageTimer` times host stages.  The reference's device helpers
+wrap the JAX profiler; here they wrap :mod:`torch.profiler`:
+:func:`device_scope` and :func:`step_annotation` are
+``record_function`` ranges (and NVTX ranges on a CUDA build), and
+:func:`device_trace` captures a CPU and CUDA profile of the enclosed
+region as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import threading
 import time
 from collections import defaultdict
@@ -70,3 +75,51 @@ class StageTimer:
                 int(stats["count"]),
                 stats["mean_s"],
             )
+
+
+def _nvtx():
+    """``torch.cuda.nvtx`` where this torch has CUDA, else None."""
+    import torch
+
+    return torch.cuda.nvtx if torch.cuda.is_available() else None
+
+
+@contextlib.contextmanager
+def device_scope(name: str) -> Iterator[None]:
+    """Name a region on the profiler's timeline: a ``record_function``
+    range (and an NVTX range on a CUDA build)."""
+    import torch
+
+    nvtx = _nvtx()
+    if nvtx is not None:
+        nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx is not None:
+            nvtx.range_pop()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[None]:
+    """Capture a CPU and CUDA profile of the enclosed region and write it
+    into ``log_dir`` as a Chrome trace (``trace.<pid>.json``; load it at
+    https://ui.perfetto.dev).  Wrap a few steps of a hot loop, not a whole
+    run: traces are large."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace.{os.getpid()}.json"))
+
+
+def step_annotation(name: str, step: int):
+    """Mark one step on the profiler's timeline: a range named
+    ``f"{name}#{step}"``."""
+    return device_scope(f"{name}#{step}")

@@ -50,7 +50,10 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
                  "stream.engine", "stream.journal", "ops.microstructure",
                  "data.synthetic", "utils.jsonutils", "ingest",
                  "ingest.htmldom", "ingest.transport", "ingest.clients",
-                 "ingest.scrapers", "ingest.session"):
+                 "ingest.scrapers", "ingest.session", "obs.prometheus",
+                 "obs.trace", "obs.events", "obs.server", "obs.pyprof",
+                 "obs.device", "obs.quality", "obs.observability",
+                 "obs.report", "ops.cost"):
         assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -914,8 +914,9 @@ def test_serve_fleet_cli_serial_matches_default(capsys):
     (["--replay"], "item 7"), (["--hot-swap"], "item 7"),
     (["--continuous-train", "--swap-guard"], "item 3"),
     (["--swap-guard"], "item 3"),
-    (["--trace"], "item 5"), (["--trace-out", "t.json"], "item 5"),
-    (["--metrics-port", "0"], "item 5"), (["--jax-profile", "d"], "item 5"),
+    (["--trace-dir", "d"], "item 7"), (["--postmortem-dir", "d"], "item 7"),
+    (["--chaos-plan", "p.json"], "item 7"), (["--wire-format", "json"],
+                                              "item 7"),
     (["--shard-pool"], "item 8"), (["--workers", "2"], "item 7"),
     (["--tenant-mix", "gold:1"], "item 7"),
 ])
@@ -960,6 +961,6 @@ def test_serve_fleet_swap_guard_waits_on_the_shadow_evaluator(capsys):
     assert main(FLEET_ARGS + ["--continuous-train", "--swap-guard"]) == 2
     err = capsys.readouterr().err
     assert "--swap-guard is not ported yet" in err
-    assert "eval/shadow.py" in err and "items 5" in err and "7" in err
+    assert "eval/shadow.py" in err and "item 7" in err
     assert main(FLEET_ARGS + ["--continuous-train", "--predictor"]) == 2
     assert "drop --predictor" in capsys.readouterr().err
