@@ -109,6 +109,26 @@ Phases, each printed as one JSON line, each fatal on failure:
    ``status`` commands (the ledger's launches, its sampled device time
    against the kernel phase's, MFU, the memory watermark, the traces), and
    a ``device_trace`` of 10 fleet flushes.
+15. ``app``: the composition root.  ``default_bus`` builds the native C++
+   ring bus and the engine runs the C++ join scheduler (a failed ``g++``
+   build fails the phase); the pipeline's year lands through an
+   ``Application`` on the native bus and join and through the Python bus
+   and join, every landed column the same bits (rows/s, step ms of each);
+   ``app.train()``, then the Predictor from its checkpoint, an ssm
+   ``StreamingPredictor`` and the batched Predictor (gru) attached and the
+   next day bar by bar, one ``run_tick`` a bar (p50/p99), the consumers
+   against the same consumers on the CPU; ``serve-fleet --role solo
+   --cell ssm`` and ``status`` without ``--endpoint`` through the app.
+16. ``replay`` (gru, ssm): ``ReplayDriver`` over ``SyntheticHistory`` (16
+   tickers x 96 rounds, bucket 16) against ``run_live_reference`` at a 25
+   ms cadence, byte-identical in the in-process, binary and json
+   dialects; the halfway hot swap's accounting; card against CPU;
+   ``WarehouseHistory`` over the app's warehouse with the quality plane
+   (conservation); for gru the ``ShadowEvaluator`` (card = CPU) and
+   ``serve-fleet --continuous-train --swap-guard``.
+17. ``remat``: an attn training step at T = 1024 (batch 16, 10 book
+   levels) with ``model.remat`` and without: gradients within 1e-5, a
+   lower peak of allocated memory with remat; gru's two peaks.
 
 Phases 4-6, 10 and 11 run for the BiGRU (``cell="gru"``, the default),
 the BiLSTM (``cell="lstm"``), the TemporalTransformer (``cell="attn"``:
@@ -116,7 +136,8 @@ the flash kernels) and the bidirectional gated SSM (``cell="ssm"``:
 parallel mode, no kernel); phases 7-9 for gru, lstm and ssm (``stream
 bidirectional`` for gru and lstm); phase 12 for gru and ssm; phase 13
 for the BiGRU (its streaming consumers gru and ssm); phase 14 for ssm (its
-tracing cost for gru too).  Their lines carry
+tracing cost for gru too); phase 15 for gru (its stream ssm); phase 16
+for gru and ssm; phase 17 for attn and gru.  Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
 other kernel's 0 (``scan_dw`` counts the backward scans' weight-gradient
@@ -3265,6 +3286,639 @@ def phase_obs(tick_rows, traced_day_counts, device: str = "cuda"):
     return {k: counts[k] + traced_day_counts[k] for k in counts}
 
 
+#: the app phase: the pipeline phase's year (PIPELINE_DAYS synthetic days,
+#: a step a day) landed twice, through the native bus and join and through
+#: the Python ones, then an Application on the native warehouse, on the
+#: card, serving the next day bar by bar.  The keys the reference's
+#: Application reports after such a day (no fleet attached):
+#: tests/test_torch_app.py holds these to fmda_tpu.app's
+APP_STATS_KEYS = ("bad_messages", "checkpoint_corrupt", "consumer_lag",
+                  "degraded_rows", "degraded_streams", "dropped", "emitted",
+                  "pending", "warehouse_rows", "watermark_age_s")
+APP_STAGE_KEYS = ("ingest", "join", "land", "signal")
+#: each consumer's own prediction topic, so its messages read apart
+APP_TOPICS = {"predictor": "prediction", "ssm_stream": "prediction_ssm",
+              "predictor_fleet": "prediction_fleet"}
+
+
+def quiet_planes() -> None:
+    """Tracing and the device plane off (the obs phase toggles both)."""
+    from fmda_tpu_torch.config import ProfilingConfig
+    from fmda_tpu_torch.obs import configure_device_obs, configure_tracing
+
+    configure_tracing(enabled=False)
+    configure_device_obs(ProfilingConfig(enabled=False))
+
+
+def land_corpus(bus, engine, corpus, per_day: int) -> dict:
+    """The corpus through ``bus`` and ``engine``, a day published, one
+    step: seconds, rows/s and step ms."""
+    step_ms = []
+    t0 = time.perf_counter()
+    for d in range(0, len(corpus), per_day):
+        for topic, msg in corpus[d:d + per_day]:
+            bus.publish(topic, msg)
+        t = time.perf_counter()
+        engine.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    seconds = time.perf_counter() - t0
+    return dict(seconds=seconds, rows_per_s=engine.stats["emitted"] / seconds,
+                step_ms_p50=statistics.median(step_ms),
+                step_ms_p99=p99(step_ms), stats=engine.stats,
+                stages=engine.timer.summary())
+
+
+def landed_equal(a, b) -> bool:
+    """Every landed column of two warehouses the same bits: the raw table
+    chunk by chunk, the derived feature views and the targets."""
+    raw_a, raw_b = list(a.iter_row_chunks()), list(b.iter_row_chunks())
+    n = len(a)
+    ids = range(1, n + 1)
+    return (n == len(b) and len(raw_a) == len(raw_b)
+            and all(ta == tb and ma.tobytes() == mb.tobytes()
+                    for (ta, ma), (tb, mb) in zip(raw_a, raw_b))
+            and a.fetch(ids).tobytes() == b.fetch(ids).tobytes()
+            and a.fetch_targets(ids).tobytes()
+            == b.fetch_targets(ids).tobytes())
+
+
+def app_consumers(app, ckpt, ssm_setup, window, threshold):
+    """The three consumers the app serves, each publishing to its own
+    topic: the Predictor from the checkpoint, an ssm StreamingPredictor,
+    and the batched Predictor (gru) on the checkpoint's weights."""
+    from fmda_tpu_torch.serve import StreamingBiGRU
+    from fmda_tpu_torch.train.checkpoint import restore_checkpoint
+
+    for topic in APP_TOPICS.values():
+        app.bus.add_topic(topic)
+    ssm_cfg, ssm_state, ssm_norm = ssm_setup
+    app.attach_predictor_from_checkpoint(
+        ckpt, window=window, threshold=threshold, from_end=True,
+        max_staleness_s=None, prediction_topic=APP_TOPICS["predictor"])
+    app.attach_streaming_predictor(
+        StreamingBiGRU(ssm_cfg, ssm_state, ssm_norm, window=window,
+                       device=app.device),
+        threshold=threshold, from_end=True,
+        prediction_topic=APP_TOPICS["ssm_stream"])
+    tree, norm = restore_checkpoint(ckpt)
+    app.attach_predictor_fleet(
+        app.config.model, tree["params"], norm, max_staleness_s=None,
+        prediction_topic=APP_TOPICS["predictor_fleet"])
+
+
+def app_predictions(bus, offsets) -> dict:
+    """Each consumer's published (timestamp, probabilities) since
+    ``offsets``."""
+    return {name: [(r.value["timestamp"],
+                    np.asarray(r.value["probabilities"], np.float32))
+                   for r in bus.read(topic, offsets[name])]
+            for name, topic in APP_TOPICS.items()}
+
+
+def phase_app(directory: str, device: str = "cuda"):
+    """The composition root on the card, after ``obs``:
+
+    - the native path: ``default_bus`` builds the C++ ring bus and an
+      engine with ``join_backend="native"`` runs the C++ scheduler (a
+      failed ``g++`` build fails the phase: no fallback is accepted);
+    - engine replay: the pipeline's PIPELINE_DAYS days through the
+      Application's NativeBus and native join into a file warehouse, and
+      through an InProcessBus and the python join into another, every
+      landed column the same bits; rows/s and step ms of each;
+    - ``app.train()`` (one epoch at batch 256), the checkpoint, then the
+      Predictor from it, an ssm StreamingPredictor and the batched
+      Predictor (gru) attached, and the next day bar by bar, one
+      ``run_tick`` a bar: served = bars x consumers, each consumer's
+      probabilities within PATH_TOL of the same consumers on the CPU,
+      the launches, the keys of ``stats`` and ``stage_timings``;
+      ``run_tick`` p50/p99;
+    - the CLI through the Application: ``serve-fleet --role solo --cell
+      ssm`` (kernel 5 once a flush) and ``status`` without ``--endpoint``
+      over the phase's warehouse.
+
+    Returns (the path's launch counts, the native warehouse's path)."""
+    from fmda_tpu_torch.app import Application, default_bus
+    from fmda_tpu_torch.config import (
+        EngineConfig, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP, TrainConfig)
+    from fmda_tpu_torch.data.pipeline import WindowBatches
+    from fmda_tpu_torch.data.synthetic import (
+        BARS_PER_DAY, SyntheticMarketConfig, synthetic_session_messages)
+    from fmda_tpu_torch.obs.registry import MetricsRegistry
+    from fmda_tpu_torch.stream import InProcessBus, StreamEngine, Warehouse
+    from fmda_tpu_torch.stream.native_bus import NativeBus, native_available
+    from fmda_tpu_torch.stream.native_join import native_join_available
+    from fmda_tpu_torch.train.checkpoint import save_checkpoint
+
+    quiet_planes()
+    phase_t0 = time.perf_counter()
+    cfg = FrameworkConfig(
+        train=TrainConfig(batch_size=BATCH, chunk_size=TRAIN_CHUNK, epochs=1,
+                          seed=SEED),
+        engine=EngineConfig(join_backend="native"))
+    fc, window = cfg.features, cfg.train.window
+    threshold = cfg.train.prob_threshold
+
+    # -- the native path is the one that runs ---------------------------------
+    t0 = time.perf_counter()
+    built = native_available() and native_join_available()
+    build_s = time.perf_counter() - t0
+    check(built, "the native bus or join scheduler did not build")
+    check(type(default_bus(cfg)) is NativeBus,
+          "default_bus did not build the native ring bus")
+    paths = {name: f"{directory}/app_{name}.sqlite"
+             for name in ("native", "python")}
+    app = Application(cfg, warehouse=Warehouse(fc, dataclasses.replace(
+        cfg.warehouse, path=paths["native"])), device=device)
+    check(type(app.bus) is NativeBus and app.engine.join_backend == "native"
+          and app.engine._core is not None,
+          f"the app runs {type(app.bus).__name__} and the "
+          f"{app.engine.join_backend} join")
+
+    # -- engine replay, python against native -----------------------------------
+    per_day = 5 * BARS_PER_DAY
+    messages = list(synthetic_session_messages(fc, SyntheticMarketConfig(
+        seed=SEED, n_days=PIPELINE_DAYS + 1)))
+    corpus, live = (messages[:PIPELINE_DAYS * per_day],
+                    messages[PIPELINE_DAYS * per_day:])
+    replay = {"native": land_corpus(app.bus, app.engine, corpus, per_day)}
+    py_wh = Warehouse(fc, dataclasses.replace(cfg.warehouse,
+                                              path=paths["python"]))
+    py_engine = StreamEngine(
+        InProcessBus(cfg.bus.topics, capacity=cfg.bus.capacity), py_wh, fc,
+        metrics=MetricsRegistry())
+    check(py_engine.join_backend == "python", "the python engine's join")
+    replay["python"] = land_corpus(py_engine.bus, py_engine, corpus, per_day)
+    same = landed_equal(app.warehouse, py_wh)
+    n_rows = PIPELINE_DAYS * BARS_PER_DAY
+    emit("app engine replay", days=PIPELINE_DAYS, rows=len(app.warehouse),
+         native_build_s=build_s, landed_bit_identical=same,
+         **{f"{name}_{k}": v for name, r in replay.items()
+            for k, v in r.items()},
+         native_over_python_rows_per_s=replay["native"]["rows_per_s"]
+         / replay["python"]["rows_per_s"])
+    check(same, "native and python landings differ")
+    check(len(app.warehouse) == n_rows
+          and replay["native"]["stats"]["dropped"] == 0,
+          f"the native corpus landed {len(app.warehouse)} rows")
+    py_wh.close()
+
+    # -- train on it, then serve the next day bar by bar ------------------------
+    start_path()
+    t0 = time.perf_counter()
+    state, history, dataset = app.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = launch_counts()
+    ckpt = save_checkpoint(f"{directory}/app_ckpt", state,
+                           dataset.final_norm_params)
+    train_chunks, val_chunks, _ = dataset.split(cfg.train.val_size,
+                                                cfg.train.test_size)
+    n_train = sum(len(WindowBatches(dataset, i, BATCH)) for i in train_chunks)
+    n_val = sum(len(WindowBatches(dataset, i, BATCH)) for i in val_chunks)
+    tr = history["train"][-1]
+    emit("app train", steps=n_train, val_batches=n_val, seconds=train_s,
+         loss=tr.loss, accuracy=tr.accuracy, launches=train_counts)
+    check_launches(train_counts, train_launches("gru", n_train, n_val),
+                   "app train")
+    check(math.isfinite(tr.loss), "app train: non-finite loss")
+
+    ssm_setup = serving_setup(app.warehouse, "ssm", False)
+    app_consumers(app, ckpt, ssm_setup, window, threshold)
+    offsets = {name: app.bus.end_offset(topic)
+               for name, topic in APP_TOPICS.items()}
+    start_path()
+    tick_ms, served, stamps = [], 0, []
+    for b in range(BARS_PER_DAY):
+        bar = live[b * 5:(b + 1) * 5]
+        for topic, msg in bar:
+            app.bus.publish(topic, msg)
+        t = time.perf_counter()
+        out = app.run_tick()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        check(out["emitted"] == 1, f"bar {b} landed {out['emitted']} rows")
+        served += out["served"]
+        stamps.append(bar[0][1]["Timestamp"])
+    torch.cuda.synchronize()
+    live_counts = launch_counts()
+    card = app_predictions(app.bus, offsets)
+    stats, stages = app.stats, app.stage_timings
+    expected_live = {"gru_scan_fwd": 2 * BARS_PER_DAY * 2,
+                     "ssm_tick": n_rows + BARS_PER_DAY}
+
+    # the same consumers on the CPU, over the same warehouse
+    cpu_app = Application(cfg, bus=InProcessBus(
+        tuple(cfg.bus.topics) + tuple(APP_TOPICS.values())),
+        warehouse=app.warehouse, device="cpu")
+    app_consumers(cpu_app, ckpt, ssm_setup, window, threshold)
+    cpu_offsets = {name: 0 for name in APP_TOPICS}
+    for ts in stamps:
+        cpu_app.bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": ts})
+    t0 = time.perf_counter()
+    cpu_app.run_tick()
+    cpu_s = time.perf_counter() - t0
+    cpu = app_predictions(cpu_app.bus, cpu_offsets)
+    cpu_app.close()
+    errs = {name: max(float(np.abs(a[1] - b[1]).max())
+                      for a, b in zip(card[name], cpu[name]))
+            for name in APP_TOPICS}
+    emit("app live day", bars=BARS_PER_DAY, consumers=list(APP_TOPICS),
+         served=served, run_tick_ms_p50=statistics.median(tick_ms),
+         run_tick_ms_p99=p99(tick_ms), run_tick_ms_mean=statistics.fmean(
+             tick_ms), stats_keys=sorted(stats),
+         stage_timings=stages, launches=live_counts, cpu_seconds=cpu_s,
+         max_abs_err_vs_cpu=errs, tol=PATH_TOL)
+    check(served == BARS_PER_DAY * len(APP_TOPICS),
+          f"app served {served} for {BARS_PER_DAY} bars")
+    check(all([ts for ts, _ in card[n]] == stamps
+              and [ts for ts, _ in cpu[n]] == stamps for n in APP_TOPICS),
+          "a consumer served other timestamps than the bars'")
+    check(all(e <= PATH_TOL for e in errs.values()),
+          f"app: card and CPU consumers disagree {errs}")
+    check(tuple(sorted(stats)) == APP_STATS_KEYS
+          and tuple(sorted(stages)) == APP_STAGE_KEYS,
+          f"app stats {sorted(stats)}, stage timings {sorted(stages)}")
+    check_launches(live_counts, expected_live, "app live day")
+    app.close()
+
+    # -- the CLI through the Application ---------------------------------------
+    start_path()
+    rc, text = cli_output(["serve-fleet", "--role", "solo", "--cell", "ssm"])
+    fleet_counts = launch_counts()
+    out = json.loads(text) if rc == 0 else {}
+    flushes = out.get("counters", {}).get("flushes")
+    rc_status, status_text = cli_output(["status", "--warehouse",
+                                         paths["native"]])
+    emit("app cli", serve_fleet_rc=rc, ticks_served=out.get("ticks_served"),
+         ticks_per_s=out.get("ticks_per_s"), flushes=flushes,
+         launches=fleet_counts, status_rc=rc_status,
+         status=status_text.splitlines()[:1])
+    check(rc == 0 and out.get("cell") == "ssm",
+          f"serve-fleet --cell ssm exited {rc}")
+    check_launches(fleet_counts, {"ssm_tick": flushes}, "app serve-fleet")
+    check(rc_status == 0 and status_text.startswith("status: ok"),
+          f"status without --endpoint exited {rc_status}")
+    app.warehouse.close()
+    emit("app done", seconds=time.perf_counter() - phase_t0)
+    counts = {k: train_counts[k] + live_counts[k] + fleet_counts[k]
+              for k in train_counts}
+    return counts, paths["native"]
+
+
+#: the replay phase: the shape of the reference bench's replay cells
+#: (bench.py phase_replay_throughput): 16 tickers x 96 rounds, bucket 16,
+#: the live loop at a 25 ms cadence
+REPLAY_TICKERS = 16
+REPLAY_ROUNDS = 96
+REPLAY_BUCKET = 16
+REPLAY_CADENCE_S = 0.025
+#: the warehouse backfill: the newest rows of the app phase's warehouse
+REPLAY_WAREHOUSE_ROWS = 1600
+#: serve-fleet --continuous-train --swap-guard: a 14-day corpus (1,092
+#: rows, two tail pages), no validation split, so a round's forwards,
+#: backwards and weight gradients are its steps
+GUARD_ARGS = ["--sessions", "16", "--ticks", "20", "--continuous-train",
+              "--continuous-days", "14", "--train-rounds", "2",
+              "--swap-guard"]
+GUARD_TRAIN = {"chunk_size": 100, "batch_size": 64, "val_size": 0.0,
+               "test_size": 0.0, "continuous_poll_s": 0.01}
+
+
+def replay_gateway(model_cfg, state, device, n_tickers=REPLAY_TICKERS):
+    from fmda_tpu_torch.runtime import BatcherConfig, FleetGateway, SessionPool
+
+    pool = SessionPool(model_cfg, state, capacity=n_tickers, window=30,
+                       device=device)
+    return FleetGateway(pool, None, batcher_config=BatcherConfig(
+        bucket_sizes=(n_tickers,), max_linger_s=0.002))
+
+
+def by_session(results):
+    return sorted(results, key=lambda r: (r.session_id, r.seq))
+
+
+def shadow_check(wh_path: str, device: str) -> dict:
+    """The hot-swap guardrail over the app phase's warehouse: an
+    incumbent gru whose head bias decides each label as the majority of
+    the scored rows does, the candidate the same weights (passes) and the
+    head negated (refused at the default margin); on the card and on the
+    CPU, the same verdicts and accuracies."""
+    from fmda_tpu_torch.config import FrameworkConfig
+    from fmda_tpu_torch.eval.shadow import ShadowEvaluator
+    from fmda_tpu_torch.stream import Warehouse
+
+    cfg = FrameworkConfig()
+    wh = Warehouse(cfg.features, dataclasses.replace(cfg.warehouse,
+                                                     path=wh_path))
+    q = cfg.quality
+    scored = q.swap_eval_rounds * q.swap_eval_sessions
+    last = len(wh) - cfg.features.max_lead
+    on = wh.fetch_targets(range(last - scored + 1, last + 1)).mean(axis=0)
+    model_cfg = model_config("gru", bidirectional=False, dropout=0.0)
+    from fmda_tpu_torch.models import build_model
+
+    incumbent = build_model(model_cfg, generator=torch.Generator().manual_seed(
+        SEED)).state_dict()
+    incumbent["linear.bias"] = torch.as_tensor(
+        np.where(on > 0.5, 5.0, -5.0), dtype=torch.float32)
+    negated = {k: v.clone() for k, v in incumbent.items()}
+    negated["linear.bias"].neg_()
+    negated["linear.weight"].neg_()
+    verdicts, seconds = {}, {}
+    for side, dev in (("card", device), ("cpu", "cpu")):
+        guard = ShadowEvaluator(
+            incumbent, model_config=model_cfg, warehouse=wh,
+            quality_config=q, max_lead=cfg.features.max_lead,
+            window=cfg.runtime.window,
+            row_transform=wh.joined_row_transform, device=dev)
+        t0 = time.perf_counter()
+        verdicts[side] = [guard(incumbent), guard(negated)]
+        seconds[side] = time.perf_counter() - t0
+    wh.close()
+    (same, neg), cpu = verdicts["card"], verdicts["cpu"]
+    check(same[0] is True and same[1]["scored"] and same[1]["joined"]
+          == scored, f"shadow: the incumbent against itself {same}")
+    check(neg[0] is False, f"shadow: the negated head passed {neg}")
+    check([same, neg] == cpu, f"shadow: card {[same, neg]}, CPU {cpu}")
+    return dict(same=same, negated=neg, card_seconds=seconds["card"],
+                cpu_seconds=seconds["cpu"])
+
+
+def phase_replay(wh_path: str, directory: str, device: str = "cuda",
+                 cell: str = "gru"):
+    """Historical replay for one carried-state family at full width:
+
+    - ``ReplayDriver`` over ``SyntheticHistory`` (REPLAY_TICKERS x
+      REPLAY_ROUNDS) through a FleetGateway at bucket REPLAY_BUCKET, and
+      ``run_live_reference`` at REPLAY_CADENCE_S: ticks/s and rows/s of
+      each, the results sorted by (session, seq) byte-equal, and again
+      through the binary and the json wire dialects;
+    - the halfway hot swap to the seed + 1 weights: no session dropped, no
+      tick lost, seqs contiguous, the results before the swap the
+      swap-free run's bytes, after it the new weights';
+    - the replay's probabilities against the same replay on the CPU;
+    - ``WarehouseHistory`` over the newest REPLAY_WAREHOUSE_ROWS rows of
+      the app phase's warehouse with a QualityEvaluator: conservation;
+    - for gru, the ShadowEvaluator (:func:`shadow_check`) and ``serve-fleet
+      --continuous-train --swap-guard``.
+
+    Launches: kernel 5 once an ssm flush, none for gru's pool; the guarded
+    loop's scans one a training step.  Returns the path's launch counts."""
+    from fmda_tpu_torch.config import FrameworkConfig
+    from fmda_tpu_torch.models import build_model
+    from fmda_tpu_torch.obs.quality import QualityEvaluator
+    from fmda_tpu_torch.replay import (
+        ReplayDriver, SyntheticHistory, WarehouseHistory, run_live_reference)
+    from fmda_tpu_torch.stream import Warehouse
+
+    quiet_planes()
+    phase_t0 = time.perf_counter()
+    cfg = FrameworkConfig()
+    model_cfg = model_config(cell, bidirectional=False, dropout=0.0)
+
+    def seeded(seed):
+        return build_model(model_cfg, generator=torch.Generator().manual_seed(
+            seed)).state_dict()
+
+    state, swap_state = seeded(SEED), seeded(SEED + 1)
+    source = SyntheticHistory(REPLAY_TICKERS, REPLAY_ROUNDS,
+                              model_cfg.n_features, seed=SEED)
+    ReplayDriver(replay_gateway(model_cfg, state, device),
+                 SyntheticHistory(REPLAY_TICKERS, 2, model_cfg.n_features,
+                                  seed=SEED)).run()  # warm-up
+    start_path()
+    flushes = 0
+
+    def replay(dialect=None, on_round=None, gateway=None):
+        nonlocal flushes
+        gateway = gateway or replay_gateway(model_cfg, state, device)
+        driver = ReplayDriver(gateway, source, wire_dialect=dialect,
+                              collect=True, on_round=on_round)
+        out = driver.run()
+        flushes += out["counters"]["flushes"]
+        return out, by_session(driver.results)
+
+    runs = {"replay": replay()}
+    live = run_live_reference(replay_gateway(model_cfg, state, device),
+                              source, cadence_s=REPLAY_CADENCE_S,
+                              collect=True)
+    flushes += live["counters"]["flushes"]
+    live_results = by_session(live["results"])
+    for dialect in ("binary", "json"):
+        runs[dialect] = replay(dialect)
+
+    def same_bytes(a, b):
+        return len(a) == len(b) and all(
+            (x.session_id, x.seq) == (y.session_id, y.seq)
+            and x.probabilities.tobytes() == y.probabilities.tobytes()
+            for x, y in zip(a, b))
+
+    identity = {name: same_bytes(results, live_results)
+                for name, (_, results) in runs.items()}
+
+    # the halfway hot swap
+    swap_at = REPLAY_ROUNDS // 2
+    swap_gateway = replay_gateway(model_cfg, state, device)
+    swapped = {}
+
+    def on_round(r):
+        if not swapped and r + 1 >= swap_at:
+            swapped["version"] = swap_gateway.hot_swap(swap_state)
+
+    swap_out, swap_results = replay(on_round=on_round, gateway=swap_gateway)
+    plain = runs["replay"][1]
+    n_ticks = REPLAY_TICKERS * REPLAY_ROUNDS
+    seqs_ok = all(
+        [r.seq for r in swap_results if r.session_id == f"T{i:04d}"]
+        == list(range(REPLAY_ROUNDS)) for i in range(REPLAY_TICKERS))
+    before_same = all(
+        x.probabilities.tobytes() == y.probabilities.tobytes()
+        and y.weights_version is None
+        for x, y in zip(plain, swap_results) if y.seq < swap_at)
+    after = [(x, y) for x, y in zip(plain, swap_results) if y.seq >= swap_at]
+    after_new = (all(y.weights_version == 1 for _, y in after)
+                 and any(not np.array_equal(x.probabilities, y.probabilities)
+                         for x, y in after))
+    c = swap_out["counters"]
+    lost = n_ticks - swap_out["ticks_served"]
+
+    # the warehoused backfill, with the label join
+    wh = Warehouse(cfg.features, dataclasses.replace(cfg.warehouse,
+                                                     path=wh_path))
+    quality = QualityEvaluator(cfg.quality, warehouse=wh,
+                               max_lead=cfg.features.max_lead)
+    history = WarehouseHistory(
+        wh, REPLAY_TICKERS, start_ts=wh.recent_timestamps(
+            REPLAY_WAREHOUSE_ROWS)[-1],
+        row_transform=wh.joined_row_transform())
+    wh_gateway = replay_gateway(model_cfg, state, device)
+    wh_out = ReplayDriver(wh_gateway, history, quality=quality).run()
+    flushes += wh_out["counters"]["flushes"]
+    quality.join()
+    conservation = quality.conservation()
+    wh.close()
+    counts = launch_counts()  # the card's replays end here
+
+    # the card against the CPU
+    cpu_driver = ReplayDriver(replay_gateway(model_cfg, state, "cpu"), source,
+                              collect=True)
+    cpu_driver.run()
+    cpu_results = by_session(cpu_driver.results)
+    err = max(float(np.abs(x.probabilities - y.probabilities).max())
+              for x, y in zip(plain, cpu_results))
+    rep = runs["replay"][0]
+    emit("replay", cell=cell, tickers=REPLAY_TICKERS, rounds=REPLAY_ROUNDS,
+         bucket=REPLAY_BUCKET, cadence_s=REPLAY_CADENCE_S,
+         replay_ticks_per_s=rep["ticks_per_s"],
+         replay_rows_per_s=rep["rows_per_s"],
+         live_ticks_per_s=live["ticks_per_s"],
+         live_rows_per_s=live["ticks_submitted"] / live["wall_s"],
+         replay_over_live=rep["ticks_per_s"] / live["ticks_per_s"],
+         dialect_ticks_per_s={d: runs[d][0]["ticks_per_s"]
+                              for d in ("binary", "json")},
+         identity=identity, hot_swap=dict(
+             round=swap_at, version=swapped.get("version"), lost=lost,
+             seqs_contiguous=seqs_ok, before_same=before_same,
+             after_new=after_new, counters=c),
+         max_abs_err_vs_cpu=err, tol=PATH_TOL,
+         warehouse=dict(rows=wh_out["rows_replayed"],
+                        rounds=wh_out["rounds"],
+                        rows_per_s=wh_out["rows_per_s"],
+                        conservation=conservation),
+         flushes=flushes, launches=counts)
+    check(all(identity.values()) and len(live_results) == n_ticks,
+          f"{cell} replay against live: {identity}")
+    check(swapped.get("version") == 1 and lost == 0 and seqs_ok
+          and before_same and after_new
+          and c.get("rejected_sessions", 0) == 0,
+          f"{cell} hot swap: version {swapped}, lost {lost}, seqs "
+          f"{seqs_ok}, before {before_same}, after {after_new}")
+    check(len(cpu_results) == n_ticks and err <= PATH_TOL,
+          f"{cell} replay: card and CPU disagree ({err})")
+    check(conservation["captured"] == wh_out["rows_replayed"]
+          == REPLAY_WAREHOUSE_ROWS
+          and conservation["captured"] == conservation["joined"]
+          + conservation["expired"] + conservation["shed"]
+          + conservation["pending"] and conservation["joined"] > 0,
+          f"{cell} warehouse replay: conservation {conservation}")
+    check_launches(counts, {"ssm_tick": flushes} if cell == "ssm" else {},
+                   f"{cell} replay")
+    if cell != "gru":
+        emit("replay done", cell=cell,
+             seconds=time.perf_counter() - phase_t0)
+        return counts
+
+    emit("replay shadow", **shadow_check(wh_path, device))
+    config = f"{directory}/guard.json"
+    with open(config, "w") as fh:
+        json.dump({"train": GUARD_TRAIN}, fh)
+    start_path()
+    rc, text = cli_output(["serve-fleet", "--role", "solo", "--config",
+                           config, "--train-checkpoint-dir",
+                           f"{directory}/guard_ckpt"] + GUARD_ARGS)
+    guard_counts = launch_counts()
+    out = json.loads(text) if rc == 0 else {}
+    ct = out.get("continuous_train", {})
+    steps = int(re.search(r"step_(\d+)", ct["checkpoints"][-1]).group(1)) \
+        if ct.get("checkpoints") else 0
+    emit("replay swap guard", rc=rc, rounds=ct.get("rounds"),
+         swaps_accepted=ct.get("swaps_accepted"),
+         swaps_refused=ct.get("swaps_refused"),
+         verdicts=ct.get("swap_guard"), steps=steps,
+         ticks_served=out.get("ticks_served"), launches=guard_counts)
+    check(rc == 0 and ct.get("rounds") == 2
+          and len(ct.get("swap_guard", [])) == 2
+          and ct["swaps_accepted"] + ct["swaps_refused"] == 2,
+          f"serve-fleet --swap-guard exited {rc}: {ct}")
+    check_launches(guard_counts, {"gru_scan_fwd": steps,
+                                  "gru_scan_bwd": steps, "scan_dw": steps},
+                   "replay swap guard")
+    emit("replay done", cell=cell, seconds=time.perf_counter() - phase_t0)
+    return {k: counts[k] + guard_counts[k] for k in counts}
+
+
+#: the remat check: bench.py's long-context training shape (T = 1024,
+#: batch 16, 10 book levels a side)
+REMAT_SHAPE = dict(batch=16, window=1024, levels=10)
+
+
+def remat_step(cell: str, remat: bool, device: str) -> tuple:
+    """One training forward and backward of a full-width model (dropout
+    0) at REMAT_SHAPE: the parameter gradients, the peak of allocated
+    memory (reset before) and the launches."""
+    from fmda_tpu_torch.config import FeatureConfig, TrainConfig
+    from fmda_tpu_torch.data.pipeline import Batch
+    from fmda_tpu_torch.train import Trainer
+
+    s = REMAT_SHAPE
+    n_features = len(FeatureConfig(bid_levels=s["levels"],
+                                   ask_levels=s["levels"]).x_fields())
+    model_cfg = model_config(cell, n_features=n_features, dropout=0.0,
+                             remat=remat)
+    trainer = Trainer(model_cfg, TrainConfig(batch_size=s["batch"],
+                                             window=s["window"]),
+                      weight=np.full(4, 2.0, np.float32),
+                      pos_weight=np.full(4, 3.0, np.float32), device=device)
+    state = trainer.init_state()
+    rng = np.random.default_rng(SEED)
+    batch = Batch(*(torch.as_tensor(a, device=device) for a in (
+        rng.normal(size=(s["batch"], s["window"], n_features)).astype(
+            np.float32),
+        (rng.uniform(size=(s["batch"], 4)) > 0.7).astype(np.float32),
+        np.ones(s["batch"], np.float32))))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    trainer.accumulate_gradients(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    grads = {k: p.grad.detach().cpu() for k, p in
+             state.model.named_parameters()}
+    return grads, peak, counts
+
+
+def phase_remat(device: str = "cuda"):
+    """``model.remat`` on the card at REMAT_SHAPE: an attn step with remat
+    and one without, the gradients within PATH_TOL and the peak of
+    allocated memory lower with remat (checked); gru's two peaks (its
+    kernel pair keeps only ``hs`` either way; not checked).  Returns the
+    launch counts of the four steps."""
+    quiet_planes()
+    t0 = time.perf_counter()
+    total, peaks, errs = {}, {}, {}
+    for cell in ("attn", "gru"):
+        runs = {}
+        for remat in (False, True):
+            grads, peak, counts = remat_step(cell, remat, device)
+            runs[remat] = grads
+            peaks[f"{cell}_{'remat' if remat else 'plain'}"] = peak
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            # attn: the forward once more under remat (the recompute), the
+            # T = 1024 backward the two sweeps; gru two scans each way, the
+            # kernel pair never recomputed (the CPU's plain scans are)
+            if cell == "attn":
+                want = {"flash_fwd": 2 if remat else 1, "flash_dkv": 1,
+                        "flash_dq": 1}
+            else:
+                again = remat and torch.device(device).type == "cpu"
+                want = {"gru_scan_fwd": 4 if again else 2,
+                        "gru_scan_bwd": 2, "scan_dw": 2}
+            check_launches(counts, want, f"remat {cell} {remat}")
+        errs[cell] = max(float((runs[False][k] - runs[True][k]).abs().max())
+                         for k in runs[False])
+    emit("remat", shape=REMAT_SHAPE, peak_bytes=peaks,
+         attn_saved_bytes=peaks["attn_plain"] - peaks["attn_remat"],
+         grad_max_abs_err=errs, tol=PATH_TOL, launches=total,
+         seconds=time.perf_counter() - t0)
+    check(errs["attn"] <= PATH_TOL and errs["gru"] <= PATH_TOL,
+          f"remat: gradients differ {errs}")
+    check(peaks["attn_remat"] < peaks["attn_plain"],
+          f"remat: attn peak {peaks['attn_remat']} not below "
+          f"{peaks['attn_plain']}")
+    return total
+
+
 #: what an entry of the summary line carries of its kernel at a shape
 TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -3486,6 +4140,16 @@ def main() -> int:
             tmp, traced_day=lambda live: traced_day.update(
                 obs_traced_day(live)))
         obs = phase_obs(tick_rows, traced_day)
+        app, app_wh = phase_app(tmp)
+        replay = {cell: phase_replay(app_wh, tmp, cell=cell)
+                  for cell in ("gru", "ssm")}
+        remat = phase_remat()
+
+    def later(name):
+        """A kernel's launches on the app, replay and remat paths."""
+        return {"app": app.get(name, 0),
+                "replay": sum(r.get(name, 0) for r in replay.values()),
+                "remat": remat.get(name, 0)}
 
     entries = []
     for s in scans:
@@ -3496,14 +4160,15 @@ def main() -> int:
                    "predictor_fleet": predictor_fleet[s.name][fwd],
                    "train_multi": train_multi[s.name][fwd],
                    "continuous": continuous.get(s.name, {}).get(fwd, 0),
-                   "pipeline": pipeline[fwd], "obs": obs[fwd]}
+                   "pipeline": pipeline[fwd], "obs": obs[fwd],
+                   **later(fwd)}
         bwd_by_path = {"serve": serve[s.name][bwd],
                        "train": train[s.name][bwd],
                        "fleet": fleet[s.name][bwd],
                        "predictor_fleet": predictor_fleet[s.name][bwd],
                        "train_multi": train_multi[s.name][bwd],
                        "continuous": continuous.get(s.name, {}).get(bwd, 0),
-                       "pipeline": pipeline[bwd]}
+                       "pipeline": pipeline[bwd], **later(bwd)}
         fwd_rows, bwd_rows = rows[s.name]
         entries += [
             kernel_entry(fwd, s.replaces[0], s.source, fwd_rows,
@@ -3517,7 +4182,7 @@ def main() -> int:
          "predictor_fleet": predictor_fleet["ssm"][k],
          "train_multi": train_multi["ssm"][k],
          "continuous": continuous["ssm"][k], "pipeline": pipeline[k],
-         "obs": obs[k]}
+         "obs": obs[k], **later(k)}
         for k in ("ssm_tick", "ssm_step"))))
     entries += [flash_entry(name, flash_rows,
                             {"serve": serve["attn"][name],
@@ -3528,7 +4193,7 @@ def main() -> int:
                              "train_multi": train_multi["attn"][name],
                              "continuous": sum(continuous[c][name]
                                                for c in continuous),
-                             "pipeline": pipeline[name]})
+                             "pipeline": pipeline[name], **later(name)})
                 for name in FLASH_REPLACES]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

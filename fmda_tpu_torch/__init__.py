@@ -12,6 +12,7 @@ streaming serving of the three recurrent ones:
     warehouse -> chunked windows -> Trainer.fit -> checkpoint -> backtest
     warehouse -> StreamingBiGRU(Bidirectional) -> StreamingPredictor
     rows of many sessions -> SessionPool (one flush a micro-batch)
+    history -> ReplayDriver -> FleetGateway (a backfill on a virtual clock)
 
 with each recurrence's forward and backward scans, the SSM's serve tick
 and the flash-attention forward and backward sweeps in hand-written CUDA
@@ -19,9 +20,21 @@ kernels (``csrc/gru_scan.cu``, ``csrc/lstm_scan.cu``, ``csrc/ssm_step.cu``
 and ``csrc/flash_attn.cu``, bound in :mod:`fmda_tpu_torch.ops.gru_kernel`,
 :mod:`fmda_tpu_torch.ops.lstm_kernel`, :mod:`fmda_tpu_torch.ops.ssm_kernel`
 and :mod:`fmda_tpu_torch.ops.attention_kernel`).  Entry points run on the card
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``.  :class:`~fmda_tpu_torch.app.
+Application` composes the stack from one config (the native C++ ring bus
+and join scheduler when they build).
 """
 
 from fmda_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["Application", "resolve_device"]
+
+
+def __getattr__(name):
+    # the composition root pulls in the streaming stack: keep the package
+    # import light
+    if name == "Application":
+        from fmda_tpu_torch.app import Application
+
+        return Application
+    raise AttributeError(f"module 'fmda_tpu_torch' has no attribute {name!r}")

@@ -12,11 +12,14 @@
     python -m fmda_tpu_torch serve    --warehouse W --checkpoint C [--device cpu]
     python -m fmda_tpu_torch serve-fleet --role solo [--cell ssm] [--predictor]
                                       [--sessions N] [--ticks N] [--device cpu]
-                                      [--continuous-train [--train-rounds N]]
+                                      [--replay [--hot-swap]]
+                                      [--continuous-train [--train-rounds N]
+                                      [--swap-guard]]
                                       [--trace [--trace-sample R]] [--trace-out F]
                                       [--metrics-port P [--metrics-hold-s S]]
                                       [--jax-profile DIR]
-    python -m fmda_tpu_torch status   --endpoint HOST:PORT [...] [--watch N]
+    python -m fmda_tpu_torch status   [--endpoint HOST:PORT [...]]
+                                      [--warehouse W] [--watch N]
     python -m fmda_tpu_torch trace    (--input F | --endpoint HOST:PORT
                                       | --merge F ... [--out F]) [--last N]
                                       [--slowest N] [--min-ms X] [--json]
@@ -28,8 +31,10 @@
 ``demo`` is the end-to-end proof run: a synthetic corpus through the
 streaming engine into a warehouse, training, and a backtest of the
 checkpoint it just trained.  ``ingest`` lands feeds into a warehouse file
-through the streaming engine: the synthetic corpus, or a recorded session
-replayed through the acquisition layer.  ``train``, ``backtest`` and
+through the streaming engine (the stack
+:class:`~fmda_tpu_torch.app.Application` builds: the native ring bus when
+it builds): the synthetic corpus, or a recorded session replayed through
+the acquisition layer.  ``train``, ``backtest`` and
 ``serve`` read a warehouse file ``fmda_tpu`` (or this package) wrote; ``train`` writes a port checkpoint
 (:mod:`fmda_tpu_torch.train.checkpoint`) that the other two read, with
 the drift reference profile beside it; ``train --continuous`` tails the
@@ -37,12 +42,16 @@ warehouse and fine-tunes round by round, a checkpoint and a profile a
 round.  ``serve-fleet`` runs the fleet runtime against a synthetic load:
 seeded ticker sessions through the FleetGateway, or (``--predictor``)
 predict-timestamp signals over a synthetic corpus warehouse through the
-batched Predictor; ``--continuous-train`` runs the continuous trainer in
-a thread beside the sessions' load, each accepted round hot-swapped into
-the live gateway; ``--trace``/``--trace-out`` trace it end to end,
+batched Predictor, or (``--replay``) a history backfill on a virtual
+clock, with ``--hot-swap`` a new checkpoint landing halfway;
+``--continuous-train`` runs the continuous trainer in a thread beside the
+sessions' load, each accepted round hot-swapped into the live gateway
+(``--swap-guard``: after a shadow score against the incumbent);
+``--trace``/``--trace-out`` trace it end to end,
 ``--metrics-port`` serves the observability endpoint while it runs.
 ``status``, ``trace``, ``perf`` and ``quality`` read that endpoint (or
-saved files) and print its snapshot, trace breakdowns, device report and
+saved files; ``status`` without one builds a local application over the
+configured warehouse) and print its snapshot, trace breakdowns, device report and
 model quality (:mod:`fmda_tpu_torch.obs.report`).  All run their models on
 the CUDA card unless ``--device cpu`` is given (``ingest`` runs no model).
 """
@@ -196,40 +205,17 @@ def cmd_demo(args) -> int:
     return 0
 
 
-def ingest_stack(cfg, *, metrics=None):
-    """The ingest wiring: ``(bus, warehouse, engine)`` from the config's
-    bus, warehouse and engine sections.  The warehouse is a
-    :class:`~fmda_tpu_torch.stream.journal.BufferedWarehouse` when
-    ``warehouse.journal_path`` is set."""
-    from fmda_tpu_torch.stream import (
-        BufferedWarehouse, InProcessBus, StreamEngine, Warehouse)
-
-    bus = InProcessBus(cfg.bus.topics, capacity=cfg.bus.capacity)
-    wc, ec = cfg.warehouse, cfg.engine
-    wh = Warehouse(cfg.features, wc)
-    if wc.journal_path:
-        wh = BufferedWarehouse(wh, wc.journal_path, bound=wc.journal_bound,
-                               fmt=wc.journal_format)
-    try:
-        engine = StreamEngine(
-            bus, wh, cfg.features, checkpoint_path=ec.checkpoint_path,
-            checkpoint_every=ec.checkpoint_every,
-            join_backend=ec.join_backend,
-            staleness_deadline_s=ec.staleness_deadline_s, metrics=metrics)
-    except Exception:
-        wh.close()
-        raise
-    return bus, wh, engine
-
-
 def cmd_ingest(args) -> int:
     """Land feeds into a warehouse file through the streaming engine:
     ``--synthetic-days`` publishes the synthetic corpus, ``--replay`` a
     recorded session through the acquisition layer; everything is
-    published first, then the engine steps once."""
+    published first, then the engine steps once.  The stack is the
+    :class:`~fmda_tpu_torch.app.Application` the config builds: the
+    native ring bus, the warehouse (journaled when configured) and the
+    engine."""
+    from fmda_tpu_torch.app import Application
     from fmda_tpu_torch.data.synthetic import (
         SyntheticMarketConfig, synthetic_session_messages)
-    from fmda_tpu_torch.obs.registry import default_registry
 
     cfg = _config(args)
     engine_overrides = {k: v for k, v in dict(
@@ -244,10 +230,11 @@ def cmd_ingest(args) -> int:
               "fixture file)", file=sys.stderr)
         return 2
     try:
-        bus, wh, engine = ingest_stack(cfg, metrics=default_registry())
+        app = Application(cfg)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 2
+    bus, wh, engine = app.bus, app.warehouse, app.engine
     try:
         if args.synthetic_days:
             for topic, msg in synthetic_session_messages(
@@ -265,6 +252,7 @@ def cmd_ingest(args) -> int:
         print(f"warehouse {args.warehouse}: {len(wh)} rows; "
               f"engine {engine.stats}")
     finally:
+        app.close()
         wh.close()
     return 0
 
@@ -428,10 +416,6 @@ UNPORTED_FLEET_FLAGS = {
     "tenant_mix": "item 7 (control/)",
     "chaos_plan": "item 7 (chaos/)",
     "chaos_no_reference": "item 7 (chaos/)",
-    "replay": "item 7 (replay/)",
-    "hot_swap": "item 7 (replay/)",
-    "swap_guard": ("item 3: eval/shadow.py, which waits on item 7 "
-                   "(replay/)"),
     "trace_dir": "item 7 (multi-host serving: one trace file a process)",
     "postmortem_dir": "item 7 (obs/recorder.py, the flight recorder)",
     "shard_pool": "item 8 (parallelism)",
@@ -451,28 +435,45 @@ def _unported_fleet_flag(args) -> str:
     return ""
 
 
+def _fleet_flag_conflict(args) -> str:
+    """The reference's refusals of flag combinations, as its messages;
+    '' when the flags compose."""
+    if args.hot_swap and not args.replay:
+        return "--hot-swap lands mid-backfill; it needs --replay"
+    if args.replay and args.predictor:
+        return ("--replay serves carried-state sessions; it composes with "
+                "--cell, not --predictor")
+    if args.continuous_train and (args.replay or args.predictor):
+        return ("--continuous-train is its own load shape; drop "
+                "--replay/--predictor")
+    if args.swap_guard and not args.continuous_train:
+        return ("--swap-guard gates --continuous-train swaps; add "
+                "--continuous-train")
+    return ""
+
+
 def cmd_serve_fleet(args) -> int:
     """Multi-tenant serving against a synthetic load, one process
-    (``--role solo``): N ticker sessions through the micro-batching fleet
-    runtime — one pool step a flush serves every session in it — or, with
-    ``--predictor``, predict-timestamp signals through the batched
-    window-re-scan Predictor.  Prints the runtime's metrics (per-stage
-    latency histograms, counters, gauges, host stages, kernel launches per
-    bucket) as one JSON object; exits 1 when ``--slo-p99-ms`` is missed
-    (unless ``--slo-soft``).  ``--trace``/``--trace-out`` trace the load,
-    ``--metrics-port`` serves the observability endpoint during it,
-    ``--jax-profile DIR`` writes a torch profile of it into DIR."""
+    (``--role solo``), built through the
+    :class:`~fmda_tpu_torch.app.Application`: N ticker sessions through
+    the micro-batching fleet runtime (one pool step a flush serves every
+    session in it), or ``--predictor``'s predict-timestamp signals through
+    the batched window-re-scan Predictor, or ``--replay``'s history
+    backfill at full speed on a virtual clock (``[replay]``; with
+    ``--hot-swap`` a new checkpoint lands halfway).  Prints the runtime's
+    metrics (per-stage latency histograms, counters, gauges, host stages,
+    kernel launches per bucket) as one JSON object; exits 1 when
+    ``--slo-p99-ms`` is missed (unless ``--slo-soft``).
+    ``--trace``/``--trace-out`` trace the load, ``--metrics-port`` serves
+    the observability endpoint during it, ``--jax-profile DIR`` writes a
+    torch profile of it into DIR."""
     import os
 
     from fmda_tpu_torch.device import resolve_device
 
-    refused = _unported_fleet_flag(args)
+    refused = _unported_fleet_flag(args) or _fleet_flag_conflict(args)
     if refused:
         print(refused, file=sys.stderr)
-        return 2
-    if args.continuous_train and args.predictor:
-        print("--continuous-train is its own load shape; drop --predictor",
-              file=sys.stderr)
         return 2
     device = resolve_device(args.device)
     cfg = _config(args)
@@ -493,21 +494,19 @@ def cmd_serve_fleet(args) -> int:
             predictor_ring=(True if args.ring else None))
     else:
         overrides = dict(
-            capacity=max(args.sessions, cfg.runtime.capacity),
+            capacity=max(args.sessions, cfg.runtime.capacity,
+                         cfg.replay.n_tickers if args.replay else 0),
             max_linger_ms=args.max_linger_ms, queue_bound=args.queue_bound,
             window=args.window, bucket_sizes=bucket_sizes)
     overrides.update(pipeline_depth=(0 if args.serial else None),
                      slo_p99_ms=args.slo_p99_ms)
-    rc = dataclasses.replace(cfg.runtime, **{
-        k: v for k, v in overrides.items() if v is not None})
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, **{k: v for k, v in overrides.items()
+                        if v is not None}))
     # tracing and [profiling] apply before anything is built, so every
     # component captures a configured tracer and the ledger books the
     # first launch
-    from fmda_tpu_torch.obs import (
-        Observability,
-        configure_device_obs,
-        configure_tracing,
-    )
+    from fmda_tpu_torch.obs import configure_device_obs, configure_tracing
 
     tracing = bool(args.trace or args.trace_out)
     configure_tracing(
@@ -516,115 +515,193 @@ def cmd_serve_fleet(args) -> int:
                      else cfg.tracing.sample_rate),
         capacity=cfg.tracing.max_spans)
     configure_device_obs(cfg.profiling)
-    obs = Observability(cfg.observability)
-    try:
-        return _serve_fleet(args, cfg, rc, device, obs)
-    finally:
-        obs.close()
+    return _serve_fleet(args, cfg, device)
 
 
-def _serve_fleet(args, cfg, rc, device, obs) -> int:
+def _replay_width(cfg) -> int:
+    """The feature width a replay serves: a warehouse backfill streams the
+    raw landed table (``table_columns()`` wide), not the derived
+    ``x_fields`` view, so the model is sized to those rows."""
+    if cfg.replay.source == "warehouse":
+        return len(cfg.features.table_columns())
+    return cfg.features.n_features
+
+
+def _seeded_state(model_cfg, seed: int):
+    """A random-init ``state_dict`` from ``seed`` (the serving math does
+    not depend on the checkpoint)."""
+    import torch
+
+    from fmda_tpu_torch.models import build_model
+
+    generator = torch.Generator().manual_seed(seed)
+    return build_model(model_cfg, generator=generator).state_dict()
+
+
+def _carrier_config(cfg, args, n_features: int):
+    """The unidirectional carrier the solo fleet's pool serves, sized by
+    ``--hidden`` (attn, which carries no state, serves as gru)."""
+    return dataclasses.replace(
+        cfg.model, bidirectional=False, dropout=0.0,
+        hidden_size=args.hidden, n_features=n_features,
+        cell=cfg.model.cell if cfg.model.cell != "attn" else "gru")
+
+
+def _run_replay(gateway, cfg, args, *, warehouse=None, swap_params=None):
+    """The ``--replay`` load: a full-speed virtual-clock backfill through
+    the gateway's unmodified submit/pump surface
+    (:class:`~fmda_tpu_torch.replay.ReplayDriver`) in place of the
+    cadence-shaped synthetic load.  With ``swap_params`` the checkpoint
+    lands halfway through the backfill, no session dropped."""
+    from fmda_tpu_torch.replay import (
+        ReplayDriver, SyntheticHistory, WarehouseHistory)
+
+    rc = cfg.replay
+    n_features = _replay_width(cfg)
+    if rc.source == "warehouse":
+        source = WarehouseHistory(
+            warehouse, rc.n_tickers, n_features=n_features,
+            start_ts=rc.start_ts, end_ts=rc.end_ts, chunk=rc.chunk)
+    else:
+        source = SyntheticHistory(rc.n_tickers, rc.n_rounds, n_features,
+                                  seed=rc.seed, duty=rc.duty,
+                                  step_s=rc.step_s)
+    quality = None
+    if cfg.quality.enabled and rc.source == "warehouse":
+        # warehoused backfills have joinable labels: the run reports live
+        # quality per weights version beside its throughput
+        from fmda_tpu_torch.obs.quality import QualityEvaluator
+
+        quality = QualityEvaluator(cfg.quality, warehouse=warehouse,
+                                   max_lead=cfg.features.max_lead)
+    # halfway for the synthetic source; a warehouse backfill's round
+    # count is known only once its rows stream
+    swap_at = max(1, rc.n_rounds // 2)
+    swapped: dict = {}
+
+    def on_round(r):
+        if swap_params is not None and not swapped and r + 1 >= swap_at:
+            version = gateway.hot_swap(swap_params)
+            swapped.update({"round": r + 1, "weights_version": version})
+
+    driver = ReplayDriver(gateway, source, seed=rc.seed,
+                          wire_dialect=rc.wire_dialect, on_round=on_round,
+                          quality=quality)
+    out = driver.run()
+    out["replay"] = {"source": rc.source, "n_tickers": rc.n_tickers}
+    if swapped:
+        out["hot_swap"] = swapped
+    if quality is not None:
+        quality.join()  # the final join: whatever has its labels already
+        q = quality.summary()
+        out["quality"] = {"conservation": q["conservation"],
+                          "overall": q["overall"],
+                          "versions": q["versions"]}
+    return out
+
+
+def _serve_fleet(args, cfg, device) -> int:
     import os
     import tempfile
+
+    from fmda_tpu_torch.app import Application
+
+    corpus_dir = None
+    if args.predictor or args.continuous_train:
+        # the synthetic corpus, landed through the streaming engine: the
+        # Predictor's signals read it; the continuous trainer tails it as
+        # a backlog (a file, as a tail-follow reads one)
+        from fmda_tpu_torch.data.synthetic import (
+            SyntheticMarketConfig, build_corpus)
+
+        days = args.predictor_days if args.predictor else args.continuous_days
+        wh_cfg = None
+        if args.continuous_train:
+            corpus_dir = tempfile.TemporaryDirectory()
+            wh_cfg = dataclasses.replace(cfg.warehouse, path=os.path.join(
+                corpus_dir.name, "corpus.sqlite"))
+        wh, _ = build_corpus(cfg.features, SyntheticMarketConfig(
+            seed=args.seed, n_days=days), wh_cfg)
+        app = Application(cfg, warehouse=wh, device=device)
+    else:
+        app = Application(cfg, device=device)
+    try:
+        return _serve_app(args, cfg, app, device)
+    finally:
+        app.close()
+        app.warehouse.close()
+        if corpus_dir is not None:
+            corpus_dir.cleanup()
+
+
+def _serve_app(args, cfg, app, device) -> int:
     import threading
 
     import numpy as np
-    import torch
 
-    from fmda_tpu_torch.config import DEFAULT_TOPICS
-    from fmda_tpu_torch.models import build_model
-    from fmda_tpu_torch.runtime import BatcherConfig
-    from fmda_tpu_torch.stream import InProcessBus
-
-    bus = InProcessBus(DEFAULT_TOPICS)
-    generator = torch.Generator().manual_seed(args.seed)
-
+    rc = cfg.runtime
+    continuous = None
     if args.predictor:
         from fmda_tpu_torch.data.normalize import NormParams
-        from fmda_tpu_torch.data.synthetic import (
-            SyntheticMarketConfig, build_corpus)
         from fmda_tpu_torch.runtime import (
-            PredictorGateway, PredictorLoadConfig, PredictorPool,
-            run_predictor_load)
+            PredictorLoadConfig, run_predictor_load)
 
-        # the synthetic corpus, landed through the streaming engine
-        wh, _ = build_corpus(
-            cfg.features, SyntheticMarketConfig(
-                seed=args.seed, n_days=args.predictor_days))
+        wh = app.warehouse
         window = (rc.predictor_window if rc.predictor_window is not None
                   else rc.window)
         model_cfg = dataclasses.replace(
             cfg.model, dropout=0.0, hidden_size=args.hidden,
             n_features=len(wh.x_fields))
-        state = build_model(model_cfg, generator=generator).state_dict()
+        state = _seeded_state(model_cfg, args.seed)
         norm = NormParams(np.zeros(model_cfg.n_features, np.float32),
                           np.ones(model_cfg.n_features, np.float32))
-        pool = PredictorPool(model_cfg, state, norm, window=window,
-                             use_ring=rc.predictor_ring, device=device)
-        gateway = PredictorGateway(
-            pool, bus, wh,
-            batcher_config=BatcherConfig(
-                bucket_sizes=tuple(rc.predictor_bucket_sizes),
-                max_linger_s=rc.predictor_max_linger_ms / 1e3),
-            queue_bound=rc.predictor_queue_bound,
-            pipeline_depth=rc.pipeline_depth,
-            threshold=cfg.train.prob_threshold, max_staleness_s=None)
-        obs.track_predictor_fleet(gateway)
-        out = _run_observed(args, obs, gateway, lambda: run_predictor_load(
-            gateway, wh.timestamps()[window - 1:],
-            PredictorLoadConfig(n_signals=args.signals, burst=args.burst)))
-        out["ring"] = pool.use_ring
-        wh.close()
+        gateway = app.attach_predictor_fleet(model_cfg, state, norm,
+                                             max_staleness_s=None)
+        out = _run_observed(args, app.observability, gateway,
+                            lambda: run_predictor_load(
+                                gateway, wh.timestamps()[window - 1:],
+                                PredictorLoadConfig(n_signals=args.signals,
+                                                    burst=args.burst)))
+        out["ring"] = gateway.pool.use_ring
     else:
-        from fmda_tpu_torch.runtime import (
-            FleetGateway, FleetLoadConfig, SessionPool, run_fleet_load)
+        from fmda_tpu_torch.runtime import FleetLoadConfig, run_fleet_load
 
-        n_features = cfg.features.n_features
-        if args.continuous_train:
-            # the trainer tails a real warehouse: the synthetic corpus of
-            # --continuous-days days, landed through the streaming engine
-            # before the load starts and tailed as a backlog; the model is
-            # sized to its joined width, so the trainer trains the weights
-            # the pool serves
-            from fmda_tpu_torch.data.synthetic import (
-                SyntheticMarketConfig, build_corpus)
-
-            corpus_dir = tempfile.TemporaryDirectory()
-            wh, _ = build_corpus(
-                cfg.features, SyntheticMarketConfig(
-                    seed=args.seed, n_days=args.continuous_days),
-                dataclasses.replace(cfg.warehouse, path=os.path.join(
-                    corpus_dir.name, "corpus.sqlite")))
-            n_features = len(wh.x_fields)
-        # a seeded random-init unidirectional carrier (the serving math
-        # does not depend on the checkpoint; --hidden sizes it)
-        model_cfg = dataclasses.replace(
-            cfg.model, bidirectional=False, dropout=0.0,
-            hidden_size=args.hidden, n_features=n_features,
-            cell=cfg.model.cell if cfg.model.cell != "attn" else "gru")
-        state = build_model(model_cfg, generator=generator).state_dict()
-        pool = SessionPool(model_cfg, state, capacity=rc.capacity,
-                           window=rc.window, device=device)
-        gateway = FleetGateway(
-            pool, bus,
-            batcher_config=BatcherConfig(
-                bucket_sizes=tuple(rc.bucket_sizes),
-                max_linger_s=rc.max_linger_ms / 1e3),
-            queue_bound=rc.queue_bound, pipeline_depth=rc.pipeline_depth,
-            threshold=cfg.train.prob_threshold)
-        obs.track_fleet(gateway)
-        continuous = None
+        n_features = (len(app.warehouse.x_fields) if args.continuous_train
+                      else _replay_width(cfg) if args.replay
+                      else cfg.features.n_features)
+        model_cfg = _carrier_config(cfg, args, n_features)
+        state = _seeded_state(model_cfg, args.seed)
+        gateway = app.attach_fleet(model_cfg, state)
         if args.continuous_train:
             # each accepted round hot-swaps the live pool from the
             # trainer's thread; serving never stops
             from fmda_tpu_torch.train import (
                 ContinuousTrainer, gateway_publisher)
 
+            require_eval, verdicts = None, []
+            if args.swap_guard:
+                from fmda_tpu_torch.eval.shadow import ShadowEvaluator
+
+                # the model is sized to the joined x_fields view; the
+                # shadow replay streams raw landed chunks through the
+                # warehouse's derived views
+                guard = ShadowEvaluator(
+                    state, model_config=model_cfg, warehouse=app.warehouse,
+                    quality_config=cfg.quality,
+                    max_lead=cfg.features.max_lead, window=rc.window,
+                    row_transform=app.warehouse.joined_row_transform,
+                    device=device)
+
+                def require_eval(params):
+                    ok, detail = guard(params)
+                    verdicts.append({"ok": ok, **detail})
+                    return ok, detail
             continuous = ContinuousTrainer(
-                wh, model_cfg, cfg.train,
+                app.warehouse, model_cfg, cfg.train,
                 checkpoint_dir=(args.train_checkpoint_dir
                                 or cfg.train.checkpoint_dir),
-                publish=gateway_publisher(gateway),
+                publish=gateway_publisher(gateway,
+                                          require_eval=require_eval),
                 bid_levels=cfg.features.bid_levels,
                 ask_levels=cfg.features.ask_levels,
                 drift_bins=cfg.quality.drift_bins,
@@ -633,13 +710,29 @@ def _serve_fleet(args, cfg, rc, device, obs) -> int:
                 target=lambda: continuous.run(max_rounds=args.train_rounds),
                 daemon=True, name="fmda-torch-continuous-train")
             continuous_thread.start()
-        out = _run_observed(args, obs, gateway, lambda: run_fleet_load(
-            gateway, FleetLoadConfig(
-                n_sessions=args.sessions, n_ticks=args.ticks, duty=args.duty,
-                seed=args.seed, storm_every=args.storm_every,
-                storm_fraction=args.storm_fraction,
-                burst_every=args.burst_every, burst_rounds=args.burst_rounds,
-                slow_fraction=args.slow_fraction, slow_duty=args.slow_duty)))
+        if args.replay:
+            swap_params = None
+            if args.hot_swap:
+                # the same stack from the next seed: the same shapes (a
+                # swap changes no launch), other weights
+                swap_params = _seeded_state(model_cfg, args.seed + 1)
+
+            def run_load():
+                return _run_replay(gateway, cfg, args,
+                                   warehouse=app.warehouse,
+                                   swap_params=swap_params)
+        else:
+            def run_load():
+                return run_fleet_load(gateway, FleetLoadConfig(
+                    n_sessions=args.sessions, n_ticks=args.ticks,
+                    duty=args.duty, seed=args.seed,
+                    storm_every=args.storm_every,
+                    storm_fraction=args.storm_fraction,
+                    burst_every=args.burst_every,
+                    burst_rounds=args.burst_rounds,
+                    slow_fraction=args.slow_fraction,
+                    slow_duty=args.slow_duty))
+        out = _run_observed(args, app.observability, gateway, run_load)
         out["cell"] = model_cfg.cell
         if continuous is not None:
             # the tail quiesces by itself (at most continuous_follow_polls
@@ -651,9 +744,9 @@ def _serve_fleet(args, cfg, rc, device, obs) -> int:
                 continuous_thread.join(timeout=120.0)
             summary = continuous.summary()
             summary["weights_version"] = gateway.weights_version
+            if args.swap_guard:
+                summary["swap_guard"] = verdicts
             out["continuous_train"] = summary
-            wh.close()
-            corpus_dir.cleanup()
     out["device"] = str(device)
     if args.trace or args.trace_out:
         from fmda_tpu_torch.obs import default_tracer
@@ -799,6 +892,23 @@ def _add_serve_fleet(sub, common) -> None:
     p.add_argument("--continuous-days", type=int, default=2,
                    help="corpus size (trading days of 78 bars) for the "
                         "--continuous-train warehouse")
+    p.add_argument("--swap-guard", action="store_true",
+                   help="with --continuous-train: shadow-score every "
+                        "candidate against the incumbent before its swap "
+                        "(fmda_tpu_torch.eval.shadow; a refusal keeps the "
+                        "incumbent serving and is counted)")
+    p.add_argument("--replay", action="store_true",
+                   help="historical backfill: serve the [replay] config "
+                        "section's history source (seeded synthetic, or "
+                        "the warehouse's rows) through the unmodified "
+                        "serving path at full speed on a virtual clock "
+                        "(the rows' own timestamps), in place of the "
+                        "synthetic load")
+    p.add_argument("--hot-swap", action="store_true",
+                   help="with --replay: land a checkpoint from the next "
+                        "seed into the live gateway halfway through the "
+                        "backfill, no session dropped; results carry "
+                        "weights_version from the swap barrier on")
     p.add_argument("--train-rounds", type=int, default=None,
                    help="bound --continuous-train fine-tune rounds "
                         "(default: until the backlog quiesces)")
@@ -837,7 +947,7 @@ def _add_serve_fleet(sub, common) -> None:
     for dest in UNPORTED_FLEET_FLAGS:
         flag = "--" + dest.replace("_", "-")
         if dest in ("shared_bus", "no_controller", "chaos_no_reference",
-                    "replay", "hot_swap", "swap_guard", "shard_pool"):
+                    "shard_pool"):
             unported.add_argument(flag, action="store_true", default=None)
         else:
             unported.add_argument(flag, default=None)

@@ -4,8 +4,8 @@ The same frozen dataclasses as ``fmda_tpu.config`` (field names, defaults
 and the config -> schema codegen of :class:`FeatureConfig`), cut to what
 the ported paths read: the feature schema, the warehouse, the model, the
 training config, the fleet runtime config (without ``shard_pool``), the
-quality plane's knobs and the observability plane's (``observability``,
-``tracing``, ``profiling`` without ``cost_analysis``).  A
+quality plane's knobs, the observability plane's (``observability``,
+``tracing``, ``profiling`` without ``cost_analysis``) and replay's.  A
 JSON file that ``fmda_tpu.config.save_config`` wrote loads here too, and
 a file the reference would refuse is refused: :func:`config_from_dict`
 checks every section and key against :data:`REFERENCE_KEYS`, the
@@ -42,19 +42,22 @@ class BusConfig:
     topics: Tuple[str, ...] = DEFAULT_TOPICS
     #: Ring-buffer capacity per topic (records).
     capacity: int = 1 << 16
-    #: External Kafka brokers (read by the Kafka adapter, not ported yet).
+    #: External Kafka brokers (:class:`~fmda_tpu_torch.stream.kafka_bus.
+    #: KafkaBus`).
     servers: Tuple[str, ...] = ("localhost:9092",)
 
 
 @dataclass(frozen=True)
 class WarehouseConfig:
-    """Embedded SQLite warehouse: the same file layout ``fmda_tpu`` writes.
-
-    The MySQL fields of the reference (``database_name``, ``user``,
-    ``password``, ``hostname``, ``port``) wait for the MySQL backend."""
+    """The warehouse: embedded SQLite (the same file layout ``fmda_tpu``
+    writes), or MariaDB/MySQL through
+    :class:`~fmda_tpu_torch.stream.mysql_warehouse.MySQLWarehouse`, which
+    reads ``database_name``, ``user``, ``password``, ``hostname`` and
+    ``port``."""
 
     backend: str = "sqlite"
     path: str = ":memory:"
+    database_name: str = "stock_data"
     table_name: str = "stock_data_joined"
     #: Write-ahead journal of :class:`~fmda_tpu_torch.stream.journal.
     #: BufferedWarehouse`: rows the store refuses spill here and drain
@@ -65,6 +68,11 @@ class WarehouseConfig:
     #: Journal record layout: ``jsonl`` (a JSON line a row) or ``binary``
     #: (length-prefixed codec frames); recovery reads either.
     journal_format: str = "jsonl"
+    # the MySQL backend's connection (unused by SQLite)
+    user: str = "admin"
+    password: str = "admin"
+    hostname: str = "localhost"
+    port: int = 3306
 
 
 DEFAULT_EVENT_LIST: Tuple[str, ...] = (
@@ -306,6 +314,10 @@ class ModelConfig:
     ssm_ema_init: Tuple[float, float] = (0.6, 0.98)
     #: Compute dtype for the recurrent core and head; params stay float32.
     dtype: str = "float32"
+    #: Recompute in the backward pass instead of keeping the forward's
+    #: intermediates: each attn encoder block, and the gru/lstm scans'
+    #: plain (CPU) path (the kernel pair keeps only ``hs`` already).
+    remat: bool = False
 
     def __post_init__(self) -> None:
         if self.cell not in PORTED_CELLS:
@@ -429,10 +441,9 @@ class QualityConfig:
     profile that ``train`` and the continuous loop write beside each
     checkpoint (:mod:`fmda_tpu_torch.eval.drift`); ``enabled`` through
     ``max_join_attempts`` drive the label-join evaluator
-    (:mod:`fmda_tpu_torch.obs.quality`).  The three ``swap_*`` fields,
-    ``drift_min_samples`` and ``profile_path`` wait for the hot-swap
-    guardrail (``eval/shadow.py``, ROADMAP queue 1 item 3, which waits on
-    item 7's ``replay/``)."""
+    (:mod:`fmda_tpu_torch.obs.quality`); the three ``swap_*`` fields the
+    hot-swap guardrail (:mod:`fmda_tpu_torch.eval.shadow`).
+    ``drift_min_samples`` and ``profile_path`` are kept and not read."""
 
     #: Master switch for the quality plane (capture + join + drift).
     enabled: bool = True
@@ -490,8 +501,9 @@ class QualityConfig:
 class EngineConfig:
     """The streaming engine's knobs."""
 
-    #: "python"; "native" (the C++ join scheduler) is not ported yet and
-    #: is refused.
+    #: "python" or "native" (the C++ join scheduler, the same decisions;
+    #: the python one runs, logged, when it cannot be built or a
+    #: staleness deadline is set).
     join_backend: str = "python"
     #: Durable-state write cadence in steps.
     checkpoint_every: int = 1
@@ -579,6 +591,56 @@ class ProfilingConfig:
 
 
 @dataclass(frozen=True)
+class ReplayConfig:
+    """Historical replay's knobs (:mod:`fmda_tpu_torch.replay`), with
+    ``fmda_tpu``'s defaults: the history source and the run's bounds.  A
+    replay serves at full speed on a virtual clock (the rows' own
+    timestamps); its sessions are ordinary gateway sessions."""
+
+    #: ``"synthetic"`` (the seeded generator: re-iterates bit for bit, no
+    #: warehouse) or ``"warehouse"`` (chunked reads through
+    #: ``Warehouse.iter_row_chunks``).
+    source: str = "synthetic"
+    #: Tickers (= replay sessions) the backfill drives.
+    n_tickers: int = 8
+    #: Rounds served when ``source="synthetic"``.
+    n_rounds: int = 256
+    #: Seed of the synthetic generator and the tenant assignment.
+    seed: int = 0
+    #: Fraction of tickers active a synthetic round (1.0 = lockstep, the
+    #: composition the bit-identity checks need).
+    duty: float = 1.0
+    #: Virtual seconds between synthetic rounds.
+    step_s: float = 60.0
+    #: Warehouse row-range bounds (timestamp strings; None = unbounded)
+    #: when ``source="warehouse"``.
+    start_ts: Optional[str] = None
+    end_ts: Optional[str] = None
+    #: Rows per keyset-paginated warehouse read.
+    chunk: int = 4096
+    #: The wire dialect blocks round-trip through before serving: None
+    #: (in-process), ``"binary"`` or ``"json"``.
+    wire_dialect: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        if self.source not in ("synthetic", "warehouse"):
+            raise ValueError(
+                f"replay.source must be 'synthetic' or 'warehouse', "
+                f"got {self.source!r}")
+        if self.wire_dialect not in (None, "binary", "json"):
+            raise ValueError(
+                f"replay.wire_dialect must be null, 'binary' or 'json', "
+                f"got {self.wire_dialect!r}")
+        if self.n_tickers < 1 or self.n_rounds < 1 or self.chunk < 1:
+            raise ValueError(
+                f"replay.n_tickers/n_rounds/chunk must be >= 1, got "
+                f"{self.n_tickers}/{self.n_rounds}/{self.chunk}")
+        if not 0.0 < self.duty <= 1.0:
+            raise ValueError(
+                f"replay.duty must be in (0, 1], got {self.duty}")
+
+
+@dataclass(frozen=True)
 class FrameworkConfig:
     features: FeatureConfig = field(default_factory=FeatureConfig)
     bus: BusConfig = field(default_factory=BusConfig)
@@ -593,6 +655,7 @@ class FrameworkConfig:
         default_factory=ObservabilityConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
     profiling: ProfilingConfig = field(default_factory=ProfilingConfig)
+    replay: ReplayConfig = field(default_factory=ReplayConfig)
 
     def __post_init__(self) -> None:
         if self.model.n_features is None:
@@ -614,6 +677,7 @@ _SECTIONS = {
     "observability": ObservabilityConfig,
     "tracing": TracingConfig,
     "profiling": ProfilingConfig,
+    "replay": ReplayConfig,
 }
 
 #: Every section and key ``fmda_tpu.config.config_from_dict`` accepts (the
@@ -621,10 +685,8 @@ _SECTIONS = {
 #: keys its own dataclasses in :data:`_SECTIONS` have and accepts the rest
 #: without reading them:
 #:
-#: - ``warehouse``: ``database_name``, ``user``, ``password``,
-#:   ``hostname``, ``port`` (the MySQL backend);
 #: - ``model``: ``use_pallas`` (the port has no opt-in: its kernels always
-#:   run on the card) and ``remat``;
+#:   run on the card);
 #: - ``runtime``: ``shard_pool`` (sharding the pool's slots across
 #:   devices waits for the port's parallelism);
 #: - ``quality``: read whole into :class:`QualityConfig`;
@@ -632,8 +694,8 @@ _SECTIONS = {
 #:   shape, so there is no program to analyse: the kernel ledger computes
 #:   each launch's cost from its shapes);
 #: - the sections ``mesh``, ``fleet``, ``slo`` (waits with the fleet
-#:   telemetry, ROADMAP queue 1 item 7), ``chaos``, ``control`` and
-#:   ``replay`` whole.
+#:   telemetry, ROADMAP queue 1 item 7), ``chaos`` and ``control``
+#:   whole.
 REFERENCE_KEYS = {
     "features": (
         "get_cot", "get_vix", "get_stock_volume", "bid_levels", "ask_levels",

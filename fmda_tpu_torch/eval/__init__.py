@@ -3,7 +3,8 @@ vocabulary (:mod:`fmda_tpu_torch.eval.metrics`) shared by the offline
 trainer reports and an online evaluator, and a PSI drift monitor against
 the training-time reference profile written beside each checkpoint
 (:mod:`fmda_tpu_torch.eval.drift`).  Both are numpy only.  The hot-swap
-guardrail (``fmda_tpu.eval.shadow``) is not ported yet."""
+guardrail, :class:`fmda_tpu_torch.eval.shadow.ShadowEvaluator`, is
+imported from its module, as the reference's is."""
 
 from fmda_tpu_torch.eval.drift import (
     DriftMonitor,

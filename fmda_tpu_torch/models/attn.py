@@ -9,7 +9,8 @@ over a pre-LN transformer encoder:
 - ``embed`` Linear(F -> H) plus parameter-free sinusoidal positions;
 - ``n_layers`` :class:`EncoderBlock` s (``block_{i}``): pre-LN multi-head
   attention through :func:`fmda_tpu_torch.ops.attention.mha` (the flash
-  kernels on a card) and a GELU MLP, residual dropout on both;
+  kernels on a card) and a GELU MLP, residual dropout on both; each
+  recomputed in the backward pass when ``cfg.remat``;
 - ``ln_final``, then the head over the per-step outputs, the last valid
   position standing for the recurrent families' final hidden.
 
@@ -31,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fmda_tpu_torch.models.common import dropout, pool_concat_logits
+from fmda_tpu_torch.models.common import dropout, pool_concat_logits, remat
 from fmda_tpu_torch.ops.attention import merge_heads, mha, split_heads
 
 #: flax LayerNorm's epsilon (torch's default is 1e-5).
@@ -175,8 +176,13 @@ class TemporalTransformer(nn.Module):
         # fully padded row gives zeros and the head's mask drops it
         attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
         for layer in range(cfg.n_layers):
-            x = getattr(self, f"block_{layer}")(x, attn_mask,
-                                                generator=generator)
+            block = getattr(self, f"block_{layer}")
+            if cfg.remat and torch.is_grad_enabled():
+                # recompute each block in the backward instead of keeping
+                # its (B, N, T, T)-sized intermediates (long contexts)
+                x = remat(block, x, attn_mask, generator=generator)
+            else:
+                x = block(x, attn_mask, generator=generator)
         x = _layer_norm(self.ln_final, x)
         if mask is None:
             last_hidden = x[:, -1]

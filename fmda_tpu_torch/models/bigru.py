@@ -34,5 +34,6 @@ class BiGRU(RecurrentClassifier):
 
     def layer(self, x, weights, init, *, reverse, mask):
         h_last, hs = gru_layer(x, weights, None if init is None else init[0],
-                               reverse=reverse, mask=mask)
+                               reverse=reverse, mask=mask,
+                               remat=self.cfg.remat)
         return (h_last,), hs

@@ -39,5 +39,6 @@ class BiLSTM(RecurrentClassifier):
     def layer(self, x, weights, init, *, reverse, mask):
         h0, c0 = (None, None) if init is None else init
         (h_last, c_last), hs = lstm_layer(x, weights, h0, c0,
-                                          reverse=reverse, mask=mask)
+                                          reverse=reverse, mask=mask,
+                                          remat=self.cfg.remat)
         return (h_last, c_last), hs

@@ -9,10 +9,11 @@ cell's layer op left to the family."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def dropout(
@@ -36,6 +37,36 @@ def dropout(
     draw_on = generator.device if generator is not None else x.device
     keep = torch.rand(shape, generator=generator, device=draw_on) >= p
     return torch.where(keep.to(x.device), x / (1.0 - p), 0.0).to(x.dtype)
+
+
+def remat(fn: Callable, *args,
+          generator: Optional[torch.Generator] = None):
+    """``fn(*args, generator=generator)`` recomputed in the backward pass
+    instead of keeping its intermediates (``torch.utils.checkpoint``,
+    non-reentrant), as the reference's ``nn.remat``/``jax.checkpoint``.
+
+    The checkpoint restores the global RNG streams for the recompute, not
+    a generator passed in, so the dropout masks drawn from ``generator``
+    are kept here: the recompute runs from the generator's state before
+    the first forward, and the state that followed the first forward is
+    put back after it.  Without a generator ``fn(*args)`` is called."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    before = generator.get_state()
+    calls = [0]
+
+    def run(*inner):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*inner, generator=generator)
+        after = generator.get_state()
+        generator.set_state(before)
+        try:
+            return fn(*inner, generator=generator)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def pool_concat_logits(

@@ -8,9 +8,10 @@
   each one and the aggregate verdict; ``--watch N`` redraws every N
   seconds.  The reference's status also reads ``/alerts`` and
   ``/control``, which wait with the SLO engine and the control plane
-  (ROADMAP queue 1, item 7).  ``status`` without an endpoint builds the
-  reference's ``Application``, which the port does not have yet (item
-  6): it exits 2.
+  (ROADMAP queue 1, item 7).  ``status`` without an endpoint builds an
+  :class:`~fmda_tpu_torch.app.Application` over the configured warehouse
+  (``--warehouse`` overrides its path), its endpoint off, and prints that
+  application's snapshot and health.
 - ``trace`` groups Chrome/Perfetto trace files (``serve-fleet
   --trace-out``), a running endpoint's ``/trace``, or several per-process
   files stitched by trace id (``--merge``) into per-trace stage
@@ -20,7 +21,8 @@
   stacks.
 - ``quality`` renders the label-join evaluator's ``/quality`` document.
 
-Every command reads over HTTP or from files: none touches the card.
+Every command reads over HTTP or from files (local ``status``: the
+warehouse file): none touches the card.
 """
 
 from __future__ import annotations
@@ -230,33 +232,51 @@ def _status_multi(endpoints) -> int:
     return 0 if aggregate == "ok" else 1
 
 
+def _local_status(args):
+    """A local application's snapshot and health: an
+    :class:`~fmda_tpu_torch.app.Application` over the config's warehouse
+    (``--warehouse`` overrides its path), its scrape endpoint off (a config
+    with the endpoint on belongs to the daemon this command inspects)."""
+    import dataclasses
+
+    from fmda_tpu_torch.__main__ import _config
+    from fmda_tpu_torch.app import Application
+
+    cfg = _config(args)
+    if args.warehouse:
+        cfg = dataclasses.replace(cfg, warehouse=dataclasses.replace(
+            cfg.warehouse, path=args.warehouse))
+    cfg = dataclasses.replace(cfg, observability=dataclasses.replace(
+        cfg.observability, endpoint_enabled=False))
+    app = Application(cfg)
+    try:
+        return app.observability.snapshot(), app.observability.health()
+    finally:
+        app.close()
+        app.warehouse.close()
+
+
 def _status_once(args) -> int:
     import urllib.error
 
-    if len(args.endpoint) > 1:
+    if not args.endpoint:
+        snapshot, health = _local_status(args)
+    elif len(args.endpoint) > 1:
         return _status_multi(args.endpoint)
-    try:
-        snapshot, health = scrape_endpoint(args.endpoint[0])
-    except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
-        print(f"cannot scrape {args.endpoint[0]}: {e}", file=sys.stderr)
-        return 2
+    else:
+        try:
+            snapshot, health = scrape_endpoint(args.endpoint[0])
+        except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
+            print(f"cannot scrape {args.endpoint[0]}: {e}", file=sys.stderr)
+            return 2
     print_status(snapshot, health)
     return 0 if health.get("status") == "ok" else 1
 
 
-#: what ``status`` without ``--endpoint`` waits for
-STATUS_LOCAL_UNPORTED = (
-    "status without --endpoint builds the reference's Application, which "
-    "is not ported yet (ROADMAP queue 1, item 6: App); pass --endpoint "
-    "HOST:PORT of a running serve-fleet --metrics-port")
-
-
 def cmd_status(args) -> int:
-    """Observability snapshot off running endpoints (``--endpoint``, one
-    or several); ``--watch N`` re-scrapes every N seconds until Ctrl-C."""
-    if not args.endpoint:
-        print(STATUS_LOCAL_UNPORTED, file=sys.stderr)
-        return 2
+    """Observability snapshot: off running endpoints (``--endpoint``, one
+    or several), or of a local application over the configured warehouse;
+    ``--watch N`` re-scrapes every N seconds until Ctrl-C."""
     if not args.watch:
         return _status_once(args)
     import time
@@ -582,10 +602,12 @@ def add_parsers(sub, common) -> None:
         help="pretty-print running endpoints' snapshot + health verdict")
     p.add_argument("--endpoint", default=None, metavar="HOST:PORT",
                    nargs="+",
-                   help="scrape running endpoints' /snapshot + /healthz; "
-                        "several endpoints report each one + the "
-                        "aggregate health (without --endpoint: exits 2, "
-                        "ROADMAP queue 1 item 6)")
+                   help="scrape running endpoints' /snapshot + /healthz "
+                        "instead of building a local app; several "
+                        "endpoints report each one + the aggregate health")
+    p.add_argument("--warehouse", default=None,
+                   help="warehouse file for the local snapshot (default: "
+                        "config's path)")
     p.add_argument("--watch", type=float, default=None, metavar="N",
                    help="re-scrape and redraw every N seconds until "
                         "Ctrl-C (clean exit 0)")

@@ -19,10 +19,12 @@ Gates follow the torch ``nn.GRU`` convention, packed ``[r, z, n]``:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from fmda_tpu_torch.ops.gru_kernel import (
     gru_gates,
@@ -61,13 +63,23 @@ def gru_layer(
     *,
     reverse: bool = False,
     mask: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One direction of a GRU layer: projection, then the differentiable
     scan (its kernels, or their plain versions for CPU tensors).  Returns
-    (h_last, hs)."""
+    (h_last, hs).  ``remat`` recomputes the plain scan in the backward
+    pass, as the reference checkpoints its ``lax.scan``."""
     hidden = weights.w_hh.shape[-1]
     if h0 is None:
         h0 = x.new_zeros((x.shape[0], hidden))
     xp = input_projection(x, weights)
+    if remat and xp.device.type == "cpu" and torch.is_grad_enabled():
+        # the plain path only: the kernel pair saves xp, h0, the weights
+        # and hs, and its backward sweep recomputes the gates, so it
+        # rematerialises already (as the reference's Pallas pair does)
+        return checkpoint(functools.partial(gru_scan, reverse=reverse,
+                                            mask=mask),
+                          xp, h0, weights.w_hh, weights.b_hh,
+                          use_reentrant=False)
     return gru_scan(xp, h0, weights.w_hh, weights.b_hh, reverse=reverse,
                     mask=mask)

@@ -22,10 +22,12 @@ Gates follow the torch ``nn.LSTM`` convention, packed ``[i, f, g, o]``:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from fmda_tpu_torch.ops.lstm_kernel import (
     lstm_gates,
@@ -66,13 +68,23 @@ def lstm_layer(
     *,
     reverse: bool = False,
     mask: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
     """One direction of an LSTM layer: projection, then the differentiable
     scan (its kernels, or their plain versions for CPU tensors).  Returns
-    ((h_last, c_last), hs)."""
+    ((h_last, c_last), hs).  ``remat`` recomputes the plain scan in the
+    backward pass, as the reference checkpoints its ``lax.scan``."""
     state = (x.shape[0], weights.w_hh.shape[-1])
     h0 = x.new_zeros(state) if h0 is None else h0
     c0 = x.new_zeros(state) if c0 is None else c0
     xp = lstm_input_projection(x, weights)
+    if remat and xp.device.type == "cpu" and torch.is_grad_enabled():
+        # the plain path only: the kernel pair saves xp, the carries, the
+        # weights, hs and cs, and its backward sweep recomputes the gates,
+        # so it rematerialises already (as the reference's Pallas pair)
+        return checkpoint(functools.partial(lstm_scan, reverse=reverse,
+                                            mask=mask),
+                          xp, h0, c0, weights.w_hh, weights.b_hh,
+                          use_reentrant=False)
     return lstm_scan(xp, h0, c0, weights.w_hh, weights.b_hh, reverse=reverse,
                      mask=mask)

@@ -27,7 +27,7 @@ from fmda_tpu_torch.config import TOPIC_PREDICT_TIMESTAMP
 from fmda_tpu_torch.data.normalize import NormParams
 
 
-def _by_bucket(gateway) -> Dict[str, int]:
+def launches_by_bucket(gateway) -> Dict[str, int]:
     """``gateway.kernel_launches_by_bucket`` with JSON keys."""
     counts = getattr(gateway, "kernel_launches_by_bucket", {})
     return {str(b): n for b, n in sorted(counts.items())}
@@ -206,7 +206,7 @@ def run_fleet_load(
         "ticks_served": served,
         "wall_s": wall_s,
         "ticks_per_s": served / wall_s if wall_s > 0 else None,
-        "kernel_launches_by_bucket": _by_bucket(gateway),
+        "kernel_launches_by_bucket": launches_by_bucket(gateway),
         **summary,
     }
     if load.storm_every:
@@ -272,6 +272,6 @@ def run_predictor_load(
         **({"bursts": list(load.bursts)} if load.bursts else {}),
         "wall_s": wall_s,
         "signals_per_s": served / wall_s if wall_s > 0 else None,
-        "kernel_launches_by_bucket": _by_bucket(gateway),
+        "kernel_launches_by_bucket": launches_by_bucket(gateway),
         **summary,
     }

@@ -9,7 +9,12 @@ When the process tracer (:mod:`fmda_tpu_torch.obs.trace`) is enabled, a
 publish under an active trace stamps the message with the trace's
 in-band ``trace`` field and records a ``bus_publish`` span; consumers
 read the context back from ``record.value.get("trace")``.  With tracing
-disabled the publish path pays one branch."""
+disabled the publish path pays one branch.  :meth:`InProcessBus.
+bind_metrics` counts publishes and consumer reads per topic.
+
+The other backends keep the same contract: the C++ ring bus
+(:mod:`~fmda_tpu_torch.stream.native_bus`) and the Kafka adapter
+(:mod:`~fmda_tpu_torch.stream.kafka_bus`)."""
 
 from __future__ import annotations
 
@@ -49,6 +54,10 @@ class Consumer:
         records = self._bus.read(self.topic, self.offset, max_records)
         if records:
             self.offset = records[-1].offset + 1
+            # consume accounting on a bus with bound metrics
+            consumed = getattr(self._bus, "_consumed_cb", None)
+            if consumed is not None:
+                consumed(self.topic, len(records))
         return records
 
     def seek(self, offset: int) -> None:
@@ -56,6 +65,23 @@ class Consumer:
 
     def seek_to_end(self) -> None:
         self.offset = self._bus.end_offset(self.topic)
+
+
+def consume_counter(registry, topics: Iterable[str]):
+    """The ``consumed(topic, n)`` callback a bus's consumers report to:
+    ``bus_consumed_total`` per topic in ``registry``, a topic added later
+    counted from its first read."""
+    counters = {t: registry.counter("bus_consumed_total", topic=t)
+                for t in topics}
+
+    def consumed(topic: str, n: int) -> None:
+        counter = counters.get(topic)
+        if counter is None:
+            counter = counters[topic] = registry.counter(
+                "bus_consumed_total", topic=topic)
+        counter.inc(n)
+
+    return consumed
 
 
 class MessageBus(Protocol):
@@ -94,6 +120,34 @@ class InProcessBus:
         self._logs: Dict[str, List[Record]] = {t: [] for t in topics}
         self._base: Dict[str, int] = {t: 0 for t in self._logs}
         self._next: Dict[str, int] = {t: 0 for t in self._logs}
+        #: per-topic publish counters and the consume callback, set by
+        #: :meth:`bind_metrics`; None: uncounted
+        self._publish_counters = None
+        self._consumed_cb = None
+        self._metrics_registry = None
+
+    def bind_metrics(self, registry) -> None:
+        """Count publishes and consumer reads per topic in ``registry``
+        (``bus_published_total``, ``bus_consumed_total``).  The counters
+        are made here, once; a topic added later gets its own on first
+        touch."""
+        self._metrics_registry = registry
+        with self._lock:
+            topics = tuple(self._logs)
+        self._publish_counters = {
+            t: registry.counter("bus_published_total", topic=t)
+            for t in topics}
+        self._consumed_cb = consume_counter(registry, topics)
+
+    def _count_published(self, topic: str, n: int) -> None:
+        counters = self._publish_counters
+        if counters is None:
+            return
+        counter = counters.get(topic)
+        if counter is None:
+            counter = counters[topic] = self._metrics_registry.counter(
+                "bus_published_total", topic=topic)
+        counter.inc(n)
 
     def _check_topic(self, topic: str) -> None:
         if topic not in self._logs:
@@ -144,6 +198,7 @@ class InProcessBus:
                 drop = len(log) - self._capacity
                 del log[:drop]
                 self._base[topic] += drop
+        self._count_published(topic, len(values))
         return list(range(first, first + len(values)))
 
     def read(self, topic: str, offset: int,

@@ -27,9 +27,11 @@ landed row gets three spans on that trace from the step that emitted it:
 (``warehouse``: the insert) and ``signal`` (``bus``: the signal
 publishes).  With tracing disabled a step pays one branch.
 
-Not ported yet: the C++ join scheduler (``join_backend="native"``, ROADMAP
-queue 1, item 4's native part) and the chaos injection point of ``step``
-(item 7).
+The join decisions come from the Python scheduler here or, with
+``join_backend="native"``, from the C++ one
+(:mod:`~fmda_tpu_torch.stream.native_join`), bit for bit the same; the
+backend that runs is :attr:`StreamEngine.join_backend`.  Not ported yet:
+the chaos injection point of ``step`` (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import json
 import logging
 import os
 import time as _time
+from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -64,11 +67,6 @@ from fmda_tpu_torch.utils.tracing import StageTimer
 
 log = logging.getLogger("fmda_tpu_torch.stream")
 
-#: what ``join_backend="native"`` raises until the C++ scheduler is ported
-NATIVE_JOIN_UNPORTED = (
-    "join_backend='native' (the C++ join scheduler, stream/native_join.py) "
-    "is not ported yet (ROADMAP queue 1, item 4: the native bus and join); "
-    "use join_backend='python', which makes the same join decisions")
 
 
 @dataclass
@@ -338,11 +336,41 @@ class StreamEngine:
         #: kept sorted by ts (insertion-sorted on ingest; feeds are nearly
         #: in order, so the bisect degenerates to an append)
         self._pending_deep: List[_Event] = []
+        #: the C++ scheduler for the matching loop (join decisions only:
+        #: the payloads stay in the Python buffers and pending list)
+        self._core = None
+        if join_backend == "native" and staleness_deadline_s is not None:
+            # degraded-mode preference (a real event beats a ghost inside
+            # a match window) lives in the python scheduler's match(); the
+            # C++ core's earliest-ts rule would pick the ghost after a
+            # feed recovers mid-window.  A loud fallback, as for an absent
+            # toolchain: the python path makes the same decisions
+            log.warning(
+                "degraded-mode joins (staleness_deadline_s=%s) run on the "
+                "python join scheduler; ignoring join_backend='native'",
+                staleness_deadline_s)
+            join_backend = "python"
         if join_backend == "native":
-            raise ValueError(NATIVE_JOIN_UNPORTED)
-        if join_backend != "python":
+            from fmda_tpu_torch.stream.native_join import (
+                NativeJoinCore,
+                NativeJoinUnavailable,
+            )
+
+            try:
+                self._stream_topics = list(self._side_streams)
+                self._core = NativeJoinCore(
+                    features.floor_s, features.join_tolerance_s,
+                    features.watermark_s, len(self._stream_topics))
+            except NativeJoinUnavailable as e:
+                log.warning("native join scheduler unavailable (%s); using "
+                            "the python join path", e)
+                join_backend = "python"
+        elif join_backend != "python":
             raise ValueError(
                 f"join_backend {join_backend!r}; use 'python' or 'native'")
+        #: the join scheduler that runs: "native" or "python" (after the
+        #: fallbacks above)
+        self.join_backend = join_backend
         self._deep_keys = _deep_key_table(
             features.bid_levels, features.ask_levels)
         self._side_parsers = {
@@ -462,11 +490,13 @@ class StreamEngine:
                 deep_events.extend(parsed)
         for event in deep_events:
             bisect.insort(self._pending_deep, event, key=lambda e: e.ts)
+            if self._core is not None:
+                self._core.add_deep(event.ts)
             self._max_deep_ts = max(self._max_deep_ts, event.ts)
             if self._first_deep_ts < 0:
                 self._first_deep_ts = event.ts
         parsers = self._side_parsers
-        for topic, buf in self._side_streams.items():
+        for idx, (topic, buf) in enumerate(self._side_streams.items()):
             for rec in self._consumers[topic].poll():
                 polled_any = True
                 try:
@@ -478,6 +508,8 @@ class StreamEngine:
                     )
                     continue
                 buf.add(event)
+                if self._core is not None:
+                    self._core.add_side(idx, event.ts)
         return polled_any
 
     # -- degraded-mode joins -------------------------------------------------
@@ -569,43 +601,47 @@ class StreamEngine:
         row_degraded: Dict[str, List[str]] = {}
 
         with self.timer.stage("join"):
-            for deep_ev in self._pending_deep:  # insertion-sorted by ts
-                matches: Dict[str, _Event] = {}
-                expired = False  # some stream can provably never match
-                waiting = False  # some stream might still deliver one
-                for topic, buf in self._side_streams.items():
-                    m = buf.match(deep_ev.ts, fc.join_tolerance_s)
-                    if m is not None:
-                        matches[topic] = m
-                    elif (
-                        buf.watermark(fc.watermark_s)
-                        > deep_ev.ts + fc.join_tolerance_s
-                    ):
-                        expired = True
-                    else:
-                        waiting = True
-                if expired:
-                    # inner join: one unmatched stream past its horizon
-                    # kills the row
-                    self._dropped += 1
-                    log.warning(
-                        "dropping unjoinable book row at %s (no side "
-                        "match within tolerance)", deep_ev.ts_str,
-                    )
-                elif waiting:
-                    still_pending.append(deep_ev)
-                else:  # all side streams matched
-                    row: Dict[str, float] = {"Timestamp": deep_ev.ts_str}
-                    row.update(deep_ev.payload)
-                    for m in matches.values():
-                        row.update(m.payload)
-                    emitted_rows.append(row)
-                    ghosted = [t for t, m in matches.items()
-                               if m.degraded]
-                    if ghosted:
-                        row_degraded[deep_ev.ts_str] = ghosted
-                    if deep_ev.trace is not None:
-                        row_traces[deep_ev.ts_str] = deep_ev.trace
+            if self._core is not None:
+                emitted_rows, still_pending = self._join_native(
+                    row_traces, row_degraded)
+            else:
+                for deep_ev in self._pending_deep:  # insertion-sorted by ts
+                    matches: Dict[str, _Event] = {}
+                    expired = False  # some stream can provably never match
+                    waiting = False  # some stream might still deliver one
+                    for topic, buf in self._side_streams.items():
+                        m = buf.match(deep_ev.ts, fc.join_tolerance_s)
+                        if m is not None:
+                            matches[topic] = m
+                        elif (
+                            buf.watermark(fc.watermark_s)
+                            > deep_ev.ts + fc.join_tolerance_s
+                        ):
+                            expired = True
+                        else:
+                            waiting = True
+                    if expired:
+                        # inner join: one unmatched stream past its horizon
+                        # kills the row
+                        self._dropped += 1
+                        log.warning(
+                            "dropping unjoinable book row at %s (no side "
+                            "match within tolerance)", deep_ev.ts_str,
+                        )
+                    elif waiting:
+                        still_pending.append(deep_ev)
+                    else:  # all side streams matched
+                        row: Dict[str, float] = {"Timestamp": deep_ev.ts_str}
+                        row.update(deep_ev.payload)
+                        for m in matches.values():
+                            row.update(m.payload)
+                        emitted_rows.append(row)
+                        ghosted = [t for t, m in matches.items()
+                                   if m.degraded]
+                        if ghosted:
+                            row_degraded[deep_ev.ts_str] = ghosted
+                        if deep_ev.trace is not None:
+                            row_traces[deep_ev.ts_str] = deep_ev.trace
 
         self._pending_deep = still_pending
         t_join_ns = now_ns() if tracing else 0
@@ -719,6 +755,52 @@ class StreamEngine:
         return len(emitted_rows)
 
     # -- observability -------------------------------------------------------
+
+    def _find_side_event(self, topic: str, ts: int) -> _Event:
+        """The side event the native scheduler matched (the first added
+        at that timestamp, the C++ tie rule)."""
+        buf = self._side_streams[topic]
+        for e in buf.buckets.get(floor_epoch(ts, buf.floor_s), ()):
+            if e.ts == ts:
+                return e
+        raise RuntimeError(
+            f"native join matched {topic}@{ts} but the payload buffer has "
+            "no such event (state divergence)")
+
+    def _join_native(
+        self,
+        row_traces: Dict[str, str],
+        row_degraded: Dict[str, List[str]],
+    ) -> Tuple[List[Dict[str, float]], List[_Event]]:
+        """The C++ scheduler's join decisions, the rows assembled here."""
+        by_ts: Dict[int, List[_Event]] = defaultdict(list)
+        for e in self._pending_deep:
+            by_ts[e.ts].append(e)
+        emitted, dropped = self._core.step()
+        for ts in dropped:
+            deep_ev = by_ts[ts].pop(0)
+            self._dropped += 1
+            log.warning("dropping unjoinable book row at %s (no side match "
+                        "within tolerance)", deep_ev.ts_str)
+        rows: List[Dict[str, float]] = []
+        for tup in emitted:
+            deep_ev = by_ts[tup[0]].pop(0)
+            row: Dict[str, float] = {"Timestamp": deep_ev.ts_str}
+            row.update(deep_ev.payload)
+            ghost_topics = []
+            for i, topic in enumerate(self._stream_topics):
+                m = self._find_side_event(topic, tup[1 + i])
+                row.update(m.payload)
+                if m.degraded:
+                    ghost_topics.append(topic)
+            rows.append(row)
+            if ghost_topics:
+                row_degraded[deep_ev.ts_str] = ghost_topics
+            if deep_ev.trace is not None:
+                row_traces[deep_ev.ts_str] = deep_ev.trace
+        still_pending = [e for e in self._pending_deep
+                         if any(kept is e for kept in by_ts[e.ts])]
+        return rows, still_pending
 
     @property
     def stats(self) -> Dict[str, object]:
@@ -901,3 +983,20 @@ class StreamEngine:
                 buf.max_ts = max_ts
                 if last_payload is not None:
                     buf.last_payload = last_payload
+        if self._core is not None:
+            # mirror the restored state into a fresh C++ scheduler (the
+            # Python side was reset above; appending to a used core would
+            # duplicate its state)
+            from fmda_tpu_torch.stream.native_join import NativeJoinCore
+
+            fc = self.features
+            self._core = NativeJoinCore(
+                fc.floor_s, fc.join_tolerance_s, fc.watermark_s,
+                len(self._stream_topics))
+            for idx, (topic, buf) in enumerate(self._side_streams.items()):
+                for e in buf.events:
+                    self._core.add_side(idx, e.ts)
+                if buf.max_ts >= 0:
+                    self._core.force_max_ts(idx, buf.max_ts)
+            for e in self._pending_deep:
+                self._core.add_deep(e.ts)

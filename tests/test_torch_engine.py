@@ -466,7 +466,22 @@ def test_step_histogram_and_stage_timer():
 
 
 def test_native_join_backend_names_its_roadmap_item():
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 4"):
-        _stack(PORT, join_backend="native")
+    """``join_backend="native"`` runs the C++ scheduler now (ROADMAP queue
+    1, item 4 is done): the port's native engine lands what the
+    reference's native engine lands, bit for bit; an unknown backend is
+    still refused by name."""
+    from fmda_tpu.stream.native_join import native_join_available
+
+    if not native_join_available():
+        pytest.skip("no host C++ compiler for the reference's native join")
+    results = []
+    for ns in (JAX, PORT):
+        fc, bus, wh, eng = _stack(ns, join_backend="native")
+        for topic, msg in _session_messages(6):
+            bus.publish(topic, msg)
+        eng.step()
+        results.append(_landed(wh, bus, eng))
+    _assert_same(results[1], results[0])
+    assert eng.join_backend == "native" and eng._core is not None
     with pytest.raises(ValueError, match="join_backend 'nope'"):
         _stack(PORT, join_backend="nope")

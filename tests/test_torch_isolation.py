@@ -53,7 +53,11 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
                  "ingest.scrapers", "ingest.session", "obs.prometheus",
                  "obs.trace", "obs.events", "obs.server", "obs.pyprof",
                  "obs.device", "obs.quality", "obs.observability",
-                 "obs.report", "ops.cost"):
+                 "obs.report", "ops.cost", "app", "stream._native",
+                 "stream.native_bus", "stream.native_join",
+                 "stream.kafka_bus", "stream.mysql_warehouse", "replay",
+                 "replay.history", "replay.driver", "replay.reference",
+                 "eval.shadow"):
         assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

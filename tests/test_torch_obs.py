@@ -424,9 +424,17 @@ def test_status_prints_non_finite_gauges(capsys):
     assert "nan" in text and "inf" in text and "depth{queue=q1}" in text
 
 
-def test_status_without_an_endpoint_names_its_item(capsys):
-    assert port_main(["status"]) == 2
-    assert "item 6" in capsys.readouterr().err
+def test_status_without_an_endpoint_names_its_item(capsys, tmp_path):
+    """Without ``--endpoint``, ``status`` builds a local Application over
+    the warehouse (ROADMAP queue 1, item 6 is done) and prints its
+    snapshot and health, exit 0 while healthy."""
+    assert port_main(["status", "--warehouse",
+                      str(tmp_path / "w.sqlite")]) == 0
+    text = capsys.readouterr().out
+    assert text.startswith("status: ok")
+    for series in ("engine_emitted_total", "warehouse_rows",
+                   "bus_published_total{topic=deep}"):
+        assert series in text
 
 
 @pytest.mark.parametrize("flag", ["--trace-dir", "--postmortem-dir"])

@@ -235,18 +235,35 @@ def test_ingest_wires_the_journal_and_refuses_the_native_join(tmp_path,
                       str(tmp_path / "engine.json")]) == 0
     state = json.loads((tmp_path / "engine.json").read_text())
     assert state["emitted"] == BARS_PER_DAY
+    # the native join is ported: the same day lands through it, and the
+    # rows are the python join's
     cfg.write_text(json.dumps({"engine": {"join_backend": "native"}}))
     capsys.readouterr()
     assert port_main(["ingest", "--config", str(cfg), "--warehouse",
                       str(tmp_path / "w2.sqlite"),
-                      "--synthetic-days", "1"]) == 2
-    assert "ROADMAP queue 1, item 4" in capsys.readouterr().err
+                      "--synthetic-days", "1"]) == 0
+    assert f"w2.sqlite: {BARS_PER_DAY} rows" in capsys.readouterr().out
+    fc = FeatureConfig()
+    native = Warehouse(fc, WarehouseConfig(path=str(tmp_path / "w2.sqlite")))
+    python = Warehouse(fc, WarehouseConfig(path=str(tmp_path / "w.sqlite")))
+    assert native.timestamps() == python.timestamps()
+    ids = range(1, BARS_PER_DAY + 1)
+    np.testing.assert_array_equal(native.fetch(ids), python.fetch(ids))
+    native.close()
+    python.close()
 
 
 def test_ingest_stack_follows_the_config(tmp_path):
-    from fmda_tpu_torch.__main__ import ingest_stack
+    """``ingest``'s stack is the Application the config builds: the
+    journal wrap, the engine's knobs, the bus's topics and retention."""
+    from fmda_tpu_torch.app import Application
     from fmda_tpu_torch.config import config_from_dict
     from fmda_tpu_torch.stream import BufferedWarehouse
+
+    def ingest_stack(cfg):
+        app = Application(cfg)
+        app.close()
+        return app.bus, app.warehouse, app.engine
 
     cfg = config_from_dict({
         "bus": {"capacity": 1000},
@@ -257,7 +274,10 @@ def test_ingest_stack_follows_the_config(tmp_path):
     bus, wh, eng = ingest_stack(cfg)
     assert isinstance(wh, BufferedWarehouse)
     assert (wh._bound, wh._fmt) == (7, "binary")
-    assert bus._capacity == 1000 and set(bus.topics()) == set(DEFAULT_TOPICS)
+    assert set(bus.topics()) == set(DEFAULT_TOPICS)
+    for i in range(1001):  # bus.capacity records retained a topic
+        bus.publish("vix", {"i": i})
+    assert bus.read("vix", 0)[0].value == {"i": 1}
     assert (eng.checkpoint_every, eng.staleness_deadline_s) == (3, 600)
     wh.close()
     bus, wh, eng = ingest_stack(dataclasses.replace(

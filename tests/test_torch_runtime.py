@@ -911,9 +911,8 @@ def test_serve_fleet_cli_serial_matches_default(capsys):
 @pytest.mark.parametrize("extra,item", [
     (["--role", "broker"], "item 7"), (["--role", "router"], "item 7"),
     (["--role", "worker"], "item 7"), (["--role", "local"], "item 7"),
-    (["--replay"], "item 7"), (["--hot-swap"], "item 7"),
-    (["--continuous-train", "--swap-guard"], "item 3"),
-    (["--swap-guard"], "item 3"),
+    (["--listen", "9000"], "item 7"), (["--connect", "h:9000"], "item 7"),
+    (["--duration-s", "5"], "item 7"), (["--no-controller"], "item 7"),
     (["--trace-dir", "d"], "item 7"), (["--postmortem-dir", "d"], "item 7"),
     (["--chaos-plan", "p.json"], "item 7"), (["--wire-format", "json"],
                                               "item 7"),
@@ -956,11 +955,18 @@ def test_serve_fleet_continuous_train_swaps_into_the_live_gateway(
 
 
 def test_serve_fleet_swap_guard_waits_on_the_shadow_evaluator(capsys):
+    """``--swap-guard`` gates each continuous round on the shadow
+    evaluator; without ``--continuous-train`` it exits 2 with the
+    reference's own message, as do the other refused combinations."""
     from fmda_tpu_torch.__main__ import main
 
-    assert main(FLEET_ARGS + ["--continuous-train", "--swap-guard"]) == 2
-    err = capsys.readouterr().err
-    assert "--swap-guard is not ported yet" in err
-    assert "eval/shadow.py" in err and "item 7" in err
-    assert main(FLEET_ARGS + ["--continuous-train", "--predictor"]) == 2
-    assert "drop --predictor" in capsys.readouterr().err
+    for extra, said in (
+            (["--swap-guard"], "add --continuous-train"),
+            (["--hot-swap"], "it needs --replay"),
+            (["--replay", "--predictor"], "not --predictor"),
+            (["--continuous-train", "--replay"], "drop --replay/--predictor"),
+            (["--continuous-train", "--predictor"],
+             "drop --replay/--predictor")):
+        assert main(FLEET_ARGS + extra) == 2
+        err = capsys.readouterr().err
+        assert said in err and "not ported yet" not in err
