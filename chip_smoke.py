@@ -129,6 +129,21 @@ Phases, each printed as one JSON line, each fatal on failure:
 17. ``remat``: an attn training step at T = 1024 (batch 16, 10 book
    levels) with ``model.remat`` and without: gradients within 1e-5, a
    lower peak of allocated memory with remat; gru's two peaks.
+18. ``multihost``: the multi-process fleet on the one card, this process
+   the router, each worker a process of its own with its own CUDA
+   context (``launch_local_fleet``, binary wire, buckets 8/32/64,
+   capacity 128 a worker): ssm at 1 and 4 workers, 64 sessions a worker x
+   100 rounds (weak scaling: ticks/s, the ratio, ``route`` p50, ``total``
+   p99, the host's cores), every tick served and every loss counter 0;
+   gru under the default load on 2 workers, a third added by
+   ``add_worker()`` halfway, every session's seqs in order, no state lost,
+   the probabilities against an unmigrated 1-worker run; then
+   ``serve-fleet --role local --workers 2 --cell ssm --no-controller`` in a
+   subprocess (exit 0, its trace files stitched by ``trace --merge``,
+   ``status --endpoint`` against its telemetry server).  The launches
+   are counted in the workers, by kernel (off their goodbye stats: kernel
+   5 once a flush and no other kernel in an ssm worker, none in a gru
+   worker); this process launches nothing (checked).
 
 Phases 4-6, 10 and 11 run for the BiGRU (``cell="gru"``, the default),
 the BiLSTM (``cell="lstm"``), the TemporalTransformer (``cell="attn"``:
@@ -137,7 +152,8 @@ parallel mode, no kernel); phases 7-9 for gru, lstm and ssm (``stream
 bidirectional`` for gru and lstm); phase 12 for gru and ssm; phase 13
 for the BiGRU (its streaming consumers gru and ssm); phase 14 for ssm (its
 tracing cost for gru too); phase 15 for gru (its stream ssm); phase 16
-for gru and ssm; phase 17 for attn and gru.  Their lines carry
+for gru and ssm; phase 17 for attn and gru; phase 18 for ssm and gru.
+Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
 other kernel's 0 (``scan_dw`` counts the backward scans' weight-gradient
@@ -3919,6 +3935,333 @@ def phase_remat(device: str = "cuda"):
     return total
 
 
+MULTIHOST_SESSIONS = 64  # a worker (weak scaling)
+MULTIHOST_ROUNDS = 100
+MULTIHOST_BUCKETS = (8, 32, 64)
+MULTIHOST_CAPACITY = 128  # a worker
+MULTIHOST_WORKERS = (1, 4)
+#: router-side loss counters; each worker's inbox_records_lost rides its
+#: goodbye stats
+MULTIHOST_LOSSES = ("results_missing", "routed_ticks_lost",
+                    "migration_buffer_shed")
+#: the gru migration load (FleetLoadConfig's default: 64 sessions x 100
+#: rounds), the third worker added at MIGRATION_ADD_AT
+MIGRATION_ADD_AT = 50
+MULTIHOST_CLI_HOLD_S = 6.0
+
+
+class RecordingRouter:
+    """A fleet router whose served results are kept per session, in the
+    order the router hands them out; every other attribute is the
+    router's."""
+
+    def __init__(self, router):
+        self.router = router
+        self.results = {}
+
+    def __getattr__(self, name):
+        return getattr(self.router, name)
+
+    def _keep(self, out):
+        for res in out:
+            self.results.setdefault(res.session_id, []).append(
+                (res.seq, np.asarray(res.probabilities, np.float32)))
+        return out
+
+    def pump(self, **kw):
+        return self._keep(self.router.pump(**kw))
+
+    def drain(self):
+        return self._keep(self.router.drain())
+
+
+def multihost_config(cell: str):
+    from fmda_tpu_torch.config import FrameworkConfig
+
+    base = FrameworkConfig()
+    return dataclasses.replace(
+        base, model=dataclasses.replace(base.model, cell=cell),
+        fleet=dataclasses.replace(base.fleet, wire_format="binary"))
+
+
+def multihost_topology(cell: str, n_workers: int, device: str):
+    from fmda_tpu_torch.fleet.launcher import launch_local_fleet
+
+    return launch_local_fleet(
+        n_workers=n_workers, config=multihost_config(cell), hidden=32,
+        seed=SEED, capacity_per_worker=MULTIHOST_CAPACITY,
+        bucket_sizes=MULTIHOST_BUCKETS, window=30,
+        device=None if device == "cuda" else device)
+
+
+def worker_launches(stats: dict, cell: str, what: str, device: str) -> dict:
+    """Each worker's kernel launches by kernel, off its goodbye stats (the
+    change in its process's counts since its warm-up), against its
+    flushes: kernel 5 (``ssm_tick``) once a flush and no other kernel in
+    an ssm worker on the card, no kernel at all in a gru worker (nor on
+    the CPU); the gateway's per-bucket count agrees.  Returns each
+    kernel's launches summed over the workers."""
+    total = {}
+    for wid, st in stats.items():
+        by_kernel = st.get("kernel_launches", {})
+        by_bucket = sum(st.get("kernel_launches_by_bucket", {}).values())
+        flushes = st.get("flushes", 0)
+        want = flushes if cell == "ssm" and device == "cuda" else 0
+        others = {k: n for k, n in by_kernel.items()
+                  if k != "ssm_tick" and n}
+        check("ssm_tick" in by_kernel and by_kernel["ssm_tick"] == want
+              and by_bucket == want and not others
+              and (cell != "ssm" or flushes > 0),
+              f"{what}: worker {wid} launched {by_kernel} (by bucket "
+              f"{by_bucket}) over {flushes} flushes, expected ssm_tick "
+              f"{want} and no other kernel")
+        total = add_counts(total, by_kernel)
+    return total
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    """Two kernel -> launches maps, added."""
+    return {k: a.get(k, 0) + b.get(k, 0) for k in sorted(set(a) | set(b))}
+
+
+def multihost_losses(out: dict, stats: dict) -> dict:
+    counters = out.get("counters", {})
+    losses = {k: counters.get(k, 0) for k in MULTIHOST_LOSSES}
+    losses.update({f"{w}.inbox_records_lost": s.get("inbox_records_lost", 0)
+                   for w, s in stats.items()})
+    return losses
+
+
+def multihost_weak_scaling(device: str) -> tuple:
+    """ssm at 1 and 4 worker processes, MULTIHOST_SESSIONS a worker:
+    every tick served, no loss counted, kernel 5 once a flush in each
+    worker.  Returns (the workers' launches by kernel, the lines'
+    numbers)."""
+    from fmda_tpu_torch.runtime.loadgen import (
+        FleetLoadConfig,
+        run_fleet_load,
+    )
+
+    launches, per = {}, {}
+    for n in MULTIHOST_WORKERS:
+        t0 = time.perf_counter()
+        topo = multihost_topology("ssm", n, device)
+        started_s = time.perf_counter() - t0
+        try:
+            out = run_fleet_load(topo.router, FleetLoadConfig(
+                n_sessions=MULTIHOST_SESSIONS * n, n_ticks=MULTIHOST_ROUNDS,
+                seed=SEED))
+        finally:
+            stats = topo.shutdown()
+        losses = multihost_losses(out, stats)
+        lat = out["latency"]
+        per[n] = out["ticks_per_s"]
+        n_launched = worker_launches(stats, "ssm", f"multihost ssm {n}w",
+                                     device)
+        launches = add_counts(launches, n_launched)
+        emit("multihost ssm", workers=n, bus=type(topo.bus).__name__,
+             sessions=out["sessions"], rounds=out["rounds"],
+             ticks_submitted=out["ticks_submitted"],
+             ticks_served=out["ticks_served"], ticks_per_s=out["ticks_per_s"],
+             route_p50_ms=lat.get("route", {}).get("p50_ms"),
+             total_p50_ms=lat.get("total", {}).get("p50_ms"),
+             total_p99_ms=lat.get("total", {}).get("p99_ms"),
+             losses=losses, ssm_tick_launches=n_launched["ssm_tick"],
+             kernel_launches={w: s.get("kernel_launches")
+                              for w, s in stats.items()},
+             worker_flushes={w: s.get("flushes") for w, s in stats.items()},
+             kernel_launches_by_bucket={
+                 w: s.get("kernel_launches_by_bucket")
+                 for w, s in stats.items()},
+             start_s=started_s, seconds=time.perf_counter() - t0)
+        check(out["ticks_served"] == out["ticks_submitted"]
+              and sum(s.get("ticks_served", 0) for s in stats.values())
+              == out["ticks_submitted"],
+              f"multihost ssm {n}w: served {out['ticks_served']} of "
+              f"{out['ticks_submitted']}")
+        check(not any(losses.values()), f"multihost ssm {n}w: {losses}")
+    return launches, {"ticks_per_s": per, "ratio_4_to_1":
+                      per[4] / per[1] if per[1] else None}
+
+
+def multihost_migration(device: str) -> dict:
+    """gru: 2 workers under the default load, a third added mid-load by
+    ``add_worker()``; every session's published seqs 0..99 in order (no
+    drop, duplicate or reorder), no state lost, and the probabilities
+    against an unmigrated 1-worker run of the same load."""
+    from fmda_tpu_torch.runtime.loadgen import (
+        FleetLoadConfig,
+        run_fleet_load,
+    )
+
+    load = FleetLoadConfig(seed=SEED)
+    runs = {}
+    for n, grow in ((1, False), (2, True)):
+        t0 = time.perf_counter()
+        topo = multihost_topology("gru", n, device)
+        router = RecordingRouter(topo.router)
+        added = []
+
+        def on_round(r, topo=topo, router=router, added=added, grow=grow):
+            if not (grow and r + 1 == MIGRATION_ADD_AT):
+                return
+            # the new worker process boots for seconds: the load waits
+            # for its hello (serving on), then the rest of the load runs
+            # through the rebalance it starts
+            added.append(topo.add_worker())
+            deadline = time.monotonic() + 180.0
+            while (added[-1] not in topo.router.membership.live()
+                   and time.monotonic() < deadline):
+                router.pump()
+                time.sleep(0.005)
+
+        try:
+            out = run_fleet_load(router, load, on_round=on_round)
+            # before the shutdown, whose goodbyes move sessions again
+            counters = dict(topo.router.metrics.counters)
+        finally:
+            stats = topo.shutdown()
+        worker_launches(stats, "gru", f"multihost gru {n}w", device)
+        runs[n] = (router.results, counters, stats,
+                   time.perf_counter() - t0, added)
+    ref, _, _, _, _ = runs[1]
+    got, counters, stats, seconds, added = runs[2]
+    in_order = all([s for s, _ in got.get(sid, [])]
+                   == list(range(load.n_ticks)) for sid in ref)
+    migrated = counters.get("migrations_completed", 0)
+    diffs = [float(np.abs(a - b).max()) for sid in ref
+             for (_, a), (_, b) in zip(got[sid], ref[sid])]
+    err = max(diffs) if diffs else None
+    emit("multihost gru migration", workers=f"2 + {added}",
+         sessions=load.n_sessions, rounds=load.n_ticks,
+         migrations_completed=migrated,
+         migration_replayed_ticks=counters.get("migration_replayed_ticks",
+                                               0),
+         sessions_lost_state=counters.get("sessions_lost_state", 0),
+         seqs_in_order=in_order,
+         bit_identical_to_unmigrated=err == 0.0,
+         max_abs_diff_vs_unmigrated=err, tol=PATH_TOL,
+         worker_sessions={w: s.get("active_sessions")
+                          for w, s in stats.items()},
+         seconds=seconds)
+    check(added and added[0] and migrated > 0,
+          f"multihost gru: the added worker moved nothing ({counters})")
+    check(in_order, "multihost gru: a session's published seqs dropped, "
+          "duplicated or reordered across the migration")
+    check(counters.get("sessions_lost_state", 0) == 0,
+          "multihost gru: sessions lost state")
+    check(err is not None and err <= PATH_TOL,
+          f"multihost gru: migrated run differs from the unmigrated one by "
+          f"{err}")
+    return {"migrations": migrated, "max_abs_diff": err}
+
+
+def multihost_cli(directory: str, device: str) -> int:
+    """``serve-fleet --role local`` once, in a subprocess, 2 ssm workers:
+    exit 0, every tick served, a trace file a process stitched by ``trace
+    --merge``, and ``status --endpoint`` answering off the router's
+    telemetry server while the run holds it.  Returns its workers'
+    launches by kernel."""
+    import socket
+
+    trace_dir = os.path.join(directory, "multihost_traces")
+    pm_dir = os.path.join(directory, "multihost_postmortem")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = [sys.executable, "-m", "fmda_tpu_torch", "serve-fleet",
+            "--role", "local", "--workers", "2", "--cell", "ssm",
+            "--no-controller", "--postmortem-dir", pm_dir,
+            "--trace-dir", trace_dir, "--metrics-port", str(port),
+            "--metrics-hold-s", str(MULTIHOST_CLI_HOLD_S)]
+    if device != "cuda":
+        argv += ["--device", device]
+    err_path = os.path.join(directory, "multihost_cli.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err_fh:
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err_fh,
+                                text=True, cwd=os.path.dirname(
+                                    os.path.abspath(__file__)))
+    try:
+        status = None
+        deadline = time.monotonic() + 300.0
+        while time.monotonic() < deadline and proc.poll() is None:
+            with open(err_path) as fh:
+                if "holding fleet telemetry endpoint" in fh.read():
+                    status = cli_output(["status", "--endpoint",
+                                         f"127.0.0.1:{port}"])
+                    break
+            time.sleep(0.2)
+        stdout, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(err_path) as fh:
+        err_tail = fh.read()[-3000:]
+    check(proc.returncode == 0,
+          f"serve-fleet --role local exited {proc.returncode}: {err_tail}")
+    out = json.loads(stdout)
+    merged = os.path.join(directory, "multihost_merged.json")
+    merge_rc, _ = cli_output(["trace", "--merge", trace_dir, "--out",
+                              merged])
+    by_trace = {}
+    with open(merged) as fh:
+        for ev in json.load(fh)["traceEvents"]:
+            if ev.get("ph") == "X":
+                by_trace.setdefault(ev["args"]["trace_id"], set()).add(
+                    ev["name"])
+    stitched = sum({"tick", "route", "serve"} <= names
+                   for names in by_trace.values())
+    launched = worker_launches(out["worker_stats"], "ssm",
+                               "multihost cli", device)
+    emit("multihost cli", argv=argv[3:], rc=proc.returncode,
+         ticks_submitted=out["ticks_submitted"],
+         ticks_served=out["ticks_served"], ticks_per_s=out["ticks_per_s"],
+         trace_files=sorted(os.listdir(trace_dir)), merge_rc=merge_rc,
+         stitched_traces=stitched,
+         status_rc=None if status is None else status[0],
+         status_head=None if status is None else status[1][:200],
+         alerts=out.get("alerts"), ssm_tick_launches=launched["ssm_tick"],
+         seconds=time.perf_counter() - t0)
+    check(out["ticks_served"] == out["ticks_submitted"],
+          f"multihost cli: served {out['ticks_served']} of "
+          f"{out['ticks_submitted']}")
+    check(sorted(os.listdir(trace_dir)) == ["router.json", "w0.json",
+                                            "w1.json"]
+          and merge_rc == 0 and stitched > 0,
+          f"multihost cli: traces {os.listdir(trace_dir)} merge rc "
+          f"{merge_rc}, {stitched} stitched")
+    check(status is not None and status[0] in (0, 1)
+          and status[1].startswith("status: "),
+          f"multihost cli: status --endpoint did not answer: {status}")
+    return launched
+
+
+def phase_multihost(directory: str, device: str = "cuda") -> dict:
+    """The multi-process fleet on one card (one CUDA context a worker
+    process): ssm weak scaling at 1 and 4 workers, gru live migration to
+    an added worker, and the ``--role local`` CLI.  The smoke's own
+    process is the router and launches nothing (checked); the kernels'
+    launches are the workers' own, by kernel, off their goodbye stats.
+    Returns the path's launch counts."""
+    quiet_planes()
+    t0 = time.perf_counter()
+    start_path()
+    workers, scaling = multihost_weak_scaling(device)
+    migration = multihost_migration(device)
+    workers = add_counts(workers, multihost_cli(directory, device))
+    here = launch_counts()
+    check_launches(here, {}, "multihost (the router's own process)")
+    emit("multihost", kernel_launches_in_workers=workers,
+         ticks_per_s_by_workers=scaling["ticks_per_s"],
+         ratio_4_to_1=scaling["ratio_4_to_1"],
+         migration=migration, cpu_count=os.cpu_count(),
+         seconds=time.perf_counter() - t0,
+         total_elapsed_s=time.perf_counter() - START)
+    return workers
+
+
 #: what an entry of the summary line carries of its kernel at a shape
 TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -4144,6 +4487,7 @@ def main() -> int:
         replay = {cell: phase_replay(app_wh, tmp, cell=cell)
                   for cell in ("gru", "ssm")}
         remat = phase_remat()
+        multihost = phase_multihost(tmp)
 
     def later(name):
         """A kernel's launches on the app, replay and remat paths."""
@@ -4182,7 +4526,7 @@ def main() -> int:
          "predictor_fleet": predictor_fleet["ssm"][k],
          "train_multi": train_multi["ssm"][k],
          "continuous": continuous["ssm"][k], "pipeline": pipeline[k],
-         "obs": obs[k], **later(k)}
+         "obs": obs[k], **later(k), "multihost": multihost[k]}
         for k in ("ssm_tick", "ssm_step"))))
     entries += [flash_entry(name, flash_rows,
                             {"serve": serve["attn"][name],

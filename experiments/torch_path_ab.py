@@ -16,7 +16,11 @@ each a phase of ``chip_smoke.py``:
 - ``fleet``: the default fleet load (``FLEET_LOADS["default"]``: 64
   sessions x 100 rounds, pipeline depth 1, tracing off) through
   ``fleet_run``, FLEET_AB_LOADS loads each for gru and ssm, each load's
-  ticks/s a line (``fleet ab``).
+  ticks/s a line (``fleet ab``);
+- ``trace``: tracing's cost on the gru default fleet load
+  (``obs_trace_cost``: tracing off, at 1 % and at 100 %, alternating in
+  the process), its line and its check's verdict (``trace ab check``,
+  the run going on past a failed check).
 
 Each tree runs in a fresh process per run, in the order OLD, NEW, NEW, OLD
 (``--rounds N``: that order N times), so that a drift of the host during
@@ -37,7 +41,7 @@ import sys
 import tempfile
 
 ORDER = ("old", "new", "new", "old")
-PATHS = ("scans", "ssm_stream", "pool", "attn_serve", "fleet")
+PATHS = ("scans", "ssm_stream", "pool", "attn_serve", "fleet", "trace")
 #: default fleet loads a ``fleet`` run makes for each family
 FLEET_AB_LOADS = 10
 POOL_CELLS = ("gru", "lstm", "ssm")
@@ -80,6 +84,10 @@ METRICS = (
     ("attn_serve", "path device share", ("backtest", "flash_fwd_ms"),
      ("attn",)),
     ("fleet", "fleet ab", ("ticks_per_s",), ("gru", "ssm")),
+    ("trace", "obs tracing cost", ("ratio_1pct",), ("gru",)),
+    ("trace", "obs tracing cost", ("ratio_100pct",), ("gru",)),
+    ("trace", "obs tracing cost", ("settings", "off", "median_ticks_per_s"),
+     ("gru",)),
 )
 
 
@@ -100,8 +108,11 @@ def run_one(root: str, paths) -> int:
     _cuda_lib.build()
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
-        if set(paths) <= {"fleet"}:  # the fleet needs no warehouse
-            fleet_ab(chip_smoke, torch)
+        if set(paths) <= {"fleet", "trace"}:  # these need no warehouse
+            if "fleet" in paths:
+                fleet_ab(chip_smoke, torch)
+            if "trace" in paths:
+                trace_ab(chip_smoke, torch)
             return 0
         wh = chip_smoke.make_warehouse(tmp)
         if "scans" in paths:
@@ -119,7 +130,28 @@ def run_one(root: str, paths) -> int:
         wh.close()
     if "fleet" in paths:
         fleet_ab(chip_smoke, torch)
+    if "trace" in paths:
+        trace_ab(chip_smoke, torch)
     return 0
+
+
+def trace_ab(chip_smoke, torch) -> None:
+    """The tree's own ``obs_trace_cost`` for gru, after one short warm-up
+    load; a failed check is printed as a line, not raised."""
+    from fmda_tpu_torch.models import build_model
+
+    model_cfg = chip_smoke.model_config("gru", bidirectional=False,
+                                        dropout=0.0)
+    state = build_model(model_cfg, generator=torch.Generator().manual_seed(
+        chip_smoke.SEED)).state_dict()
+    chip_smoke.fleet_run(model_cfg, state, dict(n_sessions=8, n_ticks=2),
+                         device="cuda", depth=1)
+    try:
+        chip_smoke.obs_trace_cost({"gru": (model_cfg, state)}, "cuda")
+        verdict = "passed"
+    except SystemExit as e:
+        verdict = str(e)
+    chip_smoke.emit("trace ab check", cell="gru", verdict=verdict)
 
 
 def fleet_ab(chip_smoke, torch) -> None:

@@ -25,16 +25,16 @@ Application` composes the stack from one config (the native C++ ring bus
 and join scheduler when they build).
 """
 
-from fmda_tpu_torch.device import resolve_device
+from fmda_tpu_torch._lazy import lazy_exports
 
-__all__ = ["Application", "resolve_device"]
+#: lazy: the composition root pulls in the streaming stack, and the device
+#: helpers pull in torch; a router-role process (bus only, no card)
+#: imports the package without either
+_EXPORTS = {
+    "Application": "fmda_tpu_torch.app",
+    "resolve_device": "fmda_tpu_torch.device",
+}
 
+__all__ = sorted(_EXPORTS)
 
-def __getattr__(name):
-    # the composition root pulls in the streaming stack: keep the package
-    # import light
-    if name == "Application":
-        from fmda_tpu_torch.app import Application
-
-        return Application
-    raise AttributeError(f"module 'fmda_tpu_torch' has no attribute {name!r}")
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

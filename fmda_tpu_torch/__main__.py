@@ -18,6 +18,19 @@
                                       [--trace [--trace-sample R]] [--trace-out F]
                                       [--metrics-port P [--metrics-hold-s S]]
                                       [--jax-profile DIR]
+    python -m fmda_tpu_torch serve-fleet --role local --no-controller
+                                      [--workers N] [--cell ssm]
+                                      [--sessions N] [--ticks N]
+                                      [--trace-dir D] [--postmortem-dir D]
+                                      [--metrics-port P] [--replay
+                                      [--hot-swap]] [--device cpu]
+    python -m fmda_tpu_torch serve-fleet --role broker|router [--listen P]
+                                      [--connect HOST:PORT] [--workers N]
+                                      [--no-controller] [--duration-s S]
+    python -m fmda_tpu_torch serve-fleet --role worker --worker-id W
+                                      --connect HOST:PORT [--shared-bus]
+                                      [--wire-format auto|binary|json]
+                                      [--device cpu]
     python -m fmda_tpu_torch status   [--endpoint HOST:PORT [...]]
                                       [--warehouse W] [--watch N]
     python -m fmda_tpu_torch trace    (--input F | --endpoint HOST:PORT
@@ -49,6 +62,10 @@ sessions' load, each accepted round hot-swapped into the live gateway
 (``--swap-guard``: after a shadow score against the incumbent);
 ``--trace``/``--trace-out`` trace it end to end,
 ``--metrics-port`` serves the observability endpoint while it runs.
+``serve-fleet --role local`` runs the multi-host topology on one machine:
+N worker processes, each with its own pool on the card, behind a router
+in this process; ``broker``, ``router`` and ``worker`` start its tiers by
+hand.  The broker and the router need no card and import no torch.
 ``status``, ``trace``, ``perf`` and ``quality`` read that endpoint (or
 saved files; ``status`` without one builds a local application over the
 configured warehouse) and print its snapshot, trace breakdowns, device report and
@@ -405,19 +422,9 @@ def cmd_serve(args) -> int:
 #: serve-fleet flags whose planes are not ported yet, each with the
 #: ROADMAP item (queue 1) that ports it; a run that sets one exits 2.
 UNPORTED_FLEET_FLAGS = {
-    "workers": "item 7 (multi-host serving)",
-    "listen": "item 7 (multi-host serving)",
-    "connect": "item 7 (multi-host serving)",
-    "worker_id": "item 7 (multi-host serving)",
-    "shared_bus": "item 7 (multi-host serving)",
-    "wire_format": "item 7 (multi-host serving)",
-    "duration_s": "item 7 (multi-host serving)",
-    "no_controller": "item 7 (control/)",
-    "tenant_mix": "item 7 (control/)",
-    "chaos_plan": "item 7 (chaos/)",
-    "chaos_no_reference": "item 7 (chaos/)",
-    "trace_dir": "item 7 (multi-host serving: one trace file a process)",
-    "postmortem_dir": "item 7 (obs/recorder.py, the flight recorder)",
+    "tenant_mix": "item 7c (control/: per-tenant QoS)",
+    "chaos_plan": "item 7c (chaos/: the fleet soak)",
+    "chaos_no_reference": "item 7c (chaos/: the fleet soak)",
     "shard_pool": "item 8 (parallelism)",
 }
 
@@ -425,9 +432,6 @@ UNPORTED_FLEET_FLAGS = {
 def _unported_fleet_flag(args) -> str:
     """The first unported serve-fleet flag the run sets, as its message;
     '' when none is set."""
-    if args.role != "solo":
-        return (f"--role {args.role} is not ported yet (ROADMAP queue 1, "
-                "item 7: multi-host serving); use --role solo")
     for dest, item in UNPORTED_FLEET_FLAGS.items():
         if getattr(args, dest) not in (None, False):
             flag = "--" + dest.replace("_", "-")
@@ -435,14 +439,52 @@ def _unported_fleet_flag(args) -> str:
     return ""
 
 
+def _control_plane_refusal(args, cfg) -> str:
+    """The reference's router and local roles attach its control plane
+    whenever the fleet telemetry is on (``[slo] enabled``) and ``[control]
+    enabled`` holds, both true by default, unless ``--no-controller``;
+    a worker whose ``[control]`` names tenant classes serves them with
+    per-tenant QoS.  The port has neither yet, and does not serve without
+    what the reference would have run: the message to exit 2 with, ''
+    when the run needs neither."""
+    if args.role in ("router", "local"):
+        if (cfg.slo.enabled and cfg.control.enabled
+                and not args.no_controller):
+            return (f"--role {args.role} runs the adaptive control plane "
+                    "beside the fleet telemetry ([control] enabled and "
+                    "[slo] enabled, the defaults), which is not ported "
+                    "yet (ROADMAP queue 1, item 7c: control/); pass "
+                    "--no-controller (or set [control] enabled = false) "
+                    "for the static fleet")
+    elif args.role == "worker":
+        if cfg.control.enabled and cfg.control.tenant_classes:
+            return ("per-tenant QoS ([control] tenant_classes) is not "
+                    "ported yet (ROADMAP queue 1, item 7c: control/)")
+    return ""
+
+
 def _fleet_flag_conflict(args) -> str:
     """The reference's refusals of flag combinations, as its messages;
     '' when the flags compose."""
+    if args.replay and args.role not in ("solo", "local"):
+        return ("--replay drives a solo gateway or the local topology; "
+                "use --role solo or --role local")
+    if args.replay and args.role == "local" and _config(
+            args).replay.source == "warehouse":
+        # spawned workers size their models from the feature schema; a
+        # warehouse backfill streams raw landed rows (narrower)
+        return ("[replay] source=warehouse backfills run solo "
+                "(landed-row width); drop --role local")
     if args.hot_swap and not args.replay:
         return "--hot-swap lands mid-backfill; it needs --replay"
     if args.replay and args.predictor:
         return ("--replay serves carried-state sessions; it composes with "
                 "--cell, not --predictor")
+    if args.continuous_train and args.role != "solo":
+        return ("--continuous-train runs beside the solo gateway; use "
+                "--role solo (fleet-wide: run `train --continuous` "
+                "against the shared warehouse and let the router "
+                "broadcast)")
     if args.continuous_train and (args.replay or args.predictor):
         return ("--continuous-train is its own load shape; drop "
                 "--replay/--predictor")
@@ -466,43 +508,29 @@ def cmd_serve_fleet(args) -> int:
     ``--slo-p99-ms`` is missed (unless ``--slo-soft``).
     ``--trace``/``--trace-out`` trace the load, ``--metrics-port`` serves
     the observability endpoint during it, ``--jax-profile DIR`` writes a
-    torch profile of it into DIR."""
-    import os
+    torch profile of it into DIR.
 
-    from fmda_tpu_torch.device import resolve_device
-
+    ``--role broker|router|worker|local`` runs the multi-host topology
+    instead (:mod:`fmda_tpu_torch.fleet`): a router fronting N worker
+    processes over the cross-process bus, with session routing,
+    membership and live migration.  The broker and the router need no
+    card and import no torch; each worker runs its pool on the card."""
     refused = _unported_fleet_flag(args) or _fleet_flag_conflict(args)
     if refused:
         print(refused, file=sys.stderr)
         return 2
+    if args.role == "worker":
+        return _cmd_fleet_worker(args)
+    if args.role == "broker":
+        return _cmd_fleet_broker(args)
+    if args.role == "router":
+        return _cmd_fleet_router(args)
+    if args.role == "local":
+        return _cmd_fleet_local(args)
+    from fmda_tpu_torch.device import resolve_device
+
     device = resolve_device(args.device)
-    cfg = _config(args)
-    cell = args.cell or os.environ.get("FMDA_FLEET_CELL")
-    if cell:
-        cfg = dataclasses.replace(
-            cfg, model=dataclasses.replace(cfg.model, cell=cell))
-    bucket_sizes = (tuple(int(b) for b in args.bucket_sizes.split(","))
-                    if args.bucket_sizes else None)
-    if args.predictor:
-        # the window-re-scan Predictor: the batching knobs land on the
-        # predictor_* half of RuntimeConfig
-        overrides = dict(
-            predictor_max_linger_ms=args.max_linger_ms,
-            predictor_queue_bound=args.queue_bound,
-            predictor_window=args.window,
-            predictor_bucket_sizes=bucket_sizes,
-            predictor_ring=(True if args.ring else None))
-    else:
-        overrides = dict(
-            capacity=max(args.sessions, cfg.runtime.capacity,
-                         cfg.replay.n_tickers if args.replay else 0),
-            max_linger_ms=args.max_linger_ms, queue_bound=args.queue_bound,
-            window=args.window, bucket_sizes=bucket_sizes)
-    overrides.update(pipeline_depth=(0 if args.serial else None),
-                     slo_p99_ms=args.slo_p99_ms)
-    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
-        cfg.runtime, **{k: v for k, v in overrides.items()
-                        if v is not None}))
+    cfg = _fleet_runtime_overrides(args, _config(args))
     # tracing and [profiling] apply before anything is built, so every
     # component captures a configured tracer and the ledger books the
     # first launch
@@ -547,12 +575,15 @@ def _carrier_config(cfg, args, n_features: int):
         cell=cfg.model.cell if cfg.model.cell != "attn" else "gru")
 
 
-def _run_replay(gateway, cfg, args, *, warehouse=None, swap_params=None):
+def _run_replay(gateway, cfg, args, *, warehouse=None, swap_params=None,
+                is_router=False, extra_on_round=None):
     """The ``--replay`` load: a full-speed virtual-clock backfill through
-    the gateway's unmodified submit/pump surface
-    (:class:`~fmda_tpu_torch.replay.ReplayDriver`) in place of the
-    cadence-shaped synthetic load.  With ``swap_params`` the checkpoint
-    lands halfway through the backfill, no session dropped."""
+    the gateway's (or, ``is_router``, the fleet router's) unmodified
+    submit/pump surface (:class:`~fmda_tpu_torch.replay.ReplayDriver`)
+    in place of the cadence-shaped synthetic load.  With ``swap_params``
+    the checkpoint lands halfway through the backfill, straight into the
+    gateway or broadcast to every live worker through the router, no
+    session dropped."""
     from fmda_tpu_torch.replay import (
         ReplayDriver, SyntheticHistory, WarehouseHistory)
 
@@ -581,12 +612,20 @@ def _run_replay(gateway, cfg, args, *, warehouse=None, swap_params=None):
 
     def on_round(r):
         if swap_params is not None and not swapped and r + 1 >= swap_at:
-            version = gateway.hot_swap(swap_params)
-            swapped.update({"round": r + 1, "weights_version": version})
+            if is_router:
+                told = gateway.broadcast_hot_swap(swap_params)
+                swapped.update({"round": r + 1, "workers_told": told})
+            else:
+                version = gateway.hot_swap(swap_params)
+                swapped.update({"round": r + 1, "weights_version": version})
+        if extra_on_round is not None:
+            extra_on_round(r)
 
+    # a router encodes per link itself; the dialect round trip is the
+    # solo gateway's stand-in for those bytes
     driver = ReplayDriver(gateway, source, seed=rc.seed,
-                          wire_dialect=rc.wire_dialect, on_round=on_round,
-                          quality=quality)
+                          wire_dialect=None if is_router else rc.wire_dialect,
+                          on_round=on_round, quality=quality)
     out = driver.run()
     out["replay"] = {"source": rc.source, "n_tickers": rc.n_tickers}
     if swapped:
@@ -748,22 +787,11 @@ def _serve_app(args, cfg, app, device) -> int:
                 summary["swap_guard"] = verdicts
             out["continuous_train"] = summary
     out["device"] = str(device)
-    if args.trace or args.trace_out:
-        from fmda_tpu_torch.obs import default_tracer
-
-        tracer = default_tracer()
-        out["tracing"] = {
-            "traces_finished": tracer.traces_finished,
-            "spans_buffered": len(tracer.spans()),
-            "e2e": tracer.e2e.summary(),
-        }
-        if args.trace_out:
-            with open(args.trace_out, "w") as fh:
-                json.dump(tracer.chrome(), fh)
-            out["tracing"]["file"] = args.trace_out
-            print(f"perfetto trace written to {args.trace_out} (load at "
-                  f"https://ui.perfetto.dev, or `python -m fmda_tpu_torch "
-                  f"trace --input {args.trace_out}`)", file=sys.stderr)
+    _maybe_write_trace(args, out)
+    if args.trace_out:
+        print(f"perfetto trace written to {args.trace_out} (load at "
+              f"https://ui.perfetto.dev, or `python -m fmda_tpu_torch "
+              f"trace --input {args.trace_out}`)", file=sys.stderr)
     slo_ok = True
     if rc.slo_p99_ms is not None:
         p99 = out.get("latency", {}).get("total", {}).get("p99_ms")
@@ -785,6 +813,417 @@ def _serve_app(args, cfg, app, device) -> int:
                  "no latency data collected (nothing served)")
               + " (--slo-soft reports without failing)", file=sys.stderr)
         return 1
+    return 0
+
+
+def _fleet_wire_override(args, cfg):
+    """Fold the cross-role serve-fleet switches into cfg: the wire format
+    (``--wire-format`` -> [fleet]) and the carried-state cell family
+    (``--cell``, else ``FMDA_FLEET_CELL`` -> [model] cell), so both work
+    from the command line alone on every role."""
+    import os
+
+    if getattr(args, "wire_format", None):
+        cfg = dataclasses.replace(cfg, fleet=dataclasses.replace(
+            cfg.fleet, wire_format=args.wire_format))
+    cell = getattr(args, "cell", None) or os.environ.get("FMDA_FLEET_CELL")
+    if cell:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, cell=cell))
+    return cfg
+
+
+def _bucket_sizes(args):
+    return (tuple(int(b) for b in args.bucket_sizes.split(","))
+            if args.bucket_sizes else None)
+
+
+def _fleet_runtime_overrides(args, cfg):
+    """Fold the cross-role switches (:func:`_fleet_wire_override`) and the
+    serve-fleet batching flags into cfg (with ``--predictor`` into the
+    predictor_* half of RuntimeConfig)."""
+    cfg = _fleet_wire_override(args, cfg)
+    bucket_sizes = _bucket_sizes(args)
+    if args.predictor:
+        # the window-re-scan Predictor: the batching knobs land on the
+        # predictor_* half of RuntimeConfig
+        overrides = dict(
+            predictor_max_linger_ms=args.max_linger_ms,
+            predictor_queue_bound=args.queue_bound,
+            predictor_window=args.window,
+            predictor_bucket_sizes=bucket_sizes,
+            predictor_ring=(True if args.ring else None))
+    else:
+        overrides = dict(
+            capacity=max(args.sessions, cfg.runtime.capacity,
+                         cfg.replay.n_tickers if args.replay else 0),
+            max_linger_ms=args.max_linger_ms, queue_bound=args.queue_bound,
+            window=args.window, bucket_sizes=bucket_sizes)
+    overrides.update(pipeline_depth=(0 if args.serial else None),
+                     slo_p99_ms=args.slo_p99_ms)
+    return dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, **{k: v for k, v in overrides.items()
+                        if v is not None}))
+
+
+def _maybe_write_trace(args, out: dict) -> None:
+    """The --trace/--trace-out tail of every serve-fleet role."""
+    if not (args.trace or args.trace_out):
+        return
+    from fmda_tpu_torch.obs.trace import default_tracer
+
+    tracer = default_tracer()
+    out["tracing"] = {
+        "traces_finished": tracer.traces_finished,
+        "spans_buffered": len(tracer.spans()),
+        "e2e": tracer.e2e.summary(),
+    }
+    if args.trace_out:
+        with open(args.trace_out, "w") as fh:
+            json.dump(tracer.chrome(), fh)
+        out["tracing"]["file"] = args.trace_out
+
+
+def _cmd_fleet_worker(args) -> int:
+    """serve-fleet --role worker: one slot-range owner of a multi-host
+    topology.  Connects a SocketBus to the router's bus server, joins by
+    hello, hosts its own data-plane bus (unless ``--shared-bus``) and
+    serves its inbox on the card until the router says stop (or the
+    ``--duration-s`` safety valve fires)."""
+    if not args.worker_id or not args.connect:
+        print("--role worker needs --worker-id and --connect HOST:PORT",
+              file=sys.stderr)
+        return 2
+    cfg = _fleet_runtime_overrides(args, _config(args))
+    refused = _control_plane_refusal(args, cfg)
+    if refused:
+        print(refused, file=sys.stderr)
+        return 2
+    from fmda_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)  # raises without a card
+    from fmda_tpu_torch.obs.device import configure_device_obs
+    from fmda_tpu_torch.obs.trace import configure_tracing
+
+    if args.trace or args.trace_out:
+        configure_tracing(enabled=True, sample_rate=args.trace_sample)
+    # [profiling] before the pool is built, so the ledger books the
+    # warm-up flushes' launches
+    configure_device_obs(cfg.profiling)
+    from fmda_tpu_torch.config import (
+        TOPIC_FLEET_PREDICTION,
+        fleet_worker_topic,
+    )
+    from fmda_tpu_torch.fleet.wire import BusServer, SocketBus
+    from fmda_tpu_torch.fleet.worker import FleetWorker
+    from fmda_tpu_torch.obs.observability import Observability
+    from fmda_tpu_torch.stream.bus import InProcessBus
+
+    # every worker of one topology builds the same weights from --seed
+    model_cfg = _carrier_config(cfg, args, cfg.features.n_features)
+    state = _seeded_state(model_cfg, args.seed)
+    wire_format = cfg.fleet.wire_format
+    bus = SocketBus.connect(args.connect, wire_format=wire_format)
+    data_bus = data_server = data_address = None
+    if not args.shared_bus:
+        # worker-hosted data plane (the default): this process serves its
+        # own inbox and results bus; the router links to it directly, so
+        # the serving hot loop never crosses a socket
+        data_bus = InProcessBus(
+            (fleet_worker_topic(args.worker_id), TOPIC_FLEET_PREDICTION))
+        data_server = BusServer(data_bus, host=cfg.fleet.host,
+                                wire_format=wire_format).start()
+        data_address = data_server.address
+    # split-topology workers re-dial the control bus after a router or
+    # broker restart (the data plane is local, serving never stops);
+    # shared-bus workers exit cleanly after the grace instead
+    reconnect = (None if args.shared_bus
+                 else (lambda: SocketBus.connect(
+                     args.connect, wire_format=wire_format)))
+    worker = FleetWorker(
+        args.worker_id, bus, model_cfg, state,
+        config=cfg.fleet, runtime=cfg.runtime, capacity=args.sessions,
+        data_bus=data_bus, data_address=data_address,
+        reconnect_fn=reconnect, device=device)
+    # every series this worker exports carries a `process` label, so a
+    # fleet-wide scrape never collides
+    obs = Observability(cfg.observability, process=args.worker_id)
+    obs.track_fleet(worker.gateway)
+    bus.bind_metrics(obs.registry)
+    if args.metrics_port is not None:
+        server = obs.start_server(port=args.metrics_port)
+        # announced in every liveness message: the router's fleet
+        # aggregator scrapes exactly the addresses heartbeats carry
+        worker.heartbeater.announce["metrics"] = server.url
+        print(f"worker {args.worker_id} metrics: {server.url}/metrics",
+              file=sys.stderr)
+    try:
+        stats = worker.run(
+            duration_s=args.duration_s if args.duration_s else None)
+    finally:
+        obs.close()
+        if data_server is not None:
+            data_server.stop()
+        bus.close()
+    out = {"worker": args.worker_id, "stats": stats, "device": str(device),
+           **worker.metrics.summary()}
+    _maybe_write_trace(args, out)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _fleet_worker_ids(args, cfg):
+    n = args.workers if args.workers is not None else cfg.fleet.n_workers
+    return [f"{cfg.fleet.worker_prefix}{i}" for i in range(n)]
+
+
+def _cmd_fleet_broker(args) -> int:
+    """serve-fleet --role broker: host the topology's bus and bus server
+    and nothing else (the local stand-in for a Kafka broker).  No card,
+    no torch.  Runs until killed or ``--duration-s`` elapses."""
+    from fmda_tpu_torch.config import DEFAULT_TOPICS, fleet_topics
+    from fmda_tpu_torch.fleet.launcher import _build_local_bus
+    from fmda_tpu_torch.fleet.wire import BusServer
+
+    # one connection-serving thread per client, each doing short frame
+    # work: the default 5 ms GIL switch interval turns every request
+    # into milliseconds of queueing under concurrency
+    sys.setswitchinterval(0.0005)
+    cfg = _fleet_wire_override(args, _config(args))
+    topics = tuple(DEFAULT_TOPICS) + fleet_topics(_fleet_worker_ids(args,
+                                                                    cfg))
+    bus = _build_local_bus(cfg, topics)
+    port = args.listen if args.listen is not None else cfg.fleet.port
+    server = BusServer(bus, host=cfg.fleet.host, port=port,
+                       wire_format=cfg.fleet.wire_format).start()
+    # the one line launchers parse to find the ephemeral port
+    print(f"BROKER {server.address}", flush=True)
+    deadline = (time.monotonic() + args.duration_s
+                if args.duration_s else None)
+    try:
+        while deadline is None or time.monotonic() < deadline:
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    return 0
+
+
+def _fleet_telemetry(args, cfg):
+    """Router-side fleet telemetry (store, aggregator, SLO engine, flight
+    recorder: :mod:`fmda_tpu_torch.obs.aggregate`) for --role
+    router/local, or None when ``[slo]`` disables it.  ``--postmortem-dir``
+    overrides the config's bundle directory."""
+    if not cfg.slo.enabled:
+        return None
+    from fmda_tpu_torch.obs.aggregate import FleetTelemetry
+
+    slo_cfg = cfg.slo
+    if args.postmortem_dir:
+        slo_cfg = dataclasses.replace(slo_cfg,
+                                      postmortem_dir=args.postmortem_dir)
+    return FleetTelemetry(slo_cfg)
+
+
+def _cmd_fleet_router(args) -> int:
+    """serve-fleet --role router: the routing, membership and migration
+    loop on a bus-only host (no card, no torch).  With ``--connect`` it
+    joins a broker's bus; otherwise it hosts the bus and bus server
+    itself (``--listen``)."""
+    cfg = _fleet_wire_override(args, _config(args))
+    refused = _control_plane_refusal(args, cfg)
+    if refused:
+        print(refused, file=sys.stderr)
+        return 2
+    from fmda_tpu_torch.fleet.router import FleetRouter
+
+    if args.trace or args.trace_out:
+        from fmda_tpu_torch.obs.trace import configure_tracing
+
+        configure_tracing(enabled=True, sample_rate=args.trace_sample)
+    server = None
+    if args.connect:
+        from fmda_tpu_torch.fleet.wire import SocketBus
+
+        bus = SocketBus.connect(args.connect,
+                                wire_format=cfg.fleet.wire_format)
+        fleet_cfg = cfg.fleet
+    else:
+        from fmda_tpu_torch.config import DEFAULT_TOPICS, fleet_topics
+        from fmda_tpu_torch.fleet.launcher import _build_local_bus
+        from fmda_tpu_torch.fleet.wire import BusServer
+
+        topics = tuple(DEFAULT_TOPICS) + fleet_topics(
+            _fleet_worker_ids(args, cfg))
+        bus = _build_local_bus(cfg, topics)
+        fleet_cfg = dataclasses.replace(
+            cfg.fleet, port=(args.listen if args.listen is not None
+                             else cfg.fleet.port))
+        server = BusServer(bus, host=fleet_cfg.host, port=fleet_cfg.port,
+                           wire_format=fleet_cfg.wire_format).start()
+        print(f"router bus server on {server.address}; start workers "
+              f"with: python -m fmda_tpu_torch serve-fleet --role worker "
+              f"--connect {server.address} --worker-id w<N>",
+              file=sys.stderr)
+    router = FleetRouter(bus, fleet_cfg, n_features=cfg.features.n_features)
+    telemetry = _fleet_telemetry(args, cfg)
+    tele_server = None
+    if telemetry is not None and args.metrics_port is not None:
+        # the router's own scrape surface: fleet-level series (/query),
+        # the SLO alert document (/alerts) and an SLO-aware /healthz
+        tele_server = telemetry.start_server(port=args.metrics_port)
+        print(f"router telemetry: {tele_server.url}/metrics "
+              f"(query, alerts, healthz)", file=sys.stderr)
+    deadline = (time.monotonic() + args.duration_s
+                if args.duration_s else None)
+    try:
+        while deadline is None or time.monotonic() < deadline:
+            router.pump()
+            if telemetry is not None:
+                # cadence-gated fold (one clock read when not due)
+                telemetry.maybe_collect(router)
+            time.sleep(0.005)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        router.stop_workers()
+        # keep pumping briefly so the workers' drain and goodbye (final
+        # stats) make it into the summary: stop_workers only sends stop
+        grace = time.monotonic() + 5.0
+        try:
+            while router.membership.workers and time.monotonic() < grace:
+                router.pump()
+                time.sleep(0.02)
+        except (ConnectionError, OSError):
+            pass
+        if telemetry is not None:
+            telemetry.close()
+        if tele_server is not None:
+            tele_server.stop()
+        if server is not None:
+            server.stop()
+    out = router.summary()
+    out["n_features"] = router.n_features
+    if telemetry is not None:
+        out["alerts"] = telemetry.alerts()["firing"]
+    _maybe_write_trace(args, out)
+    print(json.dumps(out, indent=2, default=str))
+    return 0
+
+
+def _cmd_fleet_local(args) -> int:
+    """serve-fleet --role local: the one-command topology.  Spawns N
+    worker processes (``--device`` passes through; each opens its own
+    CUDA context on the card), runs the router inline, drives the
+    synthetic fleet load (or ``--replay``) through the router and prints
+    the aggregate and per-worker stats."""
+    import os
+
+    from fmda_tpu_torch.fleet.launcher import (
+        launch_local_fleet,
+        spawn_supported,
+    )
+    from fmda_tpu_torch.runtime.loadgen import (
+        FleetLoadConfig,
+        run_fleet_load,
+    )
+
+    cfg = _fleet_wire_override(args, _config(args))
+    refused = _control_plane_refusal(args, cfg)
+    if refused:
+        print(refused, file=sys.stderr)
+        return 2
+    if not spawn_supported():
+        print(json.dumps(
+            {"skipped": "subprocess spawn unavailable on this host"}))
+        return 0
+    if args.trace or args.trace_out or args.trace_dir:
+        from fmda_tpu_torch.obs.trace import configure_tracing
+
+        configure_tracing(enabled=True, sample_rate=args.trace_sample)
+    n = args.workers if args.workers is not None else cfg.fleet.n_workers
+    topo = launch_local_fleet(
+        n_workers=n, config=cfg, hidden=args.hidden, seed=args.seed,
+        capacity_per_worker=args.sessions, bucket_sizes=_bucket_sizes(args),
+        max_linger_ms=args.max_linger_ms, window=args.window,
+        trace_dir=args.trace_dir, device=args.device)
+    telemetry = _fleet_telemetry(args, cfg)
+    tele_server = None
+    if telemetry is not None and args.metrics_port is not None:
+        tele_server = telemetry.start_server(port=args.metrics_port)
+        print(f"fleet telemetry: {tele_server.url}/metrics "
+              f"(query, alerts, healthz)", file=sys.stderr)
+
+    def on_round(r):
+        telemetry.maybe_collect(topo.router)
+
+    try:
+        if args.replay:
+            swap_params = None
+            if args.hot_swap:
+                # the workers' stack from the next seed: the same shapes,
+                # other weights
+                swap_params = _seeded_state(
+                    _carrier_config(cfg, args, _replay_width(cfg)),
+                    args.seed + 1)
+            out = _run_replay(
+                topo.router, cfg, args, swap_params=swap_params,
+                is_router=True,
+                extra_on_round=on_round if telemetry is not None else None)
+            if args.hot_swap:
+                # the router's view of who acked which version: the
+                # zero-downtime proof is spread 0 with sessions intact
+                fleet = topo.router.summary()
+                out.setdefault("hot_swap", {})
+                out["hot_swap"]["weights_versions"] = fleet.get(
+                    "weights_versions")
+                out["hot_swap"]["weights_version_spread"] = fleet.get(
+                    "weights_version_spread")
+        else:
+            out = run_fleet_load(topo.router, FleetLoadConfig(
+                n_sessions=args.sessions, n_ticks=args.ticks,
+                duty=args.duty, seed=args.seed,
+                storm_every=args.storm_every,
+                storm_fraction=args.storm_fraction,
+                burst_every=args.burst_every,
+                burst_rounds=args.burst_rounds,
+                slow_fraction=args.slow_fraction,
+                slow_duty=args.slow_duty),
+                on_round=on_round if telemetry is not None else None)
+        if telemetry is not None:
+            telemetry.collect(topo.router)  # the final fold
+    finally:
+        worker_stats = topo.shutdown()
+        if telemetry is not None:
+            telemetry.close()
+        if tele_server is not None and args.metrics_hold_s <= 0:
+            tele_server.stop()
+    out["workers"] = n
+    out["worker_stats"] = worker_stats
+    out["table_version"] = topo.router.table.version
+    if telemetry is not None:
+        out["alerts"] = telemetry.alerts()["firing"]
+        out["fleet"] = {
+            g["name"]: g["value"] for g in telemetry.fleet_gauges()}
+    if args.trace_dir:
+        from fmda_tpu_torch.obs.trace import default_tracer
+
+        with open(os.path.join(args.trace_dir, "router.json"), "w") as fh:
+            json.dump(default_tracer().chrome(), fh)
+        out["trace_dir"] = args.trace_dir
+        print(f"per-process traces in {args.trace_dir}; merge with "
+              f"`python -m fmda_tpu_torch trace --merge {args.trace_dir}`",
+              file=sys.stderr)
+    _maybe_write_trace(args, out)
+    print(json.dumps(out, indent=2, default=str), flush=True)
+    if tele_server is not None and args.metrics_hold_s > 0:
+        # the endpoint outlives the load, so /alerts and /query can be
+        # read against the run's final state
+        print(f"holding fleet telemetry endpoint for "
+              f"{args.metrics_hold_s:.0f}s", file=sys.stderr, flush=True)
+        time.sleep(args.metrics_hold_s)
+        tele_server.stop()
     return 0
 
 
@@ -818,8 +1257,53 @@ def _add_serve_fleet(sub, common) -> None:
                    choices=("solo", "broker", "router", "worker", "local"),
                    default="solo",
                    help="'solo' (the default) runs the one-process fleet "
-                        "runtime; the multi-host roles are not ported yet "
-                        "and exit 2")
+                        "runtime; the multi-host topology "
+                        "(fmda_tpu_torch.fleet) splits into 'broker' (bus "
+                        "and bus server only, no card), 'router' (session "
+                        "routing, membership, migration; no card, no "
+                        "torch), 'worker' (one slot-range owner on the "
+                        "card) and 'local' (one command: N workers "
+                        "spawned, router inline, synthetic load)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="worker-process count for --role local/router/"
+                        "broker (default: config fleet.n_workers)")
+    p.add_argument("--listen", type=int, default=None,
+                   help="bus-server port for --role router/broker (0 = "
+                        "ephemeral; default: config fleet.port)")
+    p.add_argument("--connect", default=None, metavar="HOST:PORT",
+                   help="the bus server to join, for --role worker (or a "
+                        "router that joins a broker)")
+    p.add_argument("--worker-id", default=None,
+                   help="this worker's id (--role worker); the router "
+                        "routes its slot-range to fleet_ticks_<id>")
+    p.add_argument("--shared-bus", action="store_true",
+                   help="--role worker: do the data plane on the shared "
+                        "--connect bus too, instead of hosting this "
+                        "worker's own inbox/results bus")
+    p.add_argument("--wire-format", default=None,
+                   choices=["auto", "binary", "json"],
+                   help="frame encoding on every SocketBus link "
+                        "(overrides [fleet] wire_format; json = the "
+                        "rollback format)")
+    p.add_argument("--duration-s", type=float, default=0.0,
+                   help="safety-valve runtime bound for --role "
+                        "worker/router/broker (0 = until stopped)")
+    p.add_argument("--no-controller", action="store_true",
+                   help="--role router/local: run the static fleet, "
+                        "without the reference's adaptive control plane "
+                        "(not ported yet, ROADMAP queue 1 item 7c: "
+                        "without this flag, [control] enabled = false or "
+                        "[slo] enabled = false, those roles exit 2)")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="--role local: enable tracing in every process "
+                        "and write one trace file per process into DIR "
+                        "(merge: `python -m fmda_tpu_torch trace --merge "
+                        "DIR`)")
+    p.add_argument("--postmortem-dir", default=None, metavar="DIR",
+                   help="--role router/local: flight-recorder bundle "
+                        "directory (overrides [slo] postmortem_dir): an "
+                        "SLO alert firing dumps a rotated postmortem "
+                        "bundle there")
     p.add_argument("--sessions", type=int, default=64,
                    help="concurrent ticker sessions (pool capacity grows "
                         "to fit when the config's is smaller)")
@@ -918,7 +1402,9 @@ def _add_serve_fleet(sub, common) -> None:
     p.add_argument("--metrics-port", type=int, default=None,
                    help="serve /metrics, /healthz, /snapshot, /events, "
                         "/trace, /device and /profile on this port during "
-                        "the run (0 = ephemeral)")
+                        "the run (0 = ephemeral); for --role router/local "
+                        "this is the fleet telemetry endpoint (with "
+                        "/query and /alerts)")
     p.add_argument("--metrics-hold-s", type=float, default=0.0,
                    help="keep the metrics endpoint up this long after the "
                         "load finishes")
@@ -946,8 +1432,7 @@ def _add_serve_fleet(sub, common) -> None:
         "not ported yet (each exits 2 and names its ROADMAP item)")
     for dest in UNPORTED_FLEET_FLAGS:
         flag = "--" + dest.replace("_", "-")
-        if dest in ("shared_bus", "no_controller", "chaos_no_reference",
-                    "shard_pool"):
+        if dest in ("chaos_no_reference", "shard_pool"):
             unported.add_argument(flag, action="store_true", default=None)
         else:
             unported.add_argument(flag, default=None)

@@ -4,8 +4,10 @@ The same frozen dataclasses as ``fmda_tpu.config`` (field names, defaults
 and the config -> schema codegen of :class:`FeatureConfig`), cut to what
 the ported paths read: the feature schema, the warehouse, the model, the
 training config, the fleet runtime config (without ``shard_pool``), the
-quality plane's knobs, the observability plane's (``observability``,
-``tracing``, ``profiling`` without ``cost_analysis``) and replay's.  A
+multi-host topology (``fleet``), the quality plane's knobs, the
+observability plane's (``observability``, ``tracing``, ``profiling``
+without ``cost_analysis``), the fleet telemetry's (``slo``), chaos's,
+replay's, and two keys of ``control``.  A
 JSON file that ``fmda_tpu.config.save_config`` wrote loads here too, and
 a file the reference would refuse is refused: :func:`config_from_dict`
 checks every section and key against :data:`REFERENCE_KEYS`, the
@@ -30,9 +32,32 @@ TOPIC_PREDICTION = "prediction"
 #: Fleet-serving results (:mod:`fmda_tpu_torch.runtime`): one topic,
 #: per-session consumption keyed on the message's ``session`` field.
 TOPIC_FLEET_PREDICTION = "fleet_prediction"
+#: Multi-host fleet control plane (:mod:`fmda_tpu_torch.fleet`): worker
+#: hello/heartbeat/goodbye, ownership-table announcements, migrated
+#: session state.  Not in DEFAULT_TOPICS: only fleet topologies carry it
+#: (:func:`fleet_topics` adds it beside the per-worker inboxes).
+TOPIC_FLEET_CONTROL = "fleet_control"
+#: Per-worker tick-inbox topic prefix: the router publishes a worker's
+#: opens/ticks/closes/drains to ``fleet_ticks_<worker_id>`` in routing
+#: order; the inbox's FIFO offsets are the ordering guarantee the
+#: migration protocol leans on.
+TOPIC_FLEET_TICKS_PREFIX = "fleet_ticks_"
 DEFAULT_TOPICS: Tuple[str, ...] = (
     TOPIC_VIX, TOPIC_VOLUME, TOPIC_COT, TOPIC_IND, TOPIC_DEEP,
     TOPIC_PREDICT_TIMESTAMP, TOPIC_PREDICTION, TOPIC_FLEET_PREDICTION)
+
+
+def fleet_worker_topic(worker_id: str) -> str:
+    """The tick-inbox topic of one fleet worker."""
+    return TOPIC_FLEET_TICKS_PREFIX + worker_id
+
+
+def fleet_topics(worker_ids) -> Tuple[str, ...]:
+    """Every extra topic a fleet topology needs on its bus: the control
+    plane plus one inbox per worker (append to ``DEFAULT_TOPICS`` when
+    constructing the topology's bus)."""
+    return (TOPIC_FLEET_CONTROL,) + tuple(
+        fleet_worker_topic(w) for w in worker_ids)
 
 
 @dataclass(frozen=True)
@@ -641,6 +666,223 @@ class ReplayConfig:
 
 
 @dataclass(frozen=True)
+class FleetTopologyConfig:
+    """Multi-host serving topology knobs (fmda_tpu_torch.fleet;
+    docs/multihost.md).
+
+    Net-new vs the reference and vs the single-process fleet runtime:
+    N worker processes each own a contiguous slot-range of the session
+    hash space (each embedding the PR-1 FleetGateway/SessionPool), a
+    router hashes session → owner and drives membership + migration over
+    the cross-process bus (a BusServer-served NativeBus locally, Kafka
+    in prod).
+    """
+
+    #: Worker-process count the local launcher spawns (`serve-fleet
+    #: --role local`); membership itself is dynamic — workers may join
+    #: and leave a running router at any time.
+    n_workers: int = 2
+    #: Worker ids are ``<worker_prefix><index>`` (w0, w1, ...) for the
+    #: launcher; hand-started workers may use any id.
+    worker_prefix: str = "w"
+    #: Bus-server bind address for the local cross-process transport
+    #: (the router hosts the bus; workers connect with SocketBus).
+    host: str = "127.0.0.1"
+    #: 0 = ephemeral (the launcher reads the bound port off the server).
+    port: int = 0
+    #: Worker heartbeat cadence on the control topic.
+    heartbeat_interval_s: float = 0.5
+    #: Router declares a worker dead after this long without a
+    #: heartbeat (measured on the router's own clock at receipt, so
+    #: cross-process clock skew cannot mis-kill a healthy worker).
+    #: Deliberately ~20x the interval: a worker mid-drain under a deep
+    #: backlog beats late, and a false death costs carried state.
+    heartbeat_timeout_s: float = 10.0
+    #: Size of the session hash space the ownership table partitions
+    #: into contiguous per-worker ranges.
+    hash_space: int = 1 << 16
+    #: Bound on ticks the router buffers per migrating session while its
+    #: state is in flight between owners; overflow sheds the oldest,
+    #: counted (``migration_buffer_shed``) — same never-silent contract
+    #: as the gateway queue.
+    migration_buffer_bound: int = 4096
+    #: Max inbox records a worker consumes per step (bounds one socket
+    #: read's frame size; the backlog simply spans more steps).
+    worker_poll_max_records: int = 512
+    #: Router backpressure bound: once this many routed ticks are
+    #: unanswered, ``saturated`` turns on and well-behaved producers
+    #: pace themselves — otherwise an unbounded inbox backlog outruns
+    #: the bus's retention and ticks silently age off the topic.
+    max_inflight_ticks: int = 4096
+    #: Age (router clock) after which an unanswered tick is declared
+    #: lost (``results_missing``) — e.g. it rode into a worker that
+    #: died undrained.
+    result_timeout_s: float = 60.0
+    #: Byte arena per topic for the router-hosted NativeBus — sized for
+    #: deep tick backlogs (a ~700B tick message × max_inflight_ticks ×
+    #: workers fits with wide margin).
+    bus_arena_bytes: int = 1 << 26
+    #: How long a shared-bus worker retries a dead broker before exiting
+    #: cleanly (counted, rc 0 — the never-abort contract).  A
+    #: worker-hosted-bus worker never exits on control loss: its data
+    #: plane is local, so it keeps serving and re-dials instead.
+    bus_error_grace_s: float = 10.0
+    #: Control-plane re-dial cadence while the router/broker is
+    #: unreachable (split topology; reconnect re-hellos with the session
+    #: report, which is how a restarted router adopts the sessions).
+    control_retry_s: float = 1.0
+    #: Frame encoding on every SocketBus link (docs/multihost.md "Wire
+    #: format v2"): ``auto`` negotiates the binary codec at connect and
+    #: falls back to JSON against a peer that does not speak it (mixed-
+    #: version fleets interoperate); ``binary`` insists (still falls
+    #: back, loudly); ``json`` pins the pre-v2 text frames — the
+    #: rollback switch.
+    wire_format: str = "auto"
+
+
+@dataclass(frozen=True)
+class SLOConfig:
+    """Fleet service-level objectives + telemetry knobs
+    (:mod:`fmda_tpu_torch.obs`: tsdb/aggregate/slo/recorder;
+    docs/observability.md "Fleet aggregation, SLOs, and the flight
+    recorder").
+
+    Declarative objectives evaluated as **multi-window burn rates**: an
+    alert fires when both the fast (~5 m) and slow (~1 h) windows burn
+    error budget faster than ``burn_threshold``, and clears as soon as
+    the fast window recovers.  Evaluation is pull-based — one fold of
+    heartbeat stats + scrape snapshots per ``interval_s``, never on the
+    tick hot path.
+    """
+
+    #: Master switch for router-side fleet telemetry (the store, the
+    #: aggregator, SLO evaluation, and the flight recorder).
+    enabled: bool = True
+    #: Time-series sample grid + SLO evaluation cadence (seconds).
+    interval_s: float = 5.0
+    #: History the store retains per series (ring capacity =
+    #: retention_s / interval_s bins).
+    retention_s: float = 7200.0
+    #: Cadence for scraping worker ``/snapshot`` endpoints (announced
+    #: in heartbeats); heartbeat stats fold in every ``interval_s``.
+    scrape_interval_s: float = 10.0
+    #: Burn-rate windows (seconds): fast trips quickly on a cliff,
+    #: slow keeps a brief blip from paging.
+    fast_window_s: float = 300.0
+    slow_window_s: float = 3600.0
+    #: Burn rate (budget consumption multiple) at which an alert fires.
+    burn_threshold: float = 2.0
+    #: Latency objective: at most ``latency_budget`` of served ticks may
+    #: exceed ``latency_p99_ms`` end to end.  None disables.
+    latency_p99_ms: Optional[float] = 250.0
+    latency_budget: float = 0.05
+    #: Loss objective: counted losses / (served + lost) stays under this.
+    loss_budget: float = 0.001
+    #: Journal objective: warehouse journal backlog above this depth is
+    #: budget burn (``journal_budget`` of samples may exceed it).
+    journal_depth: int = 1024
+    journal_budget: float = 0.1
+    #: Degraded-feed objective: minutes per slow window any side feed
+    #: may serve ghost rows before the alert fires.
+    degraded_feed_budget_minutes: float = 5.0
+    #: (The reference's ``recompile_budget`` is accepted and not read:
+    #: the port compiles nothing per shape, so its ``recompile``
+    #: objective has no signal.)
+    #: Memory-leak objective: fraction of samples the device memory
+    #: monitor's monotonic-growth heuristic may be raised.
+    memory_leak_budget: float = 0.05
+    #: Quality objectives (fmda_tpu_torch.obs.quality's label-join evaluator
+    #: writes the series; None-until-reported — a fleet without the
+    #: quality plane never fires these).  Accuracy: exact-match misses
+    #: over joined predictions stay under this fraction.
+    quality_accuracy_budget: float = 0.35
+    #: Per-label F-beta floor: fraction of sampled intervals where ANY
+    #: (version, label) F-beta gauge sits below ``quality_fbeta_floor``.
+    quality_fbeta_floor: float = 0.05
+    quality_fbeta_budget: float = 0.25
+    #: Drift: fraction of sampled intervals where the worst PSI
+    #: (feature or prediction) exceeds ``quality_drift_psi`` (0.25 is
+    #: the classic "action required" PSI threshold).
+    quality_drift_psi: float = 0.25
+    quality_drift_budget: float = 0.1
+    #: Flight-recorder bundle directory; None disables postmortems.
+    postmortem_dir: Optional[str] = None
+    #: Rotated bundle count (oldest deleted past this).
+    postmortem_keep: int = 4
+    #: Debounce between bundles for one trigger reason (seconds).
+    postmortem_min_interval_s: float = 60.0
+
+
+@dataclass(frozen=True)
+class ChaosConfig:
+    """Fault-injection knobs (fmda_tpu_torch.chaos; docs/chaos.md).
+
+    Off by default: with ``enabled=False`` nothing is injected and every
+    compiled-in injection point costs exactly one branch (the tier-1 AST
+    check pins this).  The rate knobs parameterise
+    :meth:`~fmda_tpu_torch.chaos.plan.FaultPlan.generate` when no explicit
+    ``--chaos-plan`` file is given — the plan is a pure function of
+    ``seed`` and these counts, so a run is its own reproduction recipe.
+    """
+
+    #: Master switch for the process chaos runtime.
+    enabled: bool = False
+    #: Seed the generated fault plan derives from.
+    seed: int = 0
+    #: Worker processes killed (and revived ``revive_after`` steps
+    #: later) per soak.
+    worker_kills: int = 1
+    #: Virtual steps a killed worker stays down before its replacement
+    #: spawns.
+    revive_after: int = 8
+    #: Router kill/takeover events per soak (each exercises the
+    #: registry-rebuild failover path).
+    router_restarts: int = 1
+    #: Router→worker data-link partition windows per soak.
+    link_partitions: int = 1
+    #: Control-bus outage windows per soak (the router keeps pumping its
+    #: links while its own bus is down — counted, never fatal).
+    bus_blips: int = 1
+    #: Injected per-op delay events per soak.
+    delays: int = 2
+    #: Sleep per delayed op (seconds).
+    delay_s: float = 0.02
+    #: Fault-free steps at both ends of the schedule: a clean warm-up,
+    #: and the post-chaos window the "ticks served after the last
+    #: fault" gate measures in.
+    settle_steps: int = 5
+
+    # -- data-plane soak knobs (fmda_tpu.chaos.pipeline; the fleet soak
+    # above ignores these) ---------------------------------------------
+
+    #: Side-feed outage windows per pipeline soak (degraded-mode joins).
+    feed_outages: int = 1
+    #: Virtual steps a feed stays down.
+    feed_outage_steps: int = 8
+    #: Warehouse-unreachable windows per pipeline soak (journal spill).
+    warehouse_outages: int = 1
+    #: Virtual steps the warehouse stays down.
+    warehouse_outage_steps: int = 4
+    #: Engine kill/restore cycles per pipeline soak.
+    engine_kills: int = 1
+    #: Virtual steps the engine stays dead before its restore.
+    engine_kill_steps: int = 2
+
+
+@dataclass(frozen=True)
+class ControlConfig:
+    """The two keys of ``fmda_tpu.config.ControlConfig`` the port reads
+    before the control plane itself is ported (ROADMAP queue 1, item
+    7c): ``enabled``, by which ``serve-fleet --role router|local``
+    decides whether it would need the control plane, and
+    ``tenant_classes``, whose QoS a worker would need.  The section's
+    other keys are accepted and not read (:data:`REFERENCE_KEYS`)."""
+
+    enabled: bool = True
+    tenant_classes: Tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
 class FrameworkConfig:
     features: FeatureConfig = field(default_factory=FeatureConfig)
     bus: BusConfig = field(default_factory=BusConfig)
@@ -650,11 +892,15 @@ class FrameworkConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     session: SessionConfig = field(default_factory=SessionConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    fleet: FleetTopologyConfig = field(default_factory=FleetTopologyConfig)
     quality: QualityConfig = field(default_factory=QualityConfig)
     observability: ObservabilityConfig = field(
         default_factory=ObservabilityConfig)
+    slo: SLOConfig = field(default_factory=SLOConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
     profiling: ProfilingConfig = field(default_factory=ProfilingConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    control: ControlConfig = field(default_factory=ControlConfig)
     replay: ReplayConfig = field(default_factory=ReplayConfig)
 
     def __post_init__(self) -> None:
@@ -673,10 +919,14 @@ _SECTIONS = {
     "train": TrainConfig,
     "session": SessionConfig,
     "runtime": RuntimeConfig,
+    "fleet": FleetTopologyConfig,
     "quality": QualityConfig,
     "observability": ObservabilityConfig,
+    "slo": SLOConfig,
     "tracing": TracingConfig,
     "profiling": ProfilingConfig,
+    "chaos": ChaosConfig,
+    "control": ControlConfig,
     "replay": ReplayConfig,
 }
 
@@ -693,9 +943,12 @@ _SECTIONS = {
 #: - ``profiling``: ``cost_analysis`` (the port compiles nothing per
 #:   shape, so there is no program to analyse: the kernel ledger computes
 #:   each launch's cost from its shapes);
-#: - the sections ``mesh``, ``fleet``, ``slo`` (waits with the fleet
-#:   telemetry, ROADMAP queue 1 item 7), ``chaos`` and ``control``
-#:   whole.
+#: - ``slo``: ``recompile_budget`` (the port compiles nothing per shape,
+#:   so the ``recompile`` objective has no signal;
+#:   :mod:`fmda_tpu_torch.obs.slo`);
+#: - ``control``: every key but ``enabled`` and ``tenant_classes`` (the
+#:   control plane waits for ROADMAP queue 1, item 7c);
+#: - the section ``mesh`` whole (parallelism, item 8).
 REFERENCE_KEYS = {
     "features": (
         "get_cot", "get_vix", "get_stock_volume", "bid_levels", "ask_levels",
@@ -796,6 +1049,22 @@ def config_from_dict(data: dict) -> FrameworkConfig:
             for k, v in data[name].items() if k in names
         })
     return FrameworkConfig(**kwargs)
+
+
+def config_to_dict(cfg: FrameworkConfig) -> dict:
+    """Nested plain-dict form (tuples become lists; JSON-ready), as the
+    reference writes it: ``model.n_features`` is written as null, state
+    derived from the feature schema."""
+    d = dataclasses.asdict(cfg)
+    d["model"]["n_features"] = None
+    return d
+
+
+def save_config(cfg: FrameworkConfig, path: str) -> str:
+    with open(path, "w") as fh:
+        json.dump(config_to_dict(cfg), fh, indent=2)
+        fh.write("\n")
+    return path
 
 
 def load_config(path: str) -> FrameworkConfig:

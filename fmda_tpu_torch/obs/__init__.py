@@ -22,74 +22,59 @@ One metrics vocabulary and one export surface for the whole port:
 - :mod:`~fmda_tpu_torch.obs.quality`: the label-join evaluator
   (imported from its module, as in the reference);
 - :mod:`~fmda_tpu_torch.obs.observability`: the :class:`Observability`
-  handle (collectors, health checks, endpoint lifecycle).
+  handle (collectors, health checks, endpoint lifecycle);
+- the fleet telemetry of the multi-process fleet:
+  :mod:`~fmda_tpu_torch.obs.tsdb` (the :class:`TimeSeriesStore`),
+  :mod:`~fmda_tpu_torch.obs.slo` (the :class:`SLOEngine`'s burn-rate
+  alerts), :mod:`~fmda_tpu_torch.obs.recorder` (the
+  :class:`FlightRecorder`'s postmortem bundles) and
+  :mod:`~fmda_tpu_torch.obs.aggregate` (:class:`FleetAggregator` and
+  :class:`FleetTelemetry`, the router's fold over its workers).
 
-The reference's fleet aggregation, time-series store, SLO engine and
-flight recorder serve its multi-process fleet and wait with it (ROADMAP
-queue 1, item 7).
+Exports resolve lazily (PEP 562): the device plane pulls in torch, and
+the router imports the torch-free submodules (registry, events, trace,
+the fleet telemetry) on a host with no card.
 """
 
-from fmda_tpu_torch.obs.device import (
-    DeviceMemoryMonitor,
-    KernelLedger,
-    configure_device_obs,
-    default_ledger,
-    default_memory_monitor,
-    device_report,
-)
-from fmda_tpu_torch.obs.events import EventLog
-from fmda_tpu_torch.obs.observability import (
-    Observability,
-    engine_families,
-    journal_families,
-    runtime_families,
-    stage_timer_families,
-)
-from fmda_tpu_torch.obs.prometheus import render_prometheus
-from fmda_tpu_torch.obs.pyprof import HostProfiler, default_profiler
-from fmda_tpu_torch.obs.registry import (
-    Counter,
-    Gauge,
-    LatencyHistogram,
-    MetricsRegistry,
-    default_registry,
-)
-from fmda_tpu_torch.obs.server import MetricsServer
-from fmda_tpu_torch.obs.trace import (
-    Span,
-    TraceRef,
-    Tracer,
-    configure_tracing,
-    default_tracer,
-    tracer_families,
-)
+from fmda_tpu_torch._lazy import lazy_exports
 
-__all__ = [
-    "Counter",
-    "DeviceMemoryMonitor",
-    "EventLog",
-    "Gauge",
-    "HostProfiler",
-    "KernelLedger",
-    "LatencyHistogram",
-    "MetricsRegistry",
-    "MetricsServer",
-    "Observability",
-    "Span",
-    "TraceRef",
-    "Tracer",
-    "configure_device_obs",
-    "configure_tracing",
-    "default_ledger",
-    "default_memory_monitor",
-    "default_profiler",
-    "default_registry",
-    "default_tracer",
-    "device_report",
-    "engine_families",
-    "journal_families",
-    "render_prometheus",
-    "runtime_families",
-    "stage_timer_families",
-    "tracer_families",
-]
+#: public name -> defining submodule; resolved on first attribute access
+_EXPORTS = {
+    "DeviceMemoryMonitor": "fmda_tpu_torch.obs.device",
+    "KernelLedger": "fmda_tpu_torch.obs.device",
+    "configure_device_obs": "fmda_tpu_torch.obs.device",
+    "default_ledger": "fmda_tpu_torch.obs.device",
+    "default_memory_monitor": "fmda_tpu_torch.obs.device",
+    "device_report": "fmda_tpu_torch.obs.device",
+    "EventLog": "fmda_tpu_torch.obs.events",
+    "Observability": "fmda_tpu_torch.obs.observability",
+    "engine_families": "fmda_tpu_torch.obs.observability",
+    "journal_families": "fmda_tpu_torch.obs.observability",
+    "runtime_families": "fmda_tpu_torch.obs.observability",
+    "stage_timer_families": "fmda_tpu_torch.obs.observability",
+    "render_prometheus": "fmda_tpu_torch.obs.prometheus",
+    "HostProfiler": "fmda_tpu_torch.obs.pyprof",
+    "default_profiler": "fmda_tpu_torch.obs.pyprof",
+    "Counter": "fmda_tpu_torch.obs.registry",
+    "Gauge": "fmda_tpu_torch.obs.registry",
+    "LatencyHistogram": "fmda_tpu_torch.obs.registry",
+    "MetricsRegistry": "fmda_tpu_torch.obs.registry",
+    "default_registry": "fmda_tpu_torch.obs.registry",
+    "MetricsServer": "fmda_tpu_torch.obs.server",
+    "Span": "fmda_tpu_torch.obs.trace",
+    "TraceRef": "fmda_tpu_torch.obs.trace",
+    "Tracer": "fmda_tpu_torch.obs.trace",
+    "configure_tracing": "fmda_tpu_torch.obs.trace",
+    "default_tracer": "fmda_tpu_torch.obs.trace",
+    "tracer_families": "fmda_tpu_torch.obs.trace",
+    "FleetAggregator": "fmda_tpu_torch.obs.aggregate",
+    "FleetTelemetry": "fmda_tpu_torch.obs.aggregate",
+    "FlightRecorder": "fmda_tpu_torch.obs.recorder",
+    "SLOEngine": "fmda_tpu_torch.obs.slo",
+    "TimeSeriesStore": "fmda_tpu_torch.obs.tsdb",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

@@ -168,6 +168,7 @@ class Observability:
         *,
         registry: Optional[MetricsRegistry] = None,
         clock=time.monotonic,
+        process: Optional[str] = None,
     ) -> None:
         # deferred import: config imports nothing from obs, but keep the
         # dependency one-way regardless
@@ -179,6 +180,10 @@ class Observability:
             registry if registry is not None
             else MetricsRegistry(enabled=enabled)
         )
+        if process is not None:
+            # fleet worker processes label every exported series with
+            # their worker id, so a multi-process scrape never collides
+            self.registry.set_process(process)
         if enabled:
             # module-level instrumentation (ingest transports, trainer)
             # reports to the process-default registry; fold it in so one
@@ -198,6 +203,21 @@ class Observability:
             tracer = default_tracer()
             self.registry.register_collector(
                 "tracing", lambda: tracer_families(tracer))
+            # injected-fault accounting (fmda_tpu_torch.chaos): empty
+            # while chaos is off; under a fault plan every triggered
+            # effect is a counted series.  The chaos runtime's one
+            # ``on_fault`` observer is the fleet telemetry's
+            # (fmda_tpu_torch.obs.aggregate), which logs each window's
+            # first fire and freezes a postmortem; the reference wires it
+            # here too, and there the last instance built wins
+            from fmda_tpu_torch.chaos.inject import (
+                chaos_families,
+                default_chaos,
+            )
+
+            chaos = default_chaos()
+            self.registry.register_collector(
+                "chaos", lambda: chaos_families(chaos))
             # device telemetry (fmda_tpu_torch.obs.device): the kernel
             # ledger's launches and sampled device time, MFU, and the
             # memory monitor (sampled here at its cadence) ride every

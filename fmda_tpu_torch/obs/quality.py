@@ -32,7 +32,9 @@ checkpoint.
 
 Everything exports three ways: series into a store with
 ``record_counter``/``record_gauge`` when one is attached (the fleet
-telemetry's time-series store, ROADMAP queue 1 item 7), registry families
+telemetry's time-series store: :meth:`~fmda_tpu_torch.obs.aggregate.
+FleetTelemetry.attach_quality` attaches it; the ``[slo]`` quality
+objectives read those series), registry families
 for ``/metrics`` scrapes, and the ``/quality`` JSON document.  Host only:
 a captured probability may be a card tensor, converted at join time.
 """

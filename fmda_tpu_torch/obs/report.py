@@ -6,9 +6,11 @@
   ``/snapshot`` and ``/healthz`` and prints the snapshot, the health
   verdict and the device and quality summaries; several endpoints report
   each one and the aggregate verdict; ``--watch N`` redraws every N
-  seconds.  The reference's status also reads ``/alerts`` and
-  ``/control``, which wait with the SLO engine and the control plane
-  (ROADMAP queue 1, item 7).  ``status`` without an endpoint builds an
+  seconds.  An endpoint that serves ``/alerts`` (a router's fleet
+  telemetry, :mod:`fmda_tpu_torch.obs.aggregate`) adds the SLO alert
+  table, and ``status`` exits 1 while an alert fires.  The reference's
+  status also reads ``/control``, which waits with the control plane
+  (ROADMAP queue 1, item 7c).  ``status`` without an endpoint builds an
   :class:`~fmda_tpu_torch.app.Application` over the configured warehouse
   (``--warehouse`` overrides its path), its endpoint off, and prints that
   application's snapshot and health.
@@ -149,8 +151,9 @@ def _print_quality_summary(quality: dict) -> None:
     print("quality: " + " | ".join(parts))
 
 
-def print_status(snapshot: dict, health: dict) -> None:
-    """Human-readable registry snapshot + health verdict."""
+def print_status(snapshot: dict, health: dict, alerts: dict = None) -> None:
+    """Human-readable registry snapshot + health verdict (+ the SLO
+    alert table when the endpoint serves ``/alerts``)."""
 
     def key(s):
         labels = ",".join(f"{k}={v}" for k, v in
@@ -161,6 +164,15 @@ def print_status(snapshot: dict, health: dict) -> None:
     for name, check in sorted(health.get("checks", {}).items()):
         mark = "ok  " if check["ok"] else "FAIL"
         print(f"  {mark} {name:<14} {check['detail']}")
+    if alerts and alerts.get("alerts"):
+        print(f"slo alerts (burn threshold "
+              f"{alerts.get('burn_threshold')}x):")
+        for name, a in sorted(alerts["alerts"].items()):
+            mark = "FIRE" if a.get("state") == "firing" else "ok  "
+            print(f"  {mark} {name:<16} "
+                  f"fast {a.get('burn_fast', 0):>8.2f}x  "
+                  f"slow {a.get('burn_slow', 0):>8.2f}x  "
+                  f"{a.get('detail', '')}")
     perf = _perf_summary(snapshot)
     if perf:
         _print_perf_summary(perf)
@@ -203,6 +215,17 @@ def scrape_endpoint(endpoint: str):
     return snapshot, health
 
 
+def scrape_alerts(endpoint: str):
+    """GET /alerts off one endpoint; None where it serves none (a
+    worker's endpoint, or a process with no fleet telemetry)."""
+    import urllib.error
+
+    try:
+        return _fetch_json(_base(endpoint) + "/alerts")
+    except (urllib.error.URLError, OSError, json.JSONDecodeError):
+        return None
+
+
 def _status_multi(endpoints) -> int:
     """Every endpoint's health, then the aggregate verdict: exit 0 iff
     every endpoint answered ok (an unreachable one is degraded, not a
@@ -212,13 +235,13 @@ def _status_multi(endpoints) -> int:
     per = {}
     for ep in endpoints:
         try:
-            per[ep] = scrape_endpoint(ep)
+            per[ep] = scrape_endpoint(ep) + (scrape_alerts(ep),)
         except (urllib.error.URLError, OSError,
                 json.JSONDecodeError) as e:
             per[ep] = (None, {"status": "unreachable", "checks": {},
-                              "error": str(e)})
+                              "error": str(e)}, None)
     n_ok = 0
-    for ep, (snapshot, health) in per.items():
+    for ep, (snapshot, health, alerts) in per.items():
         status = health.get("status")
         print(f"===== {ep}: {status} =====")
         if status == "unreachable":
@@ -226,7 +249,7 @@ def _status_multi(endpoints) -> int:
             continue
         if status == "ok":
             n_ok += 1
-        print_status(snapshot, health)
+        print_status(snapshot, health, alerts)
     aggregate = "ok" if n_ok == len(endpoints) else "degraded"
     print(f"aggregate: {aggregate} ({n_ok}/{len(endpoints)} endpoints ok)")
     return 0 if aggregate == "ok" else 1
@@ -259,6 +282,7 @@ def _local_status(args):
 def _status_once(args) -> int:
     import urllib.error
 
+    alerts = None
     if not args.endpoint:
         snapshot, health = _local_status(args)
     elif len(args.endpoint) > 1:
@@ -269,8 +293,10 @@ def _status_once(args) -> int:
         except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
             print(f"cannot scrape {args.endpoint[0]}: {e}", file=sys.stderr)
             return 2
-    print_status(snapshot, health)
-    return 0 if health.get("status") == "ok" else 1
+        alerts = scrape_alerts(args.endpoint[0])
+    print_status(snapshot, health, alerts)
+    firing = bool(alerts and alerts.get("firing"))
+    return 0 if health.get("status") == "ok" and not firing else 1
 
 
 def cmd_status(args) -> int:

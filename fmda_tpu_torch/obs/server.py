@@ -21,12 +21,14 @@ No web framework: fixed routes on a daemonised
   (:mod:`fmda_tpu_torch.obs.device`, when attached; what ``perf
   --endpoint`` reads);
 - ``/quality``: the label-join evaluator's document, when one is attached
-  (what ``quality --endpoint`` reads).
-
-The reference's ``/query``, ``/alerts`` and ``/control`` serve the fleet
-telemetry, the SLO engine and the control plane, which the port does not
-have yet (ROADMAP queue 1, item 7): they answer 404, as the reference's
-do when nothing is attached.
+  (what ``quality --endpoint`` reads);
+- ``/query``: time-series range queries (``?series=&window=``) when a
+  fleet telemetry handle is attached (:mod:`fmda_tpu_torch.obs.aggregate`);
+- ``/alerts``: the SLO engine's alert document
+  (:mod:`fmda_tpu_torch.obs.slo`; what ``status --endpoint`` reads);
+- ``/control``: the control plane's document, when one is attached.
+  The port has no control plane yet (ROADMAP queue 1, item 7c), so it
+  answers 404, as the reference's does when nothing is attached.
 
 A handler exception yields an HTTP 500 with a JSON ``{"error": ...}``
 body, never a half-written response, and the serving thread survives.
@@ -67,6 +69,9 @@ class MetricsServer:
         quality_fn: Optional[Callable[[], dict]] = None,
         profile_fn: Optional[Callable[[], str]] = None,
         device_fn: Optional[Callable[[], dict]] = None,
+        query_fn: Optional[Callable[..., dict]] = None,
+        alerts_fn: Optional[Callable[[], dict]] = None,
+        control_fn: Optional[Callable[[], dict]] = None,
     ) -> None:
         self.registry = registry
         self.health_fn = health_fn
@@ -75,6 +80,9 @@ class MetricsServer:
         self.quality_fn = quality_fn
         self.profile_fn = profile_fn
         self.device_fn = device_fn
+        self.query_fn = query_fn
+        self.alerts_fn = alerts_fn
+        self.control_fn = control_fn
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -136,6 +144,34 @@ class MetricsServer:
                             server.events.to_jsonl(
                                 trace_id=trace_id).encode(),
                             "application/x-ndjson")
+                    elif path == "/query" and server.query_fn is not None:
+                        params = parse_qs(query)
+                        series = params.get("series", [None])[0]
+                        if not series:
+                            self._send(
+                                400,
+                                json.dumps({
+                                    "error": "missing ?series=",
+                                    "path": self.path}).encode(),
+                                "application/json")
+                            return
+                        window = params.get("window", [None])[0]
+                        doc = server.query_fn(
+                            series, float(window) if window else None)
+                        self._send(200, json.dumps(doc).encode(),
+                                   "application/json")
+                    elif path == "/alerts" and server.alerts_fn is not None:
+                        self._send(
+                            200,
+                            json.dumps(server.alerts_fn(), indent=2).encode(),
+                            "application/json")
+                    elif path == "/control" \
+                            and server.control_fn is not None:
+                        self._send(
+                            200,
+                            json.dumps(server.control_fn(),
+                                       indent=2).encode(),
+                            "application/json")
                     elif path == "/quality" \
                             and server.quality_fn is not None:
                         self._send(

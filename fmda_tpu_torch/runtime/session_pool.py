@@ -162,7 +162,8 @@ class SessionPool:
         slot = self._free.pop()
         self._reset_slot(slot)
         if norm is not None:
-            x_min = np.asarray(norm.x_min, np.float32)
+            # a copy: stats decoded off a wire frame are read-only views
+            x_min = np.array(norm.x_min, np.float32)
             x_range = np.asarray(norm.x_max, np.float32) - x_min
             self._x_min[slot] = torch.as_tensor(x_min)
             self._x_range[slot] = torch.as_tensor(x_range)

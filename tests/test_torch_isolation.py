@@ -57,7 +57,11 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
                  "stream.native_bus", "stream.native_join",
                  "stream.kafka_bus", "stream.mysql_warehouse", "replay",
                  "replay.history", "replay.driver", "replay.reference",
-                 "eval.shadow"):
+                 "eval.shadow", "fleet", "fleet.hashring",
+                 "fleet.membership", "fleet.state", "fleet.wire",
+                 "fleet.router", "fleet.worker", "fleet.launcher", "chaos",
+                 "chaos.plan", "chaos.inject", "obs.tsdb", "obs.slo",
+                 "obs.recorder", "obs.aggregate", "_lazy"):
         assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -70,6 +74,28 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
     loaded = [name for name in json.loads(proc.stdout)
               if _forbidden(name)]
     assert loaded == []
+
+
+#: the modules a router-role process imports, the counterpart of the
+#: reference's ``fmda_tpu.analysis.hygiene.ROUTER_ROLE_MODULES``, with the
+#: fleet telemetry and chaos it runs beside them
+ROUTER_ROLE_MODULES = (
+    "fleet", "fleet.hashring", "fleet.launcher", "fleet.membership",
+    "fleet.router", "fleet.state", "fleet.wire", "chaos", "chaos.plan",
+    "chaos.inject", "obs.tsdb", "obs.slo", "obs.recorder", "obs.aggregate",
+    "config", "__main__", "_lazy",
+)
+
+
+def test_router_role_modules_import_without_torch():
+    """A router is a bus-only host: a clean interpreter imports every
+    router-role module (and the package itself) without loading torch."""
+    mods = ", ".join(f"fmda_tpu_torch.{m}" for m in ROUTER_ROLE_MODULES)
+    code = (f"import sys, fmda_tpu_torch, {mods}\n"
+            "sys.exit(1 if 'torch' in sys.modules else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "fmda_tpu_torch"])
@@ -173,6 +199,10 @@ def test_fleet_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_main(["serve-fleet", "--sessions", "2", "--ticks", "1"]
                       + extra)
+    # a fleet worker opens its pool on the card: refused before it dials
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_main(["serve-fleet", "--role", "worker", "--worker-id", "w0",
+                   "--connect", "127.0.0.1:1"])
 
 
 def test_demo_raises_without_a_card_and_ingest_needs_none(monkeypatch,

@@ -439,7 +439,9 @@ def test_status_without_an_endpoint_names_its_item(capsys, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--trace-dir", "--postmortem-dir"])
 def test_waiting_serve_fleet_flags_name_item_7(flag, tmp_path, capsys):
-    assert port_main(["serve-fleet", "--role", "solo", flag, str(tmp_path),
+    # the flags themselves are ported; the local role they serve still
+    # waits for the control plane it attaches by default (item 7c)
+    assert port_main(["serve-fleet", "--role", "local", flag, str(tmp_path),
                       "--device", "cpu"]) == 2
     assert "item 7" in capsys.readouterr().err
 
