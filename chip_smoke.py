@@ -144,6 +144,23 @@ Phases, each printed as one JSON line, each fatal on failure:
    are counted in the workers, by kernel (off their goodbye stats: kernel
    5 once a flush and no other kernel in an ssm worker, none in a gru
    worker); this process launches nothing (checked).
+19. ``control``: the control plane.  ``run_capacity_model`` over real ssm
+   pools (buckets 8/32, linger 2 ms, SLO 50 ms, sessions 8/16/32 x duty
+   0.25/0.5/1.0, 60 rounds a cell, the controller A/B): the reference's
+   schema and keys, served + shed = submitted in every cell, kernel 5
+   once a flush; ``serve-fleet --role local --workers 2 --cell ssm
+   --tenant-mix gold:1,standard:4`` with the controller and two tenant
+   classes (per-class admits and sheds, a non-empty decision ring,
+   ``status --endpoint`` printing the control section); the elastic soak
+   (1..2 workers, 8 sessions, bit-identical to the fixed fleet at bucket
+   1, every gate).
+20. ``chaos``: the fleet chaos soak (a worker killed and revived, a
+   router takeover, a link partition, a bus blip, delays; 12 sessions,
+   ssm, bucket 1): every gate, nothing unaccounted, the clean sessions
+   bit for bit the unfaulted run's; the data-plane soak (a feed outage,
+   a warehouse outage, an engine kill) with the Predictor on the card:
+   every gate, the landed rows bit for bit, kernel 1 twice a prediction,
+   the probabilities against the CPU's; ``chaos-pipeline`` exits 0.
 
 Phases 4-6, 10 and 11 run for the BiGRU (``cell="gru"``, the default),
 the BiLSTM (``cell="lstm"``), the TemporalTransformer (``cell="attn"``:
@@ -152,7 +169,8 @@ parallel mode, no kernel); phases 7-9 for gru, lstm and ssm (``stream
 bidirectional`` for gru and lstm); phase 12 for gru and ssm; phase 13
 for the BiGRU (its streaming consumers gru and ssm); phase 14 for ssm (its
 tracing cost for gru too); phase 15 for gru (its stream ssm); phase 16
-for gru and ssm; phase 17 for attn and gru; phase 18 for ssm and gru.
+for gru and ssm; phase 17 for attn and gru; phase 18 for ssm and gru;
+phase 19 for ssm; phase 20 for ssm (the fleet) and gru (the Predictor).
 Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
@@ -4262,6 +4280,432 @@ def phase_multihost(directory: str, device: str = "cuda") -> dict:
     return workers
 
 
+#: the control phase's capacity model, the reference bench's shape
+#: (``bench.py`` phase ``control_capacity_model``): ssm, buckets 8/32,
+#: linger 2 ms, SLO 50 ms, seed 0, sessions x duty, 60 rounds a cell
+CAPACITY_BUCKETS = (8, 32)
+CAPACITY_LINGER_MS = 2.0
+CAPACITY_SLO_MS = 50.0
+CAPACITY_SESSIONS = (8, 16, 32)
+CAPACITY_DUTY = (0.25, 0.5, 1.0)
+CAPACITY_ROUNDS = 60
+#: the reference's artifact vocabulary (``fmda_tpu/control/capacity.py``),
+#: kept here as literals: the port's constants must equal them
+CAPACITY_REF_SCHEMA = "fmda.control.capacity/1"
+CAPACITY_REF_KEYS = ("schema", "slo_p99_ms", "rounds", "grid",
+                     "max_sustainable", "controller_ab")
+CAPACITY_REF_CELL_KEYS = ("sessions", "duty", "submitted", "served", "shed",
+                          "p99_ms", "ticks_per_s", "ok")
+#: per-tenant QoS through the CLI: two classes, the telemetry and control
+#: cadences short enough for the loop to decide inside the load
+QOS_MIX = "gold:1,standard:4"
+QOS_CONFIG = {
+    "control": {"tenant_classes": ["gold", "standard"],
+                "tenant_weights": [3.0, 1.0],
+                "tenant_quota_frac": [1.0, 0.5], "interval_s": 0.1},
+    "slo": {"interval_s": 0.1},
+}
+QOS_TICKS = 300
+QOS_HOLD_S = 4.0
+#: the elastic soak at full width, everything else the reference's default
+ELASTIC_SESSIONS = 8
+#: the fleet soak's plan (the reference bench's ``runtime_chaos_soak``)
+CHAOS_PLAN_KW = dict(workers=["w0", "w1"], worker_kills=1, revive_after=10,
+                     router_restarts=1, link_partitions=1, bus_blips=1,
+                     delays=2, delay_s=0.02, settle_steps=12)
+CHAOS_STEPS = 60
+CHAOS_SESSIONS = 12
+#: the pipeline soak (the reference bench's ``pipeline_chaos_soak``)
+PIPELINE_CHAOS_ROUNDS = 30
+
+
+def bucket_one_launches(stats: dict, what: str, device: str) -> dict:
+    """A soak's workers at bucket 1: kernel 5 once a flush, every launch
+    at bucket 1 (the warm-up's buckets), no other kernel
+    (:func:`worker_launches`).  Returns the launches by kernel."""
+    for wid, st in stats.items():
+        buckets = set(st.get("kernel_launches_by_bucket", {}))
+        check(buckets <= {"1"},
+              f"{what}: worker {wid} launched at buckets {sorted(buckets)}")
+    return worker_launches(stats, "ssm", what, device)
+
+
+def control_capacity(device: str) -> dict:
+    """(a) ``run_capacity_model`` over real ssm pools on the card: the
+    reference's schema and keys, served + shed = submitted in every cell,
+    kernel 5 once a gateway flush (plus each pool's warm-up, one a
+    bucket), every other kernel 0.  Returns this process's launches."""
+    from fmda_tpu_torch.control.capacity import (
+        CAPACITY_KEYS,
+        CAPACITY_SCHEMA,
+        CELL_KEYS,
+        pool_gateway_factory,
+        run_capacity_model,
+    )
+
+    from fmda_tpu_torch.models import build_model
+
+    cfg = model_config("ssm", bidirectional=False, dropout=0.0)
+    state = build_model(
+        cfg, generator=torch.Generator().manual_seed(SEED)).state_dict()
+    pools, gateways = [], []
+    factory = pool_gateway_factory(
+        cfg, state, window=30, bucket_sizes=CAPACITY_BUCKETS,
+        max_linger_ms=CAPACITY_LINGER_MS, device=device, pools=pools)
+
+    def recorded(n_sessions):
+        gateways.append(factory(n_sessions))
+        return gateways[-1]
+
+    start_path()
+    t0 = time.perf_counter()
+    artifact = run_capacity_model(
+        recorded, slo_p99_ms=CAPACITY_SLO_MS,
+        session_grid=CAPACITY_SESSIONS, duty_grid=CAPACITY_DUTY,
+        rounds=CAPACITY_ROUNDS, seed=SEED)
+    seconds = time.perf_counter() - t0
+    launched = launch_counts()
+    flushes = sum(g.metrics.counters.get("flushes", 0) for g in gateways)
+    by_bucket = sum(sum(g.kernel_launches_by_bucket.values())
+                    for g in gateways)
+    warmups = len(pools) * len(CAPACITY_BUCKETS)
+    on_card = device == "cuda"
+    check_launches(launched, {"ssm_tick": flushes + warmups if on_card
+                              else 0}, "control capacity")
+    check(by_bucket == (flushes if on_card else 0),
+          f"control capacity: gateways booked {by_bucket} launches by "
+          f"bucket over {flushes} flushes")
+    leaks = [c for c in artifact["grid"]
+             if c["served"] + c["shed"] != c["submitted"]]
+    ab = artifact["controller_ab"] or {}
+    try:
+        load1 = os.getloadavg()[0]
+    except OSError:
+        load1 = None
+    emit("control capacity", cell="ssm", buckets=list(CAPACITY_BUCKETS),
+         slo_p99_ms=CAPACITY_SLO_MS, rounds=CAPACITY_ROUNDS,
+         grid=[{k: c[k] for k in ("sessions", "duty", "submitted", "served",
+                                  "shed", "p99_ms", "ticks_per_s", "ok")}
+               for c in artifact["grid"]],
+         max_sustainable=artifact["max_sustainable"],
+         ab_fixed_p99_ms=ab.get("fixed_p99_ms"),
+         ab_adaptive_p99_ms=ab.get("adaptive_p99_ms"),
+         ab_improved=ab.get("improved"), ab_decisions=ab.get("decisions"),
+         ab_converged=ab.get("converged"), load1=load1,
+         cpu_count=os.cpu_count(), gateways=len(gateways), flushes=flushes,
+         ssm_tick_launches=launched.get("ssm_tick", 0), seconds=seconds)
+    check(artifact["schema"] == CAPACITY_SCHEMA == CAPACITY_REF_SCHEMA
+          and tuple(artifact) == CAPACITY_KEYS == CAPACITY_REF_KEYS
+          and CELL_KEYS == CAPACITY_REF_CELL_KEYS
+          and all(tuple(c) == CAPACITY_REF_CELL_KEYS
+                  for c in artifact["grid"]),
+          f"control capacity: artifact keys {tuple(artifact)}")
+    check(not leaks, f"control capacity: ticks leaked in {leaks}")
+    check(len(artifact["grid"]) == len(CAPACITY_SESSIONS)
+          * len(CAPACITY_DUTY) and ab.get("fixed_p99_ms") is not None,
+          f"control capacity: grid {len(artifact['grid'])} cells, A/B {ab}")
+    return launched
+
+
+def control_qos_cli(directory: str, device: str) -> dict:
+    """(b) ``serve-fleet --role local --workers 2 --cell ssm --tenant-mix
+    gold:1,standard:4`` with the controller (the default) and QoS_CONFIG,
+    in a subprocess: exit 0, every tick accounted for, per-class admits
+    and sheds folded off the heartbeats, a non-empty decision ring, and
+    ``status --endpoint`` printing the control section off its telemetry
+    server.  Returns the workers' launches by kernel."""
+    import socket
+
+    cfg_path = os.path.join(directory, "qos.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(QOS_CONFIG, fh)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = [sys.executable, "-m", "fmda_tpu_torch", "serve-fleet",
+            "--role", "local", "--workers", "2", "--cell", "ssm",
+            "--tenant-mix", QOS_MIX, "--config", cfg_path,
+            "--ticks", str(QOS_TICKS), "--metrics-port", str(port),
+            "--metrics-hold-s", str(QOS_HOLD_S)]
+    if device != "cuda":
+        argv += ["--device", device]
+    err_path = os.path.join(directory, "control_qos.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err_fh:
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err_fh,
+                                text=True, cwd=os.path.dirname(
+                                    os.path.abspath(__file__)))
+    try:
+        status = None
+        deadline = time.monotonic() + 300.0
+        while time.monotonic() < deadline and proc.poll() is None:
+            with open(err_path) as fh:
+                if "holding fleet telemetry endpoint" in fh.read():
+                    status = cli_output(["status", "--endpoint",
+                                         f"127.0.0.1:{port}"])
+                    break
+            time.sleep(0.2)
+        stdout, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(err_path) as fh:
+        err_tail = fh.read()[-3000:]
+    check(proc.returncode == 0,
+          f"serve-fleet --tenant-mix exited {proc.returncode}: {err_tail}")
+    out = json.loads(stdout)
+    control = out.get("control", {})
+    tenants = control.get("tenants", {})
+    admitted = {k: v for k, v in tenants.items()
+                if k.startswith("admitted_class_")}
+    shed = {k: v for k, v in tenants.items() if k.startswith("shed_class_")}
+    from fmda_tpu_torch.chaos.soak import LOSS_COUNTERS
+
+    counters = out.get("counters", {})
+    losses = {k: counters.get(k, 0)
+              for k in sorted(set(MULTIHOST_LOSSES) | set(LOSS_COUNTERS))}
+    worker_served = sum(s.get("ticks_served", 0)
+                        for s in out["worker_stats"].values())
+    launched = worker_launches(out["worker_stats"], "ssm", "control qos",
+                               device)
+    emit("control qos", argv=argv[3:], rc=proc.returncode,
+         ticks_submitted=out["ticks_submitted"],
+         ticks_served=out["ticks_served"], ticks_per_s=out["ticks_per_s"],
+         tenants=tenants, submitted_by_class=out.get("submitted_by_class"),
+         losses=losses, decisions=len(control.get("decisions", [])),
+         last_decisions=control.get("decisions", [])[-3:],
+         batching=control.get("batching"),
+         autoscale=control.get("autoscale"),
+         status_rc=None if status is None else status[0],
+         status_control=None if status is None else [
+             ln for ln in status[1].splitlines()
+             if ln.startswith("control:")],
+         ssm_tick_launches=launched["ssm_tick"],
+         seconds=time.perf_counter() - t0)
+    check(set(admitted) == {"admitted_class_gold", "admitted_class_standard"}
+          and all(admitted.values()),
+          f"control qos: per-class admits {tenants}")
+    check(out["ticks_served"] + sum(losses.values())
+          == out["ticks_submitted"]
+          and sum(admitted.values()) - sum(shed.values()) == worker_served,
+          f"control qos: {out['ticks_served']} served + {losses} of "
+          f"{out['ticks_submitted']}; admitted {admitted}, shed {shed}, "
+          f"workers served {worker_served}")
+    check(control.get("decisions"),
+          f"control qos: empty decision ring ({control})")
+    check(status is not None and status[0] in (0, 1)
+          and any(ln.startswith("control: target p99")
+                  for ln in status[1].splitlines()),
+          f"control qos: status --endpoint printed no control section: "
+          f"{status}")
+    return launched
+
+
+def control_elastic(device: str) -> dict:
+    """(c) ``run_elastic_soak`` at ssm, H 32, window 30, 1..2 workers, 8
+    sessions, compared with the fixed fleet: every gate (scaled up and
+    down, no session lost, all served after, bit-identical), kernel 5
+    once a flush at bucket 1 in every worker.  Returns the workers'
+    launches by kernel."""
+    from fmda_tpu_torch.control import run_elastic_soak
+
+    t0 = time.perf_counter()
+    report = run_elastic_soak(
+        n_sessions=ELASTIC_SESSIONS, hidden=32, window=30, min_workers=1,
+        max_workers=2, compare_fixed=True, config=multihost_config("ssm"),
+        device=None if device == "cuda" else device)
+    launched = bucket_one_launches(report["worker_stats"], "control elastic",
+                                   device)
+    emit("control elastic", cell="ssm", sessions=ELASTIC_SESSIONS,
+         gates=report["gates"], schedule=report["schedule"],
+         target_p99_ms=report["target_p99_ms"],
+         ticks_submitted=report["ticks_submitted"],
+         ticks_served=report["ticks_served"], losses=report["losses"],
+         max_live=report["max_live"], final_live=report["final_live"],
+         decisions=report["decisions"], identity=report.get("identity"),
+         kernel_launches={w: s.get("kernel_launches")
+                          for w, s in report["worker_stats"].items()},
+         worker_flushes={w: s.get("flushes")
+                         for w, s in report["worker_stats"].items()},
+         ssm_tick_launches=launched["ssm_tick"], cpu_count=os.cpu_count(),
+         seconds=time.perf_counter() - t0)
+    check(report["gates_ok"] and report["identity"]["ok"],
+          f"control elastic: gates {report['gates']}")
+    return launched
+
+
+def phase_control(directory: str, device: str = "cuda") -> dict:
+    """The control plane on the card: the capacity model over real pools,
+    per-tenant QoS through the CLI with the controller attached, and the
+    elastic soak.  Returns the path's launches by kernel (this process's
+    and the workers')."""
+    from fmda_tpu_torch.chaos import configure_chaos
+
+    quiet_planes()
+    t0 = time.perf_counter()
+    try:
+        here = control_capacity(device)
+        start_path()
+        workers = add_counts(control_qos_cli(directory, device),
+                             control_elastic(device))
+        check_launches(launch_counts(), {},
+                       "control (the router's own process)")
+    finally:
+        configure_chaos(enabled=False)
+    total = add_counts(here, workers)
+    emit("control", kernel_launches=total,
+         seconds=time.perf_counter() - t0,
+         total_elapsed_s=time.perf_counter() - START)
+    return total
+
+
+def chaos_fleet(device: str) -> dict:
+    """(d) ``run_chaos_soak`` under the reference bench's plan (a worker
+    killed and revived, a router takeover, a link partition, a bus blip,
+    delays) at ssm, H 32, window 30, 12 sessions, against the unfaulted
+    run: every gate, nothing unaccounted, the clean sessions bit for bit,
+    kernel 5 once a flush at bucket 1 in every worker.  Returns the
+    workers' launches by kernel."""
+    from fmda_tpu_torch.chaos import FaultPlan, run_chaos_soak
+
+    plan = FaultPlan.generate(SEED, CHAOS_STEPS, **CHAOS_PLAN_KW)
+    t0 = time.perf_counter()
+    report = run_chaos_soak(
+        plan, n_workers=2, n_sessions=CHAOS_SESSIONS, hidden=32, window=30,
+        compare_unfaulted=True, config=multihost_config("ssm"),
+        device=None if device == "cuda" else device)
+    launched = bucket_one_launches(report["worker_stats"], "chaos fleet",
+                                   device)
+    emit("chaos fleet", cell="ssm", sessions=CHAOS_SESSIONS,
+         plan=report["plan"], chaos_injected=report["chaos_injected"],
+         gates=report["gates"], ticks_submitted=report["ticks_submitted"],
+         ticks_served=report["ticks_served"], losses=report["losses"],
+         unaccounted=report["unaccounted"], identity=report["identity"],
+         recovery=report["recovery"], takeovers=report["takeovers"],
+         tainted=report["tainted_sessions"],
+         kernel_launches={w: s.get("kernel_launches")
+                          for w, s in report["worker_stats"].items()},
+         worker_flushes={w: s.get("flushes")
+                         for w, s in report["worker_stats"].items()},
+         ssm_tick_launches=launched["ssm_tick"],
+         seconds=time.perf_counter() - t0)
+    check(report["gates_ok"] and report["unaccounted"] == 0
+          and report["identity"]["ok"]
+          and report["identity"]["clean_sessions"] > 0,
+          f"chaos fleet: gates {report['gates']}, unaccounted "
+          f"{report['unaccounted']}, identity {report['identity']}")
+    return launched
+
+
+def pipeline_soak_recorded(device, *, compare_unfaulted: bool) -> tuple:
+    """``run_pipeline_soak`` at the reference bench's shape with the
+    Predictor (gru, H 32, window 30) on ``device``, every prediction it
+    served recorded: (report, {timestamp: probabilities}, predictions)."""
+    from fmda_tpu_torch.chaos import pipeline
+
+    served, made = {}, []
+    build = pipeline._build_predictor
+
+    def recording(*args, **kw):
+        pred = build(*args, **kw)
+        poll = pred.poll
+
+        def recorded():
+            out = poll()
+            made.extend(out)
+            served.update({p.timestamp: np.asarray(p.probabilities,
+                                                   np.float64)
+                           for p in out})
+            return out
+
+        pred.poll = recorded
+        return pred
+
+    pipeline._build_predictor = recording
+    try:
+        report = pipeline.run_pipeline_soak(
+            pipeline.generate_pipeline_plan(SEED, PIPELINE_CHAOS_ROUNDS),
+            seed=SEED, rounds=PIPELINE_CHAOS_ROUNDS, predictor=True,
+            window=30, hidden=32, compare_unfaulted=compare_unfaulted,
+            device=device)
+    finally:
+        pipeline._build_predictor = build
+    return report, served, len(made)
+
+
+def chaos_pipeline(device: str) -> dict:
+    """(e) ``run_pipeline_soak`` (``generate_pipeline_plan(0, 30)``, the
+    Predictor a gru at H 32, window 30 on the card, the unfaulted replay):
+    every gate, the landed rows bit for bit (``identity_ok``), kernel 1
+    twice a prediction served and no other kernel, the probabilities
+    against the same soak with the Predictor on the CPU; then
+    ``chaos-pipeline --rounds 30`` exits 0.  Returns the soak's
+    launches."""
+    t0 = time.perf_counter()
+    start_path()
+    report, served, n_made = pipeline_soak_recorded(
+        device, compare_unfaulted=True)
+    launched = launch_counts()
+    seconds = time.perf_counter() - t0
+    check_launches(launched, {"gru_scan_fwd": 2 * n_made
+                              if device == "cuda" else 0}, "chaos pipeline")
+    _, served_cpu, _ = pipeline_soak_recorded("cpu", compare_unfaulted=False)
+    diffs = [float(np.abs(served[ts] - served_cpu[ts]).max())
+             for ts in served if ts in served_cpu]
+    err = max(diffs) if diffs else None
+    t_cli = time.perf_counter()
+    rc, text = cli_output(["chaos-pipeline", "--rounds",
+                           str(PIPELINE_CHAOS_ROUNDS)]
+                          + ([] if device == "cuda" else ["--device", device]))
+    cli_seconds = time.perf_counter() - t_cli
+    emit("chaos pipeline", cell="gru", rounds=PIPELINE_CHAOS_ROUNDS,
+         plan=report["plan"], chaos_injected=report["chaos_injected"],
+         gates=report["gates"], ingested=report["ingested"],
+         landed=report["landed"], losses=report["losses"],
+         degraded_rows=report["degraded_rows"], journal=report["journal"],
+         engine_restarts=report["engine_restarts"],
+         identity=report.get("identity"), predictions=n_made,
+         served=report["served"], gru_scan_fwd_launches=launched.get(
+             "gru_scan_fwd", 0),
+         max_abs_err_vs_cpu=err, compared=len(diffs), tol=PATH_TOL,
+         seconds=seconds, cli_rc=rc, cli_gates_ok=json.loads(text).get(
+             "gates_ok") if rc in (0, 1) else None,
+         cli_seconds=cli_seconds)
+    check(report["gates_ok"] and report["identity"]["ok"]
+          and report["gates"]["post_chaos_probes_served"],
+          f"chaos pipeline: gates {report['gates']}")
+    check(n_made > 0 and err is not None and err <= PATH_TOL
+          and len(diffs) == len(served) == len(served_cpu),
+          f"chaos pipeline: {len(diffs)} of {len(served)} predictions "
+          f"against the CPU's {len(served_cpu)}, max diff {err}")
+    check(rc == 0, f"chaos-pipeline --rounds {PIPELINE_CHAOS_ROUNDS} "
+          f"exited {rc}")
+    return launched
+
+
+def phase_chaos(device: str = "cuda") -> dict:
+    """The chaos soaks on the card: the fleet soak (multi-process, ssm)
+    and the data-plane soak (engine, journal, Predictor).  The smoke's own
+    process launches nothing in the fleet soak (checked).  Returns the
+    path's launches by kernel."""
+    from fmda_tpu_torch.chaos import configure_chaos
+
+    quiet_planes()
+    t0 = time.perf_counter()
+    try:
+        start_path()
+        workers = chaos_fleet(device)
+        check_launches(launch_counts(), {},
+                       "chaos fleet (the router's own process)")
+        total = add_counts(workers, chaos_pipeline(device))
+    finally:
+        configure_chaos(enabled=False)
+    emit("chaos", kernel_launches=total, seconds=time.perf_counter() - t0,
+         total_elapsed_s=time.perf_counter() - START)
+    return total
+
+
 #: what an entry of the summary line carries of its kernel at a shape
 TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -4488,6 +4932,8 @@ def main() -> int:
                   for cell in ("gru", "ssm")}
         remat = phase_remat()
         multihost = phase_multihost(tmp)
+        control = phase_control(tmp)
+        chaos = phase_chaos()
 
     def later(name):
         """A kernel's launches on the app, replay and remat paths."""
@@ -4505,7 +4951,7 @@ def main() -> int:
                    "train_multi": train_multi[s.name][fwd],
                    "continuous": continuous.get(s.name, {}).get(fwd, 0),
                    "pipeline": pipeline[fwd], "obs": obs[fwd],
-                   **later(fwd)}
+                   **later(fwd), "chaos": chaos.get(fwd, 0)}
         bwd_by_path = {"serve": serve[s.name][bwd],
                        "train": train[s.name][bwd],
                        "fleet": fleet[s.name][bwd],
@@ -4526,7 +4972,8 @@ def main() -> int:
          "predictor_fleet": predictor_fleet["ssm"][k],
          "train_multi": train_multi["ssm"][k],
          "continuous": continuous["ssm"][k], "pipeline": pipeline[k],
-         "obs": obs[k], **later(k), "multihost": multihost[k]}
+         "obs": obs[k], **later(k), "multihost": multihost[k],
+         "control": control.get(k, 0), "chaos": chaos.get(k, 0)}
         for k in ("ssm_tick", "ssm_step"))))
     entries += [flash_entry(name, flash_rows,
                             {"serve": serve["attn"][name],

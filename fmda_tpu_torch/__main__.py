@@ -18,12 +18,15 @@
                                       [--trace [--trace-sample R]] [--trace-out F]
                                       [--metrics-port P [--metrics-hold-s S]]
                                       [--jax-profile DIR]
-    python -m fmda_tpu_torch serve-fleet --role local --no-controller
+    python -m fmda_tpu_torch serve-fleet --role local [--no-controller]
                                       [--workers N] [--cell ssm]
                                       [--sessions N] [--ticks N]
+                                      [--tenant-mix CLASS:W,...]
                                       [--trace-dir D] [--postmortem-dir D]
                                       [--metrics-port P] [--replay
                                       [--hot-swap]] [--device cpu]
+                                      [--chaos-plan generate|FILE
+                                      [--chaos-no-reference]]
     python -m fmda_tpu_torch serve-fleet --role broker|router [--listen P]
                                       [--connect HOST:PORT] [--workers N]
                                       [--no-controller] [--duration-s S]
@@ -31,6 +34,9 @@
                                       --connect HOST:PORT [--shared-bus]
                                       [--wire-format auto|binary|json]
                                       [--device cpu]
+    python -m fmda_tpu_torch chaos-pipeline [--rounds N] [--seed S]
+                                      [--plan F] [--no-predictor]
+                                      [--no-reference] [--device cpu]
     python -m fmda_tpu_torch status   [--endpoint HOST:PORT [...]]
                                       [--warehouse W] [--watch N]
     python -m fmda_tpu_torch trace    (--input F | --endpoint HOST:PORT
@@ -64,8 +70,15 @@ sessions' load, each accepted round hot-swapped into the live gateway
 ``--metrics-port`` serves the observability endpoint while it runs.
 ``serve-fleet --role local`` runs the multi-host topology on one machine:
 N worker processes, each with its own pool on the card, behind a router
-in this process; ``broker``, ``router`` and ``worker`` start its tiers by
-hand.  The broker and the router need no card and import no torch.
+in this process, with the adaptive control plane beside it
+(:mod:`fmda_tpu_torch.control`: the batching controller, per-tenant QoS
+for ``--tenant-mix`` sessions when ``[control] tenant_classes`` names
+them, the autoscaler) unless ``--no-controller``; with ``--chaos-plan``
+it runs the chaos soak instead (:mod:`fmda_tpu_torch.chaos.soak`).
+``broker``, ``router`` and ``worker`` start its tiers by hand.  The
+broker and the router need no card and import no torch.
+``chaos-pipeline`` runs the data-plane chaos soak
+(:mod:`fmda_tpu_torch.chaos.pipeline`).
 ``status``, ``trace``, ``perf`` and ``quality`` read that endpoint (or
 saved files; ``status`` without one builds a local application over the
 configured warehouse) and print its snapshot, trace breakdowns, device report and
@@ -422,9 +435,6 @@ def cmd_serve(args) -> int:
 #: serve-fleet flags whose planes are not ported yet, each with the
 #: ROADMAP item (queue 1) that ports it; a run that sets one exits 2.
 UNPORTED_FLEET_FLAGS = {
-    "tenant_mix": "item 7c (control/: per-tenant QoS)",
-    "chaos_plan": "item 7c (chaos/: the fleet soak)",
-    "chaos_no_reference": "item 7c (chaos/: the fleet soak)",
     "shard_pool": "item 8 (parallelism)",
 }
 
@@ -439,28 +449,58 @@ def _unported_fleet_flag(args) -> str:
     return ""
 
 
-def _control_plane_refusal(args, cfg) -> str:
-    """The reference's router and local roles attach its control plane
-    whenever the fleet telemetry is on (``[slo] enabled``) and ``[control]
-    enabled`` holds, both true by default, unless ``--no-controller``;
-    a worker whose ``[control]`` names tenant classes serves them with
-    per-tenant QoS.  The port has neither yet, and does not serve without
-    what the reference would have run: the message to exit 2 with, ''
-    when the run needs neither."""
-    if args.role in ("router", "local"):
-        if (cfg.slo.enabled and cfg.control.enabled
-                and not args.no_controller):
-            return (f"--role {args.role} runs the adaptive control plane "
-                    "beside the fleet telemetry ([control] enabled and "
-                    "[slo] enabled, the defaults), which is not ported "
-                    "yet (ROADMAP queue 1, item 7c: control/); pass "
-                    "--no-controller (or set [control] enabled = false) "
-                    "for the static fleet")
-    elif args.role == "worker":
-        if cfg.control.enabled and cfg.control.tenant_classes:
-            return ("per-tenant QoS ([control] tenant_classes) is not "
-                    "ported yet (ROADMAP queue 1, item 7c: control/)")
-    return ""
+def _control_plane(args, cfg, telemetry, *, router=None, actuator=None,
+                   initial_linger_ms=None, bucket_sizes=None):
+    """The adaptive control plane for --role router/local
+    (:mod:`fmda_tpu_torch.control`): on whenever fleet telemetry is (the
+    loops read its signals) unless ``[control] enabled = false`` or
+    ``--no-controller``.  Attached to the telemetry, so its decision ring
+    serves on ``/control``; None when off."""
+    if telemetry is None or not cfg.control.enabled or args.no_controller:
+        return None
+    from fmda_tpu_torch.control import ControlPlane
+
+    plane = ControlPlane(
+        cfg.control, telemetry=telemetry, router=router,
+        actuator=actuator, slo_cfg=cfg.slo,
+        initial_linger_ms=(initial_linger_ms if initial_linger_ms
+                           is not None else cfg.runtime.max_linger_ms),
+        bucket_sizes=tuple(bucket_sizes if bucket_sizes is not None
+                           else cfg.runtime.bucket_sizes))
+    telemetry.attach_controller(plane)
+    return plane
+
+
+def _tenant_mix(args):
+    """Parse ``--tenant-mix gold:1,standard:4`` into the loadgen's
+    parallel (classes, weights) tuples; ((), ()) when unset."""
+    spec = getattr(args, "tenant_mix", None)
+    if not spec:
+        return (), ()
+    classes, weights = [], []
+    for part in spec.split(","):
+        name, _, w = part.partition(":")
+        if not name.strip():
+            raise SystemExit(f"bad --tenant-mix entry: {part!r}")
+        classes.append(name.strip())
+        try:
+            weights.append(float(w) if w else 1.0)
+        except ValueError:
+            raise SystemExit(
+                f"bad --tenant-mix weight in {part!r} "
+                "(want CLASS or CLASS:WEIGHT)") from None
+    return tuple(classes), tuple(weights)
+
+
+def _worker_qos(cfg):
+    """A worker's per-tenant QoS policy: the ``[control]`` tenant classes
+    (:class:`~fmda_tpu_torch.control.qos.QosPolicy`), None when the
+    section names none or the control plane is off."""
+    if not (cfg.control.enabled and cfg.control.tenant_classes):
+        return None
+    from fmda_tpu_torch.control.qos import QosPolicy
+
+    return QosPolicy.from_config(cfg.control)
 
 
 def _fleet_flag_conflict(args) -> str:
@@ -608,6 +648,7 @@ def _run_replay(gateway, cfg, args, *, warehouse=None, swap_params=None,
     # halfway for the synthetic source; a warehouse backfill's round
     # count is known only once its rows stream
     swap_at = max(1, rc.n_rounds // 2)
+    tenant_classes, tenant_weights = _tenant_mix(args)
     swapped: dict = {}
 
     def on_round(r):
@@ -623,7 +664,8 @@ def _run_replay(gateway, cfg, args, *, warehouse=None, swap_params=None,
 
     # a router encodes per link itself; the dialect round trip is the
     # solo gateway's stand-in for those bytes
-    driver = ReplayDriver(gateway, source, seed=rc.seed,
+    driver = ReplayDriver(gateway, source, tenant_classes=tenant_classes,
+                          tenant_weights=tenant_weights, seed=rc.seed,
                           wire_dialect=None if is_router else rc.wire_dialect,
                           on_round=on_round, quality=quality)
     out = driver.run()
@@ -895,10 +937,6 @@ def _cmd_fleet_worker(args) -> int:
               file=sys.stderr)
         return 2
     cfg = _fleet_runtime_overrides(args, _config(args))
-    refused = _control_plane_refusal(args, cfg)
-    if refused:
-        print(refused, file=sys.stderr)
-        return 2
     from fmda_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)  # raises without a card
@@ -944,7 +982,7 @@ def _cmd_fleet_worker(args) -> int:
         args.worker_id, bus, model_cfg, state,
         config=cfg.fleet, runtime=cfg.runtime, capacity=args.sessions,
         data_bus=data_bus, data_address=data_address,
-        reconnect_fn=reconnect, device=device)
+        reconnect_fn=reconnect, device=device, qos=_worker_qos(cfg))
     # every series this worker exports carries a `process` label, so a
     # fleet-wide scrape never collides
     obs = Observability(cfg.observability, process=args.worker_id)
@@ -1032,10 +1070,6 @@ def _cmd_fleet_router(args) -> int:
     joins a broker's bus; otherwise it hosts the bus and bus server
     itself (``--listen``)."""
     cfg = _fleet_wire_override(args, _config(args))
-    refused = _control_plane_refusal(args, cfg)
-    if refused:
-        print(refused, file=sys.stderr)
-        return 2
     from fmda_tpu_torch.fleet.router import FleetRouter
 
     if args.trace or args.trace_out:
@@ -1068,6 +1102,9 @@ def _cmd_fleet_router(args) -> int:
               file=sys.stderr)
     router = FleetRouter(bus, fleet_cfg, n_features=cfg.features.n_features)
     telemetry = _fleet_telemetry(args, cfg)
+    # no actuator: a bare router cannot spawn workers, so the autoscale
+    # loop stays off and the batching loop retunes through the router
+    plane = _control_plane(args, cfg, telemetry, router=router)
     tele_server = None
     if telemetry is not None and args.metrics_port is not None:
         # the router's own scrape surface: fleet-level series (/query),
@@ -1083,6 +1120,8 @@ def _cmd_fleet_router(args) -> int:
             if telemetry is not None:
                 # cadence-gated fold (one clock read when not due)
                 telemetry.maybe_collect(router)
+            if plane is not None:
+                plane.maybe_tick()
             time.sleep(0.005)
     except KeyboardInterrupt:
         pass
@@ -1107,9 +1146,83 @@ def _cmd_fleet_router(args) -> int:
     out["n_features"] = router.n_features
     if telemetry is not None:
         out["alerts"] = telemetry.alerts()["firing"]
+    if plane is not None:
+        out["control"] = plane.status()
     _maybe_write_trace(args, out)
     print(json.dumps(out, indent=2, default=str))
     return 0
+
+
+def _cmd_fleet_chaos(args, cfg) -> int:
+    """serve-fleet --role local --chaos-plan: the chaos soak — the whole
+    topology under a fault plan (kill/revive workers, router takeover,
+    bus blips, link partitions; :mod:`fmda_tpu_torch.chaos.soak`),
+    hard-gating the never-abort contract.  Exit 1 iff a gate fails."""
+    from fmda_tpu_torch.chaos.plan import FaultPlan, plan_from_config
+    from fmda_tpu_torch.chaos.soak import run_chaos_soak
+
+    worker_ids = _fleet_worker_ids(args, cfg)
+    if args.chaos_plan == "generate":
+        plan = plan_from_config(cfg.chaos, worker_ids, n_steps=args.ticks)
+    else:
+        plan = FaultPlan.load(args.chaos_plan)
+    out = run_chaos_soak(
+        plan,
+        n_workers=len(worker_ids),
+        n_sessions=args.sessions,
+        hidden=args.hidden,
+        seed=args.seed,
+        duty=args.duty,
+        slow_fraction=args.slow_fraction,
+        slow_duty=args.slow_duty,
+        burst_every=args.burst_every,
+        compare_unfaulted=not args.chaos_no_reference,
+        config=cfg,
+        device=args.device,
+    )
+    print(json.dumps(out, indent=2, default=str))
+    return 0 if out["gates_ok"] else 1
+
+
+def cmd_chaos_pipeline(args) -> int:
+    """chaos-pipeline: the data-plane chaos soak — synthetic feeds → join
+    engine → journaled warehouse → Predictor, in-process, under a seeded
+    fault plan (feed outage, warehouse outage, engine kill;
+    :mod:`fmda_tpu_torch.chaos.pipeline`), hard-gating the never-abort
+    contract for the whole pipeline.  The Predictor runs on the card
+    unless ``--device cpu`` (``--no-predictor`` needs none).  Exit 1 iff
+    a gate fails."""
+    from fmda_tpu_torch.chaos.pipeline import (
+        generate_pipeline_plan,
+        run_pipeline_soak,
+    )
+    from fmda_tpu_torch.chaos.plan import FaultPlan
+
+    cfg = _config(args)
+    cc = cfg.chaos
+    seed = args.seed if args.seed is not None else cc.seed
+    if args.plan:
+        plan = FaultPlan.load(args.plan)
+    else:
+        plan = generate_pipeline_plan(
+            seed, args.rounds,
+            feed_outages=cc.feed_outages,
+            feed_outage_steps=cc.feed_outage_steps,
+            warehouse_outages=cc.warehouse_outages,
+            warehouse_outage_steps=cc.warehouse_outage_steps,
+            engine_kills=cc.engine_kills,
+            engine_kill_steps=cc.engine_kill_steps,
+            settle_steps=cc.settle_steps)
+    out = run_pipeline_soak(
+        plan,
+        seed=seed,
+        rounds=args.rounds,
+        predictor=not args.no_predictor,
+        compare_unfaulted=not args.no_reference,
+        device=args.device,
+    )
+    print(json.dumps(out, indent=2, default=str))
+    return 0 if out["gates_ok"] else 1
 
 
 def _cmd_fleet_local(args) -> int:
@@ -1130,14 +1243,12 @@ def _cmd_fleet_local(args) -> int:
     )
 
     cfg = _fleet_wire_override(args, _config(args))
-    refused = _control_plane_refusal(args, cfg)
-    if refused:
-        print(refused, file=sys.stderr)
-        return 2
     if not spawn_supported():
         print(json.dumps(
             {"skipped": "subprocess spawn unavailable on this host"}))
         return 0
+    if args.chaos_plan:
+        return _cmd_fleet_chaos(args, cfg)
     if args.trace or args.trace_out or args.trace_dir:
         from fmda_tpu_torch.obs.trace import configure_tracing
 
@@ -1149,15 +1260,27 @@ def _cmd_fleet_local(args) -> int:
         max_linger_ms=args.max_linger_ms, window=args.window,
         trace_dir=args.trace_dir, device=args.device)
     telemetry = _fleet_telemetry(args, cfg)
+    plane = None
+    if telemetry is not None:
+        from fmda_tpu_torch.control import LocalFleetActuator
+
+        plane = _control_plane(
+            args, cfg, telemetry, router=topo.router,
+            actuator=LocalFleetActuator(topo),
+            initial_linger_ms=args.max_linger_ms,
+            bucket_sizes=_bucket_sizes(args))
     tele_server = None
     if telemetry is not None and args.metrics_port is not None:
         tele_server = telemetry.start_server(port=args.metrics_port)
         print(f"fleet telemetry: {tele_server.url}/metrics "
-              f"(query, alerts, healthz)", file=sys.stderr)
+              f"(query, alerts, healthz, control)", file=sys.stderr)
 
     def on_round(r):
         telemetry.maybe_collect(topo.router)
+        if plane is not None:
+            plane.maybe_tick()
 
+    tenant_classes, tenant_weights = _tenant_mix(args)
     try:
         if args.replay:
             swap_params = None
@@ -1189,7 +1312,9 @@ def _cmd_fleet_local(args) -> int:
                 burst_every=args.burst_every,
                 burst_rounds=args.burst_rounds,
                 slow_fraction=args.slow_fraction,
-                slow_duty=args.slow_duty),
+                slow_duty=args.slow_duty,
+                tenant_classes=tenant_classes,
+                tenant_weights=tenant_weights),
                 on_round=on_round if telemetry is not None else None)
         if telemetry is not None:
             telemetry.collect(topo.router)  # the final fold
@@ -1206,6 +1331,8 @@ def _cmd_fleet_local(args) -> int:
         out["alerts"] = telemetry.alerts()["firing"]
         out["fleet"] = {
             g["name"]: g["value"] for g in telemetry.fleet_gauges()}
+    if plane is not None:
+        out["control"] = plane.status()
     if args.trace_dir:
         from fmda_tpu_torch.obs.trace import default_tracer
 
@@ -1289,11 +1416,27 @@ def _add_serve_fleet(sub, common) -> None:
                    help="safety-valve runtime bound for --role "
                         "worker/router/broker (0 = until stopped)")
     p.add_argument("--no-controller", action="store_true",
-                   help="--role router/local: run the static fleet, "
-                        "without the reference's adaptive control plane "
-                        "(not ported yet, ROADMAP queue 1 item 7c: "
-                        "without this flag, [control] enabled = false or "
-                        "[slo] enabled = false, those roles exit 2)")
+                   help="--role router/local: disable the adaptive "
+                        "control plane (fmda_tpu_torch.control; on by "
+                        "default whenever fleet telemetry is) — fixed "
+                        "linger, no autoscaling, global oldest-drop "
+                        "shedding")
+    p.add_argument("--tenant-mix", default=None,
+                   metavar="CLASS:WEIGHT,...",
+                   help="--role local (and --replay): tenant-labeled "
+                        "traffic mix, e.g. 'gold:1,standard:4' — sessions "
+                        "are assigned a priority class weight-"
+                        "proportionally and opened labeled (per-tenant "
+                        "QoS applies when [control] tenant_classes "
+                        "configures the policy)")
+    p.add_argument("--chaos-plan", default=None, metavar="generate|FILE",
+                   help="--role local: run the chaos soak under a fault "
+                        "plan ('generate' = the [chaos] section's seeded "
+                        "plan over --ticks steps; else a plan JSON file); "
+                        "exit 1 iff a never-abort gate fails")
+    p.add_argument("--chaos-no-reference", action="store_true",
+                   help="with --chaos-plan: skip the unfaulted reference "
+                        "run (drops the bit-identity gate)")
     p.add_argument("--trace-dir", default=None, metavar="DIR",
                    help="--role local: enable tracing in every process "
                         "and write one trace file per process into DIR "
@@ -1431,12 +1574,31 @@ def _add_serve_fleet(sub, common) -> None:
     unported = p.add_argument_group(
         "not ported yet (each exits 2 and names its ROADMAP item)")
     for dest in UNPORTED_FLEET_FLAGS:
-        flag = "--" + dest.replace("_", "-")
-        if dest in ("chaos_no_reference", "shard_pool"):
-            unported.add_argument(flag, action="store_true", default=None)
-        else:
-            unported.add_argument(flag, default=None)
+        unported.add_argument("--" + dest.replace("_", "-"),
+                              action="store_true", default=None)
     p.set_defaults(fn=cmd_serve_fleet)
+
+
+def _add_chaos_pipeline(sub, common) -> None:
+    p = sub.add_parser(
+        "chaos-pipeline", parents=[common],
+        help="data-plane chaos soak: feeds -> engine -> journaled "
+             "warehouse -> Predictor under a seeded fault plan; exit 1 "
+             "iff a never-abort gate fails")
+    p.add_argument("--seed", type=int, default=None,
+                   help="plan + market seed (default: [chaos] seed)")
+    p.add_argument("--rounds", type=int, default=30,
+                   help="virtual steps the plan schedules over")
+    p.add_argument("--plan", default=None, metavar="FILE",
+                   help="explicit fault-plan JSON instead of the seeded "
+                        "data-plane schedule (the reproduction path)")
+    p.add_argument("--no-predictor", action="store_true",
+                   help="skip the Predictor stage (no card, no torch; "
+                        "drops the probes-served gate)")
+    p.add_argument("--no-reference", action="store_true",
+                   help="skip the unfaulted reference replay (faster; "
+                        "drops the bit-identity gate)")
+    p.set_defaults(fn=cmd_chaos_pipeline)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1526,6 +1688,7 @@ def build_parser() -> argparse.ArgumentParser:
                            help="serve existing history too, not just new "
                                 "rows")
     _add_serve_fleet(sub, common)
+    _add_chaos_pipeline(sub, common)
     from fmda_tpu_torch.obs.report import add_parsers
 
     add_parsers(sub, common)

@@ -15,10 +15,12 @@ framework already hardens (link drop → re-link, goodbye-best-effort,
 counted batch loss) handles it without knowing chaos exists — or sleeps
 (``delay``/``hang``).  Every triggered effect is counted
 (``chaos_injected_total{point, kind}`` via :func:`chaos_families`) and
-optionally reported through ``on_fault`` (the fleet telemetry,
-:class:`~fmda_tpu_torch.obs.aggregate.FleetTelemetry`, wires this to its
-event log and flight recorder): injected chaos is itself counted
-degradation, never silence.
+optionally reported through ``on_fault`` (the process's
+:class:`~fmda_tpu_torch.obs.observability.Observability` wires it to its
+event log, the fleet telemetry,
+:class:`~fmda_tpu_torch.obs.aggregate.FleetTelemetry`, to its event log
+and flight recorder; the latest built wins): injected chaos is itself
+counted degradation, never silence.
 """
 
 from __future__ import annotations

@@ -15,12 +15,12 @@ Two target families share the schedule:
   ``worker.step``, ``link:<wid>`` and the data plane's ``engine.step``
   (the join engine), ``warehouse.append`` (the landing path) and
   ``feed:<topic>`` (one ingest feed) — plus the opt-in wrappers
-  (``bus``, ``warehouse``; the wrappers wait for ROADMAP queue 1, item
-  7c).  The process-default :class:`~fmda_tpu_torch.chaos.inject.ChaosRuntime`
+  (``bus``, ``warehouse``: :mod:`~fmda_tpu_torch.chaos.wrap`).  The
+  process-default :class:`~fmda_tpu_torch.chaos.inject.ChaosRuntime`
   evaluates these;
 - **orchestrated targets** — whole processes (``worker:<wid>``,
-  ``router``) that a soak driver kills and revives for real (the
-  reference's ``fmda_tpu.chaos.soak``; its port waits for item 7c).
+  ``router``) that a soak driver kills and revives for real
+  (:mod:`~fmda_tpu_torch.chaos.soak`).
 
 Fault kinds: ``kill`` (target dead/unreachable for ``duration`` steps),
 ``partition`` (link-level connection errors — same effect as ``kill``,

@@ -871,15 +871,90 @@ class ChaosConfig:
 
 @dataclass(frozen=True)
 class ControlConfig:
-    """The two keys of ``fmda_tpu.config.ControlConfig`` the port reads
-    before the control plane itself is ported (ROADMAP queue 1, item
-    7c): ``enabled``, by which ``serve-fleet --role router|local``
-    decides whether it would need the control plane, and
-    ``tenant_classes``, whose QoS a worker would need.  The section's
-    other keys are accepted and not read (:data:`REFERENCE_KEYS`)."""
+    """Adaptive control plane knobs (:mod:`fmda_tpu_torch.control`), as
+    ``fmda_tpu.config.ControlConfig`` defines them, every key and check.
 
+    Three closed loops run beside the router, all reading the telemetry
+    plane (``[slo]``'s windowed p99 / burn rates) and writing decisions
+    to the EventLog: the **batching controller** (tunes gateway linger
+    and bucket cap against the latency objective), **per-tenant QoS**
+    (weighted admission + counted per-class shedding in front of the
+    gateway queue), and the **elastic autoscaler** (spawns workers on
+    sustained burn, retires them through the zero-loss drain/export/
+    replay migration on sustained idle).  ``enabled=False`` removes
+    every loop: the serving path is exactly the static fleet.
+    """
+
+    #: Master switch for the control plane (``serve-fleet
+    #: --no-controller`` overrides per run for A/B).
     enabled: bool = True
+    #: Decision cadence (seconds between control evaluations).
+    interval_s: float = 1.0
+    #: Last-N decision ring surfaced by ``/control`` and ``status``.
+    decisions_keep: int = 64
+
+    # -- batching controller --------------------------------------------
+    #: Enable the linger/bucket feedback loop.
+    batching: bool = True
+    #: p99 target (ms) the loop steers toward; None derives it from
+    #: ``slo.latency_p99_ms``.
+    target_p99_ms: Optional[float] = None
+    #: Hysteresis deadband as a fraction of target: no move while p99
+    #: sits inside [(1-h)·target, (1+h)·target].
+    hysteresis: float = 0.25
+    #: Bounded step per decision (ms of linger) — the loop never jumps.
+    linger_step_ms: float = 0.25
+    #: Linger clamp (ms).  The controller explores inside these walls.
+    min_linger_ms: float = 0.0
+    max_linger_ms: float = 8.0
+
+    # -- per-tenant QoS -------------------------------------------------
+    #: Priority classes, highest first.  Parallel tuples: ``weights``
+    #: set each class's fair share of the gateway queue (WFQ), and
+    #: ``quota_frac`` caps each class's queued ticks at that fraction
+    #: of ``runtime.queue_bound`` (over-quota submits shed the class's
+    #: OWN oldest tick, counted ``quota_shed``).  Empty = QoS off
+    #: (global oldest-drop, exactly the pre-control gateway).
     tenant_classes: Tuple[str, ...] = ()
+    tenant_weights: Tuple[float, ...] = ()
+    tenant_quota_frac: Tuple[float, ...] = ()
+    #: Class assigned to sessions opened without a tenant label.
+    default_class: str = "standard"
+
+    # -- elastic autoscaler ---------------------------------------------
+    #: Enable the worker-count loop (needs a spawn-capable actuator —
+    #: the local launcher topology; a bare router run leaves it off).
+    autoscale: bool = True
+    min_workers: int = 1
+    max_workers: int = 8
+    #: Scale up when the latency objective's fast burn rate holds at or
+    #: above this for ``up_sustain_s`` seconds.
+    scale_up_burn: float = 1.0
+    up_sustain_s: float = 3.0
+    #: Scale down when p99 holds below ``scale_down_frac``·target (and
+    #: no burn) for ``down_sustain_s`` seconds.
+    scale_down_frac: float = 0.3
+    down_sustain_s: float = 10.0
+    #: Minimum seconds between scaling moves (either direction).
+    cooldown_s: float = 5.0
+
+    def __post_init__(self) -> None:
+        n = len(self.tenant_classes)
+        if len(self.tenant_weights) != n or len(self.tenant_quota_frac) != n:
+            raise ValueError(
+                "tenant_classes/tenant_weights/tenant_quota_frac must be "
+                f"parallel tuples, got lengths {n}/"
+                f"{len(self.tenant_weights)}/{len(self.tenant_quota_frac)}")
+        if any(w <= 0 for w in self.tenant_weights):
+            raise ValueError("tenant_weights must be positive")
+        if self.min_workers < 1 or self.max_workers < self.min_workers:
+            raise ValueError(
+                f"need 1 <= min_workers <= max_workers, got "
+                f"{self.min_workers}/{self.max_workers}")
+        if self.min_linger_ms < 0 or self.max_linger_ms < self.min_linger_ms:
+            raise ValueError(
+                f"need 0 <= min_linger_ms <= max_linger_ms, got "
+                f"{self.min_linger_ms}/{self.max_linger_ms}")
 
 
 @dataclass(frozen=True)
@@ -946,8 +1021,6 @@ _SECTIONS = {
 #: - ``slo``: ``recompile_budget`` (the port compiles nothing per shape,
 #:   so the ``recompile`` objective has no signal;
 #:   :mod:`fmda_tpu_torch.obs.slo`);
-#: - ``control``: every key but ``enabled`` and ``tenant_classes`` (the
-#:   control plane waits for ROADMAP queue 1, item 7c);
 #: - the section ``mesh`` whole (parallelism, item 8).
 REFERENCE_KEYS = {
     "features": (

@@ -266,6 +266,7 @@ def launch_local_fleet(
     wait_timeout_s: float = 180.0,
     python: str = sys.executable,
     log_dir: Optional[str] = None,
+    wrap_bus=None,
 ) -> LocalFleet:
     """Spawn the whole topology and block until every worker joined.
 
@@ -274,7 +275,9 @@ def launch_local_fleet(
     tracing in every process with one ``--trace-out`` file per worker
     (merge with ``python -m fmda_tpu_torch trace --merge <trace_dir>``).
     ``device`` passes through as each worker's ``--device`` (None: the
-    card, as every entry point defaults).
+    card, as every entry point defaults).  ``wrap_bus`` interposes on the
+    router's bus handle only (the chaos soak's
+    :class:`~fmda_tpu_torch.chaos.wrap.ChaosBus`).
     """
     config = config or FrameworkConfig()
     fleet_cfg: FleetTopologyConfig = dc_replace(
@@ -335,8 +338,12 @@ def launch_local_fleet(
             procs.append(_spawn(
                 argv, os.path.join(log_dir, f"{wid}.log"), repo_root))
 
+        # `wrap_bus` wraps the ROUTER's handle only (the BusServer keeps
+        # serving the raw bus to workers): control-plane faults hit the
+        # router without perturbing the workers' transport
         router = FleetRouter(
-            bus, fleet_cfg, n_features=config.features.n_features)
+            wrap_bus(bus) if wrap_bus is not None else bus,
+            fleet_cfg, n_features=config.features.n_features)
 
         def _sleep_and_check(dt: float) -> None:
             time.sleep(dt)

@@ -85,6 +85,7 @@ class FleetWorker:
         data_address: Optional[str] = None,
         reconnect_fn: Optional[Callable[[], object]] = None,
         device=None,
+        qos=None,
     ) -> None:
         self.worker_id = worker_id
         self.bus = bus
@@ -144,6 +145,11 @@ class FleetWorker:
             self.data_bus if self._split else self._pub,
             **kwargs)
         self.metrics = self.gateway.metrics
+        if qos is not None:
+            # per-tenant QoS policy (fmda_tpu_torch.control.qos): overload
+            # shedding at this gateway becomes class-aware; sessions
+            # arrive labeled through the router's open messages
+            self.gateway.attach_qos(qos)
         self._inbox = self.data_bus.consumer(fleet_worker_topic(worker_id))
         announce = {"address": data_address} if data_address else None
         self.heartbeater = Heartbeater(
@@ -311,7 +317,7 @@ class FleetWorker:
             # strings so the stats dict stays JSON/wire-clean
             out["version_ticks"] = {
                 str(v): n for v, n in sorted(version_ticks.items())}
-        # per-class admit/shed attribution (fmda_tpu.control QoS): the
+        # per-class admit/shed attribution (fmda_tpu_torch.control QoS): the
         # gateway counts these in this process; the beat carries them so
         # the control plane can fold fleet-wide per-tenant rates
         tenant_counters = {

@@ -12,8 +12,9 @@ a child span, and every feed message published in the tick carries the
 tick's trace context in-band, so the engine, the warehouse land and
 serving stitch their stages into the same trace.
 
-Not ported yet: the per-feed chaos injection point (ROADMAP queue 1,
-item 7).
+Chaos: each feed's fetch is the injection point ``feed:<topic>``
+(:mod:`fmda_tpu_torch.chaos`); an injected outage is a failed fetch,
+counted like any dead endpoint.  Disabled, it costs one branch.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import logging
 import time as _time
 from typing import Callable, Dict, Optional
 
+from fmda_tpu_torch.chaos.inject import default_chaos
 from fmda_tpu_torch.config import (
     SessionConfig,
     TOPIC_COT,
@@ -38,6 +40,9 @@ from fmda_tpu_torch.stream.bus import MessageBus
 from fmda_tpu_torch.utils.timeutils import forex_market_hours, get_timezone, stock_market_hours
 
 log = logging.getLogger("fmda_tpu_torch.ingest")
+
+#: chaos injection singleton, captured once at import
+_CHAOS = default_chaos()
 
 
 class SessionDriver:
@@ -104,6 +109,10 @@ class SessionDriver:
 
         def attempt(name: str, fn: Callable[[], Optional[Dict]], topic: str) -> None:
             try:
+                if _CHAOS.enabled:
+                    # an injected feed outage is a failed fetch: the
+                    # except below counts it like any dead endpoint
+                    _CHAOS.check("feed:" + topic)
                 message = fn()
                 if message is not None:
                     self.bus.publish(topic, message)

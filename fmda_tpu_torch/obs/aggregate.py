@@ -296,7 +296,7 @@ class FleetTelemetry:
             on_fire=self._on_alert_fire)
         self._router = None
         self._registry: Optional[MetricsRegistry] = None
-        #: attached ControlPlane (fmda_tpu.control) — powers /control
+        #: attached ControlPlane (fmda_tpu_torch.control) — powers /control
         self._controller = None
         #: attached QualityEvaluator (fmda_tpu_torch.obs.quality) — powers
         #: /quality and the quality SLO series
@@ -309,9 +309,9 @@ class FleetTelemetry:
         self.scrape_rounds_skipped = 0
         # injected chaos is a postmortem trigger too: a fault window
         # opening logs the fault and freezes the evidence the later gate
-        # verdict will need.  This is the chaos runtime's one ``on_fault``
-        # observer (Observability only counts faults), held until
-        # close(); the latest instance built wins
+        # verdict will need (held until close(); the latest instance
+        # built wins, the same discipline as Observability's event
+        # wiring — fmda_tpu_torch.obs.observability)
         if self.recorder is not None:
             from fmda_tpu_torch.chaos.inject import default_chaos
 
@@ -528,7 +528,7 @@ class FleetTelemetry:
         }
 
     def attach_controller(self, controller) -> None:
-        """Attach the :class:`~fmda_tpu.control.plane.ControlPlane` so
+        """Attach the :class:`~fmda_tpu_torch.control.plane.ControlPlane` so
         its loop state serves on ``/control`` next to the alerts it
         reacts to (and ``python -m fmda_tpu_torch status`` can read it)."""
         self._controller = controller
@@ -560,8 +560,9 @@ class FleetTelemetry:
         ``/healthz`` (SLO-aware), ``/snapshot``, ``/events``, ``/trace``
         plus the range endpoints ``/query``, ``/alerts``, ``/quality``,
         ``/profile``, and ``/device``.  ``/control`` serves an attached
-        control plane's document; with none attached (the port has no
-        control plane yet, ROADMAP queue 1 item 7c) it answers 404."""
+        control plane's document (``serve-fleet --role router|local``
+        attach one unless ``--no-controller``); with none attached it
+        answers 404."""
         from fmda_tpu_torch.obs.device import device_report
         from fmda_tpu_torch.obs.pyprof import default_profiler
         from fmda_tpu_torch.obs.server import MetricsServer

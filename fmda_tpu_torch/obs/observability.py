@@ -23,9 +23,11 @@ the engine's counters, lag and watermarks, its
 :class:`~fmda_tpu_torch.utils.tracing.StageTimer`, and a gateway's
 :class:`~fmda_tpu_torch.runtime.metrics.RuntimeMetrics` into registry
 samples: zero hot-loop cost, sampled only when someone looks.  The tracer,
-the kernel ledger and the device memory monitor ride every scrape too.
-The reference's chaos collector and health check wait with the chaos
-plane (ROADMAP queue 1, item 7).
+the kernel ledger and the device memory monitor ride every scrape too, and
+so does the chaos runtime (:mod:`fmda_tpu_torch.chaos`): its injected-fault
+counters, a ``chaos_fault`` event a fault window's first fire, and the
+``chaos`` health check, which names a running drill and never degrades
+health for it.
 """
 
 from __future__ import annotations
@@ -205,11 +207,8 @@ class Observability:
                 "tracing", lambda: tracer_families(tracer))
             # injected-fault accounting (fmda_tpu_torch.chaos): empty
             # while chaos is off; under a fault plan every triggered
-            # effect is a counted series.  The chaos runtime's one
-            # ``on_fault`` observer is the fleet telemetry's
-            # (fmda_tpu_torch.obs.aggregate), which logs each window's
-            # first fire and freezes a postmortem; the reference wires it
-            # here too, and there the last instance built wins
+            # effect is a counted series and the first fire of each
+            # window lands in the event log
             from fmda_tpu_torch.chaos.inject import (
                 chaos_families,
                 default_chaos,
@@ -218,6 +217,14 @@ class Observability:
             chaos = default_chaos()
             self.registry.register_collector(
                 "chaos", lambda: chaos_families(chaos))
+            # latest instance wins (the fleet telemetry's recorder hooks
+            # the same observer, fmda_tpu_torch.obs.aggregate): a
+            # first-one-wins guard would pin a discarded instance's event
+            # log for the process lifetime.  ("fault", not "kind": the
+            # latter is emit()'s positional.)
+            chaos.on_fault = (
+                lambda point, kind, step: self.events.emit(
+                    "chaos_fault", point=point, fault=kind, step=step))
             # device telemetry (fmda_tpu_torch.obs.device): the kernel
             # ledger's launches and sampled device time, MFU, and the
             # memory monitor (sampled here at its cadence) ride every
@@ -241,6 +248,20 @@ class Observability:
             self.registry.register_collector("device", device_families)
         self.clock = clock
         self.checks: Dict[str, HealthCheck] = {}
+        if self.registry.enabled:
+            # on /healthz so an operator can tell a chaos drill from a
+            # real incident; injected faults never flip health to
+            # degraded (the drill is the healthy state)
+            def check_chaos():
+                from fmda_tpu_torch.chaos.inject import default_chaos
+
+                c = default_chaos()
+                if not c.enabled:
+                    return True, "disabled"
+                return True, (
+                    f"ACTIVE step={c.step} injected={c.injected_total()}")
+
+            self.checks["chaos"] = check_chaos
         self.server = None
         self._last_tick: Optional[float] = None
 

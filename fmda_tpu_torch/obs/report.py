@@ -8,9 +8,11 @@
   each one and the aggregate verdict; ``--watch N`` redraws every N
   seconds.  An endpoint that serves ``/alerts`` (a router's fleet
   telemetry, :mod:`fmda_tpu_torch.obs.aggregate`) adds the SLO alert
-  table, and ``status`` exits 1 while an alert fires.  The reference's
-  status also reads ``/control``, which waits with the control plane
-  (ROADMAP queue 1, item 7c).  ``status`` without an endpoint builds an
+  table, and ``status`` exits 1 while an alert fires; one that serves
+  ``/control`` (a router or local topology with its control plane,
+  :mod:`fmda_tpu_torch.control`) adds the loops' modes and knobs, the
+  per-tenant admit/shed counters and the last decisions.  ``status``
+  without an endpoint builds an
   :class:`~fmda_tpu_torch.app.Application` over the configured warehouse
   (``--warehouse`` overrides its path), its endpoint off, and prints that
   application's snapshot and health.
@@ -151,9 +153,45 @@ def _print_quality_summary(quality: dict) -> None:
     print("quality: " + " | ".join(parts))
 
 
-def print_status(snapshot: dict, health: dict, alerts: dict = None) -> None:
+def print_control(control: dict) -> None:
+    """The controller section of ``status``: loop modes + knobs, the
+    per-tenant admit/shed aggregates, and the last few decisions."""
+    batching = control.get("batching") or {}
+    autoscale = control.get("autoscale") or {}
+    line = f"control: target p99 {control.get('target_p99_ms')}ms"
+    if batching:
+        cap = batching.get("bucket_cap")
+        line += (f" | batching {batching.get('mode')} "
+                 f"linger {batching.get('linger_ms'):.2f}ms "
+                 f"cap {'-' if cap is None else cap}")
+    if autoscale:
+        line += (f" | autoscale {autoscale.get('mode')} "
+                 f"workers {autoscale.get('workers')} "
+                 f"[{autoscale.get('min_workers')}.."
+                 f"{autoscale.get('max_workers')}]")
+    print(line)
+    tenants = control.get("tenants") or {}
+    if tenants:
+        print("  tenants:")
+        for name, v in sorted(tenants.items()):
+            print(f"    {name:<36} {v}")
+    decisions = control.get("decisions") or []
+    if decisions:
+        print(f"  decisions (last {min(len(decisions), 5)}):")
+        for d in decisions[-5:]:
+            extra = (f"worker {d.get('worker')}"
+                     if d.get("loop") == "autoscale"
+                     else f"linger {d.get('linger_ms')}ms "
+                          f"cap {d.get('bucket_cap')}")
+            print(f"    t+{d.get('t', 0):.1f}s {d.get('loop'):<9} "
+                  f"{d.get('action'):<12} {extra}")
+
+
+def print_status(snapshot: dict, health: dict, alerts: dict = None,
+                 control: dict = None) -> None:
     """Human-readable registry snapshot + health verdict (+ the SLO
-    alert table when the endpoint serves ``/alerts``)."""
+    alert table when the endpoint serves ``/alerts``, + the control
+    plane's loop state when it serves ``/control``)."""
 
     def key(s):
         labels = ",".join(f"{k}={v}" for k, v in
@@ -173,6 +211,8 @@ def print_status(snapshot: dict, health: dict, alerts: dict = None) -> None:
                   f"fast {a.get('burn_fast', 0):>8.2f}x  "
                   f"slow {a.get('burn_slow', 0):>8.2f}x  "
                   f"{a.get('detail', '')}")
+    if control and control.get("enabled"):
+        print_control(control)
     perf = _perf_summary(snapshot)
     if perf:
         _print_perf_summary(perf)
@@ -215,13 +255,14 @@ def scrape_endpoint(endpoint: str):
     return snapshot, health
 
 
-def scrape_alerts(endpoint: str):
-    """GET /alerts off one endpoint; None where it serves none (a
-    worker's endpoint, or a process with no fleet telemetry)."""
+def scrape_optional(endpoint: str, path: str):
+    """GET ``path`` (/alerts, /control) off one endpoint; None where it
+    serves none (a worker's endpoint, or a process with no fleet
+    telemetry or no control plane)."""
     import urllib.error
 
     try:
-        return _fetch_json(_base(endpoint) + "/alerts")
+        return _fetch_json(_base(endpoint) + path)
     except (urllib.error.URLError, OSError, json.JSONDecodeError):
         return None
 
@@ -235,13 +276,15 @@ def _status_multi(endpoints) -> int:
     per = {}
     for ep in endpoints:
         try:
-            per[ep] = scrape_endpoint(ep) + (scrape_alerts(ep),)
+            per[ep] = scrape_endpoint(ep) + (
+                scrape_optional(ep, "/alerts"),
+                scrape_optional(ep, "/control"))
         except (urllib.error.URLError, OSError,
                 json.JSONDecodeError) as e:
             per[ep] = (None, {"status": "unreachable", "checks": {},
-                              "error": str(e)}, None)
+                              "error": str(e)}, None, None)
     n_ok = 0
-    for ep, (snapshot, health, alerts) in per.items():
+    for ep, (snapshot, health, alerts, control) in per.items():
         status = health.get("status")
         print(f"===== {ep}: {status} =====")
         if status == "unreachable":
@@ -249,7 +292,7 @@ def _status_multi(endpoints) -> int:
             continue
         if status == "ok":
             n_ok += 1
-        print_status(snapshot, health, alerts)
+        print_status(snapshot, health, alerts, control)
     aggregate = "ok" if n_ok == len(endpoints) else "degraded"
     print(f"aggregate: {aggregate} ({n_ok}/{len(endpoints)} endpoints ok)")
     return 0 if aggregate == "ok" else 1
@@ -282,7 +325,7 @@ def _local_status(args):
 def _status_once(args) -> int:
     import urllib.error
 
-    alerts = None
+    alerts = control = None
     if not args.endpoint:
         snapshot, health = _local_status(args)
     elif len(args.endpoint) > 1:
@@ -293,8 +336,9 @@ def _status_once(args) -> int:
         except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
             print(f"cannot scrape {args.endpoint[0]}: {e}", file=sys.stderr)
             return 2
-        alerts = scrape_alerts(args.endpoint[0])
-    print_status(snapshot, health, alerts)
+        alerts = scrape_optional(args.endpoint[0], "/alerts")
+        control = scrape_optional(args.endpoint[0], "/control")
+    print_status(snapshot, health, alerts, control)
     firing = bool(alerts and alerts.get("firing"))
     return 0 if health.get("status") == "ok" and not firing else 1
 

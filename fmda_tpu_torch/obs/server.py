@@ -26,9 +26,9 @@ No web framework: fixed routes on a daemonised
   fleet telemetry handle is attached (:mod:`fmda_tpu_torch.obs.aggregate`);
 - ``/alerts``: the SLO engine's alert document
   (:mod:`fmda_tpu_torch.obs.slo`; what ``status --endpoint`` reads);
-- ``/control``: the control plane's document, when one is attached.
-  The port has no control plane yet (ROADMAP queue 1, item 7c), so it
-  answers 404, as the reference's does when nothing is attached.
+- ``/control``: the control plane's document, when one is attached
+  (:mod:`fmda_tpu_torch.control`; what ``status --endpoint`` prints as
+  its control section); 404 otherwise.
 
 A handler exception yields an HTTP 500 with a JSON ``{"error": ...}``
 body, never a half-written response, and the serving thread survives.

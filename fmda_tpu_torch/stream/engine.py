@@ -30,8 +30,12 @@ publishes).  With tracing disabled a step pays one branch.
 The join decisions come from the Python scheduler here or, with
 ``join_backend="native"``, from the C++ one
 (:mod:`~fmda_tpu_torch.stream.native_join`), bit for bit the same; the
-backend that runs is :attr:`StreamEngine.join_backend`.  Not ported yet:
-the chaos injection point of ``step`` (ROADMAP queue 1, item 7).
+backend that runs is :attr:`StreamEngine.join_backend`.
+
+Chaos: ``step`` is the injection point ``engine.step``
+(:mod:`fmda_tpu_torch.chaos`); a kill window raises before the step
+touches any state, like a process death between steps, and the harness
+rebuilds the engine from its checkpoint.  Disabled, it costs one branch.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from fmda_tpu_torch.chaos.inject import default_chaos
 from fmda_tpu_torch.config import (
     COT_GROUPS,
     COT_VALUES,
@@ -67,6 +72,9 @@ from fmda_tpu_torch.utils.tracing import StageTimer
 
 log = logging.getLogger("fmda_tpu_torch.stream")
 
+#: chaos injection singleton, captured once at import (the tracer's
+#: discipline: one guarded branch a step when disabled)
+_CHAOS = default_chaos()
 
 
 @dataclass
@@ -568,6 +576,11 @@ class StreamEngine:
 
         Returns the number of rows emitted this step.
         """
+        if _CHAOS.enabled:
+            # a kill window here is the "engine process died mid-stream"
+            # fault: raised before any state moves, the harness rebuilds
+            # from the checkpoint via restore()
+            _CHAOS.check("engine.step")
         if self._obs_step_hist is None:
             return self._step()
         t0 = _time.perf_counter()

@@ -22,10 +22,16 @@ from typing import (
 
 import numpy as np
 
+from fmda_tpu_torch.chaos.inject import default_chaos
 from fmda_tpu_torch.config import FeatureConfig, TARGET_COLUMNS, WarehouseConfig
 from fmda_tpu_torch.ops.indicators import build_targets, derived_features
 
 log = logging.getLogger("fmda_tpu_torch.stream")
+
+#: chaos injection singleton, captured once at import: a fault window on
+#: ``warehouse.append`` is the "store unreachable" outage the write-ahead
+#: journal survives (fmda_tpu_torch.stream.journal)
+_CHAOS = default_chaos()
 
 
 def _quote(col: str) -> str:
@@ -108,6 +114,11 @@ class Warehouse:
     def insert_rows(self, rows: Sequence[Dict[str, float]]) -> int:
         """Append joined feature rows; unknown keys are rejected, missing
         keys stored as 0.  Each row dict carries 'Timestamp'."""
+        if _CHAOS.enabled:
+            # raised before any DB work, like a connection drop at call
+            # time: nothing partial commits, the caller's journal owns
+            # the rows
+            _CHAOS.check("warehouse.append")
         if not rows:
             return 0
         cols = self._columns

@@ -61,7 +61,10 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
                  "fleet.membership", "fleet.state", "fleet.wire",
                  "fleet.router", "fleet.worker", "fleet.launcher", "chaos",
                  "chaos.plan", "chaos.inject", "obs.tsdb", "obs.slo",
-                 "obs.recorder", "obs.aggregate", "_lazy"):
+                 "obs.recorder", "obs.aggregate", "_lazy", "control",
+                 "control.controller", "control.qos", "control.autoscale",
+                 "control.plane", "control.capacity", "control.elastic",
+                 "chaos.wrap", "chaos.soak", "chaos.pipeline"):
         assert f"fmda_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -78,12 +81,15 @@ def test_every_port_module_imports_without_jax_or_fmda_tpu():
 
 #: the modules a router-role process imports, the counterpart of the
 #: reference's ``fmda_tpu.analysis.hygiene.ROUTER_ROLE_MODULES``, with the
-#: fleet telemetry and chaos it runs beside them
+#: fleet telemetry, the control plane and the chaos soaks it runs beside
+#: them
 ROUTER_ROLE_MODULES = (
     "fleet", "fleet.hashring", "fleet.launcher", "fleet.membership",
     "fleet.router", "fleet.state", "fleet.wire", "chaos", "chaos.plan",
-    "chaos.inject", "obs.tsdb", "obs.slo", "obs.recorder", "obs.aggregate",
-    "config", "__main__", "_lazy",
+    "chaos.inject", "chaos.wrap", "chaos.soak", "obs.tsdb", "obs.slo",
+    "obs.recorder", "obs.aggregate", "config", "__main__", "_lazy",
+    "control", "control.controller", "control.qos", "control.autoscale",
+    "control.plane", "control.capacity", "control.elastic",
 )
 
 

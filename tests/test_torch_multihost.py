@@ -172,14 +172,6 @@ def test_worker_started_by_hand_joins_a_router_started_by_hand(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--role", "router"], "item 7c"),
-    (["--role", "local"], "item 7c"),
-    (["--role", "local", "--no-controller", "--tenant-mix", "gold:1"],
-     "item 7c"),
-    (["--role", "local", "--no-controller", "--chaos-plan", "generate"],
-     "item 7c"),
-    (["--role", "local", "--no-controller", "--chaos-no-reference"],
-     "item 7c"),
     (["--role", "local", "--no-controller", "--shard-pool"], "item 8"),
     (["--role", "worker", "--shard-pool"], "item 8"),
 ])
@@ -187,17 +179,6 @@ def test_roles_refuse_what_waits_and_name_its_item(capsys, argv, item):
     assert port_main(["serve-fleet"] + argv + SMALL) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP queue 1, {item}" in err
-
-
-def test_worker_with_tenant_classes_waits_for_qos(tmp_path, capsys):
-    cfg = tmp_path / "cfg.json"
-    cfg.write_text(json.dumps({"control": {"tenant_classes": ["gold"],
-                                           "tenant_weights": [1.0],
-                                           "tenant_quota_frac": [1.0]}}))
-    assert port_main(["serve-fleet", "--role", "worker", "--worker-id",
-                      "w0", "--connect", "127.0.0.1:1", "--config",
-                      str(cfg)] + SMALL) == 2
-    assert "ROADMAP queue 1, item 7c" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("section", ["control", "slo"])

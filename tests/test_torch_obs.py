@@ -277,8 +277,11 @@ def test_health_checks_and_app_tracking():
     obs.track_app(app)
     health = obs.health()
     assert health["status"] == "ok"
+    # the chaos check names a running drill, ok either way (the
+    # reference's set, tests/test_obs.py)
     assert set(health["checks"]) == {"bus", "warehouse", "feed_degraded",
-                                     "last_tick"}
+                                     "last_tick", "chaos"}
+    assert health["checks"]["chaos"] == {"ok": True, "detail": "disabled"}
     obs.tick()
     clock[0] = 11.0
     assert obs.health()["status"] == "degraded"
@@ -435,15 +438,6 @@ def test_status_without_an_endpoint_names_its_item(capsys, tmp_path):
     for series in ("engine_emitted_total", "warehouse_rows",
                    "bus_published_total{topic=deep}"):
         assert series in text
-
-
-@pytest.mark.parametrize("flag", ["--trace-dir", "--postmortem-dir"])
-def test_waiting_serve_fleet_flags_name_item_7(flag, tmp_path, capsys):
-    # the flags themselves are ported; the local role they serve still
-    # waits for the control plane it attaches by default (item 7c)
-    assert port_main(["serve-fleet", "--role", "local", flag, str(tmp_path),
-                      "--device", "cpu"]) == 2
-    assert "item 7" in capsys.readouterr().err
 
 
 def test_serve_fleet_serves_its_endpoint_during_the_load(capsys):

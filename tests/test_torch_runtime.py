@@ -909,26 +909,10 @@ def test_serve_fleet_cli_serial_matches_default(capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # the multi-host roles run (tests/test_torch_multihost.py); what
-    # stays refused is the control plane (item 7c) the router and local
-    # roles attach by default, the fleet soak and QoS (7c) on every role,
-    # and the sharded pool (8)
-    (["--role", "broker", "--tenant-mix", "gold:1"], "item 7"),
-    (["--role", "router"], "item 7"),
-    (["--role", "worker", "--chaos-plan", "p.json"], "item 7"),
-    (["--role", "local"], "item 7"),
-    (["--role", "router", "--listen", "9000"], "item 7"),
-    (["--role", "router", "--connect", "h:9000"], "item 7"),
-    (["--role", "local", "--duration-s", "5"], "item 7"),
-    (["--role", "local", "--no-controller", "--chaos-no-reference"],
-     "item 7"),
-    (["--role", "local", "--trace-dir", "d"], "item 7"),
-    (["--role", "router", "--postmortem-dir", "d"], "item 7"),
-    (["--chaos-plan", "p.json"], "item 7"),
-    (["--role", "router", "--wire-format", "json"], "item 7"),
+    # the multi-host roles, the control plane, QoS and the fleet soak run
+    # (tests/test_torch_multihost.py, tests/test_torch_control.py); what
+    # stays refused is the sharded pool (8)
     (["--shard-pool"], "item 8"),
-    (["--role", "local", "--workers", "2"], "item 7"),
-    (["--tenant-mix", "gold:1"], "item 7"),
 ])
 def test_serve_fleet_refuses_unported_planes(capsys, extra, item):
     from fmda_tpu_torch.__main__ import main
