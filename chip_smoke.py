@@ -36,7 +36,7 @@ Phases, each printed as one JSON line, each fatal on failure:
    ``dw_ms``); a second call of a scan must give the same bits.
 4. ``path``: the window-re-scan serving path at full width
    (``FrameworkConfig()``: H=32, F=108, window 30, float32) over a
-   20,000-row warehouse: ``backtest`` at batch 256, then 64 signals through
+   20,000-row warehouse: ``backtest`` at batch 256, then 32 signals through
    ``Predictor.from_checkpoint(...).poll()``, both recomputed on the CPU
    and compared.
 5. ``train``: the training path at full width on the same warehouse:
@@ -47,7 +47,7 @@ Phases, each printed as one JSON line, each fatal on failure:
    the CPU, per-step losses and final params compared.
 7. ``stream``: carried-state streaming serving of a seeded unidirectional
    model at full width: ``StreamingPredictor`` over ``StreamingBiGRU``, one
-   signal 2,000 rows in (a catch-up of 2,000 ticks), then 64 signals one
+   signal 2,000 rows in (a catch-up of 2,000 ticks), then 32 signals one
    row apart, with host pieces; recomputed on the CPU and compared.
    ``stream bidirectional``: the same through
    ``StreamingBiGRUBidirectional`` (the backward direction re-scanned every
@@ -87,12 +87,12 @@ Phases, each printed as one JSON line, each fatal on failure:
    it; then ``continuous vs cpu``, the same loop alone on both devices.
 
 13. ``pipeline``: the reference's main path from raw feed messages to
-   predictions: a year of synthetic days (252 x 78 bars) through the bus
+   predictions: half a year of synthetic days (126 x 78 bars) through the bus
    and the port's ``StreamEngine`` into a file warehouse (ingest rows/s,
    the engine's step ms and stats), the ``demo`` command's train (one
    epoch at batch 256) and backtest on it, then the next day live, bar by
    bar, into the ``Predictor``, a bidirectional gru ``StreamingPredictor``
-   on the trained checkpoint and an ssm one (both caught up over the year
+   on the trained checkpoint and an ssm one (both caught up over the corpus
    first): bar-to-prediction p50/p99 per consumer, its split, the busy
    share, the card's Predictor against the CPU's, and the golden day
    (``tests/data/golden_day.jsonl``) through the engine.
@@ -111,7 +111,7 @@ Phases, each printed as one JSON line, each fatal on failure:
    a ``device_trace`` of 10 fleet flushes.
 15. ``app``: the composition root.  ``default_bus`` builds the native C++
    ring bus and the engine runs the C++ join scheduler (a failed ``g++``
-   build fails the phase); the pipeline's year lands through an
+   build fails the phase); the pipeline's days land through an
    ``Application`` on the native bus and join and through the Python bus
    and join, every landed column the same bits (rows/s, step ms of each);
    ``app.train()``, then the Predictor from its checkpoint, an ssm
@@ -161,6 +161,49 @@ Phases, each printed as one JSON line, each fatal on failure:
    a warehouse outage, an engine kill) with the Predictor on the card:
    every gate, the landed rows bit for bit, kernel 1 twice a prediction,
    the probabilities against the CPU's; ``chaos-pipeline`` exits 0.
+21. ``parallel``: ``fmda_tpu_torch.parallel`` on the one card.
+   ``parallel sp gru``: the reference bench's ``phase_longctx_sp``
+   (``bench.py:1271-1345``) at its shapes, a world of 8 rank processes
+   (dp = 2 x sp = 4, gloo; each rank this script again, ``--parallel-rank``,
+   loading the build phase's library and building nothing): B = 64, T =
+   1024, 10 book levels a side (F = 120), H = 32, bidirectional, remat,
+   clip 50, Adam 1e-3; at M = 1, 2, 4 microbatches the gradient of the
+   initial params (``make_sp_grad_fn``: summed over the world, before the
+   clip), then a warm-up and 4 timed steps: step ms, sequences/s, the
+   speedup over M = 1 beside the bench's model ``sp*M/(sp+M-1)``; the
+   gradient against the unsharded first step's (within TRAIN_TOL of the
+   largest gradient: a gradient counted sp times, or divided by sp once
+   too often, is off by 75 % or more of itself, which Adam's update and
+   the loss would not show), the losses and final params against the same
+   steps unsharded here (TRAIN_TOL), every rank's params the same bits.
+   A rank's launches over the gradient and the 5 steps (6 calls), a
+   direction's stage M times a call (kernel 1 forward and again for
+   remat's recompute, kernel 2 and ``scan_dw`` once a stage backward):
+   ``gru_scan_fwd`` 24M, ``gru_scan_bwd`` and ``scan_dw`` 12M each, every
+   other kernel 0.
+   ``parallel ring attn``: the same world and shapes with ``cell="attn"``
+   (4 heads of 8, remat): the step beside the unsharded attn step here
+   (the bench's denominator), the gradient as for gru, loss and params
+   within TRAIN_TOL (the key bias held to Adam's drift); a rank's
+   launches: ``flash_fwd`` once a fold, 4 folds a call (24), the
+   backward's sweeps ``flash_dkv`` and
+   ``flash_dq`` once a fold each (T/sp = 256 is past the fused kernel's
+   128; the plan printed), ``flash_bwd`` 0. ``parallel ring causal``: a
+   causal forward and backward at (4, 4, 256, 8): the rank at sp index s
+   folds s + 1 blocks (``flash_fwd`` and, fused at T/sp = 64,
+   ``flash_bwd`` s + 1 each; the future blocks launch nothing), within
+   1e-5 of the flash op unsharded here. ``parallel dp train``: the world
+   ends and two of its processes join a world of 2 of their own (no start
+   of new processes): ``Trainer(mesh=)`` over the ``train vs cpu`` phase's 16
+   batches of 256 (128 rows a rank) and ``train multi vs cpu``'s 8 mixed
+   batches of 800, against the same steps in this process (TRAIN_TOL), a
+   rank's launches kernel 1, kernel 2 and ``scan_dw`` twice a step.
+   ``parallel shard pool``: ``SessionPool(mesh=)`` over a local mesh of 2
+   blocks on the card (capacity 128, 64 sessions dealt round the blocks,
+   100 flushes at bucket 64): ssm the unsharded pool's bits with kernel 5
+   once a block a flush, gru within PATH_TOL, a 1-device mesh the
+   unsharded pool's bits; ``serve-fleet --role solo --cell ssm
+   --shard-pool`` exits 0.
 
 Phases 4-6, 10 and 11 run for the BiGRU (``cell="gru"``, the default),
 the BiLSTM (``cell="lstm"``), the TemporalTransformer (``cell="attn"``:
@@ -170,7 +213,8 @@ bidirectional`` for gru and lstm); phase 12 for gru and ssm; phase 13
 for the BiGRU (its streaming consumers gru and ssm); phase 14 for ssm (its
 tracing cost for gru too); phase 15 for gru (its stream ssm); phase 16
 for gru and ssm; phase 17 for attn and gru; phase 18 for ssm and gru;
-phase 19 for ssm; phase 20 for ssm (the fleet) and gru (the Predictor).
+phase 19 for ssm; phase 20 for ssm (the fleet) and gru (the Predictor);
+phase 21 for gru and attn (its pool ssm and gru).
 Their lines carry
 ``cell``.  Every kernel's launch count is reset just before each path and
 read just after it, and must equal what the path should launch, every
@@ -192,6 +236,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -208,7 +253,9 @@ from fmda_tpu_torch.ops.cost import (
 
 SEED = 0
 WAREHOUSE_ROWS = 20_000
-SIGNALS = 64
+SIGNALS = 32
+#: the backtest batches the path's busy share is profiled over
+PATH_SHARE_BATCHES = 16
 BATCH = 256
 #: the predictor fleet's flush buckets (RuntimeConfig.predictor_bucket_sizes)
 PREDICTOR_BUCKETS = (8, 32, 64)
@@ -225,7 +272,9 @@ TRAIN_VS_CPU_STEPS = 16
 BREAKDOWN_TOL = 0.25
 #: scale of the backward phase's random cotangents (dh_last, dhs)
 COT_SCALE = 0.1
-REPS = 60
+#: timed calls a median is taken over: the kernel phases' time is mostly
+#: these calls, the library's behind a long device sleep
+REPS = 20
 #: the device sleep before a primed call: ~1 ms, longer than a kernel
 #: wrapper's host time; a cuDNN call through autograd can take longer than
 #: that to enqueue on a busy host, so the library yardstick gets ~10 ms
@@ -1229,8 +1278,12 @@ def phase_path(wh, directory: str, device: str = "cuda", cell: str = "gru"):
                                        norm, stamps, device))
     if torch.device(device).type == "cuda":
         emit("path device share", cell=cell, backtest=device_share(
-            lambda: run_backtest(device)), predictor=device_share(
-            lambda: serve(device)))
+            lambda: run_backtest(device, ids=(
+                window, window + PATH_SHARE_BATCHES * BATCH - 1)),
+            host_activity=False), backtest_batches=PATH_SHARE_BATCHES,
+            predictor=device_share(lambda: serve(device),
+                                   host_activity=False),
+            profiler="device activity only")
 
     # the same port on the CPU: plain versions, no kernel
     cpu_bt = run_backtest("cpu")
@@ -1320,7 +1373,8 @@ def train_breakdown(trainer, state, dataset, train_chunks, device):
     check(abs(out["pieces_over_step"] - 1) <= BREAKDOWN_TOL,
           f"the step's pieces add up to {out['pieces_sum_ms']:.3f} ms, the "
           f"whole step takes {out['step_ms']:.3f} ms: the breakdown no "
-          "longer splits Trainer.train_step")
+          f"longer splits Trainer.train_step ({out}; threads "
+          f"{[t.name for t in threading.enumerate()]})")
     return out
 
 
@@ -1382,8 +1436,8 @@ def phase_train(wh, directory: str, device: str = "cuda", cell: str = "gru"):
     check(all(math.isfinite(m.loss) for m in (tr, va)),
           f"non-finite losses {tr.loss}, {va.loss}")
 
-    # a second epoch replays the placed batches: its steps, timed whole
-    # and under the profiler
+    # a second epoch replays the placed batches: its steps, timed whole,
+    # then (after the breakdown) under the profiler
     t0 = time.perf_counter()
     state, _, _ = trainer.fit(wh, dataset=dataset, initial_state=state)
     torch.cuda.synchronize()
@@ -1391,12 +1445,13 @@ def phase_train(wh, directory: str, device: str = "cuda", cell: str = "gru"):
     emit("train replay epoch", cell=cell, seconds=replay_s,
          ms_per_batch=replay_s * 1e3 / (n_train + n_val),
          samples_per_s=n_windows / replay_s)
+    emit("train breakdown", cell=cell, **train_breakdown(trainer, state, dataset,
+                                              train_chunks, device))
     if torch.device(device).type == "cuda":
         emit("train device share", cell=cell, batches=n_train + n_val,
              epoch=device_share(lambda: trainer.fit(
-                 wh, dataset=dataset, initial_state=state)))
-    emit("train breakdown", cell=cell, **train_breakdown(trainer, state, dataset,
-                                              train_chunks, device))
+                 wh, dataset=dataset, initial_state=state),
+                 host_activity=False), profiler="device activity only")
 
     # train, then serve: the checkpoint backtested on the card, and a
     # slice of it on the CPU
@@ -1433,7 +1488,7 @@ def phase_train_vs_cpu(dataset, weights, device: str = "cuda",
                        cell: str = "gru"):
     """The first TRAIN_VS_CPU_STEPS steps at dropout 0 from the same
     initial weights, on the card and on the CPU: per-step losses and the
-    final params compared."""
+    final params compared.  Returns what :func:`steps_vs_cpu` returns."""
     from fmda_tpu_torch.config import TrainConfig
     from fmda_tpu_torch.data.pipeline import WindowBatches
 
@@ -1442,15 +1497,17 @@ def phase_train_vs_cpu(dataset, weights, device: str = "cuda",
                                        train_cfg.test_size)
     host = [b for idx in train_chunks[:3]
             for b in WindowBatches(dataset, idx, BATCH)]
-    steps_vs_cpu("train vs cpu", host[:TRAIN_VS_CPU_STEPS],
-                 TRAIN_VS_CPU_STEPS, train_cfg, weights, device, cell)
+    return steps_vs_cpu("train vs cpu", host[:TRAIN_VS_CPU_STEPS],
+                        TRAIN_VS_CPU_STEPS, train_cfg, weights, device, cell)
 
 
 def steps_vs_cpu(phase: str, host, n_steps: int, train_cfg, weights,
-                 device: str, cell: str, **fields) -> None:
+                 device: str, cell: str, **fields) -> tuple:
     """Train steps over the host batches ``host`` at dropout 0 from the
     same initial weights, on the card and on the CPU: per-step losses and
-    the final params within TRAIN_TOL (emitted as ``phase``)."""
+    the final params within TRAIN_TOL (emitted as ``phase``).  Returns
+    (host, weights, train_cfg): the parallel phase's dp world steps the
+    gru runs' batches again."""
     from fmda_tpu_torch.train import Trainer
 
     model_cfg = model_config(cell, dropout=0.0)
@@ -1502,6 +1559,7 @@ def steps_vs_cpu(phase: str, host, n_steps: int, train_cfg, weights,
     check(len(host) == n_steps, f"only {len(host)} batches")
     check(loss_err <= TRAIN_TOL and param_err <= TRAIN_TOL,
           f"{phase}: training on the card and on the CPU disagree")
+    return host, weights, train_cfg
 
 
 #: the streaming phase's first signal: a predictor started this many rows
@@ -2151,7 +2209,7 @@ def phase_train_multi(sources, weights, device: str = "cuda",
     the pass's first MULTI_SHARE_ROUNDS rounds; for gru one epoch
     chunk-interleaved at BATCH too; then the first MULTI_VS_CPU_STEPS
     mixed steps at dropout 0 on the card and on the CPU.  Returns the
-    path's launch counts."""
+    path's launch counts and what :func:`steps_vs_cpu` returns."""
     from fmda_tpu_torch.config import FrameworkConfig, TrainConfig
     from fmda_tpu_torch.data.pipeline import prefetch_batches
     from fmda_tpu_torch.train import MultiTickerDataset, Trainer
@@ -2223,7 +2281,8 @@ def phase_train_multi(sources, weights, device: str = "cuda",
         emit("train multi device share", cell=cell, rounds=len(rounds),
              batches=sum(max(len(mtd.batches(t, c, MULTI_PER_TICKER))
                              for t, c in rc.items()) for rc in rounds),
-             window=device_share(window))
+             window=device_share(window, host_activity=False),
+             profiler="device activity only")
 
     if cell == "gru":
         # the chunk-interleaved composition: single-ticker batches
@@ -2259,11 +2318,11 @@ def phase_train_multi(sources, weights, device: str = "cuda",
     same_norms = norms.keys() == again.keys() and all(
         np.array_equal(norms[t].x_min, again[t].x_min)
         and np.array_equal(norms[t].x_max, again[t].x_max) for t in norms)
-    steps_vs_cpu("train multi vs cpu", host[:MULTI_VS_CPU_STEPS],
-                 MULTI_VS_CPU_STEPS, train_cfg, weights, device, cell,
-                 norm_params_equal=same_norms)
+    vs_cpu = steps_vs_cpu("train multi vs cpu", host[:MULTI_VS_CPU_STEPS],
+                          MULTI_VS_CPU_STEPS, train_cfg, weights, device,
+                          cell, norm_params_equal=same_norms)
     check(same_norms, "per-ticker serving stats differ between datasets")
-    return counts
+    return counts, vs_cpu
 
 
 def close_sessions(gateway) -> None:
@@ -2321,7 +2380,6 @@ def phase_continuous(directory: str, device: str = "cuda",
     pool serves the last round's weights bit for bit, and the launches.
     Then the same loop with no fleet on the card and on the CPU at
     dropout 0.  Returns the path's launch counts."""
-    import threading
 
     from fmda_tpu_torch.config import (
         DEFAULT_TOPICS, FrameworkConfig, TOPIC_FLEET_PREDICTION, TrainConfig)
@@ -2486,10 +2544,11 @@ def phase_continuous(directory: str, device: str = "cuda",
     return counts
 
 
-#: the pipeline phase: a year of synthetic trading days landed through the
-#: port's engine (252 x 78 = 19,656 rows), then the next day live, bar by
-#: bar
-PIPELINE_DAYS = 252
+#: the pipeline phase: half a year of synthetic trading days landed through
+#: the port's engine (126 x 78 = 9,828 rows), then the next day live, bar by
+#: bar; the app phase lands the same days (a year until the parallel phase
+#: took its time: the depth of both phases' catch-ups, PERF.md section 4)
+PIPELINE_DAYS = 126
 #: the golden day's narrow schema (the reference's engine tests' own)
 GOLDEN_FEATURES = dict(
     bid_levels=2, ask_levels=2, event_list=("Core CPI",),
@@ -2546,7 +2605,7 @@ def phase_pipeline(directory: str, device: str = "cuda", traced_day=None):
       topic poll: ``Predictor.from_checkpoint`` (no staleness check: the
       synthetic clock is in 2020), a bidirectional gru
       ``StreamingPredictor`` on the same checkpoint and an ssm one from a
-      seeded init, both caught up over the year first.  A consumer's
+      seeded init, both caught up over the corpus first.  A consumer's
       bar-to-prediction latency is the engine's part (first publish to
       the end of the step) plus its own poll, as each would see it alone;
     - the card's Predictor against the port's on the CPU for the live
@@ -2581,13 +2640,13 @@ def phase_pipeline(directory: str, device: str = "cuda", traced_day=None):
     per_day = 5 * BARS_PER_DAY
     phase_t0 = time.perf_counter()
 
-    # -- the corpus: a year through the engine, a step a day ------------------
+    # -- the corpus: PIPELINE_DAYS days through the engine, a step a day -----
     registry = MetricsRegistry()
     wh = Warehouse(fc, dataclasses.replace(
         cfg.warehouse, path=f"{directory}/pipeline.sqlite"))
     bus = InProcessBus(DEFAULT_TOPICS)
     engine = StreamEngine(bus, wh, fc, metrics=registry)
-    # a year, the live day and the obs phase's traced day: the generator
+    # the corpus, the live day and the obs phase's traced day: the generator
     # is sequential, so the first days are the same whatever n_days
     messages = synthetic_session_messages(fc, SyntheticMarketConfig(
         seed=SEED, n_days=PIPELINE_DAYS + 2))
@@ -3320,7 +3379,7 @@ def phase_obs(tick_rows, traced_day_counts, device: str = "cuda"):
     return {k: counts[k] + traced_day_counts[k] for k in counts}
 
 
-#: the app phase: the pipeline phase's year (PIPELINE_DAYS synthetic days,
+#: the app phase: the pipeline phase's days (PIPELINE_DAYS synthetic days,
 #: a step a day) landed twice, through the native bus and join and through
 #: the Python ones, then an Application on the native warehouse, on the
 #: card, serving the next day bar by bar.  The keys the reference's
@@ -4509,6 +4568,7 @@ def control_elastic(device: str) -> dict:
     once a flush at bucket 1 in every worker.  Returns the workers'
     launches by kernel."""
     from fmda_tpu_torch.control import run_elastic_soak
+    from fmda_tpu_torch.control.elastic import SCALE_DOWN_FRAC
 
     t0 = time.perf_counter()
     report = run_elastic_soak(
@@ -4518,6 +4578,7 @@ def control_elastic(device: str) -> dict:
     launched = bucket_one_launches(report["worker_stats"], "control elastic",
                                    device)
     emit("control elastic", cell="ssm", sessions=ELASTIC_SESSIONS,
+         scale_down_frac=SCALE_DOWN_FRAC,
          gates=report["gates"], schedule=report["schedule"],
          target_p99_ms=report["target_p99_ms"],
          ticks_submitted=report["ticks_submitted"],
@@ -4704,6 +4765,679 @@ def phase_chaos(device: str = "cuda") -> dict:
     emit("chaos", kernel_launches=total, seconds=time.perf_counter() - t0,
          total_elapsed_s=time.perf_counter() - START)
     return total
+
+
+#: phase 21's sequence-parallel cell, the reference bench's
+#: ``phase_longctx_sp`` (``bench.py:1271-1345``) at its own shapes: a
+#: (dp, sp) world of rank processes on the one card, B = 64, T = 1024, 10
+#: book levels a side (F = 120), H = 32, bidirectional, 1 layer, dropout
+#: 0, remat; weighted BCE, clip 50, Adam 1e-3; each M a warm-up step and
+#: PAR_STEPS timed ones
+PAR_DP, PAR_SP = 2, 4
+PAR_BATCH, PAR_SEQ, PAR_LEVELS = 64, 1024, 10
+PAR_MICROBATCHES = (1, 2, 4)
+PAR_STEPS = 4
+#: the causal ring's smaller depth: (B, N, T, D) over the same mesh
+PAR_CAUSAL = (4, 4, 256, 8)
+#: the dp world's ranks (two of the sp world's processes)
+PAR_DP_WORLD = 2
+#: a world's own limit (s): ranks start, load the library, run, end
+PAR_WORLD_TIMEOUT = 240
+PARALLEL_RANK_ARG = "--parallel-rank"
+
+
+def par_config(cell: str):
+    """The sp cell's model: the bench's longctx shape, ``cell`` gru or
+    attn (4 heads of 8)."""
+    from fmda_tpu_torch.config import FeatureConfig
+
+    features = len(FeatureConfig(bid_levels=PAR_LEVELS,
+                                 ask_levels=PAR_LEVELS).x_fields())
+    return model_config(cell, n_features=features, dropout=0.0,
+                        spatial_dropout=False, remat=True)
+
+
+def par_spec(device: str) -> dict:
+    """The sp world's shapes and device, as its job file hands them to the
+    rank processes (a CPU rehearsal cuts them in the parent)."""
+    return dict(kind="sp", device=device, batch=PAR_BATCH, seq=PAR_SEQ,
+                steps=PAR_STEPS, micro=list(PAR_MICROBATCHES),
+                causal=list(PAR_CAUSAL))
+
+
+def par_inputs(spec: dict, n_features: int):
+    """The sp cell's global batch, from SEED: (x (B, T, F), y (B, C))."""
+    r = np.random.default_rng(SEED)
+    x = r.normal(size=(spec["batch"], spec["seq"], n_features)).astype(
+        np.float32)
+    y = (r.uniform(size=(spec["batch"], 4)) > 0.7).astype(np.float32)
+    return x, y
+
+
+def par_causal_inputs(spec: dict):
+    r = np.random.default_rng(SEED + 1)
+    return [r.normal(size=spec["causal"]).astype(np.float32)
+            for _ in "qkvg"]
+
+
+def par_sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def par_model(cfg, device):
+    from fmda_tpu_torch.models import build_model
+
+    return build_model(cfg, generator=torch.Generator().manual_seed(
+        SEED)).to(device)
+
+
+def par_state(model) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in
+            model.state_dict().items()}
+
+
+def sp_rank_run(mesh, spec: dict, cfg, n_microbatches: int,
+                inputs) -> dict:
+    """One rank's gradient of the initial params (``make_sp_grad_fn``, the
+    step's own, summed over the world, before the clip), then its warm-up
+    and ``spec["steps"]`` timed steps of the sp train step on its block of
+    ``inputs`` (the global (x, y)): its losses, mean step ms, gradient,
+    final params and launches."""
+    import torch.distributed as dist
+
+    from fmda_tpu_torch.parallel import (
+        ClippedAdam, make_sp_grad_fn, make_sp_train_step, shard_train_inputs)
+
+    x, y, _ = shard_train_inputs(mesh, *inputs, {})
+    model = par_model(cfg, mesh.device)
+    opt = ClippedAdam(1e-3, 50.0)
+    state = opt.init(model)
+    grad_fn = make_sp_grad_fn(mesh, cfg, spec["seq"],
+                              n_microbatches=n_microbatches)
+    step = make_sp_train_step(mesh, cfg, spec["seq"], opt,
+                              n_microbatches=n_microbatches)
+    start_path()
+    grad_fn(model, x, y)
+    grads = {k: p.grad.cpu().numpy() for k, p in model.named_parameters()}
+    losses = [step(model, state, x, y)]
+    dist.barrier()
+    par_sync(mesh.device)
+    t0 = time.perf_counter()
+    for _ in range(spec["steps"]):
+        losses.append(step(model, state, x, y))
+    par_sync(mesh.device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / spec["steps"]
+    return dict(losses=[float(v) for v in losses], step_ms=step_ms,
+                launches=launch_counts(), params=par_state(model),
+                grads=grads)
+
+
+def sp_rank_causal(mesh, spec: dict) -> dict:
+    """The causal ring at the smaller depth: this rank's output block and
+    its blocks' gradients, and the launches (a future block none)."""
+    from fmda_tpu_torch.parallel import make_ring_attention
+    from fmda_tpu_torch.parallel.collectives import wait_sends
+
+    q, k, v, g = (torch.from_numpy(a).to(mesh.device)
+                  for a in par_causal_inputs(spec))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fn = make_ring_attention(mesh, causal=True)
+    start_path()
+    out = fn(q, k, v)
+    b, _, t, _ = spec["causal"]
+    d, s = mesh.coords
+    rows = slice(d * b // PAR_DP, (d + 1) * b // PAR_DP)
+    cols = slice(s * t // PAR_SP, (s + 1) * t // PAR_SP)
+    (out * g[rows, :, cols]).sum().backward()
+    wait_sends()
+    par_sync(mesh.device)
+    return dict(launches=launch_counts(), out=out.detach().cpu().numpy(),
+                grads=[x.grad.cpu().numpy() for x in (q, k, v)])
+
+
+def dp_rank_run(mesh, job: dict, batches, weights) -> dict:
+    """A dp Trainer's steps over ``batches`` (global host batches): the
+    global losses, final params and launches."""
+    from fmda_tpu_torch.config import TrainConfig
+    from fmda_tpu_torch.train import Trainer
+
+    trainer = Trainer(model_config("gru", dropout=0.0),
+                      TrainConfig(**job["train_cfg"]), weight=weights[0],
+                      pos_weight=weights[1], mesh=mesh)
+    state = trainer.init_state()
+    start_path()
+    losses = [trainer.train_step(state, trainer.place(b))[0]
+              for b in batches]
+    par_sync(mesh.device)
+    return dict(losses=[float(v) for v in losses],
+                launches=launch_counts(), params=par_state(state.model))
+
+
+def parallel_rank(rank: int, world: int, store: str, job_path: str) -> int:
+    """A rank process of phase 21: joins the 8-rank world, loads the
+    library the ``build`` phase built (building nothing), runs the sp
+    steps; then the world ends, and ranks 0 and 1 join a world of 2 of
+    their own for the dp steps.  Writes its results beside the job
+    file."""
+    import torch.distributed as dist
+
+    from fmda_tpu_torch.config import MeshConfig
+    from fmda_tpu_torch.data.pipeline import Batch
+    from fmda_tpu_torch.ops import _cuda_lib
+    from fmda_tpu_torch.parallel import build_mesh, initialize
+
+    with open(job_path) as fh:
+        job = json.load(fh)
+    device = job["device"]
+    check(device != "cuda" or _cuda_lib.library_path().exists(),
+          "a rank process would build the kernels: the build phase's "
+          "library is missing")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    initialize(store, world, rank, device=device)
+    mesh = build_mesh(MeshConfig(dp=PAR_DP, sp=PAR_SP))
+    out: dict = {"rank": rank, "coords": list(mesh.coords),
+                 "init_seconds": time.perf_counter() - t_start}
+    arrays: dict = {}
+    inputs = par_inputs(job, par_config("gru").n_features)
+    for cell, ms in (("gru", job["micro"]), ("attn", (1,))):
+        for m in ms:
+            run = sp_rank_run(mesh, job, par_config(cell), m, inputs)
+            for k, v in run.pop("params").items():
+                arrays[f"{cell}{m}/{k}"] = v
+            for k, v in run.pop("grads").items():
+                arrays[f"grad/{cell}{m}/{k}"] = v
+            out[f"{cell}{m}"] = run
+    causal = sp_rank_causal(mesh, job)
+    arrays["causal_out"] = causal.pop("out")
+    for c, grad in zip("qkv", causal.pop("grads")):
+        arrays[f"causal_d{c}"] = grad
+    out["causal"] = causal
+    out["sp_seconds"] = time.perf_counter() - t_start
+    dist.destroy_process_group()
+    if rank < PAR_DP_WORLD:
+        t_dp = time.perf_counter()
+        initialize(job["dp_store"], PAR_DP_WORLD, rank, device=device)
+        dp_mesh = build_mesh(MeshConfig(dp=PAR_DP_WORLD, sp=1))
+        data = np.load(job["batches"])
+        for name in ("train", "multi"):
+            weights = (data[f"{name}_weight"], data[f"{name}_pos_weight"])
+            batches = [Batch(*(data[f"{name}{i}_{f}"] for f in Batch._fields))
+                       for i in range(int(data[f"{name}_n"]))]
+            job["train_cfg"] = job[f"{name}_cfg"]
+            run = dp_rank_run(dp_mesh, job, batches, weights)
+            for k, v in run.pop("params").items():
+                arrays[f"{name}/{k}"] = v
+            out[name] = run
+        out["dp_seconds"] = time.perf_counter() - t_dp
+    out["built_here"] = _cuda_lib.build_info.get("seconds") is not None
+    base = os.path.dirname(job_path)
+    np.savez(os.path.join(base, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(base, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def run_parallel_world(base: str, world: int, job: dict):
+    """Start a world of ``world`` rank processes of this script on the
+    card (gloo: they share it) with ``job`` in ``base``, join it within
+    PAR_WORLD_TIMEOUT, and return each rank's (results, arrays) and the
+    world's seconds."""
+    from fmda_tpu_torch.parallel import launch_world
+
+    job_path = os.path.join(base, "job.json")
+    with open(job_path, "w") as fh:
+        json.dump(job, fh)
+    script = os.path.abspath(__file__)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    try:
+        results = launch_world(
+            lambda r: [sys.executable, script, PARALLEL_RANK_ARG, str(r),
+                       str(world), f"file://{base}/store", job_path],
+            world, timeout=PAR_WORLD_TIMEOUT, env=env,
+            cwd=os.path.dirname(script))
+    except TimeoutError as e:
+        check(False, f"parallel: {e}")
+    seconds = time.perf_counter() - t0
+    failed = [r for r in results if r.returncode != 0]
+    check(not failed, "parallel: " + "\n".join(
+        f"rank {r.rank} exit {r.returncode}: {r.stderr[-1500:]}"
+        for r in failed))
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(base, f"rank{r}.json")) as fh:
+            ranks.append((json.load(fh), dict(np.load(
+                os.path.join(base, f"rank{r}.npz")))))
+    check(not any(res["built_here"] for res, _ in ranks),
+          "parallel: a rank process built the kernels")
+    return ranks, seconds
+
+
+def unsharded_steps(cfg, x, y, n_steps: int, device: str):
+    """The sp cell's steps unsharded in this process, from the same params:
+    (losses, final params, mean ms of the steps after the first, the first
+    step's gradient before the clip)."""
+    from fmda_tpu_torch.parallel import ClippedAdam
+    from fmda_tpu_torch.train import clip_by_global_norm
+    from fmda_tpu_torch.train.losses import weighted_bce_with_logits
+
+    model = par_model(cfg, device)
+    opt = ClippedAdam(1e-3, 50.0)
+    state = opt.init(model)
+    xd, yd = (torch.from_numpy(a).to(device) for a in (x, y))
+    losses, t0 = [], None
+    for i in range(n_steps):
+        if i == 1:
+            par_sync(device)
+            t0 = time.perf_counter()
+        state.zero_grad(set_to_none=True)
+        loss = weighted_bce_with_logits(model(xd), yd)
+        loss.backward()
+        if i == 0:
+            grads = {k: p.grad.cpu().numpy()
+                     for k, p in model.named_parameters()}
+        clip_by_global_norm([p.grad for p in model.parameters()], opt.clip)
+        state.step()
+        losses.append(loss.detach())
+    par_sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / (n_steps - 1)
+    return [float(v) for v in losses], par_state(model), step_ms, grads
+
+
+def par_param_err(cfg, got: dict, want: dict, prefix: str,
+                  steps: int) -> float:
+    """The largest difference of two param trees; attn's key bias is held
+    to Adam's drift instead (``steps_vs_cpu`` says why)."""
+    h = cfg.hidden_size
+    err = 0.0
+    for k, w in want.items():
+        g = got[prefix + k]
+        if k.endswith("qkv.bias"):
+            check(max(np.abs(g[h:2 * h]).max(), np.abs(w[h:2 * h]).max())
+                  <= steps * 1e-3, f"{k}: the key bias drifted")
+            g, w = (np.concatenate([a[:h], a[2 * h:]]) for a in (g, w))
+        err = max(err, float(np.abs(g - w).max()))
+    return err
+
+
+def ranks_agree(ranks, prefix: str) -> bool:
+    """Every rank's params under ``prefix``, the same bits."""
+    keys = [k for k in ranks[0][1] if k.startswith(prefix)]
+    return bool(keys) and all(np.array_equal(ranks[0][1][k], arr[k])
+                              for _, arr in ranks[1:] for k in keys)
+
+
+def sp_launches(m: int, calls: int) -> dict:
+    """What a rank launches over ``calls`` forwards and backwards (the
+    gradient and the steps) of the sp gru step at M microbatches: a
+    direction's stage M times a call, kernel 1 forward and again for
+    remat's recompute, kernel 2 (and its weight gradient) once a stage in
+    the backward."""
+    stages = 2 * m
+    return {"gru_scan_fwd": 2 * stages * calls,
+            "gru_scan_bwd": stages * calls, "scan_dw": stages * calls}
+
+
+def ring_launches(calls: int) -> dict:
+    """What a rank launches over ``calls`` forwards and backwards of the
+    ring attn step: kernel 6 once a fold (sp folds a layer a call); the
+    backward's sweeps once a fold each (T/sp = 256 is past the fused
+    kernel's 128)."""
+    folds = PAR_SP * calls
+    return {"flash_fwd": folds, "flash_dkv": folds, "flash_dq": folds}
+
+
+def par_grad_err(ranks, prefix: str, want: dict) -> tuple:
+    """(largest difference, largest element of ``want``) of rank 0's
+    gradient under ``prefix`` and the unsharded one, and whether every
+    rank holds the same bits."""
+    got = ranks[0][1]
+    err = max(float(np.abs(got[prefix + k] - w).max())
+              for k, w in want.items())
+    scale = max(float(np.abs(w).max()) for w in want.values())
+    same = all(np.array_equal(got[prefix + k], arr[prefix + k])
+               for _, arr in ranks[1:] for k in want)
+    return err, scale, same
+
+
+def parallel_sp(ranks, refs, spec: dict, world_s: float,
+                device: str) -> dict:
+    """The 8-rank world's sp gru steps at each M, its ring attn steps and
+    its causal ring, each held to the same work unsharded in this process
+    (``refs``: :func:`unsharded_steps` of gru and attn).  Returns their
+    launches."""
+    from fmda_tpu_torch.ops import attention_kernel
+
+    on_card = torch.device(device).type == "cuda"
+    n_steps = 1 + spec["steps"]
+    gru_cfg, attn_cfg = par_config("gru"), par_config("attn")
+    totals: dict = {}
+    ref_losses, ref_params, ref_ms, ref_grads = refs["gru"]
+    by_m = {}
+    for m in spec["micro"]:
+        runs = [res[f"gru{m}"] for res, _ in ranks]
+        step_ms = max(r["step_ms"] for r in runs)
+        loss_err = max(abs(a - b) for r in runs
+                       for a, b in zip(r["losses"], ref_losses))
+        param_err = par_param_err(gru_cfg, ranks[0][1], ref_params,
+                                  f"gru{m}/", n_steps)
+        grad_err, grad_scale, grad_same = par_grad_err(
+            ranks, f"grad/gru{m}/", ref_grads)
+        want = sp_launches(m, 1 + n_steps) if on_card else {}
+        for r, run in enumerate(runs):
+            check_launches(run["launches"], want,
+                           f"parallel sp gru M={m} rank {r}")
+            totals = add_counts(totals, run["launches"])
+        by_m[m] = dict(step_ms=step_ms,
+                       seq_per_s=spec["batch"] / step_ms * 1e3,
+                       grad_max_abs_err=grad_err,
+                       grad_largest=grad_scale,
+                       grad_same_bits_on_every_rank=grad_same,
+                       loss_max_abs_err=loss_err,
+                       param_max_abs_err=param_err,
+                       losses=runs[0]["losses"],
+                       launches_per_rank=want,
+                       params_same_bits_on_every_rank=ranks_agree(
+                           ranks, f"gru{m}/"))
+    for m in spec["micro"]:
+        by_m[m]["speedup_vs_M1"] = by_m[1]["step_ms"] / by_m[m]["step_ms"]
+        by_m[m]["model_speedup"] = PAR_SP * m / (PAR_SP + m - 1)
+    emit("parallel sp gru", mesh=f"dp={PAR_DP} sp={PAR_SP}",
+         backend="gloo", ranks=PAR_DP * PAR_SP, remat=True,
+         shape={"B": spec["batch"], "T": spec["seq"],
+                "F": gru_cfg.n_features,
+                "H": gru_cfg.hidden_size},
+         by_microbatches=by_m, unsharded_step_ms=ref_ms,
+         world_seconds=world_s,
+         rank_sp_seconds=max(res["sp_seconds"] for res, _ in ranks),
+         rank_init_seconds=max(res["init_seconds"] for res, _ in ranks),
+         tol=TRAIN_TOL)
+    for m, row in by_m.items():
+        check(row["grad_max_abs_err"] <= TRAIN_TOL * row["grad_largest"]
+              and row["grad_same_bits_on_every_rank"],
+              f"parallel sp gru M={m}: the sharded gradient and the "
+              "unsharded disagree")
+        check(row["loss_max_abs_err"] <= TRAIN_TOL
+              and row["param_max_abs_err"] <= TRAIN_TOL,
+              f"parallel sp gru M={m}: the sharded steps and the unsharded "
+              "disagree")
+        check(row["params_same_bits_on_every_rank"],
+              f"parallel sp gru M={m}: the ranks' params differ")
+
+    ref_losses, ref_params, ref_ms, ref_grads = refs["attn"]
+    runs = [res["attn1"] for res, _ in ranks]
+    grad_err, grad_scale, grad_same = par_grad_err(ranks, "grad/attn1/",
+                                                   ref_grads)
+    plan = attention_kernel.flash_bwd_plan(
+        spec["batch"] // PAR_DP * attn_cfg.n_heads, attn_cfg.n_heads,
+        spec["seq"] // PAR_SP, attn_cfg.hidden_size // attn_cfg.n_heads,
+        torch.float32)
+    want = ring_launches(1 + n_steps) if on_card else {}
+    for r, run in enumerate(runs):
+        check_launches(run["launches"], want,
+                       f"parallel ring attn rank {r}")
+        totals = add_counts(totals, run["launches"])
+    loss_err = max(abs(a - b) for r in runs
+                   for a, b in zip(r["losses"], ref_losses))
+    param_err = par_param_err(attn_cfg, ranks[0][1], ref_params, "attn1/",
+                              n_steps)
+    step_ms = max(r["step_ms"] for r in runs)
+    emit("parallel ring attn", mesh=f"dp={PAR_DP} sp={PAR_SP}",
+         heads=attn_cfg.n_heads, remat=True, step_ms=step_ms,
+         seq_per_s=spec["batch"] / step_ms * 1e3, unsharded_step_ms=ref_ms,
+         ring_over_unsharded=step_ms / ref_ms, grad_max_abs_err=grad_err,
+         grad_largest=grad_scale, grad_same_bits_on_every_rank=grad_same,
+         loss_max_abs_err=loss_err,
+         param_max_abs_err=param_err, losses=runs[0]["losses"],
+         launches_per_rank=want, backward_plan=plan,
+         params_same_bits_on_every_rank=ranks_agree(ranks, "attn1/"),
+         tol=TRAIN_TOL)
+    check(not plan["fused"], "the ring's backward at T/sp = 256 fused")
+    check(grad_err <= TRAIN_TOL * grad_scale and grad_same,
+          "parallel ring attn: the ring's gradient and the unsharded "
+          "disagree")
+    check(loss_err <= TRAIN_TOL and param_err <= TRAIN_TOL,
+          "parallel ring attn: the ring steps and the unsharded disagree")
+    check(ranks_agree(ranks, "attn1/"), "parallel ring attn: ranks differ")
+
+    # the causal ring at the smaller depth, against the flash op unsharded
+    q, k, v, g = (torch.from_numpy(a).to(device)
+                  for a in par_causal_inputs(spec))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    want = attention_kernel.flash_attention(q, k, v, causal=True)
+    (want * g).sum().backward()
+    b, _, t, _ = spec["causal"]
+    out_err = grad_err = 0.0
+    folds = {}
+    for r, (res, arr) in enumerate(ranks):
+        d, s = res["coords"]
+        rows = slice(d * b // PAR_DP, (d + 1) * b // PAR_DP)
+        cols = slice(s * t // PAR_SP, (s + 1) * t // PAR_SP)
+        out_err = max(out_err, float(np.abs(
+            arr["causal_out"] - want[rows, :, cols].detach().cpu().numpy()
+        ).max()))
+        # rank (d, s) folds the blocks of ranks 0..s: the later ones are
+        # wholly in its future and launch nothing; T/sp = 64 fuses
+        expect = {"flash_fwd": s + 1, "flash_bwd": s + 1} if on_card else {}
+        check_launches(res["causal"]["launches"], expect,
+                       f"parallel ring causal rank {r}")
+        totals = add_counts(totals, res["causal"]["launches"])
+        folds[r] = s + 1
+    for c, x_ in zip("qkv", (q, k, v)):
+        summed = sum(arr[f"causal_d{c}"] for _, arr in ranks)
+        grad_err = max(grad_err, float(np.abs(
+            summed - x_.grad.cpu().numpy()).max()))
+    emit("parallel ring causal", shape=spec["causal"], folds_by_rank=folds,
+         out_max_abs_err=out_err, grad_max_abs_err=grad_err, tol=F32_TOL)
+    check(out_err <= F32_TOL and grad_err <= F32_TOL,
+          "parallel ring causal: the ring and the unsharded flash disagree")
+    return totals
+
+
+def write_dp_batches(path: str, dp_batches: dict) -> dict:
+    """The dp steps' global batches and weights into ``path``; returns
+    each run's TrainConfig, as the rank processes' job takes it."""
+    arrays, cfgs = {}, {}
+    for name, (batches, weights, train_cfg) in dp_batches.items():
+        arrays[f"{name}_n"] = np.array(len(batches))
+        for i, b in enumerate(batches):
+            for f in b._fields:
+                arrays[f"{name}{i}_{f}"] = getattr(b, f)
+        arrays[f"{name}_weight"], arrays[f"{name}_pos_weight"] = weights
+        cfgs[f"{name}_cfg"] = dataclasses.asdict(train_cfg)
+    np.savez(path, **arrays)
+    return cfgs
+
+
+def parallel_dp(ranks, dp_batches: dict, device: str) -> dict:
+    """The 2-rank world's dp Trainer steps over the ``train vs cpu``
+    phase's first batches of 256 and ``train multi vs cpu``'s first mixed
+    batches of 800, each held to the same steps in one process on the
+    card.  Returns their launches."""
+    from fmda_tpu_torch.train import Trainer
+
+    on_card = torch.device(device).type == "cuda"
+    totals, rows = {}, {}
+    for name, (batches, weights, train_cfg) in dp_batches.items():
+        trainer = Trainer(model_config("gru", dropout=0.0), train_cfg,
+                          weight=weights[0], pos_weight=weights[1],
+                          device=device)
+        state = trainer.init_state()
+        losses = [float(trainer.train_step(state, trainer.place(b))[0])
+                  for b in batches]
+        want = par_state(state.model)
+        runs = [res[name] for res, _ in ranks]
+        loss_err = max(abs(a - b) for r in runs
+                       for a, b in zip(r["losses"], losses))
+        param_err = max(float(np.abs(ranks[0][1][f"{name}/{k}"] - w).max())
+                        for k, w in want.items())
+        per_step = {"gru_scan_fwd": 2, "gru_scan_bwd": 2, "scan_dw": 2}
+        expect = ({k: v * len(batches) for k, v in per_step.items()}
+                  if on_card else {})
+        for r, run in enumerate(runs):
+            check_launches(run["launches"], expect,
+                           f"parallel dp {name} rank {r}")
+            totals = add_counts(totals, run["launches"])
+        rows[name] = dict(steps=len(batches), batch=train_cfg.batch_size,
+                          rows_a_rank=train_cfg.batch_size // PAR_DP_WORLD,
+                          loss_max_abs_err=loss_err,
+                          param_max_abs_err=param_err,
+                          first_loss=losses[0], last_loss=losses[-1],
+                          launches_per_rank=expect,
+                          params_same_bits_on_every_rank=ranks_agree(
+                              ranks, f"{name}/"))
+    emit("parallel dp train", ranks=PAR_DP_WORLD, runs=rows,
+         world_seconds=max(res["dp_seconds"] for res, _ in ranks),
+         tol=TRAIN_TOL)
+    for name, row in rows.items():
+        check(row["loss_max_abs_err"] <= TRAIN_TOL
+              and row["param_max_abs_err"] <= TRAIN_TOL,
+              f"parallel dp {name}: the dp steps and the single process "
+              "disagree")
+        check(row["params_same_bits_on_every_rank"],
+              f"parallel dp {name}: the ranks' params differ")
+    return totals
+
+
+def start_shard_pool_cli(device: str):
+    """``serve-fleet --role solo --cell ssm --shard-pool`` started in a
+    subprocess (it runs beside the dp world: neither is timed)."""
+    argv = [sys.executable, "-m", "fmda_tpu_torch", "serve-fleet", "--role",
+            "solo", "--cell", "ssm", "--shard-pool"]
+    if device != "cuda":
+        argv += ["--device", device]
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, time.perf_counter()
+
+
+def finish_shard_pool_cli(started) -> tuple:
+    """(exit code, its JSON, stderr, seconds) of the started CLI; killed
+    on its limit."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    rc = proc.returncode
+    return (rc, json.loads(out) if rc == 0 else {}, err,
+            time.perf_counter() - t0)
+
+
+def parallel_pool(directory: str, device: str, cli: tuple) -> dict:
+    """The sharded SessionPool in this process, over a local mesh of two
+    blocks on the one card: 64 sessions dealt round the blocks, 100
+    flushes at bucket 64 against the unsharded pool (ssm the same bits,
+    kernel 5 once a block a flush; gru within PATH_TOL); a 1-device mesh
+    the unsharded pool's bits; ``serve-fleet --shard-pool``.  Returns the
+    sharded ssm pool's launches."""
+    from fmda_tpu_torch.config import MeshConfig
+    from fmda_tpu_torch.data.normalize import NormParams
+    from fmda_tpu_torch.models import build_model
+    from fmda_tpu_torch.parallel import build_mesh
+    from fmda_tpu_torch.runtime import SessionPool
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    meshes = {"2 blocks": build_mesh(MeshConfig(dp=2), devices=[dev, dev]),
+              "1 device": build_mesh(MeshConfig(dp=1), devices=[dev])}
+    gen = np.random.default_rng(SEED)
+    rows, out, totals = {}, {}, {}
+    for cell in ("ssm", "gru"):
+        model_cfg = model_config(cell, bidirectional=False, dropout=0.0)
+        state = build_model(model_cfg, generator=torch.Generator().manual_seed(
+            SEED)).state_dict()
+        f = model_cfg.n_features
+        mins = gen.normal(size=(POOL_SESSIONS, f)).astype(np.float32)
+        norms = [NormParams(mins[i], mins[i] + 2.0)
+                 for i in range(POOL_SESSIONS)]
+        ticks = gen.normal(size=(POOL_FULL_FLUSHES, POOL_SESSIONS, f)).astype(
+            np.float32)
+        probs = {}
+        for name, mesh in (("unsharded", None), *meshes.items()):
+            pool = SessionPool(model_cfg, state, capacity=128, window=30,
+                               device=device, mesh=mesh)
+            ids = [f"S{i}" for i in range(POOL_SESSIONS)]
+            handles = [pool.alloc(s, norms[i]) for i, s in enumerate(ids)]
+            slots = np.array([h.slot for h in handles], np.int32)
+            start_path()
+            t0 = time.perf_counter()
+            got = [pool.step(slots, ticks[i])
+                   for i in range(POOL_FULL_FLUSHES)]
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            probs[name] = np.stack(got)
+            rows[f"{cell} {name}"] = dict(
+                blocks=pool.n_shards, n_slots=pool.n_slots,
+                lanes_by_block=np.bincount(
+                    slots // (pool.n_slots // pool.n_shards),
+                    minlength=pool.n_shards).tolist(),
+                flush_ms=secs * 1e3 / POOL_FULL_FLUSHES, launches=counts)
+            if cell == "ssm":
+                check_launches(counts, {"ssm_tick": pool.n_shards
+                                        * POOL_FULL_FLUSHES} if on_card
+                               else {}, f"parallel shard pool {cell} {name}")
+                if name == "2 blocks":
+                    totals = add_counts(totals, counts)
+            else:
+                check_launches(counts, {}, f"parallel shard pool gru {name}")
+        out[cell] = dict(
+            sharded_max_abs_err=float(np.abs(
+                probs["2 blocks"] - probs["unsharded"]).max()),
+            sharded_same_bits=bool(np.array_equal(probs["2 blocks"],
+                                                  probs["unsharded"])),
+            one_device_same_bits=bool(np.array_equal(probs["1 device"],
+                                                     probs["unsharded"])))
+    rc, cli_out, cli_err, cli_s = cli
+    emit("parallel shard pool", pools=rows, agreement=out,
+         cli_exit=rc, cli_seconds=cli_s,
+         cli_ticks_served=cli_out.get("ticks_served"), tol=PATH_TOL)
+    check(out["ssm"]["sharded_same_bits"],
+          "parallel shard pool: the ssm pool's blocks changed its bits")
+    check(out["gru"]["sharded_max_abs_err"] <= PATH_TOL,
+          "parallel shard pool: the sharded gru pool disagrees")
+    check(all(v["one_device_same_bits"] for v in out.values()),
+          "parallel shard pool: a 1-device mesh is not the unsharded pool")
+    check(rc == 0 and cli_out.get("ticks_served", 0) > 0,
+          f"serve-fleet --shard-pool failed: {cli_err[-2000:]}")
+    return totals
+
+
+def phase_parallel(directory: str, dp_batches: dict,
+                   device: str = "cuda") -> dict:
+    """Phase 21: the sp gru and ring attn steps in an 8-rank world, the dp
+    Trainer in a 2-rank world, the sharded pool here.  Returns the path's
+    launches (the ranks' and the sharded pool's), by kernel."""
+    quiet_planes()
+    t0 = time.perf_counter()
+    spec = par_spec(device)
+    gru_cfg = par_config("gru")
+    x, y = par_inputs(spec, gru_cfg.n_features)
+    # the same sp steps unsharded, timed before the world starts
+    refs = {cfg.cell: unsharded_steps(cfg, x, y, 1 + spec["steps"], device)
+            for cfg in (gru_cfg, par_config("attn"))}
+    base = os.path.join(directory, "parallel")
+    os.makedirs(base, exist_ok=True)
+    spec.update(write_dp_batches(os.path.join(base, "dp_batches.npz"),
+                                 dp_batches),
+                batches=os.path.join(base, "dp_batches.npz"),
+                dp_store=f"file://{base}/dp_store")
+    ranks, world_s = run_parallel_world(base, PAR_DP * PAR_SP, spec)
+    cli = start_shard_pool_cli(device)  # beside the untimed checks
+    totals = add_counts(parallel_sp(ranks, refs, spec, world_s, device),
+                        parallel_dp(ranks[:PAR_DP_WORLD], dp_batches,
+                                    device))
+    totals = add_counts(totals, parallel_pool(
+        directory, device, finish_shard_pool_cli(cli)))
+    emit("parallel", kernel_launches=totals,
+         seconds=time.perf_counter() - t0,
+         total_elapsed_s=time.perf_counter() - START)
+    return totals
 
 
 #: what an entry of the summary line carries of its kernel at a shape
@@ -4896,6 +5630,7 @@ def main() -> int:
     flash_rows = phase_kernel_flash()
     serve, train, stream, stream_bi, pool = {}, {}, {}, {}, {}
     fleet, predictor_fleet, train_multi, continuous = {}, {}, {}, {}
+    dp_batches = {}  # the gru train cells' batches, the dp world's steps
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
         wh = make_warehouse(tmp)
@@ -4903,7 +5638,9 @@ def main() -> int:
             serve[cell] = phase_path(wh, tmp, cell=cell)
             train[cell], _, dataset, weights = phase_train(wh, tmp,
                                                            cell=cell)
-            phase_train_vs_cpu(dataset, weights, cell=cell)
+            vs_cpu = phase_train_vs_cpu(dataset, weights, cell=cell)
+            if cell == "gru":
+                dp_batches["train"] = vs_cpu
         for cell in ("gru", "lstm", "ssm"):
             stream[cell] = phase_stream(wh, cell=cell)
             if cell != "ssm":
@@ -4916,8 +5653,10 @@ def main() -> int:
         wh.close()
         sources, weights = multi_sources()
         for cell in ("gru", "lstm", "attn", "ssm"):
-            train_multi[cell] = phase_train_multi(sources, weights,
-                                                  cell=cell)
+            train_multi[cell], vs_cpu = phase_train_multi(
+                sources, weights, cell=cell)
+            if cell == "gru":
+                dp_batches["multi"] = vs_cpu
         for wh in sources.values():
             wh.close()
         for cell in ("gru", "ssm"):
@@ -4934,6 +5673,7 @@ def main() -> int:
         multihost = phase_multihost(tmp)
         control = phase_control(tmp)
         chaos = phase_chaos()
+        parallel = phase_parallel(tmp, dp_batches)
 
     def later(name):
         """A kernel's launches on the app, replay and remat paths."""
@@ -4951,14 +5691,16 @@ def main() -> int:
                    "train_multi": train_multi[s.name][fwd],
                    "continuous": continuous.get(s.name, {}).get(fwd, 0),
                    "pipeline": pipeline[fwd], "obs": obs[fwd],
-                   **later(fwd), "chaos": chaos.get(fwd, 0)}
+                   **later(fwd), "chaos": chaos.get(fwd, 0),
+                   "parallel": parallel.get(fwd, 0)}
         bwd_by_path = {"serve": serve[s.name][bwd],
                        "train": train[s.name][bwd],
                        "fleet": fleet[s.name][bwd],
                        "predictor_fleet": predictor_fleet[s.name][bwd],
                        "train_multi": train_multi[s.name][bwd],
                        "continuous": continuous.get(s.name, {}).get(bwd, 0),
-                       "pipeline": pipeline[bwd], **later(bwd)}
+                       "pipeline": pipeline[bwd], **later(bwd),
+                       "parallel": parallel.get(bwd, 0)}
         fwd_rows, bwd_rows = rows[s.name]
         entries += [
             kernel_entry(fwd, s.replaces[0], s.source, fwd_rows,
@@ -4973,7 +5715,8 @@ def main() -> int:
          "train_multi": train_multi["ssm"][k],
          "continuous": continuous["ssm"][k], "pipeline": pipeline[k],
          "obs": obs[k], **later(k), "multihost": multihost[k],
-         "control": control.get(k, 0), "chaos": chaos.get(k, 0)}
+         "control": control.get(k, 0), "chaos": chaos.get(k, 0),
+         "parallel": parallel.get(k, 0)}
         for k in ("ssm_tick", "ssm_step"))))
     entries += [flash_entry(name, flash_rows,
                             {"serve": serve["attn"][name],
@@ -4984,7 +5727,8 @@ def main() -> int:
                              "train_multi": train_multi["attn"][name],
                              "continuous": sum(continuous[c][name]
                                                for c in continuous),
-                             "pipeline": pipeline[name], **later(name)})
+                             "pipeline": pipeline[name], **later(name),
+                             "parallel": parallel.get(name, 0)})
                 for name in FLASH_REPLACES]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
@@ -4997,4 +5741,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [DEVICE_TRACE_ARG]:
         sys.exit(device_trace_child(sys.argv[2]))
+    if sys.argv[1:2] == [PARALLEL_RANK_ARG]:
+        sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -432,23 +432,6 @@ def cmd_serve(args) -> int:
     return 0
 
 
-#: serve-fleet flags whose planes are not ported yet, each with the
-#: ROADMAP item (queue 1) that ports it; a run that sets one exits 2.
-UNPORTED_FLEET_FLAGS = {
-    "shard_pool": "item 8 (parallelism)",
-}
-
-
-def _unported_fleet_flag(args) -> str:
-    """The first unported serve-fleet flag the run sets, as its message;
-    '' when none is set."""
-    for dest, item in UNPORTED_FLEET_FLAGS.items():
-        if getattr(args, dest) not in (None, False):
-            flag = "--" + dest.replace("_", "-")
-            return f"{flag} is not ported yet (ROADMAP queue 1, {item})"
-    return ""
-
-
 def _control_plane(args, cfg, telemetry, *, router=None, actuator=None,
                    initial_linger_ms=None, bucket_sizes=None):
     """The adaptive control plane for --role router/local
@@ -555,7 +538,7 @@ def cmd_serve_fleet(args) -> int:
     processes over the cross-process bus, with session routing,
     membership and live migration.  The broker and the router need no
     card and import no torch; each worker runs its pool on the card."""
-    refused = _unported_fleet_flag(args) or _fleet_flag_conflict(args)
+    refused = _fleet_flag_conflict(args)
     if refused:
         print(refused, file=sys.stderr)
         return 2
@@ -902,7 +885,8 @@ def _fleet_runtime_overrides(args, cfg):
             max_linger_ms=args.max_linger_ms, queue_bound=args.queue_bound,
             window=args.window, bucket_sizes=bucket_sizes)
     overrides.update(pipeline_depth=(0 if args.serial else None),
-                     slo_p99_ms=args.slo_p99_ms)
+                     slo_p99_ms=args.slo_p99_ms,
+                     shard_pool=None if args.predictor else args.shard_pool)
     return dataclasses.replace(cfg, runtime=dataclasses.replace(
         cfg.runtime, **{k: v for k, v in overrides.items()
                         if v is not None}))
@@ -1569,13 +1553,11 @@ def _add_serve_fleet(sub, common) -> None:
                         "and CUDA activity) of the load, written into DIR "
                         "as a Chrome trace, the pool's flushes annotated "
                         "as numbered pool_flush ranges")
-    # the reference's flags of planes not ported yet: accepted by the
-    # parser so that a run setting one exits 2 naming its ROADMAP item
-    unported = p.add_argument_group(
-        "not ported yet (each exits 2 and names its ROADMAP item)")
-    for dest in UNPORTED_FLEET_FLAGS:
-        unported.add_argument("--" + dest.replace("_", "-"),
-                              action="store_true", default=None)
+    p.add_argument("--shard-pool", action="store_true", default=None,
+                   help="split the session pool's slots over the dp axis of "
+                        "the configured [mesh] on the visible cards "
+                        "(runtime.shard_pool; a 1-device mesh is the "
+                        "unsharded pool)")
     p.set_defaults(fn=cmd_serve_fleet)
 
 

@@ -204,9 +204,10 @@ class Application:
         ``config.runtime``: the slot pool, the micro-batcher and the
         admission-controlled :class:`~fmda_tpu_torch.runtime.FleetGateway`.
         ``model_cfg`` must be a unidirectional recurrent config; the
-        keywords override the gateway's defaults.  The pool is one
-        device's: sharding its slots (the reference's
-        ``runtime.shard_pool``) waits for ROADMAP queue 1, item 8."""
+        keywords override the gateway's defaults.  With
+        ``runtime.shard_pool`` the pool's slots are split over the dp axis
+        of a mesh built from ``[mesh]`` over the visible cards (on the
+        CPU, the one device); a 1-device mesh is the unsharded pool."""
         from fmda_tpu_torch.runtime import (
             BatcherConfig,
             FleetGateway,
@@ -214,8 +215,21 @@ class Application:
         )
 
         rc = self.config.runtime
+        mesh = None
+        if rc.shard_pool:
+            import torch
+
+            from fmda_tpu_torch.device import resolve_device
+            from fmda_tpu_torch.parallel import build_mesh
+
+            dev = resolve_device(self.device)
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if dev.type == "cuda" else [dev])
+            mesh = build_mesh(self.config.mesh, devices=devices)
         pool = SessionPool(model_cfg, params, capacity=rc.capacity,
-                           window=rc.window, device=self.device)
+                           window=rc.window, device=self.device, mesh=mesh,
+                           shard_axis=self.config.mesh.dp_axis)
         gateway_kwargs.setdefault("batcher_config", BatcherConfig(
             bucket_sizes=tuple(rc.bucket_sizes),
             max_linger_s=rc.max_linger_ms / 1e3))

@@ -3,8 +3,8 @@
 The same frozen dataclasses as ``fmda_tpu.config`` (field names, defaults
 and the config -> schema codegen of :class:`FeatureConfig`), cut to what
 the ported paths read: the feature schema, the warehouse, the model, the
-training config, the fleet runtime config (without ``shard_pool``), the
-multi-host topology (``fleet``), the quality plane's knobs, the
+training config, the device mesh (``mesh``), the fleet runtime config,
+the multi-host topology (``fleet``), the quality plane's knobs, the
 observability plane's (``observability``, ``tracing``, ``profiling``
 without ``cost_analysis``), the fleet telemetry's (``slo``), chaos's,
 replay's, and two keys of ``control``.  A
@@ -352,6 +352,23 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The (dp, sp) grid of ranks the parallel paths run on
+    (:func:`fmda_tpu_torch.parallel.build_mesh`), as
+    ``fmda_tpu.config.MeshConfig`` lays out its devices."""
+
+    #: Data-parallel axis size; -1 means "every rank not used by sp".
+    dp: int = -1
+    #: Sequence-parallel axis size (the time axis of long windows).
+    sp: int = 1
+    #: Hosts the job spans; each runs ``world / processes`` ranks, and sp
+    #: must divide that so a carry never crosses hosts.
+    processes: int = 1
+    dp_axis: str = "dp"
+    sp_axis: str = "sp"
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training-harness hyperparameters, with ``fmda_tpu``'s defaults."""
 
@@ -456,6 +473,10 @@ class RuntimeConfig:
     #: Keep the stream's newest ``window`` rows on the device, so that
     #: consecutive signals send only their new rows.
     predictor_ring: bool = False
+    #: Split the pool's slots into equal blocks, one a device of the
+    #: configured mesh's dp axis (:class:`MeshConfig`); a 1-device mesh
+    #: is the unsharded pool.
+    shard_pool: bool = False
 
 
 @dataclass(frozen=True)
@@ -965,6 +986,7 @@ class FrameworkConfig:
     engine: EngineConfig = field(default_factory=EngineConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     session: SessionConfig = field(default_factory=SessionConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     fleet: FleetTopologyConfig = field(default_factory=FleetTopologyConfig)
@@ -992,6 +1014,7 @@ _SECTIONS = {
     "engine": EngineConfig,
     "model": ModelConfig,
     "train": TrainConfig,
+    "mesh": MeshConfig,
     "session": SessionConfig,
     "runtime": RuntimeConfig,
     "fleet": FleetTopologyConfig,
@@ -1012,16 +1035,13 @@ _SECTIONS = {
 #:
 #: - ``model``: ``use_pallas`` (the port has no opt-in: its kernels always
 #:   run on the card);
-#: - ``runtime``: ``shard_pool`` (sharding the pool's slots across
-#:   devices waits for the port's parallelism);
 #: - ``quality``: read whole into :class:`QualityConfig`;
 #: - ``profiling``: ``cost_analysis`` (the port compiles nothing per
 #:   shape, so there is no program to analyse: the kernel ledger computes
 #:   each launch's cost from its shapes);
 #: - ``slo``: ``recompile_budget`` (the port compiles nothing per shape,
 #:   so the ``recompile`` objective has no signal;
-#:   :mod:`fmda_tpu_torch.obs.slo`);
-#: - the section ``mesh`` whole (parallelism, item 8).
+#:   :mod:`fmda_tpu_torch.obs.slo`).
 REFERENCE_KEYS = {
     "features": (
         "get_cot", "get_vix", "get_stock_volume", "bid_levels", "ask_levels",

@@ -22,6 +22,15 @@ averaged per epoch.
   ticker (:mod:`fmda_tpu_torch.train.multiticker`).
 - Each epoch's wall time and count land in the process-default metrics
   registry (``train_epoch_seconds``, ``train_epochs_total``).
+- With a ``mesh`` (:func:`fmda_tpu_torch.parallel.build_mesh`, one process
+  a rank) training is data parallel over its ``dp`` axis: every rank walks
+  the same global batches and places its rows of each
+  (:func:`~fmda_tpu_torch.parallel.place_local_batch`), the params start
+  the same on every rank (broadcast from rank 0), the gradients of the
+  local BCE sums and the valid-element counts are summed over dp in one
+  all-reduce and divided by the global count (the masked mean's
+  normalizer), and the loss and metrics are those of the global batch.  A
+  mesh whose dp axis has one rank is the meshless path.
 """
 
 from __future__ import annotations
@@ -109,7 +118,9 @@ def clip_by_global_norm(
 class Trainer:
     """Builds the model and optimizer and runs chunked epochs over a
     source, on ``device`` (``None`` means the CUDA card; without one it
-    raises and names ``device="cpu"``)."""
+    raises and names ``device="cpu"``), or data parallel over the
+    ``dp_axis`` of ``mesh``, each rank on its own device (the module
+    docstring sets it out)."""
 
     def __init__(
         self,
@@ -119,8 +130,26 @@ class Trainer:
         weight: Optional[np.ndarray] = None,
         pos_weight: Optional[np.ndarray] = None,
         device: DeviceLike = None,
+        mesh=None,
+        dp_axis: str = "dp",
     ) -> None:
+        if mesh is not None:
+            if mesh.local:
+                raise ValueError(
+                    "Trainer(mesh=) takes a mesh of ranks "
+                    "(fmda_tpu_torch.parallel.build_mesh without devices); "
+                    "a mesh of one process's devices serves the pool")
+            device = mesh.device if device is None else device
         self.device = resolve_device(device)
+        self.mesh, self.dp_axis = mesh, dp_axis
+        #: the dp axis when it has more than one rank, else None (the
+        #: meshless path)
+        self._dp = (mesh.axis(dp_axis) if mesh is not None
+                    and mesh.shape[dp_axis] > 1 else None)
+        if self._dp is not None and train_cfg.batch_size % self._dp.size:
+            raise ValueError(
+                f"batch_size {train_cfg.batch_size} does not split into "
+                f"{self._dp.size} equal blocks of rows over {dp_axis!r}")
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.weight = self._on_device(weight)
@@ -143,18 +172,25 @@ class Trainer:
         """A fresh state: weights drawn on the host from ``train.seed`` (so
         every device starts from the same ones) unless ``params`` (a
         ``state_dict``) is given, Adam's moments at zero, step 0, and the
-        dropout generator seeded from ``train.seed + 1``."""
+        dropout generator seeded from ``train.seed + 1`` (plus the rank's
+        dp index under a dp mesh)."""
         tc = self.train_cfg
         model = build_model(
             self.model_cfg, generator=torch.Generator().manual_seed(tc.seed))
         if params is not None:
             model.load_state_dict(params)
         model.to(self.device)
+        if self._dp is not None:
+            from fmda_tpu_torch.parallel import place_replicated
+
+            place_replicated(self.mesh, model)
         optimizer = torch.optim.Adam(
             model.parameters(), lr=tc.learning_rate, betas=ADAM_BETAS,
             eps=ADAM_EPS)
+        # under dp each rank draws its own rows' masks: its own stream
+        rank = self._dp.index if self._dp is not None else 0
         generator = torch.Generator(device=self.device).manual_seed(
-            tc.seed + 1)
+            tc.seed + 1 + rank)
         return TrainState(model, optimizer, 0, generator)
 
     def restore_state(self, checkpoint_path: str) -> TrainState:
@@ -187,7 +223,12 @@ class Trainer:
 
     def place(self, batch: Batch) -> Batch:
         """A host batch on the training device: through pinned host memory
-        and a ``non_blocking`` copy on the card, as tensors on the CPU."""
+        and a ``non_blocking`` copy on the card, as tensors on the CPU;
+        under a dp mesh, this rank's rows of it."""
+        if self._dp is not None:
+            from fmda_tpu_torch.parallel import place_local_batch
+
+            return place_local_batch(self.mesh, batch, self.dp_axis)
         tensors = (torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
         if self.device.type != "cuda":
             return Batch(*tensors)
@@ -210,16 +251,25 @@ class Trainer:
         microbatches.  The normalizer ``max(valid_rows * C, 1)`` is known
         before the first, so each runs ``backward(sum_k / denom)`` and the
         gradients add up to the full batch's.  Each microbatch draws its
-        own dropout masks."""
+        own dropout masks.  Under a dp mesh the valid rows are counted
+        over dp first, so ``denom`` is the global batch's, and the
+        gradients and the loss sum are then summed over dp in one
+        all-reduce."""
         model, k = state.model, self.train_cfg.accum_steps
         state.optimizer.zero_grad(set_to_none=True)
-        if k == 1:
+        if k == 1 and self._dp is None:
             logits = model(batch.x, generator=state.generator)
             loss = self.batch_loss(logits, batch)
             loss.backward()
             return loss.detach(), logits.detach()
         n_classes = self.model_cfg.output_size
-        denom = (batch.mask.sum() * n_classes).clamp_min(1.0)
+        valid = batch.mask.sum()
+        if self._dp is not None:
+            import torch.distributed as dist
+
+            valid = valid.float()
+            dist.all_reduce(valid, group=self._dp.group)
+        denom = (valid * n_classes).clamp_min(1.0)
         loss_sum = torch.zeros((), device=self.device)
         outs = []
         for x, y, mask in zip(*(t.chunk(k) for t in batch)):
@@ -230,7 +280,31 @@ class Trainer:
             (s / denom).backward()
             loss_sum += s.detach()
             outs.append(logits.detach())
+        if self._dp is not None:
+            from fmda_tpu_torch.parallel.sp_train import all_reduce_gradients
+
+            params = [p for p in model.parameters() if p.requires_grad]
+            for p in params:
+                if p.grad is None:  # a param this batch did not reach
+                    p.grad = torch.zeros_like(p)
+            (loss_sum,) = all_reduce_gradients(params, [loss_sum],
+                                               group=self._dp.group)
         return loss_sum / denom, torch.cat(outs)
+
+    def _global(self, logits: torch.Tensor, batch: Batch
+                ) -> Tuple[torch.Tensor, Batch]:
+        """(logits, batch) of the whole global batch: under a dp mesh, every
+        rank's rows gathered in one all-gather, in rank order."""
+        if self._dp is None:
+            return logits, batch
+        from fmda_tpu_torch.parallel.collectives import all_gather
+
+        n_classes = logits.shape[-1]
+        local = torch.cat([logits.float(), batch.y.float(),
+                           batch.mask.float()[:, None]], dim=-1)
+        rows = all_gather(local, self._dp, tiled=True)
+        return rows[:, :n_classes], Batch(
+            None, rows[:, n_classes:2 * n_classes], rows[:, -1])
 
     def apply_gradients(self, state: TrainState) -> None:
         """Clip the gradients by their global norm, then one Adam step."""
@@ -248,14 +322,14 @@ class Trainer:
         state.model.train()
         loss, logits = self.accumulate_gradients(state, batch)
         self.apply_gradients(state)
-        return loss, self.batch_metrics(logits, batch)
+        return loss, self.batch_metrics(*self._global(logits, batch))
 
     def eval_step(
         self, state: TrainState, batch: Batch
     ) -> Tuple[torch.Tensor, MultilabelMetrics]:
         state.model.eval()
         with torch.no_grad():
-            logits = state.model(batch.x)
+            logits, batch = self._global(state.model(batch.x), batch)
             return (self.batch_loss(logits, batch),
                     self.batch_metrics(logits, batch))
 

@@ -1137,7 +1137,6 @@ def test_serve_fleet_argv_that_waited_now_passes_the_gate(argv, tmp_path):
         _fleet_flag_conflict,
         _fleet_telemetry,
         _fleet_wire_override,
-        _unported_fleet_flag,
         _worker_qos,
         build_parser,
     )
@@ -1152,8 +1151,7 @@ def test_serve_fleet_argv_that_waited_now_passes_the_gate(argv, tmp_path):
     args = build_parser().parse_args(argv)
     ref_args = jax_cli.build_parser().parse_args(
         [a for a in argv if a not in ("--device", "cpu")])
-    assert _unported_fleet_flag(args) == "" and _fleet_flag_conflict(
-        args) == ""
+    assert _fleet_flag_conflict(args) == ""
     for dest in ("tenant_mix", "chaos_plan", "chaos_no_reference",
                  "no_controller", "role"):
         assert getattr(args, dest) == getattr(ref_args, dest)

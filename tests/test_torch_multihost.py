@@ -171,16 +171,6 @@ def test_worker_started_by_hand_joins_a_router_started_by_hand(tmp_path):
     assert stats["worker"] == "w0" and stats["device"] == "cpu"
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--role", "local", "--no-controller", "--shard-pool"], "item 8"),
-    (["--role", "worker", "--shard-pool"], "item 8"),
-])
-def test_roles_refuse_what_waits_and_name_its_item(capsys, argv, item):
-    assert port_main(["serve-fleet"] + argv + SMALL) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP queue 1, {item}" in err
-
-
 @pytest.mark.parametrize("section", ["control", "slo"])
 def test_router_runs_static_when_the_config_turns_control_off(
         tmp_path, capsys, section):

@@ -131,6 +131,8 @@ def test_runtime_config_matches_the_jax_package():
 
 
 def test_runtime_section_is_read_and_shard_pool_accepted_unread():
+    """The whole runtime section is read, ``shard_pool`` included (the name
+    predates the sharded pool, when the key was accepted and not read)."""
     cfg = config_from_dict({"runtime": {
         "max_linger_ms": 5.0, "queue_bound": 7, "pipeline_depth": 0,
         "slo_p99_ms": 3.0, "predictor_bucket_sizes": [4, 16],
@@ -140,7 +142,7 @@ def test_runtime_section_is_read_and_shard_pool_accepted_unread():
     assert (rc.max_linger_ms, rc.queue_bound, rc.pipeline_depth,
             rc.slo_p99_ms, rc.predictor_bucket_sizes, rc.predictor_ring,
             rc.predictor_window) == (5.0, 7, 0, 3.0, (4, 16), True, 12)
-    assert not hasattr(rc, "shard_pool")
+    assert rc.shard_pool is True and RuntimeConfig().shard_pool is False
     with pytest.raises(ValueError, match="unknown keys"):
         config_from_dict({"runtime": {"max_linger": 1}})
 
@@ -906,20 +908,6 @@ def test_serve_fleet_cli_serial_matches_default(capsys):
     assert outs[0]["ticks_served"] == outs[1]["ticks_served"] == 18
     assert outs[0]["counters"].get("overlapped_flushes", 0) > 0
     assert outs[1]["counters"].get("overlapped_flushes", 0) == 0
-
-
-@pytest.mark.parametrize("extra,item", [
-    # the multi-host roles, the control plane, QoS and the fleet soak run
-    # (tests/test_torch_multihost.py, tests/test_torch_control.py); what
-    # stays refused is the sharded pool (8)
-    (["--shard-pool"], "item 8"),
-])
-def test_serve_fleet_refuses_unported_planes(capsys, extra, item):
-    from fmda_tpu_torch.__main__ import main
-
-    assert main(FLEET_ARGS + extra) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP queue 1, {item}" in err
 
 
 def test_serve_fleet_continuous_train_swaps_into_the_live_gateway(

@@ -170,7 +170,8 @@ def test_the_port_pool_and_core_tick_as_the_plain_version_does():
     assert ssm_kernel.tick_launches == before == 0
     for i, h in enumerate(handles):
         assert pool.ticks_seen(h) == int(ours.pos[i]) == 5
-    assert torch.equal(pool._state[:, :, :3], ours.state[:, :, :3])
+    assert torch.equal(pool._blocks[0].state[:, :, :3],
+                       ours.state[:, :, :3])
     assert torch.equal(core._state, solo.state)
 
 
