@@ -7,6 +7,12 @@ builds its kernels, serves and trains correctly on a CUDA card (an H100).
 Phases, each printed as one JSON line, each fatal on failure:
 
 1. ``device``: the card, its power limit, the torch/CUDA versions.
+   Then ``lint``, on the host: ``python -m fmda_tpu_torch lint --json`` in
+   a subprocess, the static-analysis gate over the port's own tree
+   against this host's torch (a CUDA build): exit 0, no new finding, no
+   torch symbol of the port that this torch lacks, within LINT_BUDGET_S;
+   one line ``{"cell": "lint", "modules", "new", "drift_symbols",
+   "torch", "seconds"}``.
 2. ``build``: nvcc builds the one library that holds every kernel (the
    GRU and LSTM forward and backward scans, the SSM step and the fused SSM
    serve tick, the flash attention forward, its fused backward and its
@@ -281,6 +287,9 @@ REPS = 20
 PRIME_CYCLES = 2_000_000
 LIBRARY_PRIME_CYCLES = 20_000_000
 
+#: the lint phase's budget: a parse of the tree and torch's import
+LINT_BUDGET_S = 15.0
+
 #: the script's start, for each line's ``elapsed_s``
 START = time.perf_counter()
 
@@ -302,6 +311,37 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def phase_lint() -> dict:
+    """The static-analysis gate over the port's own tree, in a subprocess
+    on this host: ``python -m fmda_tpu_torch lint --json`` must exit 0 with
+    no new finding and no unresolved torch symbol against this host's
+    torch, within LINT_BUDGET_S.  Host only: lint touches no device."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "fmda_tpu_torch", "lint", "--json"],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    check(out.returncode in (0, 1),
+          f"lint exited {out.returncode}: {out.stderr[-2000:]}")
+    doc = json.loads(out.stdout)
+    drift = doc["reports"]["torch_api_drift"]
+    line = {"cell": "lint", "modules": doc["n_modules"],
+            "new": len(doc["new"]), "drift_symbols": drift["n_symbols"],
+            "torch": drift["torch_version"], "seconds": seconds}
+    print(json.dumps(line), flush=True)
+    check(out.returncode == 0 and doc["ok"],
+          "lint is not clean: " + json.dumps(
+              {k: doc[k] for k in ("new", "stale_baseline",
+                                   "forbidden_baseline")})[:4000])
+    check(line["new"] == 0 and line["drift_symbols"] == 0,
+          f"lint: {line['new']} new findings, {line['drift_symbols']} "
+          f"unresolved torch symbols: {sorted(drift['symbols'])[:20]}")
+    check(seconds <= LINT_BUDGET_S,
+          f"lint took {seconds:.1f} s, over its {LINT_BUDGET_S} s budget")
+    return line
 
 
 def time_ms(fn, *, prime: bool, prime_cycles: int = PRIME_CYCLES) -> float:
@@ -5606,6 +5646,7 @@ def main() -> int:
     emit("device", card=card, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, tf32="off (matmul and cudnn)")
+    phase_lint()
 
     scans = scan_specs()
     t0 = time.perf_counter()

@@ -46,6 +46,9 @@
                                       [--profile F] [--top N] [--json]
     python -m fmda_tpu_torch quality  (--endpoint HOST:PORT | --bundle D
                                       | --artifact F) [--json]
+    python -m fmda_tpu_torch lint     [--json] [--rule ID ...] [--baseline F]
+                                      [--no-drift] [--drift-report F]
+                                      [--sarif F]
 
 ``demo`` is the end-to-end proof run: a synthetic corpus through the
 streaming engine into a warehouse, training, and a backtest of the
@@ -82,8 +85,10 @@ broker and the router need no card and import no torch.
 ``status``, ``trace``, ``perf`` and ``quality`` read that endpoint (or
 saved files; ``status`` without one builds a local application over the
 configured warehouse) and print its snapshot, trace breakdowns, device report and
-model quality (:mod:`fmda_tpu_torch.obs.report`).  All run their models on
-the CUDA card unless ``--device cpu`` is given (``ingest`` runs no model).
+model quality (:mod:`fmda_tpu_torch.obs.report`).  ``lint`` is the
+static-analysis gate over this package's own tree
+(:mod:`fmda_tpu_torch.analysis`).  All run their models on the CUDA card
+unless ``--device cpu`` is given (``ingest`` and ``lint`` run no model).
 """
 
 from __future__ import annotations
@@ -1561,6 +1566,119 @@ def _add_serve_fleet(sub, common) -> None:
     p.set_defaults(fn=cmd_serve_fleet)
 
 
+def cmd_lint(args) -> int:
+    """lint: the static-analysis gate over this package's own tree
+    (:mod:`fmda_tpu_torch.analysis`).  Exit 0 = clean against the
+    baseline, 1 = new findings, 2 = usage error; ``--json`` for the
+    details.  Reads source files only: no device, no CUDA."""
+    import pathlib
+
+    from fmda_tpu_torch.analysis import default_rules, run_lint
+
+    if not args.no_drift:
+        import importlib.util
+
+        if importlib.util.find_spec("torch") is None:
+            print(
+                "torch is not installed on this host — the "
+                "torch-api-drift rule has nothing to resolve against; "
+                "re-run with --no-drift",
+                file=sys.stderr)
+            return 2
+    rules = default_rules(drift=not args.no_drift)
+    if args.rule:
+        by_id = {r.id: r for r in rules}
+        unknown = [rid for rid in args.rule if rid not in by_id]
+        if unknown:
+            print(
+                f"unknown rule(s): {', '.join(unknown)} "
+                f"(available: {', '.join(sorted(by_id))})",
+                file=sys.stderr)
+            return 2
+        rules = [by_id[rid] for rid in args.rule]
+    baseline = pathlib.Path(args.baseline) if args.baseline else None
+    if baseline is not None and not baseline.is_file():
+        # only the default baseline may be absent; an explicit path that
+        # resolves to nothing is a typo, and gating against an empty
+        # register silently would defeat the gate
+        print(f"baseline file not found: {baseline}", file=sys.stderr)
+        return 2
+    try:
+        result = run_lint(rules, baseline_path=baseline)
+    except ValueError as exc:  # malformed baseline (no justification, …)
+        print(str(exc), file=sys.stderr)
+        return 2
+    if args.drift_report:
+        if "torch_api_drift" not in result.reports:
+            # --no-drift or a --rule filter left the drift rule out: an
+            # inventory from no scan would be worse than refusing
+            print(
+                "--drift-report needs the torch-api-drift rule in the "
+                "run (drop --no-drift / include --rule torch-api-drift)",
+                file=sys.stderr)
+            return 2
+        out = pathlib.Path(args.drift_report)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(
+            json.dumps(result.reports["torch_api_drift"], indent=2) + "\n")
+    if args.sarif:
+        from fmda_tpu_torch.analysis import to_sarif
+
+        out = pathlib.Path(args.sarif)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(
+            json.dumps(to_sarif(result, rules), indent=2) + "\n")
+    if args.json:
+        print(json.dumps(result.as_dict(), indent=2))
+        return 0 if result.ok else 1
+    for f in result.new:
+        print(f.format())
+    for e in result.stale_baseline:
+        print(
+            f"stale baseline entry (debt paid — prune it): "
+            f"[{e['rule']}] {e['path']}: {e['message']}",
+            file=sys.stderr)
+    for e in result.forbidden_baseline:
+        print(
+            f"forbidden baseline entry ([{e['rule']}] is a zero-baseline "
+            f"hard gate — fix the code, never grandfather it): "
+            f"{e['path']}: {e['message']}",
+            file=sys.stderr)
+    print(f"{result.n_modules} modules: {len(result.new)} new finding(s), "
+          f"{len(result.baselined)} baselined, "
+          f"{result.suppressed} suppressed, "
+          f"{len(result.stale_baseline)} stale baseline entr"
+          f"{'y' if len(result.stale_baseline) == 1 else 'ies'}, "
+          f"{len(result.forbidden_baseline)} forbidden")
+    return 0 if result.ok else 1
+
+
+def _add_lint(sub) -> None:
+    # no --config and no --device: lint reads source files on the host
+    p = sub.add_parser(
+        "lint",
+        help="static-analysis gate over this package's own tree; exit 0 "
+             "clean, 1 new findings, 2 usage error")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable result document")
+    p.add_argument("--rule", action="append", default=None, metavar="ID",
+                   help="run only this rule (repeatable); baseline "
+                        "entries for other rules are ignored, not stale")
+    p.add_argument("--baseline", default=None, metavar="FILE",
+                   help="baseline JSON of grandfathered findings "
+                        "(default: fmda_tpu_torch/analysis/baseline.json)")
+    p.add_argument("--no-drift", action="store_true",
+                   help="skip the torch API-drift resolver — the one rule "
+                        "that imports torch")
+    p.add_argument("--drift-report", default=None, metavar="FILE",
+                   help="write the torch drift inventory (torch_version, "
+                        "n_symbols, n_sites, symbols) as JSON")
+    p.add_argument("--sarif", default=None, metavar="FILE",
+                   help="write the run as a SARIF 2.1.0 document (new "
+                        "findings as results, baselined ones suppressed)")
+    p.set_defaults(fn=cmd_lint)
+
+
 def _add_chaos_pipeline(sub, common) -> None:
     p = sub.add_parser(
         "chaos-pipeline", parents=[common],
@@ -1671,6 +1789,7 @@ def build_parser() -> argparse.ArgumentParser:
                                 "rows")
     _add_serve_fleet(sub, common)
     _add_chaos_pipeline(sub, common)
+    _add_lint(sub)
     from fmda_tpu_torch.obs.report import add_parsers
 
     add_parsers(sub, common)

@@ -88,8 +88,9 @@ def _cuda_available() -> bool:
         import torch
 
         return bool(torch.cuda.is_available())
-    except Exception:  # noqa: BLE001 — a torch that cannot probe its
-        # runtime reads as no card: the plane reports, it never raises
+    except Exception:  # noqa: BLE001 — loss-free: a torch that cannot
+        # probe its runtime reads as no card: the plane reports, it never
+        # raises
         return False
 
 
@@ -143,7 +144,7 @@ class KernelLedger:
         disabled), with a start event on sampled launches."""
         if not self.enabled:
             return None
-        # a race between two launching threads skews one sampling draw
+        # lock-free: a racing launch skews one sampling draw, no more
         n = self._begun.get(kernel, 0) + 1
         self._begun[kernel] = n
         start = None
@@ -439,9 +440,9 @@ class DeviceMemoryMonitor:
                     if key not in seen_all:
                         seen_all.add(key)
                         owners_bytes += st.nbytes()
-            except Exception:  # noqa: BLE001 — a mid-teardown owner (a
-                # pool being rebuilt) reads as zero for one sample, never
-                # breaks the monitor
+            except Exception:  # noqa: BLE001 — loss-free: a mid-teardown
+                # owner (a pool being rebuilt) reads as zero for one
+                # sample, never breaks the monitor
                 total = 0.0
             by_owner[name] = total
         allocated = reserved = max_allocated = free = total_mem = None

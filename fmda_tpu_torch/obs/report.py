@@ -249,8 +249,8 @@ def scrape_endpoint(endpoint: str):
     snapshot = _fetch_json(base + "/snapshot")
     try:
         health = _fetch_json(base + "/healthz")
-    except urllib.error.HTTPError as e:
-        # 503 = degraded; the body still carries the check detail
+    except urllib.error.HTTPError as e:  # loss-free: 503 = degraded
+        # and the body still carries the check detail
         health = json.loads(e.read())
     return snapshot, health
 
@@ -263,6 +263,8 @@ def scrape_optional(endpoint: str, path: str):
 
     try:
         return _fetch_json(_base(endpoint) + path)
+    # loss-free: an optional endpoint (/alerts, /control) the caller
+    # renders as absent
     except (urllib.error.URLError, OSError, json.JSONDecodeError):
         return None
 
@@ -279,6 +281,8 @@ def _status_multi(endpoints) -> int:
             per[ep] = scrape_endpoint(ep) + (
                 scrape_optional(ep, "/alerts"),
                 scrape_optional(ep, "/control"))
+        # loss-free: an unreachable endpoint is reported as such and
+        # fails the fleet verdict
         except (urllib.error.URLError, OSError,
                 json.JSONDecodeError) as e:
             per[ep] = (None, {"status": "unreachable", "checks": {},
@@ -333,6 +337,7 @@ def _status_once(args) -> int:
     else:
         try:
             snapshot, health = scrape_endpoint(args.endpoint[0])
+        # loss-free: the command reports the failure and exits 2
         except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
             print(f"cannot scrape {args.endpoint[0]}: {e}", file=sys.stderr)
             return 2
@@ -359,7 +364,7 @@ def cmd_status(args) -> int:
             print(f"-- every {args.watch:g}s (Ctrl-C to exit) --",
                   flush=True)
             time.sleep(args.watch)
-    except KeyboardInterrupt:
+    except KeyboardInterrupt:  # loss-free: the operator ends --watch
         return 0
 
 
@@ -410,6 +415,7 @@ def cmd_trace(args) -> int:
             try:
                 with open(path) as fh:
                     docs.append(json.load(fh))
+            # loss-free: the command reports the failure and exits 2
             except (OSError, json.JSONDecodeError) as e:
                 print(f"cannot read {path}: {e}", file=sys.stderr)
                 return 2
@@ -418,6 +424,7 @@ def cmd_trace(args) -> int:
             try:
                 with open(args.out, "w") as fh:
                     json.dump(doc, fh)
+            # loss-free: the command reports the failure and exits 2
             except OSError as e:
                 print(f"cannot write {args.out}: {e}", file=sys.stderr)
                 return 2
@@ -430,6 +437,7 @@ def cmd_trace(args) -> int:
         base = _base(args.endpoint)
         try:
             doc = _fetch_json(base + "/trace")
+        # loss-free: the command reports the failure and exits 2
         except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
             print(f"cannot scrape {base}/trace: {e}", file=sys.stderr)
             return 2
@@ -437,6 +445,7 @@ def cmd_trace(args) -> int:
         try:
             with open(args.input) as fh:
                 doc = json.load(fh)
+        # loss-free: the command reports the failure and exits 2
         except (OSError, json.JSONDecodeError) as e:
             print(f"cannot read {args.input}: {e}", file=sys.stderr)
             return 2
@@ -480,6 +489,7 @@ def cmd_perf(args) -> int:
         base = _base(args.endpoint)
         try:
             doc = _fetch_json(base + "/device")
+        # loss-free: the command reports the failure and exits 2
         except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
             print(f"cannot scrape {base}/device: {e}", file=sys.stderr)
             return 2
@@ -488,12 +498,14 @@ def cmd_perf(args) -> int:
 
             with urllib.request.urlopen(base + "/profile", timeout=10) as r:
                 profile_text = r.read().decode("utf-8", "replace")
+        # loss-free: no profiler attached — the report stands without it
         except (urllib.error.URLError, OSError):
-            profile_text = None  # no profiler attached: the report stands
+            profile_text = None
     elif args.input:
         try:
             with open(args.input) as fh:
                 doc = json.load(fh)
+        # loss-free: the command reports the failure and exits 2
         except (OSError, json.JSONDecodeError) as e:
             print(f"cannot read {args.input}: {e}", file=sys.stderr)
             return 2
@@ -506,6 +518,7 @@ def cmd_perf(args) -> int:
         try:
             with open(args.profile) as fh:
                 profile_text = fh.read()
+        # loss-free: the command reports the failure and exits 2
         except OSError as e:
             print(f"cannot read {args.profile}: {e}", file=sys.stderr)
             return 2
@@ -605,6 +618,7 @@ def cmd_quality(args) -> int:
         base = _base(args.endpoint)
         try:
             doc = _fetch_json(base + "/quality")
+        # loss-free: the command reports the failure and exits 2
         except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
             print(f"cannot scrape {base}/quality: {e}", file=sys.stderr)
             return 2
@@ -620,6 +634,7 @@ def cmd_quality(args) -> int:
         try:
             with open(path) as fh:
                 doc = json.load(fh)
+        # loss-free: the command reports the failure and exits 2
         except (OSError, json.JSONDecodeError) as e:
             print(f"cannot read {path}: {e}", file=sys.stderr)
             return 2

@@ -18,10 +18,13 @@ One :class:`FleetGateway` owns the serving loop for a fleet of sessions:
 are split into :meth:`FleetGateway._dispatch` (stale filter, staging
 assembly, ``SessionPool.step_device`` on the card's stream, and a
 non-blocking copy of the probabilities into pinned host memory with an
-event recorded behind it) and :meth:`FleetGateway._complete` (a wait on
-that event alone, label thresholding, one batched bus publish).  ``pump``
-runs them one flush apart: while flush k's probabilities come home and
-fan out to the bus, flush k+1 is already queued on the card.  The
+event recorded behind it) and :meth:`FleetGateway._complete_locked` (a
+wait on that event alone, label thresholding, one batched bus publish).
+Both run under the gateway's lock (the ``_locked`` suffix: the caller
+holds it), so a ``hot_swap`` from another thread never interleaves with
+a flush.  ``pump`` runs them one flush apart: while flush k's
+probabilities come home and fan out to the bus, flush k+1 is already
+queued on the card.  The
 pipeline persists across ``pump`` calls, so ``pump`` returns every result
 *completed* this call; the trailing flush's results arrive on the next
 ``pump`` (an idle pump flushes the pipeline) or on :meth:`drain`.
@@ -34,9 +37,9 @@ the probabilities' copy.
 Every tick's journey is measured (enqueue→dispatch→device→publish
 histograms in :class:`~fmda_tpu_torch.runtime.metrics.RuntimeMetrics`);
 every loss path is a counter, never a silent drop.  Under overlap,
-``device`` measures the time ``_complete`` spends *blocked* on the copy:
-device work that overlapped hides inside the preceding ``dispatch`` and
-``publish`` wall clock, which is the point.
+``device`` measures the time ``_complete_locked`` spends *blocked* on the
+copy: device work that overlapped hides inside the preceding ``dispatch``
+and ``publish`` wall clock, which is the point.
 
 **Swaps from another thread.**  :meth:`FleetGateway.hot_swap` may be
 called from another thread than the one that pumps (the continuous
@@ -107,7 +110,7 @@ class FleetResult:
 @dataclass
 class _InFlight:
     """A dispatched-but-unconsumed flush: the handle to its probabilities'
-    copy plus everything ``_complete`` needs to publish them."""
+    copy plus everything ``_complete_locked`` needs to publish them."""
 
     live: List[Tick]
     probs: object  # PinnedStaging.to_host's handle
@@ -297,7 +300,8 @@ class FleetGateway:
         with self._lock:
             if self._inflight is not None:
                 prev, self._inflight = self._inflight, None
-                self._barrier_results.extend(self._complete_counted(prev))
+                self._barrier_results.extend(
+                    self._complete_counted_locked(prev))
             self.pool.swap_weights(params)
             self.weights_version = (
                 int(version) if version is not None
@@ -511,28 +515,29 @@ class FleetGateway:
                 if prev is not None:
                     if nxt is not None:
                         self.metrics.count("overlapped_flushes")
-                    results.extend(self._complete_counted(prev))
+                    results.extend(self._complete_counted_locked(prev))
                 if self.pipeline_depth == 0 and self._inflight is not None:
                     prev, self._inflight = self._inflight, None
-                    results.extend(self._complete_counted(prev))
+                    results.extend(self._complete_counted_locked(prev))
             if self._inflight is not None and (force or not dispatched_any):
                 # force-drain, or an idle pump with a leftover in-flight
                 # flush from a previous call: flush the pipeline now
                 prev, self._inflight = self._inflight, None
-                results.extend(self._complete_counted(prev))
+                results.extend(self._complete_counted_locked(prev))
         except BaseException:
             # unwinding with a live in-flight flush: its pool-state
             # advance already happened, so its results must still be
-            # published — and if even that fails, _complete_counted made
-            # the loss a counter, never silence
+            # published — and if even that fails,
+            # _complete_counted_locked made the loss a counter, never
+            # silence
             if self._inflight is not None:
                 prev, self._inflight = self._inflight, None
                 try:
-                    self._complete_counted(prev)
-                except Exception:  # noqa: BLE001 — double fault while
-                    # unwinding; _complete_counted already counted the
-                    # flush's ticks lost, and the original failure is
-                    # re-raised below
+                    self._complete_counted_locked(prev)
+                except Exception:  # noqa: BLE001 — loss-free: double
+                    # fault while unwinding; _complete_counted_locked
+                    # already counted the flush's ticks lost, and the
+                    # original failure is re-raised below
                     log.exception(
                         "in-flight flush lost while unwinding pump failure")
             raise
@@ -540,12 +545,13 @@ class FleetGateway:
             self.metrics.gauge("queue_depth", len(self.batcher))
         return results
 
-    def _complete_counted(self, inflight: _InFlight) -> List[FleetResult]:
-        """:meth:`_complete` with the loss path counted: a completion
-        failure marks its ticks ``flush_results_lost`` before
-        propagating."""
+    def _complete_counted_locked(
+            self, inflight: _InFlight) -> List[FleetResult]:
+        """:meth:`_complete_locked` with the loss path counted: a
+        completion failure marks its ticks ``flush_results_lost`` before
+        propagating.  Caller holds ``self._lock``."""
         try:
-            return self._complete(inflight)
+            return self._complete_locked(inflight)
         except Exception:
             self.metrics.count("flush_results_lost", len(inflight.live))
             raise
@@ -625,9 +631,11 @@ class FleetGateway:
                          t_dispatch_ns=t_dispatch_ns,
                          t_dispatched_ns=t_dispatched_ns)
 
-    def _complete(self, inflight: _InFlight) -> List[FleetResult]:
+    def _complete_locked(self, inflight: _InFlight) -> List[FleetResult]:
         """Stage 2 of a flush: wait for the probabilities' copy, threshold
-        labels, publish the whole flush in one batched bus call."""
+        labels, publish the whole flush in one batched bus call.  Caller
+        holds ``self._lock``: it reads ``weights_version``, which
+        ``hot_swap`` writes under it."""
         tracing = self._tracer.enabled
         t_synced = self.clock()
         with self.metrics.timer.stage("device"):
@@ -698,7 +706,7 @@ class FleetGateway:
                             self.bus.publish(self.prediction_topic, msg)
                 except Exception:
                     # the transport failed AFTER the state advance —
-                    # _complete_counted marks the ticks lost; this
+                    # _complete_counted_locked marks the ticks lost; this
                     # counter splits "bus down" from "copy failed"
                     self.metrics.count("publish_errors")
                     raise

@@ -398,10 +398,10 @@ class PredictorGateway:
                 prev, self._inflight = self._inflight, None
                 try:
                     self._complete_counted(prev)
-                except Exception:  # noqa: BLE001 — double fault while
-                    # unwinding; the flush's signals were counted lost by
-                    # _complete_counted, and the original failure is
-                    # re-raised below
+                except Exception:  # noqa: BLE001 — loss-free: double
+                    # fault while unwinding; the flush's signals were
+                    # counted lost by _complete_counted, and the original
+                    # failure is re-raised below
                     log.exception(
                         "in-flight flush lost while unwinding pump failure")
             raise

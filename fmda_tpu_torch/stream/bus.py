@@ -149,7 +149,8 @@ class InProcessBus:
                 "bus_published_total", topic=topic)
         counter.inc(n)
 
-    def _check_topic(self, topic: str) -> None:
+    def _check_topic_locked(self, topic: str) -> None:
+        """Caller holds ``self._lock``."""
         if topic not in self._logs:
             raise KeyError(
                 f"unknown topic {topic!r}; configured: {sorted(self._logs)}")
@@ -188,7 +189,7 @@ class InProcessBus:
 
     def _append(self, topic: str, values: List[dict]) -> List[int]:
         with self._lock:
-            self._check_topic(topic)
+            self._check_topic_locked(topic)
             log = self._logs[topic]
             first = self._next[topic]
             log.extend(Record(topic, first + i, value)
@@ -205,7 +206,7 @@ class InProcessBus:
              max_records: Optional[int] = None) -> List[Record]:
         """Records with offsets >= ``offset`` (bounded by retention)."""
         with self._lock:
-            self._check_topic(topic)
+            self._check_topic_locked(topic)
             start = max(offset - self._base[topic], 0)
             log = self._logs[topic]
             stop = len(log) if max_records is None else start + max_records
@@ -213,7 +214,7 @@ class InProcessBus:
 
     def end_offset(self, topic: str) -> int:
         with self._lock:
-            self._check_topic(topic)
+            self._check_topic_locked(topic)
             return self._next[topic]
 
     def consumer(self, topic: str, *, from_end: bool = False) -> Consumer:

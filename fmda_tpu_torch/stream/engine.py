@@ -369,6 +369,8 @@ class StreamEngine:
                 self._core = NativeJoinCore(
                     features.floor_s, features.join_tolerance_s,
                     features.watermark_s, len(self._stream_topics))
+            # loss-free: loud fallback, like default_bus for the ring
+            # bus — the python join path is bit-identical, just not C++
             except NativeJoinUnavailable as e:
                 log.warning("native join scheduler unavailable (%s); using "
                             "the python join path", e)

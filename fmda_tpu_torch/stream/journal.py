@@ -75,6 +75,7 @@ def _parse_journal(data: bytes) -> tuple:
             line = data[i:n if end < 0 else end]
             i = n if end < 0 else end + 1
             try:
+                # lint: ignore[hot-path-json] jsonl recovery — the sanctioned human-inspectable journal layout
                 rows.append(json.loads(line))
             except json.JSONDecodeError:
                 corrupt += 1
@@ -179,6 +180,7 @@ class BufferedWarehouse:
             payload = codec.encode(codec.pack_rows(rows))
             return _JLEN.pack(len(payload)) + payload
         return b"".join(
+            # lint: ignore[hot-path-json] jsonl — the sanctioned human-inspectable journal layout
             (json.dumps(row) + "\n").encode("utf-8") for row in rows)
 
     def _rewrite_locked(self) -> None:
@@ -285,9 +287,10 @@ class BufferedWarehouse:
                 log.error(
                     "journaled row %s is unlandable (%r): dropped "
                     "(poison_rows)", ts, e)
-            except Exception as e:  # noqa: BLE001 — still down: this
-                # row and every one after it stay in the journal, retried
-                # at the next drain
+            except Exception as e:  # noqa: BLE001 — loss-free: still
+                # down — this row and everything after it STAY in the
+                # journal (pending, the gate's summed term); retried
+                # next drain
                 failure = e
                 break
             done += 1

@@ -74,7 +74,7 @@ def native_available() -> bool:
     try:
         _get_lib()
         return True
-    except NativeBusUnavailable:
+    except NativeBusUnavailable:  # loss-free: a capability probe
         return False
 
 

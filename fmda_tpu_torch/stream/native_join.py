@@ -59,7 +59,7 @@ def native_join_available() -> bool:
     try:
         _get_lib()
         return True
-    except NativeJoinUnavailable:
+    except NativeJoinUnavailable:  # loss-free: a capability probe
         return False
 
 

@@ -92,7 +92,7 @@ class Warehouse:
                 self._conn.execute("BEGIN IMMEDIATE")
                 self._conn.execute("ROLLBACK")
             return True
-        except Exception:  # noqa: BLE001 — any failure is the answer
+        except Exception:  # noqa: BLE001 — loss-free: a health probe; any failure IS the "unhealthy" signal
             return False
 
     def _create_table(self) -> None:
