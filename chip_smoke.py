@@ -40,6 +40,30 @@ Phases, each printed as one JSON line, each fatal on failure:
    one exists.  Each backward scan is two kernels, the serial sweep and the
    weight gradient (``scan_dw``), timed apart too (``sweep_ms``,
    ``dw_ms``); a second call of a scan must give the same bits.
+   ``wide``: the wide scan route, the counterpart of the JAX package's
+   lax.scan path past the Pallas envelope (``ops/wide_scan.py``: a cuBLAS
+   product and a fused gate kernel of ``csrc/scan_wide.cu`` a step).
+   ``wide rule``: ``kernel_supported`` against the library's plan query
+   (the kernel pair wherever its forward's plan holds W_hh on chip, the
+   wide route wherever it reads W_hh from device memory or passes the
+   hidden limit).
+   ``wide kernel``: each of the four gate kernels (GRU and LSTM, forward
+   and backward) against its plain version at (512, 1024) bf16 and (256,
+   512) f32, masked and not, ms beside its bound.  ``wide route``: the
+   route's scans forward and forward + backward against the same scans
+   through the plain gate steps, both directions, beside kernel 1's (3's)
+   device-memory branch where it runs and cuDNN's layer.  ``wide path``
+   (after the warehouse's paths' set-up, before ``path``): the JAX
+   package's ``flagship_wide`` (H = 1024, bf16, batch 512, dropout 0.5,
+   spatial) for gru and for lstm: the first step's loss and gradients
+   against the plain gate steps (the same dropout), ``Trainer.fit`` for an
+   epoch of a 4,096-row warehouse, the checkpoint, a backtest of 4 batches
+   (against the plain gate steps), the Predictor on 8 signals, and the
+   bidirectional streaming core for 8 ticks (its backward re-scan of the
+   30-row ring on the wide route, against the plain gate steps); kernels
+   1-4 and ``scan_dw`` 0 launches, each gate kernel T a scan and
+   direction.  Every line carries ``route``.  The phase must take at most
+   40 s (``WIDE_BUDGET_S``).
 4. ``path``: the window-re-scan serving path at full width
    (``FrameworkConfig()``: H=32, F=108, window 30, float32) over a
    20,000-row warehouse: ``backtest`` at batch 256, then 32 signals through
@@ -344,18 +368,21 @@ def phase_lint() -> dict:
     return line
 
 
-def time_ms(fn, *, prime: bool, prime_cycles: int = PRIME_CYCLES) -> float:
-    """Median of REPS CUDA-event times of one call, after warm-up.
+def time_ms(fn, *, prime: bool, prime_cycles: int = PRIME_CYCLES,
+            reps: int = 0, warmup: int = 5) -> float:
+    """Median of ``reps`` (REPS by default) CUDA-event times of one call,
+    after ``warmup`` calls.
 
     ``prime`` queues a device sleep of ``prime_cycles`` before each call,
     so the host's launch overhead hides behind it whenever it is shorter:
     the result is then the device time of the call.  Unprimed, it is the
     time the caller waits for the call on an idle card."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(reps or REPS)]
     for start, end in pairs:
         if prime:
             torch.cuda._sleep(prime_cycles)
@@ -1041,6 +1068,665 @@ def phase_kernel_flash(device: str = "cuda"):
                   f"{name} disagrees with its plain version: {row}")
             results.append(row)
     return results
+
+
+#: the wide route's gate kernels (``csrc/scan_wide.cu``): no Pallas kernel;
+#: they stand in for the gate algebra XLA fuses into the body of the JAX
+#: package's lax.scan, which ``select_scan_fn`` runs past the Pallas
+#: envelope
+WIDE_SOURCE = "fmda_tpu_torch/csrc/scan_wide.cu"
+WIDE_REPLACES = {"gru": "fmda_tpu/ops/gru.py:100",
+                 "lstm": "fmda_tpu/ops/lstm.py:108"}
+WIDE_KERNELS = ("gru_wide_fwd", "gru_wide_bwd", "lstm_wide_fwd",
+                "lstm_wide_bwd")
+#: (batch, hidden, dtype): flagship_wide's step (the JAX package's
+#: bench.py phase_flagship_wide) and the records' H = 512 f32 shape
+WIDE_SHAPES = ((512, 1024, torch.bfloat16), (256, 512, torch.float32))
+WIDE_STEPS = 30
+#: the wide path's warehouse: the train cell's random walk cut to this
+#: many rows, in chunks of WIDE_CHUNK (a few steps of batch 512)
+WIDE_ROWS = 4096
+WIDE_CHUNK = 1024
+WIDE_BATCH = 512
+WIDE_BACKTEST_BATCHES = 4
+WIDE_SIGNALS = 8
+WIDE_STREAM_TICKS = 8
+#: what the wide phase (its rule, kernels, route and paths) may take
+WIDE_BUDGET_S = 40.0
+#: repetitions of the kernel pair's device-memory branch beside the route
+WIDE_PAIR_REPS = 3
+
+
+class plain_wide_gates:
+    """Inside, the wide route's gate steps run their plain versions on card
+    tensors too (the wrappers' ``_on_cpu`` answers True): the computation
+    the kernels are held to, with the same cuBLAS products around it."""
+
+    def __enter__(self):
+        from fmda_tpu_torch.ops import wide_scan
+
+        self._saved = wide_scan._on_cpu
+        wide_scan._on_cpu = lambda name, tensors: True
+        return self
+
+    def __exit__(self, *exc):
+        from fmda_tpu_torch.ops import wide_scan
+
+        wide_scan._on_cpu = self._saved
+        return False
+
+
+def wide_route(cell: str, batch: int, hidden: int, itemsize: int) -> str:
+    """The route the port takes for a scan: ``kernel_pair`` or ``wide``."""
+    from fmda_tpu_torch.ops import gru_kernel, lstm_kernel
+
+    module = gru_kernel if cell == "gru" else lstm_kernel
+    return ("kernel_pair" if module.kernel_supported(batch, WIDE_STEPS, hidden,
+                                                     itemsize) else "wide")
+
+
+def phase_wide_rule(device: str = "cuda") -> dict:
+    """``kernel_supported`` against the library's own plan query: the
+    Python copy of the plan (``_cuda_lib.fwd_branch``, which the rule
+    reads) must name the plan's branch, and wherever the plan reads W_hh
+    from device memory the rule must send the scan to the wide route."""
+    from fmda_tpu_torch.ops import _cuda_lib, gru_kernel, lstm_kernel
+
+    limits = {"gru": (gru_kernel, 3, 1024), "lstm": (lstm_kernel, 4, 512)}
+    rows = []
+    for cell, (module, gates, limit) in limits.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            for hidden in (8, 32, 33, 64, 96, 128, 160, 192, 256, 384, 512,
+                           768, 1024, 1536):
+                rule = module.kernel_supported(WIDE_BATCH, WIDE_STEPS,
+                                               hidden, itemsize)
+                branch = (_cuda_lib.fwd_plan(cell, WIDE_BATCH, hidden, dtype,
+                                             0)["branch"]
+                          if hidden <= limit and device == "cuda" else None)
+                mirror = _cuda_lib.fwd_branch(gates, hidden, itemsize)
+                rows.append(dict(cell=cell, hidden=hidden,
+                                 dtype=str(dtype).replace("torch.", ""),
+                                 kernel_supported=rule, plan=branch,
+                                 mirror=mirror))
+                check(branch is None or branch == mirror,
+                      f"wide rule: {cell} H={hidden} {dtype}: the plan "
+                      f"takes {branch}, its Python copy says {mirror}")
+                check(not rule or (branch or mirror) != "device",
+                      f"wide rule: {cell} H={hidden} {dtype} keeps the "
+                      f"kernel pair on the plan's device branch")
+    on_pair = {f"{r['cell']} {r['dtype']}": [x["hidden"] for x in rows
+                                             if x["cell"] == r["cell"]
+                                             and x["dtype"] == r["dtype"]
+                                             and x["kernel_supported"]]
+               for r in rows}
+    emit("wide rule", kernel_pair_hidden=on_pair,
+         device_branch={f"{r['cell']} {r['dtype']} {r['hidden']}": r["plan"]
+                        for r in rows if r["plan"] == "device"})
+    return on_pair
+
+
+def wide_step_operands(cell, batch, hidden, dtype, masked, gen, dev):
+    """One step's operands, uniform from ``gen``: the gate inputs (G H),
+    the states, the backward's float32 carries, its product and cotangent,
+    and a (B,) uint8 mask column (about a third of the rows masked)."""
+    gh = (3 if cell == "gru" else 4) * hidden
+
+    def rand(*shape, s=1.0, dt=dtype):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * s).to(dt)
+
+    ops = dict(xp_t=rand(batch, gh, s=2.0), hh_t=rand(batch, gh, s=2.0),
+               h_prev=rand(batch, hidden, s=0.5),
+               c_prev=rand(batch, hidden, s=0.5),
+               c_t=rand(batch, hidden, s=0.5),
+               direct=rand(batch, hidden, s=COT_SCALE, dt=torch.float32),
+               dc=rand(batch, hidden, s=COT_SCALE, dt=torch.float32),
+               prod=rand(batch, hidden, s=COT_SCALE),
+               dhs_t=rand(batch, hidden, s=COT_SCALE))
+    ops["mask_t"] = ((torch.rand(batch, generator=gen, device=dev) > 0.33)
+                     .to(torch.uint8) if masked else None)
+    return ops
+
+
+def wide_direct(name, o) -> bool:
+    """Whether a backward step is given the float32 direct part of dh: the
+    GRU's always; the LSTM's, which a later step (a product given) needs
+    only under a mask, as the scan gives it."""
+    return name == "gru_wide_bwd" or o["mask_t"] is not None
+
+
+def wide_gate_call(name, o, outs):
+    """The call of one gate kernel's wrapper on the operands ``o`` into
+    ``outs`` (fresh buffers; the float32 carries cloned, since the kernel
+    updates them in place): returns the outputs (the LSTM backward's
+    direct part only under a mask, where it writes one)."""
+    from fmda_tpu_torch.ops import wide_scan as ws
+
+    if name == "gru_wide_fwd":
+        ws.gru_wide_gates(o["xp_t"], o["hh_t"], o["h_prev"], o["mask_t"],
+                          outs["h"])
+        return [outs["h"]]
+    if name == "lstm_wide_fwd":
+        ws.lstm_wide_gates(o["xp_t"], o["hh_t"], o["h_prev"], o["c_prev"],
+                           o["mask_t"], outs["h"], outs["c"])
+        return [outs["h"], outs["c"]]
+    outs["direct"].copy_(o["direct"])
+    if name == "gru_wide_bwd":
+        ws.gru_wide_gates_bwd(o["xp_t"], o["hh_t"], o["h_prev"],
+                              outs["direct"], o["prod"], o["dhs_t"],
+                              o["mask_t"], outs["dxp"], outs["dhh"])
+        return [outs["dxp"], outs["dhh"], outs["direct"]]
+    outs["dc"].copy_(o["dc"])
+    direct = outs["direct"] if wide_direct(name, o) else None
+    ws.lstm_wide_gates_bwd(o["xp_t"], o["hh_t"], o["c_prev"], o["c_t"],
+                           direct, o["prod"], o["dhs_t"], outs["dc"],
+                           o["mask_t"], outs["dxp"])
+    return [outs["dxp"], outs["dc"]] + ([direct] if o["mask_t"] is not None
+                                        else [])
+
+
+def wide_gate_reference(name, o):
+    """The same step through the plain version, as a list of outputs."""
+    from fmda_tpu_torch.ops import wide_scan as ws
+
+    if name == "gru_wide_fwd":
+        return [ws.gru_wide_gates_reference(o["xp_t"], o["hh_t"],
+                                            o["h_prev"], o["mask_t"])]
+    if name == "lstm_wide_fwd":
+        return list(ws.lstm_wide_gates_reference(
+            o["xp_t"], o["hh_t"], o["h_prev"], o["c_prev"], o["mask_t"]))
+    if name == "gru_wide_bwd":
+        return list(ws.gru_wide_gates_bwd_reference(
+            o["xp_t"], o["hh_t"], o["h_prev"], o["direct"], o["prod"],
+            o["dhs_t"], o["mask_t"]))
+    dxp, direct, dc = ws.lstm_wide_gates_bwd_reference(
+        o["xp_t"], o["hh_t"], o["c_prev"], o["c_t"],
+        o["direct"] if wide_direct(name, o) else None, o["prod"],
+        o["dhs_t"], o["dc"], o["mask_t"])
+    return [dxp, dc] + ([direct] if direct is not None else [])
+
+
+def phase_wide_kernels(device: str = "cuda") -> list:
+    """(a) Each of the wide route's four gate kernels against its plain
+    version on the card, at WIDE_SHAPES, masked and not: every output
+    compared, a second call the same bits; the kernel's device ms, the
+    plain version's, and the bound (bytes at 3.35 TB/s against the
+    element-wise operations at 67 TFLOP/s: ``wide_gates_bound``).  No one
+    PyTorch call computes a fused gate step, so ``library_ms`` is null."""
+    from fmda_tpu_torch.ops.cost import wide_gates_bound
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    results = []
+    for name in WIDE_KERNELS:
+        cell, backward = name.split("_")[0], name.endswith("bwd")
+        for batch, hidden, dtype in WIDE_SHAPES:
+            gh = (3 if cell == "gru" else 4) * hidden
+            for masked in (False, True):
+                o = wide_step_operands(cell, batch, hidden, dtype, masked,
+                                       gen, dev)
+                outs = dict(h=torch.empty(batch, hidden, dtype=dtype,
+                                          device=dev),
+                            dxp=torch.empty(batch, gh, dtype=dtype,
+                                            device=dev),
+                            direct=torch.empty(batch, hidden, device=dev))
+                outs["c"] = torch.empty_like(outs["h"])
+                outs["dhh"] = torch.empty_like(outs["dxp"])
+                outs["dc"] = torch.empty_like(outs["direct"])
+                with torch.inference_mode():
+                    got = [g.clone() for g in wide_gate_call(name, o, outs)]
+                    again = wide_gate_call(name, o, outs)
+                    want = wide_gate_reference(name, o)
+                    torch.cuda.synchronize()
+                    same_bits = all(torch.equal(g, a)
+                                    for g, a in zip(got, again))
+                    err = max((g.float() - w.float()).abs().max().item()
+                              for g, w in zip(got, want))
+                    finite = all(bool(torch.isfinite(g.float()).all())
+                                 for g in got)
+                    ms = time_ms(lambda: wide_gate_call(name, o, outs),
+                                 prime=True)
+                    plain_ms = time_ms(lambda: wide_gate_reference(name, o),
+                                       prime=True)
+                itemsize = torch.tensor([], dtype=dtype).element_size()
+                bound_ms, bound_by = wide_gates_bound(
+                    cell, batch, hidden, itemsize, masked, backward,
+                    direct=wide_direct(name, o))
+                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                row = dict(kernel=name, batch=batch, hidden=hidden,
+                           dtype=str(dtype).replace("torch.", ""),
+                           masked=masked, max_abs_err=err, tol=tol,
+                           bit_identical_rerun=same_bits, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+                emit(f"wide kernel {name}", **row)
+                check(finite, f"non-finite {name} output: {row}")
+                check(err <= tol, f"{name} disagrees with its plain "
+                      f"version: {row}")
+                check(same_bits, f"{name} gave other bits on a second "
+                      f"call: {row}")
+                results.append(row)
+    return results
+
+
+def wide_scan_inputs(cell, batch, hidden, dtype, gen, dev, *, grad=False):
+    """A scan's inputs (xp, h0[, c0], W_hh, b_hh), uniform from ``gen``,
+    nonzero initial states, and cotangents of its outputs in
+    +-COT_SCALE."""
+    gh = (3 if cell == "gru" else 4) * hidden
+    scale = 1.0 / math.sqrt(hidden)
+
+    def rand(*shape, s=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * s).to(dtype)
+
+    states = 1 if cell == "gru" else 2
+    args = [rand(batch, WIDE_STEPS, gh, s=2.0),
+            *[rand(batch, hidden, s=0.5) for _ in range(states)],
+            rand(gh, hidden, s=scale), rand(gh, s=scale)]
+    cots = [rand(batch, hidden, s=COT_SCALE) for _ in range(states)]
+    cots.append(rand(batch, WIDE_STEPS, hidden, s=COT_SCALE))
+    if grad:
+        args = [a.requires_grad_() for a in args]
+    return args, cots
+
+
+def wide_scan_outputs(cell, scan, args, reverse):
+    """A scan's outputs as a list: (h_last, hs) or (h_last, c_last, hs)."""
+    out = scan(*args, reverse=reverse)
+    if cell == "gru":
+        return list(out)
+    (h_last, c_last), hs = out
+    return [h_last, c_last, hs]
+
+
+def phase_wide_route(n_features: int, device: str = "cuda") -> list:
+    """(b) The wide route's scans (``gru_wide_scan``, ``lstm_wide_scan``)
+    forward and forward + backward against the same scans through the
+    gate kernels' plain versions on the card, at WIDE_SHAPES, both
+    directions.  Beside the forward direction's times: kernel 1's (or 3's)
+    device-memory branch on the same scan, alone and with its backward,
+    where it runs (the LSTM pair stops at H = 512), and cuDNN's layer of
+    the same width (input projection included, beside the route's own
+    layer), a yardstick never on the port's path.  ``ms`` is device time
+    (queue primed); ``call_ms`` what a caller waits on an idle card (the
+    route's 2 T host calls a direction are part of it)."""
+    from fmda_tpu_torch.ops import gru as gru_ops, lstm as lstm_ops
+    from fmda_tpu_torch.ops import wide_scan as ws
+    from fmda_tpu_torch.ops.cost import scan_bound, scan_bwd_bound
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    results = []
+    for cell in ("gru", "lstm"):
+        route = ws.gru_wide_scan if cell == "gru" else ws.lstm_wide_scan
+        pair = gru_ops.gru_scan if cell == "gru" else lstm_ops.lstm_scan
+        shapes = SCAN_SHAPES[cell]
+        for batch, hidden, dtype in WIDE_SHAPES:
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            for reverse in (False, True):
+                args, cots = wide_scan_inputs(cell, batch, hidden, dtype,
+                                              gen, dev, grad=True)
+                with torch.inference_mode():
+                    fwd = lambda: wide_scan_outputs(  # noqa: E731
+                        cell, route, [a.detach() for a in args], reverse)
+                    got = fwd()
+                    with plain_wide_gates():
+                        want = fwd()
+                fwd_err = max((g.float() - w.float()).abs().max().item()
+                              for g, w in zip(got, want))
+
+                def fwd_bwd():
+                    outs = wide_scan_outputs(cell, route, args, reverse)
+                    return torch.autograd.grad(outs, args, cots)
+
+                got = fwd_bwd()
+                with plain_wide_gates():
+                    want = fwd_bwd()
+                torch.cuda.synchronize()
+                errs = [(g.float() - w.float()).abs().max().item()
+                        for g, w in zip(got, want)]
+                rel = [e / max(w.float().abs().max().item(), 1e-30)
+                       for e, w in zip(errs, want)]
+                finite = all(bool(torch.isfinite(g.float()).all())
+                             for g in got)
+                row = dict(cell=cell, route=wide_route(cell, batch, hidden,
+                                                       itemsize),
+                           batch=batch, steps=WIDE_STEPS, hidden=hidden,
+                           dtype=str(dtype).replace("torch.", ""),
+                           reverse=reverse, fwd_max_abs_err=fwd_err,
+                           grad_max_abs_err=max(errs), grad_rel_errs=rel,
+                           tol=tol)
+                if not reverse:
+                    with torch.inference_mode():
+                        row.update(
+                            ms=time_ms(fwd, prime=True,
+                                       prime_cycles=LIBRARY_PRIME_CYCLES),
+                            call_ms=time_ms(fwd, prime=False))
+                        with plain_wide_gates():
+                            row["plain_ms"] = time_ms(
+                                fwd, prime=True,
+                                prime_cycles=LIBRARY_PRIME_CYCLES)
+                    row.update(
+                        fwd_bwd_ms=time_ms(fwd_bwd, prime=True,
+                                           prime_cycles=LIBRARY_PRIME_CYCLES),
+                        fwd_bwd_call_ms=time_ms(fwd_bwd, prime=False))
+                    fb, _ = scan_bwd_bound(batch, WIDE_STEPS, hidden,
+                                           itemsize, False,
+                                           gates=shapes["gates"],
+                                           states=shapes["states"],
+                                           elementwise=shapes["bwd_ops"])
+                    row["bound_ms"], row["bound_by"] = scan_bound(
+                        batch, WIDE_STEPS, hidden, itemsize, False,
+                        gates=shapes["gates"], states=shapes["states"],
+                        elementwise=shapes["fwd_ops"])
+                    row["fwd_bwd_bound_ms"] = row["bound_ms"] + fb
+                    row.update(wide_yardsticks(cell, pair, args, cots, batch,
+                                               hidden, dtype, n_features,
+                                               gen, dev))
+                emit(f"wide route {cell}", **row)
+                check(finite, f"non-finite wide-route gradients: {row}")
+                # gradients relative to each one's largest entry: dW_hh
+                # sums B T rows, and in bf16 one rounding flip of an h
+                # moves its bf16 sum by an ulp of a large value
+                check(fwd_err <= tol and max(rel) <= tol,
+                      f"wide route disagrees with its plain version: {row}")
+                results.append(row)
+    return results
+
+
+def wide_yardsticks(cell, pair, args, cots, batch, hidden, dtype,
+                    n_features, gen, dev) -> dict:
+    """The times beside the wide route's at one shape: the kernel pair's
+    device-memory branch where its hidden limit allows (forward alone and
+    with its backward), the route's layer (projection and scan, as
+    ``gru_layer``/``lstm_layer`` run it) and cuDNN's layer, forward and
+    forward + backward."""
+    from fmda_tpu_torch.ops import _cuda_lib
+    from fmda_tpu_torch.ops.gru import GRUWeights, gru_layer
+    from fmda_tpu_torch.ops.lstm import LSTMWeights, lstm_layer
+
+    out = {}
+    limit = 1024 if cell == "gru" else 512
+    detached = [a.detach() for a in args]
+    if hidden <= limit:
+        # its device-memory branch takes 6-300 ms a call here: three
+        # repetitions after one warm-up
+        out["pair_branch"] = _cuda_lib.fwd_plan(cell, batch, hidden, dtype,
+                                                dev.index or 0)["branch"]
+        with torch.inference_mode():
+            out["pair_ms"] = time_ms(lambda: wide_scan_outputs(
+                cell, pair, detached, False), prime=True,
+                prime_cycles=LIBRARY_PRIME_CYCLES, reps=WIDE_PAIR_REPS,
+                warmup=1)
+        out["pair_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            wide_scan_outputs(cell, pair, args, False), args, cots),
+            prime=True, prime_cycles=LIBRARY_PRIME_CYCLES,
+            reps=WIDE_PAIR_REPS, warmup=1)
+    lib, x = library_layer(next(s for s in scan_specs() if s.name == cell),
+                           dict(batch=batch, steps=WIDE_STEPS, hidden=hidden,
+                                dtype=dtype), n_features, gen, dev, grad=True)
+    wrap = GRUWeights if cell == "gru" else LSTMWeights
+    weights = wrap(*(p.detach().requires_grad_() for p in (
+        lib.weight_ih_l0, lib.weight_hh_l0, lib.bias_ih_l0, lib.bias_hh_l0)))
+    layer = gru_layer if cell == "gru" else lstm_layer
+    wrt = [x, *weights]
+
+    def route_layer():
+        out_ = layer(x, weights)
+        return [out_[1], *(out_[0] if cell == "lstm" else (out_[0],))]
+
+    def cudnn_layer():
+        o, state = lib(x)
+        return [o, *(state if isinstance(state, tuple) else (state,))]
+
+    for name, fn in (("layer", route_layer), ("cudnn", cudnn_layer)):
+        with torch.inference_mode():
+            out[f"{name}_ms"] = time_ms(fn, prime=True,
+                                        prime_cycles=LIBRARY_PRIME_CYCLES)
+        probe = fn()
+        cot = [torch.rand_like(o) * COT_SCALE for o in probe]
+        out[f"{name}_fwd_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(fn(), wrt if name == "layer"
+                                        else [x, *lib.parameters()], cot),
+            prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)
+    return out
+
+
+def wide_grads(trainer, state, batch, rng_state):
+    """The first step's loss and parameter gradients (not applied), the
+    dropout generator set to ``rng_state`` first."""
+    state.generator.set_state(rng_state)
+    state.model.train()
+    logits = state.model(batch.x, generator=state.generator)
+    loss = trainer.batch_loss(logits, batch)
+    params = [p for p in state.model.parameters() if p.requires_grad]
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def phase_wide_path(directory: str, device: str = "cuda",
+                    cell: str = "gru") -> dict:
+    """(c) The JAX package's ``flagship_wide`` (bench.py: H = 1024, bf16,
+    batch 512, T = 30, F = 108, dropout 0.5 with spatial dropout, the
+    model's defaults otherwise) through the port's entry points, every
+    scan on the wide route: the first step's loss and gradients (the same
+    seeded dropout generator) against the same step through the gate
+    kernels' plain versions on the card; ``Trainer.fit`` for one epoch of
+    a WIDE_ROWS warehouse (the train cell's random walk, cut); its
+    checkpoint; a backtest of WIDE_BACKTEST_BATCHES batches, against the
+    plain versions; the Predictor on WIDE_SIGNALS signals; the
+    bidirectional streaming core from the trained weights for
+    WIDE_STREAM_TICKS ticks, its backward direction's re-scan of the
+    window-row ring on the wide route, against the plain versions.
+    Kernels 1-4 and ``scan_dw`` launch 0 times, each gate kernel T times a
+    scan and direction.  Returns the path's launch counts."""
+    from fmda_tpu_torch.config import (
+        DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP,
+        TOPIC_PREDICTION, TrainConfig)
+    from fmda_tpu_torch.data.pipeline import ChunkDataset, WindowBatches
+    from fmda_tpu_torch.data.synthetic import random_walk_rows
+    from fmda_tpu_torch.serve import (
+        Predictor, StreamingBiGRUBidirectional, backtest_from_checkpoint)
+    from fmda_tpu_torch.stream import InProcessBus, Warehouse
+    from fmda_tpu_torch.train import (
+        Trainer, imbalance_weights_from_source, save_checkpoint)
+
+    t_phase = time.perf_counter()
+    cfg = FrameworkConfig()
+    fc, window = cfg.features, cfg.train.window
+    model_cfg = model_config(cell, hidden_size=1024, dtype="bfloat16",
+                             dropout=0.5, spatial_dropout=True)
+    train_cfg = TrainConfig(batch_size=WIDE_BATCH, window=window,
+                            chunk_size=WIDE_CHUNK, epochs=1)
+    wh = Warehouse(cfg.features, dataclasses.replace(
+        cfg.warehouse, path=f"{directory}/wide_{cell}.sqlite"))
+    wh.insert_rows(random_walk_rows(cfg.features.table_columns(), WIDE_ROWS,
+                                    seed=SEED))
+    route = wide_route(cell, WIDE_BATCH, model_cfg.hidden_size, 2)
+    check(route == "wide", f"wide path {cell}: the rule picked {route}")
+    weights = imbalance_weights_from_source(wh)
+    trainer = Trainer(model_cfg, train_cfg, weight=weights[0],
+                      pos_weight=weights[1], device=device)
+    dataset = ChunkDataset(wh, train_cfg.chunk_size, window,
+                           bid_levels=fc.bid_levels, ask_levels=fc.ask_levels,
+                           cache_chunks=train_cfg.cache_chunks)
+    train_chunks, val_chunks, _ = dataset.split(train_cfg.val_size,
+                                                train_cfg.test_size)
+    n_train = sum(len(WindowBatches(dataset, i, WIDE_BATCH))
+                  for i in train_chunks)
+    n_val = sum(len(WindowBatches(dataset, i, WIDE_BATCH))
+                for i in val_chunks)
+
+    # the first step, kernels against plain versions, the same dropout
+    state = trainer.init_state()
+    batch = trainer.place(next(iter(WindowBatches(dataset, train_chunks[0],
+                                                  WIDE_BATCH))))
+    rng = state.generator.get_state()
+    loss_k, grads_k = wide_grads(trainer, state, batch, rng)
+    with plain_wide_gates():
+        loss_p, grads_p = wide_grads(trainer, state, batch, rng)
+    torch.cuda.synchronize()
+    loss_err = abs(float(loss_k) - float(loss_p))
+    grad_rel = max(float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(grads_k, grads_p))
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+    emit("wide first step", cell=cell, route=route, model=str(model_cfg),
+         batch=WIDE_BATCH, steps=window, loss=float(loss_k),
+         plain_loss=float(loss_p), loss_abs_err=loss_err,
+         grad_max_rel_err=grad_rel, tol=BF16_TOL)
+    check(grads_finite and math.isfinite(float(loss_k)),
+          f"wide path {cell}: non-finite first step")
+    check(loss_err <= BF16_TOL and grad_rel <= BF16_TOL,
+          f"wide path {cell}: the first step's kernels and plain versions "
+          f"disagree (loss {loss_err}, gradients {grad_rel})")
+
+    fwd, bwd = f"{cell}_wide_fwd", f"{cell}_wide_bwd"
+    per_forward = 2 * window  # both directions, a launch a step
+    start_path()
+    t0 = time.perf_counter()
+    state, history, _ = trainer.fit(wh, dataset=dataset, initial_state=state)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = launch_counts()
+    tr, va = history["train"][-1], history["val"][-1]
+    emit("wide fit", cell=cell, route=route, steps=state.step,
+         val_batches=n_val, seconds=fit_s,
+         ms_per_step=fit_s * 1e3 / max(n_train + n_val, 1),
+         train_loss=tr.loss, val_loss=va.loss, launches=fit_counts)
+    check(state.step == n_train, f"wide fit {cell}: {state.step} steps, "
+          f"expected {n_train}")
+    check(all(math.isfinite(m.loss) for m in (tr, va) if n_val or m is tr),
+          f"wide fit {cell}: non-finite losses")
+    check_launches(fit_counts, {fwd: per_forward * (n_train + n_val),
+                                bwd: per_forward * n_train},
+                   f"wide {cell} training")
+
+    ckpt = save_checkpoint(f"{directory}/wide_{cell}", state,
+                           dataset.final_norm_params)
+    ids = (window, window + WIDE_BACKTEST_BATCHES * WIDE_BATCH - 1)
+
+    def run_backtest():
+        return backtest_from_checkpoint(
+            wh, ckpt, model_cfg, window=window, batch_size=WIDE_BATCH,
+            ids=ids, device=device)
+
+    start_path()
+    t0 = time.perf_counter()
+    bt = run_backtest()
+    torch.cuda.synchronize()
+    bt_s = time.perf_counter() - t0
+    bt_counts = launch_counts()
+    with plain_wide_gates():
+        plain_bt = run_backtest()
+    bt_err = float(abs(bt.probabilities - plain_bt.probabilities).max())
+    emit("wide backtest", cell=cell, route=route,
+         rows=len(bt.probabilities), batches=WIDE_BACKTEST_BATCHES,
+         seconds=bt_s, max_abs_err_vs_plain=bt_err, tol=BF16_TOL,
+         launches=bt_counts)
+    check(len(bt.probabilities) == WIDE_BACKTEST_BATCHES * WIDE_BATCH,
+          f"wide backtest {cell}: {len(bt.probabilities)} rows")
+    check(bool(np.isfinite(bt.probabilities).all()),
+          f"wide backtest {cell}: non-finite probabilities")
+    check(bt_err <= BF16_TOL, f"wide backtest {cell}: kernels and plain "
+          f"versions disagree by {bt_err}")
+    check_launches(bt_counts, {fwd: per_forward * WIDE_BACKTEST_BATCHES},
+                   f"wide {cell} backtest")
+
+    bus = InProcessBus(DEFAULT_TOPICS)
+    predictor = Predictor.from_checkpoint(
+        ckpt, bus, wh, model_cfg, window=window,
+        threshold=cfg.train.prob_threshold, from_end=False,
+        max_staleness_s=None, device=device)
+    stamps = [ts for _, ts in wh.timestamps_after(len(wh) - WIDE_SIGNALS)]
+    start_path()
+    preds, lat_ms = [], []
+    for ts in stamps:
+        bus.publish(TOPIC_PREDICT_TIMESTAMP, {"Timestamp": ts})
+        t = time.perf_counter()
+        preds += predictor.poll()
+        lat_ms.append((time.perf_counter() - t) * 1e3)
+    pred_counts = launch_counts()
+    published = len(bus.consumer(TOPIC_PREDICTION).poll())
+    emit("wide predictor", cell=cell, route=route, signals=WIDE_SIGNALS,
+         served=len(preds), published=published,
+         p50_ms=statistics.median(lat_ms), max_ms=max(lat_ms),
+         launches=pred_counts)
+    check(len(preds) == WIDE_SIGNALS == published,
+          f"wide predictor {cell}: {len(preds)} served, {published} "
+          f"published of {WIDE_SIGNALS}")
+    check(all(all(math.isfinite(v) for v in p.probabilities) for p in preds),
+          f"wide predictor {cell}: non-finite probabilities")
+    check_launches(pred_counts, {fwd: per_forward * WIDE_SIGNALS},
+                   f"wide {cell} predictor")
+
+    # the bidirectional streaming core: a carried forward direction (torch
+    # ops) and the backward direction's re-scan of the ring, one gate
+    # launch a ring slot a tick
+    stream_rows = list(wh.fetch(range(1, WIDE_STREAM_TICKS + 1)))
+    params, norm = state.model.state_dict(), dataset.final_norm_params
+
+    def stream():
+        core = StreamingBiGRUBidirectional(model_cfg, params, norm,
+                                           window=window, device=device)
+        return np.concatenate([core.step(r) for r in stream_rows])
+
+    stream_route = wide_route(cell, 1, model_cfg.hidden_size, 2)
+    start_path()
+    t0 = time.perf_counter()
+    stream_probs = stream()
+    stream_s = time.perf_counter() - t0
+    stream_counts = launch_counts()
+    with plain_wide_gates():
+        stream_err = float(abs(stream_probs - stream()).max())
+    emit("wide stream", cell=cell, route=stream_route,
+         ticks=WIDE_STREAM_TICKS, window=window, seconds=stream_s,
+         max_abs_err_vs_plain=stream_err, tol=BF16_TOL,
+         launches=stream_counts)
+    check(stream_route == "wide",
+          f"wide stream {cell}: the rule picked {stream_route}")
+    check(bool(np.isfinite(stream_probs).all()),
+          f"wide stream {cell}: non-finite probabilities")
+    check(stream_err <= BF16_TOL, f"wide stream {cell}: kernels and plain "
+          f"versions disagree by {stream_err}")
+    check_launches(stream_counts, {fwd: window * WIDE_STREAM_TICKS},
+                   f"wide {cell} stream")
+    wh.close()
+    emit("wide path", cell=cell, route=route,
+         seconds=time.perf_counter() - t_phase)
+    return add_counts(add_counts(add_counts(fit_counts, bt_counts),
+                                 pred_counts), stream_counts)
+
+
+def wide_entry(name, rows, launches) -> dict:
+    """A gate kernel's entry of the summary line, at flagship_wide's step
+    (WIDE_SHAPES[0]: (512, 1024) bf16), unmasked; ``f32_512``: the same at
+    WIDE_SHAPES[1], (256, 512) f32."""
+    def case(batch, hidden, dtype):
+        return next(r for r in rows if r["kernel"] == name
+                    and (r["batch"], r["hidden"]) == (batch, hidden)
+                    and r["dtype"] == str(dtype).replace("torch.", "")
+                    and not r["masked"])
+
+    main_shape, f32 = (case(*shape) for shape in WIDE_SHAPES)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": WIDE_SOURCE,
+        "replaces": WIDE_REPLACES[name.split("_")[0]],
+        "replaces_kind": "the lax.scan route's fused gate algebra, no "
+                         "pallas_call",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["kernel"] == name),
+        **{k: main_shape[k] for k in TIMES},
+        "shape": list(WIDE_SHAPES[0][:2]),
+        "dtype": str(WIDE_SHAPES[0][2]).replace("torch.", ""),
+        "f32_512": {k: f32[k] for k in TIMES},
+    }
 
 
 def median_ms(fn, items) -> float:
@@ -4408,6 +5094,15 @@ QOS_TICKS = 300
 QOS_HOLD_S = 4.0
 #: the elastic soak at full width, everything else the reference's default
 ELASTIC_SESSIONS = 8
+#: the elastic soak's retire threshold here (the reference's default is
+#: 0.5): the autoscaler retires the spike's worker once the fast window's
+#: p99 stays under this share of the calibrated target.  That p99 is the
+#: worst of ~100 cool-down ticks in a 2 s window on a host the workers, the
+#: router and the caller share; at 0.5 the retire waited 27-125 s after
+#: the scale-up for 4 s without one slow tick (one NVIDIA H100 80GB HBM3 at
+#: 700.00 W, 8 host cores).  0.75 still lies far under the spike's p99 (8x
+#: the target and more).  The fixed run replays the schedule unpaced.
+ELASTIC_SCALE_DOWN_FRAC = 0.75
 #: the fleet soak's plan (the reference bench's ``runtime_chaos_soak``)
 CHAOS_PLAN_KW = dict(workers=["w0", "w1"], worker_kills=1, revive_after=10,
                      router_restarts=1, link_partitions=1, bus_blips=1,
@@ -4608,17 +5303,18 @@ def control_elastic(device: str) -> dict:
     once a flush at bucket 1 in every worker.  Returns the workers'
     launches by kernel."""
     from fmda_tpu_torch.control import run_elastic_soak
-    from fmda_tpu_torch.control.elastic import SCALE_DOWN_FRAC
 
     t0 = time.perf_counter()
     report = run_elastic_soak(
         n_sessions=ELASTIC_SESSIONS, hidden=32, window=30, min_workers=1,
         max_workers=2, compare_fixed=True, config=multihost_config("ssm"),
-        device=None if device == "cuda" else device)
+        device=None if device == "cuda" else device,
+        scale_down_frac=ELASTIC_SCALE_DOWN_FRAC, pace_fixed=False)
     launched = bucket_one_launches(report["worker_stats"], "control elastic",
                                    device)
     emit("control elastic", cell="ssm", sessions=ELASTIC_SESSIONS,
-         scale_down_frac=SCALE_DOWN_FRAC,
+         scale_down_frac=ELASTIC_SCALE_DOWN_FRAC,
+         pace_fixed=False,
          gates=report["gates"], schedule=report["schedule"],
          target_p99_ms=report["target_p99_ms"],
          ticks_submitted=report["ticks_submitted"],
@@ -5654,7 +6350,7 @@ def main() -> int:
     ptxas = ptxas_summary(str(_cuda_lib.build_info.get("log", "")))
     emit("build", kernels=[f"{s.name}_scan_{k}" for s in scans
                            for k in ("fwd", "bwd")]
-         + ["ssm_step", "ssm_tick", *FLASH_REPLACES],
+         + ["ssm_step", "ssm_tick", *FLASH_REPLACES, *WIDE_KERNELS],
          sources=[str(p.name) for p in _cuda_lib.SOURCES], library=str(lib),
          nvcc_seconds=_cuda_lib.build_info.get("seconds"),
          seconds=time.perf_counter() - t0, target="sm_90a", **ptxas)
@@ -5669,11 +6365,24 @@ def main() -> int:
     ssm_rows = phase_kernel_ssm()
     tick_rows = phase_kernel_ssm_tick()
     flash_rows = phase_kernel_flash()
+    t_wide = time.perf_counter()
+    phase_wide_rule()
+    wide_rows = phase_wide_kernels()
+    phase_wide_route(n_features)
+    wide_s = time.perf_counter() - t_wide
     serve, train, stream, stream_bi, pool = {}, {}, {}, {}, {}
     fleet, predictor_fleet, train_multi, continuous = {}, {}, {}, {}
     dp_batches = {}  # the gru train cells' batches, the dp world's steps
     _cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda_lib.BUILD_ROOT) as tmp:
+        t_wide = time.perf_counter()
+        wide = {cell: phase_wide_path(tmp, cell=cell)
+                for cell in ("gru", "lstm")}
+        wide_s += time.perf_counter() - t_wide
+        emit("wide", seconds=wide_s, budget_s=WIDE_BUDGET_S)
+        check(wide_s <= WIDE_BUDGET_S,
+              f"the wide phase took {wide_s:.1f} s, over its "
+              f"{WIDE_BUDGET_S} s")
         wh = make_warehouse(tmp)
         for cell in ("gru", "lstm", "attn", "ssm"):
             serve[cell] = phase_path(wh, tmp, cell=cell)
@@ -5771,6 +6480,9 @@ def main() -> int:
                              "pipeline": pipeline[name], **later(name),
                              "parallel": parallel.get(name, 0)})
                 for name in FLASH_REPLACES]
+    entries += [wide_entry(name, wide_rows,
+                           {"wide": wide[name.split("_")[0]][name]})
+                for name in WIDE_KERNELS]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -266,10 +266,14 @@ class Application:
 
     # -- training -------------------------------------------------------------
 
-    def train(self, *, weight=None, pos_weight=None, **fit_kwargs):
+    def train(self, *, weight=None, pos_weight=None, mesh=None,
+              **fit_kwargs):
         """Train the configured model on this app's warehouse; returns
         ``Trainer.fit``'s ``(state, history, dataset)``.  Without weights,
-        the imbalance weights of the whole target table."""
+        the imbalance weights of the whole target table.  ``mesh`` (a
+        mesh of ranks, :func:`fmda_tpu_torch.parallel.build_mesh`) trains
+        data parallel over its ``dp`` axis, as ``Trainer(mesh=)`` does; the
+        trainer then runs on the mesh's device."""
         from fmda_tpu_torch.train.trainer import (
             Trainer,
             imbalance_weights_from_source,
@@ -279,7 +283,8 @@ class Application:
             weight, pos_weight = imbalance_weights_from_source(self.warehouse)
         trainer = Trainer(self.config.model, self.config.train,
                           weight=weight, pos_weight=pos_weight,
-                          device=self.device)
+                          device=None if mesh is not None else self.device,
+                          mesh=mesh)
         fc = self.config.features
         return trainer.fit(self.warehouse, bid_levels=fc.bid_levels,
                            ask_levels=fc.ask_levels, **fit_kwargs)

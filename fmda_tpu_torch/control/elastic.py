@@ -69,14 +69,6 @@ log = logging.getLogger("fmda_tpu_torch.control")
 #: here (no policy at the workers), but every label must survive open →
 #: migrate → report → readopt verbatim (the report asserts it)
 SOAK_TENANTS = ("gold", "standard", "bronze")
-#: the autoscaler retires the spike's worker once the fast window's p99
-#: stays under this share of the calibrated target (the reference: 0.5).
-#: That p99 is the worst of ~100 cool-down ticks in a 2 s window on a host
-#: the workers, the router and the caller share; at 0.5 the retire waited
-#: 27-125 s after the scale-up for 4 s without one slow tick (one NVIDIA
-#: H100 80GB HBM3 at 700.00 W, 8 host cores).  0.75 still lies far under
-#: the spike's p99 (8x the target and more).
-SCALE_DOWN_FRAC = 0.75
 
 
 def run_elastic_soak(
@@ -99,6 +91,8 @@ def run_elastic_soak(
     wait_timeout_s: float = 240.0,
     sleep_fn: Callable[[float], None] = time.sleep,
     device: Optional[str] = None,
+    scale_down_frac: float = 0.5,
+    pace_fixed: bool = True,
 ) -> dict:
     """Run the soak; returns the gated report (see the module doc).
 
@@ -106,9 +100,13 @@ def run_elastic_soak(
     is real), but every round's rng consumption is schedule-pure — the
     adaptive run records its actual round counts and the fixed
     reference replays them exactly, so the bit-identity comparison sees
-    two runs of one schedule.  The fixed reference replays it unpaced:
-    the pacing exists for the controller's clock, and at bucket 1 a
-    tick's bits do not depend on when it arrives."""
+    two runs of one schedule.  ``scale_down_frac`` is the autoscaler's
+    retire threshold, a share of the calibrated target that the fast
+    window's p99 must stay under (the reference's 0.5); ``pace_fixed``
+    paces the fixed run's rounds as the elastic run's (the reference
+    paces both).  A caller may replay it unpaced: the pacing exists for
+    the controller's clock, and at bucket 1 a tick's bits do not depend
+    on when it arrives."""
     config = _elastic_config(config)
     adaptive = _run_topology(
         None, elastic=True, config=config, n_sessions=n_sessions,
@@ -118,7 +116,8 @@ def run_elastic_soak(
         spike_batch=spike_batch, spike_timeout_s=spike_timeout_s,
         drop_timeout_s=drop_timeout_s, probe_rounds=probe_rounds,
         target_mult=target_mult, wait_timeout_s=wait_timeout_s,
-        sleep_fn=sleep_fn, device=device)
+        sleep_fn=sleep_fn, device=device,
+        scale_down_frac=scale_down_frac, paced=True)
     report = _gate_report(adaptive, min_workers)
     if compare_fixed:
         reference = _run_topology(
@@ -130,7 +129,8 @@ def run_elastic_soak(
             spike_timeout_s=spike_timeout_s,
             drop_timeout_s=drop_timeout_s, probe_rounds=probe_rounds,
             target_mult=target_mult, wait_timeout_s=wait_timeout_s,
-            sleep_fn=sleep_fn, device=device)
+            sleep_fn=sleep_fn, device=device,
+            scale_down_frac=scale_down_frac, paced=pace_fixed)
         report["identity"] = _identity_verdict(adaptive, reference)
         report["gates"]["identity_ok"] = report["identity"]["ok"]
     report["gates_ok"] = all(report["gates"].values())
@@ -184,6 +184,8 @@ def _run_topology(
     wait_timeout_s: float,
     sleep_fn: Callable[[float], None],
     device: Optional[str],
+    scale_down_frac: float,
+    paced: bool,
 ) -> dict:
     from fmda_tpu_torch.fleet.launcher import launch_local_fleet
     from fmda_tpu_torch.obs.aggregate import FleetTelemetry
@@ -264,7 +266,7 @@ def _run_topology(
                 for i in np.flatnonzero(ticking):
                     submit_tick(int(i))
             absorb()
-            if pace_s and elastic:
+            if pace_s and paced:
                 sleep_fn(pace_s)
 
         # -- warmup: measure this host's baseline p99 -------------------
@@ -306,7 +308,7 @@ def _run_topology(
                 interval_s=0.25,
                 min_workers=min_workers, max_workers=max_workers,
                 scale_up_burn=2.0, up_sustain_s=0.75,
-                scale_down_frac=SCALE_DOWN_FRAC, down_sustain_s=2.0,
+                scale_down_frac=scale_down_frac, down_sustain_s=2.0,
                 cooldown_s=1.5)
             plane = ControlPlane(
                 ctrl_cfg, telemetry=telemetry, router=router,

@@ -18,6 +18,7 @@ from __future__ import annotations
 import collections
 import queue as queue_mod
 import threading
+import time
 from typing import (
     Callable,
     Iterable,
@@ -164,6 +165,7 @@ def prefetch_batches(
     place: Callable[[Batch], Batch],
     *,
     depth: int = 2,
+    stall_observer: Optional[Callable[[float], None]] = None,
 ) -> Iterator[Batch]:
     """Depth-N input pipeline.
 
@@ -175,9 +177,24 @@ def prefetch_batches(
     is queued on the current stream, in order with the steps' kernels.
     ``depth=0`` is the synchronous place-per-batch loop with no
     background thread.
+
+    ``stall_observer(seconds)``, as in ``fmda_tpu.data.pipeline``, is
+    called with the host-side wait of each pull (the next composed batch
+    and its ``place``): the time the step loop would have spent blocked
+    on input, which the Trainer exports as the
+    ``train_input_stall_seconds`` histogram.  The first ``depth`` pulls
+    include the pipeline's warm-up by design; the synchronous loop is
+    observed too.
     """
     if depth <= 0:
-        return (place(b) for b in batches)
+        def sync() -> Iterator[Batch]:
+            for b in batches:
+                t0 = time.perf_counter()
+                out = place(b)
+                if stall_observer is not None:
+                    stall_observer(time.perf_counter() - t0)
+                yield out
+        return sync()
 
     def run() -> Iterator[Batch]:
         pending: collections.deque = collections.deque()
@@ -185,12 +202,15 @@ def prefetch_batches(
         exhausted = False
         while True:
             while not exhausted and len(pending) < depth:
+                t0 = time.perf_counter()
                 try:
                     b = next(it)
                 except StopIteration:
                     exhausted = True
                     break
                 pending.append(place(b))
+                if stall_observer is not None:
+                    stall_observer(time.perf_counter() - t0)
             if not pending:
                 return
             yield pending.popleft()

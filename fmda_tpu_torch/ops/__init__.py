@@ -1,5 +1,5 @@
-"""Tensor ops of the port: the GRU and LSTM projections and scans, the
-SSM's scans and serve tick, multi-head attention and its flash op (with
+"""Tensor ops of the port: the GRU and LSTM projections and scans (the
+kernel pairs, and the wide route past their envelope), the SSM's scans and serve tick, multi-head attention and its flash op (with
 their CUDA kernels), the technical indicators (numpy) and the multi-label
 metrics.
 
@@ -30,6 +30,10 @@ LAUNCH_COUNTERS = {
     "flash_dkv": ("attention_kernel", "dkv_launches"),
     "flash_dq": ("attention_kernel", "dq_launches"),
     "flash_bwd": ("attention_kernel", "bwd_launches"),
+    "gru_wide_fwd": ("wide_scan", "gru_fwd_launches"),
+    "gru_wide_bwd": ("wide_scan", "gru_bwd_launches"),
+    "lstm_wide_fwd": ("wide_scan", "lstm_fwd_launches"),
+    "lstm_wide_bwd": ("wide_scan", "lstm_bwd_launches"),
 }
 
 

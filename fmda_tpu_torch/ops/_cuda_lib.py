@@ -3,7 +3,8 @@ checks every kernel wrapper shares.
 
 Every kernel source under ``csrc/`` (the GRU scans in ``gru_scan.cu``, the
 LSTM scans in ``lstm_scan.cu``, the backward scans' weight gradient in
-``scan_dw.cu``, the SSM step and the fused serve tick in ``ssm_step.cu``,
+``scan_dw.cu``, the wide scan route's fused gate kernels in
+``scan_wide.cu``, the SSM step and the fused serve tick in ``ssm_step.cu``,
 the flash-attention forward in ``flash_fwd.cu``, laid out by the host code
 of ``flash_fwd_plan.cc``, its fused backward in ``flash_bwd.cu`` and its
 dK/dV and dQ sweeps in ``flash_attn.cu``, both laid out by
@@ -37,7 +38,8 @@ SOURCES: Tuple[Path, ...] = (_CSRC / "gru_scan.cu", _CSRC / "lstm_scan.cu",
                              _CSRC / "scan_dw.cu", _CSRC / "ssm_step.cu",
                              _CSRC / "flash_fwd.cu", _CSRC / "flash_fwd_plan.cc",
                              _CSRC / "flash_attn.cu", _CSRC / "flash_bwd.cu",
-                             _CSRC / "flash_bwd_plan.cc")
+                             _CSRC / "flash_bwd_plan.cc",
+                             _CSRC / "scan_wide.cu")
 #: Headers the sources include: part of the library's key.
 HEADERS: Tuple[Path, ...] = (_CSRC / "scan_common.cuh",
                              _CSRC / "flash_fwd_plan.h",
@@ -194,6 +196,20 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fmda_{cell}_scan_fwd_plan")
             fn.argtypes = [i, i, i, i, p]
             fn.restype = i
+        # the wide route's gate kernels: the step's operands, each a
+        # pointer and (but prod, direct and dc) its row stride, then B, H,
+        # device, stream
+        for name, layout in (
+                ("gru_wide_fwd", "ps ps ps ps ps"),
+                ("lstm_wide_fwd", "ps ps ps ps ps ps ps"),
+                ("gru_wide_bwd", "ps ps ps p ps ps p ps ps"),
+                ("lstm_wide_bwd", "ps ps ps ps p ps ps p p ps")):
+            kinds = [k for group in layout.split() for k in group]
+            for tag in SUPPORTED.values():
+                fn = getattr(lib, f"fmda_{name}_{tag}")
+                fn.argtypes = [p if k == "p" else ll for k in kinds] + [
+                    i, i, i, p]
+                fn.restype = i
         lib.fmda_scan_dw_splits.argtypes = [i, i, i, i, i]
         lib.fmda_scan_dw_splits.restype = i
         lib.fmda_cuda_error_string.argtypes = [i]
@@ -223,6 +239,54 @@ def fwd_plan(cell: str, batch: int, hidden: int, dtype: torch.dtype,
     branch, lanes, rows, cluster, blocks, smem = out
     return dict(branch=FWD_BRANCHES[branch], lanes=lanes, rows=rows,
                 cluster=cluster, blocks=blocks, smem=smem)
+
+
+# -- where the kernel pairs run: scan_common.cuh's forward plan, in Python ----
+
+#: scan_common.cuh's constants: the register layout's width and lanes, the
+#: shared-memory forward's block limit, the shared memory a forward CTA may
+#: take, the rows a forward CTA may carry
+SCAN_REG_H, SCAN_LANES, FWD_SMEM_THREADS = 32, 4, 512
+MAX_FWD_SMEM_BYTES, FWD_MAX_ROWS = 232448, 4
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def fwd_branch(gates: int, hidden: int, itemsize: int) -> str:
+    """The branch ``plan_fwd`` (scan_common.cuh) takes for a forward scan of
+    ``gates`` gate blocks at ``hidden`` units in an I/O dtype of
+    ``itemsize`` bytes, one of :data:`FWD_BRANCHES`: a pure function of
+    shape and dtype (the batch and the card set only rows and blocks).
+    ``chip_smoke.py`` holds it to the library's plan query."""
+    if hidden <= SCAN_REG_H:
+        return "reg"
+
+    def fits(units, lanes, hp):
+        m = 128 // itemsize  # elements in 32 banks: fwd_w_stride's padding
+        ws = hp + (4 * lanes - hp) % m
+        return (2 * FWD_MAX_ROWS * hp * 4 + gates * units * ws * itemsize
+                <= MAX_FWD_SMEM_BYTES)
+
+    lanes = SCAN_LANES if hidden * SCAN_LANES <= FWD_SMEM_THREADS else 1
+    if fits(hidden, lanes, _round_up(hidden, 4 * lanes)):
+        return "smem"
+    if (hidden % 2 == 0 and hidden // 2 * SCAN_LANES <= FWD_SMEM_THREADS
+            and fits(hidden // 2, SCAN_LANES,
+                     _round_up(hidden, 4 * SCAN_LANES))):
+        return "cluster"
+    return "device"
+
+
+def pair_runs(gates: int, hidden: int, itemsize: int,
+              max_hidden: int) -> bool:
+    """Whether a kernel pair takes a scan of ``hidden`` units: within its
+    hidden limit, in a supported dtype, and with its forward's plan off
+    the device-memory branch (W_hh held in registers, shared memory or a
+    cluster's)."""
+    return (0 < hidden <= max_hidden and itemsize in (2, 4)
+            and fwd_branch(gates, hidden, itemsize) != "device")
 
 
 # -- what every wrapper checks -------------------------------------------------

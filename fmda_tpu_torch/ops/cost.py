@@ -192,6 +192,50 @@ def flash_bound(kernel, c, itemsize, pairs, masked):
     return roofline_ms(*flash_cost(kernel, c, itemsize, pairs, masked))
 
 
+def wide_gates_cost(cell, batch, hidden, itemsize, masked, backward=False,
+                    prod=True, direct=True) -> Cost:
+    """One step's fused gate kernel of the wide route
+    (``csrc/scan_wide.cu``): element-wise, no product; the bytes its
+    function needs, each read or written once.  Forward: xp_t and hh_t (gH
+    each) read, h_t (and c_t) written; the GRU reads h_{t-1}, the LSTM
+    c_{t-1}, and h_{t-1} only under a mask (a held row keeps it; a step
+    that runs makes h from its gates and c alone).  Backward: xp_t, hh_t,
+    the state(s) it reads (GRU h_{t-1}; LSTM c_{t-1} and c_t), dhs_t and
+    the previous step's product (``prod``, absent at the first processed
+    step) in the I/O dtype; dxp_t written, and for the GRU dhh_t too; the
+    float32 direct part of dh read where ``direct`` is given (the GRU's
+    always; the LSTM's at its first processed step and under a mask) and
+    written by the GRU always, by the LSTM under a mask only (0 wherever a
+    step ran); the LSTM's float32 dc read and written.  Operations: the
+    cell's forward or backward count per (row, unit)."""
+    s = SCAN_SHAPES[cell]
+    gh, states = s["gates"] * hidden, s["states"]
+    lstm = cell == "lstm"
+    if backward:
+        reads = 2 * gh + (states + 1 + (1 if prod else 0)) * hidden
+        writes = gh * (1 if lstm else 2)
+        f32_moves = ((1 if direct else 0)
+                     + (1 if masked or not lstm else 0)
+                     + (2 if lstm else 0))
+        bytes_moved = batch * (itemsize * (reads + writes)
+                               + 4 * f32_moves * hidden)
+        ops = s["bwd_ops"]
+    else:
+        state_reads = states - (1 if lstm and not masked else 0)
+        bytes_moved = itemsize * batch * (2 * gh + (state_reads + states)
+                                          * hidden)
+        ops = s["fwd_ops"]
+    bytes_moved += batch if masked else 0
+    return Cost(bytes_moved, 0, ops * batch * hidden, itemsize)
+
+
+def wide_gates_bound(cell, batch, hidden, itemsize, masked, backward=False,
+                     prod=True, direct=True):
+    """Least time for one wide-route gate kernel on this card."""
+    return roofline_ms(*wide_gates_cost(cell, batch, hidden, itemsize,
+                                        masked, backward, prod, direct))
+
+
 def _scan_fwd(cell):
     s = SCAN_SHAPES[cell]
     return lambda sig: scan_cost(*sig, gates=s["gates"], states=s["states"],
@@ -225,7 +269,11 @@ def _flash(kernel):
 #: - ``ssm_tick``: ``(batch, n_layers, feats, hidden, classes, itemsize)``;
 #: - the flash kernels: ``(batch, heads, seq, d, itemsize, causal,
 #:   masked)``, over every pair the shapes allow (what a key mask hides
-#:   is data, read only on the card).
+#:   is data, read only on the card);
+#: - the wide route's gate kernels, one launch a step: ``(batch, hidden,
+#:   itemsize, masked)`` forward, ``(batch, hidden, itemsize, masked,
+#:   prod, direct)`` backward; the step's cuBLAS product is no kernel of
+#:   the port's and books nothing.
 LAUNCH_COSTS: Dict[str, object] = {
     "gru_scan_fwd": _scan_fwd("gru"),
     "gru_scan_bwd": _scan_bwd("gru"),
@@ -235,4 +283,9 @@ LAUNCH_COSTS: Dict[str, object] = {
     "ssm_step": lambda sig: ssm_cost(*sig),
     "ssm_tick": lambda sig: tick_cost(*sig),
     **{k: _flash(k) for k in FLASH_FLOPS},
+    **{f"{cell}_wide_fwd": (lambda sig, cell=cell: wide_gates_cost(
+        cell, *sig)) for cell in SCAN_SHAPES},
+    **{f"{cell}_wide_bwd": (lambda sig, cell=cell: wide_gates_cost(
+        cell, *sig[:4], backward=True, prod=sig[4], direct=sig[5]))
+        for cell in SCAN_SHAPES},
 }

@@ -43,6 +43,28 @@ bwd_launches = 0
 _MAX_HIDDEN = 1024
 
 
+def kernel_supported(batch: int, seq_len: int, hidden: int,
+                     itemsize: int) -> bool:
+    """True where the kernel pair (:func:`gru_scan`) runs a scan of
+    (batch, seq_len, hidden) in an I/O dtype of ``itemsize`` bytes; false
+    where the wide route (:mod:`fmda_tpu_torch.ops.wide_scan`) runs it.
+    The counterpart of ``fmda_tpu.ops.pallas_gru.kernel_supported``, with
+    the card's rule in place of the TPU's VMEM budget: the pair wherever
+    its forward holds W_hh on chip (its plan off the device-memory branch)
+    within its hidden limit (:func:`~fmda_tpu_torch.ops._cuda_lib.pair_runs`,
+    the plan's Python copy); else the wide route.  One criterion, the
+    caller's wait, set on the card (``experiments/torch_wide_crossover.py``,
+    PERF.md): at every shape measured off the device branch (H 128 and, in
+    bf16, 256; B 1-512, T 30; forward and forward + backward) a call of the
+    pair returned sooner than the route's 2 T host calls a direction (its
+    backward sweep too where that reads W_hh from L2); the device branch,
+    which reads W_hh from L2 every forward step, is the route's by design.
+    Batch and seq_len do not move the rule.  A pure function of shape and
+    dtype, decided before any launch."""
+    del batch, seq_len  # the card's crossover is in hidden and dtype alone
+    return _cuda_lib.pair_runs(3, hidden, itemsize, _MAX_HIDDEN)
+
+
 # -- the plain version ---------------------------------------------------------
 
 
@@ -55,11 +77,20 @@ def gru_gates(
     Gate algebra and the hidden product run in float32 whatever the I/O
     dtype (bf16 products are exact in f32, as on the TPU's MXU); the new
     carry is rounded to ``h.dtype``."""
+    f32 = torch.float32
+    hp = torch.matmul(h.to(f32), w_hh.to(f32).t()) + b_hh.to(f32)
+    return gru_gate_algebra(xp_t, hp, h)
+
+
+def gru_gate_algebra(
+    xp_t: torch.Tensor, hp: torch.Tensor, h: torch.Tensor,
+) -> torch.Tensor:
+    """The step's gate algebra from its hidden pre-activations ``hp`` (h .
+    W_hh^T + b_hh), in float32 whatever the I/O dtype; the new carry is
+    rounded to ``h.dtype``."""
     hidden = h.shape[-1]
     f32 = torch.float32
-    hf = h.to(f32)
-    hp = torch.matmul(hf, w_hh.to(f32).t()) + b_hh.to(f32)
-    x = xp_t.to(f32)
+    hf, hp, x = h.to(f32), hp.to(f32), xp_t.to(f32)
     r = torch.sigmoid(x[..., :hidden] + hp[..., :hidden])
     z = torch.sigmoid(x[..., hidden:2 * hidden] + hp[..., hidden:2 * hidden])
     n = torch.tanh(x[..., 2 * hidden:] + r * hp[..., 2 * hidden:])

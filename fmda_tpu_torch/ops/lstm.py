@@ -5,10 +5,13 @@ The recurrence is split as in ``fmda_tpu.ops.lstm`` (and as in
 
 1. the input projection ``x @ W_ih^T + b_ih`` for every timestep at once,
    one large ``(B*T, F) x (F, 4H)`` product left to cuBLAS;
-2. the recurrent scan, which carries h and c through the small
-   ``h @ W_hh^T`` product and the gate algebra, in the CUDA kernels of
-   :mod:`fmda_tpu_torch.ops.lstm_kernel` (forward, and backward when
-   autograd records).
+2. the recurrent scan, which carries h and c through the ``h @ W_hh^T``
+   product and the gate algebra, by the route :func:`select_lstm_scan_fn`
+   picks by shape alone: the CUDA kernel pair of
+   :mod:`fmda_tpu_torch.ops.lstm_kernel` where its
+   :func:`~fmda_tpu_torch.ops.lstm_kernel.kernel_supported` holds (H <= 512
+   and W_hh on chip), else the wide route of
+   :mod:`fmda_tpu_torch.ops.wide_scan`.
 
 Gates follow the torch ``nn.LSTM`` convention, packed ``[i, f, g, o]``:
 
@@ -36,12 +39,15 @@ from fmda_tpu_torch.ops.lstm_kernel import (
     lstm_scan_bwd_reference,
     lstm_scan_fwd,
     lstm_scan_reference,
+    kernel_supported,
 )
+from fmda_tpu_torch.ops.wide_scan import lstm_wide_scan
 
 __all__ = [
     "LSTMWeights", "lstm_gates", "lstm_input_projection", "lstm_layer",
     "lstm_scan", "lstm_scan_bwd", "lstm_scan_bwd_reference", "lstm_scan_fwd",
-    "lstm_scan_reference",
+    "lstm_scan_reference", "lstm_wide_scan", "kernel_supported",
+    "select_lstm_scan_fn",
 ]
 
 
@@ -60,6 +66,13 @@ def lstm_input_projection(x: torch.Tensor,
     return F.linear(x, weights.w_ih, weights.b_ih)
 
 
+def select_lstm_scan_fn(shape: Tuple[int, int, int], itemsize: int):
+    """The LSTM twin of :func:`fmda_tpu_torch.ops.gru.select_scan_fn`:
+    :func:`lstm_scan` where ``kernel_supported(*shape, itemsize)``
+    (``shape`` = (batch, seq_len, hidden)), else :func:`lstm_wide_scan`."""
+    return lstm_scan if kernel_supported(*shape, itemsize) else lstm_wide_scan
+
+
 def lstm_layer(
     x: torch.Tensor,
     weights: LSTMWeights,
@@ -71,13 +84,20 @@ def lstm_layer(
     remat: bool = False,
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
     """One direction of an LSTM layer: projection, then the differentiable
-    scan (its kernels, or their plain versions for CPU tensors).  Returns
-    ((h_last, c_last), hs).  ``remat`` recomputes the plain scan in the
-    backward pass, as the reference checkpoints its ``lax.scan``."""
+    scan by the route :func:`select_lstm_scan_fn` picks (its kernels, or
+    their plain versions for CPU tensors).  Returns ((h_last, c_last), hs).
+    ``remat`` recomputes the kernel pair's plain scan in the backward
+    pass, as the reference checkpoints its ``lax.scan``; the wide route
+    rematerialises already."""
     state = (x.shape[0], weights.w_hh.shape[-1])
     h0 = x.new_zeros(state) if h0 is None else h0
     c0 = x.new_zeros(state) if c0 is None else c0
     xp = lstm_input_projection(x, weights)
+    scan = select_lstm_scan_fn((x.shape[0], x.shape[1], state[1]),
+                               x.element_size())
+    if scan is lstm_wide_scan:
+        return scan(xp, h0, c0, weights.w_hh, weights.b_hh, reverse=reverse,
+                    mask=mask)
     if remat and xp.device.type == "cpu" and torch.is_grad_enabled():
         # the plain path only: the kernel pair saves xp, the carries, the
         # weights, hs and cs, and its backward sweep recomputes the gates,

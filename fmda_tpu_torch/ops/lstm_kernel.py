@@ -56,6 +56,19 @@ _MAX_HIDDEN = 512
 Tensor = torch.Tensor
 
 
+def kernel_supported(batch: int, seq_len: int, hidden: int,
+                     itemsize: int) -> bool:
+    """The LSTM twin of
+    :func:`fmda_tpu_torch.ops.gru_kernel.kernel_supported` (the counterpart
+    of ``fmda_tpu.ops.pallas_lstm.kernel_supported``): True where the
+    kernel pair (:func:`lstm_scan`) runs the scan, wherever its forward
+    holds W_hh on chip within its hidden limit of 512; false where the wide
+    route runs it (every H > 512 among them).  A pure function of shape and
+    dtype."""
+    del batch, seq_len  # the card's crossover is in hidden and dtype alone
+    return _cuda_lib.pair_runs(4, hidden, itemsize, _MAX_HIDDEN)
+
+
 # -- the plain version ---------------------------------------------------------
 
 
@@ -68,10 +81,20 @@ def lstm_gates(
     Gate algebra and the hidden product run in float32 whatever the I/O
     dtype; the new h comes from the unrounded float32 cell state, then h
     and c are rounded to their dtypes (the Pallas kernel's order)."""
-    hidden = h.shape[-1]
     f32 = torch.float32
     hp = torch.matmul(h.to(f32), w_hh.to(f32).t()) + b_hh.to(f32)
-    s = xp_t.to(f32) + hp
+    return lstm_gate_algebra(xp_t, hp, h, c)
+
+
+def lstm_gate_algebra(
+    xp_t: Tensor, hp: Tensor, h: Tensor, c: Tensor,
+) -> Tuple[Tensor, Tensor]:
+    """The step's gate algebra from its hidden pre-activations ``hp`` (h .
+    W_hh^T + b_hh), in float32; h from the unrounded float32 cell state,
+    then h and c rounded to their dtypes."""
+    hidden = h.shape[-1]
+    f32 = torch.float32
+    s = xp_t.to(f32) + hp.to(f32)
     i = torch.sigmoid(s[..., :hidden])
     f = torch.sigmoid(s[..., hidden:2 * hidden])
     g = torch.tanh(s[..., 2 * hidden:3 * hidden])

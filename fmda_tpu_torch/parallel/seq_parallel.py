@@ -5,9 +5,11 @@ splits it.
 - The input projection runs on each rank's own (B, T/sp, F) block.
 - The recurrence is serial across blocks: rank k waits for the carry of
   rank k - 1, scans its block with the port's
-  :func:`~fmda_tpu_torch.ops.gru.gru_scan` (on a card, kernel 1 forward and
-  kernel 2 backward, the carried ``h0`` in and ``dh0`` out), then sends its
-  final carry on; the reverse direction runs the other way.
+  :func:`~fmda_tpu_torch.ops.gru.routed_gru_scan` (the route
+  ``select_scan_fn`` picks for the local block: on a card at the model's
+  widths kernel 1 forward and kernel 2 backward, past the kernel pair's
+  envelope the wide route; the carried ``h0`` in and ``dh0`` out), then
+  sends its final carry on; the reverse direction runs the other way.
   :func:`sp_gru_scan_pipelined` splits the batch into M microbatches, so
   rank k scans microbatch m as soon as it has m's carry.
 - The pooling head reduces locally, then across the axis.
@@ -41,7 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from fmda_tpu_torch.ops.gru import GRUWeights, gru_scan
+from fmda_tpu_torch.ops.gru import GRUWeights, routed_gru_scan
 from fmda_tpu_torch.parallel.collectives import (
     all_gather,
     all_reduce_sum,
@@ -176,7 +178,7 @@ def sp_gru_scan(
     axis: Axis,
     *,
     reverse: bool = False,
-    scan_fn=gru_scan,
+    scan_fn=routed_gru_scan,
     remat: bool = False,
 ) -> Tuple[Tensor, Tensor]:
     """Time-sharded GRU recurrence over ``axis``.
@@ -185,7 +187,8 @@ def sp_gru_scan(
       xp_local: this rank's input-projection block (B, T_local, 3H).
       h0: the global initial hidden state (B, H), the same on every rank.
       reverse: the backward direction (stages run from the last rank).
-      scan_fn: the local block's recurrence, the port's ``gru_scan``.
+      scan_fn: the local block's recurrence, by default the route the
+        port's ``select_scan_fn`` picks for the block's shape and dtype.
 
     Returns (h_last, hs_local): the global final hidden state (every rank
     of the axis gets it) and this rank's per-step hiddens
@@ -204,7 +207,7 @@ def sp_gru_scan_pipelined(
     *,
     n_microbatches: int,
     reverse: bool = False,
-    scan_fn=gru_scan,
+    scan_fn=routed_gru_scan,
     remat: bool = False,
 ) -> Tuple[Tensor, Tensor]:
     """:func:`sp_gru_scan` over ``n_microbatches`` equal microbatches of
@@ -225,7 +228,7 @@ def sp_bigru_layer_dirs(
     weights_bwd: Optional[GRUWeights],
     axis: Axis,
     n_microbatches: int = 1,
-    scan_fn=gru_scan,
+    scan_fn=routed_gru_scan,
     remat: bool = False,
 ) -> Tuple[Tuple[Tensor, Tensor], Optional[Tuple[Tensor, Tensor]]]:
     """One (bi)GRU layer over a time-sharded input block, per direction:
@@ -250,7 +253,7 @@ def sp_bigru_layer(
     weights_bwd: Optional[GRUWeights],
     axis: Axis,
     n_microbatches: int = 1,
-    scan_fn=gru_scan,
+    scan_fn=routed_gru_scan,
     remat: bool = False,
 ) -> Tuple[Tensor, Tensor]:
     """Direction-summed :func:`sp_bigru_layer_dirs`: (last_hidden_sum,
@@ -324,7 +327,7 @@ def sp_bigru_apply(
         if cfg.bidirectional:
             dirs.append((_weights(params, f"l{layer}_reverse", dtype), True))
         outs = _run_stages(x, h0, dirs, axis, n_microbatches, cfg.remat,
-                           gru_scan)
+                           routed_gru_scan)
         x = torch.cat([hs for _, hs in outs], dim=-1)
     # the last layer's direction sums; each direction's final carry lives
     # on its last slot's rank

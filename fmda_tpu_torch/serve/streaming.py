@@ -18,8 +18,10 @@ history, so each tick feeds only the newest row and carries the state.
   gru and lstm models: the forward direction is carried as above, and the
   backward direction, which needs each row's future, is re-scanned every
   tick over a ring of its input projections, newest to oldest, from a zero
-  state, through the family's forward-scan kernel (``gru_scan_fwd`` or
-  ``lstm_scan_fwd``).
+  state, by the route the family's selector picks for the ring's shape
+  (``select_scan_fn`` / ``select_lstm_scan_fn``, as training's layers ask
+  it): the kernel pair's forward scan, or past its envelope the wide
+  route's.
 - :class:`StreamingPredictor` is the bus-facing wrapper: each signal feeds
   the rows up to its own through the core, catching up any gap first.
 
@@ -49,8 +51,9 @@ from fmda_tpu_torch.config import (
 from fmda_tpu_torch.data.normalize import NormParams
 from fmda_tpu_torch.device import DeviceLike, resolve_device
 from fmda_tpu_torch.ops import ssm_kernel
-from fmda_tpu_torch.ops.gru import GRUWeights, gru_gates, gru_scan_fwd
-from fmda_tpu_torch.ops.lstm import LSTMWeights, lstm_gates, lstm_scan_fwd
+from fmda_tpu_torch.ops.gru import GRUWeights, gru_gates, select_scan_fn
+from fmda_tpu_torch.ops.lstm import (
+    LSTMWeights, lstm_gates, select_lstm_scan_fn)
 from fmda_tpu_torch.ops.ssm import SSMWeights
 from fmda_tpu_torch.serve.predictor import labels_over_threshold
 
@@ -75,7 +78,9 @@ class CellOps(NamedTuple):
     ``gate_step(xp, carry, w) -> (h_new, carry_new)`` advances one tick
     (carry is a tuple: ``(h,)`` GRU, ``(h, c)`` LSTM); ``bwd_scan(xp_nf,
     zeros, w) -> hs`` is the backward-direction window re-scan from a zero
-    state (None for families without one); ``head`` names the pooling
+    state, by the route the family's selector picks for (B, window, H) in
+    the ring's dtype (None for families without one); ``head`` names the
+    pooling
     state the core carries: ``"ring"`` (a (window, H) ring of per-step
     hiddens fed to :func:`pooled_head_logits`) or ``"carry"`` (the SSM:
     the pooling state lives in the cell carry ``(s, ema_fast, ema_slow)``,
@@ -90,6 +95,11 @@ class CellOps(NamedTuple):
     head: str
 
 
+def _scan_shape(xp: Tensor, h0: Tensor) -> Tuple[int, int, int]:
+    """(batch, seq_len, hidden) of a scan, the selectors' shape."""
+    return xp.shape[0], xp.shape[1], h0.shape[-1]
+
+
 def _recurrent_cell_ops(cell: str) -> CellOps:
     """:class:`CellOps` for a recurrent family; the attn family has none
     (its window re-encode is the Predictor)."""
@@ -99,7 +109,9 @@ def _recurrent_cell_ops(cell: str) -> CellOps:
             return h_new, (h_new,)
 
         def bwd_scan(xp_nf, zeros, w):
-            return gru_scan_fwd(xp_nf, zeros, w.w_hh, w.b_hh)[1]
+            scan = select_scan_fn(_scan_shape(xp_nf, zeros),
+                                  xp_nf.element_size())
+            return scan(xp_nf, zeros, w.w_hh, w.b_hh)[1]
 
         return CellOps(gate_step, bwd_scan, 1, 3, "ring")
     if cell == "lstm":
@@ -108,7 +120,9 @@ def _recurrent_cell_ops(cell: str) -> CellOps:
             return h_new, (h_new, c_new)
 
         def bwd_scan(xp_nf, zeros, w):
-            return lstm_scan_fwd(xp_nf, zeros, zeros, w.w_hh, w.b_hh)[2]
+            scan = select_lstm_scan_fn(_scan_shape(xp_nf, zeros),
+                                       xp_nf.element_size())
+            return scan(xp_nf, zeros, zeros, w.w_hh, w.b_hh)[1]
 
         return CellOps(gate_step, bwd_scan, 2, 4, "ring")
     if cell == "ssm":
@@ -275,8 +289,9 @@ class StreamingBiGRUBidirectional:
       gate step) and push its hidden output onto a ring;
     - backward direction: project the row once, push it onto a ring of
       backward projections, and re-scan that ring newest to oldest from a
-      zero state at the newest row (the family's forward-scan kernel, one
-      launch a tick), the training-time backward semantics;
+      zero state at the newest row (the kernel pair's forward scan, one
+      launch a tick, or past its envelope the wide route, a product and a
+      gate launch a ring slot), the training-time backward semantics;
     - the pooled head (last-hidden sum, max and mean pools of the per-step
       direction sums) over the valid window.
     """

@@ -145,6 +145,10 @@ class ContinuousTrainer:
         here and never sleep.
     device:
         Where the trainer runs; ``None`` means the CUDA card.
+    mesh / dp_axis:
+        Passed through to :class:`~fmda_tpu_torch.train.trainer.Trainer`:
+        every round's fine-tune data parallel over the mesh's ``dp_axis``
+        (each process a rank, as ``Trainer(mesh=)`` runs it).
     """
 
     def __init__(
@@ -162,6 +166,8 @@ class ContinuousTrainer:
         wait_fn: Optional[Callable[[], None]] = None,
         chunk: int = 1024,
         device: DeviceLike = None,
+        mesh=None,
+        dp_axis: str = "dp",
     ) -> None:
         self.warehouse = warehouse
         self.train_cfg = train_cfg
@@ -183,7 +189,8 @@ class ContinuousTrainer:
             except (ValueError, ZeroDivisionError):
                 log.warning("imbalance weights unavailable: unweighted BCE")
         self.trainer = Trainer(model_cfg, train_cfg, weight=weight,
-                               pos_weight=pos_weight, device=device)
+                               pos_weight=pos_weight, device=device,
+                               mesh=mesh, dp_axis=dp_axis)
         self._state: Optional[TrainState] = None
         self.checkpoints: List[str] = []
         self.rounds = 0

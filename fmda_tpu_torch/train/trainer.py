@@ -344,6 +344,17 @@ class Trainer:
 
     # -- epochs --------------------------------------------------------------
 
+    def _prefetch(self, batches: Iterable[Batch]) -> Iterable[Batch]:
+        """The input pipeline (:func:`prefetch_batches` over
+        :meth:`place`, ``train.prefetch_depth`` batches ahead), its
+        host-side wait per pull observed into the
+        ``train_input_stall_seconds`` histogram, as the reference's
+        ``_place_batches`` observes it."""
+        stall = default_registry().histogram("train_input_stall_seconds")
+        return prefetch_batches(batches, self.place,
+                                depth=self.train_cfg.prefetch_depth,
+                                stall_observer=stall.observe)
+
     def _run_chunks(
         self,
         state: TrainState,
@@ -368,8 +379,7 @@ class Trainer:
                 yield from WindowBatches(
                     dataset, idx, self.train_cfg.batch_size)
 
-        placed = prefetch_batches(host_batches(), self.place,
-                                  depth=self.train_cfg.prefetch_depth)
+        placed = self._prefetch(host_batches())
         if not cache_on:
             return self._run_batches(state, placed, train)
         sink: List[Batch] = []
@@ -530,8 +540,7 @@ class Trainer:
                 host = (mtd.mixed_batches(rc, k) for rc in mtd.rounds(chunks))
             else:
                 host = (mtd.batches(t, c, tc.batch_size) for t, c in chunks)
-            return prefetch_batches(itertools.chain.from_iterable(host),
-                                    self.place, depth=tc.prefetch_depth)
+            return self._prefetch(itertools.chain.from_iterable(host))
 
         state = self.init_state()
         history: Dict[str, List[EpochMetrics]] = {"train": [], "val": []}

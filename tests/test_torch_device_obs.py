@@ -123,7 +123,10 @@ def test_roofline_and_launch_costs():
            **{k: (8, 30, 32, 4, False) for k in (
                "gru_scan_fwd", "gru_scan_bwd", "lstm_scan_fwd",
                "lstm_scan_bwd")},
-           **{k: (2, 4, 30, 8, 4, True, False) for k in cost.FLASH_FLOPS}}
+           **{k: (2, 4, 30, 8, 4, True, False) for k in cost.FLASH_FLOPS},
+           **{f"{c}_wide_fwd": (8, 32, 4, False) for c in ("gru", "lstm")},
+           **{f"{c}_wide_bwd": (8, 32, 4, False, True, True)
+              for c in ("gru", "lstm")}}
     for kernel, fn in cost.LAUNCH_COSTS.items():
         assert isinstance(fn(sig[kernel]), cost.Cost)
     assert cost.LAUNCH_COSTS["ssm_tick"](sig["ssm_tick"]) == cost.tick_cost(
