@@ -47,12 +47,24 @@ Phases, each printed as one JSON line, each fatal on failure:
    (the kernel pair wherever its forward's plan holds W_hh on chip, the
    wide route wherever it reads W_hh from device memory or passes the
    hidden limit).
+   ``wide persist plan``: the persistent LSTM scans' plan query against
+   its Python copy (``_cuda_lib.persist_plan``) on the card's figures.
    ``wide kernel``: each of the four gate kernels (GRU and LSTM, forward
    and backward) against its plain version at (512, 1024) bf16 and (256,
-   512) f32, masked and not, ms beside its bound.  ``wide route``: the
-   route's scans forward and forward + backward against the same scans
-   through the plain gate steps, both directions, beside kernel 1's (3's)
-   device-memory branch where it runs and cuDNN's layer.  ``wide path``
+   512) f32, masked and not, ms beside its bound.  ``wide persist``: the
+   LSTM route's persistent scans (``csrc/lstm_persist.cu``, one launch a
+   direction: forward and the backward sweep) against their plain
+   versions at those shapes and B = 1, masked and not, both directions, a
+   second call the same bits (bf16 within 2e-2, each output also of its own
+   largest entry), ms beside the bound and the L2 bytes a step; ``wide
+   persist cluster``: the same on a plan of clusters of 2 (the TMA
+   multicast); ``wide persist witness``: the route's scan and gradients
+   through the persistent and through the per-step kernels, each against
+   a float64 scan written in this file, the persistent route no farther
+   from it than the per-step route.  ``wide route``: the route's scans forward and forward +
+   backward against the same scans through the plain versions, both
+   directions, beside kernel 1's (3's) device-memory branch where it runs,
+   the LSTM's per-step kernels (W3, W4) and cuDNN's layer.  ``wide path``
    (after the warehouse's paths' set-up, before ``path``): the JAX
    package's ``flagship_wide`` (H = 1024, bf16, batch 512, dropout 0.5,
    spatial) for gru and for lstm: the first step's loss and gradients
@@ -61,8 +73,9 @@ Phases, each printed as one JSON line, each fatal on failure:
    (against the plain gate steps), the Predictor on 8 signals, and the
    bidirectional streaming core for 8 ticks (its backward re-scan of the
    30-row ring on the wide route, against the plain gate steps); kernels
-   1-4 and ``scan_dw`` 0 launches, each gate kernel T a scan and
-   direction.  Every line carries ``route``.  The phase must take at most
+   1-4 and ``scan_dw`` 0 launches, each GRU gate kernel T a scan and
+   direction, the LSTM's persistent scans one a scan (or a backward call)
+   and direction and its gate kernels 0.  Every line carries ``route``.  The phase must take at most
    40 s (``WIDE_BUDGET_S``).
 4. ``path``: the window-re-scan serving path at full width
    (``FrameworkConfig()``: H=32, F=108, window 30, float32) over a
@@ -1091,9 +1104,37 @@ WIDE_BATCH = 512
 WIDE_BACKTEST_BATCHES = 4
 WIDE_SIGNALS = 8
 WIDE_STREAM_TICKS = 8
+#: the persistent LSTM scans (``csrc/lstm_persist.cu``): the LSTM route's
+#: scan in one launch a direction, wherever their plan lays it out
+PERSIST_SOURCE = "fmda_tpu_torch/csrc/lstm_persist.cu"
+PERSIST_KERNELS = ("lstm_persist_fwd", "lstm_persist_bwd")
+#: WIDE_SHAPES and the Predictor's and the stream's B = 1
+PERSIST_SHAPES = WIDE_SHAPES + ((1, 1024, torch.bfloat16),)
+#: the plan query against its Python copy at these (batch, hidden)
+PERSIST_PLAN_CASES = ((1, 1024), (256, 1024), (512, 1024), (256, 512),
+                      (512, 512), (800, 768), (288, 768), (512, 1600),
+                      (1, 1600), (512, 2048), (3, 48))
+#: the cluster size the kernels also run at flagship_wide's shape, where
+#: the plan takes one CTA a cluster (the multicast path's check)
+PERSIST_CLUSTER = 2
+#: the persistent route against the float64 witness (``wide persist
+#: witness``), by dtype: each output's largest difference over the
+#: witness's largest entry at most WITNESS_TOL, its root mean square
+#: difference at most WITNESS_RMS_RATIO times the per-step route's.  From
+#: ``experiments/torch_lstm_persist.py``'s witness phase on the H100
+#: (B = 1, 256, 512 at H = 1024 bf16, masked and not): bf16 at most
+#: 0.0068 of the largest entry in both routes, the ratio 0.971-1.008;
+#: f32 (256, 512) at most 1.75e-6, the ratio 1.007-2.885 (dh0: the
+#: sweep's float32 sums over 4 H in order, cuBLAS's blocked)
+WITNESS_OUTPUTS = ("h_last", "c_last", "hs", "dxp", "dh0", "dc0", "dw_hh",
+                   "db_hh")
+WITNESS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+WITNESS_RMS_RATIO = {"bfloat16": 1.1, "float32": 4.0}
 #: what the wide phase (its rule, kernels, route and paths) may take
 WIDE_BUDGET_S = 40.0
-#: repetitions of the kernel pair's device-memory branch beside the route
+#: repetitions of the kernel pair's device-memory branch beside the route,
+#: and of the route's plain versions (the LSTM's sums its bf16 products a
+#: k-step at a time, as the persistent kernels do)
 WIDE_PAIR_REPS = 3
 
 
@@ -1113,6 +1154,25 @@ class plain_wide_gates:
         from fmda_tpu_torch.ops import wide_scan
 
         wide_scan._on_cpu = self._saved
+        return False
+
+
+class per_step_lstm:
+    """Inside, the LSTM route's persistent plan is forced off: its scans
+    run the per-step kernels (W3, W4), the route before the persistent
+    scans, timed beside them."""
+
+    def __enter__(self):
+        from fmda_tpu_torch.ops import wide_scan
+
+        self._saved = wide_scan.lstm_persist_plan
+        wide_scan.lstm_persist_plan = lambda *a, **k: None
+        return self
+
+    def __exit__(self, *exc):
+        from fmda_tpu_torch.ops import wide_scan
+
+        wide_scan.lstm_persist_plan = self._saved
         return False
 
 
@@ -1163,7 +1223,40 @@ def phase_wide_rule(device: str = "cuda") -> dict:
     emit("wide rule", kernel_pair_hidden=on_pair,
          device_branch={f"{r['cell']} {r['dtype']} {r['hidden']}": r["plan"]
                         for r in rows if r["plan"] == "device"})
+    if device == "cuda":
+        phase_persist_plan()
     return on_pair
+
+
+def phase_persist_plan() -> list:
+    """The persistent LSTM scans' plan query (``fmda_lstm_persist_plan``)
+    against its Python copy (``_cuda_lib.persist_plan``) on the figures
+    the query reports, at PERSIST_PLAN_CASES in both dtypes: the same
+    fields, or both handing the scan back."""
+    from fmda_tpu_torch.ops import _cuda_lib
+
+    rows = []
+    for batch, hidden in PERSIST_PLAN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            plan, figures = _cuda_lib.persist_plan_query(batch, hidden, dtype,
+                                                         0)
+            mirror = _cuda_lib.persist_plan(batch, hidden, itemsize,
+                                            **figures)
+            rows.append(dict(batch=batch, hidden=hidden,
+                             dtype=str(dtype).replace("torch.", ""),
+                             plan=plan, mirror=mirror == plan))
+            check(mirror == plan, f"persist plan ({batch}, {hidden}) "
+                  f"{dtype}: the query lays out {plan}, its Python copy "
+                  f"{mirror}")
+    emit("wide persist plan", figures=figures,
+         persistent={f"{r['batch']} {r['hidden']} {r['dtype']}":
+                     None if r["plan"] is None else
+                     {k: r["plan"][k] for k in ("tiles", "slices",
+                                                 "cluster", "chunk",
+                                                 "stages", "smem")}
+                     for r in rows})
+    return rows
 
 
 def wide_step_operands(cell, batch, hidden, dtype, masked, gen, dev):
@@ -1253,7 +1346,10 @@ def phase_wide_kernels(device: str = "cuda") -> list:
     compared, a second call the same bits; the kernel's device ms, the
     plain version's, and the bound (bytes at 3.35 TB/s against the
     element-wise operations at 67 TFLOP/s: ``wide_gates_bound``).  No one
-    PyTorch call computes a fused gate step, so ``library_ms`` is null."""
+    PyTorch call computes a fused gate step, so ``library_ms`` is null.
+    The LSTM gate kernels are the per-step route, which the persistent
+    scans' plan keeps where W_hh does not fit the grid; then the
+    persistent scans themselves (:func:`phase_wide_persist`)."""
     from fmda_tpu_torch.ops.cost import wide_gates_bound
 
     dev = torch.device(device)
@@ -1307,7 +1403,289 @@ def phase_wide_kernels(device: str = "cuda") -> list:
                 check(same_bits, f"{name} gave other bits on a second "
                       f"call: {row}")
                 results.append(row)
+    return results + phase_wide_persist(device)
+
+
+def persist_mask(batch, gen, dev):
+    """A (B, T) uint8 mask of ragged lengths (every row at least a step),
+    uniform from ``gen``."""
+    lengths = torch.randint(1, WIDE_STEPS + 1, (batch,), generator=gen,
+                            device=dev)
+    return (torch.arange(WIDE_STEPS, device=dev)[None, :]
+            < lengths[:, None]).to(torch.uint8)
+
+
+def phase_wide_persist(device: str = "cuda") -> list:
+    """(a) The persistent LSTM scans against their plain versions on the
+    card at PERSIST_SHAPES, masked and not, both directions: the forward
+    (hs, cs) and the backward sweep (dxp, dh0, dc0) from the forward's
+    states, every output (:func:`persist_agrees`), a second call the same
+    bits; then :func:`phase_persist_cluster` and
+    :func:`phase_persist_witness`.  At each shape's
+    unmasked forward direction: the kernel's device ms, the plain
+    version's, the bound (``scan_bound`` at gates = 4, states = 2;
+    ``persist_sweep_bound`` for the sweep, whose products over all B T
+    rows stay outside it), the L2 bytes a step of its plan; ``library_ms``
+    is cuDNN's layer, in the route's line."""
+    from fmda_tpu_torch.ops import wide_scan as ws
+    from fmda_tpu_torch.ops.cost import (
+        persist_l2_bytes, persist_sweep_bound, scan_bound)
+    from fmda_tpu_torch.ops.scan_dw import h_prev_of
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    shapes = SCAN_SHAPES["lstm"]
+    results = []
+    for batch, hidden, dtype in PERSIST_SHAPES:
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        plan = ws.lstm_persist_plan(batch, hidden, dtype, dev)
+        check(plan is not None, f"persist ({batch}, {hidden}) {dtype}: the "
+              f"plan hands the scan back")
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        for masked in (False, True):
+            for reverse in (False, True):
+                (xp, h0, c0, w, b), cots = wide_scan_inputs(
+                    "lstm", batch, hidden, dtype, gen, dev)
+                mask = persist_mask(batch, gen, dev) if masked else None
+                kw = dict(reverse=reverse, mask=mask)
+                with torch.inference_mode():
+                    want = ws.lstm_persist_scan_reference(xp, h0, c0, w, b,
+                                                          plan, **kw)
+                    hh = ws._recompute_hh(h_prev_of(h0, want[0],
+                                                    reverse=reverse), w, b)
+                    sweep = (xp, hh, c0, want[1], w, cots[2],
+                             cots[0].float(), cots[1].float(), plan)
+                    calls = {
+                        "lstm_persist_fwd": (
+                            lambda: ws.lstm_persist_fwd(
+                                xp, h0, c0, w, b, plan, **kw),
+                            lambda: ws.lstm_persist_scan_reference(
+                                xp, h0, c0, w, b, plan, **kw)),
+                        "lstm_persist_bwd": (
+                            lambda: ws.lstm_persist_bwd(*sweep, **kw),
+                            lambda: ws.lstm_persist_sweep_reference(
+                                *sweep, **kw))}
+                    for name, (kernel, plain) in calls.items():
+                        got = [g.clone() for g in kernel()]
+                        again = kernel()
+                        ref = plain()
+                        torch.cuda.synchronize()
+                        errs, rels = persist_errors(got, ref)
+                        row = dict(
+                            kernel=name, batch=batch, hidden=hidden,
+                            dtype=str(dtype).replace("torch.", ""),
+                            masked=masked, reverse=reverse,
+                            max_abs_err=max(errs), errs=errs,
+                            max_rel_err=max(rels), rel_errs=rels, tol=tol,
+                            bit_identical_rerun=all(
+                                torch.equal(g, a) for g, a in zip(got, again)),
+                            finite=all(bool(torch.isfinite(g.float()).all())
+                                       for g in got))
+                        if not (masked or reverse):
+                            backward = name == "lstm_persist_bwd"
+                            row.update(
+                                plan=plan,
+                                ms=time_ms(kernel, prime=True),
+                                # the plain scans sum bf16 products a
+                                # k-step at a time: one timed call
+                                plain_ms=time_ms(plain, prime=True, reps=1,
+                                                 warmup=1),
+                                l2_bytes_per_step=persist_l2_bytes(
+                                    plan, batch, hidden, itemsize, backward),
+                                library_ms=None)
+                            row["bound_ms"], row["bound_by"] = (
+                                persist_sweep_bound(batch, WIDE_STEPS, hidden,
+                                                    itemsize, False)
+                                if backward else scan_bound(
+                                    batch, WIDE_STEPS, hidden, itemsize,
+                                    False, gates=shapes["gates"],
+                                    states=shapes["states"],
+                                    elementwise=shapes["fwd_ops"]))
+                        emit(f"wide persist {name}", **row)
+                        check(row["finite"], f"non-finite {name} output: "
+                              f"{row}")
+                        check(persist_agrees(row, dtype), f"{name} "
+                              f"disagrees with its plain version: {row}")
+                        check(row["bit_identical_rerun"], f"{name} gave "
+                              f"other bits on a second call: {row}")
+                        results.append(row)
+    phase_persist_cluster(device)
+    phase_persist_witness(device)
     return results
+
+
+def persist_errors(got, want):
+    """Each output's largest difference, and the same relative to the
+    output's own largest entry."""
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    rels = [e / max(w.float().abs().max().item(), 1e-30)
+            for e, w in zip(errs, want)]
+    return errs, rels
+
+
+def persist_agrees(row, dtype) -> bool:
+    """A persistent kernel's outputs against its plain version: float32
+    within F32_TOL; bfloat16 within BF16_TOL and each within BF16_TOL of
+    its own largest entry (the sweep's outputs are a cotangent's size, so
+    the absolute bound alone would be near the values themselves)."""
+    if dtype == torch.float32:
+        return row["max_abs_err"] <= F32_TOL
+    return row["max_abs_err"] <= BF16_TOL and row["max_rel_err"] <= BF16_TOL
+
+
+def phase_persist_cluster(device: str = "cuda") -> list:
+    """The persistent kernels on a plan of clusters of PERSIST_CLUSTER
+    CTAs (the plan made as if the card held no other size) at
+    flagship_wide's (512, 1024) bf16, masked, against their plain versions
+    and a second call: the TMA multicast the plan keeps for shapes whose
+    batch tile needs it, run where the smoke's own shapes take one CTA a
+    cluster."""
+    from fmda_tpu_torch.ops import _cuda_lib
+    from fmda_tpu_torch.ops import wide_scan as ws
+    from fmda_tpu_torch.ops.scan_dw import h_prev_of
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    batch, hidden, dtype = WIDE_SHAPES[0]
+    figures = (_cuda_lib.persist_plan_query(batch, hidden, dtype, 0)[1]
+               if device == "cuda" else _cuda_lib.H100_FIGURES)
+    only = dict(figures, clusters={k: (v if k == PERSIST_CLUSTER else 0)
+                                   for k, v in figures["clusters"].items()})
+    plan = _cuda_lib.persist_plan(batch, hidden, 2, **only)
+    check(plan is not None and plan["cluster"] == PERSIST_CLUSTER,
+          f"persist cluster: no plan of clusters of {PERSIST_CLUSTER}")
+    (xp, h0, c0, w, b), cots = wide_scan_inputs("lstm", batch, hidden, dtype,
+                                                gen, dev)
+    mask = persist_mask(batch, gen, dev)
+    rows = []
+    with torch.inference_mode():
+        hs_cs = ws.lstm_persist_scan_reference(xp, h0, c0, w, b, plan,
+                                               mask=mask)
+        hh = ws._recompute_hh(h_prev_of(h0, hs_cs[0]), w, b)
+        sweep = (xp, hh, c0, hs_cs[1], w, cots[2], cots[0].float(),
+                 cots[1].float(), plan)
+        for name, kernel, ref in (
+                ("lstm_persist_fwd",
+                 lambda: ws.lstm_persist_fwd(xp, h0, c0, w, b, plan,
+                                             mask=mask), hs_cs),
+                ("lstm_persist_bwd",
+                 lambda: ws.lstm_persist_bwd(*sweep, mask=mask),
+                 ws.lstm_persist_sweep_reference(*sweep, mask=mask))):
+            got = [g.clone() for g in kernel()]
+            again = kernel()
+            torch.cuda.synchronize()
+            errs, rels = persist_errors(got, ref)
+            row = dict(kernel=name, batch=batch, hidden=hidden,
+                       dtype="bfloat16", masked=True, plan=plan,
+                       max_abs_err=max(errs), max_rel_err=max(rels),
+                       rel_errs=rels, tol=BF16_TOL,
+                       bit_identical_rerun=all(torch.equal(g, a)
+                                               for g, a in zip(got, again)))
+            emit(f"wide persist cluster {name}", **row)
+            check(persist_agrees(row, dtype) and row["bit_identical_rerun"],
+                  f"{name} on clusters of {PERSIST_CLUSTER}: {row}")
+            rows.append(row)
+    return rows
+
+
+def lstm_scan_f64(xp, h0, c0, w, b, mask, reverse):
+    """The LSTM scan in float64 on its inputs' values, written here apart
+    from the port: the exact function both wide routes round (h, c and
+    the pre-activations never rounded); gates i, f, g, o; a held row keeps
+    h and c.  (h_last, c_last, hs)."""
+    x, h, c, w, b = (t.double() for t in (xp, h0, c0, w, b))
+    n_steps, hidden = x.shape[1], h.shape[-1]
+    hs = [None] * n_steps
+    for t in (range(n_steps - 1, -1, -1) if reverse else range(n_steps)):
+        i, f, g, o = (x[:, t] + h @ w.t() + b).split(hidden, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        if mask is not None:
+            keep = mask[:, t, None] != 0
+            h_new = torch.where(keep, h_new, h)
+            c_new = torch.where(keep, c_new, c)
+        hs[t], h, c = h_new, h_new, c_new
+    return h, c, torch.stack(hs, dim=1)
+
+
+def witness_errors(got, exact):
+    """Each tensor's distance from the float64 witness: its largest
+    difference over the witness's largest entry, and its root mean square
+    difference over the witness's root mean square."""
+    rel, rms = [], []
+    for g, e in zip(got, exact):
+        d = g.double() - e
+        rel.append(d.abs().max().item() / max(e.abs().max().item(), 1e-300))
+        rms.append(d.pow(2).mean().sqrt().item()
+                   / max(e.pow(2).mean().sqrt().item(), 1e-300))
+    return rel, rms
+
+
+def persist_witness(batch, hidden, dtype, masked, gen, dev) -> dict:
+    """The LSTM route's scan, forward and gradients (h_last, c_last, hs;
+    dxp, dh0, dc0, dW_hh, db_hh at unit cotangents), through the
+    persistent kernels and through the per-step kernels (W3, W4 and
+    cuBLAS's products), each against :func:`lstm_scan_f64` and its
+    float64 gradients: a witness independent of both routes' summation
+    orders and of the plain versions."""
+    from fmda_tpu_torch.ops import wide_scan as ws
+
+    (xp, h0, c0, w, b), _ = wide_scan_inputs("lstm", batch, hidden, dtype,
+                                             gen, dev)
+    mask = persist_mask(batch, gen, dev) if masked else None
+    cots = [(torch.rand(s, generator=gen, device=dev) * 2 - 1).to(dtype)
+            for s in ((batch, hidden), (batch, hidden),
+                      (batch, WIDE_STEPS, hidden))]
+    args64 = [t.double().requires_grad_() for t in (xp, h0, c0, w, b)]
+    out64 = lstm_scan_f64(*args64, mask, False)
+    exact = [o.detach() for o in out64] + [
+        g.detach() for g in torch.autograd.grad(
+            out64, args64, [c.double() for c in cots])]
+    del out64, args64
+
+    def route():
+        args = [t.clone().requires_grad_() for t in (xp, h0, c0, w, b)]
+        (h, c), hs = ws.lstm_wide_scan(*args, mask=mask)
+        return [h.detach(), c.detach(), hs.detach(),
+                *torch.autograd.grad([h, c, hs], args, cots)]
+
+    persist = route()
+    with per_step_lstm():
+        per_step = route()
+    torch.cuda.synchronize()
+    p_rel, p_rms = witness_errors(persist, exact)
+    s_rel, s_rms = witness_errors(per_step, exact)
+    return dict(batch=batch, hidden=hidden,
+                dtype=str(dtype).replace("torch.", ""), masked=masked,
+                outputs=list(WITNESS_OUTPUTS),
+                persist_rel=p_rel, per_step_rel=s_rel,
+                persist_rms=p_rms, per_step_rms=s_rms,
+                rms_ratio=[p / max(q, 1e-300) for p, q in zip(p_rms, s_rms)])
+
+
+def phase_persist_witness(device: str = "cuda") -> list:
+    """:func:`persist_witness` at PERSIST_SHAPES, masked and not: every
+    output of the persistent route within WITNESS_RMS_RATIO (its dtype's)
+    of the per-step route's root mean square distance from the float64
+    witness, and its largest difference within WITNESS_TOL of the
+    witness's largest entry."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rows = []
+    for batch, hidden, dtype in PERSIST_SHAPES:
+        for masked in (False, True):
+            row = persist_witness(batch, hidden, dtype, masked, gen, dev)
+            tol = WITNESS_TOL[row["dtype"]]
+            ratio = WITNESS_RMS_RATIO[row["dtype"]]
+            row.update(tol=tol, rms_ratio_bound=ratio)
+            row["ok"] = (max(row["persist_rel"]) <= tol
+                         and max(row["rms_ratio"]) <= ratio)
+            emit("wide persist witness", **row)
+            check(row["ok"], f"the persistent route is farther from the "
+                  f"float64 witness than the per-step route: {row}")
+            rows.append(row)
+    return rows
 
 
 def wide_scan_inputs(cell, batch, hidden, dtype, gen, dev, *, grad=False):
@@ -1408,7 +1786,8 @@ def phase_wide_route(n_features: int, device: str = "cuda") -> list:
                         with plain_wide_gates():
                             row["plain_ms"] = time_ms(
                                 fwd, prime=True,
-                                prime_cycles=LIBRARY_PRIME_CYCLES)
+                                prime_cycles=LIBRARY_PRIME_CYCLES,
+                                reps=WIDE_PAIR_REPS, warmup=1)
                     row.update(
                         fwd_bwd_ms=time_ms(fwd_bwd, prime=True,
                                            prime_cycles=LIBRARY_PRIME_CYCLES),
@@ -1423,6 +1802,10 @@ def phase_wide_route(n_features: int, device: str = "cuda") -> list:
                         gates=shapes["gates"], states=shapes["states"],
                         elementwise=shapes["fwd_ops"])
                     row["fwd_bwd_bound_ms"] = row["bound_ms"] + fb
+                    if cell == "lstm":
+                        row.update(persist_plan=ws.lstm_persist_plan(
+                            batch, hidden, dtype, dev), **per_step_times(
+                                fwd, fwd_bwd))
                     row.update(wide_yardsticks(cell, pair, args, cots, batch,
                                                hidden, dtype, n_features,
                                                gen, dev))
@@ -1435,6 +1818,19 @@ def phase_wide_route(n_features: int, device: str = "cuda") -> list:
                       f"wide route disagrees with its plain version: {row}")
                 results.append(row)
     return results
+
+
+def per_step_times(fwd, fwd_bwd) -> dict:
+    """The same scan through the per-step kernels (the persistent plan
+    forced off), forward and with its backward, device and call ms."""
+    prime = dict(prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)
+    with per_step_lstm():
+        with torch.inference_mode():
+            out = dict(per_step_ms=time_ms(fwd, **prime),
+                       per_step_call_ms=time_ms(fwd, prime=False))
+        out.update(per_step_fwd_bwd_ms=time_ms(fwd_bwd, **prime),
+                   per_step_fwd_bwd_call_ms=time_ms(fwd_bwd, prime=False))
+    return out
 
 
 def wide_yardsticks(cell, pair, args, cots, batch, hidden, dtype,
@@ -1488,9 +1884,14 @@ def wide_yardsticks(cell, pair, args, cots, batch, hidden, dtype,
                                         prime_cycles=LIBRARY_PRIME_CYCLES)
         probe = fn()
         cot = [torch.rand_like(o) * COT_SCALE for o in probe]
+        inputs = wrt if name == "layer" else [x, *lib.parameters()]
         out[f"{name}_fwd_bwd_ms"] = time_ms(
-            lambda: torch.autograd.grad(fn(), wrt if name == "layer"
-                                        else [x, *lib.parameters()], cot),
+            lambda: torch.autograd.grad(fn(), inputs, cot),
+            prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)
+        # the backward alone, on a kept graph (kernel 4's yardstick too)
+        out[f"{name}_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(probe, inputs, cot,
+                                        retain_graph=True),
             prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)
     return out
 
@@ -1520,8 +1921,11 @@ def phase_wide_path(directory: str, device: str = "cuda",
     bidirectional streaming core from the trained weights for
     WIDE_STREAM_TICKS ticks, its backward direction's re-scan of the
     window-row ring on the wide route, against the plain versions.
-    Kernels 1-4 and ``scan_dw`` launch 0 times, each gate kernel T times a
-    scan and direction.  Returns the path's launch counts."""
+    Kernels 1-4 and ``scan_dw`` launch 0 times; for gru each gate kernel T
+    times a scan and direction; for lstm the persistent scans once a scan
+    and direction (the forward) and once a backward call and direction,
+    the gate kernels W3 and W4 0 times.  Returns the path's launch
+    counts."""
     from fmda_tpu_torch.config import (
         DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP,
         TOPIC_PREDICTION, TrainConfig)
@@ -1569,14 +1973,15 @@ def phase_wide_path(directory: str, device: str = "cuda",
         loss_p, grads_p = wide_grads(trainer, state, batch, rng)
     torch.cuda.synchronize()
     loss_err = abs(float(loss_k) - float(loss_p))
-    grad_rel = max(float((a - b).abs().max())
-                   / max(float(b.abs().max()), 1e-30)
-                   for a, b in zip(grads_k, grads_p))
+    names = [n for n, q in state.model.named_parameters() if q.requires_grad]
+    rels = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for n, a, b in zip(names, grads_k, grads_p)}
+    grad_rel = max(rels.values())
     grads_finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
     emit("wide first step", cell=cell, route=route, model=str(model_cfg),
          batch=WIDE_BATCH, steps=window, loss=float(loss_k),
          plain_loss=float(loss_p), loss_abs_err=loss_err,
-         grad_max_rel_err=grad_rel, tol=BF16_TOL)
+         grad_max_rel_err=grad_rel, grad_rel_errs=rels, tol=BF16_TOL)
     check(grads_finite and math.isfinite(float(loss_k)),
           f"wide path {cell}: non-finite first step")
     check(loss_err <= BF16_TOL and grad_rel <= BF16_TOL,
@@ -1585,6 +1990,18 @@ def phase_wide_path(directory: str, device: str = "cuda",
 
     fwd, bwd = f"{cell}_wide_fwd", f"{cell}_wide_bwd"
     per_forward = 2 * window  # both directions, a launch a step
+    per_scan = window  # the stream's re-scan of one direction
+    if cell == "lstm":
+        # the persistent scans: one launch a direction, at the path's
+        # batches and the stream's B = 1 alike
+        from fmda_tpu_torch.ops import wide_scan
+
+        for b in (WIDE_BATCH, 1):
+            check(wide_scan.lstm_persist_plan(
+                b, model_cfg.hidden_size, torch.bfloat16,
+                torch.device(device)) is not None,
+                f"wide path lstm: the persistent plan hands B = {b} back")
+        fwd, bwd, per_forward, per_scan = PERSIST_KERNELS + (2, 1)
     start_path()
     t0 = time.perf_counter()
     state, history, _ = trainer.fit(wh, dataset=dataset, initial_state=state)
@@ -1691,7 +2108,7 @@ def phase_wide_path(directory: str, device: str = "cuda",
           f"wide stream {cell}: non-finite probabilities")
     check(stream_err <= BF16_TOL, f"wide stream {cell}: kernels and plain "
           f"versions disagree by {stream_err}")
-    check_launches(stream_counts, {fwd: window * WIDE_STREAM_TICKS},
+    check_launches(stream_counts, {fwd: per_scan * WIDE_STREAM_TICKS},
                    f"wide {cell} stream")
     wh.close()
     emit("wide path", cell=cell, route=route,
@@ -1726,6 +2143,46 @@ def wide_entry(name, rows, launches) -> dict:
         "shape": list(WIDE_SHAPES[0][:2]),
         "dtype": str(WIDE_SHAPES[0][2]).replace("torch.", ""),
         "f32_512": {k: f32[k] for k in TIMES},
+    }
+
+
+def persist_entry(name, rows, route_rows, launches) -> dict:
+    """A persistent scan's entry of the summary line, at flagship_wide's
+    (512, 30, 1024) bf16, unmasked, forward direction; ``f32_512`` and
+    ``b1``: the same at (256, 30, 512) f32 and (1, 30, 1024) bf16.
+    ``library_ms``: cuDNN's LSTM layer at the same shape (its input
+    projection included; its forward for the forward, its backward on a
+    kept graph for the sweep), never on the port's path."""
+    def case(batch, hidden, dtype):
+        return next(r for r in rows if r["kernel"] == name
+                    and (r["batch"], r["hidden"]) == (batch, hidden)
+                    and r["dtype"] == str(dtype).replace("torch.", "")
+                    and not (r["masked"] or r["reverse"]))
+
+    main_shape, f32, b1 = (case(*shape) for shape in PERSIST_SHAPES)
+    lib = next(r for r in route_rows if r["cell"] == "lstm"
+               and (r["batch"], r["hidden"]) == PERSIST_SHAPES[0][:2]
+               and not r["reverse"])
+    times = {k: main_shape[k] for k in TIMES if k != "library_ms"}
+    times["library_ms"] = lib["cudnn_ms" if name == "lstm_persist_fwd"
+                              else "cudnn_bwd_ms"]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": PERSIST_SOURCE,
+        "replaces": WIDE_REPLACES["lstm"],
+        "replaces_kind": "the lax.scan route's whole scan, no pallas_call",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["kernel"] == name),
+        **times,
+        "shape": [PERSIST_SHAPES[0][0], WIDE_STEPS, PERSIST_SHAPES[0][1]],
+        "dtype": str(PERSIST_SHAPES[0][2]).replace("torch.", ""),
+        "plan": main_shape["plan"],
+        "l2_bytes_per_step": main_shape["l2_bytes_per_step"],
+        "f32_512": {k: f32[k] for k in TIMES if k != "library_ms"},
+        "b1": {k: b1[k] for k in TIMES if k != "library_ms"},
     }
 
 
@@ -6350,7 +6807,8 @@ def main() -> int:
     ptxas = ptxas_summary(str(_cuda_lib.build_info.get("log", "")))
     emit("build", kernels=[f"{s.name}_scan_{k}" for s in scans
                            for k in ("fwd", "bwd")]
-         + ["ssm_step", "ssm_tick", *FLASH_REPLACES, *WIDE_KERNELS],
+         + ["ssm_step", "ssm_tick", *FLASH_REPLACES, *WIDE_KERNELS,
+            *PERSIST_KERNELS],
          sources=[str(p.name) for p in _cuda_lib.SOURCES], library=str(lib),
          nvcc_seconds=_cuda_lib.build_info.get("seconds"),
          seconds=time.perf_counter() - t0, target="sm_90a", **ptxas)
@@ -6368,7 +6826,7 @@ def main() -> int:
     t_wide = time.perf_counter()
     phase_wide_rule()
     wide_rows = phase_wide_kernels()
-    phase_wide_route(n_features)
+    route_rows = phase_wide_route(n_features)
     wide_s = time.perf_counter() - t_wide
     serve, train, stream, stream_bi, pool = {}, {}, {}, {}, {}
     fleet, predictor_fleet, train_multi, continuous = {}, {}, {}, {}
@@ -6483,6 +6941,9 @@ def main() -> int:
     entries += [wide_entry(name, wide_rows,
                            {"wide": wide[name.split("_")[0]][name]})
                 for name in WIDE_KERNELS]
+    entries += [persist_entry(name, wide_rows, route_rows,
+                              {"wide": wide["lstm"][name]})
+                for name in PERSIST_KERNELS]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,13 +46,15 @@ BOOKING_WRAPPER = "call_booked"
 
 #: C entries that launch no kernel: the flash plans
 #: (``ops/attention_kernel.py``), the forward scans' plans
-#: (``_cuda_lib.fwd_plan``), the weight gradient's split count
+#: (``_cuda_lib.fwd_plan``), the persistent LSTM scans' plan
+#: (``_cuda_lib.persist_plan_query``), the weight gradient's split count
 #: (``ops/scan_dw.py``) and the error string (``_cuda_lib.raise_on``)
 NO_LAUNCH_ENTRIES = (
     "fmda_cuda_error_string",
     "fmda_flash_bwd_plan",
     "fmda_flash_fwd_plan",
     "fmda_gru_scan_fwd_plan",
+    "fmda_lstm_persist_plan",
     "fmda_lstm_scan_fwd_plan",
     "fmda_scan_dw_splits",
 )

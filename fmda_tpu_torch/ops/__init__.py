@@ -34,6 +34,8 @@ LAUNCH_COUNTERS = {
     "gru_wide_bwd": ("wide_scan", "gru_bwd_launches"),
     "lstm_wide_fwd": ("wide_scan", "lstm_fwd_launches"),
     "lstm_wide_bwd": ("wide_scan", "lstm_bwd_launches"),
+    "lstm_persist_fwd": ("wide_scan", "lstm_persist_fwd_launches"),
+    "lstm_persist_bwd": ("wide_scan", "lstm_persist_bwd_launches"),
 }
 
 

@@ -4,7 +4,8 @@ checks every kernel wrapper shares.
 Every kernel source under ``csrc/`` (the GRU scans in ``gru_scan.cu``, the
 LSTM scans in ``lstm_scan.cu``, the backward scans' weight gradient in
 ``scan_dw.cu``, the wide scan route's fused gate kernels in
-``scan_wide.cu``, the SSM step and the fused serve tick in ``ssm_step.cu``,
+``scan_wide.cu`` and its persistent LSTM scans in ``lstm_persist.cu``, laid
+out by ``lstm_persist_plan.cc``, the SSM step and the fused serve tick in ``ssm_step.cu``,
 the flash-attention forward in ``flash_fwd.cu``, laid out by the host code
 of ``flash_fwd_plan.cc``, its fused backward in ``flash_bwd.cu`` and its
 dK/dV and dQ sweeps in ``flash_attn.cu``, both laid out by
@@ -39,13 +40,16 @@ SOURCES: Tuple[Path, ...] = (_CSRC / "gru_scan.cu", _CSRC / "lstm_scan.cu",
                              _CSRC / "flash_fwd.cu", _CSRC / "flash_fwd_plan.cc",
                              _CSRC / "flash_attn.cu", _CSRC / "flash_bwd.cu",
                              _CSRC / "flash_bwd_plan.cc",
-                             _CSRC / "scan_wide.cu")
+                             _CSRC / "scan_wide.cu",
+                             _CSRC / "lstm_persist.cu",
+                             _CSRC / "lstm_persist_plan.cc")
 #: Headers the sources include: part of the library's key.
 HEADERS: Tuple[Path, ...] = (_CSRC / "scan_common.cuh",
                              _CSRC / "flash_fwd_plan.h",
                              _CSRC / "flash_mma.cuh",
                              _CSRC / "flash_bwd_common.cuh",
-                             _CSRC / "flash_bwd_plan.h")
+                             _CSRC / "flash_bwd_plan.h",
+                             _CSRC / "lstm_persist_plan.h")
 BUILD_ROOT = _CSRC.parents[1] / "build" / "fmda_tpu_torch"
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -210,6 +214,18 @@ def load() -> ctypes.CDLL:
                 fn.argtypes = [p if k == "p" else ll for k in kinds] + [
                     i, i, i, p]
                 fn.restype = i
+        # the persistent LSTM scans: xp and its two strides, the pointer
+        # arguments, counter, the plan's ints, then B, T, H, reverse,
+        # device, stream
+        for name, n_ptrs in (("lstm_persist_fwd", 9), ("lstm_persist_bwd",
+                                                       13)):
+            for tag in SUPPORTED.values():
+                fn = getattr(lib, f"fmda_{name}_{tag}")
+                fn.argtypes = [p, ll, ll, *[p] * n_ptrs, i, i, i, i, i, p]
+                fn.restype = i
+        # B, H, itemsize, device, out[19]
+        lib.fmda_lstm_persist_plan.argtypes = [i, i, i, i, p]
+        lib.fmda_lstm_persist_plan.restype = i
         lib.fmda_scan_dw_splits.argtypes = [i, i, i, i, i]
         lib.fmda_scan_dw_splits.restype = i
         lib.fmda_cuda_error_string.argtypes = [i]
@@ -287,6 +303,171 @@ def pair_runs(gates: int, hidden: int, itemsize: int,
     cluster's)."""
     return (0 < hidden <= max_hidden and itemsize in (2, 4)
             and fwd_branch(gates, hidden, itemsize) != "device")
+
+
+# -- the persistent LSTM scans' plan: lstm_persist_plan.cc, in Python ---------
+
+#: lstm_persist_plan.h's constants: consumer warps a CTA, units a warp's
+#: column block, row tiles a warp at most, a backward warp's tiles at most,
+#: the ring's chunks, a TMA box's bytes a row and rows at most, boxes a
+#: chunk at most, the barriers' bytes and the swizzle's alignment, the
+#: cluster sizes in the order the plan tries them
+PERSIST_WARPS, PERSIST_UNIT_GROUP, PERSIST_MAX_MT = 8, 8, 4
+PERSIST_MAX_BWD_TILES = 4
+PERSIST_MIN_STAGES, PERSIST_MAX_STAGES = 2, 16
+PERSIST_BOX_BYTES, PERSIST_MAX_BOX_ROWS, PERSIST_MAX_BOXES = 128, 256, 4
+PERSIST_BARRIER_BYTES, PERSIST_ALIGN_BYTES = 256, 1024
+PERSIST_CLUSTERS = (8, 4, 2, 1)
+#: the plan's fields, in the order ``fmda_lstm_persist_plan`` reports them
+#: and the launches take them
+PERSIST_FIELDS = ("tiles", "slices", "units", "cluster", "chunk", "stages",
+                  "mt", "mt_bwd", "rows", "rows_pad", "smem", "grid",
+                  "ring_off")
+
+#: The H100's figures (NVIDIA H100 80GB HBM3, as the plan query reports
+#: them: ``chip_smoke.py``'s ``wide persist plan`` line): SMs, the shared
+#: memory a CTA may opt in to, and the clusters of 1, 2, 4 and 8 CTAs of
+#: one SM each that can be resident at once (placed by GPC: 15 of 8, not
+#: 16).  CPU tensors plan with them, so the CPU runs the card's layout.
+H100_FIGURES = dict(sms=132, smem=232448,
+                    clusters={1: 132, 2: 66, 4: 30, 8: 15})
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _first(candidates, ok) -> int:
+    return next((m for m in candidates if ok(m)), 0)
+
+
+def persist_ksplit(warps: int) -> int:
+    """lstm_persist_plan.h's ``ksplit``: how many groups of ``warps``
+    consumer warps split a step's K where the product needs fewer warps
+    than the CTA has."""
+    k = 1
+    while 2 * k * warps <= PERSIST_WARPS:
+        k *= 2
+    return k
+
+
+def _scratch(rows_pad: int, units: int, mt: int, mt_bwd: int,
+             itemsize: int) -> int:
+    if itemsize != 2:  # the K-split runs in bf16 only
+        return 0
+    mtiles, nt = rows_pad // 16, units // PERSIST_UNIT_GROUP
+
+    def scratch(warps, floats):
+        return (persist_ksplit(warps) - 1) * warps * 32 * floats * 4
+
+    return max(scratch(_cdiv(mtiles, mt) * nt, 16 * mt),
+               scratch(_cdiv(mtiles, mt_bwd), 4 * mt_bwd * nt))
+
+
+def persist_plan(batch: int, hidden: int, itemsize: int, *, sms: int,
+                 smem: int, clusters: Dict[int, int]
+                 ) -> Optional[Dict[str, int]]:
+    """How the persistent LSTM scans lay out a direction at (batch,
+    hidden) in an I/O dtype of ``itemsize`` bytes on a card of ``sms`` SMs,
+    ``smem`` opt-in bytes a CTA and ``clusters`` (size -> resident count):
+    ``lstm_persist_plan.cc``'s ``plan``, line for line, a pure function of
+    its arguments.  None where no layout fits (the per-step kernels keep
+    the scan); else the fields of :data:`PERSIST_FIELDS`.  Of the layouts
+    that fit it takes the most CTAs, then the most batch tiles, then the
+    smallest cluster.  ``chip_smoke.py`` holds it to the library's plan
+    query."""
+    del sms  # the clusters' counts carry it
+    unit = PERSIST_UNIT_GROUP
+    if (batch < 1 or hidden < unit or hidden % unit
+            or itemsize not in (2, 4)):
+        return None
+    if hidden % (PERSIST_BOX_BYTES // itemsize):
+        return None
+    pad = 16 // itemsize
+    mts = (1, 2, 4)
+
+    def smem_of(ring_off, stages, slot, scratch):
+        return (ring_off + stages * slot + PERSIST_BARRIER_BYTES + scratch
+                + PERSIST_ALIGN_BYTES)
+
+    best, key = None, None
+    for c in PERSIST_CLUSTERS:
+        cap = clusters[c] * c
+        for u in range(unit, hidden + 1, unit):
+            if hidden % u:
+                continue
+            q = hidden // u
+            if q % c or q > cap:
+                continue
+            rows = _cdiv(batch, min(cap // q, _cdiv(batch, 16)))
+            tiles = _cdiv(batch, rows)
+            rows_pad = _round_up(rows, 16)
+            if rows_pad // c > PERSIST_MAX_BOX_ROWS:
+                continue
+            mtiles, nt = rows_pad // 16, u // unit
+            mt = _first(mts, lambda m: _cdiv(mtiles, m) * nt
+                        <= PERSIST_WARPS)
+            mt_bwd = _first((m for m in mts
+                             if m * nt <= PERSIST_MAX_BWD_TILES),
+                            lambda m: _cdiv(mtiles, m) <= PERSIST_WARPS)
+            if not (mt and mt_bwd):
+                continue
+            ring_off = _round_up(4 * u * (hidden + pad) * itemsize,
+                                 PERSIST_ALIGN_BYTES)
+            scratch = _scratch(rows_pad, u, mt, mt_bwd, itemsize)
+            room = smem - smem_of(ring_off, 0, 0, scratch)
+            chunk = stages = 0
+            for boxes in (4, 2, 1):
+                width = boxes * PERSIST_BOX_BYTES // itemsize
+                slot = boxes * rows_pad * PERSIST_BOX_BYTES
+                fit = 0 if room < 0 else min(PERSIST_MAX_STAGES,
+                                             room // slot)
+                if hidden % width == 0 and fit >= (
+                        3 if boxes > 1 else PERSIST_MIN_STAGES):
+                    chunk, stages = width, fit
+                    break
+            if not chunk:
+                continue
+            plan = dict(tiles=tiles, slices=q, units=u, cluster=c,
+                        chunk=chunk, stages=stages, mt=mt, mt_bwd=mt_bwd,
+                        rows=rows, rows_pad=rows_pad,
+                        smem=smem_of(ring_off, stages, chunk * itemsize
+                                     // PERSIST_BOX_BYTES * rows_pad
+                                     * PERSIST_BOX_BYTES, scratch),
+                        grid=tiles * q, ring_off=ring_off)
+            k = (plan["grid"], tiles, -c)
+            if key is None or k > key:
+                best, key = plan, k
+    return best
+
+
+def persist_plan_query(batch: int, hidden: int, dtype: torch.dtype,
+                       device: int) -> Tuple[Optional[Dict[str, int]],
+                                             Dict[str, object]]:
+    """The library's own plan of the persistent LSTM scans on card
+    ``device`` (``fmda_lstm_persist_plan``): (the plan's fields, or None
+    where it hands the scan back; the card's figures it was made from, as
+    :func:`persist_plan` takes them)."""
+    lib = load()
+    n = len(PERSIST_FIELDS)
+    out = (ctypes.c_int * (n + 7))()
+    err = lib.fmda_lstm_persist_plan(
+        batch, hidden, torch.tensor([], dtype=dtype).element_size(), device,
+        out)
+    raise_on(lib, err, "lstm_persist plan")
+    vals = list(out)
+    figures = dict(sms=vals[n + 1], smem=vals[n + 2],
+                   clusters=dict(zip((1, 2, 4, 8), vals[n + 3:n + 7])))
+    if not vals[0]:
+        return None, figures
+    return dict(zip(PERSIST_FIELDS, vals[1:n + 1])), figures
+
+
+def persist_plan_ints(plan: Dict[str, int]):
+    """A plan as the persistent launches take it: the ints of
+    :data:`PERSIST_FIELDS`, in order."""
+    return (ctypes.c_int * len(PERSIST_FIELDS))(
+        *(plan[k] for k in PERSIST_FIELDS))
 
 
 # -- what every wrapper checks -------------------------------------------------

@@ -236,6 +236,36 @@ def wide_gates_bound(cell, batch, hidden, itemsize, masked, backward=False,
                                         masked, backward, prod, direct))
 
 
+def persist_sweep_cost(batch, steps, hidden, itemsize, masked) -> Cost:
+    """The persistent LSTM backward sweep (``csrc/lstm_persist.cu``): xp,
+    the recomputed hh, cs, dhs, c0 and W_hh read in the I/O dtype, dh_last
+    and dc_last in float32, the mask; dxp written in the I/O dtype, dh0 and
+    dc0 in float32; the dh chain's products, 2 B T 4H H FLOPs (T - 1 steps
+    and dh0's), and the cotangent algebra, 40 per (row, step, unit).  The
+    products over all B T rows around it (hh, dW_hh) are not its work."""
+    bt, gh = batch * steps, 4 * hidden
+    bytes_moved = itemsize * (bt * (2 * gh + 2 * hidden + gh) + batch * hidden
+                              + gh * hidden)
+    bytes_moved += 4 * 4 * batch * hidden + (bt if masked else 0)
+    return Cost(bytes_moved, 2 * bt * gh * hidden,
+                SCAN_SHAPES["lstm"]["bwd_ops"] * bt * hidden, itemsize)
+
+
+def persist_sweep_bound(batch, steps, hidden, itemsize, masked):
+    """Least time for the persistent LSTM backward sweep on this card."""
+    return roofline_ms(*persist_sweep_cost(batch, steps, hidden, itemsize,
+                                           masked))
+
+
+def persist_l2_bytes(plan, batch, hidden, itemsize, backward) -> int:
+    """The L2 bytes a step of a persistent LSTM scan reads for its staged
+    operand (h_{t-1} forward, H wide; the gate gradients backward, 4 H):
+    each cluster of the plan reads its batch tile's rows once and
+    multicasts them, so Q / C reads of every row."""
+    width = (4 if backward else 1) * hidden
+    return plan["slices"] // plan["cluster"] * batch * width * itemsize
+
+
 def _scan_fwd(cell):
     s = SCAN_SHAPES[cell]
     return lambda sig: scan_cost(*sig, gates=s["gates"], states=s["states"],
@@ -273,7 +303,10 @@ def _flash(kernel):
 #: - the wide route's gate kernels, one launch a step: ``(batch, hidden,
 #:   itemsize, masked)`` forward, ``(batch, hidden, itemsize, masked,
 #:   prod, direct)`` backward; the step's cuBLAS product is no kernel of
-#:   the port's and books nothing.
+#:   the port's and books nothing;
+#: - the persistent LSTM scans, one launch a direction: ``(batch, steps,
+#:   hidden, itemsize, masked)``, the forward a scan's work, the backward
+#:   its sweep's.
 LAUNCH_COSTS: Dict[str, object] = {
     "gru_scan_fwd": _scan_fwd("gru"),
     "gru_scan_bwd": _scan_bwd("gru"),
@@ -288,4 +321,6 @@ LAUNCH_COSTS: Dict[str, object] = {
     **{f"{cell}_wide_bwd": (lambda sig, cell=cell: wide_gates_cost(
         cell, *sig[:4], backward=True, prod=sig[4], direct=sig[5]))
         for cell in SCAN_SHAPES},
+    "lstm_persist_fwd": _scan_fwd("lstm"),
+    "lstm_persist_bwd": lambda sig: persist_sweep_cost(*sig),
 }

@@ -24,18 +24,30 @@ layer:
   in the I/O dtype).  After the sweep, dW_hh is one product over the B T
   rows and db_hh a row sum.
 
-Each gate kernel has its plain version here (the forward's built on
-``gru_gate_algebra`` / ``lstm_gate_algebra``, the backward's written out);
-the wrappers run them on CPU tensors, and on CUDA tensors launch the
-kernel or raise.  The scans themselves are the same code on both: only the
-gate step differs.  Which route a layer takes is decided by shape alone,
-before any launch: ``kernel_supported`` in :mod:`~fmda_tpu_torch.ops.gru`
-and :mod:`~fmda_tpu_torch.ops.lstm`.
+The LSTM route runs each direction as one persistent launch wherever it
+can (``csrc/lstm_persist.cu``): the forward keeps each CTA's slice of W_hh
+in shared memory for the whole scan, forms every step's product on the
+tensor cores and runs the gate algebra beside it, one grid barrier a step;
+the backward sweep does the same with W_hh's columns and the gate
+gradients (the products over all B T rows, hh before it and dW_hh after
+it, stay as above).  Its plan (:func:`lstm_persist_plan`, by shape, dtype
+and the card, before any launch) hands a scan whose W_hh does not fit the
+grid's shared memory back to the per-step kernels.
+
+Each kernel has its plain version here (the gate steps' built on
+``gru_gate_algebra`` / ``lstm_gate_algebra``, the backward's written out;
+the persistent scans' walking the plan's tiles and unit slices); the
+wrappers run them on CPU tensors, and on CUDA tensors launch the kernel or
+raise.  The scans themselves are the same code on both: only the kernels
+differ.  Which route a layer takes is decided by shape alone, before any
+launch: ``kernel_supported`` in :mod:`~fmda_tpu_torch.ops.gru` and
+:mod:`~fmda_tpu_torch.ops.lstm`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -54,6 +66,10 @@ gru_fwd_launches = 0
 gru_bwd_launches = 0
 lstm_fwd_launches = 0
 lstm_bwd_launches = 0
+#: Launches of the persistent LSTM scans: one a direction a forward scan,
+#: one a backward call
+lstm_persist_fwd_launches = 0
+lstm_persist_bwd_launches = 0
 
 _F32 = torch.float32
 
@@ -349,6 +365,326 @@ def _check_carry(name: str, shape: Tuple[int, int], direct: Tensor,
                              f"{shape}" + (" float32" if f32 else ""))
 
 
+# -- the persistent LSTM scans -------------------------------------------------
+
+
+def lstm_persist_plan(batch: int, hidden: int, dtype: torch.dtype,
+                      device: torch.device) -> Optional[Dict[str, int]]:
+    """The persistent scans' plan for a direction at (batch, hidden) in
+    ``dtype`` on ``device``: on a card the library's own
+    (``_cuda_lib.persist_plan_query``), for CPU tensors its Python copy at
+    the H100's figures (``_cuda_lib.H100_FIGURES``), so the CPU walks the
+    card's layout.  None: the per-step kernels keep the scan."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    if device.type != "cuda" or dtype not in _cuda_lib.SUPPORTED:
+        return _cuda_lib.persist_plan(batch, hidden, itemsize,
+                                      **_cuda_lib.H100_FIGURES)
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    return _card_plan(batch, hidden, dtype, index)
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(batch, hidden, dtype, index):
+    return _cuda_lib.persist_plan_query(batch, hidden, dtype, index)[0]
+
+
+def _unit_rows(hidden: int, units: int) -> Tensor:
+    """The gate rows of W_hh in the persistent forward's shared layout:
+    slice q's 4 U rows, gate-major (row g U + u is W_hh[g H + q U + u])."""
+    q, g, u = torch.meshgrid(torch.arange(hidden // units), torch.arange(4),
+                             torch.arange(units), indexing="ij")
+    return (g * hidden + q * units + u).reshape(-1)
+
+
+def _k_split(plan: Dict[str, int], backward: bool) -> int:
+    """How many K-split groups a bf16 persistent kernel of ``plan`` sums its
+    product in (``lstm_persist_plan.h``'s ``ksplit`` of the product's
+    warps)."""
+    mtiles, nt = plan["rows_pad"] // 16, plan["units"] // 8
+    if backward:
+        warps = -(-mtiles // plan["mt_bwd"])
+    else:
+        warps = -(-mtiles // plan["mt"]) * nt
+    return _cuda_lib.persist_ksplit(warps)
+
+
+#: the low float64 mantissa bits a float32 does not hold
+_F32_DROP = (1 << 29) - 1
+
+
+def _add_f32(acc: Tensor, x: Tensor) -> Tensor:
+    """float64 ``acc`` (holding float32 values) plus ``x``, rounded toward
+    zero to a float32 value kept in float64 (the low 29 mantissa bits
+    cleared), as the tensor cores add a k-step's products to their float32
+    accumulator."""
+    return ((acc + x).view(torch.int64) & ~_F32_DROP).view(torch.float64)
+
+
+def _tc_product(a: Tensor, w: Tensor, plan: Dict[str, int],
+                backward: bool) -> Tensor:
+    """``a`` (R, K) times ``w`` (N, K) transposed, in float32, summed as a
+    bf16 persistent kernel sums it on the tensor cores: each k-step of 16
+    columns exactly (float64), added to its K-split group's float32 sum in
+    K's order, rounded toward zero (the k-step s of a chunk of c steps is
+    group (s mod c) mod ks), the groups' sums then added to group 0's in
+    order.  So the plain version rounds its pre-activations and gate
+    gradients to bf16 where the kernel does, not a BLAS's order apart.  Of
+    the models ``experiments/torch_lstm_persist.py`` tried on the H100
+    (groups of 16, 8, 4, 2 columns; to nearest or toward zero), this one
+    gives the kernels' bits most often (99.6 % of hs at (512, 1024));
+    ``chip_smoke.py``'s ``wide persist witness`` holds the kernels to a
+    float64 scan apart from it."""
+    rows, k = a.shape
+    steps, chunk_steps = k // 16, plan["chunk"] // 16
+    ks = _k_split(plan, backward)
+    a64 = a.double().view(rows, steps, 16)
+    w64 = w.double().view(w.shape[0], steps, 16)
+    groups = [torch.zeros(rows, w.shape[0], dtype=torch.float64,
+                          device=a.device) for _ in range(ks)]
+    for s0 in range(0, steps, 16):  # 16 k-steps' products at a time
+        block = torch.einsum("rsk,nsk->srn", a64[:, s0:s0 + 16],
+                             w64[:, s0:s0 + 16])
+        for i in range(block.shape[0]):
+            q = ((s0 + i) % chunk_steps) % ks
+            groups[q] = _add_f32(groups[q], block[i])
+    total = groups[0].to(_F32)
+    for part in groups[1:]:
+        total = total + part.to(_F32)
+    return total
+
+
+def lstm_persist_scan_reference(
+    xp: Tensor, h0: Tensor, c0: Tensor, w_hh: Tensor, b_hh: Tensor,
+    plan: Dict[str, int], *, reverse: bool = False,
+    mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """The plain version of :func:`lstm_persist_fwd`: (hs, cs), the
+    product laid out as the plan's unit slices (each slice's 4 U gate rows
+    in the kernel's gate-major order; a row's sums do not depend on its
+    batch tile).  A step's pre-activations are the float32 product of the
+    I/O-dtype h and W_hh (in bf16 summed in the kernel's order:
+    :func:`_tc_product`) plus b_hh, rounded once to the I/O dtype (the
+    route's addmm); then :func:`lstm_gate_algebra`; a masked row keeps h
+    and c."""
+    dtype = xp.dtype
+    batch, n_steps, gh = xp.shape
+    hidden, units = gh // 4, plan["units"]
+    rows = _unit_rows(hidden, units).to(xp.device)
+    w = w_hh.to(dtype)[rows].float()
+    b = b_hh.to(dtype)[rows].float()
+    keep = None if mask is None else (mask != 0)
+    hs = xp.new_empty((batch, n_steps, hidden))
+    cs = torch.empty_like(hs)
+    h, c = h0.to(dtype), c0.to(dtype)
+    for t in _order(n_steps, reverse):
+        prod = (_tc_product(h, w, plan, False) if dtype == torch.bfloat16
+                else h.float() @ w.t())
+        pre = (prod + b).to(dtype)
+        # (rows, Q, 4, U) -> the gate blocks of the whole width
+        pre = pre.view(batch, hidden // units, 4, units).transpose(
+            1, 2).reshape(batch, gh)
+        h_new, c_new = lstm_gate_algebra(xp[:, t], pre, h, c)
+        if keep is not None:
+            k = keep[:, t, None]
+            h_new, c_new = torch.where(k, h_new, h), torch.where(k, c_new, c)
+        hs[:, t], cs[:, t] = h_new, c_new
+        h, c = h_new, c_new
+    return hs, cs
+
+
+def lstm_persist_sweep_reference(
+    xp: Tensor, hh: Tensor, c0: Tensor, cs: Tensor, w_hh: Tensor,
+    dhs: Tensor, dh_last: Tensor, dc_last: Tensor, plan: Dict[str, int], *,
+    reverse: bool = False, mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The plain version of :func:`lstm_persist_bwd`: (dxp, dh0, dc0, the
+    last two float32).  Each step dh = dhs_t + the direct part + the
+    float32 product of the previous step's gate gradients (rounded to the
+    I/O dtype, as stored) and W_hh's columns (float32 as the plan's unit
+    slices; in bf16 summed in the kernel's order: :func:`_tc_product`);
+    the gates recomputed from ``hh`` (the steps' recomputed
+    pre-activations); the gate gradients, dc and the direct part as
+    :func:`lstm_wide_gates_bwd_reference` makes them.  dh0 is the direct
+    part plus the product of the last gate gradients."""
+    dtype = xp.dtype
+    batch, n_steps, gh = xp.shape
+    hidden, units = gh // 4, plan["units"]
+    w = w_hh.to(dtype).float()
+    keep = None if mask is None else (mask != 0).to(torch.uint8)
+    dxp = xp.new_empty(xp.shape)
+    direct = dh_last.float().clone()
+    dc = dc_last.float().clone()
+    c_prevs = h_prev_of(c0.to(dtype), cs.to(dtype), reverse=reverse)
+    # W_hh's columns a slice: (Q, 4 H, U)
+    w_slices = w.view(gh, hidden // units, units).permute(1, 0, 2)
+
+    def product(dg):
+        if dtype == torch.bfloat16:
+            return _tc_product(dg, w.t(), plan, True)
+        # every slice's (rows, U) product, back in unit order
+        return torch.matmul(dg.float()[None], w_slices).permute(
+            1, 0, 2).reshape(batch, hidden)
+
+    prev = None
+    for t in _order(n_steps, not reverse):
+        prod = None if prev is None else product(dxp[:, prev])
+        dg, new_direct, dc = lstm_wide_gates_bwd_reference(
+            xp[:, t], hh[:, t], c_prevs[:, t], cs[:, t], direct, prod,
+            dhs[:, t], dc, None if keep is None else keep[:, t])
+        dxp[:, t] = dg
+        direct = torch.zeros_like(direct) if new_direct is None else new_direct
+        prev = t
+    if prev is not None:
+        direct = direct + product(dxp[:, prev])
+    return dxp, direct, dc
+
+
+def _persist_checks(name: str, tensors: Dict[str, Tensor],
+                    shapes: Dict[str, Tuple[int, ...]],
+                    dtypes: Dict[str, torch.dtype]) -> None:
+    """Each operand of a persistent launch: its shape and dtype, contiguous
+    (``xp``: its last dimension), 16-byte aligned (the bulk copies' and the
+    pair loads' condition; xp's row strides even)."""
+    for label, t in tensors.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != shapes[label] or t.dtype != dtypes[label]:
+            raise ValueError(f"{name}: {label} must be {shapes[label]} "
+                             f"{dtypes[label]}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+        ok = (t.stride(-1) == 1 and t.stride(0) % 2 == 0
+              and t.stride(1) % 2 == 0 if label == "xp"
+              else t.is_contiguous())
+        if not ok or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be contiguous and "
+                             f"16-byte aligned (strides {t.stride()})")
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """``t`` contiguous and 16-byte aligned: itself, or a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _xp_ready(xp: Tensor) -> Tensor:
+    """xp as a persistent launch reads it (a pair of units a load): its
+    last dimension contiguous, its row strides even, 16-byte aligned;
+    itself, or a contiguous copy."""
+    if (xp.stride(-1) == 1 and xp.stride(0) % 2 == 0 and xp.stride(1) % 2 == 0
+            and xp.data_ptr() % 16 == 0):
+        return xp
+    return _aligned(xp)
+
+
+def lstm_persist_fwd(
+    xp: Tensor, h0: Tensor, c0: Tensor, w_hh: Tensor, b_hh: Tensor,
+    plan: Dict[str, int], *, reverse: bool = False,
+    mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """A forward scan direction in one launch: (hs, cs).  On CUDA tensors
+    one cooperative launch of ``lstm_persist_fwd`` (counted in
+    :data:`lstm_persist_fwd_launches`) laid out by ``plan`` (the library's
+    own, :func:`lstm_persist_plan`; the launch refuses one that does not
+    fit the card) or raise; on CPU tensors
+    :func:`lstm_persist_scan_reference`.  h0, c0, w_hh and b_hh in xp's
+    dtype; ``mask`` (B, T) uint8 or None."""
+    global lstm_persist_fwd_launches
+    tensors = [t for t in (xp, h0, c0, w_hh, b_hh, mask) if t is not None]
+    if _on_cpu("lstm_persist_fwd", tensors):
+        return lstm_persist_scan_reference(xp, h0, c0, w_hh, b_hh, plan,
+                                           reverse=reverse, mask=mask)
+    if xp.dtype not in _cuda_lib.SUPPORTED:
+        raise TypeError(f"lstm_persist_fwd kernel takes float32 or bfloat16, "
+                        f"got {xp.dtype}")
+    batch, n_steps, gh = xp.shape
+    hidden, dtype = gh // 4, xp.dtype
+    _persist_checks(
+        "lstm_persist_fwd",
+        dict(xp=xp, h0=h0, c0=c0, w_hh=w_hh, b_hh=b_hh, mask=mask),
+        dict(xp=(batch, n_steps, gh), h0=(batch, hidden),
+             c0=(batch, hidden), w_hh=(gh, hidden), b_hh=(gh,),
+             mask=(batch, n_steps)),
+        dict(xp=dtype, h0=dtype, c0=dtype, w_hh=dtype, b_hh=dtype,
+             mask=torch.uint8))
+    hs = xp.new_empty((batch, n_steps, hidden))
+    cs = torch.empty_like(hs)
+    counter = torch.zeros(1, dtype=torch.int32, device=xp.device)
+    tag = _cuda_lib.SUPPORTED[dtype]
+    lib = _cuda_lib.load()
+    err = call_booked(
+        "lstm_persist_fwd",
+        (batch, n_steps, hidden, xp.element_size(), mask is not None),
+        getattr(lib, f"fmda_lstm_persist_fwd_{tag}"),
+        (xp.data_ptr(), xp.stride(0), xp.stride(1), h0.data_ptr(),
+         c0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), _ptr(mask),
+         hs.data_ptr(), cs.data_ptr(), counter.data_ptr(),
+         _cuda_lib.persist_plan_ints(plan), batch, n_steps, hidden,
+         int(reverse), _cuda_lib.device_index(xp),
+         _cuda_lib.stream_of(xp)))
+    _cuda_lib.raise_on(lib, err, "lstm_persist_fwd")
+    count_launch()
+    lstm_persist_fwd_launches += 1
+    return hs, cs
+
+
+def lstm_persist_bwd(
+    xp: Tensor, hh: Tensor, c0: Tensor, cs: Tensor, w_hh: Tensor,
+    dhs: Tensor, dh_last: Tensor, dc_last: Tensor, plan: Dict[str, int], *,
+    reverse: bool = False, mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """A backward sweep in one launch: (dxp, dh0, dc0, the last two
+    float32).  On CUDA tensors one cooperative launch of
+    ``lstm_persist_bwd`` (counted in :data:`lstm_persist_bwd_launches`) or
+    raise; on CPU tensors :func:`lstm_persist_sweep_reference`.  ``hh`` is
+    the steps' recomputed (B, T, 4 H) pre-activations; every tensor but the
+    float32 dh_last and dc_last in xp's dtype."""
+    global lstm_persist_bwd_launches
+    tensors = [t for t in (xp, hh, c0, cs, w_hh, dhs, dh_last, dc_last, mask)
+               if t is not None]
+    if _on_cpu("lstm_persist_bwd", tensors):
+        return lstm_persist_sweep_reference(
+            xp, hh, c0, cs, w_hh, dhs, dh_last, dc_last, plan,
+            reverse=reverse, mask=mask)
+    if xp.dtype not in _cuda_lib.SUPPORTED:
+        raise TypeError(f"lstm_persist_bwd kernel takes float32 or bfloat16, "
+                        f"got {xp.dtype}")
+    batch, n_steps, gh = xp.shape
+    hidden, dtype = gh // 4, xp.dtype
+    _persist_checks(
+        "lstm_persist_bwd",
+        dict(xp=xp, hh=hh, c0=c0, cs=cs, w_hh=w_hh, dhs=dhs, dh_last=dh_last,
+             dc_last=dc_last, mask=mask),
+        dict(xp=(batch, n_steps, gh), hh=(batch, n_steps, gh),
+             c0=(batch, hidden), cs=(batch, n_steps, hidden),
+             w_hh=(gh, hidden), dhs=(batch, n_steps, hidden),
+             dh_last=(batch, hidden), dc_last=(batch, hidden),
+             mask=(batch, n_steps)),
+        dict(xp=dtype, hh=dtype, c0=dtype, cs=dtype, w_hh=dtype, dhs=dtype,
+             dh_last=_F32, dc_last=_F32, mask=torch.uint8))
+    dxp = xp.new_empty((batch, n_steps, gh))
+    dh0 = torch.empty((batch, hidden), dtype=_F32, device=xp.device)
+    dc0 = torch.empty_like(dh0)
+    counter = torch.zeros(1, dtype=torch.int32, device=xp.device)
+    tag = _cuda_lib.SUPPORTED[dtype]
+    lib = _cuda_lib.load()
+    err = call_booked(
+        "lstm_persist_bwd",
+        (batch, n_steps, hidden, xp.element_size(), mask is not None),
+        getattr(lib, f"fmda_lstm_persist_bwd_{tag}"),
+        (xp.data_ptr(), xp.stride(0), xp.stride(1), hh.data_ptr(),
+         c0.data_ptr(), cs.data_ptr(), w_hh.data_ptr(), dhs.data_ptr(),
+         _ptr(mask), dh_last.data_ptr(), dc_last.data_ptr(), dxp.data_ptr(),
+         dh0.data_ptr(), dc0.data_ptr(), counter.data_ptr(),
+         _cuda_lib.persist_plan_ints(plan), batch, n_steps, hidden,
+         int(reverse), _cuda_lib.device_index(xp),
+         _cuda_lib.stream_of(xp)))
+    _cuda_lib.raise_on(lib, err, "lstm_persist_bwd")
+    count_launch()
+    lstm_persist_bwd_launches += 1
+    return dxp, dh0, dc0
+
+
 # -- the scans -----------------------------------------------------------------
 
 
@@ -437,12 +773,22 @@ def lstm_wide_scan_fwd(
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """The LSTM scan by the wide route: (h_last, c_last, hs, cs), the
     signature of
-    :func:`~fmda_tpu_torch.ops.lstm_kernel.lstm_scan_reference`.  Each step
-    one ``addmm`` and one :func:`lstm_wide_gates`."""
+    :func:`~fmda_tpu_torch.ops.lstm_kernel.lstm_scan_reference`.  One
+    :func:`lstm_persist_fwd` where :func:`lstm_persist_plan` lays the scan
+    out, else each step one ``addmm`` and one :func:`lstm_wide_gates`."""
     dtype = xp.dtype
     h0, c0 = h0.to(dtype), c0.to(dtype)
     w_hh, b_hh = w_hh.to(dtype), b_hh.to(dtype)
     batch, n_steps, gh = xp.shape
+    plan = (lstm_persist_plan(batch, gh // 4, dtype, xp.device)
+            if n_steps else None)
+    if plan is not None:
+        hs, cs = lstm_persist_fwd(
+            _xp_ready(xp), _aligned(h0), _aligned(c0), _aligned(w_hh),
+            _aligned(b_hh), plan, reverse=reverse,
+            mask=_cuda_lib.mask_u8(mask, batch, n_steps))
+        last = 0 if reverse else n_steps - 1
+        return hs[:, last].clone(), cs[:, last].clone(), hs, cs
     hs = xp.new_empty((batch, n_steps, h0.shape[-1]))
     cs = torch.empty_like(hs)
     hh = xp.new_empty((batch, gh))
@@ -466,11 +812,23 @@ def lstm_wide_scan_bwd(
     gate gradients are dxp and what the product sees.  The direct part of
     dh is dh_last at the first processed step and 0 after it but where a
     mask holds a row, so without a mask the kernel reads it once and never
-    writes it, and dh0 is the last product alone."""
+    writes it, and dh0 is the last product alone.  Where
+    :func:`lstm_persist_plan` lays the scan out, the sweep is one
+    :func:`lstm_persist_bwd` between the same two products."""
     dtype = xp.dtype
     w, b = w_hh.to(dtype), b_hh.to(dtype)
-    batch, n_steps, _ = xp.shape
+    batch, n_steps, gh = xp.shape
     h_prevs = h_prev_of(h0.to(dtype), hs.to(dtype), reverse=reverse)
+    plan = (lstm_persist_plan(batch, gh // 4, dtype, xp.device)
+            if n_steps else None)
+    if plan is not None:
+        dxp, dh0, dc0 = lstm_persist_bwd(
+            _xp_ready(xp), _recompute_hh(h_prevs, w, b), _aligned(c0.to(dtype)),
+            _aligned(cs.to(dtype)), _aligned(w), _aligned(dhs.to(dtype)),
+            _aligned(dh_last.to(_F32)), _aligned(dc_last.to(_F32)), plan,
+            reverse=reverse, mask=_cuda_lib.mask_u8(mask, batch, n_steps))
+        dw, db = _weight_grads(dxp, h_prevs, w_hh, b_hh)
+        return dxp, dh0.to(h0.dtype), dc0.to(c0.dtype), dw, db
     c_prevs = h_prev_of(c0.to(dtype), cs.to(dtype), reverse=reverse)
     hh = _recompute_hh(h_prevs, w, b)
     dhs, cs = dhs.to(dtype).contiguous(), cs.to(dtype)

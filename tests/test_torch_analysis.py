@@ -801,6 +801,7 @@ _NO_LAUNCH_CALLS = (
     "    lib.fmda_flash_fwd_plan(1, 1, 1, 1, 4, None)\n"
     "    lib.fmda_flash_bwd_plan(1, 1, 1, 1, 4, 0, None)\n"
     "    lib.fmda_scan_dw_splits(1, 1, 1, 3, 0)\n"
+    "    lib.fmda_lstm_persist_plan(1, 1, 2, 0, None)\n"
     "    lib.fmda_cuda_error_string(err)\n"
     "    getattr(lib, f'fmda_{cell}_scan_fwd_plan')(1, 1, 4, 0, None)\n"
 )

@@ -126,7 +126,9 @@ def test_roofline_and_launch_costs():
            **{k: (2, 4, 30, 8, 4, True, False) for k in cost.FLASH_FLOPS},
            **{f"{c}_wide_fwd": (8, 32, 4, False) for c in ("gru", "lstm")},
            **{f"{c}_wide_bwd": (8, 32, 4, False, True, True)
-              for c in ("gru", "lstm")}}
+              for c in ("gru", "lstm")},
+           **{k: (8, 30, 32, 4, False) for k in (
+               "lstm_persist_fwd", "lstm_persist_bwd")}}
     for kernel, fn in cost.LAUNCH_COSTS.items():
         assert isinstance(fn(sig[kernel]), cost.Cost)
     assert cost.LAUNCH_COSTS["ssm_tick"](sig["ssm_tick"]) == cost.tick_cost(

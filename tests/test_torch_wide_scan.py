@@ -316,7 +316,8 @@ def test_wide_models_match_jax(cell, monkeypatch):
     """The BiGRU and BiLSTM at H = 1024 (the defaults otherwise: F = 108,
     one bidirectional layer), B = 2, T = 5, through the port's CPU path,
     against the JAX model on the same flax params; every step of both
-    directions through the wide route's gate step."""
+    directions through the wide route: the GRU's gate step, the LSTM's
+    persistent scan (its plan lays H = 1024 out), one a direction."""
     fields = dict(cell=cell, hidden_size=1024)
     jax_cfg = dataclasses.replace(JaxFrameworkConfig().model, **fields)
     cfg = dataclasses.replace(FrameworkConfig().model, **fields)
@@ -327,18 +328,19 @@ def test_wide_models_match_jax(cell, monkeypatch):
     port = build_model(cfg)
     port.load_state_dict(params_from_flax(params), strict=True)
     port.eval()
-    name = f"{cell}_wide_gates"
+    name = "gru_wide_gates" if cell == "gru" else "lstm_persist_fwd"
     steps = []
     real = getattr(wide_scan, name)
     monkeypatch.setattr(wide_scan, name,
-                        lambda *a: steps.append(1) or real(*a))
+                        lambda *a, **k: steps.append(1) or real(*a, **k))
     x = np.random.default_rng(9).normal(
         size=(2, 5, cfg.n_features)).astype(np.float32)
     want = jax_model.apply({"params": params}, x)
     before = launch_counts()
     with torch.inference_mode():
         got = port(torch.from_numpy(x))
-    assert len(steps) == 2 * 5  # two directions of five steps
+    # two directions of five gate steps, or of one persistent scan
+    assert len(steps) == 2 * (5 if cell == "gru" else 1)
     assert launch_counts() == before  # CPU tensors launch nothing
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL)
 
@@ -349,7 +351,8 @@ def test_bidirectional_stream_at_width_takes_the_wide_route(cell,
     """The bidirectional streaming core at H = 1024 (the LSTM's pair stops
     at 512): its backward re-scan asks the family's selector and takes the
     wide route, a gate step a ring slot, and the probabilities match the
-    JAX core's tick by tick."""
+    JAX core's tick by tick (the LSTM's re-scan one persistent scan a
+    tick)."""
     from fmda_tpu.config import ModelConfig as JaxModelConfig
     from fmda_tpu.data.normalize import NormParams as JaxNormParams
     from fmda_tpu.serve.streaming import (
@@ -375,15 +378,16 @@ def test_bidirectional_stream_at_width_takes_the_wide_route(cell,
     core = StreamingBiGRUBidirectional(
         ModelConfig(**fields), params_from_flax(params),
         NormParams(x_min, x_max), window=window, device="cpu")
-    name = f"{cell}_wide_gates"
+    name = "gru_wide_gates" if cell == "gru" else "lstm_persist_fwd"
     steps = []
     real = getattr(wide_scan, name)
     monkeypatch.setattr(wide_scan, name,
-                        lambda *a: steps.append(1) or real(*a))
+                        lambda *a, **k: steps.append(1) or real(*a, **k))
     for t, row in enumerate(rows):
         np.testing.assert_allclose(core.step(row), jax_core.step(row),
                                    atol=F32_TOL, err_msg=f"tick {t}")
-    assert len(steps) == ticks * window  # the re-scan: one a ring slot
+    # the re-scan: a gate step a ring slot, or one persistent scan
+    assert len(steps) == ticks * (window if cell == "gru" else 1)
 
 
 @pytest.mark.parametrize("masked", [False, True])
