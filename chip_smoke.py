@@ -270,6 +270,7 @@ non-zero, and prints no result, without a card or outside the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1130,50 +1131,137 @@ WITNESS_OUTPUTS = ("h_last", "c_last", "hs", "dxp", "dh0", "dc0", "dw_hh",
                    "db_hh")
 WITNESS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 WITNESS_RMS_RATIO = {"bfloat16": 1.1, "float32": 4.0}
+#: the fused GRU step (``csrc/gru_wide_step.cu``): a GRU wide step's
+#: product and gates in one launch, wherever its plan lays the step out
+STEP_SOURCE = "fmda_tpu_torch/csrc/gru_wide_step.cu"
+STEP_KERNEL = "gru_wide_step_fwd"
+#: the batches the wide path launches the step at (flagship_wide's step,
+#: a chunk's last windows padded to it; the Predictor's and the stream's
+#: B = 1), checked and timed; ``wide path`` fails if the step launches at
+#: a (batch, hidden) outside STEP_SHAPES and STEP_RAGGED_SHAPES
+STEP_SHAPES = ((WIDE_BATCH, 1024, torch.bfloat16), (1, 1024, torch.bfloat16))
+#: checked, not timed: a chunk's last windows unpadded ((WIDE_CHUNK -
+#: WIDE_STEPS + 1) mod WIDE_BATCH = 483 rows), a batch tile of 35 rows
+#: past the TMA box's end under W_hh's multicast
+STEP_RAGGED_SHAPES = (((WIDE_CHUNK - WIDE_STEPS + 1) % WIDE_BATCH, 1024,
+                       torch.bfloat16),)
+#: the plan query against its Python copy at these (batch, hidden)
+STEP_PLAN_CASES = ((1, 1024), (64, 1024), (128, 1024), (256, 1024),
+                   (483, 1024), (512, 1024), (800, 1024), (1, 2048),
+                   (8, 512), (3, 48), (512, 96))
+#: the fused GRU route's witness (``wide step witness``): its outputs, and
+#: the (batch, hidden, dtype, masked) it runs at, flagship_wide's step
+#: masked and the stream's B = 1 both ways (a float64 scan and its
+#: gradients at B = 512 take seconds)
+STEP_WITNESS_OUTPUTS = ("h_last", "hs", "dxp", "dh0", "dw_hh", "db_hh")
+STEP_WITNESS_CASES = ((512, 1024, torch.bfloat16, True),
+                      (1, 1024, torch.bfloat16, False),
+                      (1, 1024, torch.bfloat16, True))
+#: the gru wide path's first step through the fused route against the
+#: plain versions with the step's product as one float32 BLAS product
+#: (``wide first step blas``): the root mean square of every parameter's
+#: relative gradient distance at most FIRST_STEP_RMS_RATIO times the
+#: pair's (the route the step replaced).  From
+#: ``experiments/torch_gru_wide_step.py --first-step 8`` on the H100: the
+#: pooled ratio 0.918-1.078 over the path's first 8 batches (1.078 on
+#: the first, the smoke's); one parameter's alone read up to 1.59, too
+#: noisy to bound
+FIRST_STEP_RMS_RATIO = 1.2
 #: what the wide phase (its rule, kernels, route and paths) may take
 WIDE_BUDGET_S = 40.0
 #: repetitions of the kernel pair's device-memory branch beside the route,
 #: and of the route's plain versions (the LSTM's sums its bf16 products a
 #: k-step at a time, as the persistent kernels do)
 WIDE_PAIR_REPS = 3
+#: how the wide route's own and its yardsticks' times are taken: primed
+#: (device ms) and not (a caller's wait), 10 repetitions, not REPS (each
+#: primed one a ~10 ms sleep and the call), to keep the phase inside
+#: WIDE_BUDGET_S
+WIDE_TIME_REPS = 10
+WIDE_PRIMED = dict(prime=True, prime_cycles=LIBRARY_PRIME_CYCLES,
+                   reps=WIDE_TIME_REPS)
+WIDE_CALLED = dict(prime=False, reps=WIDE_TIME_REPS)
 
 
 class plain_wide_gates:
-    """Inside, the wide route's gate steps run their plain versions on card
-    tensors too (the wrappers' ``_on_cpu`` answers True): the computation
-    the kernels are held to, with the same cuBLAS products around it."""
+    """Inside, the wide route's gate steps and its fused GRU step run their
+    plain versions on card tensors too (the wrappers' ``_on_cpu`` answers
+    True): the computation the kernels are held to, with the same cuBLAS
+    products around the gate steps."""
 
     def __enter__(self):
-        from fmda_tpu_torch.ops import wide_scan
+        from fmda_tpu_torch.ops import gru_wide_step, wide_scan
 
-        self._saved = wide_scan._on_cpu
-        wide_scan._on_cpu = lambda name, tensors: True
+        self._saved = [(m, m._on_cpu) for m in (wide_scan, gru_wide_step)]
+        for module, _ in self._saved:
+            module._on_cpu = lambda name, tensors: True
         return self
 
     def __exit__(self, *exc):
-        from fmda_tpu_torch.ops import wide_scan
-
-        wide_scan._on_cpu = self._saved
+        for module, saved in self._saved:
+            module._on_cpu = saved
         return False
 
 
-class per_step_lstm:
-    """Inside, the LSTM route's persistent plan is forced off: its scans
-    run the per-step kernels (W3, W4), the route before the persistent
-    scans, timed beside them."""
+class plan_off:
+    """Inside, ``fmda_tpu_torch.ops.<module>.<name>`` (a redesigned route's
+    plan) answers None: the route before the redesign runs, timed and
+    witnessed beside it."""
+
+    def __init__(self, module: str, name: str):
+        import importlib
+
+        self._mod = importlib.import_module(f"fmda_tpu_torch.ops.{module}")
+        self._name = name
 
     def __enter__(self):
-        from fmda_tpu_torch.ops import wide_scan
-
-        self._saved = wide_scan.lstm_persist_plan
-        wide_scan.lstm_persist_plan = lambda *a, **k: None
+        self._saved = getattr(self._mod, self._name)
+        setattr(self._mod, self._name, lambda *a, **k: None)
         return self
 
     def __exit__(self, *exc):
-        from fmda_tpu_torch.ops import wide_scan
-
-        wide_scan.lstm_persist_plan = self._saved
+        setattr(self._mod, self._name, self._saved)
         return False
+
+
+class launch_shapes:
+    """Inside, the signature of every launch of ``kernel`` is collected in
+    ``seen`` (the wrappers' bookings, ``ops.attach_ledger``), each booking
+    passed on to the ledger attached before."""
+
+    def __init__(self, kernel: str):
+        self.kernel, self.seen = kernel, set()
+
+    def __enter__(self):
+        from fmda_tpu_torch import ops
+
+        self._prev = ops._ledger
+        ops.attach_ledger(self)
+        return self
+
+    def begin(self, kernel, signature):
+        if kernel == self.kernel:
+            self.seen.add(tuple(signature))
+        return None if self._prev is None else self._prev.begin(kernel,
+                                                                signature)
+
+    def __exit__(self, *exc):
+        from fmda_tpu_torch import ops
+
+        ops.attach_ledger(self._prev)
+        return False
+
+
+def pair_gru() -> plan_off:
+    """The fused GRU step's plan forced off: the GRU route's forward runs
+    the pair (a cuBLAS ``addmm`` and W1 a step)."""
+    return plan_off("gru_wide_step", "gru_wide_step_plan")
+
+
+def per_step_lstm() -> plan_off:
+    """The persistent LSTM plan forced off: the route's scans run the
+    per-step kernels (W3, W4)."""
+    return plan_off("wide_scan", "lstm_persist_plan")
 
 
 def wide_route(cell: str, batch: int, hidden: int, itemsize: int) -> str:
@@ -1225,7 +1313,36 @@ def phase_wide_rule(device: str = "cuda") -> dict:
                         for r in rows if r["plan"] == "device"})
     if device == "cuda":
         phase_persist_plan()
+        phase_step_plan()
     return on_pair
+
+
+def phase_step_plan() -> list:
+    """The fused GRU step's plan query (``fmda_gru_wide_scan_fwd_plan``)
+    against its Python copy (``gru_wide_step.step_plan``) on the figures
+    the query reports, at STEP_PLAN_CASES in both dtypes: the same fields,
+    or both handing the step back to the pair."""
+    from fmda_tpu_torch.ops import gru_wide_step
+
+    rows = []
+    for batch, hidden in STEP_PLAN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            plan, figures = gru_wide_step.step_plan_query(batch, hidden,
+                                                          dtype, 0)
+            mirror = gru_wide_step.step_plan(batch, hidden, itemsize,
+                                             **figures)
+            rows.append(dict(batch=batch, hidden=hidden,
+                             dtype=str(dtype).replace("torch.", ""),
+                             plan=plan))
+            check(mirror == plan, f"step plan ({batch}, {hidden}) {dtype}: "
+                  f"the query lays out {plan}, its Python copy {mirror}")
+    emit("wide step plan", figures=figures,
+         fused={f"{r['batch']} {r['hidden']} {r['dtype']}":
+                None if r["plan"] is None else
+                {k: r["plan"][k] for k in ("mcast", "split", "grid")}
+                for r in rows})
+    return rows
 
 
 def phase_persist_plan() -> list:
@@ -1340,13 +1457,56 @@ def wide_gate_reference(name, o):
     return [dxp, dc] + ([direct] if direct is not None else [])
 
 
+#: the PyTorch call that computes each gate kernel's function (unmasked,
+#: its biases None: hh already holds b_hh), never on the port's path
+WIDE_LIBRARY = {"gru_wide_fwd": "_thnn_fused_gru_cell",
+                "gru_wide_bwd": "_thnn_fused_gru_cell_backward",
+                "lstm_wide_fwd": "_thnn_fused_lstm_cell"}
+
+
+def wide_gate_library(name, o, want) -> dict:
+    """An unmasked gate step through its PyTorch call (WIDE_LIBRARY), its
+    outputs held to the plain version's ``want`` first, then timed: the
+    forwards' (h[, c]); the GRU backward's dxp, dhh and direct part from
+    the forward call's workspace and dh = direct + prod + dhs_t rounded to
+    the I/O dtype (the call takes dh in it).  Empty where no call
+    computes the function (the LSTM backward's carries dc)."""
+    if name not in WIDE_LIBRARY:
+        return {}
+    aten = torch.ops.aten
+    if name == "gru_wide_bwd":
+        _, ws_ = aten._thnn_fused_gru_cell(o["xp_t"], o["hh_t"], o["h_prev"],
+                                           None, None)
+        dh = (o["direct"] + o["prod"].float() + o["dhs_t"].float()).to(
+            o["xp_t"].dtype)
+
+        def fn():
+            return aten._thnn_fused_gru_cell_backward(dh, ws_, False)[:3]
+    elif name == "gru_wide_fwd":
+        def fn():
+            return aten._thnn_fused_gru_cell(o["xp_t"], o["hh_t"],
+                                             o["h_prev"], None, None)[:1]
+    else:
+        def fn():
+            return aten._thnn_fused_lstm_cell(o["xp_t"], o["hh_t"],
+                                              o["c_prev"], None, None)[:2]
+    got = fn()
+    torch.cuda.synchronize()
+    errs, rels = persist_errors(got, want)
+    return dict(library=WIDE_LIBRARY[name], library_max_abs_err=max(errs),
+                library_max_rel_err=max(rels),
+                library_ms=time_ms(fn, prime=True))
+
+
 def phase_wide_kernels(device: str = "cuda") -> list:
     """(a) Each of the wide route's four gate kernels against its plain
     version on the card, at WIDE_SHAPES, masked and not: every output
     compared, a second call the same bits; the kernel's device ms, the
     plain version's, and the bound (bytes at 3.35 TB/s against the
-    element-wise operations at 67 TFLOP/s: ``wide_gates_bound``).  No one
-    PyTorch call computes a fused gate step, so ``library_ms`` is null.
+    element-wise operations at 67 TFLOP/s: ``wide_gates_bound``).
+    ``library_ms``: unmasked, the PyTorch call of WIDE_LIBRARY that
+    computes the same step (:func:`wide_gate_library`, checked equal first;
+    none for the LSTM backward, null).
     The LSTM gate kernels are the per-step route, which the persistent
     scans' plan keeps where W_hh does not fit the grid; then the
     persistent scans themselves (:func:`phase_wide_persist`)."""
@@ -1385,6 +1545,8 @@ def phase_wide_kernels(device: str = "cuda") -> list:
                                  prime=True)
                     plain_ms = time_ms(lambda: wide_gate_reference(name, o),
                                        prime=True)
+                    library = (wide_gate_library(name, o, want)
+                               if not masked and device == "cuda" else {})
                 itemsize = torch.tensor([], dtype=dtype).element_size()
                 bound_ms, bound_by = wide_gates_bound(
                     cell, batch, hidden, itemsize, masked, backward,
@@ -1396,7 +1558,13 @@ def phase_wide_kernels(device: str = "cuda") -> list:
                            bit_identical_rerun=same_bits, ms=ms,
                            plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=None)
+                row.update(library)
                 emit(f"wide kernel {name}", **row)
+                check(not library or persist_agrees(
+                    dict(max_abs_err=library["library_max_abs_err"],
+                         max_rel_err=library["library_max_rel_err"]),
+                    dtype), f"{name}'s library call computes another "
+                      f"function: {row}")
                 check(finite, f"non-finite {name} output: {row}")
                 check(err <= tol, f"{name} disagrees with its plain "
                       f"version: {row}")
@@ -1688,6 +1856,205 @@ def phase_persist_witness(device: str = "cuda") -> list:
     return rows
 
 
+def phase_wide_step(device: str = "cuda") -> list:
+    """The fused GRU step (``gru_wide_step_fwd``) against its plain version
+    (``gru_wide_step_reference``) on the card at STEP_SHAPES and
+    STEP_RAGGED_SHAPES, masked and not: the output, a second call the same
+    bits; at STEP_SHAPES unmasked, its device ms
+    (a lone launch) beside its bound (``gru_wide_step_bound``), the plain
+    version's, the pair's it replaces (``addmm`` and W1) and
+    ``_thnn_fused_gru_cell``'s (W1's function in one PyTorch call; with
+    the ``addmm`` before it, ``library_pair_ms``: no one call computes the
+    whole step, so ``library_ms`` is null), and a step of a scan through
+    each route (:func:`scan_step_times`).  Then the route's scan through it, reversed
+    and masked, WIDE_STEPS steps, against the same scan through the plain
+    step, and :func:`phase_step_witness`."""
+    from fmda_tpu_torch.ops import gru_wide_step as st
+    from fmda_tpu_torch.ops import wide_scan as ws
+    from fmda_tpu_torch.ops.cost import gru_wide_step_bound
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    thnn = torch.ops.aten._thnn_fused_gru_cell
+    rows = []
+    for batch, hidden, dtype in STEP_SHAPES + STEP_RAGGED_SHAPES:
+        timed = (batch, hidden, dtype) in STEP_SHAPES
+        plan = st.gru_wide_step_plan(batch, hidden, dtype, dev)
+        check(plan is not None, f"wide step ({batch}, {hidden}) {dtype}: "
+              f"the plan hands the step back")
+        (_, _, w, b), _ = wide_scan_inputs("gru", batch, hidden, dtype, gen,
+                                           dev)
+        for masked in (False, True):
+            o = wide_step_operands("gru", batch, hidden, dtype, masked, gen,
+                                   dev)
+            xp_t, h, mask_t = o["xp_t"], o["h_prev"], o["mask_t"]
+            out = torch.empty(batch, hidden, dtype=dtype, device=dev)
+            hh = torch.empty(batch, 3 * hidden, dtype=dtype, device=dev)
+
+            def call():
+                return st.gru_wide_step_fwd(xp_t, h, w, b, mask_t, out, plan)
+
+            def plain():
+                return st.gru_wide_step_reference(xp_t, h, w, b, mask_t,
+                                                  plan)
+
+            with torch.inference_mode():
+                got = call().clone()
+                again = call()
+                want = plain()
+                torch.cuda.synchronize()
+                errs, rels = persist_errors([got], [want])
+                row = dict(kernel=STEP_KERNEL, batch=batch, hidden=hidden,
+                           dtype=str(dtype).replace("torch.", ""),
+                           masked=masked, plan=plan, max_abs_err=errs[0],
+                           max_rel_err=rels[0], tol=BF16_TOL,
+                           bit_identical_rerun=torch.equal(got, again),
+                           finite=bool(torch.isfinite(got.float()).all()))
+                if timed and not masked and device == "cuda":
+                    row.update(
+                        ms=time_ms(call, prime=True),
+                        plain_ms=time_ms(plain, prime=True),
+                        pair_ms=time_ms(lambda: ws.gru_wide_gates(
+                            xp_t, torch.addmm(b, h, w.t(), out=hh), h, None,
+                            out), prime=True),
+                        thnn_cell_ms=time_ms(lambda: thnn(
+                            xp_t, hh, h, None, None), prime=True),
+                        library_pair_ms=time_ms(lambda: thnn(
+                            xp_t, torch.addmm(b, h, w.t(), out=hh), h, None,
+                            None), prime=True),
+                        library_ms=None)
+                    row["bound_ms"], row["bound_by"] = gru_wide_step_bound(
+                        batch, hidden, 2, False)
+                    row.update(scan_step_times(batch, hidden, dtype, gen,
+                                               dev))
+            emit("wide step", **row)
+            check(row["finite"], f"non-finite {STEP_KERNEL} output: {row}")
+            check(persist_agrees(row, dtype), f"{STEP_KERNEL} disagrees with "
+                  f"its plain version: {row}")
+            check(row["bit_identical_rerun"], f"{STEP_KERNEL} gave other "
+                  f"bits on a second call: {row}")
+            rows.append(row)
+        # a reversed, masked scan: each step's h_{t-1} the last one's output
+        (xp, h0, w, b), _ = wide_scan_inputs("gru", batch, hidden, dtype, gen,
+                                             dev)
+        mask = persist_mask(batch, gen, dev)
+        with torch.inference_mode():
+            got = ws.gru_wide_scan_fwd(xp, h0, w, b, reverse=True, mask=mask)
+            with plain_wide_gates():
+                want = ws.gru_wide_scan_fwd(xp, h0, w, b, reverse=True,
+                                            mask=mask)
+            torch.cuda.synchronize()
+        errs, rels = persist_errors(got, want)
+        row = dict(kernel=STEP_KERNEL, batch=batch, hidden=hidden,
+                   dtype=str(dtype).replace("torch.", ""), steps=WIDE_STEPS,
+                   reverse=True, masked=True, max_abs_err=max(errs),
+                   max_rel_err=max(rels), rel_errs=rels, tol=BF16_TOL)
+        emit("wide step scan", **row)
+        check(persist_agrees(row, dtype), f"the route's scan through "
+              f"{STEP_KERNEL} disagrees with its plain version: {row}")
+        rows.append(row)
+    phase_step_witness(device)
+    return rows
+
+
+def scan_step_times(batch, hidden, dtype, gen, dev) -> dict:
+    """A step's device ms as the route runs it: a forward scan of
+    WIDE_STEPS steps over WIDE_STEPS, through the fused step (each launch
+    after the first overlapping the one before) and through the pair it
+    replaced (the plan forced off: an ``addmm`` and W1 a step)."""
+    from fmda_tpu_torch.ops import wide_scan as ws
+
+    (xp, h0, w, b), _ = wide_scan_inputs("gru", batch, hidden, dtype, gen,
+                                         dev)
+    out = {}
+    for key, route in (("scan_step_ms", contextlib.nullcontext),
+                       ("pair_scan_step_ms", pair_gru)):
+        with route(), torch.inference_mode():
+            out[key] = time_ms(lambda: ws.gru_wide_scan_fwd(xp, h0, w, b),
+                               **WIDE_PRIMED) / WIDE_STEPS
+    return out
+
+
+def gru_scan_f64(xp, h0, w, b, mask, reverse):
+    """The GRU scan in float64 on its inputs' values, written here apart
+    from the port: the exact function both GRU routes round (h and the
+    pre-activations never rounded); gates r, z, n; a held row keeps h.
+    (h_last, hs)."""
+    x, h, w, b = (t.double() for t in (xp, h0, w, b))
+    n_steps, hidden = x.shape[1], h.shape[-1]
+    hs = [None] * n_steps
+    for t in (range(n_steps - 1, -1, -1) if reverse else range(n_steps)):
+        xr, xz, xn = x[:, t].split(hidden, dim=-1)
+        hr, hz, hn = (h @ w.t() + b).split(hidden, dim=-1)
+        r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+        h_new = (1 - z) * torch.tanh(xn + r * hn) + z * h
+        if mask is not None:
+            h_new = torch.where(mask[:, t, None] != 0, h_new, h)
+        hs[t], h = h_new, h_new
+    return h, torch.stack(hs, dim=1)
+
+
+def gru_step_witness(batch, hidden, dtype, masked, gen, dev) -> dict:
+    """The GRU route's scan, forward and gradients (h_last, hs; dxp, dh0,
+    dW_hh, db_hh at unit cotangents), its forward through the fused step
+    and through the pair (the plan forced off: cuBLAS's ``addmm`` and W1),
+    the backward W2 and cuBLAS's products in both, each against
+    :func:`gru_scan_f64` and its float64 gradients."""
+    from fmda_tpu_torch.ops import wide_scan as ws
+
+    (xp, h0, w, b), _ = wide_scan_inputs("gru", batch, hidden, dtype, gen,
+                                         dev)
+    mask = persist_mask(batch, gen, dev) if masked else None
+    cots = [(torch.rand(s, generator=gen, device=dev) * 2 - 1).to(dtype)
+            for s in ((batch, hidden), (batch, WIDE_STEPS, hidden))]
+    args64 = [t.double().requires_grad_() for t in (xp, h0, w, b)]
+    out64 = gru_scan_f64(*args64, mask, False)
+    exact = [o.detach() for o in out64] + [
+        g.detach() for g in torch.autograd.grad(
+            out64, args64, [c.double() for c in cots])]
+    del out64, args64
+
+    def route():
+        args = [t.clone().requires_grad_() for t in (xp, h0, w, b)]
+        h, hs = ws.gru_wide_scan(*args, mask=mask)
+        return [h.detach(), hs.detach(),
+                *torch.autograd.grad([h, hs], args, cots)]
+
+    fused = route()
+    with pair_gru():
+        pair = route()
+    torch.cuda.synchronize()
+    f_rel, f_rms = witness_errors(fused, exact)
+    p_rel, p_rms = witness_errors(pair, exact)
+    return dict(batch=batch, hidden=hidden,
+                dtype=str(dtype).replace("torch.", ""), masked=masked,
+                outputs=list(STEP_WITNESS_OUTPUTS), fused_rel=f_rel,
+                pair_rel=p_rel, fused_rms=f_rms, pair_rms=p_rms,
+                rms_ratio=[p / max(q, 1e-300) for p, q in zip(f_rms, p_rms)])
+
+
+def phase_step_witness(device: str = "cuda") -> list:
+    """:func:`gru_step_witness` at STEP_WITNESS_CASES: every output of the
+    fused route within WITNESS_RMS_RATIO of the pair's root mean square
+    distance from the float64 witness, and its largest difference within
+    WITNESS_TOL of the witness's largest entry."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rows = []
+    for batch, hidden, dtype, masked in STEP_WITNESS_CASES:
+        row = gru_step_witness(batch, hidden, dtype, masked, gen, dev)
+        tol = WITNESS_TOL[row["dtype"]]
+        ratio = WITNESS_RMS_RATIO[row["dtype"]]
+        row.update(tol=tol, rms_ratio_bound=ratio)
+        row["ok"] = (max(row["fused_rel"]) <= tol
+                     and max(row["rms_ratio"]) <= ratio)
+        emit("wide step witness", **row)
+        check(row["ok"], f"the fused GRU route is farther from the float64 "
+              f"witness than the pair: {row}")
+        rows.append(row)
+    return rows
+
+
 def wide_scan_inputs(cell, batch, hidden, dtype, gen, dev, *, grad=False):
     """A scan's inputs (xp, h0[, c0], W_hh, b_hh), uniform from ``gen``,
     nonzero initial states, and cotangents of its outputs in
@@ -1722,15 +2089,18 @@ def wide_scan_outputs(cell, scan, args, reverse):
 def phase_wide_route(n_features: int, device: str = "cuda") -> list:
     """(b) The wide route's scans (``gru_wide_scan``, ``lstm_wide_scan``)
     forward and forward + backward against the same scans through the
-    gate kernels' plain versions on the card, at WIDE_SHAPES, both
-    directions.  Beside the forward direction's times: kernel 1's (or 3's)
-    device-memory branch on the same scan, alone and with its backward,
-    where it runs (the LSTM pair stops at H = 512), and cuDNN's layer of
-    the same width (input projection included, beside the route's own
-    layer), a yardstick never on the port's path.  ``ms`` is device time
-    (queue primed); ``call_ms`` what a caller waits on an idle card (the
-    route's 2 T host calls a direction are part of it)."""
+    kernels' plain versions on the card, at WIDE_SHAPES, both
+    directions.  Beside the forward direction's times: the route before
+    its redesign (the LSTM's per-step kernels, ``per_step_*``; the GRU's
+    ``addmm`` and W1, ``unfused_*``), kernel 1's (or 3's) device-memory
+    branch on the same scan, alone and with its backward, where it runs
+    (the LSTM pair stops at H = 512), and cuDNN's layer of the same width
+    (input projection included, beside the route's own layer), a
+    yardstick never on the port's path.  ``ms`` is device time (queue
+    primed); ``call_ms`` what a caller waits on an idle card (the route's
+    host calls, T or 2 T a direction, are part of it)."""
     from fmda_tpu_torch.ops import gru as gru_ops, lstm as lstm_ops
+    from fmda_tpu_torch.ops import gru_wide_step
     from fmda_tpu_torch.ops import wide_scan as ws
     from fmda_tpu_torch.ops.cost import scan_bound, scan_bwd_bound
 
@@ -1779,19 +2149,16 @@ def phase_wide_route(n_features: int, device: str = "cuda") -> list:
                            tol=tol)
                 if not reverse:
                     with torch.inference_mode():
-                        row.update(
-                            ms=time_ms(fwd, prime=True,
-                                       prime_cycles=LIBRARY_PRIME_CYCLES),
-                            call_ms=time_ms(fwd, prime=False))
+                        row.update(ms=time_ms(fwd, **WIDE_PRIMED),
+                                   call_ms=time_ms(fwd, **WIDE_CALLED))
                         with plain_wide_gates():
                             row["plain_ms"] = time_ms(
                                 fwd, prime=True,
                                 prime_cycles=LIBRARY_PRIME_CYCLES,
                                 reps=WIDE_PAIR_REPS, warmup=1)
                     row.update(
-                        fwd_bwd_ms=time_ms(fwd_bwd, prime=True,
-                                           prime_cycles=LIBRARY_PRIME_CYCLES),
-                        fwd_bwd_call_ms=time_ms(fwd_bwd, prime=False))
+                        fwd_bwd_ms=time_ms(fwd_bwd, **WIDE_PRIMED),
+                        fwd_bwd_call_ms=time_ms(fwd_bwd, **WIDE_CALLED))
                     fb, _ = scan_bwd_bound(batch, WIDE_STEPS, hidden,
                                            itemsize, False,
                                            gates=shapes["gates"],
@@ -1805,7 +2172,11 @@ def phase_wide_route(n_features: int, device: str = "cuda") -> list:
                     if cell == "lstm":
                         row.update(persist_plan=ws.lstm_persist_plan(
                             batch, hidden, dtype, dev), **per_step_times(
-                                fwd, fwd_bwd))
+                                fwd, fwd_bwd, per_step_lstm))
+                    else:
+                        row.update(step_plan=gru_wide_step.gru_wide_step_plan(
+                            batch, hidden, dtype, dev), **per_step_times(
+                                fwd, fwd_bwd, pair_gru, "unfused"))
                     row.update(wide_yardsticks(cell, pair, args, cots, batch,
                                                hidden, dtype, n_features,
                                                gen, dev))
@@ -1820,16 +2191,18 @@ def phase_wide_route(n_features: int, device: str = "cuda") -> list:
     return results
 
 
-def per_step_times(fwd, fwd_bwd) -> dict:
-    """The same scan through the per-step kernels (the persistent plan
-    forced off), forward and with its backward, device and call ms."""
-    prime = dict(prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)
-    with per_step_lstm():
+def per_step_times(fwd, fwd_bwd, route, tag="per_step") -> dict:
+    """The same scan on the route before its redesign (``route``: the
+    LSTM's per-step kernels, the persistent plan forced off; the GRU's
+    pair, the fused step's plan forced off), forward and with its
+    backward, device and call ms, keys led by ``tag``."""
+    with route():
         with torch.inference_mode():
-            out = dict(per_step_ms=time_ms(fwd, **prime),
-                       per_step_call_ms=time_ms(fwd, prime=False))
-        out.update(per_step_fwd_bwd_ms=time_ms(fwd_bwd, **prime),
-                   per_step_fwd_bwd_call_ms=time_ms(fwd_bwd, prime=False))
+            out = {f"{tag}_ms": time_ms(fwd, **WIDE_PRIMED),
+                   f"{tag}_call_ms": time_ms(fwd, **WIDE_CALLED)}
+        out.update({f"{tag}_fwd_bwd_ms": time_ms(fwd_bwd, **WIDE_PRIMED),
+                    f"{tag}_fwd_bwd_call_ms": time_ms(fwd_bwd,
+                                                      **WIDE_CALLED)})
     return out
 
 
@@ -1880,19 +2253,16 @@ def wide_yardsticks(cell, pair, args, cots, batch, hidden, dtype,
 
     for name, fn in (("layer", route_layer), ("cudnn", cudnn_layer)):
         with torch.inference_mode():
-            out[f"{name}_ms"] = time_ms(fn, prime=True,
-                                        prime_cycles=LIBRARY_PRIME_CYCLES)
+            out[f"{name}_ms"] = time_ms(fn, **WIDE_PRIMED)
         probe = fn()
         cot = [torch.rand_like(o) * COT_SCALE for o in probe]
         inputs = wrt if name == "layer" else [x, *lib.parameters()]
         out[f"{name}_fwd_bwd_ms"] = time_ms(
-            lambda: torch.autograd.grad(fn(), inputs, cot),
-            prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)
+            lambda: torch.autograd.grad(fn(), inputs, cot), **WIDE_PRIMED)
         # the backward alone, on a kept graph (kernel 4's yardstick too)
         out[f"{name}_bwd_ms"] = time_ms(
             lambda: torch.autograd.grad(probe, inputs, cot,
-                                        retain_graph=True),
-            prime=True, prime_cycles=LIBRARY_PRIME_CYCLES)
+                                        retain_graph=True), **WIDE_PRIMED)
     return out
 
 
@@ -1905,6 +2275,89 @@ def wide_grads(trainer, state, batch, rng_state):
     loss = trainer.batch_loss(logits, batch)
     params = [p for p in state.model.parameters() if p.requires_grad]
     return loss.detach(), torch.autograd.grad(loss, params)
+
+
+class blas_order_step:
+    """Inside, the fused GRU step's plain version takes its product as one
+    float32 BLAS product, not summed in the kernel's order: with
+    :class:`plain_wide_gates`, a plain route that copies nothing of the
+    kernel's rounding."""
+
+    def __enter__(self):
+        from fmda_tpu_torch.ops import gru_wide_step
+
+        self._ref = ref = gru_wide_step.gru_wide_step_reference
+        gru_wide_step.gru_wide_step_reference = (
+            lambda xp_t, h, w, b, mask_t=None, plan=None: ref(xp_t, h, w, b,
+                                                              mask_t))
+        return self
+
+    def __exit__(self, *exc):
+        from fmda_tpu_torch.ops import gru_wide_step
+
+        gru_wide_step.gru_wide_step_reference = self._ref
+        return False
+
+
+def first_step_blas(trainer, state, batch, rng_state, loss_k,
+                    grads_k) -> dict:
+    """The gru wide path's first step through the fused route (``loss_k``,
+    ``grads_k``) and through the pair (:func:`pair_gru`), each against the
+    same step through the plain versions with the BLAS-order product
+    (:class:`blas_order_step`): the losses' distances, each parameter's
+    root mean square gradient distance over the plain gradient's, and the
+    fused route's distance over the pair's (``rms_ratio``; ``pooled_ratio``
+    over every parameter's relative distance at once)."""
+    with plain_wide_gates(), blas_order_step():
+        loss_b, grads_b = wide_grads(trainer, state, batch, rng_state)
+    with pair_gru():
+        loss_p, grads_p = wide_grads(trainer, state, batch, rng_state)
+    torch.cuda.synchronize()
+
+    def rel_rms(a, b):
+        b = b.double()
+        d = (a.double() - b).pow(2).mean().sqrt()
+        return float(d / b.pow(2).mean().sqrt().clamp_min(1e-300))
+
+    fused = [rel_rms(a, b) for a, b in zip(grads_k, grads_b)]
+    pair = [rel_rms(a, b) for a, b in zip(grads_p, grads_b)]
+    return dict(loss_fused_err=abs(float(loss_k) - float(loss_b)),
+                loss_pair_err=abs(float(loss_p) - float(loss_b)),
+                fused_rel_rms=fused, pair_rel_rms=pair,
+                rms_ratio=[f / max(p, 1e-300) for f, p in zip(fused, pair)],
+                pooled_ratio=math.sqrt(sum(f * f for f in fused)
+                                       / max(sum(p * p for p in pair),
+                                             1e-300)))
+
+
+def wide_trainer(directory: str, device: str, cell: str):
+    """The wide path's set-up: (the framework config, flagship_wide's model
+    config for ``cell``, the train config, a WIDE_ROWS warehouse in
+    ``directory`` (the train cell's random walk, cut), its Trainer, its
+    ChunkDataset)."""
+    from fmda_tpu_torch.config import FrameworkConfig, TrainConfig
+    from fmda_tpu_torch.data.pipeline import ChunkDataset
+    from fmda_tpu_torch.data.synthetic import random_walk_rows
+    from fmda_tpu_torch.stream import Warehouse
+    from fmda_tpu_torch.train import Trainer, imbalance_weights_from_source
+
+    cfg = FrameworkConfig()
+    fc, window = cfg.features, cfg.train.window
+    model_cfg = model_config(cell, hidden_size=1024, dtype="bfloat16",
+                             dropout=0.5, spatial_dropout=True)
+    train_cfg = TrainConfig(batch_size=WIDE_BATCH, window=window,
+                            chunk_size=WIDE_CHUNK, epochs=1)
+    wh = Warehouse(cfg.features, dataclasses.replace(
+        cfg.warehouse, path=f"{directory}/wide_{cell}.sqlite"))
+    wh.insert_rows(random_walk_rows(cfg.features.table_columns(), WIDE_ROWS,
+                                    seed=SEED))
+    weights = imbalance_weights_from_source(wh)
+    trainer = Trainer(model_cfg, train_cfg, weight=weights[0],
+                      pos_weight=weights[1], device=device)
+    dataset = ChunkDataset(wh, train_cfg.chunk_size, window,
+                           bid_levels=fc.bid_levels, ask_levels=fc.ask_levels,
+                           cache_chunks=train_cfg.cache_chunks)
+    return cfg, model_cfg, train_cfg, wh, trainer, dataset
 
 
 def phase_wide_path(directory: str, device: str = "cuda",
@@ -1921,41 +2374,29 @@ def phase_wide_path(directory: str, device: str = "cuda",
     bidirectional streaming core from the trained weights for
     WIDE_STREAM_TICKS ticks, its backward direction's re-scan of the
     window-row ring on the wide route, against the plain versions.
-    Kernels 1-4 and ``scan_dw`` launch 0 times; for gru each gate kernel T
-    times a scan and direction; for lstm the persistent scans once a scan
-    and direction (the forward) and once a backward call and direction,
-    the gate kernels W3 and W4 0 times.  Returns the path's launch
-    counts."""
+    Kernels 1-4 and ``scan_dw`` launch 0 times; for gru the fused step
+    (``gru_wide_step_fwd``) T times a scan and direction and W2 T times a
+    backward call and direction, W1 0 times; for lstm the persistent scans
+    once a scan and direction (the forward) and once a backward call and
+    direction, the gate kernels W3 and W4 0 times.  For gru also the
+    first step against the plain versions with the step's product in
+    BLAS order, beside the pair (:func:`first_step_blas`), and every
+    shape the fused step launched at one ``wide step`` checked.  Returns
+    the path's launch counts."""
     from fmda_tpu_torch.config import (
-        DEFAULT_TOPICS, FrameworkConfig, TOPIC_PREDICT_TIMESTAMP,
-        TOPIC_PREDICTION, TrainConfig)
-    from fmda_tpu_torch.data.pipeline import ChunkDataset, WindowBatches
-    from fmda_tpu_torch.data.synthetic import random_walk_rows
+        DEFAULT_TOPICS, TOPIC_PREDICT_TIMESTAMP, TOPIC_PREDICTION)
+    from fmda_tpu_torch.data.pipeline import WindowBatches
     from fmda_tpu_torch.serve import (
         Predictor, StreamingBiGRUBidirectional, backtest_from_checkpoint)
-    from fmda_tpu_torch.stream import InProcessBus, Warehouse
-    from fmda_tpu_torch.train import (
-        Trainer, imbalance_weights_from_source, save_checkpoint)
+    from fmda_tpu_torch.stream import InProcessBus
+    from fmda_tpu_torch.train import save_checkpoint
 
     t_phase = time.perf_counter()
-    cfg = FrameworkConfig()
-    fc, window = cfg.features, cfg.train.window
-    model_cfg = model_config(cell, hidden_size=1024, dtype="bfloat16",
-                             dropout=0.5, spatial_dropout=True)
-    train_cfg = TrainConfig(batch_size=WIDE_BATCH, window=window,
-                            chunk_size=WIDE_CHUNK, epochs=1)
-    wh = Warehouse(cfg.features, dataclasses.replace(
-        cfg.warehouse, path=f"{directory}/wide_{cell}.sqlite"))
-    wh.insert_rows(random_walk_rows(cfg.features.table_columns(), WIDE_ROWS,
-                                    seed=SEED))
+    cfg, model_cfg, train_cfg, wh, trainer, dataset = wide_trainer(
+        directory, device, cell)
+    window = cfg.train.window
     route = wide_route(cell, WIDE_BATCH, model_cfg.hidden_size, 2)
     check(route == "wide", f"wide path {cell}: the rule picked {route}")
-    weights = imbalance_weights_from_source(wh)
-    trainer = Trainer(model_cfg, train_cfg, weight=weights[0],
-                      pos_weight=weights[1], device=device)
-    dataset = ChunkDataset(wh, train_cfg.chunk_size, window,
-                           bid_levels=fc.bid_levels, ask_levels=fc.ask_levels,
-                           cache_chunks=train_cfg.cache_chunks)
     train_chunks, val_chunks, _ = dataset.split(train_cfg.val_size,
                                                 train_cfg.test_size)
     n_train = sum(len(WindowBatches(dataset, i, WIDE_BATCH))
@@ -1987,6 +2428,14 @@ def phase_wide_path(directory: str, device: str = "cuda",
     check(loss_err <= BF16_TOL and grad_rel <= BF16_TOL,
           f"wide path {cell}: the first step's kernels and plain versions "
           f"disagree (loss {loss_err}, gradients {grad_rel})")
+    if cell == "gru":
+        row = first_step_blas(trainer, state, batch, rng, loss_k, grads_k)
+        row.update(params=names, rms_ratio_bound=FIRST_STEP_RMS_RATIO)
+        row["ok"] = row["pooled_ratio"] <= FIRST_STEP_RMS_RATIO
+        emit("wide first step blas", cell=cell, **row)
+        check(row["ok"], f"wide path gru: the fused route's first step is "
+              f"farther from the BLAS-order plain version than the pair's: "
+              f"{row}")
 
     fwd, bwd = f"{cell}_wide_fwd", f"{cell}_wide_bwd"
     per_forward = 2 * window  # both directions, a launch a step
@@ -2002,6 +2451,21 @@ def phase_wide_path(directory: str, device: str = "cuda",
                 torch.device(device)) is not None,
                 f"wide path lstm: the persistent plan hands B = {b} back")
         fwd, bwd, per_forward, per_scan = PERSIST_KERNELS + (2, 1)
+    else:
+        # the fused step: one launch a step, at the path's batches and the
+        # stream's B = 1 alike; W1 at 0
+        from fmda_tpu_torch.ops import gru_wide_step
+
+        for b in (WIDE_BATCH, 1):
+            check(gru_wide_step.gru_wide_step_plan(
+                b, model_cfg.hidden_size, torch.bfloat16,
+                torch.device(device)) is not None,
+                f"wide path gru: the fused step's plan hands B = {b} back")
+        fwd = STEP_KERNEL
+    # the fused step's launch shapes from here to the stream's end: each
+    # must be one ``wide step`` held to its plain version (a leftover
+    # recorder after a failure passes every booking on)
+    shapes = launch_shapes(STEP_KERNEL).__enter__()
     start_path()
     t0 = time.perf_counter()
     state, history, _ = trainer.fit(wh, dataset=dataset, initial_state=state)
@@ -2110,9 +2574,15 @@ def phase_wide_path(directory: str, device: str = "cuda",
           f"versions disagree by {stream_err}")
     check_launches(stream_counts, {fwd: per_scan * WIDE_STREAM_TICKS},
                    f"wide {cell} stream")
+    shapes.__exit__(None, None, None)
     wh.close()
+    launched = sorted({sig[:2] for sig in shapes.seen})
     emit("wide path", cell=cell, route=route,
-         seconds=time.perf_counter() - t_phase)
+         seconds=time.perf_counter() - t_phase, step_shapes=launched)
+    checked = {(b, h) for b, h, _ in STEP_SHAPES + STEP_RAGGED_SHAPES}
+    check(set(launched) <= checked, f"wide path {cell}: {STEP_KERNEL} "
+          f"launched at (batch, hidden) {launched}, checked at "
+          f"{sorted(checked)} only")
     return add_counts(add_counts(add_counts(fit_counts, bt_counts),
                                  pred_counts), stream_counts)
 
@@ -2183,6 +2653,40 @@ def persist_entry(name, rows, route_rows, launches) -> dict:
         "l2_bytes_per_step": main_shape["l2_bytes_per_step"],
         "f32_512": {k: f32[k] for k in TIMES if k != "library_ms"},
         "b1": {k: b1[k] for k in TIMES if k != "library_ms"},
+    }
+
+
+def step_entry(rows, launches) -> dict:
+    """The fused GRU step's entry of the summary line, at flagship_wide's
+    step (STEP_SHAPES[0]: (512, 1024) bf16), unmasked; ``b1``: the same at
+    (1, 1024).  ``library_ms`` is null (no one PyTorch call computes the
+    step); ``library_pair_ms`` is the ``addmm`` and
+    ``_thnn_fused_gru_cell``, ``pair_ms`` the ``addmm`` and W1, each a lone
+    launch; ``scan_step_ms`` and ``pair_scan_step_ms`` a step of a scan
+    through the fused step and through the pair."""
+    def case(batch, hidden, dtype):
+        return next(r for r in rows if "ms" in r
+                    and (r["batch"], r["hidden"]) == (batch, hidden)
+                    and r["dtype"] == str(dtype).replace("torch.", ""))
+
+    main_shape, b1 = (case(*shape) for shape in STEP_SHAPES)
+    extra = ("pair_ms", "thnn_cell_ms", "library_pair_ms", "scan_step_ms",
+             "pair_scan_step_ms")
+    return {
+        "name": STEP_KERNEL,
+        "route": "cuda",
+        "source": STEP_SOURCE,
+        "replaces": WIDE_REPLACES["gru"],
+        "replaces_kind": "the lax.scan route's step: its product and fused "
+                         "gate algebra, no pallas_call",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: main_shape[k] for k in TIMES + extra},
+        "shape": list(STEP_SHAPES[0][:2]),
+        "dtype": str(STEP_SHAPES[0][2]).replace("torch.", ""),
+        "plan": main_shape["plan"],
+        "b1": {k: b1[k] for k in TIMES + extra},
     }
 
 
@@ -6808,7 +7312,7 @@ def main() -> int:
     emit("build", kernels=[f"{s.name}_scan_{k}" for s in scans
                            for k in ("fwd", "bwd")]
          + ["ssm_step", "ssm_tick", *FLASH_REPLACES, *WIDE_KERNELS,
-            *PERSIST_KERNELS],
+            *PERSIST_KERNELS, STEP_KERNEL],
          sources=[str(p.name) for p in _cuda_lib.SOURCES], library=str(lib),
          nvcc_seconds=_cuda_lib.build_info.get("seconds"),
          seconds=time.perf_counter() - t0, target="sm_90a", **ptxas)
@@ -6826,6 +7330,7 @@ def main() -> int:
     t_wide = time.perf_counter()
     phase_wide_rule()
     wide_rows = phase_wide_kernels()
+    step_rows = phase_wide_step()
     route_rows = phase_wide_route(n_features)
     wide_s = time.perf_counter() - t_wide
     serve, train, stream, stream_bi, pool = {}, {}, {}, {}, {}
@@ -6944,6 +7449,7 @@ def main() -> int:
     entries += [persist_entry(name, wide_rows, route_rows,
                               {"wide": wide["lstm"][name]})
                 for name in PERSIST_KERNELS]
+    entries.append(step_entry(step_rows, {"wide": wide["gru"][STEP_KERNEL]}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

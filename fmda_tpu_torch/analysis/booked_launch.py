@@ -54,6 +54,7 @@ NO_LAUNCH_ENTRIES = (
     "fmda_flash_bwd_plan",
     "fmda_flash_fwd_plan",
     "fmda_gru_scan_fwd_plan",
+    "fmda_gru_wide_scan_fwd_plan",
     "fmda_lstm_persist_plan",
     "fmda_lstm_scan_fwd_plan",
     "fmda_scan_dw_splits",

@@ -9,9 +9,12 @@
 // (fmda_tpu/ops/gru.py::gru_scan, lstm.py::lstm_scan): each step one
 // (B, H) x (H, G H) product, which XLA hands to the matrix unit, and the
 // gate algebra, which XLA fuses into one element-wise pass.  The port's
-// counterpart of that route (ops/wide_scan.py) leaves the product to cuBLAS
-// (torch.addmm, one a step) and runs these kernels as the fused pass, one
-// launch a step:
+// counterpart of that route (ops/wide_scan.py) runs these kernels as the
+// fused pass, one launch a step, beside a cuBLAS product (torch.addmm, one a
+// step) wherever its plans hand the step back: the GRU forward's product
+// and gates run as one launch of gru_wide_step.cu's kernel wherever its
+// plan lays the step out (bf16, H a multiple of 64), and the LSTM's scans
+// as lstm_persist.cu's wherever theirs does:
 //
 //   gru_wide_fwd     xp_t, hh_t = h_{t-1} W_hh^T + b_hh, h_{t-1} -> h_t
 //   lstm_wide_fwd    xp_t, hh_t, h_{t-1}, c_{t-1} -> h_t, c_t
@@ -49,9 +52,9 @@
 // of 4 and every pointer is aligned to the load, else one thread a (row,
 // unit) with scalar loads; neighbouring threads take neighbouring units, so
 // a warp reads whole sectors.  Nothing is reused, so nothing is staged in
-// shared memory.  Each step's launch follows its product on the stream:
-// the route's per-step floor is a product and a launch, and its times sit
-// in PERF.md beside kernel 1's device branch and cuDNN's.
+// shared memory.  Where it runs, each step's launch follows its product
+// on the stream: that per-step floor is a product and a launch, and its
+// times sit in PERF.md beside kernel 1's device branch and cuDNN's.
 
 #include "scan_common.cuh"
 

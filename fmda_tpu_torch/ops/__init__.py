@@ -36,6 +36,7 @@ LAUNCH_COUNTERS = {
     "lstm_wide_bwd": ("wide_scan", "lstm_bwd_launches"),
     "lstm_persist_fwd": ("wide_scan", "lstm_persist_fwd_launches"),
     "lstm_persist_bwd": ("wide_scan", "lstm_persist_bwd_launches"),
+    "gru_wide_step_fwd": ("gru_wide_step", "launches"),
 }
 
 

@@ -4,8 +4,9 @@ checks every kernel wrapper shares.
 Every kernel source under ``csrc/`` (the GRU scans in ``gru_scan.cu``, the
 LSTM scans in ``lstm_scan.cu``, the backward scans' weight gradient in
 ``scan_dw.cu``, the wide scan route's fused gate kernels in
-``scan_wide.cu`` and its persistent LSTM scans in ``lstm_persist.cu``, laid
-out by ``lstm_persist_plan.cc``, the SSM step and the fused serve tick in ``ssm_step.cu``,
+``scan_wide.cu``, its fused GRU step in ``gru_wide_step.cu`` and its
+persistent LSTM scans in ``lstm_persist.cu``, laid out by
+``lstm_persist_plan.cc``, the SSM step and the fused serve tick in ``ssm_step.cu``,
 the flash-attention forward in ``flash_fwd.cu``, laid out by the host code
 of ``flash_fwd_plan.cc``, its fused backward in ``flash_bwd.cu`` and its
 dK/dV and dQ sweeps in ``flash_attn.cu``, both laid out by
@@ -41,6 +42,7 @@ SOURCES: Tuple[Path, ...] = (_CSRC / "gru_scan.cu", _CSRC / "lstm_scan.cu",
                              _CSRC / "flash_attn.cu", _CSRC / "flash_bwd.cu",
                              _CSRC / "flash_bwd_plan.cc",
                              _CSRC / "scan_wide.cu",
+                             _CSRC / "gru_wide_step.cu",
                              _CSRC / "lstm_persist.cu",
                              _CSRC / "lstm_persist_plan.cc")
 #: Headers the sources include: part of the library's key.
@@ -226,6 +228,15 @@ def load() -> ctypes.CDLL:
         # B, H, itemsize, device, out[19]
         lib.fmda_lstm_persist_plan.argtypes = [i, i, i, i, p]
         lib.fmda_lstm_persist_plan.restype = i
+        # the fused GRU step: xp_t and its row stride, h_{t-1} and its,
+        # W_hh, b_hh, the mask column and its row stride, h_t and its, the
+        # plan's ints, B, H, early, device, stream
+        lib.fmda_gru_wide_step_fwd_bf16.argtypes = [
+            p, ll, p, ll, p, p, p, ll, p, ll, p, i, i, i, i, p]
+        lib.fmda_gru_wide_step_fwd_bf16.restype = i
+        # B, H, itemsize, device, out[14]
+        lib.fmda_gru_wide_scan_fwd_plan.argtypes = [i, i, i, i, p]
+        lib.fmda_gru_wide_scan_fwd_plan.restype = i
         lib.fmda_scan_dw_splits.argtypes = [i, i, i, i, i]
         lib.fmda_scan_dw_splits.restype = i
         lib.fmda_cuda_error_string.argtypes = [i]

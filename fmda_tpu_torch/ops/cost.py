@@ -236,6 +236,23 @@ def wide_gates_bound(cell, batch, hidden, itemsize, masked, backward=False,
                                         masked, backward, prod, direct))
 
 
+def gru_wide_step_cost(batch, hidden, itemsize, masked) -> Cost:
+    """The fused GRU step (``csrc/gru_wide_step.cu``): W_hh (3H x H) and
+    b_hh read once, xp_t (B x 3H) and h_{t-1} read, h_t written, the mask
+    column; the product h_{t-1} W_hh^T, 2 B H 3H FLOPs in the I/O dtype,
+    and the gate algebra, the GRU's forward count per (row, unit)."""
+    gh = 3 * hidden
+    bytes_moved = itemsize * (gh * hidden + gh + batch * (gh + 2 * hidden))
+    bytes_moved += batch if masked else 0
+    return Cost(bytes_moved, 2 * batch * hidden * gh,
+                SCAN_SHAPES["gru"]["fwd_ops"] * batch * hidden, itemsize)
+
+
+def gru_wide_step_bound(batch, hidden, itemsize, masked):
+    """Least time for one fused GRU step on this card."""
+    return roofline_ms(*gru_wide_step_cost(batch, hidden, itemsize, masked))
+
+
 def persist_sweep_cost(batch, steps, hidden, itemsize, masked) -> Cost:
     """The persistent LSTM backward sweep (``csrc/lstm_persist.cu``): xp,
     the recomputed hh, cs, dhs, c0 and W_hh read in the I/O dtype, dh_last
@@ -302,8 +319,11 @@ def _flash(kernel):
 #:   is data, read only on the card);
 #: - the wide route's gate kernels, one launch a step: ``(batch, hidden,
 #:   itemsize, masked)`` forward, ``(batch, hidden, itemsize, masked,
-#:   prod, direct)`` backward; the step's cuBLAS product is no kernel of
-#:   the port's and books nothing;
+#:   prod, direct)`` backward, their element-wise work alone: where a gate
+#:   kernel runs, the step's product is a cuBLAS ``addmm``, no kernel of
+#:   the port's, and books nothing;
+#: - the fused GRU step, one launch a step: ``(batch, hidden, itemsize,
+#:   masked)``, the step's product and gate algebra together;
 #: - the persistent LSTM scans, one launch a direction: ``(batch, steps,
 #:   hidden, itemsize, masked)``, the forward a scan's work, the backward
 #:   its sweep's.
@@ -323,4 +343,5 @@ LAUNCH_COSTS: Dict[str, object] = {
         for cell in SCAN_SHAPES},
     "lstm_persist_fwd": _scan_fwd("lstm"),
     "lstm_persist_bwd": lambda sig: persist_sweep_cost(*sig),
+    "gru_wide_step_fwd": lambda sig: gru_wide_step_cost(*sig),
 }

@@ -24,6 +24,13 @@ layer:
   in the I/O dtype).  After the sweep, dW_hh is one product over the B T
   rows and db_hh a row sum.
 
+The GRU route runs each forward step as one launch wherever it can
+(``csrc/gru_wide_step.cu``, :mod:`~fmda_tpu_torch.ops.gru_wide_step`): the
+product on the tensor cores and the gate algebra in its epilogue, hh never
+written; its plan (by shape, dtype and the card, before any launch) hands
+float32 and H not a multiple of 64 back to the ``addmm`` and gate kernel
+above.  The backward is the same either way.
+
 The LSTM route runs each direction as one persistent launch wherever it
 can (``csrc/lstm_persist.cu``): the forward keeps each CTA's slice of W_hh
 in shared memory for the whole scan, forms every step's product on the
@@ -47,11 +54,12 @@ launch: ``kernel_supported`` in :mod:`~fmda_tpu_torch.ops.gru` and
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from fmda_tpu_torch.ops import _cuda_lib, call_booked, count_launch
+from fmda_tpu_torch.ops import gru_wide_step as _step
 from fmda_tpu_torch.ops.gru_kernel import gru_gate_algebra
 from fmda_tpu_torch.ops.lstm_kernel import lstm_gate_algebra
 from fmda_tpu_torch.ops.scan_dw import h_prev_of
@@ -421,37 +429,44 @@ def _add_f32(acc: Tensor, x: Tensor) -> Tensor:
     return ((acc + x).view(torch.int64) & ~_F32_DROP).view(torch.float64)
 
 
-def _tc_product(a: Tensor, w: Tensor, plan: Dict[str, int],
-                backward: bool) -> Tensor:
+def _tc_product(a: Tensor, w: Tensor, groups: Sequence[int]) -> Tensor:
     """``a`` (R, K) times ``w`` (N, K) transposed, in float32, summed as a
-    bf16 persistent kernel sums it on the tensor cores: each k-step of 16
-    columns exactly (float64), added to its K-split group's float32 sum in
-    K's order, rounded toward zero (the k-step s of a chunk of c steps is
-    group (s mod c) mod ks), the groups' sums then added to group 0's in
-    order.  So the plain version rounds its pre-activations and gate
-    gradients to bf16 where the kernel does, not a BLAS's order apart.  Of
-    the models ``experiments/torch_lstm_persist.py`` tried on the H100
-    (groups of 16, 8, 4, 2 columns; to nearest or toward zero), this one
-    gives the kernels' bits most often (99.6 % of hs at (512, 1024));
-    ``chip_smoke.py``'s ``wide persist witness`` holds the kernels to a
-    float64 scan apart from it."""
+    bf16 kernel sums it on the tensor cores: each k-step of 16 columns
+    exactly (float64), added to its K-split group's float32 sum in K's
+    order, rounded toward zero (k-step s is group ``groups[s]``), the
+    groups' sums then added to group 0's in order.  So a plain version
+    rounds its pre-activations and gate gradients to bf16 where the kernel
+    does, not a BLAS's order apart.  Of the models
+    ``experiments/torch_lstm_persist.py`` tried on the H100 (groups of 16,
+    8, 4, 2 columns; to nearest or toward zero), this one gives the
+    persistent kernels' bits most often (99.6 % of hs at (512, 1024));
+    ``chip_smoke.py``'s witnesses hold the kernels to a float64 scan apart
+    from it."""
     rows, k = a.shape
-    steps, chunk_steps = k // 16, plan["chunk"] // 16
-    ks = _k_split(plan, backward)
+    steps = k // 16
     a64 = a.double().view(rows, steps, 16)
     w64 = w.double().view(w.shape[0], steps, 16)
-    groups = [torch.zeros(rows, w.shape[0], dtype=torch.float64,
-                          device=a.device) for _ in range(ks)]
+    sums = [torch.zeros(rows, w.shape[0], dtype=torch.float64,
+                        device=a.device) for _ in range(max(groups) + 1)]
     for s0 in range(0, steps, 16):  # 16 k-steps' products at a time
         block = torch.einsum("rsk,nsk->srn", a64[:, s0:s0 + 16],
                              w64[:, s0:s0 + 16])
         for i in range(block.shape[0]):
-            q = ((s0 + i) % chunk_steps) % ks
-            groups[q] = _add_f32(groups[q], block[i])
-    total = groups[0].to(_F32)
-    for part in groups[1:]:
+            q = groups[s0 + i]
+            sums[q] = _add_f32(sums[q], block[i])
+    total = sums[0].to(_F32)
+    for part in sums[1:]:
         total = total + part.to(_F32)
     return total
+
+
+def _persist_groups(plan: Dict[str, int], backward: bool,
+                    k: int) -> List[int]:
+    """Each k-step's K-split group in a bf16 persistent kernel of ``plan``
+    over K = ``k``: k-step s of a chunk of c steps is group (s mod c) mod
+    ks (:func:`_k_split`)."""
+    chunk_steps, ks = plan["chunk"] // 16, _k_split(plan, backward)
+    return [(s % chunk_steps) % ks for s in range(k // 16)]
 
 
 def lstm_persist_scan_reference(
@@ -474,11 +489,13 @@ def lstm_persist_scan_reference(
     w = w_hh.to(dtype)[rows].float()
     b = b_hh.to(dtype)[rows].float()
     keep = None if mask is None else (mask != 0)
+    groups = (_persist_groups(plan, False, hidden)
+              if dtype == torch.bfloat16 else None)
     hs = xp.new_empty((batch, n_steps, hidden))
     cs = torch.empty_like(hs)
     h, c = h0.to(dtype), c0.to(dtype)
     for t in _order(n_steps, reverse):
-        prod = (_tc_product(h, w, plan, False) if dtype == torch.bfloat16
+        prod = (_tc_product(h, w, groups) if dtype == torch.bfloat16
                 else h.float() @ w.t())
         pre = (prod + b).to(dtype)
         # (rows, Q, 4, U) -> the gate blocks of the whole width
@@ -512,6 +529,8 @@ def lstm_persist_sweep_reference(
     hidden, units = gh // 4, plan["units"]
     w = w_hh.to(dtype).float()
     keep = None if mask is None else (mask != 0).to(torch.uint8)
+    groups = (_persist_groups(plan, True, gh) if dtype == torch.bfloat16
+              else None)
     dxp = xp.new_empty(xp.shape)
     direct = dh_last.float().clone()
     dc = dc_last.float().clone()
@@ -521,7 +540,7 @@ def lstm_persist_sweep_reference(
 
     def product(dg):
         if dtype == torch.bfloat16:
-            return _tc_product(dg, w.t(), plan, True)
+            return _tc_product(dg, w.t(), groups)
         # every slice's (rows, U) product, back in unit order
         return torch.matmul(dg.float()[None], w_slices).permute(
             1, 0, 2).reshape(batch, hidden)
@@ -567,12 +586,13 @@ def _aligned(t: Tensor) -> Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _xp_ready(xp: Tensor) -> Tensor:
-    """xp as a persistent launch reads it (a pair of units a load): its
-    last dimension contiguous, its row strides even, 16-byte aligned;
-    itself, or a contiguous copy."""
-    if (xp.stride(-1) == 1 and xp.stride(0) % 2 == 0 and xp.stride(1) % 2 == 0
-            and xp.data_ptr() % 16 == 0):
+def _xp_ready(xp: Tensor, multiple: int = 2) -> Tensor:
+    """xp as a kernel reads it (a persistent launch a pair of units a load;
+    the fused GRU step 16 bytes, ``multiple`` 8): its last dimension
+    contiguous, its row strides multiples of ``multiple``, 16-byte
+    aligned; itself, or a contiguous copy."""
+    if (xp.stride(-1) == 1 and xp.stride(0) % multiple == 0
+            and xp.stride(1) % multiple == 0 and xp.data_ptr() % 16 == 0):
         return xp
     return _aligned(xp)
 
@@ -721,12 +741,22 @@ def gru_wide_scan_fwd(
 ) -> Tuple[Tensor, Tensor]:
     """The GRU scan by the wide route: (h_last, hs), the signature of
     :func:`~fmda_tpu_torch.ops.gru_kernel.gru_scan_reference`; h0, w_hh and
-    b_hh cast to xp's dtype.  Each step one ``addmm`` and one
-    :func:`gru_wide_gates`."""
+    b_hh cast to xp's dtype.  Each step one launch of the fused step
+    (:func:`~fmda_tpu_torch.ops.gru_wide_step.gru_wide_step_scan`) where
+    :func:`~fmda_tpu_torch.ops.gru_wide_step.gru_wide_step_plan` lays the
+    step out, else one ``addmm`` and one :func:`gru_wide_gates`."""
     dtype = xp.dtype
     h0, w_hh, b_hh = h0.to(dtype), w_hh.to(dtype), b_hh.to(dtype)
     batch, n_steps, gh = xp.shape
     hs = xp.new_empty((batch, n_steps, h0.shape[-1]))
+    plan = (_step.gru_wide_step_plan(batch, gh // 3, dtype, xp.device)
+            if n_steps else None)
+    if plan is not None:
+        _step.gru_wide_step_scan(
+            _xp_ready(xp, 8), _aligned(h0), _aligned(w_hh), _aligned(b_hh),
+            _cuda_lib.mask_u8(mask, batch, n_steps), hs, plan,
+            reverse=reverse)
+        return hs[:, 0 if reverse else n_steps - 1].clone(), hs
     hh = xp.new_empty((batch, gh))
     col = _mask_cols(mask, batch, n_steps)
     h = h0

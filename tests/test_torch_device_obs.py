@@ -128,7 +128,8 @@ def test_roofline_and_launch_costs():
            **{f"{c}_wide_bwd": (8, 32, 4, False, True, True)
               for c in ("gru", "lstm")},
            **{k: (8, 30, 32, 4, False) for k in (
-               "lstm_persist_fwd", "lstm_persist_bwd")}}
+               "lstm_persist_fwd", "lstm_persist_bwd")},
+           "gru_wide_step_fwd": (8, 64, 2, False)}
     for kernel, fn in cost.LAUNCH_COSTS.items():
         assert isinstance(fn(sig[kernel]), cost.Cost)
     assert cost.LAUNCH_COSTS["ssm_tick"](sig["ssm_tick"]) == cost.tick_cost(

@@ -150,6 +150,6 @@ def test_kernel_build_is_keyed_by_source_content(tmp_path):
         "gru_scan.cu", "lstm_scan.cu", "scan_dw.cu", "ssm_step.cu",
         "flash_fwd.cu", "flash_fwd_plan.cc", "flash_attn.cu",
         "flash_bwd.cu", "flash_bwd_plan.cc", "scan_wide.cu",
-        "lstm_persist.cu", "lstm_persist_plan.cc",
+        "gru_wide_step.cu", "lstm_persist.cu", "lstm_persist_plan.cc",
         "scan_common.cuh", "flash_fwd_plan.h", "flash_mma.cuh",
         "flash_bwd_common.cuh", "flash_bwd_plan.h", "lstm_persist_plan.h"}
