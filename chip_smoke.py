@@ -61,7 +61,14 @@ Phases, each printed as one JSON line, each fatal on failure:
    multicast); ``wide persist witness``: the route's scan and gradients
    through the persistent and through the per-step kernels, each against
    a float64 scan written in this file, the persistent route no farther
-   from it than the per-step route.  ``wide route``: the route's scans forward and forward +
+   from it than the per-step route.  ``wide step plan``, ``wide step``,
+   ``wide step scan``, ``wide step witness``: the GRU route's fused
+   forward step (``csrc/gru_wide_step.cu``) against its plan query, its
+   plain version and a float64 scan; ``wide bwd step plan``, ``wide bwd
+   step``, ``wide bwd step scan``, ``wide bwd step witness``: the same for
+   its fused backward step (``csrc/gru_wide_bwd_step.cu``: the product
+   dhh_{t+1} W_hh and the gate gradients in one launch a step), beside W2
+   and a cuBLAS mm.  ``wide route``: the route's scans forward and forward +
    backward against the same scans through the plain versions, both
    directions, beside kernel 1's (3's) device-memory branch where it runs,
    the LSTM's per-step kernels (W3, W4) and cuDNN's layer.  ``wide path``
@@ -73,8 +80,9 @@ Phases, each printed as one JSON line, each fatal on failure:
    (against the plain gate steps), the Predictor on 8 signals, and the
    bidirectional streaming core for 8 ticks (its backward re-scan of the
    30-row ring on the wide route, against the plain gate steps); kernels
-   1-4 and ``scan_dw`` 0 launches, each GRU gate kernel T a scan and
-   direction, the LSTM's persistent scans one a scan (or a backward call)
+   1-4 and ``scan_dw`` 0 launches, the fused GRU forward step T a scan and
+   direction and its backward step T a backward call and direction (W1
+   and W2 0), the LSTM's persistent scans one a scan (or a backward call)
    and direction and its gate kernels 0.  Every line carries ``route``.  The phase must take at most
    40 s (``WIDE_BUDGET_S``).
 4. ``path``: the window-re-scan serving path at full width
@@ -1167,6 +1175,24 @@ STEP_WITNESS_CASES = ((512, 1024, torch.bfloat16, True),
 #: the first, the smoke's); one parameter's alone read up to 1.59, too
 #: noisy to bound
 FIRST_STEP_RMS_RATIO = 1.2
+#: the fused GRU backward step (``csrc/gru_wide_bwd_step.cu``): a GRU wide
+#: backward step's product dhh_{t+1} W_hh and gate gradients in one launch,
+#: wherever its plan lays the step out
+BWD_SOURCE = "fmda_tpu_torch/csrc/gru_wide_bwd_step.cu"
+BWD_KERNEL = "gru_wide_bwd_step"
+#: the backward's checked shapes are the forward's: STEP_SHAPES timed
+#: (flagship_wide's training batch and B = 1), STEP_RAGGED_SHAPES
+#: (a last batch tile of 35 rows) checked; ``wide path`` fails if the
+#: backward step launches at a (batch, hidden) outside them.  Checked too:
+#: a width whose tiles take 64 units (H not a multiple of 128), off the
+#: path
+BWD_NARROW_SHAPES = ((64, 192, torch.bfloat16),)
+#: the fused backward against W2 and the mm in the route's float64 witness
+#: (``wide bwd step witness``): the pooled root mean square of the
+#: gradients' relative distances (dxp, dh0, dW_hh, db_hh) at most this
+#: times the pair's; the fused backward keeps the product in float32,
+#: where the pair rounds it to bf16 a step
+BWD_WITNESS_RATIO = 1.2
 #: what the wide phase (its rule, kernels, route and paths) may take
 WIDE_BUDGET_S = 40.0
 #: repetitions of the kernel pair's device-memory branch beside the route,
@@ -1184,15 +1210,17 @@ WIDE_CALLED = dict(prime=False, reps=WIDE_TIME_REPS)
 
 
 class plain_wide_gates:
-    """Inside, the wide route's gate steps and its fused GRU step run their
-    plain versions on card tensors too (the wrappers' ``_on_cpu`` answers
-    True): the computation the kernels are held to, with the same cuBLAS
-    products around the gate steps."""
+    """Inside, the wide route's gate steps and its fused GRU steps run
+    their plain versions on card tensors too (the wrappers' ``_on_cpu``
+    answers True): the computation the kernels are held to, with the same
+    cuBLAS products around the gate steps."""
 
     def __enter__(self):
-        from fmda_tpu_torch.ops import gru_wide_step, wide_scan
+        from fmda_tpu_torch.ops import (
+            gru_wide_bwd_step, gru_wide_step, wide_scan)
 
-        self._saved = [(m, m._on_cpu) for m in (wide_scan, gru_wide_step)]
+        self._saved = [(m, m._on_cpu) for m in (wide_scan, gru_wide_step,
+                                                gru_wide_bwd_step)]
         for module, _ in self._saved:
             module._on_cpu = lambda name, tensors: True
         return self
@@ -1225,12 +1253,13 @@ class plan_off:
 
 
 class launch_shapes:
-    """Inside, the signature of every launch of ``kernel`` is collected in
-    ``seen`` (the wrappers' bookings, ``ops.attach_ledger``), each booking
-    passed on to the ledger attached before."""
+    """Inside, the signature of every launch of each of ``kernels`` is
+    collected in ``seen[kernel]`` (the wrappers' bookings,
+    ``ops.attach_ledger``), each booking passed on to the ledger attached
+    before."""
 
-    def __init__(self, kernel: str):
-        self.kernel, self.seen = kernel, set()
+    def __init__(self, *kernels: str):
+        self.seen = {k: set() for k in kernels}
 
     def __enter__(self):
         from fmda_tpu_torch import ops
@@ -1240,8 +1269,8 @@ class launch_shapes:
         return self
 
     def begin(self, kernel, signature):
-        if kernel == self.kernel:
-            self.seen.add(tuple(signature))
+        if kernel in self.seen:
+            self.seen[kernel].add(tuple(signature))
         return None if self._prev is None else self._prev.begin(kernel,
                                                                 signature)
 
@@ -1256,6 +1285,12 @@ def pair_gru() -> plan_off:
     """The fused GRU step's plan forced off: the GRU route's forward runs
     the pair (a cuBLAS ``addmm`` and W1 a step)."""
     return plan_off("gru_wide_step", "gru_wide_step_plan")
+
+
+def pair_gru_bwd() -> plan_off:
+    """The fused GRU backward step's plan forced off: the GRU route's
+    backward runs W2 and a cuBLAS ``mm`` a step."""
+    return plan_off("gru_wide_bwd_step", "gru_wide_bwd_step_plan")
 
 
 def per_step_lstm() -> plan_off:
@@ -1314,6 +1349,7 @@ def phase_wide_rule(device: str = "cuda") -> dict:
     if device == "cuda":
         phase_persist_plan()
         phase_step_plan()
+        phase_bwd_step_plan()
     return on_pair
 
 
@@ -1341,6 +1377,35 @@ def phase_step_plan() -> list:
          fused={f"{r['batch']} {r['hidden']} {r['dtype']}":
                 None if r["plan"] is None else
                 {k: r["plan"][k] for k in ("mcast", "split", "grid")}
+                for r in rows})
+    return rows
+
+
+def phase_bwd_step_plan() -> list:
+    """The fused GRU backward step's plan query
+    (``fmda_gru_wide_bwd_step_plan``) against its Python copy
+    (``gru_wide_bwd_step.bwd_step_plan``) on the figures the query
+    reports, at STEP_PLAN_CASES in both dtypes: the same fields, or both
+    handing the step back to W2 and the mm."""
+    from fmda_tpu_torch.ops import gru_wide_bwd_step as bw
+
+    rows = []
+    for batch, hidden in STEP_PLAN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            plan, figures = bw.bwd_step_plan_query(batch, hidden, dtype, 0)
+            mirror = bw.bwd_step_plan(batch, hidden, itemsize, **figures)
+            rows.append(dict(batch=batch, hidden=hidden,
+                             dtype=str(dtype).replace("torch.", ""),
+                             plan=plan))
+            check(mirror == plan, f"bwd step plan ({batch}, {hidden}) "
+                  f"{dtype}: the query lays out {plan}, its Python copy "
+                  f"{mirror}")
+    emit("wide bwd step plan", figures=figures,
+         fused={f"{r['batch']} {r['hidden']} {r['dtype']}":
+                None if r["plan"] is None else
+                {k: r["plan"][k] for k in ("mcast", "split", "k_steps",
+                                            "grid")}
                 for r in rows})
     return rows
 
@@ -1975,6 +2040,206 @@ def scan_step_times(batch, hidden, dtype, gen, dev) -> dict:
     return out
 
 
+def bwd_direction(batch, hidden, n_steps, masked, gen, dev):
+    """A GRU backward direction's operands in bf16, uniform from ``gen``
+    at ``wide_step_operands``' scales, in the order the fused backward's
+    wrappers take them (xp and hh (B, T, 3H), h_prevs and dhs (B, T, H),
+    the (B, T) uint8 mask (about a third of the steps masked) or None,
+    W_hh^T, the float32 direct part, the (B, T, 4H) output buffer filled
+    with gate gradients: row t_next is what step t reads), and W_hh."""
+    gh = 3 * hidden
+
+    def rand(*shape, s=1.0, dt=torch.bfloat16):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * s).to(dt)
+
+    w = rand(gh, hidden, s=hidden ** -0.5)
+    mask = ((torch.rand(batch, n_steps, generator=gen, device=dev) > 0.33)
+            .to(torch.uint8) if masked else None)
+    ops = (rand(batch, n_steps, gh, s=2.0), rand(batch, n_steps, gh, s=2.0),
+           rand(batch, n_steps, hidden, s=0.5),
+           rand(batch, n_steps, hidden, s=COT_SCALE), mask,
+           w.t().contiguous(),
+           rand(batch, hidden, s=COT_SCALE, dt=torch.float32),
+           rand(batch, n_steps, 4 * hidden, s=COT_SCALE))
+    return ops, w
+
+
+def phase_wide_bwd_step(device: str = "cuda") -> list:
+    """The fused GRU backward step (``gru_wide_bwd_step``) against its
+    plain version (``gru_wide_bwd_step_reference``) on the card at
+    STEP_SHAPES, STEP_RAGGED_SHAPES and BWD_NARROW_SHAPES, masked and not:
+    a step with a product (step 0 of a two-step direction, reading row 1 of
+    the output buffer), its row [dr, dz, dn, dn r] and direct part, a
+    second call the same bits.  At STEP_SHAPES unmasked: its device ms (a lone launch)
+    beside its bound (``gru_wide_bwd_step_bound``), the plain version's,
+    the pair's it replaces (W2 and a cuBLAS ``mm``), and
+    ``_thnn_fused_gru_cell_backward`` and the ``mm`` (``library_pair_ms``:
+    no one PyTorch call computes the step, so ``library_ms`` is null); a
+    step of a sweep through each (:func:`bwd_sweep_times`).  Then the
+    route's backward through it, reversed and masked, WIDE_STEPS steps,
+    against the same backward through the plain versions, each gradient
+    within BF16_TOL of its largest entry."""
+    from fmda_tpu_torch.ops import gru_wide_bwd_step as bw
+    from fmda_tpu_torch.ops import wide_scan as ws
+    from fmda_tpu_torch.ops.cost import gru_wide_bwd_step_bound
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    rows = []
+    for batch, hidden, dtype in (STEP_SHAPES + STEP_RAGGED_SHAPES
+                                 + BWD_NARROW_SHAPES):
+        timed = (batch, hidden, dtype) in STEP_SHAPES
+        plan = bw.gru_wide_bwd_step_plan(batch, hidden, dtype, dev)
+        check(plan is not None, f"wide bwd step ({batch}, {hidden}) "
+              f"{dtype}: the plan hands the step back")
+        for masked in (False, True):
+            ops, w = bwd_direction(batch, hidden, 2, masked, gen, dev)
+            xp, hh, hp, dhs, mask, w_t, direct, dg = ops
+            direct0 = direct.clone()
+            step = [t[:, 0] for t in (xp, hh, hp, dhs)]
+            mask_t = None if mask is None else mask[:, 0]
+
+            def call():
+                direct.copy_(direct0)
+                bw.gru_wide_bwd_step(*ops, 0, 1, plan)
+                return [dg[:, 0].clone(), direct.clone()]
+
+            def plain():
+                return list(bw.gru_wide_bwd_step_reference(
+                    *step[:3], direct0, bw.dhh_of(dg[:, 1]), w_t, step[3],
+                    mask_t, plan))
+
+            with torch.inference_mode():
+                got = call()
+                again = call()
+                want = plain()
+                torch.cuda.synchronize()
+                errs, rels = persist_errors(got, want)
+                row = dict(kernel=BWD_KERNEL, batch=batch, hidden=hidden,
+                           dtype=str(dtype).replace("torch.", ""),
+                           masked=masked, plan=plan, outputs=["dg", "direct"],
+                           max_abs_err=max(errs), max_rel_err=max(rels),
+                           rel_errs=rels, tol=BF16_TOL,
+                           bit_identical_rerun=all(
+                               torch.equal(g, a) for g, a in zip(got, again)),
+                           finite=all(bool(torch.isfinite(g.float()).all())
+                                      for g in got))
+                if timed and not masked and device == "cuda":
+                    row.update(bwd_step_times(ops, w, call, plain))
+                    row["bound_ms"], row["bound_by"] = (
+                        gru_wide_bwd_step_bound(batch, hidden, 2, False))
+                    row.update(bwd_sweep_times(batch, hidden, gen, dev))
+            emit("wide bwd step", **row)
+            check(row["finite"], f"non-finite {BWD_KERNEL} output: {row}")
+            check(persist_agrees(row, dtype), f"{BWD_KERNEL} disagrees with "
+                  f"its plain version: {row}")
+            check(row["bit_identical_rerun"], f"{BWD_KERNEL} gave other "
+                  f"bits on a second call: {row}")
+            rows.append(row)
+        # the route's backward, reversed and masked: each step reads the
+        # last one's row, the first none
+        (xp, h0, w, b), cots = wide_scan_inputs("gru", batch, hidden, dtype,
+                                                gen, dev)
+        mask = persist_mask(batch, gen, dev)
+        with torch.inference_mode():
+            _, hs = ws.gru_wide_scan_fwd(xp, h0, w, b, reverse=True,
+                                         mask=mask)
+            args = (xp, h0, w, b, hs, cots[0], cots[1])
+            got = ws.gru_wide_scan_bwd(*args, reverse=True, mask=mask)
+            with plain_wide_gates():
+                want = ws.gru_wide_scan_bwd(*args, reverse=True, mask=mask)
+            torch.cuda.synchronize()
+        errs, rels = persist_errors(got, want)
+        row = dict(kernel=BWD_KERNEL, batch=batch, hidden=hidden,
+                   dtype=str(dtype).replace("torch.", ""), steps=WIDE_STEPS,
+                   reverse=True, masked=True,
+                   outputs=["dxp", "dh0", "dw_hh", "db_hh"],
+                   max_abs_err=max(errs), max_rel_err=max(rels),
+                   rel_errs=rels, tol=BF16_TOL)
+        emit("wide bwd step scan", **row)
+        # each gradient relative to its largest entry, as ``wide route``
+        # holds them: dW_hh sums B T rows, so one flipped bf16 rounding of
+        # a gate gradient moves an entry by an ulp of a large value
+        check(max(rels) <= BF16_TOL, f"the route's backward through "
+              f"{BWD_KERNEL} disagrees with its plain version: {row}")
+        rows.append(row)
+    return rows
+
+
+def bwd_step_times(ops, w, call, plain) -> dict:
+    """A lone backward step's device ms (queue primed) on a two-step
+    direction's operands ``ops`` (:func:`bwd_direction`): the fused kernel
+    (``call``), its plain version (``plain``), the pair it replaced (W2
+    reading the last step's product, then the ``mm`` writing this one's)
+    and ``_thnn_fused_gru_cell_backward`` with the same ``mm`` after it
+    (its workspace from ``_thnn_fused_gru_cell``; dh = direct + product +
+    dhs_t rounded to bf16, as the call takes it)."""
+    from fmda_tpu_torch.ops import gru_wide_bwd_step as bw
+    from fmda_tpu_torch.ops import wide_scan as ws
+
+    aten = torch.ops.aten
+    xp, hh, hp, dhs, _, _, direct, dg = ops
+    x_t, h_t, p_t, d_t = (t[:, 0].contiguous() for t in (xp, hh, hp, dhs))
+    prod = torch.mm(bw.dhh_of(dg[:, 1]), w)
+    carry = direct.clone()
+    dxp_o, dhh_o = torch.empty_like(x_t), torch.empty_like(x_t)
+
+    def pair():
+        ws.gru_wide_gates_bwd(x_t, h_t, p_t, carry, prod, d_t, None, dxp_o,
+                              dhh_o)
+        torch.mm(dhh_o, w, out=prod)
+
+    _, workspace = aten._thnn_fused_gru_cell(x_t, h_t, p_t, None, None)
+    dh = (direct + prod.float() + d_t.float()).to(torch.bfloat16)
+
+    def library():
+        grads = aten._thnn_fused_gru_cell_backward(dh, workspace, False)
+        return torch.mm(grads[1], w)
+
+    return dict(ms=time_ms(call, prime=True),
+                plain_ms=time_ms(plain, prime=True),
+                pair_ms=time_ms(pair, prime=True),
+                library_pair_ms=time_ms(library, prime=True),
+                library_ms=None)
+
+
+def bwd_sweep_times(batch, hidden, gen, dev) -> dict:
+    """A step of a backward sweep as the route runs it: WIDE_STEPS steps
+    over WIDE_STEPS (the direct part reset first), through the fused step
+    (each launch after the first overlapping the one before) and through
+    the pair it replaced (W2 and a cuBLAS ``mm`` a step): device ms
+    (primed) and what a caller waits (unprimed), a step's share."""
+    from fmda_tpu_torch.ops import gru_wide_bwd_step as bw
+    from fmda_tpu_torch.ops import wide_scan as ws
+
+    ops, w = bwd_direction(batch, hidden, WIDE_STEPS, False, gen, dev)
+    xp, hh, hp, dhs, _, _, direct, dg = ops
+    direct0 = direct.clone()
+    plan = bw.gru_wide_bwd_step_plan(batch, hidden, torch.bfloat16, dev)
+    dxp, dhh = torch.empty_like(xp), torch.empty_like(xp)
+    prod = torch.empty(batch, hidden, dtype=torch.bfloat16, device=dev)
+
+    def fused():
+        direct.copy_(direct0)
+        bw.gru_wide_bwd_step_scan(*ops, plan)
+
+    def pair():
+        direct.copy_(direct0)
+        for i, t in enumerate(range(WIDE_STEPS - 1, -1, -1)):
+            ws.gru_wide_gates_bwd(xp[:, t], hh[:, t], hp[:, t], direct,
+                                  prod if i else None, dhs[:, t], None,
+                                  dxp[:, t], dhh[:, t])
+            torch.mm(dhh[:, t], w, out=prod)
+
+    out = {}
+    with torch.inference_mode():
+        for key, fn in (("scan_step", fused), ("pair_scan_step", pair)):
+            out[f"{key}_ms"] = time_ms(fn, **WIDE_PRIMED) / WIDE_STEPS
+            out[f"{key}_call_ms"] = time_ms(fn, **WIDE_CALLED) / WIDE_STEPS
+    return out
+
+
 def gru_scan_f64(xp, h0, w, b, mask, reverse):
     """The GRU scan in float64 on its inputs' values, written here apart
     from the port: the exact function both GRU routes round (h and the
@@ -1998,8 +2263,12 @@ def gru_step_witness(batch, hidden, dtype, masked, gen, dev) -> dict:
     """The GRU route's scan, forward and gradients (h_last, hs; dxp, dh0,
     dW_hh, db_hh at unit cotangents), its forward through the fused step
     and through the pair (the plan forced off: cuBLAS's ``addmm`` and W1),
-    the backward W2 and cuBLAS's products in both, each against
-    :func:`gru_scan_f64` and its float64 gradients."""
+    the backward the fused backward step in both; and a third time, the
+    fused forward with the backward through W2 and cuBLAS's products (its
+    plan forced off: ``w2_*``); each against :func:`gru_scan_f64` and its
+    float64 gradients.  ``bwd_pooled_ratio``: the root mean square of the
+    gradients' relative distances through the fused backward over that
+    through W2's."""
     from fmda_tpu_torch.ops import wide_scan as ws
 
     (xp, h0, w, b), _ = wide_scan_inputs("gru", batch, hidden, dtype, gen,
@@ -2023,14 +2292,22 @@ def gru_step_witness(batch, hidden, dtype, masked, gen, dev) -> dict:
     fused = route()
     with pair_gru():
         pair = route()
+    with pair_gru_bwd():
+        w2 = route()
     torch.cuda.synchronize()
     f_rel, f_rms = witness_errors(fused, exact)
     p_rel, p_rms = witness_errors(pair, exact)
+    w_rel, w_rms = witness_errors(w2, exact)
+    grads = slice(2, None)  # dxp, dh0, dW_hh, db_hh
     return dict(batch=batch, hidden=hidden,
                 dtype=str(dtype).replace("torch.", ""), masked=masked,
                 outputs=list(STEP_WITNESS_OUTPUTS), fused_rel=f_rel,
                 pair_rel=p_rel, fused_rms=f_rms, pair_rms=p_rms,
-                rms_ratio=[p / max(q, 1e-300) for p, q in zip(f_rms, p_rms)])
+                rms_ratio=[p / max(q, 1e-300) for p, q in zip(f_rms, p_rms)],
+                w2_rel=w_rel, w2_rms=w_rms,
+                bwd_pooled_ratio=math.sqrt(
+                    sum(f * f for f in f_rms[grads])
+                    / max(sum(w * w for w in w_rms[grads]), 1e-300)))
 
 
 def phase_step_witness(device: str = "cuda") -> list:
@@ -2048,9 +2325,22 @@ def phase_step_witness(device: str = "cuda") -> list:
         row.update(tol=tol, rms_ratio_bound=ratio)
         row["ok"] = (max(row["fused_rel"]) <= tol
                      and max(row["rms_ratio"]) <= ratio)
-        emit("wide step witness", **row)
+        emit("wide step witness", **{k: v for k, v in row.items()
+                                     if not k.startswith(("w2_", "bwd_"))})
         check(row["ok"], f"the fused GRU route is farther from the float64 "
               f"witness than the pair: {row}")
+        bwd = dict(batch=batch, hidden=hidden, dtype=row["dtype"],
+                   masked=masked, outputs=list(STEP_WITNESS_OUTPUTS[2:]),
+                   fused_rel=row["fused_rel"][2:],
+                   w2_rel=row["w2_rel"][2:], fused_rms=row["fused_rms"][2:],
+                   w2_rms=row["w2_rms"][2:],
+                   pooled_ratio=row["bwd_pooled_ratio"], tol=tol,
+                   pooled_ratio_bound=BWD_WITNESS_RATIO)
+        bwd["ok"] = (max(bwd["fused_rel"]) <= tol
+                     and bwd["pooled_ratio"] <= BWD_WITNESS_RATIO)
+        emit("wide bwd step witness", **bwd)
+        check(bwd["ok"], f"the fused GRU backward is farther from the "
+              f"float64 witness than W2 and the mm: {bwd}")
         rows.append(row)
     return rows
 
@@ -2096,11 +2386,13 @@ def phase_wide_route(n_features: int, device: str = "cuda") -> list:
     branch on the same scan, alone and with its backward, where it runs
     (the LSTM pair stops at H = 512), and cuDNN's layer of the same width
     (input projection included, beside the route's own layer), a
-    yardstick never on the port's path.  ``ms`` is device time (queue
+    yardstick never on the port's path; for the GRU in bf16 also the
+    backward before its redesign (``w2_*``: W2 and a cuBLAS ``mm`` a step,
+    the forward fused).  ``ms`` is device time (queue
     primed); ``call_ms`` what a caller waits on an idle card (the route's
     host calls, T or 2 T a direction, are part of it)."""
     from fmda_tpu_torch.ops import gru as gru_ops, lstm as lstm_ops
-    from fmda_tpu_torch.ops import gru_wide_step
+    from fmda_tpu_torch.ops import gru_wide_bwd_step, gru_wide_step
     from fmda_tpu_torch.ops import wide_scan as ws
     from fmda_tpu_torch.ops.cost import scan_bound, scan_bwd_bound
 
@@ -2177,6 +2469,14 @@ def phase_wide_route(n_features: int, device: str = "cuda") -> list:
                         row.update(step_plan=gru_wide_step.gru_wide_step_plan(
                             batch, hidden, dtype, dev), **per_step_times(
                                 fwd, fwd_bwd, pair_gru, "unfused"))
+                        if dtype == torch.bfloat16:
+                            # the backward on W2 and the mm, the forward
+                            # fused: a backward direction's parent
+                            row.update(bwd_step_plan=(
+                                gru_wide_bwd_step.gru_wide_bwd_step_plan(
+                                    batch, hidden, dtype, dev)),
+                                **per_step_times(fwd, fwd_bwd, pair_gru_bwd,
+                                                 "w2"))
                     row.update(wide_yardsticks(cell, pair, args, cots, batch,
                                                hidden, dtype, n_features,
                                                gen, dev))
@@ -2375,14 +2675,16 @@ def phase_wide_path(directory: str, device: str = "cuda",
     WIDE_STREAM_TICKS ticks, its backward direction's re-scan of the
     window-row ring on the wide route, against the plain versions.
     Kernels 1-4 and ``scan_dw`` launch 0 times; for gru the fused step
-    (``gru_wide_step_fwd``) T times a scan and direction and W2 T times a
-    backward call and direction, W1 0 times; for lstm the persistent scans
+    (``gru_wide_step_fwd``) T times a scan and direction and the fused
+    backward step (``gru_wide_bwd_step``) T times a backward call and
+    direction, the first step's counts checked too, W1 and W2 0 times; for
+    lstm the persistent scans
     once a scan and direction (the forward) and once a backward call and
     direction, the gate kernels W3 and W4 0 times.  For gru also the
     first step against the plain versions with the step's product in
     BLAS order, beside the pair (:func:`first_step_blas`), and every
-    shape the fused step launched at one ``wide step`` checked.  Returns
-    the path's launch counts."""
+    shape the fused steps launched at one ``wide step`` / ``wide bwd step``
+    checked.  Returns the path's launch counts."""
     from fmda_tpu_torch.config import (
         DEFAULT_TOPICS, TOPIC_PREDICT_TIMESTAMP, TOPIC_PREDICTION)
     from fmda_tpu_torch.data.pipeline import WindowBatches
@@ -2409,7 +2711,10 @@ def phase_wide_path(directory: str, device: str = "cuda",
     batch = trainer.place(next(iter(WindowBatches(dataset, train_chunks[0],
                                                   WIDE_BATCH))))
     rng = state.generator.get_state()
+    start_path()
     loss_k, grads_k = wide_grads(trainer, state, batch, rng)
+    torch.cuda.synchronize()
+    first_counts = launch_counts()
     with plain_wide_gates():
         loss_p, grads_p = wide_grads(trainer, state, batch, rng)
     torch.cuda.synchronize()
@@ -2422,13 +2727,18 @@ def phase_wide_path(directory: str, device: str = "cuda",
     emit("wide first step", cell=cell, route=route, model=str(model_cfg),
          batch=WIDE_BATCH, steps=window, loss=float(loss_k),
          plain_loss=float(loss_p), loss_abs_err=loss_err,
-         grad_max_rel_err=grad_rel, grad_rel_errs=rels, tol=BF16_TOL)
+         grad_max_rel_err=grad_rel, grad_rel_errs=rels, tol=BF16_TOL,
+         launches=first_counts)
     check(grads_finite and math.isfinite(float(loss_k)),
           f"wide path {cell}: non-finite first step")
     check(loss_err <= BF16_TOL and grad_rel <= BF16_TOL,
           f"wide path {cell}: the first step's kernels and plain versions "
           f"disagree (loss {loss_err}, gradients {grad_rel})")
     if cell == "gru":
+        # one layer, both directions: T fused steps each way and back
+        check_launches(first_counts, {STEP_KERNEL: 2 * window,
+                                      BWD_KERNEL: 2 * window},
+                       "wide first step gru")
         row = first_step_blas(trainer, state, batch, rng, loss_k, grads_k)
         row.update(params=names, rms_ratio_bound=FIRST_STEP_RMS_RATIO)
         row["ok"] = row["pooled_ratio"] <= FIRST_STEP_RMS_RATIO
@@ -2452,20 +2762,26 @@ def phase_wide_path(directory: str, device: str = "cuda",
                 f"wide path lstm: the persistent plan hands B = {b} back")
         fwd, bwd, per_forward, per_scan = PERSIST_KERNELS + (2, 1)
     else:
-        # the fused step: one launch a step, at the path's batches and the
-        # stream's B = 1 alike; W1 at 0
-        from fmda_tpu_torch.ops import gru_wide_step
+        # the fused steps: one launch a step, forward at the path's batches
+        # and the stream's B = 1 alike, backward at the training batch; W1
+        # and W2 at 0
+        from fmda_tpu_torch.ops import gru_wide_bwd_step, gru_wide_step
 
         for b in (WIDE_BATCH, 1):
             check(gru_wide_step.gru_wide_step_plan(
                 b, model_cfg.hidden_size, torch.bfloat16,
                 torch.device(device)) is not None,
                 f"wide path gru: the fused step's plan hands B = {b} back")
-        fwd = STEP_KERNEL
-    # the fused step's launch shapes from here to the stream's end: each
-    # must be one ``wide step`` held to its plain version (a leftover
-    # recorder after a failure passes every booking on)
-    shapes = launch_shapes(STEP_KERNEL).__enter__()
+        check(gru_wide_bwd_step.gru_wide_bwd_step_plan(
+            WIDE_BATCH, model_cfg.hidden_size, torch.bfloat16,
+            torch.device(device)) is not None,
+            f"wide path gru: the fused backward's plan hands B = "
+            f"{WIDE_BATCH} back")
+        fwd, bwd = STEP_KERNEL, BWD_KERNEL
+    # the fused steps' launch shapes from here to the stream's end: each
+    # must be one ``wide step`` / ``wide bwd step`` held to its plain
+    # version (a leftover recorder after a failure passes every booking on)
+    shapes = launch_shapes(STEP_KERNEL, BWD_KERNEL).__enter__()
     start_path()
     t0 = time.perf_counter()
     state, history, _ = trainer.fit(wh, dataset=dataset, initial_state=state)
@@ -2576,13 +2892,17 @@ def phase_wide_path(directory: str, device: str = "cuda",
                    f"wide {cell} stream")
     shapes.__exit__(None, None, None)
     wh.close()
-    launched = sorted({sig[:2] for sig in shapes.seen})
+    launched = {k: sorted({sig[:2] for sig in v})
+                for k, v in shapes.seen.items()}
     emit("wide path", cell=cell, route=route,
-         seconds=time.perf_counter() - t_phase, step_shapes=launched)
+         seconds=time.perf_counter() - t_phase,
+         step_shapes=launched[STEP_KERNEL],
+         bwd_step_shapes=launched[BWD_KERNEL])
     checked = {(b, h) for b, h, _ in STEP_SHAPES + STEP_RAGGED_SHAPES}
-    check(set(launched) <= checked, f"wide path {cell}: {STEP_KERNEL} "
-          f"launched at (batch, hidden) {launched}, checked at "
-          f"{sorted(checked)} only")
+    for kernel, seen in launched.items():
+        check(set(seen) <= checked, f"wide path {cell}: {kernel} launched "
+              f"at (batch, hidden) {seen}, checked at {sorted(checked)} "
+              f"only")
     return add_counts(add_counts(add_counts(fit_counts, bt_counts),
                                  pred_counts), stream_counts)
 
@@ -2679,6 +2999,43 @@ def step_entry(rows, launches) -> dict:
         "replaces": WIDE_REPLACES["gru"],
         "replaces_kind": "the lax.scan route's step: its product and fused "
                          "gate algebra, no pallas_call",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: main_shape[k] for k in TIMES + extra},
+        "shape": list(STEP_SHAPES[0][:2]),
+        "dtype": str(STEP_SHAPES[0][2]).replace("torch.", ""),
+        "plan": main_shape["plan"],
+        "b1": {k: b1[k] for k in TIMES + extra},
+    }
+
+
+def bwd_entry(rows, launches) -> dict:
+    """The fused GRU backward step's entry of the summary line, at
+    flagship_wide's step (STEP_SHAPES[0]: (512, 1024) bf16), unmasked, a
+    lone launch; ``b1``: the same at (1, 1024).  ``library_ms`` is null
+    (no one PyTorch call computes the step); ``library_pair_ms`` is
+    ``_thnn_fused_gru_cell_backward`` and the ``mm``, ``pair_ms`` W2 and
+    the ``mm``; ``scan_step_ms`` and ``pair_scan_step_ms`` a step of a
+    sweep through the fused step and through the pair (``*_call_ms``: a
+    caller's wait)."""
+    def case(batch, hidden, dtype):
+        return next(r for r in rows if "ms" in r
+                    and (r["batch"], r["hidden"]) == (batch, hidden)
+                    and r["dtype"] == str(dtype).replace("torch.", ""))
+
+    main_shape, b1 = (case(*shape) for shape in STEP_SHAPES)
+    extra = ("pair_ms", "library_pair_ms", "scan_step_ms",
+             "pair_scan_step_ms", "scan_step_call_ms",
+             "pair_scan_step_call_ms")
+    return {
+        "name": BWD_KERNEL,
+        "route": "cuda",
+        "source": BWD_SOURCE,
+        "replaces": WIDE_REPLACES["gru"],
+        "replaces_kind": "jax.grad of the lax.scan route's step: the "
+                         "product dhh W_hh and the gate gradients, no "
+                         "pallas_call",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -7312,7 +7669,7 @@ def main() -> int:
     emit("build", kernels=[f"{s.name}_scan_{k}" for s in scans
                            for k in ("fwd", "bwd")]
          + ["ssm_step", "ssm_tick", *FLASH_REPLACES, *WIDE_KERNELS,
-            *PERSIST_KERNELS, STEP_KERNEL],
+            *PERSIST_KERNELS, STEP_KERNEL, BWD_KERNEL],
          sources=[str(p.name) for p in _cuda_lib.SOURCES], library=str(lib),
          nvcc_seconds=_cuda_lib.build_info.get("seconds"),
          seconds=time.perf_counter() - t0, target="sm_90a", **ptxas)
@@ -7331,6 +7688,7 @@ def main() -> int:
     phase_wide_rule()
     wide_rows = phase_wide_kernels()
     step_rows = phase_wide_step()
+    wide_bwd_rows = phase_wide_bwd_step()
     route_rows = phase_wide_route(n_features)
     wide_s = time.perf_counter() - t_wide
     serve, train, stream, stream_bi, pool = {}, {}, {}, {}, {}
@@ -7450,6 +7808,8 @@ def main() -> int:
                               {"wide": wide["lstm"][name]})
                 for name in PERSIST_KERNELS]
     entries.append(step_entry(step_rows, {"wide": wide["gru"][STEP_KERNEL]}))
+    entries.append(bwd_entry(wide_bwd_rows,
+                             {"wide": wide["gru"][BWD_KERNEL]}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,13 +47,17 @@ BOOKING_WRAPPER = "call_booked"
 #: C entries that launch no kernel: the flash plans
 #: (``ops/attention_kernel.py``), the forward scans' plans
 #: (``_cuda_lib.fwd_plan``), the persistent LSTM scans' plan
-#: (``_cuda_lib.persist_plan_query``), the weight gradient's split count
+#: (``_cuda_lib.persist_plan_query``), the fused GRU steps' plans and the
+#: backward's direction set-up (``ops/gru_wide_step.py``,
+#: ``ops/gru_wide_bwd_step.py``), the weight gradient's split count
 #: (``ops/scan_dw.py``) and the error string (``_cuda_lib.raise_on``)
 NO_LAUNCH_ENTRIES = (
     "fmda_cuda_error_string",
     "fmda_flash_bwd_plan",
     "fmda_flash_fwd_plan",
     "fmda_gru_scan_fwd_plan",
+    "fmda_gru_wide_bwd_scan_prepare_bf16",
+    "fmda_gru_wide_bwd_step_plan",
     "fmda_gru_wide_scan_fwd_plan",
     "fmda_lstm_persist_plan",
     "fmda_lstm_scan_fwd_plan",

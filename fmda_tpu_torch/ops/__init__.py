@@ -37,6 +37,7 @@ LAUNCH_COUNTERS = {
     "lstm_persist_fwd": ("wide_scan", "lstm_persist_fwd_launches"),
     "lstm_persist_bwd": ("wide_scan", "lstm_persist_bwd_launches"),
     "gru_wide_step_fwd": ("gru_wide_step", "launches"),
+    "gru_wide_bwd_step": ("gru_wide_bwd_step", "launches"),
 }
 
 

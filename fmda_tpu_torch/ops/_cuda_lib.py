@@ -4,8 +4,9 @@ checks every kernel wrapper shares.
 Every kernel source under ``csrc/`` (the GRU scans in ``gru_scan.cu``, the
 LSTM scans in ``lstm_scan.cu``, the backward scans' weight gradient in
 ``scan_dw.cu``, the wide scan route's fused gate kernels in
-``scan_wide.cu``, its fused GRU step in ``gru_wide_step.cu`` and its
-persistent LSTM scans in ``lstm_persist.cu``, laid out by
+``scan_wide.cu``, its fused GRU steps in ``gru_wide_step.cu`` (forward)
+and ``gru_wide_bwd_step.cu`` (backward), both built on ``wide_tc.cuh``,
+and its persistent LSTM scans in ``lstm_persist.cu``, laid out by
 ``lstm_persist_plan.cc``, the SSM step and the fused serve tick in ``ssm_step.cu``,
 the flash-attention forward in ``flash_fwd.cu``, laid out by the host code
 of ``flash_fwd_plan.cc``, its fused backward in ``flash_bwd.cu`` and its
@@ -43,6 +44,7 @@ SOURCES: Tuple[Path, ...] = (_CSRC / "gru_scan.cu", _CSRC / "lstm_scan.cu",
                              _CSRC / "flash_bwd_plan.cc",
                              _CSRC / "scan_wide.cu",
                              _CSRC / "gru_wide_step.cu",
+                             _CSRC / "gru_wide_bwd_step.cu",
                              _CSRC / "lstm_persist.cu",
                              _CSRC / "lstm_persist_plan.cc")
 #: Headers the sources include: part of the library's key.
@@ -51,7 +53,8 @@ HEADERS: Tuple[Path, ...] = (_CSRC / "scan_common.cuh",
                              _CSRC / "flash_mma.cuh",
                              _CSRC / "flash_bwd_common.cuh",
                              _CSRC / "flash_bwd_plan.h",
-                             _CSRC / "lstm_persist_plan.h")
+                             _CSRC / "lstm_persist_plan.h",
+                             _CSRC / "wide_tc.cuh")
 BUILD_ROOT = _CSRC.parents[1] / "build" / "fmda_tpu_torch"
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -237,6 +240,19 @@ def load() -> ctypes.CDLL:
         # B, H, itemsize, device, out[14]
         lib.fmda_gru_wide_scan_fwd_plan.argtypes = [i, i, i, i, p]
         lib.fmda_gru_wide_scan_fwd_plan.restype = i
+        # the fused GRU backward step: a direction prepared once (xp, hh,
+        # h_prevs and dhs, each a pointer, its row and step strides; the
+        # mask and its two; W_hh^T, direct, dg and its two strides; the
+        # plan's ints, B, T, H, device, the handle and its bytes), then a
+        # launch a step (the handle, t, t_next, early, stream)
+        lib.fmda_gru_wide_bwd_scan_prepare_bf16.argtypes = [
+            *[p, ll, ll] * 5, p, p, p, ll, ll, p, i, i, i, i, p, i]
+        lib.fmda_gru_wide_bwd_scan_prepare_bf16.restype = i
+        lib.fmda_gru_wide_bwd_step_bf16.argtypes = [p, i, i, i, p]
+        lib.fmda_gru_wide_bwd_step_bf16.restype = i
+        # B, H, itemsize, device, out[14]
+        lib.fmda_gru_wide_bwd_step_plan.argtypes = [i, i, i, i, p]
+        lib.fmda_gru_wide_bwd_step_plan.restype = i
         lib.fmda_scan_dw_splits.argtypes = [i, i, i, i, i]
         lib.fmda_scan_dw_splits.restype = i
         lib.fmda_cuda_error_string.argtypes = [i]

@@ -253,6 +253,32 @@ def gru_wide_step_bound(batch, hidden, itemsize, masked):
     return roofline_ms(*gru_wide_step_cost(batch, hidden, itemsize, masked))
 
 
+def gru_wide_bwd_step_cost(batch, hidden, itemsize, masked,
+                           prod=True) -> Cost:
+    """The fused GRU backward step (``csrc/gru_wide_bwd_step.cu``): W_hh
+    (3H x H) and dhh_{t+1} (B x 3H) read once where the step has a product
+    (``prod``; the first processed step has none), xp_t and hh_t (B x 3H),
+    h_{t-1} and dhs_t read, the mask column, the float32 direct part of dh
+    read and written; dxp_t (B x 3H) and dn r (B x H) written: dhh_t's r
+    and z blocks are dxp_t's, stored once (the next step reads them from
+    there).  The product dhh_{t+1} W_hh, 2 B 3H H FLOPs in the I/O dtype,
+    and the cotangent algebra, the GRU's backward count per (row, unit)."""
+    gh = 3 * hidden
+    reads = batch * (2 * gh + 2 * hidden)
+    if prod:
+        reads += gh * hidden + batch * gh
+    bytes_moved = itemsize * (reads + batch * (gh + hidden))
+    bytes_moved += 4 * 2 * batch * hidden + (batch if masked else 0)
+    return Cost(bytes_moved, 2 * batch * gh * hidden if prod else 0,
+                SCAN_SHAPES["gru"]["bwd_ops"] * batch * hidden, itemsize)
+
+
+def gru_wide_bwd_step_bound(batch, hidden, itemsize, masked, prod=True):
+    """Least time for one fused GRU backward step on this card."""
+    return roofline_ms(*gru_wide_bwd_step_cost(batch, hidden, itemsize,
+                                               masked, prod))
+
+
 def persist_sweep_cost(batch, steps, hidden, itemsize, masked) -> Cost:
     """The persistent LSTM backward sweep (``csrc/lstm_persist.cu``): xp,
     the recomputed hh, cs, dhs, c0 and W_hh read in the I/O dtype, dh_last
@@ -323,7 +349,9 @@ def _flash(kernel):
 #:   kernel runs, the step's product is a cuBLAS ``addmm``, no kernel of
 #:   the port's, and books nothing;
 #: - the fused GRU step, one launch a step: ``(batch, hidden, itemsize,
-#:   masked)``, the step's product and gate algebra together;
+#:   masked)``, the step's product and gate algebra together; its backward
+#:   ``(batch, hidden, itemsize, masked, prod)``, the product (none at a
+#:   direction's first processed step) and the gate gradients;
 #: - the persistent LSTM scans, one launch a direction: ``(batch, steps,
 #:   hidden, itemsize, masked)``, the forward a scan's work, the backward
 #:   its sweep's.
@@ -344,4 +372,5 @@ LAUNCH_COSTS: Dict[str, object] = {
     "lstm_persist_fwd": _scan_fwd("lstm"),
     "lstm_persist_bwd": lambda sig: persist_sweep_cost(*sig),
     "gru_wide_step_fwd": lambda sig: gru_wide_step_cost(*sig),
+    "gru_wide_bwd_step": lambda sig: gru_wide_bwd_step_cost(*sig),
 }

@@ -50,6 +50,31 @@ STEP_FIELDS = ("tiles_m", "tiles_n", "mcast", "split", "cluster", "k_steps",
                "grid", "smem")
 
 
+def tile_plan(batch: int, hidden: int, units: int, k_total: int,
+              smem_bytes: int, *, sms: int,
+              clusters: Dict[int, int]) -> Dict[str, int]:
+    """``wide_tc.cuh``'s ``tile_plan``, line for line: the layout of a
+    product of ``batch`` rows by ``hidden`` units over ``k_total`` k-steps
+    of 64, in tiles of 64 rows by ``units`` units and CTAs of
+    ``smem_bytes``, on a card of ``sms`` SMs and ``clusters`` (size ->
+    resident count); the rule both fused GRU steps share.  Where the tiles
+    fill at most half the SMs, K split over the largest cluster of 8, 4 or
+    2 that divides the k-steps, stays within the SMs and is resident all at
+    once; else clusters of 2 along an even number of batch tiles (the B
+    operand multicast).  The fields of :data:`STEP_FIELDS`."""
+    tiles_m, tiles_n = -(-batch // STEP_TILE), hidden // units
+    ctas = tiles_m * tiles_n
+    mcast = split = 1
+    if 2 * ctas <= sms:
+        split = next((s for s in (8, 4, 2) if k_total % s == 0
+                      and ctas * s <= sms and ctas <= clusters[s]), 1)
+    elif tiles_m % 2 == 0:
+        mcast = 2
+    return dict(tiles_m=tiles_m, tiles_n=tiles_n, mcast=mcast, split=split,
+                cluster=mcast * split, k_steps=k_total // split,
+                grid=ctas * split, smem=smem_bytes)
+
+
 def step_plan(batch: int, hidden: int, itemsize: int, *, sms: int,
               clusters: Dict[int, int], smem: int = 0
               ) -> Optional[Dict[str, int]]:
@@ -58,26 +83,14 @@ def step_plan(batch: int, hidden: int, itemsize: int, *, sms: int,
     ``clusters`` (size -> resident count): ``gru_wide_step.cu``'s
     ``step_plan``, line for line, a pure function of its arguments.  None
     where the pair keeps the step (float32: the tensor cores hold its
-    operands only as TF32; H not a multiple of 64); else the fields of
-    :data:`STEP_FIELDS`.  64 x 64 tiles of (rows, units); where they fill
-    at most half the SMs, K split over the largest cluster of 8, 4 or 2
-    that divides the k-steps, stays within the SMs and is resident all at
-    once; else clusters of 2 along an even number of batch tiles (W_hh
-    multicast).  ``chip_smoke.py`` holds it to the library's plan query."""
+    operands only as TF32; H not a multiple of 64); else
+    :func:`tile_plan` over K = H.  ``chip_smoke.py`` holds it to the
+    library's plan query."""
     del smem  # a figure of the persistent scans' plan, not of this one
     if batch < 1 or itemsize != 2 or hidden < STEP_TILE or hidden % STEP_TILE:
         return None
-    tiles_m, tiles_n = -(-batch // STEP_TILE), hidden // STEP_TILE
-    ctas, k_steps = tiles_m * tiles_n, hidden // STEP_TILE
-    mcast = split = 1
-    if 2 * ctas <= sms:
-        split = next((s for s in (8, 4, 2) if k_steps % s == 0
-                      and ctas * s <= sms and ctas <= clusters[s]), 1)
-    elif tiles_m % 2 == 0:
-        mcast = 2
-    return dict(tiles_m=tiles_m, tiles_n=tiles_n, mcast=mcast, split=split,
-                cluster=mcast * split, k_steps=k_steps // split,
-                grid=ctas * split, smem=STEP_SMEM)
+    return tile_plan(batch, hidden, STEP_TILE, hidden // STEP_TILE,
+                     STEP_SMEM, sms=sms, clusters=clusters)
 
 
 def step_plan_query(batch: int, hidden: int, dtype: torch.dtype,

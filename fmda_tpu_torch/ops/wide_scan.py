@@ -29,7 +29,12 @@ The GRU route runs each forward step as one launch wherever it can
 product on the tensor cores and the gate algebra in its epilogue, hh never
 written; its plan (by shape, dtype and the card, before any launch) hands
 float32 and H not a multiple of 64 back to the ``addmm`` and gate kernel
-above.  The backward is the same either way.
+above.  Its backward runs each step as one launch where its own plan
+lays the step out (``csrc/gru_wide_bwd_step.cu``,
+:mod:`~fmda_tpu_torch.ops.gru_wide_bwd_step`): the product ``dhh_{t+1}
+W_hh`` on the tensor cores and the gate gradients in its epilogue, the
+product never written; float32 and H not a multiple of 64 keep the gate
+kernel and the product above.
 
 The LSTM route runs each direction as one persistent launch wherever it
 can (``csrc/lstm_persist.cu``): the forward keeps each CTA's slice of W_hh
@@ -59,6 +64,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from fmda_tpu_torch.ops import _cuda_lib, call_booked, count_launch
+from fmda_tpu_torch.ops import gru_wide_bwd_step as _bwd
 from fmda_tpu_torch.ops import gru_wide_step as _step
 from fmda_tpu_torch.ops.gru_kernel import gru_gate_algebra
 from fmda_tpu_torch.ops.lstm_kernel import lstm_gate_algebra
@@ -735,6 +741,24 @@ def _weight_grads(dg: Tensor, h_prevs: Tensor, w_hh: Tensor,
     return dw.to(w_hh.dtype), db.to(b_hh.dtype)
 
 
+def _gate_grads(dg: Tensor, h_prevs: Tensor, w_hh: Tensor,
+                b_hh: Tensor) -> Tuple[Tensor, Tensor]:
+    """dW_hh and db_hh from the fused GRU backward's (B, T, 4 H) buffer,
+    whose columns [0, 2 H) and [3 H, 4 H) are dhh: two products over the
+    B T rows, dhh's r and z blocks and its n block, into the row blocks of
+    one (3 H, H) result; db_hh the rows' float32 sum; in w_hh's and b_hh's
+    dtypes."""
+    hidden = h_prevs.shape[-1]
+    rows = dg.reshape(-1, 4 * hidden)
+    h = h_prevs.reshape(-1, hidden)
+    dw = rows.new_empty((3 * hidden, hidden))
+    torch.mm(rows[:, :2 * hidden].t(), h, out=dw[:2 * hidden])
+    torch.mm(rows[:, 3 * hidden:].t(), h, out=dw[2 * hidden:])
+    sums = torch.sum(rows, dim=0, dtype=_F32)
+    db = torch.cat((sums[:2 * hidden], sums[3 * hidden:]))
+    return dw.to(w_hh.dtype), db.to(b_hh.dtype)
+
+
 def gru_wide_scan_fwd(
     xp: Tensor, h0: Tensor, w_hh: Tensor, b_hh: Tensor, *,
     reverse: bool = False, mask: Optional[Tensor] = None,
@@ -775,15 +799,32 @@ def gru_wide_scan_bwd(
     the signature of
     :func:`~fmda_tpu_torch.ops.gru_kernel.gru_scan_bwd_reference`.  The
     steps' hh recomputed in one product, then each step in reverse one
-    :func:`gru_wide_gates_bwd` and one product ``dhh_t W_hh``."""
+    launch of the fused backward step
+    (:func:`~fmda_tpu_torch.ops.gru_wide_bwd_step.gru_wide_bwd_step_scan`)
+    where :func:`~fmda_tpu_torch.ops.gru_wide_bwd_step.gru_wide_bwd_step_plan`
+    lays the step out, else one :func:`gru_wide_gates_bwd` and one product
+    ``dhh_t W_hh``; dh0 the direct part plus the last step's product."""
     dtype = xp.dtype
     w, b = w_hh.to(dtype), b_hh.to(dtype)
     batch, n_steps, gh = xp.shape
     h_prevs = h_prev_of(h0.to(dtype), hs.to(dtype), reverse=reverse)
     hh = _recompute_hh(h_prevs, w, b)
+    direct = dh_last.to(_F32).contiguous().clone()
+    plan = (_bwd.gru_wide_bwd_step_plan(batch, gh // 3, dtype, xp.device)
+            if n_steps else None)
+    if plan is not None:
+        # one (B, T, 4 H) buffer: dxp its first 3 H columns, dhh its
+        # [0, 2 H) and [3 H, 4 H); W_hh^T copied once a call
+        dg = xp.new_empty((batch, n_steps, 4 * gh // 3))
+        last = _bwd.gru_wide_bwd_step_scan(
+            _xp_ready(xp, 8), hh, h_prevs, _aligned(dhs.to(dtype)),
+            _cuda_lib.mask_u8(mask, batch, n_steps), _aligned(w.t()), direct,
+            dg, plan, reverse=reverse)
+        dh0 = direct + torch.mm(_bwd.dhh_of(dg[:, last]), w).to(_F32)
+        dw, db = _gate_grads(dg, h_prevs, w_hh, b_hh)
+        return dg[..., :gh], dh0.to(h0.dtype), dw, db
     dhs = dhs.to(dtype).contiguous()  # autograd may hand an expanded one
     dxp, dhh = xp.new_empty(xp.shape), xp.new_empty(xp.shape)
-    direct = dh_last.to(_F32).contiguous().clone()
     prod, have_prod = xp.new_empty((batch, h0.shape[-1])), False
     col = _mask_cols(mask, batch, n_steps)
     for t in _order(n_steps, not reverse):

@@ -802,6 +802,8 @@ _NO_LAUNCH_CALLS = (
     "    lib.fmda_flash_bwd_plan(1, 1, 1, 1, 4, 0, None)\n"
     "    lib.fmda_scan_dw_splits(1, 1, 1, 3, 0)\n"
     "    lib.fmda_lstm_persist_plan(1, 1, 2, 0, None)\n"
+    "    lib.fmda_gru_wide_bwd_step_plan(1, 64, 2, 0, None)\n"
+    "    lib.fmda_gru_wide_bwd_scan_prepare_bf16(None)\n"
     "    lib.fmda_cuda_error_string(err)\n"
     "    getattr(lib, f'fmda_{cell}_scan_fwd_plan')(1, 1, 4, 0, None)\n"
 )

@@ -152,4 +152,5 @@ def test_kernel_build_is_keyed_by_source_content(tmp_path):
         "flash_bwd.cu", "flash_bwd_plan.cc", "scan_wide.cu",
         "gru_wide_step.cu", "lstm_persist.cu", "lstm_persist_plan.cc",
         "scan_common.cuh", "flash_fwd_plan.h", "flash_mma.cuh",
-        "flash_bwd_common.cuh", "flash_bwd_plan.h", "lstm_persist_plan.h"}
+        "flash_bwd_common.cuh", "flash_bwd_plan.h", "lstm_persist_plan.h",
+        "gru_wide_bwd_step.cu", "wide_tc.cuh"}
